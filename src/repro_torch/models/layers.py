@@ -1,0 +1,179 @@
+"""Dense-decoder layers in PyTorch: norm, RoPE, GQA attention, MLP.
+
+Counterpart of ``repro.models.layers`` over the same nested parameter
+dicts (same keys, shapes and dtypes). The ``shard(...)`` annotations of
+the reference are dropped: the port runs on one GPU. MoE is a later slice.
+
+dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
+softmax in fp32.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32,
+            "float16": torch.float16}[cfg.dtype]
+
+
+def _init(gen: torch.Generator, shape, scale, dtype, device):
+    """Normal(0, scale) drawn in fp32 from ``gen`` and cast, like the
+    reference's ``_init``; the numbers differ, the distribution does not."""
+    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
+    return (x * scale).to(dtype)
+
+
+# ----------------------------------------------------------------------
+# norms / rope / activations
+# ----------------------------------------------------------------------
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + w.float())).to(x.dtype)
+
+
+def _gelu_tanh(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def act_fn(name: str):
+    return {"silu": F.silu, "gelu": _gelu_tanh, "relu": F.relu}[name]
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, T, H, D); positions: (B, T) int. Rotates halves."""
+    d = x.shape[-1]
+    half = d // 2
+    exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=x.device), exps)
+    ang = positions.float()[:, :, None, None] * freqs     # (B,T,1,half)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# attention (GQA + RoPE + window + softcap + KV cache)
+# ----------------------------------------------------------------------
+def init_attention(gen, cfg: ArchConfig, device):
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = _dtype(cfg)
+    p = {
+        "wq": _init(gen, (d, h * dh), d ** -0.5, dt, device),
+        "wk": _init(gen, (d, kv * dh), d ** -0.5, dt, device),
+        "wv": _init(gen, (d, kv * dh), d ** -0.5, dt, device),
+        "wo": _init(gen, (h * dh, d), (h * dh) ** -0.5, dt, device),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((h * dh,), dtype=dt, device=device)
+        p["bk"] = torch.zeros((kv * dh,), dtype=dt, device=device)
+        p["bv"] = torch.zeros((kv * dh,), dtype=dt, device=device)
+    return p
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: int):
+    """``cache[:, start:start+t] = new`` in place. A start past ``s - t`` is
+    clamped so the write fits, as ``jax.lax.dynamic_update_slice`` clamps
+    it. Starts are cache positions, never negative."""
+    s, t = cache.shape[1], new.shape[1]
+    if t > s:
+        raise ValueError(f"{t} new positions do not fit a cache of {s}")
+    if int(start) < 0:
+        raise ValueError(f"negative cache position {start}")
+    start = min(int(start), s - t)
+    cache[:, start:start + t] = new.to(cache.dtype)
+    return cache
+
+
+def attention_fwd(
+    p,
+    x: torch.Tensor,                        # (B, T, D)
+    cfg: ArchConfig,
+    *,
+    local: bool,
+    positions: torch.Tensor,                # (B, T)
+    segment_ids: Optional[torch.Tensor],    # (B, T) or None
+    cache: Optional[dict] = None,           # {"k","v"}: (B, S, KV, Dh)
+    cache_pos=None,                         # int: tokens already cached
+    mode: str = "train",                    # train | prefill | decode
+):
+    """Returns ``(y, new_cache)``. In prefill and decode the cache tensors
+    are written in place (the reference returns new arrays); ``new_cache``
+    holds the same tensors."""
+    window = cfg.window if local else 0
+    b, t, d = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    q = q.reshape(b, t, h, dh)
+    k = k.reshape(b, t, kv, dh)
+    v = v.reshape(b, t, kv, dh)
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    new_cache = None
+    if mode == "train":
+        out = ops.attention(
+            q, k, v, causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
+            q_positions=positions, kv_positions=positions,
+            q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
+        )
+    else:
+        s = cache["k"].shape[1]
+        start = 0 if mode == "prefill" else cache_pos
+        ck = _write_cache(cache["k"], k, start)
+        cv = _write_cache(cache["v"], v, start)
+        new_cache = {"k": ck, "v": cv}
+        kv_pos = torch.arange(s, dtype=torch.int32, device=x.device)[None]
+        kv_pos = kv_pos.expand(b, s).contiguous()
+        # positions beyond the causal frontier hold garbage but are masked
+        # (kv_pos > q_pos). decode: q_pos == cache_pos.
+        out = ops.attention(
+            q, ck, cv, causal=True, window=window, softcap=cfg.attn_softcap,
+            q_positions=positions, kv_positions=kv_pos,
+        )
+    y = out.reshape(b, t, h * dh) @ p["wo"]
+    return y, new_cache
+
+
+# ----------------------------------------------------------------------
+# dense MLP
+# ----------------------------------------------------------------------
+def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    dt = _dtype(cfg)
+    p = {
+        "w_in": _init(gen, (d, f), d ** -0.5, dt, device),
+        "w_out": _init(gen, (f, d), f ** -0.5, dt, device),
+    }
+    if cfg.mlp_gated:
+        p["w_gate"] = _init(gen, (d, f), d ** -0.5, dt, device)
+    return p
+
+
+def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    act = act_fn(cfg.act)
+    h = x @ p["w_in"]
+    if cfg.mlp_gated:
+        h = act(x @ p["w_gate"]) * h
+    else:
+        h = act(h)
+    return h @ p["w_out"]

@@ -1,0 +1,112 @@
+"""Period-stacked decoder stack in PyTorch.
+
+Counterpart of ``repro.models.transformer`` for attention + dense-MLP
+layers. Parameters keep the reference's layout: every leaf stacked on a
+leading ``n_periods`` axis, one period being one repetition of
+``cfg.layer_pattern``. A Python loop over periods takes the place of
+``jax.lax.scan``; serving needs no remat. Mamba and MoE layers are later
+slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+
+def _check_spec(spec: LayerSpec):
+    if spec.mixer == "mamba" or spec.moe:
+        raise NotImplementedError(
+            f"layer {spec} is not ported yet (attention + dense MLP only)")
+
+
+# ----------------------------------------------------------------------
+# per-layer block
+# ----------------------------------------------------------------------
+def init_block(gen, cfg: ArchConfig, spec: LayerSpec, device):
+    _check_spec(spec)
+    dt = L._dtype(cfg)
+    p: dict = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+               "mixer": L.init_attention(gen, cfg, device)}
+    if cfg.d_ff:
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["ffn"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
+              positions, segment_ids, cache=None, cache_pos=None,
+              mode="train"):
+    _check_spec(spec)
+    x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
+    y, new_cache = L.attention_fwd(
+        p["mixer"], x, cfg, local=(spec.mixer == "attn_local"),
+        positions=positions, segment_ids=segment_ids,
+        cache=cache, cache_pos=cache_pos, mode=mode,
+    )
+    h = h + y
+    if "ffn" in p:
+        x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
+        h = h + L.mlp_fwd(p["ffn"], x, cfg)
+    return h, new_cache
+
+
+# ----------------------------------------------------------------------
+# cache construction
+# ----------------------------------------------------------------------
+def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
+               device="cuda"):
+    """Per-period-position KV cache, stacked over periods: tuple of dicts
+    of (n_periods, batch, seq, KV, Dh) tensors."""
+    device = resolve_device(device)
+    caches = []
+    for spec in cfg.layer_pattern:
+        _check_spec(spec)
+        shape = (cfg.n_periods, batch, seq, cfg.n_kv_heads, cfg.d_head)
+        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
+                       "v": torch.zeros(shape, dtype=dtype, device=device)})
+    return tuple(caches)
+
+
+# ----------------------------------------------------------------------
+# the stack
+# ----------------------------------------------------------------------
+def init_stack(gen, cfg: ArchConfig, device):
+    """Params stacked over periods: leaf shape (n_periods, *leaf_shape).
+    Each period is drawn into its slot, so no second copy is held."""
+    stack = None
+    for i in range(cfg.n_periods):
+        period = {f"l{j}": init_block(gen, cfg, spec, device)
+                  for j, spec in enumerate(cfg.layer_pattern)}
+        if stack is None:
+            stack = _tree_map(
+                lambda x: x.new_empty((cfg.n_periods, *x.shape)), period)
+        _tree_map(lambda dst, src, i=i: dst[i].copy_(src), stack, period)
+    return stack
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def stack_fwd(params, h, cfg: ArchConfig, *,
+              positions, segment_ids, cache=None, cache_pos=None,
+              mode="train"):
+    """Loop over periods. Returns ``(h, cache)``; the cache tensors (if
+    any) are updated in place and returned."""
+    for i in range(cfg.n_periods):
+        pparams = _tree_map(lambda x, i=i: x[i], params)
+        for j, spec in enumerate(cfg.layer_pattern):
+            lc = (None if cache is None else
+                  {name: c[i] for name, c in cache[j].items()})
+            h, _ = block_fwd(
+                pparams[f"l{j}"], h, cfg, spec,
+                positions=positions, segment_ids=segment_ids,
+                cache=lc, cache_pos=cache_pos, mode=mode,
+            )
+    return h, cache

@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the reference
+package, and its entry points never fall back to the CPU silently."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+
+
+def test_importing_every_module_loads_no_jax_and_no_reference():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
+        "             m.startswith('repro.'))\n"
+        "print('BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_names_no_jax_and_no_reference(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), \
+                f"{path.name} imports {n}"
+
+
+def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(
+        monkeypatch):
+    from repro_torch import convert
+    from repro_torch import serve as SV
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("gpt-paper"))
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        MD.init_params(torch.Generator(), cfg)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        convert.params_from_jax({"w": torch.zeros(2).numpy()})
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        SV.main(["--n-requests", "2"])
+    # asked for explicitly, the CPU works
+    assert MD.init_params(torch.Generator(), cfg, device="cpu")[
+        "embed"].device.type == "cpu"
