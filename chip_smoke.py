@@ -1,29 +1,46 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py                 # every phase; needs one CUDA card
-    python3 chip_smoke.py --phases kernel # only the build and the kernel checks
-    python3 chip_smoke.py --phases profile  # where the serve path's time goes
+    python3 chip_smoke.py                        # device, kernel, serve, train
+    python3 chip_smoke.py --phases kernel,train  # the kernels and training
+    python3 chip_smoke.py --phases profile       # where the time goes
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit, and the build of every CUDA
-             kernel of the serving path from the sources in this checkout;
-2. kernel  — K1 (``mha_forward``) against its plain PyTorch version on the
-             card, at the serving path's shapes and on small cases (GQA,
-             window, softcap, segmented with padding and fully masked rows,
-             ragged lengths), with times of the kernel, the plain version
-             and ``scaled_dot_product_attention`` (a yardstick the port never
-             calls) beside the least time the card could take;
+             kernel (K1 in ``flash_fwd.cu``, K2 and K3 in ``flash_bwd.cu``)
+             from the sources in this checkout, with ptxas's register and
+             spill lines;
+2. kernel  — K1 (``mha_forward``), K2 (``mha_backward_dq``) and K3
+             (``mha_backward_dkv``) against their plain PyTorch versions on
+             the card, at the serving and training paths' shapes and on
+             small cases (GQA, window, softcap, segmented with padding and
+             fully masked rows, ragged lengths, a non-causal cross shape);
+             K2 and K3 elementwise and per 64-row tile, where the tile
+             check must also fail a planted fault (a dropped key tile);
+             with times of the kernels, the plain versions and
+             ``scaled_dot_product_attention``'s forward and backward (a
+             yardstick the port never calls) beside the least time the card
+             could take;
 3. serve   — ``repro_torch.serve`` at full gpt-paper width, 32 layers,
              random seeded weights: the launch count of K1 must equal
              n_layers x (prefill batches x (1 + decode steps)) and every
              logit must be finite; then the same serve with 2 layers runs
              once with K1 and once with the plain attention, and their
              logits must agree;
-4. profile — (not run by default) torch.profiler over one full-width prefill
-             of 8 x 2048 tokens and its decode steps: device time by kernel
-             and the device's idle share.
+4. train   — the plan-ahead runner trains gpt-paper at full width, 8 layers,
+             random seeded weights, 4 iterations of bench_e2e's gpt stream:
+             K1 must launch 2 x layers x micro-batches times (forward and
+             recompute), K2 and K3 layers x micro-batches times, and every
+             loss and grad norm must be finite; then 2 layers, once with the
+             kernels and once with the plain versions, must agree on a grad
+             step's loss and every gradient leaf (elementwise and by each
+             leaf's relative norm, which must also fail a K2 planted to
+             return zeros) and on 2 iterations' losses;
+5. profile — (not run by default) torch.profiler over one full-width prefill
+             of 8 x 2048 tokens and its decode steps, and over one training
+             iteration at 8 layers: device time by kernel, K1, K2 and K3
+             singled out, and the device's idle share.
 
 The line before the last is the kernels' JSON record, the last line the
 device record. Nothing is printed as a result without a card.
@@ -31,7 +48,9 @@ device record. Nothing is printed as a result without a card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -44,12 +63,37 @@ sys.path.insert(0, str(ROOT / "src"))
 # bf16 tolerance of the reference's own kernel tests (tests/test_kernels.py:28):
 # o and lse are rounded or summed at other points in the two versions.
 TOL_BF16 = 2e-2
+# bf16 gradient tolerance of the reference's kernel-gradient tests
+# (GRAD_TOL, tests/test_kernel_grads.py:21)
+GRAD_TOL_BF16 = 4e-2
+# ||out - plain|| / ||plain||, per 64-row (dq) or 64-key (dk, dv) tile and
+# head in the kernel phase, per gradient leaf in the train phase. The
+# elementwise GRAD_TOL alone cannot fail a tile whose entries are under
+# 4e-2, as those of the late keys of a 2048-token causal row are. The limit
+# lies between the kernels' readings and those of the planted faults each
+# phase also reads (PERF.md, section 6).
+GRAD_REL_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 # the serve phase: requests, longest prompt, greedy steps
 REQUESTS, MAX_PROMPT, DECODE_STEPS = 32, 2048, 16
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/flash_fwd.cu"
-KERNEL_REPLACES = "src/repro/kernels/flash_attention.py:354"
+# the train phase's rows in the kernel phase: one sample per row
+TRAIN_ROWS = (2048, 1500, 900, 300)
+# the train phase: gpt-paper at full width, depth cut to 8 layers (fp32
+# master, m and v beside the bf16 weights and gradients: 20 bytes per
+# parameter, 40.5 GB at 8 layers), bench_e2e's gpt stream at max_len 2048
+TRAIN_LAYERS, TRAIN_ITERS = 8, 4
+TRAIN_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=2048,
+                    tail_fraction=0.1, tail_alpha=1.2, seed=0)
+# id -> (name, source, the TPU kernel it replaces, its timed record)
+KERNELS = {
+    "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
+           "src/repro/kernels/flash_attention.py:354", "prefill"),
+    "K2": ("mha_backward_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+           "src/repro/kernels/flash_attention.py:404", "train-segmented"),
+    "K3": ("mha_backward_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+           "src/repro/kernels/flash_attention.py:438", "train-segmented"),
+}
 
 
 def fail(msg: str) -> None:
@@ -84,8 +128,12 @@ def phase_device(torch):
           f"{took:.1f}s with {_build.nvcc()}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[device]   {name}: {line.strip()}")
+            fn = re.search(r"Compiling entry function '\w*?(mha_\w+?_kernel)I(\w*?)EEv", line)
+            if fn:   # the kernel and its template arguments, demangled
+                args = ", ".join(re.findall(r"L[ib](\d+)E", fn.group(2) + "E"))
+                print(f"[device]   {name}: {fn.group(1)}<{args}>")
+            elif "registers" in line or "spill" in line:
+                print(f"[device]   {name}:   {line.strip()}")
     return smi_line
 
 
@@ -177,6 +225,180 @@ def _library_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window,
         qt, kt, vt, attn_mask=mask, **gqa)
 
 
+def _grad_close(out, ref, tol):
+    """Max |out - ref|, and whether every element is within tol + tol |ref|:
+    the reference's gradient check (``np.testing.assert_allclose`` with
+    atol = rtol = GRAD_TOL, tests/test_kernel_grads.py:70)."""
+    d = (out.float() - ref.float()).abs()
+    return float(d.max()), bool((d <= tol + tol * ref.float().abs()).all())
+
+
+def _tile_rel(torch, out, ref, tile=64):
+    """Worst ||out - ref|| / ||ref|| over tiles of ``tile`` rows of axis 1
+    (queries for dq, keys for dk and dv) and each head. A tile where ref
+    is zero must be zero in out too (its reading is then 0, else inf)."""
+    import torch.nn.functional as F
+    b, n, h, d = ref.shape
+    pad = -n % tile
+
+    def norms(x):
+        x = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, (n + pad) // tile, tile, h, d).square() \
+            .sum((2, 4)).sqrt()
+    nd, nr = norms(out.float() - ref.float()), norms(ref)
+    rel = torch.where(nr > 0, nd / nr.clamp_min(1e-30),
+                      torch.where(nd > 0, float("inf"), 0.0))
+    return float(rel.max())
+
+
+def _last_live_key_tile(torch, live, tile=64):
+    """(B, S) bool: the keys of each row's last tile that holds a key some
+    query sees. Dropping them plants the fault of a K2/K3 that skips or
+    mishandles that tile."""
+    live_k = live.any(dim=1)
+    idx = torch.arange(live_k.shape[1], device=live_k.device)
+    last = torch.where(live_k, idx, -1).max(dim=1).values
+    return (idx[None] // tile == (last // tile)[:, None]) & (last[:, None] >= 0)
+
+
+def _bwd_bound_ms(torch, q, k, qpos, kpos, qseg, kseg, causal, window):
+    """Least times of K2 and K3 for these inputs: the live pairs' FLOPs (6 D
+    per pair for K2: s, dp, dq; 8 D for K3: s, dp, dv, dk) over the bf16
+    peak, against each pass's bytes over HBM: q and do (and dq for K2) of
+    every row, k and v (and dk, dv for K3) of the keys some query can see,
+    lse, delta and the int inputs."""
+    b, t, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    live = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)
+    pairs = int(live.sum()) * h
+    live_keys = int(live.any(dim=1).sum())
+    rows = b * t * h * d * 2                     # one (B,T,H,D) bf16 tensor
+    keys = live_keys * kv * d * 2                # one tensor of the live keys
+    common = 2 * b * h * t * 4 + (b * t + b * s) * 4 * (2 if qseg is not None else 1)
+    out = {}
+    for name, per_pair, nbytes in (("K2", 6, 3 * rows + 2 * keys + common),
+                                   ("K3", 8, 2 * rows + 4 * keys + common)):
+        flops = float(per_pair * d * pairs)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes", flops)
+    return out
+
+
+def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
+    """torch.autograd.grad through one retained scaled_dot_product_attention
+    forward at the same shape: a yardstick the port never calls."""
+    import torch.nn.functional as F
+    h = q.shape[2]
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
+    gqa = {"enable_gqa": True} if h != k.shape[2] else {}
+    if qseg is None and causal and window == 0 and q.shape[1] == k.shape[1]:
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    else:
+        mask = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)[:, None]
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def _check_backward(torch, fa, name, args, opts, o, lse, timed):
+    """K2 and K3 against mha_backward_plain on K1's residuals, elementwise
+    (GRAD_TOL) and per tile (GRAD_REL_TOL); the per-tile check must fail a
+    planted fault, the plain backward without each row's last live key
+    tile. With `timed`, their times beside their bounds, the plain
+    version's and SDPA's."""
+    q, k, v, qp, kp, qs, ks = args
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
+    delta = fa.attention_delta(o, do)
+    res = (*args, o, lse, do)
+    dq = fa.mha_backward_dq_cuda(*res, delta, **opts)
+    dk, dv = fa.mha_backward_dkv_cuda(*res, delta, **opts)
+    torch.cuda.synchronize()
+    ref = fa.mha_backward_plain(*res, **opts)
+    live = _live_pairs(torch, qp, kp, qs, ks, opts["causal"], opts["window"])
+    # the planted fault: segment -1 on the dropped keys, lse and delta kept
+    b, t, s = q.shape[0], q.shape[1], k.shape[1]
+    qs_f = torch.zeros((b, t), dtype=torch.int32, device="cuda") \
+        if qs is None else qs
+    ks_f = (torch.zeros((b, s), dtype=torch.int32, device="cuda")
+            if ks is None else ks).clone()
+    ks_f[_last_live_key_tile(torch, live)] = -1
+    fault = fa.mha_backward_plain(q, k, v, qp, kp, qs_f, ks_f, o, lse, do,
+                                  **opts)
+    errs, rels, fault_rels, fault_ok = {}, {}, {}, True
+    for g, out, r, f in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, fault):
+        check(bool(torch.isfinite(out).all()), f"K2/K3 {name}: non-finite {g}")
+        errs[g], ok = _grad_close(out, r, GRAD_TOL_BF16)
+        check(ok, f"K2/K3 {name}: {g} outside GRAD_TOL {GRAD_TOL_BF16} of the "
+              f"plain version (max |diff| {errs[g]:.3e})")
+        rels[g], fault_rels[g] = _tile_rel(torch, out, r), _tile_rel(torch, f, r)
+        fault_ok &= _grad_close(f, r, GRAD_TOL_BF16)[1]
+    del fault
+    dead_rows = ~live.any(dim=2)                      # (B, T): no visible key
+    dead_keys = ~live.any(dim=1)                      # (B, S): seen by no query
+    check(bool((dq[dead_rows] == 0).all()), f"K2 {name}: dq of rows with no "
+          "visible key is not zero")
+    check(bool((dk[dead_keys] == 0).all()) and bool((dv[dead_keys] == 0).all()),
+          f"K3 {name}: dk/dv of keys no query sees are not zero")
+    line = (f"[kernel] {name:20s} backward: max|dq-plain| {errs['dq']:.3e} "
+            f"max|dk-plain| {errs['dk']:.3e} max|dv-plain| {errs['dv']:.3e} "
+            f"(GRAD_TOL {GRAD_TOL_BF16}) rows without a key {int(dead_rows.sum())}"
+            f", keys without a query {int(dead_keys.sum())}\n"
+            f"[kernel] {name:20s} worst tile ||out-plain||/||plain||: dq "
+            f"{rels['dq']:.3e} dk {rels['dk']:.3e} dv {rels['dv']:.3e}; planted "
+            f"fault (last live key tile dropped): dq {fault_rels['dq']:.3e} dk "
+            f"{fault_rels['dk']:.3e} dv {fault_rels['dv']:.3e}, elementwise "
+            f"GRAD_TOL {'passes' if fault_ok else 'fails'} it "
+            f"(GRAD_REL_TOL {GRAD_REL_TOL})")
+    print(line, flush=True)
+    check(max(rels.values()) <= GRAD_REL_TOL, f"K2/K3 {name}: a tile's "
+          f"relative error exceeds GRAD_REL_TOL {GRAD_REL_TOL}")
+    check(max(fault_rels.values()) > GRAD_REL_TOL, f"K2/K3 {name}: the "
+          "per-tile check does not see the planted fault")
+    worst = {"K2": (errs["dq"], rels["dq"]),
+             "K3": (max(errs["dk"], errs["dv"]), max(rels["dk"], rels["dv"]))}
+    if not timed:
+        return {}, worst
+    iters, recs = 10, {}
+    k2 = _cuda_time(torch, lambda: fa.mha_backward_dq_cuda(
+        *res, delta, **opts), iters)
+    k3 = _cuda_time(torch, lambda: fa.mha_backward_dkv_cuda(
+        *res, delta, **opts), iters)
+    # neither the plain version nor SDPA's backward computes dq apart from
+    # dk and dv: both are timed for the whole backward, against K2 + K3
+    plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
+                          3, warmup=1)
+    lib = (_library_bwd_fn(torch, q, k, v, qp, kp, qs, ks, opts["causal"],
+                           opts["window"], do)
+           if opts["softcap"] is None else None)
+    library_ms = _cuda_time(torch, lib, iters) if lib else None
+    bounds = _bwd_bound_ms(torch, q, k, qp, kp, qs, ks, opts["causal"],
+                           opts["window"])
+    lib_s = library_ms if library_ms is None else round(library_ms, 4)
+    for kname, ms in (("K2", k2), ("K3", k3)):
+        bound_ms, bound_by, flops = bounds[kname]
+        recs[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms,
+                           pair_ms=k2 + k3,
+                           plain_and_library_cover="dq, dk and dv: the "
+                           "work of K2 + K3 (pair_ms)")
+        print(f"[kernel] {name:20s} {kname} {ms:.4f} ms "
+              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound)")
+    print(f"[kernel] {name:20s} K2 + K3 {k2 + k3:.4f} ms; the whole backward: "
+          f"plain {plain_ms:.4f} ms, sdpa {lib_s} ms", flush=True)
+    return recs, worst
+
+
+def _train_rows(lengths, t):
+    """One sample per row, right-padded with segment -1; positions restart
+    at 0 and are 0 on padding."""
+    seg = [[0] * n + [-1] * (t - n) for n in lengths]
+    pos = [list(range(n)) + [0] * (t - n) for n in lengths]
+    return seg, pos
+
+
 def phase_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -186,24 +408,35 @@ def phase_kernel(torch):
     seg = [[0] * 100 + [1] * 120 + [-1] * 80, [2] * 50 + [-1] * 250]
     seg_pos = [list(range(100)) + list(range(120)) + [0] * 80,
                list(range(50)) + [0] * 250]
+    tr_seg, tr_pos = _train_rows(TRAIN_ROWS, 2048)
+    # name, shape, options, K1 timed, backward: None, "check" or the name
+    # of its timed record
     cases = [
-        ("prefill", dict(b=8, t=2048, s=2048, h=32, kv=32), {}, True),
+        ("prefill", dict(b=8, t=2048, s=2048, h=32, kv=32), {}, True,
+         "causal-2048"),
         ("decode", dict(b=B_DEC, t=1, s=S_DEC, h=32, kv=32,
-                        q_pos=[[POS_DEC]] * B_DEC), {}, True),
-        ("gqa", dict(b=2, t=256, s=256, h=8, kv=2), {}, False),
-        ("window", dict(b=2, t=512, s=512, h=4, kv=4), dict(window=128), False),
+                        q_pos=[[POS_DEC]] * B_DEC), {}, True, None),
+        ("train-segmented", dict(b=4, t=2048, s=2048, h=32, kv=32,
+                                 q_pos=tr_pos, kv_pos=tr_pos, q_seg=tr_seg,
+                                 kv_seg=tr_seg), {}, False, "train-segmented"),
+        ("gqa", dict(b=2, t=256, s=256, h=8, kv=2), {}, False, "check"),
+        ("window", dict(b=2, t=512, s=512, h=4, kv=4), dict(window=128), False,
+         "check"),
         ("softcap", dict(b=2, t=256, s=256, h=4, kv=2, q_scale=4.0),
-         dict(softcap=3.0), False),
+         dict(softcap=3.0), False, "check"),
         ("segmented", dict(b=2, t=300, s=300, h=4, kv=2, q_pos=seg_pos,
-                           kv_pos=seg_pos, q_seg=seg, kv_seg=seg), {}, False),
+                           kv_pos=seg_pos, q_seg=seg, kv_seg=seg), {}, False,
+         "check"),
         ("segmented-noncausal", dict(b=2, t=300, s=300, h=4, kv=2, q_seg=seg,
-                                     kv_seg=seg), dict(causal=False), False),
-        ("ragged-700", dict(b=2, t=700, s=700, h=4, kv=4), {}, False),
+                                     kv_seg=seg), dict(causal=False), False,
+         "check"),
+        ("ragged-700", dict(b=2, t=700, s=700, h=4, kv=4), {}, False, "check"),
         ("cross-noncausal", dict(b=2, t=130, s=200, h=4, kv=1),
-         dict(causal=False), False),
+         dict(causal=False), False, "check"),
     ]
-    records, worst = {}, 0.0
-    for name, shape, opts, timed in cases:
+    # worst |out - plain| and, for K2 and K3, worst tile relative error
+    records, worst = {}, {"K1": (0.0, None), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
+    for name, shape, opts, timed, bwd in cases:
         opts = {"causal": True, "window": 0, "softcap": None, **opts}
         q, k, v, qp, kp, qs, ks = _case_inputs(torch, gen, **shape)
         args = (q, k, v, qp, kp, qs, ks)
@@ -219,12 +452,13 @@ def phase_kernel(torch):
               f"K1 {name}: fully masked rows lost the -1e30 sentinel")
         check(bool((o[~seen.permute(0, 2, 1)] == 0).all()),
               f"K1 {name}: fully masked rows are not zero")
-        worst = max(worst, err_o, err_l)
+        worst["K1"] = (max(worst["K1"][0], err_o, err_l), None)
         line = (f"[kernel] {name:20s} q {tuple(q.shape)} k {tuple(k.shape)} "
                 f"max|o-plain| {err_o:.3e} max|lse-plain| {err_l:.3e} "
                 f"(tol {TOL_BF16}) masked rows {int((~seen).sum())}")
         check(err_o <= TOL_BF16 and err_l <= TOL_BF16,
               f"K1 {name}: disagrees with its plain version: {line}")
+        del o_ref, lse_ref
         if timed:
             iters = 20 if name == "prefill" else 100
             ms = _cuda_time(torch, lambda: fa.mha_forward(*args, **opts), iters)
@@ -236,8 +470,9 @@ def phase_kernel(torch):
             library_ms = _cuda_time(torch, lib, iters) if lib else None
             bound_ms, bound_by, flops, nbytes = _bound_ms(
                 torch, q, k, qp, kp, qs, ks, opts["causal"], opts["window"])
-            records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by, library_ms=library_ms)
+            records[("K1", name)] = dict(ms=ms, plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         library_ms=library_ms)
             line += (f"\n[kernel] {name:20s} kernel {ms:.4f} ms "
                      f"({flops / ms / 1e9:.1f} TFLOP/s, "
                      f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
@@ -245,6 +480,15 @@ def phase_kernel(torch):
                      f"bound {bound_ms:.4f} ms by {bound_by} "
                      f"({100 * bound_ms / ms:.1f}% of bound)")
         print(line, flush=True)
+        if bwd is not None:
+            recs, errs = _check_backward(torch, fa, name, args, opts, o, lse,
+                                         timed=bwd != "check")
+            for kname, (err, rel) in errs.items():
+                worst[kname] = (max(worst[kname][0], err),
+                                max(worst[kname][1], rel))
+            for kname, rec in recs.items():
+                records[(kname, bwd)] = rec
+        torch.cuda.empty_cache()
     return records, worst
 
 
@@ -296,7 +540,8 @@ def phase_serve(torch, requests, max_prompt, decode_steps):
     cfg, tokens, res = _serve(torch, 32, n_requests=requests,
                               max_prompt=max_prompt,
                               decode_steps=decode_steps, seed=0)
-    launches = ops.launch_counts()["mha_forward"]
+    counts = ops.launch_counts()
+    launches = counts["mha_forward"]
     took = time.perf_counter() - t0
     import numpy as np
     from repro_torch.serve import report
@@ -329,7 +574,205 @@ def phase_serve(torch, requests, max_prompt, decode_steps):
           f"(1 + max|logit|) {err:.3e} over {compared} (row, step) logit "
           f"vectors (tol {TOL_BF16})", flush=True)
     check(err <= TOL_BF16, "2-layer serve logits: K1 and plain disagree")
-    return launches
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 4: train at full width
+# ----------------------------------------------------------------------
+def _train_setup(torch, n_layers):
+    """gpt-paper at full width and ``n_layers``, its stream, cost model and
+    planner config as the train phase runs them."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    cfg = dataclasses.replace(get_arch("gpt-paper"), n_layers=n_layers)
+    stream = MultiTaskStream(StreamConfig(vocab=cfg.vocab, **TRAIN_STREAM))
+    pal = ShapePalette.build(min_seq=64, max_seq=TRAIN_STREAM["max_len"],
+                             seq_align=64, max_mbs=16)
+    pcfg = PlannerConfig(
+        n_stages=1, d_model=cfg.d_model, palette=pal,
+        device_mem=float(torch.cuda.get_device_properties(0).total_memory))
+    return cfg, stream, AnalyticCostModel(cfg, n_stages=1), pcfg
+
+
+def _train(torch, n_layers, iters, seed, params=None, log_every=1):
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers)
+    rcfg = RunnerConfig(n_iters=iters, use_executor=False, seed=seed,
+                        log_every=log_every, device="cuda")
+    runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream, params=params)
+    params, history, stats = runner.run()
+    return cfg, stream, cost, pcfg, params, history, stats
+
+
+def _plain_attention():
+    """Patch the plain versions in for K1, K2 and K3 (CUDA tensors only
+    reach them here)."""
+    from repro_torch.kernels import flash_attention as fa
+    return (mock.patch.object(fa, "_mha_forward_cuda",
+                              lambda *a, **o: fa.mha_forward_plain(*a, **o)),
+            mock.patch.object(fa, "mha_backward",
+                              lambda *a, **o: fa.mha_backward_plain(*a, **o)))
+
+
+def phase_train(torch):
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.tree import leaves, tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _train(
+        torch, TRAIN_LAYERS, TRAIN_ITERS, seed=0)
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    for h in hist:
+        gb = stream.batch(h["iter"])
+        split = [(m.mbs, m.seq) for m in plan_iteration(
+            gb.lengths[:, 0], cost, pcfg).replica_plans[0].micro_batches]
+        print(f"[train] iter {h['iter']}: {h['time_s'] * 1e3:.1f} ms, loss "
+              f"{h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+              f"{h['tokens']} real / {h['padded_tokens']} padded tokens, "
+              f"{h['tokens'] / h['time_s']:.1f} real tokens/s, "
+              f"micro-batches (rows, seq) {split}", flush=True)
+    steady = hist[1:]
+    tok_s = sum(h["tokens"] for h in steady) / sum(h["time_s"] for h in steady)
+    n_micro = sum(h["n_micro"] for h in hist)
+    expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
+                "mha_backward_dq": cfg.n_layers * n_micro,
+                "mha_backward_dkv": cfg.n_layers * n_micro}
+    print(f"[train] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
+          f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
+          f"after the first: {tok_s:.1f} real tokens/s, mean step "
+          f"{1e3 * sum(h['time_s'] for h in steady) / len(steady):.1f} ms; "
+          f"peak memory {peak:.1f} GiB; planning overlap "
+          f"{stats.overlap_fraction:.3f}; launches {counts} (expected "
+          f"{expected})", flush=True)
+    check(counts == expected, f"train launches {counts}, expected {expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "non-finite loss or grad norm in training")
+
+    # 2 layers: the grad step's leaves and a 2-iteration run, once with the
+    # kernels and once with the plain versions patched in
+    cfg2, stream2, cost2, pcfg2 = _train_setup(torch, 2)
+    gb = stream2.batch(0)
+    mbs = plan_iteration(gb.lengths[:, 0], cost2, pcfg2).replica_plans[0] \
+        .micro_batches
+    big = max(mbs, key=lambda m: m.mbs * m.seq)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in materialize_micro_batch(
+        big, gb.tokens, lengths=gb.lengths).items()}
+    params0 = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg2, device="cuda")
+    step = build_grad_step(cfg2)
+
+    def grad_step():       # the loss and the mean-loss gradient leaves
+        ls, ws, g = step(params0, batch)
+        return float(ls) / float(ws), [x.float() / float(ws) for x in leaves(g)]
+
+    runs = {}
+    for name in ("kernels", "plain"):
+        patches = _plain_attention() if name == "plain" else ()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            loss, g = grad_step()
+            _, h2, _ = _train(torch, 2, 2, seed=1,
+                              params=tree_map(lambda x: x.clone(), params0),
+                              log_every=0)[4:]
+            runs[name] = (loss, g, h2)
+    (lk, gk, hk), (lp, gp, hp) = runs["kernels"], runs["plain"]
+
+    def leaf_errs(gs):
+        """Max |diff|, worst ||diff|| / ||plain|| over the leaves, and
+        whether every element is within GRAD_TOL, against the plain run."""
+        worst_abs, worst_rel, ok = 0.0, 0.0, True
+        for a, b in zip(gs, gp):
+            d = (a - b).abs()
+            ok &= bool((d <= GRAD_TOL_BF16 + GRAD_TOL_BF16 * b.abs()).all())
+            worst_abs = max(worst_abs, float(d.max()))
+            worst_rel = max(worst_rel, float(torch.linalg.vector_norm(a - b)
+                                             / torch.linalg.vector_norm(b)))
+        return worst_abs, worst_rel, ok
+
+    worst_leaf, worst_rel, ok = leaf_errs(gk)
+    # planted faults, on the kernels' backward: a K2 that returns zeros, and
+    # a K2/K3 that drops each row's last live key tile
+    real_backward = fa.mha_backward
+
+    def planted(fault):
+        def backward(*a, **o):
+            dq, dk, dv = real_backward(*a, **o)
+            if fault == "dq = 0":
+                return torch.zeros_like(dq), dk, dv
+            drop = _last_live_key_tile(torch, _live_pairs(
+                torch, *a[3:7], o["causal"], o.get("window", 0)))
+            return (dq, dk.masked_fill(drop[..., None, None], 0),
+                    dv.masked_fill(drop[..., None, None], 0))
+        return backward
+
+    faults = {}
+    for fault in ("dq = 0", "last live key tile dropped"):
+        with mock.patch.object(fa, "mha_backward", planted(fault)):
+            faults[fault] = leaf_errs(grad_step()[1])
+    losses_k = [lk] + [h["loss"] for h in hk]
+    losses_p = [lp] + [h["loss"] for h in hp]
+    loss_err = max(abs(a - b) / max(1.0, abs(b))
+                   for a, b in zip(losses_k, losses_p))
+    print(f"[train] 2 layers, kernels vs plain attention on a micro-batch of "
+          f"{big.mbs} x {big.seq}: loss {lk:.6f} vs {lp:.6f}; "
+          f"{len(gk)} gradient leaves, max |diff| {worst_leaf:.3e}, worst "
+          f"||diff|| / ||plain|| {worst_rel:.3e} (GRAD_TOL {GRAD_TOL_BF16}, "
+          f"GRAD_REL_TOL {GRAD_REL_TOL}); 2-iteration losses "
+          f"{[round(x, 6) for x in losses_k[1:]]} vs "
+          f"{[round(x, 6) for x in losses_p[1:]]}, grad norms "
+          f"{[round(h['grad_norm'], 6) for h in hk]} vs "
+          f"{[round(h['grad_norm'], 6) for h in hp]}", flush=True)
+    for fault, (f_abs, f_rel, f_ok) in faults.items():
+        print(f"[train] planted fault ({fault}): max |diff| {f_abs:.3e}, worst "
+              f"||diff|| / ||plain|| {f_rel:.3e}, elementwise GRAD_TOL "
+              f"{'passes' if f_ok else 'fails'} it", flush=True)
+    check(ok, "2-layer gradient leaves: kernels and plain disagree")
+    check(worst_rel <= GRAD_REL_TOL, "2-layer gradient leaves: a leaf's "
+          f"||diff|| / ||plain|| {worst_rel:.3e} exceeds {GRAD_REL_TOL}")
+    check(faults["dq = 0"][1] > GRAD_REL_TOL, "the leaf check does not see "
+          "a K2 that returns zeros")
+    check(loss_err <= GRAD_TOL_BF16, "2-layer losses: kernels and plain "
+          f"disagree ({loss_err:.3e})")
+    gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                 for a, b in zip(hk, hp))
+    check(gn_err <= GRAD_TOL_BF16, "2-layer grad norms: kernels and plain "
+          f"disagree ({gn_err:.3e})")
+    del params0, runs, gk, gp
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 5: profiles (not run by default)
+# ----------------------------------------------------------------------
+KERNEL_SYMBOLS = {"K1": "mha_fwd_kernel", "K2": "mha_bwd_dq_kernel",
+                  "K3": "mha_bwd_dkv_kernel"}
+# device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
+# the port's own, elementwise, reductions, copies
+KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+         ("K1-K3", tuple(KERNEL_SYMBOLS.values())),
+         ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
+         ("copy", ("copy", "Cat")))
 
 
 def _profile_window(torch, name, fn):
@@ -347,17 +790,30 @@ def _profile_window(torch, name, fn):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[0] for r in rows)
-    k1 = sum(r[0] for r in rows if "mha_fwd_kernel" in r[2])
     check(busy > 0, f"profile {name}: no device time recorded")
+    ours = []
+    for kid, sym in KERNEL_SYMBOLS.items():
+        ms = sum(r[0] for r in rows if sym in r[2])
+        n = sum(r[1] for r in rows if sym in r[2])
+        if n:
+            ours.append(f"{kid} {ms:.1f} ms ({100 * ms / busy:.1f}% of device "
+                        f"time, {n} launches)")
     print(f"[profile] {name}: host {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({100 * busy / wall_ms:.1f}%, idle {100 - 100 * busy / wall_ms:.1f}%)"
-          f", K1 {k1:.1f} ms ({100 * k1 / busy:.1f}% of device time)")
-    for ms, n, key in sorted(rows, reverse=True)[:8]:
+          f", {'; '.join(ours)}")
+    by_kind = dict.fromkeys([k for k, _ in KINDS] + ["other"], 0.0)
+    for ms, _, key in rows:
+        kind = next((k for k, pats in KINDS if any(p in key for p in pats)),
+                    "other")
+        by_kind[kind] += ms
+    print("[profile]   by kind: " + ", ".join(
+        f"{k} {ms:.1f} ms ({100 * ms / busy:.1f}%)" for k, ms in by_kind.items()))
+    for ms, n, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {ms:9.2f} ms {100 * ms / busy:5.1f}% x{n:<5d} "
               f"{key[:90]}")
 
 
-def phase_profile(torch, max_prompt, decode_steps):
+def phase_profile_serve(torch, max_prompt, decode_steps):
     """Where the time goes in the full-width serve: one prefill of the
     largest batch (8 x max_prompt) and its decode steps, after a warm-up."""
     from repro_torch import serve as SV
@@ -393,11 +849,49 @@ def phase_profile(torch, max_prompt, decode_steps):
         _profile_window(torch, f"decode {decode_steps} steps of {b}", decode)
 
 
+def phase_profile_train(torch):
+    """Where the time goes in one full-width training iteration (8 layers,
+    the train phase's first batch), after a warm-up iteration."""
+    torch.cuda.empty_cache()
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.models import model as MD
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.runner import scale_
+    cfg, stream, cost, pcfg = _train_setup(torch, TRAIN_LAYERS)
+    gb = stream.batch(0)
+    plan = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0]
+    batches = {m.mb_id: materialize_micro_batch(m, gb.tokens, lengths=gb.lengths)
+               for m in plan.micro_batches}
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                            device="cuda")
+    ocfg = AdamWConfig(lr=3e-4)
+    opt = init_opt_state(params, ocfg)
+    backend = ThreadsBackend(cfg, 1, use_executor=False, device="cuda")
+
+    def iteration():
+        res = backend.execute_plan(plan, params=params, batches=batches)
+        scale_(res.grads, 1.0 / max(res.weight_sum, 1.0))
+        backend.optimizer_step(params, res.grads, opt, ocfg)
+
+    iteration()       # warm-up
+    _profile_window(torch, f"train iteration, {TRAIN_LAYERS} layers, "
+                    f"{[(m.mbs, m.seq) for m in plan.micro_batches]}",
+                    iteration)
+    grads = backend.execute_plan(plan, params=params, batches=batches).grads
+    _profile_window(torch, "AdamW step alone",
+                    lambda: backend.optimizer_step(params, grads, opt, ocfg))
+    del grads
+    del params, opt
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,kernel,serve",
-                    help="comma-separated: kernel, serve, profile (the device "
-                    "phase always runs)")
+    ap.add_argument("--phases", default="device,kernel,serve,train",
+                    help="comma-separated: kernel, serve, train, profile (the "
+                    "device phase always runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -416,24 +910,39 @@ def main():
 
     t_start = time.perf_counter()
     smi_line = phase_device(torch)
-    records, worst, launches = {}, None, None
+    records, worst, paths = {}, {}, {}
     if "kernel" in phases:
         records, worst = phase_kernel(torch)
+    # each path's launch counts, read right after it ran from counts of 0
     if "serve" in phases:
-        launches = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        paths["serve"] = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+    if "train" in phases:
+        paths["train"] = phase_train(torch)
     if "profile" in phases:
-        phase_profile(torch, MAX_PROMPT, DECODE_STEPS)
-    main_rec = records.get("prefill", {})
-    kernels = [{
-        "name": "K1 mha_forward", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst, "max_err": worst,
-        "ms": main_rec.get("ms"), "plain_ms": main_rec.get("plain_ms"),
-        "bound_ms": main_rec.get("bound_ms"),
-        "bound_by": main_rec.get("bound_by"),
-        "library_ms": main_rec.get("library_ms"),
-        "decode": records.get("decode"),
-    }]
+        phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
+        phase_profile_train(torch)
+    main_path = paths.get("train") or paths.get("serve") or {}
+    kernels = []
+    for kid, (name, source, replaces, main_case) in KERNELS.items():
+        rec = records.get((kid, main_case), {})
+        err, rel = worst.get(kid, (None, None))
+        kernels.append({
+            "name": f"{kid} {name}", "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": main_path.get(name),
+            "launches_by_path": {p: c[name] for p, c in paths.items()},
+            "max_abs_err": err, "max_err": err, "max_tile_rel_err": rel,
+            "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
+            "bound_ms": rec.get("bound_ms"), "bound_by": rec.get("bound_by"),
+            "library_ms": rec.get("library_ms"),
+            **{k: x for k, x in rec.items() if k not in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            # the other timed shapes: K1 at decode (no backward there), every
+            # kernel at causal-2048 (K1's prefill shape)
+            "decode": records.get((kid, "decode")),
+            "causal_2048": records.get((kid, "prefill" if kid == "K1"
+                                        else "causal-2048")),
+        })
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi_line)

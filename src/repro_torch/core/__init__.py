@@ -1,1 +1,3 @@
-"""Planning copied from ``repro.core``: shape palette, cost model, DP splitter."""
+"""Planning copied from ``repro.core``: shape palette, cost model, DP
+splitter, schedules, simulator, comm plan, recompute, planner and the
+threaded pipeline executor."""

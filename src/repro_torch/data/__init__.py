@@ -1,1 +1,2 @@
-"""Synthetic multi-task requests copied from ``repro.data.synthetic``."""
+"""Data copied from ``repro.data``: the synthetic multi-task requests, the
+deterministic training streams and micro-batch materialisation."""

@@ -3,9 +3,10 @@
 Each source under ``csrc/`` compiles on its own into a shared library with a
 plain C interface (no PyTorch headers, so a build takes seconds). Libraries
 go to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
-hash of the source and the flags, so an edited source builds anew and an
-unchanged one is loaded as it is. Nothing is built when the module is
-imported: :func:`library` builds at the first launch.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+an edited source builds anew and an unchanged one is loaded as it is.
+Nothing is built when the module is imported: :func:`library` builds at the
+first launch.
 """
 from __future__ import annotations
 
@@ -30,6 +31,10 @@ KERNELS = {
         "mha_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     }),
+    "flash_bwd": ("flash_bwd.cu", {
+        "mha_bwd_dq_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
+        "mha_bwd_dkv_bf16": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
+    }),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -45,8 +50,10 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -42,20 +42,14 @@
 // products of a tile over all four warps. Both load the next live tile with
 // cp.async into a second buffer while the current one is computed. Not yet
 // done: TMA and wgmma, and splitting the cache across blocks in decode.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBK = 64;            // keys per kv tile
+using namespace flash;
+
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kIntMax = 0x7fffffff;
-constexpr int kIntMin = -kIntMax - 1;
 
 struct Params {
   const uint16_t* q;
@@ -72,92 +66,6 @@ struct Params {
   float softcap;     // 0: none
   float sm_scale;
 };
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane L gives the address of
-// row L % 8 of matrix L / 8. Thread t receives, of each matrix, row t / 4,
-// columns 2 (t % 4) and 2 (t % 4) + 1 (transposed: those rows, column t / 4).
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// 16 bytes global -> shared without a register round trip; zeros when !full.
-__device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src,
-                                           bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N committed groups of this thread are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Two floats to one register of two bf16, the first in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_u32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ int warp_min(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = min(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ int warp_max(int x) {
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-// min/max of positions and segment ids over the entries held by the first
-// 64 threads (invalid entries pass the identities). Every thread gets the
-// result in out[0..3] = pos min, pos max, seg min, seg max.
-__device__ __forceinline__ void tile_stats(bool valid, int pos, int seg,
-                                           int (*part)[4], int (&out)[4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();   // every thread has read the previous call's part[]
-  if (warp < 2) {
-    int r0 = warp_min(valid ? pos : kIntMax);
-    int r1 = warp_max(valid ? pos : kIntMin);
-    int r2 = warp_min(valid ? seg : kIntMax);
-    int r3 = warp_max(valid ? seg : kIntMin);
-    if (lane == 0) {
-      part[warp][0] = r0; part[warp][1] = r1;
-      part[warp][2] = r2; part[warp][3] = r3;
-    }
-  }
-  __syncthreads();
-  out[0] = min(part[0][0], part[1][0]);
-  out[1] = max(part[0][1], part[1][1]);
-  out[2] = min(part[0][2], part[1][2]);
-  out[3] = max(part[0][3], part[1][3]);
-}
 
 // kD: head dim, a multiple of 16 (one mma k-step).
 // kSplit: decode shape; the warps share 16 rows and split each tile's keys.
@@ -263,24 +171,10 @@ mha_fwd_kernel(const Params p) {
       if (tid < kBK) { kpos_s[buf * kBK + tid] = pos; kseg_s[buf * kBK + tid] = seg; }
       int kstat[4];
       tile_stats(ok, pos, seg, part, kstat);
-      // _live_terms (src/repro/kernels/flash_attention.py:67) on (min, max)
-      bool live = true;
-      if (segmented)
-        live = (qstat[3] >= kstat[2]) && (kstat[3] >= qstat[2]) &&
-               (kstat[3] >= 0) && (qstat[3] >= 0);
-      if (p.causal) {
-        live = live && (qstat[1] >= kstat[0]);
-        if (p.window > 0) live = live && (qstat[0] - kstat[1] < p.window);
-      }
-      if (!live) continue;   // uniform over the block
-      bool f = k0 + kBK <= p.S;
-      if (segmented)
-        f = f && qstat[2] == qstat[3] && kstat[2] == kstat[3] &&
-            qstat[2] == kstat[2] && kstat[2] >= 0;
-      if (p.causal) {
-        f = f && qstat[0] >= kstat[1];
-        if (p.window > 0) f = f && (qstat[1] - kstat[0] < p.window);
-      }
+      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window))
+        continue;   // uniform over the block
+      const bool f = k0 + kBK <= p.S &&
+                     tiles_full(qstat, kstat, segmented, p.causal, p.window);
       full_out = f;
       return t;
     }
@@ -352,13 +246,9 @@ mha_fwd_kernel(const Params p) {
           float x = s[n][e] * qscale;
           if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap) * kLog2e;
           if (!full) {
-            bool ok = k0 + key < p.S;
-            if (segmented) ok = ok && qs[i] == kseg_b[key] && kseg_b[key] >= 0;
-            if (p.causal) {
-              const int dp = qp[i] - kpos_b[key];
-              ok = ok && dp >= 0;
-              if (p.window > 0) ok = ok && dp < p.window;
-            }
+            const bool ok = k0 + key < p.S &&
+                            visible(qp[i], qs[i], kpos_b[key], kseg_b[key],
+                                    segmented, p.causal, p.window);
             if (!ok) x = kNegInf;
           }
           s[n][e] = x;

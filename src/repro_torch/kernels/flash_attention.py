@@ -1,18 +1,24 @@
-"""Attention forward: the CUDA kernel K1 and its plain PyTorch version.
+"""Attention forward and backward: the CUDA kernels K1, K2 and K3 and their
+plain PyTorch versions.
 
-Counterpart of ``repro.kernels.flash_attention``. :func:`mha_forward` takes
-the path its tensors' device gives: on a CUDA tensor it launches the
-hand-written Hopper kernel in ``csrc/flash_fwd.cu`` (or raises), on a CPU
-tensor it runs :func:`mha_forward_plain`, the materialised-scores oracle.
-There is no fallback from one to the other.
+Counterpart of ``repro.kernels.flash_attention``. :func:`mha_forward` and
+:func:`mha_backward` take the path their tensors' device gives: on a CUDA
+tensor they launch the hand-written Hopper kernels (K1 in
+``csrc/flash_fwd.cu``; K2, the dq pass, and K3, the dk/dv pass, in
+``csrc/flash_bwd.cu``) or raise, on a CPU tensor they run
+:func:`mha_forward_plain` and :func:`mha_backward_plain`, which materialise
+the whole score matrix. There is no fallback from one to the other.
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
 It masks ragged tails instead of shrinking its tiles, so ``shrink_block``
 stays only for ``live_block_mask``.
 
-The kernel has no backward yet; a gradient through it raises. Serving runs
-under ``torch.inference_mode()``.
+:class:`Attention` is the ``torch.autograd.Function`` of the reference's
+``_flash`` and ``_ragged`` custom VJPs: its forward saves the residuals
+``(q, k, v, positions, segment ids, o, lse)`` and its backward runs
+:func:`mha_backward` on them, so a gradient through a CUDA tensor goes
+through K2 and K3.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ NEG_INF = -1e30
 
 HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
 
-# Launches of each CUDA kernel, counted where the wrapper launches it.
-LAUNCHES = {"mha_forward": 0}
+# Launches of each CUDA kernel, counted where the wrapper launches it:
+# K1, K2 and K3.
+LAUNCHES = {"mha_forward": 0, "mha_backward_dq": 0, "mha_backward_dkv": 0}
 
 
 def shrink_block(length: int, block: int) -> int:
@@ -106,18 +113,84 @@ def live_block_mask(q_positions, kv_positions,
 
 
 # ----------------------------------------------------------------------
-# the kernel's wrapper and its plain version
+# plain versions
 # ----------------------------------------------------------------------
 def mha_forward_plain(q, k, v, q_positions, kv_positions,
                       q_segment_ids=None, kv_segment_ids=None, *,
                       causal, window=0, softcap=None):
-    """The kernel's function in plain PyTorch: ``(o, lse)``, lse (B,H,T) fp32."""
+    """K1's function in plain PyTorch: ``(o, lse)``, lse (B,H,T) fp32."""
     return _ref.attention_ref_with_lse(
         q, k, v, causal=causal, window=window, softcap=softcap,
         q_positions=q_positions, kv_positions=kv_positions,
         q_segment_ids=q_segment_ids, kv_segment_ids=kv_segment_ids)
 
 
+def _element_mask(qpos, kpos, qseg, kseg, causal, window):
+    """The reference's ``_element_mask`` over whole rows: (B, 1, T, S) bool,
+    or None where every pair is visible."""
+    mask = None
+    if qseg is not None:
+        mask = (qseg[:, :, None] == kseg[:, None, :]) & (kseg[:, None, :] >= 0)
+    if causal:
+        dpos = qpos[:, :, None].long() - kpos[:, None, :].long()
+        cm = dpos >= 0
+        if window > 0:
+            cm &= dpos < window
+        mask = cm if mask is None else (mask & cm)
+    return None if mask is None else mask[:, None]
+
+
+def attention_delta(o, do):
+    """delta = rowsum(do * o), (B,H,T) fp32: the reduction the reference
+    takes outside its kernels (``flash_attention.py:392``)."""
+    return torch.einsum("bthd,bthd->bht", do.float(), o.float()).contiguous()
+
+
+def mha_backward_plain(q, k, v, q_positions, kv_positions,
+                       q_segment_ids, kv_segment_ids, o, lse, do, *,
+                       causal, window=0, softcap=None):
+    """K2's and K3's function in plain PyTorch, from the same residuals:
+    ``(dq, dk, dv)`` in the inputs' dtypes. Follows the reference's
+    ``_p_and_ds`` in fp32 over the whole (T, S) score matrix: p from lse,
+    masked by select, dp = do v^T, ds = p (dp - delta) with the softcap
+    ``1 - tanh^2`` chain; dk and dv summed over each GQA head group."""
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    scale = 1.0 / math.sqrt(d)
+    qf, dof = q.float(), do.float()
+    kf = _ref._repeat_kv(k, group).float()
+    vf = _ref._repeat_kv(v, group).float()
+    s1 = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    th = None
+    if softcap is not None:
+        th = torch.tanh(s1 / softcap)
+        s1 = softcap * th
+    p = torch.exp(s1 - lse[..., None])
+    del s1
+    mask = _element_mask(q_positions, kv_positions, q_segment_ids,
+                         kv_segment_ids, causal, window)
+    if mask is not None:
+        # also zeroes fully masked rows, whose lse is the -1e30 sentinel
+        p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - attention_delta(o, do)[..., None])
+    del dp
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf) * scale
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+
+    def per_kv_head(x):   # (B,S,H,D) -> sum over each group -> (B,S,KV,D)
+        return x.reshape(b, s, kvh, group, d).sum(3)
+    return (dq.to(q.dtype), per_kv_head(dk).to(k.dtype),
+            per_kv_head(dv).to(v.dtype))
+
+
+# ----------------------------------------------------------------------
+# the kernels' wrappers
+# ----------------------------------------------------------------------
 def _check_cuda_args(q, k, v, ints):
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -132,6 +205,11 @@ def _check_cuda_args(q, k, v, ints):
         if x.device != q.device or not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
                              f"tensor on {q.device}")
+    named = {name: x for name, x, _ in ints}
+    if ("q_segment_ids" in named
+            and (named["q_segment_ids"] is None)
+            != (named["kv_segment_ids"] is None)):
+        raise ValueError("segment ids must be given on both sides or neither")
     for name, x, n in ints:
         if x is None:
             continue
@@ -139,10 +217,26 @@ def _check_cuda_args(q, k, v, ints):
                 or not x.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 {(b, n)} on "
                              f"{q.device}, got {x.dtype} {tuple(x.shape)}")
-    if any(x.requires_grad for x in (q, k, v)) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "the CUDA attention kernel has no backward yet; run it under "
-            "torch.inference_mode()")
+
+
+def _int_args(q, k, q_positions, kv_positions, q_segment_ids, kv_segment_ids):
+    t, s = q.shape[1], k.shape[1]
+    return (("q_positions", q_positions, t), ("kv_positions", kv_positions, s),
+            ("q_segment_ids", q_segment_ids, t),
+            ("kv_segment_ids", kv_segment_ids, s))
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(fn, *args, device):
+    """Call a C launcher on ``device``'s current stream; raise on its code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
@@ -151,30 +245,93 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    _check_cuda_args(q, k, v, (
-        ("q_positions", q_positions, t), ("kv_positions", kv_positions, s),
-        ("q_segment_ids", q_segment_ids, t),
-        ("kv_segment_ids", kv_segment_ids, s)))
-    if (q_segment_ids is None) != (kv_segment_ids is None):
-        raise ValueError("segment ids must be given on both sides or neither")
+    _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
+                                        q_segment_ids, kv_segment_ids))
     lib = _build.library("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.mha_fwd_bf16(
-            ptr(q), ptr(k), ptr(v), ptr(q_positions), ptr(kv_positions),
-            ptr(q_segment_ids), ptr(kv_segment_ids), ptr(o), ptr(lse),
+    _launch(lib.mha_fwd_bf16,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
+            _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
             b, t, s, h, kvh, d, int(causal), int(window),
-            float(softcap or 0.0), stream)
-    if rc != 0:
-        raise RuntimeError(f"mha_fwd_bf16 launch failed: CUDA error {rc}")
+            float(softcap or 0.0), device=q.device)
     LAUNCHES["mha_forward"] += 1
     return o, lse
+
+
+def _check_bwd_args(q, o, lse, do, delta):
+    b, t, h, _ = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if (x.dtype != torch.bfloat16 or x.shape != q.shape
+                or x.device != q.device or not x.is_contiguous()
+                or x.data_ptr() % 16):
+            raise ValueError(f"{name} must be a contiguous bf16 {tuple(q.shape)} "
+                             f"tensor on {q.device}, got {x.dtype} "
+                             f"{tuple(x.shape)}")
+    for name, x in (("lse", lse), ("delta", delta)):
+        if (x.dtype != torch.float32 or x.shape != (b, h, t)
+                or x.device != q.device or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 {(b, h, t)} on "
+                             f"{q.device}, got {x.dtype} {tuple(x.shape)}")
+
+
+def check_backward_cuda_args(q, k, v, q_positions, kv_positions,
+                             q_segment_ids, kv_segment_ids, o, lse, do, delta):
+    """Everything K2 and K3 assume of their arguments: device, dtype,
+    shape, alignment and contiguity. Raises on the first that fails."""
+    _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
+                                        q_segment_ids, kv_segment_ids))
+    _check_bwd_args(q, o, lse, do, delta)
+
+
+def _launch_dq(q, k, v, q_positions, kv_positions, q_segment_ids,
+               kv_segment_ids, o, lse, do, delta, *, causal, window, softcap):
+    from repro_torch.kernels import _build
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q)
+    _launch(_build.library("flash_bwd").mha_bwd_dq_bf16,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
+            _ptr(kv_segment_ids), _ptr(dq), b, t, s, h, kvh, d, int(causal),
+            int(window), float(softcap or 0.0), device=q.device)
+    LAUNCHES["mha_backward_dq"] += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, q_positions, kv_positions, q_segment_ids,
+                kv_segment_ids, o, lse, do, delta, *, causal, window, softcap):
+    from repro_torch.kernels import _build
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch(_build.library("flash_bwd").mha_bwd_dkv_bf16,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
+            _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
+            _ptr(kv_segment_ids), _ptr(dk), _ptr(dv), b, t, s, h, kvh, d,
+            int(causal), int(window), float(softcap or 0.0), device=q.device)
+    LAUNCHES["mha_backward_dkv"] += 1
+    return dk, dv
+
+
+def mha_backward_dq_cuda(*args, **opts):
+    """Check the arguments, then launch K2: dq (B,T,H,D) bf16. Arguments as
+    :func:`mha_backward`, plus ``delta`` from :func:`attention_delta`."""
+    check_backward_cuda_args(*args)
+    return _launch_dq(*args, **opts)
+
+
+def mha_backward_dkv_cuda(*args, **opts):
+    """Check the arguments, then launch K3: ``(dk, dv)``, (B,S,KV,D) bf16
+    each, summed over each GQA group. Arguments as
+    :func:`mha_backward_dq_cuda`."""
+    check_backward_cuda_args(*args)
+    return _launch_dkv(*args, **opts)
+
+
+def _check_softcap(softcap):
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive or None, got {softcap}")
 
 
 def mha_forward(q, k, v, q_positions, kv_positions,
@@ -183,12 +340,11 @@ def mha_forward(q, k, v, q_positions, kv_positions,
     """Raw forward: returns ``(o, lse)`` with lse in (B, H, T) fp32.
 
     q (B,T,H,D), k/v (B,S,KV,D) with H % KV == 0; positions and segment ids
-    (B,T)/(B,S) int32, segment ids -1 on padding. CUDA tensors launch the
-    kernel (bf16, D in ``HEAD_DIMS``, contiguous); CPU tensors take the plain
+    (B,T)/(B,S) int32, segment ids -1 on padding. CUDA tensors launch K1
+    (bf16, D in ``HEAD_DIMS``, contiguous); CPU tensors take the plain
     version.
     """
-    if softcap is not None and softcap <= 0:
-        raise ValueError(f"softcap must be positive or None, got {softcap}")
+    _check_softcap(softcap)
     if q.device.type == "cuda":
         return _mha_forward_cuda(
             q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
@@ -200,14 +356,62 @@ def mha_forward(q, k, v, q_positions, kv_positions,
     raise ValueError(f"no attention path for device {q.device}")
 
 
+def mha_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
+                 kv_segment_ids, o, lse, do, *, causal, window=0,
+                 softcap=None):
+    """Backward from the forward's residuals: returns ``(dq, dk, dv)``.
+
+    CUDA tensors launch K2 (dq) and K3 (dk, dv) after the plain reduction
+    ``delta = rowsum(do * o)``; CPU tensors take
+    :func:`mha_backward_plain`.
+    """
+    _check_softcap(softcap)
+    args = (q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, o, lse, do)
+    opts = dict(causal=causal, window=window, softcap=softcap)
+    if q.device.type == "cuda":
+        delta = attention_delta(o, do)
+        check_backward_cuda_args(*args, delta)
+        dq = _launch_dq(*args, delta, **opts)
+        return (dq, *_launch_dkv(*args, delta, **opts))
+    if q.device.type == "cpu":
+        return mha_backward_plain(*args, **opts)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+class Attention(torch.autograd.Function):
+    """Attention with its gradient, the counterpart of the reference's
+    ``_flash`` and ``_ragged`` custom VJPs (segment ids None for the
+    former). Positions and segment ids take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_positions, q_segment_ids,
+                kv_segment_ids, causal, window, softcap):
+        o, lse = mha_forward(q, k, v, q_positions, kv_positions,
+                             q_segment_ids, kv_segment_ids, causal=causal,
+                             window=window, softcap=softcap)
+        ctx.save_for_backward(q, k, v, q_positions, kv_positions,
+                              q_segment_ids, kv_segment_ids, o, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = mha_backward(*ctx.saved_tensors, do.contiguous(),
+                                  **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None, None
+
+
 def _default_positions(x, n):
     return torch.arange(n, dtype=torch.int32, device=x.device)[None].expand(
         x.shape[0], n).contiguous()
 
 
-def flash_attention(q, k, v, *, causal=True, window=0, softcap=None,
-                    q_positions=None, kv_positions=None):
-    """Attention without segment ids: (B,T,H,D) in q.dtype."""
+def attention(q, k, v, q_positions=None, kv_positions=None,
+              q_segment_ids=None, kv_segment_ids=None, *, causal=True,
+              window=0, softcap=None):
+    """The shared body of :func:`flash_attention` and ``ragged_attention``:
+    default positions, int32 and contiguous inputs, then :class:`Attention`."""
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     assert k.shape == (b, s, kvh, d) and v.shape == (b, s, kvh, d)
@@ -216,8 +420,18 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=None,
         q_positions = _default_positions(q, t)
     if kv_positions is None:
         kv_positions = _default_positions(k, s)
-    o, _ = mha_forward(q.contiguous(), k.contiguous(), v.contiguous(),
-                       q_positions.to(torch.int32).contiguous(),
-                       kv_positions.to(torch.int32).contiguous(),
-                       causal=causal, window=int(window), softcap=softcap)
-    return o
+
+    def i32(x):
+        return None if x is None else x.to(torch.int32).contiguous()
+
+    return Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                           i32(q_positions), i32(kv_positions),
+                           i32(q_segment_ids), i32(kv_segment_ids),
+                           causal, int(window), softcap)
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=None,
+                    q_positions=None, kv_positions=None):
+    """Attention without segment ids: (B,T,H,D) in q.dtype."""
+    return attention(q, k, v, q_positions, kv_positions, causal=causal,
+                     window=window, softcap=softcap)

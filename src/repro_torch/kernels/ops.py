@@ -1,9 +1,11 @@
 """Dispatch to the attention kernel by the device of the tensors.
 
 Counterpart of ``repro.kernels.ops.attention``. There is no ``impl``
-switch: a CUDA tensor always goes through the CUDA kernel K1, a CPU tensor
-always through its plain version. :func:`launch_counts` reads how often
-each kernel was launched, so a run can show that it went through them.
+switch: a CUDA tensor always goes through the CUDA kernels (K1 forward; K2
+and K3 for its gradient), a CPU tensor always through their plain versions.
+:func:`launch_counts` reads how often each kernel was launched
+(``mha_forward``, ``mha_backward_dq``, ``mha_backward_dkv``), so a run can
+show that it went through them.
 """
 from __future__ import annotations
 

@@ -1,11 +1,10 @@
-"""Model facade in PyTorch: init / forward / prefill / decode.
+"""Model facade in PyTorch: init / forward / loss / prefill / decode.
 
-Counterpart of ``repro.models.model`` for the serving path of token-input
-models. Parameters are the reference's nested dict (``embed``, the
-period-stacked ``stack``, ``final_norm``, ``head`` when untied) with the
-same keys, shapes and dtypes; :func:`repro_torch.convert.params_from_jax`
-carries a reference tree across. The loss, and the ``frames``/``mixed``
-input modes, are later slices.
+Counterpart of ``repro.models.model`` for token-input models. Parameters
+are the reference's nested dict (``embed``, the period-stacked ``stack``,
+``final_norm``, ``head`` when untied) with the same keys, shapes and
+dtypes; :func:`repro_torch.convert.params_from_jax` carries a reference
+tree across. The ``frames``/``mixed`` input modes are later slices.
 
 Entry points run on the card by default. They run on the CPU only when
 the caller passes ``device="cpu"``, and raise if CUDA is asked for and is
@@ -14,11 +13,14 @@ absent. ``prefill``/``decode`` run where their params and batch lie.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+
+LOSS_CHUNK = 512
 
 
 # ----------------------------------------------------------------------
@@ -62,16 +64,66 @@ def embed_inputs(params, batch, cfg: ArchConfig):
 
 
 def forward(params, batch, cfg: ArchConfig, *, mode="train",
-            cache=None, cache_pos=None):
+            cache=None, cache_pos=None, remat=True):
     h = embed_inputs(params, batch, cfg)
     h, new_cache = T.stack_fwd(
         params["stack"], h, cfg,
         positions=batch["positions"],
         segment_ids=batch.get("segment_ids"),
-        cache=cache, cache_pos=cache_pos, mode=mode,
+        cache=cache, cache_pos=cache_pos, mode=mode, remat=remat,
     )
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, new_cache
+
+
+# ----------------------------------------------------------------------
+# loss (chunked over sequence; logits never fully materialised)
+# ----------------------------------------------------------------------
+def _masked_logits(head_w, h, cfg: ArchConfig):
+    """fp32 logits of h (matmul in h's dtype, as the reference's einsum),
+    soft-capped, with the padded vocab entries at -1e30."""
+    logits = (h @ head_w.T).float()
+    if cfg.final_softcap:
+        logits = cfg.final_softcap * torch.tanh(logits / cfg.final_softcap)
+    # in place: neither the cast nor the scalar product saves its output
+    return logits.masked_fill_(
+        torch.arange(cfg.vocab_padded, device=h.device) >= cfg.vocab, -1e30)
+
+
+def _xent_chunk(head_w, h_c, labels_c, w_c, cfg: ArchConfig):
+    logits = _masked_logits(head_w, h_c, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = logits.gather(-1, labels_c[..., None].long())[..., 0]
+    w = w_c.float()
+    return torch.sum((lse - ll) * w), torch.sum(w)
+
+
+def lm_loss(params, h, labels, weights, cfg: ArchConfig):
+    """Chunked softmax-xent. h (B,T,D); labels/weights (B,T). Each chunk's
+    logits are recomputed in the backward, as the reference's
+    ``jax.checkpoint`` on its scan body."""
+    t = h.shape[1]
+    chunk = min(LOSS_CHUNK, t)
+    while t % chunk:
+        chunk //= 2
+    head_w = _head_weight(params)
+    loss_sum = w_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, t, chunk):
+        sl = slice(c0, c0 + chunk)
+        ls, ws = checkpoint(_xent_chunk, head_w, h[:, sl], labels[:, sl],
+                            weights[:, sl], cfg, use_reentrant=False)
+        loss_sum, w_sum = loss_sum + ls, w_sum + ws
+    return loss_sum / torch.clamp(w_sum, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
+    """Scalar training loss and its parts. MoE (and its load-balance aux
+    term) is not ported, so the aux term is 0."""
+    h, _ = forward(params, batch, cfg, mode="train", remat=remat)
+    loss = lm_loss(params, h, batch["labels"], batch["loss_weights"], cfg)
+    return loss, {"xent": loss,
+                  "moe_aux": torch.zeros((), dtype=torch.float32,
+                                         device=loss.device)}
 
 
 def _last_logits(params, h, cfg: ArchConfig):
@@ -98,9 +150,9 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len=None):
         cache = T.init_cache(cfg, b, s, dtype=L._dtype(cfg),
                              device=batch["positions"].device)
         h, new_cache = forward(params, batch, cfg, mode="prefill",
-                               cache=cache, cache_pos=0)
+                               cache=cache, cache_pos=0, remat=False)
     else:  # encoder-only: prefill == full encode forward (no cache)
-        h, new_cache = forward(params, batch, cfg, mode="train")
+        h, new_cache = forward(params, batch, cfg, mode="train", remat=False)
     return _last_logits(params, h, cfg), new_cache
 
 
@@ -110,6 +162,6 @@ def decode(params, batch, cfg: ArchConfig):
     written in place."""
     h, new_cache = forward(
         params, batch, cfg, mode="decode",
-        cache=batch["cache"], cache_pos=batch["cache_pos"],
+        cache=batch["cache"], cache_pos=batch["cache_pos"], remat=False,
     )
     return _last_logits(params, h, cfg), new_cache

@@ -4,16 +4,21 @@ Counterpart of ``repro.models.transformer`` for attention + dense-MLP
 layers. Parameters keep the reference's layout: every leaf stacked on a
 leading ``n_periods`` axis, one period being one repetition of
 ``cfg.layer_pattern``. A Python loop over periods takes the place of
-``jax.lax.scan``; serving needs no remat. Mamba and MoE layers are later
-slices.
+``jax.lax.scan``. In training each period runs under
+``torch.utils.checkpoint`` (non-reentrant) in place of the reference's
+``jax.checkpoint`` with the "nothing" policy: only the period inputs are
+kept for the backward, which recomputes the rest. Mamba and MoE layers are
+later slices.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.tree import tree_map
 
 
 def _check_spec(spec: LayerSpec):
@@ -81,32 +86,60 @@ def init_stack(gen, cfg: ArchConfig, device):
         period = {f"l{j}": init_block(gen, cfg, spec, device)
                   for j, spec in enumerate(cfg.layer_pattern)}
         if stack is None:
-            stack = _tree_map(
+            stack = tree_map(
                 lambda x: x.new_empty((cfg.n_periods, *x.shape)), period)
-        _tree_map(lambda dst, src, i=i: dst[i].copy_(src), stack, period)
+        tree_map(lambda dst, src, i=i: dst[i].copy_(src), stack, period)
     return stack
 
 
-def _tree_map(fn, tree, *rest):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
+def _periods(params, n_periods):
+    """The period slices of the stacked params. Each leaf is unbound once,
+    so under autograd the backward stacks its period gradients a single
+    time (``x[i]`` per period would scatter each into a zero-filled
+    gradient of the whole stack)."""
+    unbound = tree_map(lambda x: x.unbind(0), params)
+    return [tree_map(lambda xs, i=i: xs[i], unbound) for i in range(n_periods)]
+
+
+def _remat(cfg: ArchConfig) -> bool:
+    """Whether a training period runs under checkpoint, by
+    ``cfg.remat_policy`` (reference ``transformer.py:194-200``)."""
+    if cfg.remat_policy == "nothing":
+        return True
+    if cfg.remat_policy == "everything":
+        return False
+    raise NotImplementedError(
+        f"remat policy {cfg.remat_policy!r} is not ported (\"nothing\" and "
+        "\"everything\" are)")
+
+
+def _period_fwd(pparams, h, cfg: ArchConfig, positions, segment_ids,
+                caches, cache_pos, mode):
+    for j, spec in enumerate(cfg.layer_pattern):
+        h, _ = block_fwd(
+            pparams[f"l{j}"], h, cfg, spec,
+            positions=positions, segment_ids=segment_ids,
+            cache=None if caches is None else caches[j],
+            cache_pos=cache_pos, mode=mode,
+        )
+    return h
 
 
 def stack_fwd(params, h, cfg: ArchConfig, *,
               positions, segment_ids, cache=None, cache_pos=None,
-              mode="train"):
+              mode="train", remat=True):
     """Loop over periods. Returns ``(h, cache)``; the cache tensors (if
-    any) are updated in place and returned."""
-    for i in range(cfg.n_periods):
-        pparams = _tree_map(lambda x, i=i: x[i], params)
-        for j, spec in enumerate(cfg.layer_pattern):
-            lc = (None if cache is None else
-                  {name: c[i] for name, c in cache[j].items()})
-            h, _ = block_fwd(
-                pparams[f"l{j}"], h, cfg, spec,
-                positions=positions, segment_ids=segment_ids,
-                cache=lc, cache_pos=cache_pos, mode=mode,
-            )
+    any) are updated in place and returned. ``remat`` recomputes each
+    period in the backward, as ``cfg.remat_policy`` says."""
+    remat = remat and _remat(cfg)
+    for i, pparams in enumerate(_periods(params, cfg.n_periods)):
+        caches = (None if cache is None else
+                  [{name: c[i] for name, c in lc.items()} for lc in cache])
+        if remat:
+            h = checkpoint(_period_fwd, pparams, h, cfg, positions,
+                           segment_ids, caches, cache_pos, mode,
+                           use_reentrant=False)
+        else:
+            h = _period_fwd(pparams, h, cfg, positions, segment_ids, caches,
+                            cache_pos, mode)
     return h, cache

@@ -177,7 +177,8 @@ def test_ops_attention_on_cpu_takes_plain_version_and_fills_one_side():
     v2[:, 40:] = -1e3
     out2 = tops.attention(q, k2, v2, causal=False, kv_segment_ids=kv_seg)
     torch.testing.assert_close(out2, out, atol=0, rtol=0)
-    assert tops.launch_counts() == {"mha_forward": 0}
+    assert tops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 0,
+                                    "mha_backward_dkv": 0}
     assert _build._loaded == {}        # the CPU path never builds the kernel
 
 
@@ -202,7 +203,13 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q32 = torch.zeros((1, 4, 2, 128))
     with pytest.raises(TypeError, match="bf16"):
         tfa._check_cuda_args(q32, q32, q32, ())
-    qg = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        tfa._check_cuda_args(qg, qg.detach(), qg.detach(),
-                             (("q_positions", pos, 4),))
+    qb = torch.zeros((1, 4, 2, 128), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="both sides"):
+        tfa._check_cuda_args(qb, qb, qb, (("q_segment_ids", pos, 4),
+                                          ("kv_segment_ids", None, 4)))
+    # the backward's residuals: do in bf16 like q, lse and delta (B,H,T) fp32
+    lse = torch.zeros((1, 2, 4))
+    with pytest.raises(ValueError, match="do must be"):
+        tfa._check_bwd_args(qb, qb, lse, qb.float(), lse)
+    with pytest.raises(ValueError, match="delta must be"):
+        tfa._check_bwd_args(qb, qb, lse, qb, lse.transpose(1, 2))

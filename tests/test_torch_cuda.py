@@ -1,12 +1,15 @@
-"""The CUDA kernel K1 on the card, against its plain version and the CPU.
+"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions
+and the CPU.
 
 Marked ``cuda``: each test skips where there is no card. On a machine with
 one they run with ``PYTHONPATH=src python -m pytest -q -m cuda --noconftest
 tests/test_torch_cuda.py`` (the repo's conftest imports the JAX package,
 which such a machine need not have); ``chip_smoke.py`` checks the same at
-the serving path's full widths. Tolerance 2e-2, the reference's bf16 kernel
-tolerance (tests/test_kernels.py:28): the kernel rounds p to bf16 before
-p·v, the plain version does not.
+the serving and training paths' full widths. Tolerances: 2e-2 for the
+forward, the reference's bf16 kernel tolerance (tests/test_kernels.py:28):
+the kernel rounds p to bf16 before p·v, the plain version does not; 4e-2 for
+gradients, the reference's bf16 ``GRAD_TOL`` (tests/test_kernel_grads.py:21),
+where p and ds are rounded to bf16 before the second products.
 """
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ from repro_torch.models import model as MD
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
+GRAD_TOL = 4e-2
 
 
 @pytest.fixture
@@ -72,9 +76,115 @@ def test_kernel_segmented_with_fully_masked_rows(cuda):
 
 
 def test_kernel_refuses_a_gradient(cuda):
+    # a gradient the kernels cannot take (fp32) raises; it never falls back
+    # to the plain backward
     q, k, v, qp, kp = _inputs(cuda, 1, 8, 8, 2, 2, 16)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        fa.mha_forward(q.requires_grad_(), k, v, qp, kp, causal=True)
+    q, k, v = (x.float().requires_grad_() for x in (q, k, v))
+    with pytest.raises(TypeError, match="bf16"):
+        ops.attention(q, k, v, q_positions=qp, kv_positions=kp)
+
+
+def _grad_close(out, ref):
+    torch.testing.assert_close(out.float(), ref.float(), atol=GRAD_TOL,
+                               rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("t,s,h,kv,opts", [
+    (130, 130, 4, 2, dict(causal=True)),
+    (70, 190, 2, 1, dict(causal=False)),
+    (200, 200, 4, 4, dict(causal=True, window=50, softcap=3.0)),
+])
+def test_backward_kernels_match_plain_version(cuda, d, t, s, h, kv, opts):
+    q, k, v, qp, kp = _inputs(cuda, 2, t, s, h, kv, d)
+    o, lse = fa.mha_forward(q, k, v, qp, kp, **opts)
+    do = torch.randn_like(o)
+    ops.reset_launch_counts()
+    out = fa.mha_backward(q, k, v, qp, kp, None, None, o, lse, do, **opts)
+    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 1,
+                                   "mha_backward_dkv": 1}
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, None, None, o, lse, do,
+                                **opts)
+    for a, r in zip(out, ref):
+        assert a.dtype == r.dtype == torch.bfloat16
+        _grad_close(a, r)
+
+
+def test_backward_kernels_segmented_with_fully_masked_rows(cuda):
+    q, k, v, _, _ = _inputs(cuda, 2, 96, 96, 4, 2, 128)
+    seg = torch.full((2, 96), -1, dtype=torch.int32, device=cuda)
+    seg[0, :40], seg[0, 40:70], seg[1, :20] = 0, 1, 2
+    pos = torch.zeros_like(seg)
+    pos[0, :40] = torch.arange(40, device=cuda)
+    pos[0, 40:70] = torch.arange(30, device=cuda)
+    pos[1, :20] = torch.arange(20, device=cuda)
+    o, lse = fa.mha_forward(q, k, v, pos, pos, seg, seg, causal=True)
+    do = torch.randn_like(o)
+    dq, dk, dv = fa.mha_backward(q, k, v, pos, pos, seg, seg, o, lse, do,
+                                 causal=True)
+    ref = fa.mha_backward_plain(q, k, v, pos, pos, seg, seg, o, lse, do,
+                                causal=True)
+    for a, r in zip((dq, dk, dv), ref):
+        _grad_close(a, r)
+    dead = seg < 0       # padding: no visible key, seen by no query
+    assert (dq[dead] == 0).all() and (dk[dead] == 0).all() \
+        and (dv[dead] == 0).all()
+
+
+def test_autograd_through_the_kernels_matches_the_cpu(cuda):
+    q, k, v, qp, kp = _inputs(cuda, 2, 100, 100, 4, 2, 64)
+    seg = torch.zeros_like(qp)
+    seg[1, 60:] = -1
+    ct = torch.randn(q.shape, device=cuda)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [x.to(dev).detach().requires_grad_() for x in (q, k, v)]
+        ops.reset_launch_counts()
+        out = ops.attention(*leaves, q_positions=qp.to(dev),
+                            kv_positions=kp.to(dev), q_segment_ids=seg.to(dev),
+                            kv_segment_ids=seg.to(dev))
+        (out.float() * ct.to(dev)).sum().backward()
+        n = 1 if dev.type == "cuda" else 0
+        assert ops.launch_counts() == {"mha_forward": n, "mha_backward_dq": n,
+                                       "mha_backward_dkv": n}
+        grads.append([x.grad.cpu() for x in leaves])
+    for a, r in zip(*grads):
+        _grad_close(a, r)
+
+
+def test_grad_step_on_the_card_matches_the_cpu_and_counts_launches(cuda):
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    cfg = SV.make_config("gpt-paper", "reduced", 2)
+    params = MD.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    r = np.random.default_rng(0)
+    seg = np.zeros((2, 96), np.int32)
+    seg[1, 50:] = -1
+    pos = np.where(seg >= 0, np.arange(96), 0).astype(np.int32)
+    batch = {"tokens": r.integers(0, cfg.vocab, (2, 96)).astype(np.int32),
+             "labels": r.integers(0, cfg.vocab, (2, 96)).astype(np.int32),
+             "loss_weights": (seg >= 0).astype(np.float32),
+             "positions": pos, "segment_ids": seg}
+    step = build_grad_step(cfg)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    l_cpu, w_cpu, g_cpu = step(params, tb)
+    ops.reset_launch_counts()
+    l_gpu, w_gpu, g_gpu = step(_to(params, cuda), _to(tb, cuda))
+    # forward, the recompute of each period, and one backward per layer
+    assert ops.launch_counts() == {"mha_forward": 2 * cfg.n_layers,
+                                   "mha_backward_dq": cfg.n_layers,
+                                   "mha_backward_dkv": cfg.n_layers}
+    assert float(w_gpu) == float(w_cpu)
+    torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=GRAD_TOL, rtol=GRAD_TOL)
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                yield from leaves(tree[key])
+        else:
+            yield tree
+    for a, b in zip(leaves(g_gpu), leaves(g_cpu)):
+        _grad_close(a.cpu(), b)
 
 
 def _to(tree, dev):

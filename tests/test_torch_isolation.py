@@ -70,6 +70,13 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(
         convert.params_from_jax({"w": torch.zeros(2).numpy()})
     with pytest.raises(RuntimeError, match="CUDA was asked for"):
         SV.main(["--n-requests", "2"])
+    # training: the runner and the CLI default to the card too
+    from repro_torch.launch import train as LT
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        PlanAheadRunner(cfg, None, None, RunnerConfig(), None)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        LT.main(["--reduced", "--stages", "1", "--iters", "1"])
     # asked for explicitly, the CPU works
     assert MD.init_params(torch.Generator(), cfg, device="cpu")[
         "embed"].device.type == "cpu"

@@ -1,6 +1,7 @@
 """The port's copies of the planning layer give results identical to the
 reference's: the shape palette, the synthetic request mix, sample ordering,
-the DP request batching with the serving cost, and padding efficiency."""
+the DP request batching with the serving cost, padding efficiency, the
+training stream, whole-iteration plans and micro-batch materialisation."""
 import dataclasses
 import importlib.util
 import re
@@ -21,10 +22,16 @@ from repro_torch.core.shapes import ShapePalette
 from repro_torch.data.synthetic import MultiTaskDataset
 
 REPO = Path(__file__).resolve().parents[1]
+# every module the port copies verbatim, but for ``repro.`` -> ``repro_torch.``
 COPIED = sorted(str(p.relative_to(REPO / "src" / "repro"))
                 for p in (REPO / "src" / "repro" / "configs").glob("*.py")) + [
     "core/cost_model.py", "core/microbatch.py", "core/shapes.py",
-    "data/synthetic.py"]
+    "data/synthetic.py",
+    "core/instructions.py", "core/schedule.py", "core/simulator.py",
+    "core/comm_plan.py", "core/recompute.py", "core/planner.py",
+    "core/executor.py", "analysis/__init__.py", "analysis/hb_graph.py",
+    "analysis/lint.py", "analysis/memory.py", "analysis/report.py",
+    "data/dataset.py", "data/streams.py", "train/step_cache.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -104,3 +111,40 @@ def test_cost_model_default_stays_v5e():
         assert tcost.stage_act_memory(mbs, seq) == \
             jcost.stage_act_memory(mbs, seq)
         assert tcost.stage_bwd_time(mbs, seq) == 0.0
+
+
+@pytest.mark.parametrize("encdec", [False, True], ids=["gpt", "t5"])
+def test_stream_plans_and_micro_batches_identical_to_reference(encdec):
+    from repro.core.cost_model import AnalyticCostModel as JCost
+    from repro.core.planner import PlannerConfig as JPlannerConfig
+    from repro.core.planner import plan_iteration as j_plan_iteration
+    from repro.data.dataset import materialize_micro_batch as j_materialize
+    from repro.data.streams import MultiTaskStream as JStream
+    from repro.data.streams import StreamConfig as JStreamConfig
+    from repro_torch.core.planner import PlannerConfig, plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    arch = "t5-paper" if encdec else "gpt-paper"
+    jcfg, tcfg = j_reduced(j_get_arch(arch)), reduced(get_arch(arch))
+    kw = dict(n_tasks=16, global_tokens=2048, max_len=256, vocab=512,
+              encdec_fraction=1.0 if encdec else 0.0, seed=4)
+    pal = dict(min_seq=32, max_seq=256, seq_align=32, max_mbs=8)
+    for k in range(2):
+        jb = JStream(JStreamConfig(**kw)).batch(k)
+        tb = MultiTaskStream(StreamConfig(**kw)).batch(k)
+        np.testing.assert_array_equal(tb.lengths, jb.lengths)
+        assert all(np.array_equal(a, b) for a, b in zip(tb.tokens, jb.tokens))
+        lens = jb.lengths if encdec else jb.lengths[:, 0]
+        jp = j_plan_iteration(lens, JCost(jcfg, n_stages=2), JPlannerConfig(
+            n_stages=2, d_model=jcfg.d_model, palette=JPalette.build(**pal)))
+        tp = plan_iteration(lens, AnalyticCostModel(tcfg, n_stages=2),
+                            PlannerConfig(n_stages=2, d_model=tcfg.d_model,
+                                          palette=ShapePalette.build(**pal)))
+        assert [p.to_json() for p in tp.replica_plans] == \
+            [p.to_json() for p in jp.replica_plans]
+        for m in tp.replica_plans[0].micro_batches:
+            a = materialize_micro_batch(m, tb.tokens, lengths=tb.lengths)
+            b = j_materialize(m, jb.tokens, lengths=jb.lengths)
+            assert sorted(a) == sorted(b)
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
