@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py                        # device, kernel, serve, train
+    python3 chip_smoke.py                        # device, kernel, serve, train, mamba
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
 
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit, and the build of every CUDA
-             kernel (K1 in ``flash_fwd.cu``, K2 and K3 in ``flash_bwd.cu``)
-             from the sources in this checkout, with ptxas's register and
-             spill lines;
+             kernel (K1 in ``flash_fwd.cu``, K2 and K3 in ``flash_bwd.cu``,
+             K4 in ``ssd_fwd.cu``), one nvcc per source, all started
+             together, from the sources in this checkout, with ptxas's
+             register and spill lines;
 2. kernel  — K1 (``mha_forward``), K2 (``mha_backward_dq``) and K3
              (``mha_backward_dkv``) against their plain PyTorch versions on
              the card, at the serving and training paths' shapes and on
@@ -21,7 +22,13 @@ Phases, each printing its own lines; any failure exits non-zero:
              with times of the kernels, the plain versions and
              ``scaled_dot_product_attention``'s forward and backward (a
              yardstick the port never calls) beside the least time the card
-             could take;
+             could take; then K4 (``ssd_chunked``) against its plain version
+             at the mamba serve's shapes (B 8 at T 2048, 192 and 96) and on
+             small cases (groups, T 1, a decay past -60 within a chunk),
+             elementwise and per (batch row, head, 64-step chunk) relative
+             norm, which must also fail a planted fault (the state reset at
+             every chunk boundary), with its time beside its bound and the
+             plain version's (no single PyTorch call computes the SSD);
 3. serve   — ``repro_torch.serve`` at full gpt-paper width, 32 layers,
              random seeded weights: the launch count of K1 must equal
              n_layers x (prefill batches x (1 + decode steps)) and every
@@ -37,13 +44,21 @@ Phases, each printing its own lines; any failure exits non-zero:
              step's loss and every gradient leaf (elementwise and by each
              leaf's relative norm, which must also fail a K2 planted to
              return zeros) and on 2 iterations' losses;
-5. profile — (not run by default) torch.profiler over one full-width prefill
-             of 8 x 2048 tokens and its decode steps, and over one training
-             iteration at 8 layers: device time by kernel, K1, K2 and K3
-             singled out, and the device's idle share.
+5. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
+             (24 layers), random seeded weights, the serve phase's requests:
+             K4 must launch 24 x prefill batches times and K1 never, and
+             every logit must be finite; then the same serve with 2 layers
+             runs once with K4 and once with the plain SSD, and their logits
+             must agree;
+6. profile — (not run by default) torch.profiler over one full-width prefill
+             of 8 x 2048 tokens and its decode steps, of gpt-paper and of
+             mamba2-130m, and over one training iteration at 8 layers:
+             device time by kernel, K1 to K4 singled out, and the device's
+             idle share.
 
-The line before the last is the kernels' JSON record, the last line the
-device record. Nothing is printed as a result without a card.
+The third line from the end is the kernels' JSON record, the second the
+card's name and power limit, the last the device record. Nothing is
+printed as a result without a card.
 """
 from __future__ import annotations
 
@@ -75,8 +90,18 @@ GRAD_TOL_BF16 = 4e-2
 GRAD_REL_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
-# the serve phase: requests, longest prompt, greedy steps
+# the serve and mamba phases: requests, longest prompt, greedy steps
 REQUESTS, MAX_PROMPT, DECODE_STEPS = 32, 2048, 16
+# K4's bf16 tolerance: the reference's SSD kernel test (tests/test_kernels.py
+# :193); y is rounded to bf16 and the chunks differ (64 steps, 128 in the
+# plain version)
+SSD_TOL_BF16 = 5e-2
+# ||y - plain|| / ||plain|| per (batch row, head, 64-step chunk), and per
+# (batch row, head) for the final state. y shrinks under strong decay, where
+# the elementwise tolerance compares little. The limit lies between K4's
+# readings and those of the planted fault (PERF.md, section 6).
+SSD_REL_TOL = 1e-2
+MAMBA_LAYERS = 24
 # the train phase's rows in the kernel phase: one sample per row
 TRAIN_ROWS = (2048, 1500, 900, 300)
 # the train phase: gpt-paper at full width, depth cut to 8 layers (fp32
@@ -85,14 +110,20 @@ TRAIN_ROWS = (2048, 1500, 900, 300)
 TRAIN_LAYERS, TRAIN_ITERS = 8, 4
 TRAIN_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=2048,
                     tail_fraction=0.1, tail_alpha=1.2, seed=0)
-# id -> (name, source, the TPU kernel it replaces, its timed record)
+# id -> (name, source, the TPU kernel it replaces, its timed record, the
+# paths whose launch counts it reports, the first that ran giving `launches`)
 KERNELS = {
     "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
-           "src/repro/kernels/flash_attention.py:354", "prefill"),
+           "src/repro/kernels/flash_attention.py:354", "prefill",
+           ("train", "serve")),
     "K2": ("mha_backward_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
-           "src/repro/kernels/flash_attention.py:404", "train-segmented"),
+           "src/repro/kernels/flash_attention.py:404", "train-segmented",
+           ("train", "serve")),
     "K3": ("mha_backward_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
-           "src/repro/kernels/flash_attention.py:438", "train-segmented"),
+           "src/repro/kernels/flash_attention.py:438", "train-segmented",
+           ("train", "serve")),
+    "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
+           "src/repro/kernels/ssd.py:114", "ssd-serve", ("mamba",)),
 }
 
 
@@ -128,7 +159,8 @@ def phase_device(torch):
           f"{took:.1f}s with {_build.nvcc()}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            fn = re.search(r"Compiling entry function '\w*?(mha_\w+?_kernel)I(\w*?)EEv", line)
+            fn = re.search(r"Compiling entry function "
+                           r"'\w*?\d((?:mha|ssd)_[a-z_]+?_kernel)I(\w*?)EEv", line)
             if fn:   # the kernel and its template arguments, demangled
                 args = ", ".join(re.findall(r"L[ib](\d+)E", fn.group(2) + "E"))
                 print(f"[device]   {name}: {fn.group(1)}<{args}>")
@@ -492,19 +524,147 @@ def phase_kernel(torch):
     return records, worst
 
 
+def _ssd_inputs(torch, gen, *, b, t, h, p, g, n, a_scale=1.0):
+    """x, B and C as strided views of one (B, T, H·P + 2·G·N) bf16 tensor,
+    as mamba_fwd hands them to K4 (slices of the conv output); dt =
+    softplus(normal) and A = -exp(normal) · a_scale in fp32."""
+    u = torch.randn((b, t, h * p + 2 * g * n), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    x = u[..., :h * p].reshape(b, t, h, p)
+    B = u[..., h * p:h * p + g * n].reshape(b, t, g, n)
+    C = u[..., h * p + g * n:].reshape(b, t, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=gen, device="cuda"))
+    A = -torch.exp(torch.randn((h,), generator=gen, device="cuda")) * a_scale
+    return x, dt, A, B, C
+
+
+def _ssd_bound_ms(x, B):
+    """Least time of K4 for these inputs: the chunked algorithm's FLOPs at
+    K4's 64-step chunks, 2 L (L N + L P + 2 N P) per (batch row, head,
+    chunk of L real steps), over the bf16 peak (x, B and C are bf16),
+    against the bytes of x and y (bf16), B and C (bf16), dt (fp32), A and
+    the final state (fp32), each once, over HBM."""
+    from repro_torch.kernels import ssd as SSD
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    lens = [min(SSD.CHUNK, t - t0) for t0 in range(0, t, SSD.CHUNK)]
+    flops = float(b * h * sum(2 * L * (L * n + L * p + 2 * n * p)
+                              for L in lens))
+    nbytes = (2 * b * t * h * p * 2 + 2 * b * t * g * n * 2 + b * t * h * 4
+              + h * 4 + b * h * p * n * 4)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _state_reset_fault(SSD, torch, x, dt, A, B, C):
+    """The planted fault: the plain version with the inter-chunk term
+    dropped, i.e. the state reset to zero at every boundary of K4's
+    64-step chunks."""
+    ys, st, chunk = [], None, SSD.CHUNK
+    for t0 in range(0, x.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        y, st = SSD.ssd_chunked_plain(x[:, sl], dt[:, sl], A, B[:, sl],
+                                      C[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1), st
+
+
+def _rel_per_head(torch, out, ref):
+    """Worst ||out - ref|| / ||ref|| over (batch row, head) of a state."""
+    d = (out.float() - ref.float()).flatten(2).norm(dim=2)
+    r = ref.float().flatten(2).norm(dim=2)
+    return float(torch.where(r > 0, d / r.clamp_min(1e-30),
+                             torch.where(d > 0, float("inf"), 0.0)).max())
+
+
+def phase_kernel_ssd(torch):
+    """K4 against its plain version: elementwise (SSD_TOL_BF16) and per
+    chunk (SSD_REL_TOL), the planted fault read on every case and required
+    to fail the per-chunk check wherever the state carries across chunks."""
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    serve = dict(h=24, p=64, g=1, n=128)          # mamba2-130m's mixer
+    # name, shape, timed, whether the planted fault must be seen
+    cases = [
+        ("ssd-serve", dict(b=8, t=2048, **serve), True, True),
+        ("ssd-192", dict(b=8, t=192, **serve), True, True),
+        ("ssd-96", dict(b=8, t=96, **serve), False, True),
+        ("ssd-groups", dict(b=2, t=300, h=4, p=16, g=2, n=16), False, True),
+        ("ssd-T1", dict(b=2, t=1, **serve), False, False),
+        ("ssd-strong-decay", dict(b=2, t=300, a_scale=40.0, **serve), False,
+         False),
+    ]
+    records, worst = {}, (0.0, 0.0)
+    for name, shape, timed, fault_seen in cases:
+        args = _ssd_inputs(torch, gen, **shape)
+        x, dt, A, B, C = args
+        y, st = SSD.ssd_chunked(*args)
+        torch.cuda.synchronize()
+        y_ref, st_ref = SSD.ssd_chunked_plain(*args)
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
+              f"K4 {name}: non-finite output")
+        err_y, ok_y = _grad_close(y, y_ref, SSD_TOL_BF16)
+        err_s, ok_s = _grad_close(st, st_ref, SSD_TOL_BF16)
+        rel = max(_tile_rel(torch, y, y_ref, tile=SSD.CHUNK),
+                  _rel_per_head(torch, st, st_ref))
+        y_f, st_f = _state_reset_fault(SSD, torch, *args)
+        f_rel = max(_tile_rel(torch, y_f, y_ref, tile=SSD.CHUNK),
+                    _rel_per_head(torch, st_f, st_ref))
+        f_ok = _grad_close(y_f, y_ref, SSD_TOL_BF16)[1] and \
+            _grad_close(st_f, st_ref, SSD_TOL_BF16)[1]
+        del y_f, st_f
+        worst = (max(worst[0], err_y, err_s), max(worst[1], rel))
+        a_min = float((dt * A)[:, :SSD.CHUNK].sum(1).min())
+        line = (f"[kernel] {name:20s} x {tuple(x.shape)} B {tuple(B.shape)} "
+                f"max|y-plain| {err_y:.3e} (max|y| {float(y_ref.abs().max()):.1f})"
+                f" max|state-plain| {err_s:.3e} (tol {SSD_TOL_BF16}, atol = "
+                f"rtol); worst chunk/state ||out-plain||/||plain|| "
+                f"{rel:.3e}; planted fault (state reset per 64-step chunk) "
+                f"{f_rel:.3e}, elementwise tol {'passes' if f_ok else 'fails'}"
+                f" it (SSD_REL_TOL {SSD_REL_TOL}); least sum of dt A over a "
+                f"first chunk {a_min:.1f}")
+        print(line, flush=True)
+        check(ok_y and ok_s, f"K4 {name}: disagrees with its plain version")
+        check(rel <= SSD_REL_TOL, f"K4 {name}: a chunk's relative error "
+              f"{rel:.3e} exceeds SSD_REL_TOL {SSD_REL_TOL}")
+        if fault_seen:
+            check(f_rel > SSD_REL_TOL, f"K4 {name}: the per-chunk check does "
+                  "not see the planted fault")
+        if timed:
+            ms = _cuda_time(torch, lambda: SSD.ssd_chunked(*args), 20)
+            plain_ms = _cuda_time(torch, lambda: SSD.ssd_chunked_plain(*args),
+                                  3, warmup=1)
+            bound_ms, bound_by, flops, nbytes = _ssd_bound_ms(x, B)
+            records[("K4", name)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                library="none: no single PyTorch call computes the SSD")
+            print(f"[kernel] {name:20s} K4 {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                  f"TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), plain "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                  f"{100 * bound_ms / ms:.1f}% of bound)", flush=True)
+        del args, x, dt, A, B, C, y, st, y_ref, st_ref
+        torch.cuda.empty_cache()
+    return records, {"K4": worst}
+
+
 # ----------------------------------------------------------------------
 # phase 3: serve at full width
 # ----------------------------------------------------------------------
-def _serve(torch, n_layers, *, n_requests, max_prompt, decode_steps, seed):
+def _serve(torch, n_layers, *, n_requests, max_prompt, decode_steps, seed,
+           arch="gpt-paper", tag="serve"):
     from repro_torch import serve as SV
     from repro_torch.models import model as MD
-    cfg = SV.make_config("gpt-paper", "full", n_layers)
+    cfg = SV.make_config(arch, "full", n_layers)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     params = MD.init_params(gen, cfg, device="cuda")
     tokens = SV.make_requests(cfg, n_requests, max_prompt)
     res = SV.serve(params, cfg, tokens, max_prompt=max_prompt,
                    decode_steps=decode_steps,
-                   log=lambda m: print(f"[serve]{m}", flush=True))
+                   log=lambda m: print(f"[{tag}]{m}", flush=True))
     del params
     return cfg, tokens, res
 
@@ -654,7 +814,7 @@ def phase_train(torch):
     n_micro = sum(h["n_micro"] for h in hist)
     expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
                 "mha_backward_dq": cfg.n_layers * n_micro,
-                "mha_backward_dkv": cfg.n_layers * n_micro}
+                "mha_backward_dkv": cfg.n_layers * n_micro, "ssd_chunked": 0}
     print(f"[train] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
           f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
@@ -763,14 +923,69 @@ def phase_train(torch):
 
 
 # ----------------------------------------------------------------------
-# phase 5: profiles (not run by default)
+# phase 5: serve mamba2-130m at full width and depth
+# ----------------------------------------------------------------------
+def phase_mamba(torch, requests, max_prompt, decode_steps):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as SSD
+    import numpy as np
+    from repro_torch.serve import report
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, tokens, res = _serve(torch, MAMBA_LAYERS, n_requests=requests,
+                              max_prompt=max_prompt,
+                              decode_steps=decode_steps, seed=0,
+                              arch="mamba2-130m", tag="mamba")
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    lens = np.array([len(t) for t in tokens])
+    for line in report(res, lens).splitlines():
+        print(f"[mamba] {line}")
+    nb = len(res.batches)
+    expected = {"mha_forward": 0, "mha_backward_dq": 0, "mha_backward_dkv": 0,
+                "ssd_chunked": cfg.n_layers * nb}
+    print(f"[mamba] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"d_inner {cfg.d_inner} {cfg.ssm_heads} SSD heads x "
+          f"{cfg.ssm_headdim}, d_state {cfg.ssm_state} "
+          f"({cfg.n_params() / 1e6:.1f} M params), {len(tokens)} requests, "
+          f"{decode_steps} decode steps in {took:.1f}s incl. init; launches "
+          f"{counts} (expected {expected}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(counts == expected, f"mamba serve launches {counts}, expected "
+          f"{expected}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          "non-finite logits in the mamba serve")
+    del res
+    torch.cuda.empty_cache()
+
+    # the same serve, 2 layers, once with K4 and once with the plain SSD
+    kw = dict(n_requests=requests, max_prompt=max_prompt,
+              decode_steps=decode_steps, seed=1, arch="mamba2-130m",
+              tag="mamba")
+    _, _, with_k4 = _serve(torch, 2, **kw)
+    with mock.patch.object(SSD, "_ssd_cuda",
+                           lambda *a: SSD.ssd_chunked_plain(*a)):
+        _, _, with_plain = _serve(torch, 2, **kw)
+    err, compared = _compare_serves(torch, with_k4, with_plain, TOL_BF16)
+    print(f"[mamba] 2 layers, K4 vs plain SSD: max |logit diff| / "
+          f"(1 + max|logit|) {err:.3e} over {compared} (row, step) logit "
+          f"vectors (tol {TOL_BF16})", flush=True)
+    check(err <= TOL_BF16, "2-layer mamba serve logits: K4 and plain disagree")
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 6: profiles (not run by default)
 # ----------------------------------------------------------------------
 KERNEL_SYMBOLS = {"K1": "mha_fwd_kernel", "K2": "mha_bwd_dq_kernel",
-                  "K3": "mha_bwd_dkv_kernel"}
+                  "K3": "mha_bwd_dkv_kernel", "K4": "ssd_fwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies
 KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
-         ("K1-K3", tuple(KERNEL_SYMBOLS.values())),
+         ("K1-K4", tuple(KERNEL_SYMBOLS.values())),
          ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
          ("copy", ("copy", "Cat")))
 
@@ -813,12 +1028,13 @@ def _profile_window(torch, name, fn):
               f"{key[:90]}")
 
 
-def phase_profile_serve(torch, max_prompt, decode_steps):
+def phase_profile_serve(torch, max_prompt, decode_steps, arch="gpt-paper",
+                        n_layers=32):
     """Where the time goes in the full-width serve: one prefill of the
     largest batch (8 x max_prompt) and its decode steps, after a warm-up."""
     from repro_torch import serve as SV
     from repro_torch.models import model as MD
-    cfg = SV.make_config("gpt-paper", "full", 32)
+    cfg = SV.make_config(arch, "full", n_layers)
     params = MD.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                             device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -845,8 +1061,11 @@ def phase_profile_serve(torch, max_prompt, decode_steps):
     with torch.inference_mode():
         prefill()
         decode()          # warm-up of both
-        _profile_window(torch, f"prefill {b}x{s}", prefill)
-        _profile_window(torch, f"decode {decode_steps} steps of {b}", decode)
+        _profile_window(torch, f"{arch} prefill {b}x{s}", prefill)
+        _profile_window(torch, f"{arch} decode {decode_steps} steps of {b}",
+                        decode)
+    del params
+    torch.cuda.empty_cache()
 
 
 def phase_profile_train(torch):
@@ -889,9 +1108,9 @@ def phase_profile_train(torch):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,kernel,serve,train",
-                    help="comma-separated: kernel, serve, train, profile (the "
-                    "device phase always runs)")
+    ap.add_argument("--phases", default="device,kernel,serve,train,mamba",
+                    help="comma-separated: kernel, serve, train, mamba, "
+                    "profile (the device phase always runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -913,23 +1132,37 @@ def main():
     records, worst, paths = {}, {}, {}
     if "kernel" in phases:
         records, worst = phase_kernel(torch)
+        ssd_records, ssd_worst = phase_kernel_ssd(torch)
+        records.update(ssd_records)
+        worst.update(ssd_worst)
     # each path's launch counts, read right after it ran from counts of 0
     if "serve" in phases:
         paths["serve"] = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "train" in phases:
         paths["train"] = phase_train(torch)
+    if "mamba" in phases:
+        paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
+        phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,
+                            arch="mamba2-130m", n_layers=MAMBA_LAYERS)
         phase_profile_train(torch)
-    main_path = paths.get("train") or paths.get("serve") or {}
     kernels = []
-    for kid, (name, source, replaces, main_case) in KERNELS.items():
+    for kid, (name, source, replaces, main_case, kpaths) in KERNELS.items():
         rec = records.get((kid, main_case), {})
         err, rel = worst.get(kid, (None, None))
+        if kid == "K4":   # the other timed shape: the serve's T 192 batch
+            others = {"t_192": records.get((kid, "ssd-192"))}
+        else:   # K1 at decode (no backward there), every kernel at
+            # causal-2048 (K1's prefill shape)
+            others = {"decode": records.get((kid, "decode")),
+                      "causal_2048": records.get((kid, "prefill" if kid == "K1"
+                                                  else "causal-2048"))}
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_path.get(name),
+            "launches": next((paths[p][name] for p in kpaths if p in paths),
+                             None),
             "launches_by_path": {p: c[name] for p, c in paths.items()},
             "max_abs_err": err, "max_err": err, "max_tile_rel_err": rel,
             "ms": rec.get("ms"), "plain_ms": rec.get("plain_ms"),
@@ -937,11 +1170,7 @@ def main():
             "library_ms": rec.get("library_ms"),
             **{k: x for k, x in rec.items() if k not in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            # the other timed shapes: K1 at decode (no backward there), every
-            # kernel at causal-2048 (K1's prefill shape)
-            "decode": records.get((kid, "decode")),
-            "causal_2048": records.get((kid, "prefill" if kid == "K1"
-                                        else "causal-2048")),
+            **others,
         })
     print(f"[done] {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -18,6 +18,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -25,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # name -> (source file, {C function: argtypes}); every function returns int
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
@@ -34,6 +37,9 @@ KERNELS = {
     "flash_bwd": ("flash_bwd.cu", {
         "mha_bwd_dq_bf16": [_P] * 11 + [_I] * 8 + [ctypes.c_float, _P],
         "mha_bwd_dkv_bf16": [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P],
+    }),
+    "ssd_fwd": ("ssd_fwd.cu", {
+        "ssd_fwd_bf16": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_P],
     }),
 }
 
@@ -99,6 +105,15 @@ def library(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def launch(fn, *args, device):
+    """Call a C launcher on ``device``'s current stream; raise on its code."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
 
 
 def build_log(name: str) -> str:

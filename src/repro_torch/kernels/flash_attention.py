@@ -230,15 +230,6 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def _launch(fn, *args, device):
-    """Call a C launcher on ``device``'s current stream; raise on its code."""
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
-
-
 def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
                       q_segment_ids, kv_segment_ids, *,
                       causal, window, softcap):
@@ -250,7 +241,7 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     lib = _build.library("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    _launch(lib.mha_fwd_bf16,
+    _build.launch(lib.mha_fwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
             _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
             b, t, s, h, kvh, d, int(causal), int(window),
@@ -290,7 +281,7 @@ def _launch_dq(q, k, v, q_positions, kv_positions, q_segment_ids,
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dq = torch.empty_like(q)
-    _launch(_build.library("flash_bwd").mha_bwd_dq_bf16,
+    _build.launch(_build.library("flash_bwd").mha_bwd_dq_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
             _ptr(kv_segment_ids), _ptr(dq), b, t, s, h, kvh, d, int(causal),
@@ -305,7 +296,7 @@ def _launch_dkv(q, k, v, q_positions, kv_positions, q_segment_ids,
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_build.library("flash_bwd").mha_bwd_dkv_bf16,
+    _build.launch(_build.library("flash_bwd").mha_bwd_dkv_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
             _ptr(kv_segment_ids), _ptr(dk), _ptr(dv), b, t, s, h, kvh, d,

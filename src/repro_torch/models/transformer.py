@@ -1,14 +1,14 @@
 """Period-stacked decoder stack in PyTorch.
 
-Counterpart of ``repro.models.transformer`` for attention + dense-MLP
-layers. Parameters keep the reference's layout: every leaf stacked on a
+Counterpart of ``repro.models.transformer`` for attention and Mamba2
+mixers with dense MLPs. Parameters keep the reference's layout: every leaf stacked on a
 leading ``n_periods`` axis, one period being one repetition of
 ``cfg.layer_pattern``. A Python loop over periods takes the place of
 ``jax.lax.scan``. In training each period runs under
 ``torch.utils.checkpoint`` (non-reentrant) in place of the reference's
 ``jax.checkpoint`` with the "nothing" policy: only the period inputs are
-kept for the backward, which recomputes the rest. Mamba and MoE layers are
-later slices.
+kept for the backward, which recomputes the rest. MoE layers are a later
+slice.
 """
 from __future__ import annotations
 
@@ -18,13 +18,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.tree import tree_map
 
 
 def _check_spec(spec: LayerSpec):
-    if spec.mixer == "mamba" or spec.moe:
+    if spec.moe:
         raise NotImplementedError(
-            f"layer {spec} is not ported yet (attention + dense MLP only)")
+            f"layer {spec} is not ported yet (MoE is ROADMAP A15)")
 
 
 # ----------------------------------------------------------------------
@@ -33,8 +34,11 @@ def _check_spec(spec: LayerSpec):
 def init_block(gen, cfg: ArchConfig, spec: LayerSpec, device):
     _check_spec(spec)
     dt = L._dtype(cfg)
-    p: dict = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device),
-               "mixer": L.init_attention(gen, cfg, device)}
+    p: dict = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
+    if spec.mixer == "mamba":
+        p["mixer"] = M.init_mamba(gen, cfg, device)
+    else:
+        p["mixer"] = L.init_attention(gen, cfg, device)
     if cfg.d_ff:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
@@ -46,11 +50,14 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
               mode="train"):
     _check_spec(spec)
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
-    y, new_cache = L.attention_fwd(
-        p["mixer"], x, cfg, local=(spec.mixer == "attn_local"),
-        positions=positions, segment_ids=segment_ids,
-        cache=cache, cache_pos=cache_pos, mode=mode,
-    )
+    if spec.mixer == "mamba":    # positions, segment ids, cache_pos unused
+        y, new_cache = M.mamba_fwd(p["mixer"], x, cfg, cache=cache, mode=mode)
+    else:
+        y, new_cache = L.attention_fwd(
+            p["mixer"], x, cfg, local=(spec.mixer == "attn_local"),
+            positions=positions, segment_ids=segment_ids,
+            cache=cache, cache_pos=cache_pos, mode=mode,
+        )
     h = h + y
     if "ffn" in p:
         x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
@@ -63,13 +70,24 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
 # ----------------------------------------------------------------------
 def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
                device="cuda"):
-    """Per-period-position KV cache, stacked over periods: tuple of dicts
-    of (n_periods, batch, seq, KV, Dh) tensors."""
+    """Per-period-position cache, stacked over periods: a tuple of dicts,
+    for attention of (n_periods, batch, seq, KV, Dh) k and v, for Mamba of
+    the conv state (n_periods, batch, K - 1, conv_ch) in ``dtype`` and the
+    ssm state (n_periods, batch, H, P, N) fp32, whatever ``seq``."""
     device = resolve_device(device)
     caches = []
+    np_ = cfg.n_periods
     for spec in cfg.layer_pattern:
         _check_spec(spec)
-        shape = (cfg.n_periods, batch, seq, cfg.n_kv_heads, cfg.d_head)
+        if spec.mixer == "mamba":
+            _, _, n, hh, conv_ch = M._dims(cfg)
+            caches.append({
+                "conv": torch.zeros((np_, batch, cfg.ssm_conv - 1, conv_ch),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((np_, batch, hh, cfg.ssm_headdim, n),
+                                   dtype=torch.float32, device=device)})
+            continue
+        shape = (np_, batch, seq, cfg.n_kv_heads, cfg.d_head)
         caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
                        "v": torch.zeros(shape, dtype=dtype, device=device)})
     return tuple(caches)

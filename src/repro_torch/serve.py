@@ -5,12 +5,15 @@ inference. Variable-length requests are ordered and grouped into bucketed
 prefill batches by the same DP splitter that builds training micro-batches
 (``order_samples`` + ``dp_split`` over a ``ShapePalette``, with a
 forward-only cost). Each batch is prefilled into a KV cache with headroom
-and then decoded greedily in lockstep for a few tokens. Attention goes
-through the CUDA kernel K1 on the card.
+and then decoded greedily in lockstep for a few tokens. On the card,
+attention goes through the CUDA kernel K1 and a Mamba2 prefill's SSD
+through K4; a Mamba2 decode step is plain PyTorch, as in the reference.
 
     python -m repro_torch.serve                       # reduced gpt-paper, 2 layers
     python -m repro_torch.serve --width full --n-layers 32 --max-prompt 2048 \\
         --n-requests 32 --decode-steps 16
+    python -m repro_torch.serve --arch mamba2-130m --width full --n-layers 24 \\
+        --max-prompt 2048 --n-requests 32 --decode-steps 16
 
 As in the reference example, a batch's logits come from its last column, so
 a prompt shorter than its batch's padded length takes its first greedy

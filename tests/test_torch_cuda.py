@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2 and K3 on the card, against their plain versions
-and the CPU.
+"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain
+versions and the CPU.
 
 Marked ``cuda``: each test skips where there is no card. On a machine with
 one they run with ``PYTHONPATH=src python -m pytest -q -m cuda --noconftest
@@ -9,7 +9,9 @@ the serving and training paths' full widths. Tolerances: 2e-2 for the
 forward, the reference's bf16 kernel tolerance (tests/test_kernels.py:28):
 the kernel rounds p to bf16 before p·v, the plain version does not; 4e-2 for
 gradients, the reference's bf16 ``GRAD_TOL`` (tests/test_kernel_grads.py:21),
-where p and ds are rounded to bf16 before the second products.
+where p and ds are rounded to bf16 before the second products; 5e-2 for
+K4 (SSD), the reference's bf16 SSD tolerance (tests/test_kernels.py:193):
+its chunks are 64 steps, the plain version's 128, and y is rounded to bf16.
 """
 import numpy as np
 import pytest
@@ -18,11 +20,13 @@ import torch
 from repro_torch import serve as SV
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as SSD
 from repro_torch.models import model as MD
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
 GRAD_TOL = 4e-2
+SSD_TOL = 5e-2
 
 
 @pytest.fixture
@@ -102,7 +106,7 @@ def test_backward_kernels_match_plain_version(cuda, d, t, s, h, kv, opts):
     ops.reset_launch_counts()
     out = fa.mha_backward(q, k, v, qp, kp, None, None, o, lse, do, **opts)
     assert ops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 1,
-                                   "mha_backward_dkv": 1}
+                                   "mha_backward_dkv": 1, "ssd_chunked": 0}
     ref = fa.mha_backward_plain(q, k, v, qp, kp, None, None, o, lse, do,
                                 **opts)
     for a, r in zip(out, ref):
@@ -146,7 +150,7 @@ def test_autograd_through_the_kernels_matches_the_cpu(cuda):
         (out.float() * ct.to(dev)).sum().backward()
         n = 1 if dev.type == "cuda" else 0
         assert ops.launch_counts() == {"mha_forward": n, "mha_backward_dq": n,
-                                       "mha_backward_dkv": n}
+                                       "mha_backward_dkv": n, "ssd_chunked": 0}
         grads.append([x.grad.cpu() for x in leaves])
     for a, r in zip(*grads):
         _grad_close(a, r)
@@ -173,7 +177,8 @@ def test_grad_step_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     # forward, the recompute of each period, and one backward per layer
     assert ops.launch_counts() == {"mha_forward": 2 * cfg.n_layers,
                                    "mha_backward_dq": cfg.n_layers,
-                                   "mha_backward_dkv": cfg.n_layers}
+                                   "mha_backward_dkv": cfg.n_layers,
+                                   "ssd_chunked": 0}
     assert float(w_gpu) == float(w_cpu)
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=GRAD_TOL, rtol=GRAD_TOL)
 
@@ -210,3 +215,67 @@ def test_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
         err = float((a - b).abs().max()) / (1 + float(b.abs().max()))
         assert err <= TOL
     assert all(np.isfinite(t).all() for t in on_gpu.tokens)
+
+
+def _ssd_inputs(dev, b, t, h, p, g, n, seed=0):
+    """x, B, C as strided views of one (B, T, H·P + 2·G·N) bf16 tensor, as
+    mamba_fwd passes them; dt and A fp32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((b, t, h * p + 2 * g * n), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    x = u[..., :h * p].reshape(b, t, h, p)
+    B = u[..., h * p:h * p + g * n].reshape(b, t, g, n)
+    C = u[..., h * p + g * n:].reshape(b, t, g, n)
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, t, h), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    return x, dt, A, B, C
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n", [
+    (2, 1, 4, 16, 1, 16),        # one step
+    (2, 96, 4, 16, 2, 16),       # under one chunk, two groups
+    (2, 192, 24, 64, 1, 128),    # ragged: three chunks, mamba2-130m's heads
+    (1, 300, 8, 32, 4, 32),
+])
+def test_ssd_kernel_matches_plain_version(cuda, b, t, h, p, g, n):
+    x, dt, A, B, C = _ssd_inputs(cuda, b, t, h, p, g, n)
+    assert not x.is_contiguous()
+    ops.reset_launch_counts()
+    y, st = SSD.ssd_chunked(x, dt, A, B, C)
+    assert ops.launch_counts()["ssd_chunked"] == 1
+    y_ref, st_ref = SSD.ssd_chunked_plain(x, dt, A, B, C)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    torch.testing.assert_close(st, st_ref, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+def test_ssd_kernel_refuses_a_gradient_and_an_initial_state(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 8, 2, 16, 1, 16)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd(x, dt, A.clone().requires_grad_(), B, C)
+    with pytest.raises(NotImplementedError, match="initial state"):
+        ops.ssd(x, dt, A, B, C,
+                initial_state=torch.zeros((1, 2, 16, 16), device=cuda))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.ssd(x.float(), dt, A, B, C)
+
+
+def test_mamba_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
+    cfg = SV.make_config("mamba2-130m", "reduced", 2)
+    params = MD.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    tokens = SV.make_requests(cfg, 8, 128)
+    ops.reset_launch_counts()
+    on_cpu = SV.serve(params, cfg, tokens, max_prompt=128, decode_steps=3)
+    assert ops.launch_counts()["ssd_chunked"] == 0
+    on_gpu = SV.serve(_to(params, cuda), cfg, tokens, max_prompt=128,
+                      decode_steps=3)
+    nb = len(on_gpu.batches)
+    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 0,
+                                   "mha_backward_dkv": 0,
+                                   "ssd_chunked": cfg.n_layers * nb}
+    for a, b in zip(on_gpu.logits, on_cpu.logits):
+        a, b = a.cpu().float()[0], b.float()[0]     # prefill logits
+        err = float((a - b).abs().max()) / (1 + float(b.abs().max()))
+        assert err <= TOL

@@ -58,14 +58,24 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(
     from repro_torch import convert
     from repro_torch import serve as SV
     from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import mamba as M
     from repro_torch.models import model as MD
     from repro_torch.models import transformer as T
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduced(get_arch("gpt-paper"))
+    mamba = reduced(get_arch("mamba2-130m"))
     with pytest.raises(RuntimeError, match="CUDA was asked for"):
         MD.init_params(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="CUDA was asked for"):
         T.init_cache(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        M.init_mamba(torch.Generator(), mamba)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        T.init_cache(mamba, 1, 8)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        MD.init_params(torch.Generator(), mamba)
+    with pytest.raises(RuntimeError, match="CUDA was asked for"):
+        SV.main(["--arch", "mamba2-130m", "--n-requests", "2"])
     with pytest.raises(RuntimeError, match="CUDA was asked for"):
         convert.params_from_jax({"w": torch.zeros(2).numpy()})
     with pytest.raises(RuntimeError, match="CUDA was asked for"):
