@@ -110,20 +110,22 @@ TRAIN_ROWS = (2048, 1500, 900, 300)
 TRAIN_LAYERS, TRAIN_ITERS = 8, 4
 TRAIN_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=2048,
                     tail_fraction=0.1, tail_alpha=1.2, seed=0)
-# id -> (name, source, the TPU kernel it replaces, its timed record, the
-# paths whose launch counts it reports, the first that ran giving `launches`)
+# id -> (name, source, the TPU kernel it replaces, its timed record, its
+# other timed records by their key in the kernels line, the paths whose
+# launch counts it reports, the first that ran giving `launches`)
 KERNELS = {
     "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
            "src/repro/kernels/flash_attention.py:354", "prefill",
-           ("train", "serve")),
+           {"decode": "decode", "causal_2048": "prefill"}, ("train", "serve")),
     "K2": ("mha_backward_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
-           ("train", "serve")),
+           {"causal_2048": "causal-2048"}, ("train", "serve")),
     "K3": ("mha_backward_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
-           ("train", "serve")),
+           {"causal_2048": "causal-2048"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
-           "src/repro/kernels/ssd.py:114", "ssd-serve", ("mamba",)),
+           "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
+           ("mamba",)),
 }
 
 
@@ -558,15 +560,14 @@ def _ssd_bound_ms(x, B):
             else "bytes", flops, nbytes)
 
 
-def _state_reset_fault(SSD, torch, x, dt, A, B, C):
+def _state_reset_fault(SSD, ref, torch, x, dt, A, B, C):
     """The planted fault: the plain version with the inter-chunk term
     dropped, i.e. the state reset to zero at every boundary of K4's
     64-step chunks."""
     ys, st, chunk = [], None, SSD.CHUNK
     for t0 in range(0, x.shape[1], chunk):
         sl = slice(t0, t0 + chunk)
-        y, st = SSD.ssd_chunked_plain(x[:, sl], dt[:, sl], A, B[:, sl],
-                                      C[:, sl])
+        y, st = ref.ssd_ref_chunked(x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl])
         ys.append(y)
     return torch.cat(ys, dim=1), st
 
@@ -583,6 +584,7 @@ def phase_kernel_ssd(torch):
     """K4 against its plain version: elementwise (SSD_TOL_BF16) and per
     chunk (SSD_REL_TOL), the planted fault read on every case and required
     to fail the per-chunk check wherever the state carries across chunks."""
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as SSD
     gen = torch.Generator(device="cuda").manual_seed(2)
     serve = dict(h=24, p=64, g=1, n=128)          # mamba2-130m's mixer
@@ -602,14 +604,14 @@ def phase_kernel_ssd(torch):
         x, dt, A, B, C = args
         y, st = SSD.ssd_chunked(*args)
         torch.cuda.synchronize()
-        y_ref, st_ref = SSD.ssd_chunked_plain(*args)
+        y_ref, st_ref = ref.ssd_ref_chunked(*args)
         check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
               f"K4 {name}: non-finite output")
         err_y, ok_y = _grad_close(y, y_ref, SSD_TOL_BF16)
         err_s, ok_s = _grad_close(st, st_ref, SSD_TOL_BF16)
         rel = max(_tile_rel(torch, y, y_ref, tile=SSD.CHUNK),
                   _rel_per_head(torch, st, st_ref))
-        y_f, st_f = _state_reset_fault(SSD, torch, *args)
+        y_f, st_f = _state_reset_fault(SSD, ref, torch, *args)
         f_rel = max(_tile_rel(torch, y_f, y_ref, tile=SSD.CHUNK),
                     _rel_per_head(torch, st_f, st_ref))
         f_ok = _grad_close(y_f, y_ref, SSD_TOL_BF16)[1] and \
@@ -634,7 +636,7 @@ def phase_kernel_ssd(torch):
                   "not see the planted fault")
         if timed:
             ms = _cuda_time(torch, lambda: SSD.ssd_chunked(*args), 20)
-            plain_ms = _cuda_time(torch, lambda: SSD.ssd_chunked_plain(*args),
+            plain_ms = _cuda_time(torch, lambda: ref.ssd_ref_chunked(*args),
                                   3, warmup=1)
             bound_ms, bound_by, flops, nbytes = _ssd_bound_ms(x, B)
             records[("K4", name)] = dict(
@@ -927,6 +929,7 @@ def phase_train(torch):
 # ----------------------------------------------------------------------
 def phase_mamba(torch, requests, max_prompt, decode_steps):
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as SSD
     import numpy as np
     from repro_torch.serve import report
@@ -966,8 +969,7 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
               decode_steps=decode_steps, seed=1, arch="mamba2-130m",
               tag="mamba")
     _, _, with_k4 = _serve(torch, 2, **kw)
-    with mock.patch.object(SSD, "_ssd_cuda",
-                           lambda *a: SSD.ssd_chunked_plain(*a)):
+    with mock.patch.object(SSD, "_ssd_cuda", ref.ssd_ref_chunked):
         _, _, with_plain = _serve(torch, 2, **kw)
     err, compared = _compare_serves(torch, with_k4, with_plain, TOL_BF16)
     print(f"[mamba] 2 layers, K4 vs plain SSD: max |logit diff| / "
@@ -1148,16 +1150,12 @@ def main():
                             arch="mamba2-130m", n_layers=MAMBA_LAYERS)
         phase_profile_train(torch)
     kernels = []
-    for kid, (name, source, replaces, main_case, kpaths) in KERNELS.items():
+    for kid, (name, source, replaces, main_case, other_cases,
+              kpaths) in KERNELS.items():
         rec = records.get((kid, main_case), {})
         err, rel = worst.get(kid, (None, None))
-        if kid == "K4":   # the other timed shape: the serve's T 192 batch
-            others = {"t_192": records.get((kid, "ssd-192"))}
-        else:   # K1 at decode (no backward there), every kernel at
-            # causal-2048 (K1's prefill shape)
-            others = {"decode": records.get((kid, "decode")),
-                      "causal_2048": records.get((kid, "prefill" if kid == "K1"
-                                                  else "causal-2048"))}
+        others = {key: records.get((kid, case))
+                  for key, case in other_cases.items()}
         kernels.append({
             "name": f"{kid} {name}", "route": "cuda", "source": source,
             "replaces": replaces,

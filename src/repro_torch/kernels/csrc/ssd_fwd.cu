@@ -278,8 +278,8 @@ ssd_fwd_kernel(const Params p) {
 
 constexpr int kChunkLen = 64;
 
-// Shared memory of one block, in bytes (kernels/ssd.py's smem_bytes checks
-// the same sum before a launch).
+// Shared memory of one block, in bytes. Past what a block may have,
+// cudaFuncSetAttribute refuses it and the launcher returns its error.
 int smem_bytes(int P, int N) {
   const int c = kChunkLen;
   return 4 * (c * (P + kPad) + 2 * c * (N + kPad) + P * (N + kPad)

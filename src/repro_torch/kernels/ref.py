@@ -120,28 +120,32 @@ def ssd_ref(x, dt, A, B, C, *, initial_state=None, return_state=False):
     return y.to(x.dtype), st
 
 
-def ssd_ref_chunked(x, dt, A, B, C, *, block_t=128, return_state=False):
-    """Chunked SSD: a loop over chunks of ``block_t`` steps carrying the
+SSD_CHUNK = 128   # the reference kernel's chunk length
+
+
+def ssd_ref_chunked(x, dt, A, B, C):
+    """Chunked SSD: a loop over chunks of ``SSD_CHUNK`` steps carrying the
     (B,H,P,N) fp32 state, the algorithm of the TPU kernel and of K4.
-    Counterpart of ``repro.kernels.ref.ssd_ref_chunked``, but any T works:
-    x, dt, B and C are zero-filled past T in the last chunk, so its padded
-    steps add no decay (dt·A = 0) and nothing to the state (dt·B x = 0), and
-    y is cut back to T. It is K4's plain version."""
+    Returns ``(y, final_state)``. Counterpart of
+    ``repro.kernels.ref.ssd_ref_chunked``, but any T works: x, dt, B and C
+    are zero-filled past T in the last chunk, so its padded steps add no
+    decay (dt·A = 0) and nothing to the state (dt·B x = 0), and y is cut
+    back to T. It is K4's plain version."""
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     assert h % g == 0, (h, g)
-    nc = -(-t // block_t)
-    pad = nc * block_t - t
+    nc = -(-t // SSD_CHUNK)
+    pad = nc * SSD_CHUNK - t
 
-    def chunks(v):   # (B, T, ...) -> (B, nc, block_t, ...), zero-filled
+    def chunks(v):   # (B, T, ...) -> (B, nc, SSD_CHUNK, ...), zero-filled
         v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
-        return v.reshape(b, nc, block_t, *v.shape[2:])
+        return v.reshape(b, nc, SSD_CHUNK, *v.shape[2:])
 
     xs = chunks(x.float())
     dts = chunks(dt.float())
     Bs = chunks(_repeat_groups(B, h // g, 2))
     Cs = chunks(_repeat_groups(C, h // g, 2))
-    tri = torch.ones((block_t, block_t), dtype=torch.bool,
+    tri = torch.ones((SSD_CHUNK, SSD_CHUNK), dtype=torch.bool,
                      device=x.device).tril()
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
     ys = []
@@ -161,8 +165,7 @@ def ssd_ref_chunked(x, dt, A, B, C, *, block_t=128, return_state=False):
         state = state * torch.exp(torch.clamp(
             a_tot[:, 0, :], min=-60.0))[:, :, None, None] + upd
         ys.append(y)
-    y = torch.cat(ys, dim=1)[:, :t].to(x.dtype)
-    return (y, state) if return_state else y
+    return torch.cat(ys, dim=1)[:, :t].to(x.dtype), state
 
 
 def ssd_decode_ref(x, dt, A, B, C, state):

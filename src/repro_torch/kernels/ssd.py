@@ -3,7 +3,7 @@
 Counterpart of ``repro.kernels.ssd.ssd_chunked``. :func:`ssd_chunked` takes
 the path its tensors' device gives: on a CUDA tensor it launches K4
 (``csrc/ssd_fwd.cu``) or raises, on a CPU tensor it runs
-:func:`ssd_chunked_plain` (``ref.ssd_ref_chunked``). There is no fallback
+its plain version, ``ref.ssd_ref_chunked``. There is no fallback
 from one to the other.
 
 K4 replaces the TPU kernel ``ssd_chunked`` (``src/repro/kernels/ssd.py``,
@@ -31,31 +31,17 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES = {"ssd_chunked": 0}
 
 CHUNK = 64                     # K4's chunk length (kChunkLen in ssd_fwd.cu)
-PAD = 4                        # floats added to each of its shared rows
-SMEM_LIMIT = 232448            # shared memory one block may use on sm_90
-
-
-def smem_bytes(p: int, n: int) -> int:
-    """K4's shared memory per block at head dim ``p`` and state ``n``: x, B,
-    C, W and the state in fp32, and four per-step vectors (the sum
-    ``smem_bytes`` in ``csrc/ssd_fwd.cu`` launches with)."""
-    c = CHUNK
-    return 4 * (c * (p + PAD) + 2 * c * (n + PAD) + p * (n + PAD)
-                + c * (c + PAD) + 4 * c)
-
-
-def ssd_chunked_plain(x, dt, A, B, C, *, block_t=128):
-    """K4's function in plain PyTorch: ``(y, final_state)``."""
-    return _ref.ssd_ref_chunked(x, dt, A, B, C, block_t=block_t,
-                                return_state=True)
 
 
 def check_cuda_args(x, dt, A, B, C):
-    """Everything K4 assumes of its arguments: device, dtype, shape and the
-    strides it can read. Raises on the first that fails."""
-    b, t, h, p = x.shape
-    g, n = B.shape[2], B.shape[3]
-    if dt.shape != (b, t, h) or A.shape != (h,) or B.shape != (b, t, g, n) \
+    """What K4 assumes of its arguments and its launcher cannot see: device,
+    dtype, shape and the strides it can read. Raises on the first that
+    fails. The launcher itself refuses the sizes it cannot take (head dims
+    not a multiple of 4, states not a multiple of 8, more shared memory
+    than a block has, more than 65535 batch rows) with an error code."""
+    b, t, h, _ = x.shape
+    g = B.shape[2]
+    if dt.shape != (b, t, h) or A.shape != (h,) or B.shape[:2] != (b, t) \
             or C.shape != B.shape or h % g:
         raise ValueError(f"bad shapes x {tuple(x.shape)} dt {tuple(dt.shape)} "
                          f"A {tuple(A.shape)} B {tuple(B.shape)} "
@@ -73,14 +59,6 @@ def check_cuda_args(x, dt, A, B, C):
                              f"strides {v.stride()}")
     if A.stride(0) != 1 and h > 1:
         raise ValueError(f"A must be contiguous; stride {A.stride()}")
-    if p % 4 or n % 8:
-        raise ValueError(f"K4 takes head dims that are multiples of 4 and "
-                         f"states that are multiples of 8; got P {p}, N {n}")
-    if smem_bytes(p, n) > SMEM_LIMIT:
-        raise ValueError(f"K4 needs {smem_bytes(p, n)} bytes of shared "
-                         f"memory at P {p}, N {n}; a block has {SMEM_LIMIT}")
-    if b > 65535:
-        raise ValueError(f"K4's grid takes at most 65535 batch rows; got {b}")
 
 
 def _ssd_cuda(x, dt, A, B, C):
@@ -116,5 +94,5 @@ def ssd_chunked(x, dt, A, B, C):
     if x.device.type == "cuda":
         return _ssd_cuda(x, dt, A, B, C)
     if x.device.type == "cpu":
-        return ssd_chunked_plain(x, dt, A, B, C)
+        return _ref.ssd_ref_chunked(x, dt, A, B, C)
     raise ValueError(f"no SSD path for device {x.device}")

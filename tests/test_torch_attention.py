@@ -23,6 +23,11 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ragged_attention as tra
 from repro_torch.kernels import ref as tref
 
+# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
+# tests of other files.
+torch.set_num_threads(2)
+
 TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}

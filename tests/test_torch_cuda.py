@@ -20,6 +20,7 @@ import torch
 from repro_torch import serve as SV
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
 from repro_torch.kernels import ssd as SSD
 from repro_torch.models import model as MD
 
@@ -244,7 +245,7 @@ def test_ssd_kernel_matches_plain_version(cuda, b, t, h, p, g, n):
     ops.reset_launch_counts()
     y, st = SSD.ssd_chunked(x, dt, A, B, C)
     assert ops.launch_counts()["ssd_chunked"] == 1
-    y_ref, st_ref = SSD.ssd_chunked_plain(x, dt, A, B, C)
+    y_ref, st_ref = tref.ssd_ref_chunked(x, dt, A, B, C)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL,
                                rtol=SSD_TOL)
     torch.testing.assert_close(st, st_ref, atol=SSD_TOL, rtol=SSD_TOL)

@@ -43,6 +43,11 @@ from repro_torch.train import optimizer as TO
 from repro_torch.train.pipeline_adapter import build_grad_step
 from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
 
+# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
+# tests of other files.
+torch.set_num_threads(2)
+
 REPO = Path(__file__).resolve().parents[1]
 GRAD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
 
