@@ -8,18 +8,21 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit, and the build of every CUDA
-             kernel (K1 in ``flash_fwd.cu``, K2 and K3 in ``flash_bwd.cu``,
-             K4 in ``ssd_fwd.cu``), one nvcc per source, all started
-             together, from the sources in this checkout, with ptxas's
-             register and spill lines;
-2. kernel  — K1 (``mha_forward``), K2 (``mha_backward_dq``) and K3
-             (``mha_backward_dkv``) against their plain PyTorch versions on
+             kernel (K1 in ``flash_fwd.cu``, the fused backward that
+             replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``),
+             one nvcc per source, all started together, from the sources in
+             this checkout, with ptxas's register and spill lines;
+2. kernel  — K1 (``mha_forward``) and the fused backward
+             (``mha_backward``: dq, dk and dv in one launch, the work of the
+             reference's K2 and K3) against their plain PyTorch versions on
              the card, at the serving and training paths' shapes and on
              small cases (GQA, window, softcap, segmented with padding and
              fully masked rows, ragged lengths, a non-causal cross shape);
-             K2 and K3 elementwise and per 64-row tile, where the tile
+             the backward elementwise and per 64-row tile, where the tile
              check must also fail a planted fault (a dropped key tile);
-             with times of the kernels, the plain versions and
+             with times of the kernels (the backward alone and as the whole
+             CUDA backward: delta, the zeroed dq accumulator, the kernel and
+             dq's cast), the plain versions and
              ``scaled_dot_product_attention``'s forward and backward (a
              yardstick the port never calls) beside the least time the card
              could take; then K4 (``ssd_chunked``) against its plain version
@@ -38,12 +41,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 4. train   — the plan-ahead runner trains gpt-paper at full width, 8 layers,
              random seeded weights, 4 iterations of bench_e2e's gpt stream:
              K1 must launch 2 x layers x micro-batches times (forward and
-             recompute), K2 and K3 layers x micro-batches times, and every
-             loss and grad norm must be finite; then 2 layers, once with the
-             kernels and once with the plain versions, must agree on a grad
-             step's loss and every gradient leaf (elementwise and by each
-             leaf's relative norm, which must also fail a K2 planted to
-             return zeros) and on 2 iterations' losses;
+             recompute), the backward layers x micro-batches times, and
+             every loss and grad norm must be finite; then 2 layers, once
+             with the kernels and once with the plain versions, must agree
+             on a grad step's loss and every gradient leaf (elementwise and
+             by each leaf's relative norm, which must also fail a backward
+             planted to return a zero dq) and on 2 iterations' losses;
 5. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
              (24 layers), random seeded weights, the serve phase's requests:
              K4 must launch 24 x prefill batches times and K1 never, and
@@ -53,8 +56,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 6. profile — (not run by default) torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
              mamba2-130m, and over one training iteration at 8 layers:
-             device time by kernel, K1 to K4 singled out, and the device's
-             idle share.
+             device time by kernel, K1, the backward and K4 singled out, and
+             the device's idle share.
 
 The third line from the end is the kernels' JSON record, the second the
 card's name and power limit, the last the device record. Nothing is
@@ -117,10 +120,11 @@ KERNELS = {
     "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
            "src/repro/kernels/flash_attention.py:354", "prefill",
            {"decode": "decode", "causal_2048": "prefill"}, ("train", "serve")),
-    "K2": ("mha_backward_dq", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+    # K2 and K3 are one fused kernel: both rows carry its launches and times
+    "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
            {"causal_2048": "causal-2048"}, ("train", "serve")),
-    "K3": ("mha_backward_dkv", "src/repro_torch/kernels/csrc/flash_bwd.cu",
+    "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
            {"causal_2048": "causal-2048"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
@@ -287,8 +291,8 @@ def _tile_rel(torch, out, ref, tile=64):
 
 def _last_live_key_tile(torch, live, tile=64):
     """(B, S) bool: the keys of each row's last tile that holds a key some
-    query sees. Dropping them plants the fault of a K2/K3 that skips or
-    mishandles that tile."""
+    query sees. Dropping them plants the fault of a backward that skips
+    or mishandles that tile."""
     live_k = live.any(dim=1)
     idx = torch.arange(live_k.shape[1], device=live_k.device)
     last = torch.where(live_k, idx, -1).max(dim=1).values
@@ -296,27 +300,23 @@ def _last_live_key_tile(torch, live, tile=64):
 
 
 def _bwd_bound_ms(torch, q, k, qpos, kpos, qseg, kseg, causal, window):
-    """Least times of K2 and K3 for these inputs: the live pairs' FLOPs (6 D
-    per pair for K2: s, dp, dq; 8 D for K3: s, dp, dv, dk) over the bf16
-    peak, against each pass's bytes over HBM: q and do (and dq for K2) of
-    every row, k and v (and dk, dv for K3) of the keys some query can see,
-    lse, delta and the int inputs."""
+    """Least time of the fused backward for these inputs: the live pairs'
+    FLOPs, 10 D per pair (s, dp, dv, dk, dq: 2 D each), over the bf16 peak,
+    against bytes over HBM: q, do and dq of every row, k, v, dk and dv of
+    the keys some query can see, lse, delta and the int inputs, each once."""
     b, t, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
     live = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)
     pairs = int(live.sum()) * h
     live_keys = int(live.any(dim=1).sum())
-    rows = b * t * h * d * 2                     # one (B,T,H,D) bf16 tensor
-    keys = live_keys * kv * d * 2                # one tensor of the live keys
-    common = 2 * b * h * t * 4 + (b * t + b * s) * 4 * (2 if qseg is not None else 1)
-    out = {}
-    for name, per_pair, nbytes in (("K2", 6, 3 * rows + 2 * keys + common),
-                                   ("K3", 8, 2 * rows + 4 * keys + common)):
-        flops = float(per_pair * d * pairs)
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
-        out[name] = (1e3 * max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes", flops)
-    return out
+    nbytes = (3 * b * t * h * d * 2                # q, do in; dq out
+              + 4 * live_keys * kv * d * 2         # k, v in; dk, dv out
+              + 2 * b * h * t * 4                  # lse, delta
+              + (b * t + b * s) * 4 * (2 if qseg is not None else 1))
+    flops = 10.0 * d * pairs
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, pairs)
 
 
 def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
@@ -336,18 +336,17 @@ def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
 
 
 def _check_backward(torch, fa, name, args, opts, o, lse, timed):
-    """K2 and K3 against mha_backward_plain on K1's residuals, elementwise
-    (GRAD_TOL) and per tile (GRAD_REL_TOL); the per-tile check must fail a
-    planted fault, the plain backward without each row's last live key
-    tile. With `timed`, their times beside their bounds, the plain
-    version's and SDPA's."""
+    """The fused backward against mha_backward_plain on K1's residuals,
+    elementwise (GRAD_TOL) and per tile (GRAD_REL_TOL); the per-tile check
+    must fail a planted fault, the plain backward without each row's last
+    live key tile. With `timed`, its times (the kernel alone, and the whole
+    CUDA backward) beside its bound, the plain version's and SDPA's."""
     q, k, v, qp, kp, qs, ks = args
     gen = torch.Generator(device="cuda").manual_seed(1)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
     delta = fa.attention_delta(o, do)
     res = (*args, o, lse, do)
-    dq = fa.mha_backward_dq_cuda(*res, delta, **opts)
-    dk, dv = fa.mha_backward_dkv_cuda(*res, delta, **opts)
+    dq, dk, dv = fa.mha_backward_cuda(*res, delta, **opts)
     torch.cuda.synchronize()
     ref = fa.mha_backward_plain(*res, **opts)
     live = _live_pairs(torch, qp, kp, qs, ks, opts["causal"], opts["window"])
@@ -362,19 +361,19 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
                                   **opts)
     errs, rels, fault_rels, fault_ok = {}, {}, {}, True
     for g, out, r, f in zip(("dq", "dk", "dv"), (dq, dk, dv), ref, fault):
-        check(bool(torch.isfinite(out).all()), f"K2/K3 {name}: non-finite {g}")
+        check(bool(torch.isfinite(out).all()), f"backward {name}: non-finite {g}")
         errs[g], ok = _grad_close(out, r, GRAD_TOL_BF16)
-        check(ok, f"K2/K3 {name}: {g} outside GRAD_TOL {GRAD_TOL_BF16} of the "
-              f"plain version (max |diff| {errs[g]:.3e})")
+        check(ok, f"backward {name}: {g} outside GRAD_TOL {GRAD_TOL_BF16} of "
+              f"the plain version (max |diff| {errs[g]:.3e})")
         rels[g], fault_rels[g] = _tile_rel(torch, out, r), _tile_rel(torch, f, r)
         fault_ok &= _grad_close(f, r, GRAD_TOL_BF16)[1]
     del fault
     dead_rows = ~live.any(dim=2)                      # (B, T): no visible key
     dead_keys = ~live.any(dim=1)                      # (B, S): seen by no query
-    check(bool((dq[dead_rows] == 0).all()), f"K2 {name}: dq of rows with no "
-          "visible key is not zero")
+    check(bool((dq[dead_rows] == 0).all()), f"backward {name}: dq of rows "
+          "with no visible key is not zero")
     check(bool((dk[dead_keys] == 0).all()) and bool((dv[dead_keys] == 0).all()),
-          f"K3 {name}: dk/dv of keys no query sees are not zero")
+          f"backward {name}: dk/dv of keys no query sees are not zero")
     line = (f"[kernel] {name:20s} backward: max|dq-plain| {errs['dq']:.3e} "
             f"max|dk-plain| {errs['dk']:.3e} max|dv-plain| {errs['dv']:.3e} "
             f"(GRAD_TOL {GRAD_TOL_BF16}) rows without a key {int(dead_rows.sum())}"
@@ -386,43 +385,41 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
             f"GRAD_TOL {'passes' if fault_ok else 'fails'} it "
             f"(GRAD_REL_TOL {GRAD_REL_TOL})")
     print(line, flush=True)
-    check(max(rels.values()) <= GRAD_REL_TOL, f"K2/K3 {name}: a tile's "
+    check(max(rels.values()) <= GRAD_REL_TOL, f"backward {name}: a tile's "
           f"relative error exceeds GRAD_REL_TOL {GRAD_REL_TOL}")
-    check(max(fault_rels.values()) > GRAD_REL_TOL, f"K2/K3 {name}: the "
+    check(max(fault_rels.values()) > GRAD_REL_TOL, f"backward {name}: the "
           "per-tile check does not see the planted fault")
     worst = {"K2": (errs["dq"], rels["dq"]),
              "K3": (max(errs["dk"], errs["dv"]), max(rels["dk"], rels["dv"]))}
     if not timed:
         return {}, worst
-    iters, recs = 10, {}
-    k2 = _cuda_time(torch, lambda: fa.mha_backward_dq_cuda(
-        *res, delta, **opts), iters)
-    k3 = _cuda_time(torch, lambda: fa.mha_backward_dkv_cuda(
-        *res, delta, **opts), iters)
-    # neither the plain version nor SDPA's backward computes dq apart from
-    # dk and dv: both are timed for the whole backward, against K2 + K3
+    iters = 10
+    acc = fa.dq_accumulator(q)
+    ms = _cuda_time(torch, lambda: fa._launch_backward(
+        *res, delta, acc, dk, dv, **opts), iters)
+    whole_ms = _cuda_time(torch, lambda: fa.mha_backward(*res, **opts), iters)
+    del acc
     plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
                           3, warmup=1)
     lib = (_library_bwd_fn(torch, q, k, v, qp, kp, qs, ks, opts["causal"],
                            opts["window"], do)
            if opts["softcap"] is None else None)
     library_ms = _cuda_time(torch, lib, iters) if lib else None
-    bounds = _bwd_bound_ms(torch, q, k, qp, kp, qs, ks, opts["causal"],
-                           opts["window"])
+    bound_ms, bound_by, flops, pairs = _bwd_bound_ms(
+        torch, q, k, qp, kp, qs, ks, opts["causal"], opts["window"])
+    rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms, backward_ms=whole_ms, live_pairs=pairs,
+               covers="dq, dk and dv in one launch: the work of the "
+               "reference's K2 and K3; backward_ms adds delta, the zeroed "
+               "dq accumulator and dq's cast")
     lib_s = library_ms if library_ms is None else round(library_ms, 4)
-    for kname, ms in (("K2", k2), ("K3", k3)):
-        bound_ms, bound_by, flops = bounds[kname]
-        recs[kname] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms,
-                           pair_ms=k2 + k3,
-                           plain_and_library_cover="dq, dk and dv: the "
-                           "work of K2 + K3 (pair_ms)")
-        print(f"[kernel] {name:20s} {kname} {ms:.4f} ms "
-              f"({flops / ms / 1e9:.1f} TFLOP/s), bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound)")
-    print(f"[kernel] {name:20s} K2 + K3 {k2 + k3:.4f} ms; the whole backward: "
-          f"plain {plain_ms:.4f} ms, sdpa {lib_s} ms", flush=True)
-    return recs, worst
+    print(f"[kernel] {name:20s} backward kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s over {pairs} live pairs), whole "
+          f"CUDA backward {whole_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound, "
+          f"{100 * bound_ms / whole_ms:.1f}% for the whole); plain "
+          f"{plain_ms:.4f} ms, sdpa {lib_s} ms", flush=True)
+    return {"K2": rec, "K3": rec}, worst
 
 
 def _train_rows(lengths, t):
@@ -772,8 +769,8 @@ def _train(torch, n_layers, iters, seed, params=None, log_every=1):
 
 
 def _plain_attention():
-    """Patch the plain versions in for K1, K2 and K3 (CUDA tensors only
-    reach them here)."""
+    """Patch the plain versions in for K1 and the backward (CUDA tensors
+    only reach them here)."""
     from repro_torch.kernels import flash_attention as fa
     return (mock.patch.object(fa, "_mha_forward_cuda",
                               lambda *a, **o: fa.mha_forward_plain(*a, **o)),
@@ -815,8 +812,7 @@ def phase_train(torch):
     tok_s = sum(h["tokens"] for h in steady) / sum(h["time_s"] for h in steady)
     n_micro = sum(h["n_micro"] for h in hist)
     expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
-                "mha_backward_dq": cfg.n_layers * n_micro,
-                "mha_backward_dkv": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
     print(f"[train] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
           f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
@@ -872,8 +868,8 @@ def phase_train(torch):
         return worst_abs, worst_rel, ok
 
     worst_leaf, worst_rel, ok = leaf_errs(gk)
-    # planted faults, on the kernels' backward: a K2 that returns zeros, and
-    # a K2/K3 that drops each row's last live key tile
+    # planted faults, on the kernel's backward: a dq of zeros, and a
+    # backward that drops each row's last live key tile
     real_backward = fa.mha_backward
 
     def planted(fault):
@@ -912,7 +908,7 @@ def phase_train(torch):
     check(worst_rel <= GRAD_REL_TOL, "2-layer gradient leaves: a leaf's "
           f"||diff|| / ||plain|| {worst_rel:.3e} exceeds {GRAD_REL_TOL}")
     check(faults["dq = 0"][1] > GRAD_REL_TOL, "the leaf check does not see "
-          "a K2 that returns zeros")
+          "a backward whose dq is zero")
     check(loss_err <= GRAD_TOL_BF16, "2-layer losses: kernels and plain "
           f"disagree ({loss_err:.3e})")
     gn_err = max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
@@ -948,7 +944,7 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
     for line in report(res, lens).splitlines():
         print(f"[mamba] {line}")
     nb = len(res.batches)
-    expected = {"mha_forward": 0, "mha_backward_dq": 0, "mha_backward_dkv": 0,
+    expected = {"mha_forward": 0, "mha_backward": 0,
                 "ssd_chunked": cfg.n_layers * nb}
     print(f"[mamba] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"d_inner {cfg.d_inner} {cfg.ssm_heads} SSD heads x "
@@ -982,8 +978,8 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase 6: profiles (not run by default)
 # ----------------------------------------------------------------------
-KERNEL_SYMBOLS = {"K1": "mha_fwd_kernel", "K2": "mha_bwd_dq_kernel",
-                  "K3": "mha_bwd_dkv_kernel", "K4": "ssd_fwd_kernel"}
+KERNEL_SYMBOLS = {"K1": "mha_fwd_kernel", "K2/K3": "mha_bwd_kernel",
+                  "K4": "ssd_fwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies
 KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),

@@ -63,8 +63,7 @@ namespace {
 using namespace flash;
 
 constexpr int kBQ = 64;              // query rows per tile
-constexpr int kThreadsDq = 4 * 32;
-constexpr int kThreadsDkv = 8 * 32;
+constexpr int kThreads = 8 * 32;
 
 struct Params {
   const uint16_t* q;
@@ -77,216 +76,21 @@ struct Params {
   const int* kpos;
   const int* qseg;   // nullptr: not segmented
   const int* kseg;
-  uint16_t* dq;
+  float* dq_acc;    // (B, H, T_pad, D) fp32, zeroed by the caller
   uint16_t* dk;
   uint16_t* dv;
-  int B, T, S, H, KV;
+  int B, T, S, H, KV, T_pad;
   int causal, window;
   float softcap;     // 0: none
   float sm_scale;
 };
 
 // ----------------------------------------------------------------------
-// K2: dq
+// the fused backward: dq, dk and dv
 // ----------------------------------------------------------------------
 template <int kD>
-__global__ void __launch_bounds__(kThreadsDq)
-mha_bwd_dq_kernel(const Params p) {
-  constexpr int kStride = kD + 8;   // bf16 per shared row: ldmatrix rows on
-                                    // distinct banks
-  constexpr int kNT = kBK / 8;      // 8-key n-tiles of a kv tile
-  // dynamic shared memory: the q and do tiles, [kBQ][kStride] each, two
-  // buffers of (k tile, v tile) [kBK][kStride], then two buffers of the kv
-  // tile's positions and segment ids, [kBK] int each
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* const q_s = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* const do_s = q_s + kBQ * kStride;
-  uint16_t* const kv_s = do_s + kBQ * kStride;
-  int* const kpos_s = reinterpret_cast<int*>(kv_s + 4 * kBK * kStride);
-  int* const kseg_s = kpos_s + 2 * kBK;
-  __shared__ int part[2][4];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
-  const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int kvh = h / (p.H / p.KV);
-  const bool segmented = p.qseg != nullptr;
-
-  // ---- q and do tiles into shared memory (zeros past T) ----
-  const size_t q_rs = (size_t)p.H * kD;    // token stride of q and do
-  const size_t q_base = (size_t)b * p.T * q_rs + (size_t)h * kD;
-  load_rows<kD, kThreadsDq>(q_s, kStride, p.q + q_base, q_rs, q0, kBQ, p.T, tid);
-  load_rows<kD, kThreadsDq>(do_s, kStride, p.dout + q_base, q_rs, q0, kBQ, p.T, tid);
-  cp_async_commit();
-
-  // ---- this thread's two query rows, and the q tile's statistics ----
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  bool row_ok[2];
-  int qp[2], qs[2];
-  float lse2[2], dlt[2];   // lse in log2 units, delta
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_ok[i] = row[i] < p.T;
-    qp[i] = row_ok[i] ? p.qpos[(size_t)b * p.T + row[i]] : 0;
-    qs[i] = (row_ok[i] && segmented) ? p.qseg[(size_t)b * p.T + row[i]] : 0;
-    const size_t li = ((size_t)b * p.H + h) * p.T + row[i];
-    lse2[i] = row_ok[i] ? p.lse[li] * kLog2e : 0.f;
-    dlt[i] = row_ok[i] ? p.delta[li] : 0.f;
-  }
-  int qstat[4];
-  {
-    const int r = q0 + tid;
-    const bool ok = tid < kBQ && r < p.T;
-    const int pos = ok ? p.qpos[(size_t)b * p.T + r] : 0;
-    const int seg = (ok && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
-    tile_stats(ok, pos, seg, part, qstat);
-  }
-  const bool warp_active = q0 + warp * 16 < p.T;
-
-  float dq[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
-
-  const size_t kv_rs = (size_t)p.KV * kD;   // token stride of k and v
-  const size_t kv_base = (size_t)b * p.S * kv_rs + (size_t)kvh * kD;
-  const int n_tiles = (p.S + kBK - 1) / kBK;
-
-  // The first live kv tile at or after t, n_tiles if none; its positions and
-  // segment ids go to buffer buf. As in K1.
-  auto find_live = [&](int t, int buf, bool& full_out) -> int {
-    for (; t < n_tiles; ++t) {
-      const int kk = t * kBK + tid;
-      const bool ok = tid < kBK && kk < p.S;
-      const int pos = ok ? p.kpos[(size_t)b * p.S + kk] : 0;
-      const int seg = (ok && segmented) ? p.kseg[(size_t)b * p.S + kk] : 0;
-      if (tid < kBK) { kpos_s[buf * kBK + tid] = pos; kseg_s[buf * kBK + tid] = seg; }
-      int kstat[4];
-      tile_stats(ok, pos, seg, part, kstat);
-      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window))
-        continue;   // uniform over the block
-      full_out = t * kBK + kBK <= p.S &&
-                 tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      return t;
-    }
-    return n_tiles;
-  };
-
-  auto issue = [&](int t, int buf) {
-    uint16_t* const kb = kv_s + buf * 2 * kBK * kStride;
-    load_rows<kD, kThreadsDq>(kb, kStride, p.k + kv_base, kv_rs, t * kBK, kBK, p.S, tid);
-    load_rows<kD, kThreadsDq>(kb + kBK * kStride, kStride, p.v + kv_base, kv_rs,
-                              t * kBK, kBK, p.S, tid);
-    cp_async_commit();
-  };
-
-  bool full = false, full_next = false;
-  int cur = find_live(0, 0, full);
-  if (cur < n_tiles) issue(cur, 0);
-  for (int buf = 0; cur < n_tiles; buf ^= 1) {
-    const int next = find_live(cur + 1, buf ^ 1, full_next);
-    if (next < n_tiles) {
-      issue(next, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // q, do and tile cur are in shared memory
-    const int k0 = cur * kBK;
-    const uint16_t* const ks = kv_s + buf * 2 * kBK * kStride;
-    const uint16_t* const vs = ks + kBK * kStride;
-    const int* const kpos_b = kpos_s + buf * kBK;
-    const int* const kseg_b = kseg_s + buf * kBK;
-    if (warp_active) {
-      // ---- s = q k^T and dp = do v^T for this warp's 16 rows x 64 keys ----
-      float s[kNT][4], dp[kNT][4];
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t qa[4], da[4];
-        ldsm_a(qa, q_s + warp * 16 * kStride + kk * 16, kStride, lane);
-        ldsm_a(da, do_s + warp * 16 * kStride + kk * 16, kStride, lane);
-#pragma unroll
-        for (int n = 0; n < kNT; n += 2) {
-          const int off = ((n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8;
-          uint32_t kb[4], vb[4];   // b0, b1 of n-tiles n and n + 1
-          ldsm_x4(kb, ks + off);
-          mma_bf16(s[n], qa, kb[0], kb[1]);
-          mma_bf16(s[n + 1], qa, kb[2], kb[3]);
-          ldsm_x4(vb, vs + off);
-          mma_bf16(dp[n], da, vb[0], vb[1]);
-          mma_bf16(dp[n + 1], da, vb[2], vb[3]);
-        }
-      }
-
-      // ---- p from lse, ds = p (dp - delta) (1 - th^2), into s ----
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;                        // which of the two rows
-          const int key = n * 8 + c * 2 + (e & 1);     // key within the tile
-          float z = s[n][e] * p.sm_scale;
-          float chain = 1.f;
-          if (p.softcap > 0.f) {
-            const float th = tanhf(z / p.softcap);
-            z = p.softcap * th;
-            chain = 1.f - th * th;
-          }
-          float pe = exp2f(z * kLog2e - lse2[i]);
-          if (!full && !(k0 + key < p.S &&
-                         visible(qp[i], qs[i], kpos_b[key], kseg_b[key],
-                                 segmented, p.causal, p.window)))
-            pe = 0.f;
-          s[n][e] = pe * (dp[n][e] - dlt[i]) * chain;
-        }
-      }
-
-      // ---- dq += ds k: ds from the s fragments, k by transposed ldmatrix ----
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-        uint32_t a[4];
-        a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const uint16_t* k0p = ks + (kk * 16 + (mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
-#pragma unroll
-        for (int n = 0; n < kD / 8; n += 2) {
-          uint32_t kb[4];
-          ldsm_x4_trans(kb, k0p + n * 8);
-          mma_bf16(dq[n], a, kb[0], kb[1]);
-          mma_bf16(dq[n + 1], a, kb[2], kb[3]);
-        }
-      }
-    }
-    __syncthreads();   // buffer buf is free for the tile after next
-    cur = next;
-    full = full_next;
-  }
-  cp_async_wait<0>();  // no copy outlives the block, even with no live tile
-
-  if (!warp_active) return;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    uint16_t* drow = p.dq + (((size_t)b * p.T + row[i]) * p.H + h) * kD;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(drow + n * 8 + c * 2) =
-          pack_bf16(dq[n][2 * i] * p.sm_scale, dq[n][2 * i + 1] * p.sm_scale);
-  }
-}
-
-// ----------------------------------------------------------------------
-// K3: dk and dv
-// ----------------------------------------------------------------------
-template <int kD>
-__global__ void __launch_bounds__(kThreadsDkv)
-mha_bwd_dkv_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads)
+mha_bwd_kernel(const Params p) {
   constexpr int kStride = kD + 8;
   constexpr int kPS = kBQ + 8;       // bf16 per row of the p^T / ds^T tiles
   constexpr int kNB = kD / 16;       // 8-column n-tiles of a warp's D / 2
@@ -319,8 +123,8 @@ mha_bwd_dkv_kernel(const Params p) {
   // ---- k and v tiles into shared memory (zeros past S) ----
   const size_t kv_rs = (size_t)p.KV * kD;
   const size_t kv_base = (size_t)b * p.S * kv_rs + (size_t)kvh * kD;
-  load_rows<kD, kThreadsDkv>(k_s, kStride, p.k + kv_base, kv_rs, k0, kBK, p.S, tid);
-  load_rows<kD, kThreadsDkv>(v_s, kStride, p.v + kv_base, kv_rs, k0, kBK, p.S, tid);
+  load_rows<kD, kThreads>(k_s, kStride, p.k + kv_base, kv_rs, k0, kBK, p.S, tid);
+  load_rows<kD, kThreads>(v_s, kStride, p.v + kv_base, kv_rs, k0, kBK, p.S, tid);
   cp_async_commit();
 
   // ---- this thread's two keys (rows of s^T), and the key tile's statistics ----
@@ -386,8 +190,8 @@ mha_bwd_dkv_kernel(const Params p) {
     const int t = it / group, hq = kvh * group + it % group;
     const size_t base = (size_t)b * p.T * q_rs + (size_t)hq * kD;
     uint16_t* const qb = qd_s + buf * 2 * kBQ * kStride;
-    load_rows<kD, kThreadsDkv>(qb, kStride, p.q + base, q_rs, t * kBQ, kBQ, p.T, tid);
-    load_rows<kD, kThreadsDkv>(qb + kBQ * kStride, kStride, p.dout + base, q_rs,
+    load_rows<kD, kThreads>(qb, kStride, p.q + base, q_rs, t * kBQ, kBQ, p.T, tid);
+    load_rows<kD, kThreads>(qb + kBQ * kStride, kStride, p.dout + base, q_rs,
                                t * kBQ, kBQ, p.T, tid);
     cp_async_commit();
   };
@@ -496,6 +300,42 @@ mha_bwd_dkv_kernel(const Params p) {
         mma_bf16(dk[kNB - 1], sa, qb[0], qb[1]);
       }
     }
+    // ---- phase C: dq += ds k for 16 rows x D / 2, added into the fp32
+    // accumulator with atomics (the order of the adds differs per run) ----
+    {
+      const int qr = (warp & 3) * 16;
+      const int hq = kvh * group + cur % group;
+      float dqa[kNB][4];
+#pragma unroll
+      for (int n = 0; n < kNB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4_trans(a, dst_s + (kk * 16 + (mi >> 1) * 8 + r8) * kPS + qr + (mi & 1) * 8);
+        const uint16_t* k0p = k_s + (kk * 16 + (mi & 1) * 8 + r8) * kStride + dh + (mi >> 1) * 8;
+#pragma unroll
+        for (int n = 0; n + 1 < kNB; n += 2) {
+          uint32_t kb[4];
+          ldsm_x4_trans(kb, k0p + n * 8);
+          mma_bf16(dqa[n], a, kb[0], kb[1]);
+          mma_bf16(dqa[n + 1], a, kb[2], kb[3]);
+        }
+        if constexpr (kNB % 2) {
+          uint32_t kb[2];
+          ldsm_x2_trans(kb, k_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + dh + (kNB - 1) * 8);
+          mma_bf16(dqa[kNB - 1], a, kb[0], kb[1]);
+        }
+      }
+      float* const acc = p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0 + qr) * kD + dh;
+#pragma unroll
+      for (int n = 0; n < kNB; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          atomicAdd(reinterpret_cast<float2*>(acc + (g + 8 * i) * kD + n * 8 + c * 2),
+                    make_float2(dqa[n][2 * i], dqa[n][2 * i + 1]));
+    }
     __syncthreads();   // buffer buf and the p^T / ds^T tiles are free
     cur = next;
     full = full_next;
@@ -517,29 +357,33 @@ mha_bwd_dkv_kernel(const Params p) {
 }
 
 template <int kD>
-void launch_dq(const Params& p, cudaStream_t stream) {
-  constexpr int kBytes = (2 * kBQ + 4 * kBK) * (kD + 8) * 2 + 4 * kBK * 4;
-  cudaFuncSetAttribute(mha_bwd_dq_kernel<kD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  mha_bwd_dq_kernel<kD><<<dim3((p.T + kBQ - 1) / kBQ, p.H, p.B), kThreadsDq,
-                          kBytes, stream>>>(p);
-}
-
-template <int kD>
-void launch_dkv(const Params& p, cudaStream_t stream) {
+void launch(const Params& p, cudaStream_t stream) {
   constexpr int kBytes = (2 * kBK + 4 * kBQ) * (kD + 8) * 2 +
                          2 * kBK * (kBQ + 8) * 2 + 8 * kBQ * 4;
-  cudaFuncSetAttribute(mha_bwd_dkv_kernel<kD>,
+  cudaFuncSetAttribute(mha_bwd_kernel<kD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  mha_bwd_dkv_kernel<kD><<<dim3((p.S + kBK - 1) / kBK, p.KV, p.B), kThreadsDkv,
-                           kBytes, stream>>>(p);
+  mha_bwd_kernel<kD><<<dim3((p.S + kBK - 1) / kBK, p.KV, p.B), kThreads,
+                       kBytes, stream>>>(p);
 }
 
-Params make_params(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, const void* qpos,
-                   const void* kpos, const void* qseg, const void* kseg,
-                   int B, int T, int S, int H, int KV, int D, int causal,
-                   int window, float softcap) {
+}  // namespace
+
+// q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
+// positions and segment ids int32 (B,T) / (B,S), segment ids both null or
+// both set; all contiguous, D in {16, 32, 64, 128}. Adds ds k (unscaled)
+// into dq_acc, fp32 (B,H,T rounded up to 64,D), zeroed by the caller, and
+// writes dk, dv: bf16 (B,S,KV,D). Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse,
+                            const void* delta, const void* qpos,
+                            const void* kpos, const void* qseg,
+                            const void* kseg, void* dq_acc, void* dk, void* dv,
+                            int B, int T, int S, int H, int KV, int D,
+                            int causal, int window, float softcap,
+                            void* stream) {
+  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
+    return (int)cudaErrorInvalidValue;
   Params p;
   p.q = static_cast<const uint16_t*>(q);
   p.k = static_cast<const uint16_t*>(k);
@@ -551,64 +395,19 @@ Params make_params(const void* q, const void* k, const void* v, const void* dout
   p.kpos = static_cast<const int*>(kpos);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
-  p.dq = p.dk = p.dv = nullptr;
-  p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
-  p.causal = causal; p.window = window; p.softcap = softcap;
-  p.sm_scale = 1.0f / sqrtf((float)D);
-  return p;
-}
-
-bool bad_shape(int B, int T, int S, int H, int KV) {
-  return KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0;
-}
-
-}  // namespace
-
-// q, do, dq: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32
-// (B,H,T); positions and segment ids int32 (B,T) / (B,S), segment ids both
-// null or both set; all contiguous, D in {16, 32, 64, 128}. Launch K2 on
-// `stream` and return cudaGetLastError().
-extern "C" int mha_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                               const void* dout, const void* lse,
-                               const void* delta, const void* qpos,
-                               const void* kpos, const void* qseg,
-                               const void* kseg, void* dq, int B, int T, int S,
-                               int H, int KV, int D, int causal, int window,
-                               float softcap, void* stream) {
-  if (bad_shape(B, T, S, H, KV)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, dout, lse, delta, qpos, kpos, qseg, kseg,
-                         B, T, S, H, KV, D, causal, window, softcap);
-  p.dq = static_cast<uint16_t*>(dq);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: launch_dq<16>(p, st); break;
-    case 32: launch_dq<32>(p, st); break;
-    case 64: launch_dq<64>(p, st); break;
-    case 128: launch_dq<128>(p, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// As mha_bwd_dq_bf16, writing dk and dv (bf16 (B,S,KV,D)): launch K3.
-extern "C" int mha_bwd_dkv_bf16(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, const void* qpos,
-                                const void* kpos, const void* qseg,
-                                const void* kseg, void* dk, void* dv, int B,
-                                int T, int S, int H, int KV, int D, int causal,
-                                int window, float softcap, void* stream) {
-  if (bad_shape(B, T, S, H, KV)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(q, k, v, dout, lse, delta, qpos, kpos, qseg, kseg,
-                         B, T, S, H, KV, D, causal, window, softcap);
+  p.dq_acc = static_cast<float*>(dq_acc);
   p.dk = static_cast<uint16_t*>(dk);
   p.dv = static_cast<uint16_t*>(dv);
+  p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
+  p.T_pad = (T + kBQ - 1) / kBQ * kBQ;
+  p.causal = causal; p.window = window; p.softcap = softcap;
+  p.sm_scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: launch_dkv<16>(p, st); break;
-    case 32: launch_dkv<32>(p, st); break;
-    case 64: launch_dkv<64>(p, st); break;
-    case 128: launch_dkv<128>(p, st); break;
+    case 16: launch<16>(p, st); break;
+    case 32: launch<32>(p, st); break;
+    case 64: launch<64>(p, st); break;
+    case 128: launch<128>(p, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

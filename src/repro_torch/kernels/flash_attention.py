@@ -1,13 +1,22 @@
-"""Attention forward and backward: the CUDA kernels K1, K2 and K3 and their
-plain PyTorch versions.
+"""Attention forward and backward: the CUDA kernels and their plain
+PyTorch versions.
 
 Counterpart of ``repro.kernels.flash_attention``. :func:`mha_forward` and
 :func:`mha_backward` take the path their tensors' device gives: on a CUDA
-tensor they launch the hand-written Hopper kernels (K1 in
-``csrc/flash_fwd.cu``; K2, the dq pass, and K3, the dk/dv pass, in
-``csrc/flash_bwd.cu``) or raise, on a CPU tensor they run
-:func:`mha_forward_plain` and :func:`mha_backward_plain`, which materialise
-the whole score matrix. There is no fallback from one to the other.
+tensor they launch the hand-written Hopper kernels or raise, on a CPU
+tensor they run :func:`mha_forward_plain` and :func:`mha_backward_plain`,
+which materialise the whole score matrix. There is no fallback from one to
+the other.
+
+- K1, the forward, is ``csrc/flash_fwd.cu``.
+- The backward is one kernel in ``csrc/flash_bwd.cu``. It replaces both of
+  the reference's backward passes: K2 (dq) and K3 (dk, dv). One launch
+  computes dq, dk and dv in a single pass over the live (query tile, key
+  tile) pairs. dk and dv are summed in registers and stored once. dq is
+  summed across key tiles into a zeroed fp32 scratch (B, H, T rounded up
+  to ``BWD_QTILE``, D) by reduce-adds, whose order differs between runs;
+  :func:`dq_from_accumulator` then scales it and casts it to bf16
+  (B, T, H, D).
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
@@ -18,7 +27,7 @@ stays only for ``live_block_mask``.
 ``_flash`` and ``_ragged`` custom VJPs: its forward saves the residuals
 ``(q, k, v, positions, segment ids, o, lse)`` and its backward runs
 :func:`mha_backward` on them, so a gradient through a CUDA tensor goes
-through K2 and K3.
+through the backward kernel.
 """
 from __future__ import annotations
 
@@ -31,11 +40,12 @@ from repro_torch.kernels import ref as _ref
 
 NEG_INF = -1e30
 
-HEAD_DIMS = (16, 32, 64, 128)    # the kernel's instantiations
+HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
+BWD_QTILE = 64                   # query rows per tile of the backward kernel
 
-# Launches of each CUDA kernel, counted where the wrapper launches it:
-# K1, K2 and K3.
-LAUNCHES = {"mha_forward": 0, "mha_backward_dq": 0, "mha_backward_dkv": 0}
+# Launches of each CUDA kernel, counted where the wrapper launches it: K1,
+# and the fused backward (K2 and K3).
+LAUNCHES = {"mha_forward": 0, "mha_backward": 0}
 
 
 def shrink_block(length: int, block: int) -> int:
@@ -149,7 +159,8 @@ def attention_delta(o, do):
 def mha_backward_plain(q, k, v, q_positions, kv_positions,
                        q_segment_ids, kv_segment_ids, o, lse, do, *,
                        causal, window=0, softcap=None):
-    """K2's and K3's function in plain PyTorch, from the same residuals:
+    """The backward kernel's function (the reference's K2 and K3) in plain
+    PyTorch, from the same residuals:
     ``(dq, dk, dv)`` in the inputs' dtypes. Follows the reference's
     ``_p_and_ds`` in fp32 over the whole (T, S) score matrix: p from lse,
     masked by select, dp = do v^T, ds = p (dp - delta) with the softcap
@@ -268,56 +279,66 @@ def _check_bwd_args(q, o, lse, do, delta):
 
 def check_backward_cuda_args(q, k, v, q_positions, kv_positions,
                              q_segment_ids, kv_segment_ids, o, lse, do, delta):
-    """Everything K2 and K3 assume of their arguments: device, dtype,
+    """Everything the backward kernel assumes of its arguments: device, dtype,
     shape, alignment and contiguity. Raises on the first that fails."""
     _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
                                         q_segment_ids, kv_segment_ids))
     _check_bwd_args(q, o, lse, do, delta)
 
 
-def _launch_dq(q, k, v, q_positions, kv_positions, q_segment_ids,
-               kv_segment_ids, o, lse, do, delta, *, causal, window, softcap):
-    from repro_torch.kernels import _build
-    b, t, h, d = q.shape
-    s, kvh = k.shape[1], k.shape[2]
-    dq = torch.empty_like(q)
-    _build.launch(_build.library("flash_bwd").mha_bwd_dq_bf16,
-            _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
-            _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
-            _ptr(kv_segment_ids), _ptr(dq), b, t, s, h, kvh, d, int(causal),
-            int(window), float(softcap or 0.0), device=q.device)
-    LAUNCHES["mha_backward_dq"] += 1
+def dq_from_accumulator(acc, t, scale):
+    """dq (B,T,H,D) bf16 from the backward kernel's fp32 accumulator
+    (B,H,T rounded up to the query tile,D): rows past T dropped, scaled by
+    ``scale`` (1/sqrt(D)) and cast, in one elementwise pass."""
+    b, h, _, d = acc.shape
+    dq = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=acc.device)
+    torch.mul(acc[:, :, :t], scale, out=dq.permute(0, 2, 1, 3))
     return dq
 
 
-def _launch_dkv(q, k, v, q_positions, kv_positions, q_segment_ids,
-                kv_segment_ids, o, lse, do, delta, *, causal, window, softcap):
+def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
+                     kv_segment_ids, o, lse, do, delta, acc, dk, dv, *,
+                     causal, window, softcap):
+    """The kernel alone: adds dS k into ``acc`` and writes dk and dv."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _build.launch(_build.library("flash_bwd").mha_bwd_dkv_bf16,
+    _build.launch(_build.library("flash_bwd").mha_bwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
-            _ptr(kv_segment_ids), _ptr(dk), _ptr(dv), b, t, s, h, kvh, d,
-            int(causal), int(window), float(softcap or 0.0), device=q.device)
-    LAUNCHES["mha_backward_dkv"] += 1
-    return dk, dv
+            _ptr(kv_segment_ids), _ptr(acc), _ptr(dk), _ptr(dv),
+            b, t, s, h, kvh, d, int(causal), int(window),
+            float(softcap or 0.0), device=q.device)
+    LAUNCHES["mha_backward"] += 1
 
 
-def mha_backward_dq_cuda(*args, **opts):
-    """Check the arguments, then launch K2: dq (B,T,H,D) bf16. Arguments as
-    :func:`mha_backward`, plus ``delta`` from :func:`attention_delta`."""
+def dq_accumulator(q):
+    """The zeroed fp32 dq accumulator the backward kernel adds into:
+    (B, H, T rounded up to BWD_QTILE, D), one contiguous block per tile."""
+    b, t, h, d = q.shape
+    t_pad = -(-t // BWD_QTILE) * BWD_QTILE
+    return torch.zeros((b, h, t_pad, d), dtype=torch.float32,
+                       device=q.device)
+
+
+def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
+                      kv_segment_ids, o, lse, do, delta, *, causal, window,
+                      softcap):
+    """Check the arguments, then launch the fused backward kernel once:
+    ``(dq, dk, dv)``, dq (B,T,H,D) and dk, dv (B,S,KV,D) bf16, dk and dv
+    summed over each GQA group. Arguments as :func:`mha_backward`, plus
+    ``delta`` from :func:`attention_delta`."""
+    args = (q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, o, lse, do, delta)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_backward_cuda takes CUDA tensors, got {q.device}")
     check_backward_cuda_args(*args)
-    return _launch_dq(*args, **opts)
-
-
-def mha_backward_dkv_cuda(*args, **opts):
-    """Check the arguments, then launch K3: ``(dk, dv)``, (B,S,KV,D) bf16
-    each, summed over each GQA group. Arguments as
-    :func:`mha_backward_dq_cuda`."""
-    check_backward_cuda_args(*args)
-    return _launch_dkv(*args, **opts)
+    acc = dq_accumulator(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_backward(*args, acc, dk, dv, causal=causal, window=window,
+                     softcap=softcap)
+    scale = 1.0 / math.sqrt(q.shape[3])
+    return dq_from_accumulator(acc, q.shape[1], scale), dk, dv
 
 
 def _check_softcap(softcap):
@@ -352,8 +373,8 @@ def mha_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
                  softcap=None):
     """Backward from the forward's residuals: returns ``(dq, dk, dv)``.
 
-    CUDA tensors launch K2 (dq) and K3 (dk, dv) after the plain reduction
-    ``delta = rowsum(do * o)``; CPU tensors take
+    CUDA tensors launch the fused backward kernel once, after the plain
+    reduction ``delta = rowsum(do * o)``; CPU tensors take
     :func:`mha_backward_plain`.
     """
     _check_softcap(softcap)
@@ -361,10 +382,7 @@ def mha_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
             kv_segment_ids, o, lse, do)
     opts = dict(causal=causal, window=window, softcap=softcap)
     if q.device.type == "cuda":
-        delta = attention_delta(o, do)
-        check_backward_cuda_args(*args, delta)
-        dq = _launch_dq(*args, delta, **opts)
-        return (dq, *_launch_dkv(*args, delta, **opts))
+        return mha_backward_cuda(*args, attention_delta(o, do), **opts)
     if q.device.type == "cpu":
         return mha_backward_plain(*args, **opts)
     raise ValueError(f"no attention path for device {q.device}")

@@ -1,10 +1,10 @@
 """Dispatch to the attention and SSD kernels by the device of the tensors.
 
 Counterpart of ``repro.kernels.ops``. There is no ``impl`` switch: a CUDA
-tensor always goes through the CUDA kernels (K1 forward, K2 and K3 for its
-gradient; K4 for the SSD), a CPU tensor always through their plain
-versions. :func:`launch_counts` reads how often each kernel was launched
-(``mha_forward``, ``mha_backward_dq``, ``mha_backward_dkv``,
+tensor always goes through the CUDA kernels (K1 forward, one fused kernel
+for its gradient in place of the reference's K2 and K3; K4 for the SSD), a
+CPU tensor always through their plain versions. :func:`launch_counts` reads
+how often each kernel was launched (``mha_forward``, ``mha_backward``,
 ``ssd_chunked``), so a run can show that it went through them.
 """
 from __future__ import annotations

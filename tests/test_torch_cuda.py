@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3 and K4 on the card, against their plain
-versions and the CPU.
+"""The CUDA kernels K1, the fused backward (K2 and K3) and K4 on the card,
+against their plain versions and the CPU.
 
 Marked ``cuda``: each test skips where there is no card. On a machine with
 one they run with ``PYTHONPATH=src python -m pytest -q -m cuda --noconftest
@@ -99,6 +99,9 @@ def _grad_close(out, ref):
     (130, 130, 4, 2, dict(causal=True)),
     (70, 190, 2, 1, dict(causal=False)),
     (200, 200, 4, 4, dict(causal=True, window=50, softcap=3.0)),
+    (256, 256, 8, 2, dict(causal=True)),            # a GQA group of 4
+    (150, 333, 4, 1, dict(causal=False)),           # ragged T != S, group 4
+    (97, 211, 2, 2, dict(causal=True)),             # ragged T != S, causal
 ])
 def test_backward_kernels_match_plain_version(cuda, d, t, s, h, kv, opts):
     q, k, v, qp, kp = _inputs(cuda, 2, t, s, h, kv, d)
@@ -106,8 +109,8 @@ def test_backward_kernels_match_plain_version(cuda, d, t, s, h, kv, opts):
     do = torch.randn_like(o)
     ops.reset_launch_counts()
     out = fa.mha_backward(q, k, v, qp, kp, None, None, o, lse, do, **opts)
-    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 1,
-                                   "mha_backward_dkv": 1, "ssd_chunked": 0}
+    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward": 1,
+                                   "ssd_chunked": 0}
     ref = fa.mha_backward_plain(q, k, v, qp, kp, None, None, o, lse, do,
                                 **opts)
     for a, r in zip(out, ref):
@@ -136,6 +139,31 @@ def test_backward_kernels_segmented_with_fully_masked_rows(cuda):
         and (dv[dead] == 0).all()
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_backward_kernel_row_whose_keys_are_all_padding(cuda, d):
+    # row 1 is all padding (segment -1 everywhere): its dq, dk and dv are 0;
+    # row 0 has a sample that ends mid-tile, then padding
+    q, k, v, _, _ = _inputs(cuda, 2, 200, 200, 4, 2, d)
+    seg = torch.full((2, 200), -1, dtype=torch.int32, device=cuda)
+    seg[0, :150] = 0
+    pos = torch.zeros_like(seg)
+    pos[0, :150] = torch.arange(150, device=cuda)
+    o, lse = fa.mha_forward(q, k, v, pos, pos, seg, seg, causal=True)
+    do = torch.randn_like(o)
+    ops.reset_launch_counts()
+    dq, dk, dv = fa.mha_backward(q, k, v, pos, pos, seg, seg, o, lse, do,
+                                 causal=True)
+    assert ops.launch_counts()["mha_backward"] == 1
+    ref = fa.mha_backward_plain(q, k, v, pos, pos, seg, seg, o, lse, do,
+                                causal=True)
+    for a, r in zip((dq, dk, dv), ref):
+        _grad_close(a, r)
+    dead = seg < 0
+    assert (dq[dead] == 0).all() and (dk[dead] == 0).all() \
+        and (dv[dead] == 0).all()
+    assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
+
+
 def test_autograd_through_the_kernels_matches_the_cpu(cuda):
     q, k, v, qp, kp = _inputs(cuda, 2, 100, 100, 4, 2, 64)
     seg = torch.zeros_like(qp)
@@ -150,8 +178,8 @@ def test_autograd_through_the_kernels_matches_the_cpu(cuda):
                             kv_segment_ids=seg.to(dev))
         (out.float() * ct.to(dev)).sum().backward()
         n = 1 if dev.type == "cuda" else 0
-        assert ops.launch_counts() == {"mha_forward": n, "mha_backward_dq": n,
-                                       "mha_backward_dkv": n, "ssd_chunked": 0}
+        assert ops.launch_counts() == {"mha_forward": n, "mha_backward": n,
+                                       "ssd_chunked": 0}
         grads.append([x.grad.cpu() for x in leaves])
     for a, r in zip(*grads):
         _grad_close(a, r)
@@ -177,8 +205,7 @@ def test_grad_step_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     l_gpu, w_gpu, g_gpu = step(_to(params, cuda), _to(tb, cuda))
     # forward, the recompute of each period, and one backward per layer
     assert ops.launch_counts() == {"mha_forward": 2 * cfg.n_layers,
-                                   "mha_backward_dq": cfg.n_layers,
-                                   "mha_backward_dkv": cfg.n_layers,
+                                   "mha_backward": cfg.n_layers,
                                    "ssd_chunked": 0}
     assert float(w_gpu) == float(w_cpu)
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=GRAD_TOL, rtol=GRAD_TOL)
@@ -273,8 +300,7 @@ def test_mamba_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     on_gpu = SV.serve(_to(params, cuda), cfg, tokens, max_prompt=128,
                       decode_steps=3)
     nb = len(on_gpu.batches)
-    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward_dq": 0,
-                                   "mha_backward_dkv": 0,
+    assert ops.launch_counts() == {"mha_forward": 0, "mha_backward": 0,
                                    "ssd_chunked": cfg.n_layers * nb}
     for a, b in zip(on_gpu.logits, on_cpu.logits):
         a, b = a.cpu().float()[0], b.float()[0]     # prefill logits
