@@ -398,6 +398,11 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     ms = _cuda_time(torch, lambda: fa._launch_backward(
         *res, delta, acc, dk, dv, **opts), iters)
     whole_ms = _cuda_time(torch, lambda: fa.mha_backward(*res, **opts), iters)
+    # the whole backward's other parts: delta, the zeroed accumulator, the cast
+    delta_ms = _cuda_time(torch, lambda: fa.attention_delta(o, do), iters)
+    zeros_ms = _cuda_time(torch, lambda: fa.dq_accumulator(q), iters)
+    cast_ms = _cuda_time(torch, lambda: fa.dq_from_accumulator(
+        acc, t, 1.0 / q.shape[3] ** 0.5), iters)
     del acc
     plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
                           3, warmup=1)
@@ -408,14 +413,17 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     bound_ms, bound_by, flops, pairs = _bwd_bound_ms(
         torch, q, k, qp, kp, qs, ks, opts["causal"], opts["window"])
     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms, backward_ms=whole_ms, live_pairs=pairs,
+               library_ms=library_ms, backward_ms=whole_ms, delta_ms=delta_ms,
+               zeros_ms=zeros_ms, cast_ms=cast_ms, live_pairs=pairs,
                covers="dq, dk and dv in one launch: the work of the "
                "reference's K2 and K3; backward_ms adds delta, the zeroed "
                "dq accumulator and dq's cast")
     lib_s = library_ms if library_ms is None else round(library_ms, 4)
     print(f"[kernel] {name:20s} backward kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {pairs} live pairs), whole "
-          f"CUDA backward {whole_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+          f"CUDA backward {whole_ms:.4f} ms (delta {delta_ms:.4f}, zeroed "
+          f"accumulator {zeros_ms:.4f}, dq cast {cast_ms:.4f}); bound "
+          f"{bound_ms:.4f} ms by "
           f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound, "
           f"{100 * bound_ms / whole_ms:.1f}% for the whole); plain "
           f"{plain_ms:.4f} ms, sdpa {lib_s} ms", flush=True)

@@ -1,69 +1,57 @@
-// K2 and K3 — attention backward for Hopper (sm_90a), bf16 in and out, fp32
-// inside.
+// The attention backward for Hopper (sm_90a): one kernel computes dq, dk
+// and dv. bf16 in and out, fp32 inside.
 //
-// Replace the two TPU kernels of `mha_backward` in
+// Replaces the two TPU kernels of `mha_backward` in
 // src/repro/kernels/flash_attention.py:
 //   K2, the dq pass    (pl.pallas_call at :404, body `_dq_body` at :225),
 //   K3, the dk/dv pass (pl.pallas_call at :438, body `_dkv_body` at :258),
 // in both the plain (`flash_attention`) and the segmented
 // (`ragged_attention`) entry points.
 //
-// What they compute, from the forward's residuals (q, k, v, o, lse) and the
+// What it computes, from the forward's residuals (q, k, v, o, lse) and the
 // output gradient do, with delta = rowsum(do * o) (B,H,T) fp32 computed by
 // the caller as the reference does outside its kernels (:392):
 //   s   = q k^T / sqrt(D), capped: s1 = cap tanh(s / cap) when softcap is on
 //   p   = exp(s1 - lse), 0 where the element mask hides the pair
 //   dp  = do v^T
 //   ds  = p (dp - delta), times (1 - tanh^2) when softcap is on
-//   dq  = ds k / sqrt(D)                         (K2, (B,T,H,D) bf16)
-//   dv  = sum over the GQA group of p^T do       (K3, (B,S,KV,D) bf16)
+//   dq  = ds k / sqrt(D)
+//   dv  = sum over the GQA group of p^T do
 //   dk  = sum over the GQA group of ds^T q / sqrt(D)
 // The mask is the reference's `_element_mask` (flash_common.cuh `visible`),
 // and pairs are chosen by select, never by multiplying with a mask: on a
 // row with no visible key lse is the finite sentinel -1e30, and exp(s - lse)
-// overflows to inf there. Keys past S (loaded as zeros) and, in K3, query
-// rows past T are masked too, so any T and S work.
+// overflows to inf there. Keys past S and query rows past T (loaded as
+// zeros) are masked too, so any T and S work.
 //
-// Design. Both kernels keep the forward's 64 x 64 tiles and its skip
-// predicate: a (query tile, key tile) pair that K1 skips (`tiles_live`, the
-// reference's `_live_terms` on the tiles' min/max) is never visited, and a
-// pair every element of which is visible skips the element mask. Products
-// run on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate),
-// fragments read from shared memory with ldmatrix; p and ds are rounded to
-// bf16 as operands of the second products. Tiles stream in with cp.async,
-// the next live one loading into a second buffer while the current one is
-// computed.
-//  - K2: one block of 4 warps per (64 query rows, q head, batch row). The q
-//    and do tiles stay in shared memory; the kv loop runs inside the block
-//    and each warp keeps the dq of its 16 rows in registers (fp32) until the
-//    single bf16 store.
-//  - K3: one block of 8 warps per (64 keys, KV head, batch row). The k and v
-//    tiles stay in shared memory; the block loops over the live query tiles
-//    and, inside each, over the q heads of its GQA group, so dk and dv sum
-//    the whole group in registers and are written once, without atomics
-//    (deterministic, as the reference's group-inner grid). Each tile is two
-//    phases: the warps compute p^T and ds^T for (16 keys x 32 rows) each and
-//    store them to shared memory as bf16; then each warp adds p^T do and
-//    ds^T q for 16 keys x D/2 columns. So a thread holds 2 x D/2 x 16 / 32
-//    accumulators (64 floats at D = 128), not the 128 that one warp per 16
-//    keys x D would need.
-//
-// Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): at the
-// training shapes (T = S = 2048, D = 128) both are bound by operations,
-// 6 D FLOPs per visible pair in K2 (s, dp, dq) and 8 D in K3 (s, dp, dv,
-// dk), against reading q, k, v, do once and writing one or two gradients.
-// What the design does about it: every product of a tile runs from shared
-// memory and registers, dead tiles cost no products, and no gradient leaves
-// the chip before its last sum. Not yet done: TMA, wgmma and warp
-// specialisation; K3 recomputes the scores that K2 also computes.
+// Design. One block per (128 keys, KV head, batch row), two warpgroups of
+// 64 keys each. The k and v tiles stay in shared memory for the whole pass;
+// the block loops over the live (64-row query tile, q head of the GQA group)
+// items. For each, with wgmma: s^T = k q^T and dp^T = v do^T from shared
+// memory; p^T and ds^T in registers (fp32, rounded to bf16 as operands);
+// dv += p^T do and dk += ds^T q with A from registers and do, q read
+// transposed through the descriptors. dk and dv stay in fp32 registers
+// until one bf16 store, summed over the group without atomics. ds^T goes to
+// shared memory as bf16, and each warpgroup computes dq for half of D over
+// the block's 128 keys (one more wgmma) and adds it into the fp32
+// accumulator with atomics. The order of those adds differs between runs,
+// so dq's fp32 sums round differently from run to run (about 1e-6
+// relative), far inside the gradient tolerances; nothing compares two runs
+// bit for bit. A (query tile, key tile) pair that the forward skips
+// (`tiles_live`, the reference's `_live_terms` on the tiles' min/max) is
+// never visited, and a pair every element of which is visible skips the
+// element mask.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using namespace flash;
+using namespace hopper;
 
-constexpr int kBQ = 64;              // query rows per tile
-constexpr int kThreads = 8 * 32;
+constexpr int kBQ = 64;              // query rows per item
+constexpr int kBKB = 128;            // keys per block
+constexpr int kThreads = 2 * 128;    // two warpgroups
 
 struct Params {
   const uint16_t* q;
@@ -76,7 +64,7 @@ struct Params {
   const int* kpos;
   const int* qseg;   // nullptr: not segmented
   const int* kseg;
-  float* dq_acc;    // (B, H, T_pad, D) fp32, zeroed by the caller
+  float* dq_acc;     // (B, H, T_pad, D) fp32, zeroed by the caller
   uint16_t* dk;
   uint16_t* dv;
   int B, T, S, H, KV, T_pad;
@@ -85,80 +73,113 @@ struct Params {
   float sm_scale;
 };
 
-// ----------------------------------------------------------------------
-// the fused backward: dq, dk and dv
-// ----------------------------------------------------------------------
+// Shared memory, each tile on a 1024-byte boundary. A tile of rows of D
+// bf16 is stored as boxes of 64 columns (one box for D <= 64), each box
+// rows of kRB bytes with the kRB-byte swizzle.
 template <int kD>
-__global__ void __launch_bounds__(kThreads)
+struct Smem {
+  static constexpr int kRB = kD >= 64 ? 128 : kD * 2;
+  static constexpr int kKBox = kBKB * kRB;   // one box of k or v
+  static constexpr int kQBox = kBQ * kRB;    // one box of q or do
+  static constexpr int kKV = kBKB * kD * 2;
+  static constexpr int kQ = kBQ * kD * 2;
+  static constexpr int kK = 0, kV = kKV, kQD = 2 * kKV;   // + buf * 2 kQ
+  static constexpr int kDS = kQD + 4 * kQ;                // ds^T [128][64]
+  static constexpr int kMeta = kDS + kBKB * kBQ * 2;      // [4][2][kBQ]
+  static constexpr int kBytes = kMeta + 2 * 4 * kBQ * 4 + 1024;
+};
+
+// Rows [r0, r0 + kRows) of a bf16 tensor with row stride `rs` elements, D
+// values each, into the swizzled boxes at dst; zeros for rows at or past
+// `limit`. Every thread of the block takes part.
+template <int kD, int kRows>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const uint16_t* src,
+                                          size_t rs, int r0, int limit,
+                                          int tid) {
+  constexpr int kRB = Smem<kD>::kRB;
+  constexpr int kCh = kD / 8, kChBox = kRB / 16;
+  for (int i = tid; i < kRows * kCh; i += kThreads) {
+    const int r = i / kCh, ch = i % kCh;
+    const bool in = r0 + r < limit;
+    const size_t off = in ? (size_t)(r0 + r) * rs + ch * 8 : 0;
+    const uint32_t o = (ch / kChBox) * (kRows * kRB) +
+                       swizzle<kRB>(r * kRB + (ch % kChBox) * 16);
+    cp_async16(reinterpret_cast<uint16_t*>(dst + o), src + off, in);
+  }
+}
+
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
 mha_bwd_kernel(const Params p) {
-  constexpr int kStride = kD + 8;
-  constexpr int kPS = kBQ + 8;       // bf16 per row of the p^T / ds^T tiles
-  constexpr int kNB = kD / 16;       // 8-column n-tiles of a warp's D / 2
-  // dynamic shared memory: the k and v tiles [kBK][kStride]; two buffers of
-  // (q tile, do tile) [kBQ][kStride]; p^T and ds^T [kBK][kPS] bf16; then two
-  // buffers each of the q tile's lse (log2 units), delta, positions and
-  // segment ids, [kBQ] each
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* const k_s = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* const v_s = k_s + kBK * kStride;
-  uint16_t* const qd_s = v_s + kBK * kStride;
-  uint16_t* const pt_s = qd_s + 4 * kBQ * kStride;
-  uint16_t* const dst_s = pt_s + kBK * kPS;
-  float* const lse_s = reinterpret_cast<float*>(dst_s + kBK * kPS);
+  using L = Smem<kD>;
+  constexpr int kRB = L::kRB;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* const k_s = smem + L::kK;
+  uint8_t* const v_s = smem + L::kV;
+  uint8_t* const qd_s = smem + L::kQD;
+  uint8_t* const ds_s = smem + L::kDS;
+  float* const lse_s = reinterpret_cast<float*>(smem + L::kMeta);
   float* const dlt_s = lse_s + 2 * kBQ;
   int* const qpos_s = reinterpret_cast<int*>(dlt_s + 2 * kBQ);
   int* const qseg_s = qpos_s + 2 * kBQ;
-  __shared__ int part[2][4];
+  __shared__ int part[4][4];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = tid / 128, w4 = warp % 4;
   const int g = lane >> 2, c = lane & 3;
-  const int mi = lane >> 3, r8 = lane & 7;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBK;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
   const int group = p.H / p.KV;
   const bool segmented = p.qseg != nullptr;
-  const int kr = (warp & 3) * 16;         // this warp's 16 keys
-  const int qc = (warp >> 2) * 32;        // phase A: its 32 query rows
-  const int dh = (warp >> 2) * (kD / 2);  // phase B: its D / 2 columns
 
   // ---- k and v tiles into shared memory (zeros past S) ----
   const size_t kv_rs = (size_t)p.KV * kD;
   const size_t kv_base = (size_t)b * p.S * kv_rs + (size_t)kvh * kD;
-  load_rows<kD, kThreads>(k_s, kStride, p.k + kv_base, kv_rs, k0, kBK, p.S, tid);
-  load_rows<kD, kThreads>(v_s, kStride, p.v + kv_base, kv_rs, k0, kBK, p.S, tid);
+  load_tile<kD, kBKB>(k_s, p.k + kv_base, kv_rs, k0, p.S, tid);
+  load_tile<kD, kBKB>(v_s, p.v + kv_base, kv_rs, k0, p.S, tid);
   cp_async_commit();
 
-  // ---- this thread's two keys (rows of s^T), and the key tile's statistics ----
+  // ---- this thread's two keys (rows of s^T), and the key tile's stats ----
+  int key[2], kp[2], ks[2];
   bool key_ok[2];
-  int kp[2], ks[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int key = k0 + kr + g + 8 * j;
-    key_ok[j] = key < p.S;
-    kp[j] = key_ok[j] ? p.kpos[(size_t)b * p.S + key] : 0;
-    ks[j] = (key_ok[j] && segmented) ? p.kseg[(size_t)b * p.S + key] : 0;
+    key[j] = wg * 64 + w4 * 16 + g + 8 * j;
+    key_ok[j] = k0 + key[j] < p.S;
+    kp[j] = key_ok[j] ? p.kpos[(size_t)b * p.S + k0 + key[j]] : 0;
+    ks[j] = (key_ok[j] && segmented) ? p.kseg[(size_t)b * p.S + k0 + key[j]] : 0;
   }
   int kstat[4];
   {
-    const int key = k0 + tid;
-    const bool ok = tid < kBK && key < p.S;
-    const int pos = ok ? p.kpos[(size_t)b * p.S + key] : 0;
-    const int seg = (ok && segmented) ? p.kseg[(size_t)b * p.S + key] : 0;
-    tile_stats(ok, pos, seg, part, kstat);
+    const bool ok = tid < kBKB && k0 + tid < p.S;
+    const int pos = ok ? p.kpos[(size_t)b * p.S + k0 + tid] : 0;
+    const int seg = (ok && segmented) ? p.kseg[(size_t)b * p.S + k0 + tid] : 0;
+    if (warp < 4) {
+      const int r0 = warp_min(ok ? pos : kIntMax), r1 = warp_max(ok ? pos : kIntMin);
+      const int r2 = warp_min(ok ? seg : kIntMax), r3 = warp_max(ok ? seg : kIntMin);
+      if (lane == 0) {
+        part[warp][0] = r0; part[warp][1] = r1;
+        part[warp][2] = r2; part[warp][3] = r3;
+      }
+    }
+    __syncthreads();
+    kstat[0] = min(min(part[0][0], part[1][0]), min(part[2][0], part[3][0]));
+    kstat[1] = max(max(part[0][1], part[1][1]), max(part[2][1], part[3][1]));
+    kstat[2] = min(min(part[0][2], part[1][2]), min(part[2][2], part[3][2]));
+    kstat[3] = max(max(part[0][3], part[1][3]), max(part[2][3], part[3][3]));
   }
 
-  float dk[kNB][4], dv[kNB][4];
+  float dk[kD / 2], dv[kD / 2];
 #pragma unroll
-  for (int n = 0; n < kNB; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
 
   const size_t q_rs = (size_t)p.H * kD;
   const int n_qt = (p.T + kBQ - 1) / kBQ;
   const int n_items = n_qt * group;   // (query tile, head of the group) pairs
 
   // The first live item at or after `it` (query tile it / group, q head
-  // kvh * group + it % group), n_items if none. Its lse, delta, positions
-  // and segment ids go to buffer buf.
+  // kvh * group + it % group), n_items if none. Its lse (log2 units),
+  // delta, positions and segment ids go to buffer buf.
   auto find_live = [&](int it, int buf, bool& full_out) -> int {
     while (it < n_items) {
       const int t = it / group, hq = kvh * group + it % group, q0 = t * kBQ;
@@ -179,7 +200,7 @@ mha_bwd_kernel(const Params p) {
         it = (t + 1) * group;   // dead for every head: next query tile
         continue;
       }
-      full_out = q0 + kBQ <= p.T && k0 + kBK <= p.S &&
+      full_out = q0 + kBQ <= p.T && k0 + kBKB <= p.S &&
                  tiles_full(qstat, kstat, segmented, p.causal, p.window);
       return it;
     }
@@ -189,12 +210,18 @@ mha_bwd_kernel(const Params p) {
   auto issue = [&](int it, int buf) {
     const int t = it / group, hq = kvh * group + it % group;
     const size_t base = (size_t)b * p.T * q_rs + (size_t)hq * kD;
-    uint16_t* const qb = qd_s + buf * 2 * kBQ * kStride;
-    load_rows<kD, kThreads>(qb, kStride, p.q + base, q_rs, t * kBQ, kBQ, p.T, tid);
-    load_rows<kD, kThreads>(qb + kBQ * kStride, kStride, p.dout + base, q_rs,
-                               t * kBQ, kBQ, p.T, tid);
+    uint8_t* const qb = qd_s + buf * 2 * L::kQ;
+    load_tile<kD, kBQ>(qb, p.q + base, q_rs, t * kBQ, p.T, tid);
+    load_tile<kD, kBQ>(qb + L::kQ, p.dout + base, q_rs, t * kBQ, p.T, tid);
     cp_async_commit();
   };
+
+  const float scale_log2 = p.sm_scale * kLog2e;
+  const uint32_t k_a = smem_u32(k_s) + wg * 64 * kRB;   // this warpgroup's keys
+  const uint32_t v_a = smem_u32(v_s) + wg * 64 * kRB;
+  const int col0 = wg * (kD / 2);                       // its half of D for dq
+  const uint32_t kq_a = smem_u32(k_s) + (col0 / 64) * L::kKBox + (col0 % 64) * 2;
+  const uint32_t ds_a = smem_u32(ds_s);
 
   bool full = false, full_next = false;
   int cur = find_live(0, 0, full);
@@ -207,163 +234,148 @@ mha_bwd_kernel(const Params p) {
     } else {
       cp_async_wait<0>();
     }
+    fence_proxy_async();
     __syncthreads();   // k, v and item cur's q and do are in shared memory
-    const int q0 = (cur / group) * kBQ;
-    const uint16_t* const qs_b = qd_s + buf * 2 * kBQ * kStride;
-    const uint16_t* const dos_b = qs_b + kBQ * kStride;
+    const int q0 = (cur / group) * kBQ, hq = kvh * group + cur % group;
+    const uint32_t q_a = smem_u32(qd_s + buf * 2 * L::kQ);
+    const uint32_t do_a = q_a + L::kQ;
     const float* const lse_b = lse_s + buf * kBQ;
     const float* const dlt_b = dlt_s + buf * kBQ;
     const int* const qpos_b = qpos_s + buf * kBQ;
     const int* const qseg_b = qseg_s + buf * kBQ;
 
-    // ---- phase A: s^T = k q^T, dp^T = v do^T for 16 keys x 32 rows ----
-    {
-      float s[4][4], dp[4][4];
+    // ---- s^T = k q^T and dp^T = v do^T: 64 keys x 64 rows per warpgroup ----
+    float s[32], dp[32];
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t ka[4], va[4];
-        ldsm_a(ka, k_s + kr * kStride + kk * 16, kStride, lane);
-        ldsm_a(va, v_s + kr * kStride + kk * 16, kStride, lane);
-#pragma unroll
-        for (int n = 0; n < 4; n += 2) {
-          const int off = (qc + (n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8;
-          uint32_t qb[4], db[4];
-          ldsm_x4(qb, qs_b + off);
-          mma_bf16(s[n], ka, qb[0], qb[1]);
-          mma_bf16(s[n + 1], ka, qb[2], qb[3]);
-          ldsm_x4(db, dos_b + off);
-          mma_bf16(dp[n], va, db[0], db[1]);
-          mma_bf16(dp[n + 1], va, db[2], db[3]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = e >> 1;                          // which of the two keys
-          const int qi = qc + n * 8 + c * 2 + (e & 1);   // row within the tile
-          float z = s[n][e] * p.sm_scale;
-          float chain = 1.f;
-          if (p.softcap > 0.f) {
-            const float th = tanhf(z / p.softcap);
-            z = p.softcap * th;
-            chain = 1.f - th * th;
-          }
-          float pe = exp2f(z * kLog2e - lse_b[qi]);
-          if (!full && !(q0 + qi < p.T && key_ok[j] &&
-                         visible(qpos_b[qi], qseg_b[qi], kp[j], ks[j],
-                                 segmented, p.causal, p.window)))
-            pe = 0.f;
-          s[n][e] = pe;
-          dp[n][e] = pe * (dp[n][e] - dlt_b[qi]) * chain;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const int col = qc + n * 8 + c * 2;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int r = (kr + g + 8 * j) * kPS + col;
-          *reinterpret_cast<uint32_t*>(pt_s + r) = pack_bf16(s[n][2 * j], s[n][2 * j + 1]);
-          *reinterpret_cast<uint32_t*>(dst_s + r) = pack_bf16(dp[n][2 * j], dp[n][2 * j + 1]);
-        }
-      }
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
+      const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
+      wgmma_ss<64, 0, 0>(s, desc<kRB>(k_a + ko, 16, 8 * kRB),
+                         desc<kRB>(q_a + qo, 16, 8 * kRB), 1);
+      wgmma_ss<64, 0, 0>(dp, desc<kRB>(v_a + ko, 16, 8 * kRB),
+                         desc<kRB>(do_a + qo, 16, 8 * kRB), 1);
     }
-    __syncthreads();   // p^T and ds^T of the whole tile are in shared memory
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // ---- phase B: dv += p^T do, dk += ds^T q for 16 keys x D / 2 ----
+    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2) ----
+    // element i of s: key key[(i % 4) / 2], query row 8 (i / 4) + 2c + i % 2
 #pragma unroll
-    for (int kq = 0; kq < kBQ / 16; ++kq) {
-      uint32_t pa[4], sa[4];
-      ldsm_a(pa, pt_s + kr * kPS + kq * 16, kPS, lane);
-      ldsm_a(sa, dst_s + kr * kPS + kq * 16, kPS, lane);
-      const int off = (kq * 16 + (mi & 1) * 8 + r8) * kStride + dh + (mi >> 1) * 8;
+    for (int j = 0; j < 8; ++j) {
+      const int qi = 8 * j + 2 * c;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_b + qi);
+      const float2 dl = *reinterpret_cast<const float2*>(dlt_b + qi);
 #pragma unroll
-      for (int n = 0; n + 1 < kNB; n += 2) {
-        uint32_t db[4], qb[4];
-        ldsm_x4_trans(db, dos_b + off + n * 8);
-        mma_bf16(dv[n], pa, db[0], db[1]);
-        mma_bf16(dv[n + 1], pa, db[2], db[3]);
-        ldsm_x4_trans(qb, qs_b + off + n * 8);
-        mma_bf16(dk[n], sa, qb[0], qb[1]);
-        mma_bf16(dk[n + 1], sa, qb[2], qb[3]);
-      }
-      if constexpr (kNB % 2) {   // D = 16: one n-tile per warp
-        uint32_t db[2], qb[2];
-        ldsm_x2_trans(db, dos_b + off + (kNB - 1) * 8);
-        mma_bf16(dv[kNB - 1], pa, db[0], db[1]);
-        ldsm_x2_trans(qb, qs_b + off + (kNB - 1) * 8);
-        mma_bf16(dk[kNB - 1], sa, qb[0], qb[1]);
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e, kj = e >> 1, r = qi + (e & 1);
+        const float lse2 = (e & 1) ? l2.y : l2.x;
+        const float dlt = (e & 1) ? dl.y : dl.x;
+        float pe, chain = 1.f;
+        if (p.softcap > 0.f) {
+          const float th = tanhf(s[i] * p.sm_scale / p.softcap);
+          chain = 1.f - th * th;
+          pe = exp2f(p.softcap * th * kLog2e - lse2);
+        } else {
+          pe = exp2f(s[i] * scale_log2 - lse2);
+        }
+        if (!full && !(q0 + r < p.T && key_ok[kj] &&
+                       visible(qpos_b[r], qseg_b[r], kp[kj], ks[kj],
+                               segmented, p.causal, p.window)))
+          pe = 0.f;
+        s[i] = pe;
+        dp[i] = pe * (dp[i] - dlt) * chain;
       }
     }
-    // ---- phase C: dq += ds k for 16 rows x D / 2, added into the fp32
-    // accumulator with atomics (the order of the adds differs per run) ----
-    {
-      const int qr = (warp & 3) * 16;
-      const int hq = kvh * group + cur % group;
-      float dqa[kNB][4];
+    // as bf16 A fragments, one per 16 query rows
+    uint32_t pa[4][4], sa[4][4];
 #pragma unroll
-      for (int n = 0; n < kNB; ++n)
+    for (int kq = 0; kq < 4; ++kq)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t a[4];
-        ldsm_x4_trans(a, dst_s + (kk * 16 + (mi >> 1) * 8 + r8) * kPS + qr + (mi & 1) * 8);
-        const uint16_t* k0p = k_s + (kk * 16 + (mi & 1) * 8 + r8) * kStride + dh + (mi >> 1) * 8;
-#pragma unroll
-        for (int n = 0; n + 1 < kNB; n += 2) {
-          uint32_t kb[4];
-          ldsm_x4_trans(kb, k0p + n * 8);
-          mma_bf16(dqa[n], a, kb[0], kb[1]);
-          mma_bf16(dqa[n + 1], a, kb[2], kb[3]);
-        }
-        if constexpr (kNB % 2) {
-          uint32_t kb[2];
-          ldsm_x2_trans(kb, k_s + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + dh + (kNB - 1) * 8);
-          mma_bf16(dqa[kNB - 1], a, kb[0], kb[1]);
-        }
+      for (int r = 0; r < 4; ++r) {
+        pa[kq][r] = pack_bf16(s[8 * kq + 2 * r], s[8 * kq + 2 * r + 1]);
+        sa[kq][r] = pack_bf16(dp[8 * kq + 2 * r], dp[8 * kq + 2 * r + 1]);
       }
-      float* const acc = p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0 + qr) * kD + dh;
+
+    // ---- dv += p^T do, dk += ds^T q: do and q read transposed ----
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < kNB; ++n)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          atomicAdd(reinterpret_cast<float2*>(acc + (g + 8 * i) * kD + n * 8 + c * 2),
-                    make_float2(dqa[n][2 * i], dqa[n][2 * i + 1]));
+    for (int kq = 0; kq < 4; ++kq) {
+      wgmma_rs<kD, 1>(dv, pa[kq], desc<kRB>(do_a + kq * 16 * kRB, L::kQBox, 8 * kRB), 1);
+      wgmma_rs<kD, 1>(dk, sa[kq], desc<kRB>(q_a + kq * 16 * kRB, L::kQBox, 8 * kRB), 1);
     }
-    __syncthreads();   // buffer buf and the p^T / ds^T tiles are free
+    wgmma_commit();
+
+    // ---- ds^T to shared memory: 64 query rows (128 B) per key, swizzled ----
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int kj = 0; kj < 2; ++kj)
+        *reinterpret_cast<uint32_t*>(ds_s + key[kj] * 128 + ((j ^ g) << 4) + 4 * c) =
+            sa[j >> 1][(j & 1) * 2 + kj];
+    fence_proxy_async();
+    __syncthreads();   // ds^T of all 128 keys is in shared memory
+
+    // ---- dq = ds k for this warpgroup's half of D, over the 128 keys ----
+    float dqa[kD / 4];
+#pragma unroll
+    for (int i = 0; i < kD / 4; ++i) dqa[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBKB / 16; ++kk)
+      wgmma_ss<kD / 2, 1, 1>(dqa, desc<128>(ds_a + kk * 16 * 128, 16, 1024),
+                             desc<kRB>(kq_a + kk * 16 * kRB, L::kKBox, 8 * kRB), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
+    fence_regs(dk);
+    fence_regs(dv);
+#pragma unroll
+    for (int kq = 0; kq < 4; ++kq) {
+      fence_regs(pa[kq]);
+      fence_regs(sa[kq]);
+    }
+
+    // ---- added into the fp32 accumulator: rows 16 w4 + g (+ 8) ----
+    float* const acc = p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0) * kD + col0;
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        atomicAdd(reinterpret_cast<float2*>(acc + (w4 * 16 + g + 8 * i) * kD + 8 * j + 2 * c),
+                  make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]));
+    __syncthreads();   // buffer buf and ds^T are free
     cur = next;
     full = full_next;
   }
-  cp_async_wait<0>();
+  cp_async_wait<0>();  // no copy outlives the block, even with no live item
 
+  // ---- dk, dv: element i of this thread's keys, column 8 (i / 4) + 2c ----
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (!key_ok[j]) continue;
-    const size_t r = ((size_t)b * p.S + k0 + kr + g + 8 * j) * kv_rs + (size_t)kvh * kD + dh;
+  for (int kj = 0; kj < 2; ++kj) {
+    if (!key_ok[kj]) continue;
+    const size_t r = ((size_t)b * p.S + k0 + key[kj]) * kv_rs + (size_t)kvh * kD;
 #pragma unroll
-    for (int n = 0; n < kNB; ++n) {
-      const int d = n * 8 + c * 2;
+    for (int j = 0; j < kD / 8; ++j) {
+      const int d = 8 * j + 2 * c, i = 4 * j + 2 * kj;
       *reinterpret_cast<uint32_t*>(p.dk + r + d) =
-          pack_bf16(dk[n][2 * j] * p.sm_scale, dk[n][2 * j + 1] * p.sm_scale);
-      *reinterpret_cast<uint32_t*>(p.dv + r + d) = pack_bf16(dv[n][2 * j], dv[n][2 * j + 1]);
+          pack_bf16(dk[i] * p.sm_scale, dk[i + 1] * p.sm_scale);
+      *reinterpret_cast<uint32_t*>(p.dv + r + d) = pack_bf16(dv[i], dv[i + 1]);
     }
   }
 }
 
 template <int kD>
 void launch(const Params& p, cudaStream_t stream) {
-  constexpr int kBytes = (2 * kBK + 4 * kBQ) * (kD + 8) * 2 +
-                         2 * kBK * (kBQ + 8) * 2 + 8 * kBQ * 4;
   cudaFuncSetAttribute(mha_bwd_kernel<kD>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-  mha_bwd_kernel<kD><<<dim3((p.S + kBK - 1) / kBK, p.KV, p.B), kThreads,
-                       kBytes, stream>>>(p);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       Smem<kD>::kBytes);
+  mha_bwd_kernel<kD><<<dim3((p.S + kBKB - 1) / kBKB, p.KV, p.B), kThreads,
+                       Smem<kD>::kBytes, stream>>>(p);
 }
 
 }  // namespace

@@ -152,8 +152,10 @@ def _element_mask(qpos, kpos, qseg, kseg, causal, window):
 
 def attention_delta(o, do):
     """delta = rowsum(do * o), (B,H,T) fp32: the reduction the reference
-    takes outside its kernels (``flash_attention.py:392``)."""
-    return torch.einsum("bthd,bthd->bht", do.float(), o.float()).contiguous()
+    takes outside its kernels (``flash_attention.py:392``). The products of
+    bf16 values are exact in fp32; one cast, one product and one sum, no
+    batched matrix product."""
+    return o.float().mul_(do).sum(-1).transpose(1, 2).contiguous()
 
 
 def mha_backward_plain(q, k, v, q_positions, kv_positions,
