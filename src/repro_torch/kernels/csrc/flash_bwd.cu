@@ -41,6 +41,9 @@
 // (`tiles_live`, the reference's `_live_terms` on the tiles' min/max) is
 // never visited, and a pair every element of which is visible skips the
 // element mask.
+#include <cuda.h>   // CUtensorMap and its encoding enums; the driver is
+                    // reached through cudaGetDriverEntryPoint, no -lcuda
+
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -51,13 +54,11 @@ using namespace hopper;
 
 constexpr int kBQ = 64;              // query rows per item
 constexpr int kBKB = 128;            // keys per block
-constexpr int kThreads = 2 * 128;    // two warpgroups
+constexpr int kStages = 2;           // (q, do, lse, delta) tiles in flight
+constexpr int kConsumers = 2 * 128;  // two consumer warpgroups
+constexpr int kThreads = 128 + kConsumers;
 
 struct Params {
-  const uint16_t* q;
-  const uint16_t* k;
-  const uint16_t* v;
-  const uint16_t* dout;
   const float* lse;
   const float* delta;
   const int* qpos;
@@ -74,8 +75,8 @@ struct Params {
 };
 
 // Shared memory, each tile on a 1024-byte boundary. A tile of rows of D
-// bf16 is stored as boxes of 64 columns (one box for D <= 64), each box
-// rows of kRB bytes with the kRB-byte swizzle.
+// bf16 is stored as TMA writes it: boxes of 64 columns (one box for
+// D <= 64), each box rows of kRB bytes with the kRB-byte swizzle.
 template <int kD>
 struct Smem {
   static constexpr int kRB = kD >= 64 ? 128 : kD * 2;
@@ -83,63 +84,129 @@ struct Smem {
   static constexpr int kQBox = kBQ * kRB;    // one box of q or do
   static constexpr int kKV = kBKB * kD * 2;
   static constexpr int kQ = kBQ * kD * 2;
-  static constexpr int kK = 0, kV = kKV, kQD = 2 * kKV;   // + buf * 2 kQ
-  static constexpr int kDS = kQD + 4 * kQ;                // ds^T [128][64]
-  static constexpr int kMeta = kDS + kBKB * kBQ * 2;      // [4][2][kBQ]
-  static constexpr int kBytes = kMeta + 2 * 4 * kBQ * 4 + 1024;
+  static constexpr int kK = 0, kV = kKV;
+  static constexpr int kQD = 2 * kKV;                      // [stage][q, do]
+  static constexpr int kDS = kQD + kStages * 2 * kQ;       // ds^T [128][64] bf16
+  static constexpr int kDQ = kDS + kBKB * kBQ * 2;         // dq [64][D] fp32
+  static constexpr int kMeta = kDQ + kBQ * kD * 4;         // [stage][4][kBQ]
+  static constexpr int kItem = kMeta + kStages * 4 * kBQ * 4;   // int4 [stage]
+  static constexpr int kBar = kItem + kStages * 16;        // kv, full[], empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// Rows [r0, r0 + kRows) of a bf16 tensor with row stride `rs` elements, D
-// values each, into the swizzled boxes at dst; zeros for rows at or past
-// `limit`. Every thread of the block takes part.
-template <int kD, int kRows>
-__device__ __forceinline__ void load_tile(uint8_t* dst, const uint16_t* src,
-                                          size_t rs, int r0, int limit,
-                                          int tid) {
-  constexpr int kRB = Smem<kD>::kRB;
-  constexpr int kCh = kD / 8, kChBox = kRB / 16;
-  for (int i = tid; i < kRows * kCh; i += kThreads) {
-    const int r = i / kCh, ch = i % kCh;
-    const bool in = r0 + r < limit;
-    const size_t off = in ? (size_t)(r0 + r) * rs + ch * 8 : 0;
-    const uint32_t o = (ch / kChBox) * (kRows * kRB) +
-                       swizzle<kRB>(r * kRB + (ch % kChBox) * 16);
-    cp_async16(reinterpret_cast<uint16_t*>(dst + o), src + off, in);
-  }
-}
-
+// The producer warp: the key tile's statistics, the k and v tiles, then for
+// each live (query tile, q head) item its lse (log2 units), delta,
+// positions and segment ids and, by TMA, its q and do tiles into the next
+// free stage; a sentinel item (q0 = -1) ends the consumers' loop.
 template <int kD>
-__global__ void __launch_bounds__(kThreads, 1)
-mha_bwd_kernel(const Params p) {
+__device__ __forceinline__ void produce(const CUtensorMap* tq,
+                                        const CUtensorMap* tdo,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, const Params& p,
+                                        uint8_t* smem, int lane) {
   using L = Smem<kD>;
-  constexpr int kRB = L::kRB;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* const k_s = smem + L::kK;
-  uint8_t* const v_s = smem + L::kV;
-  uint8_t* const qd_s = smem + L::kQD;
-  uint8_t* const ds_s = smem + L::kDS;
-  float* const lse_s = reinterpret_cast<float*>(smem + L::kMeta);
-  float* const dlt_s = lse_s + 2 * kBQ;
-  int* const qpos_s = reinterpret_cast<int*>(dlt_s + 2 * kBQ);
-  int* const qseg_s = qpos_s + 2 * kBQ;
-  __shared__ int part[4][4];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wg = tid / 128, w4 = warp % 4;
-  const int g = lane >> 2, c = lane & 3;
   const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
   const int group = p.H / p.KV;
   const bool segmented = p.qseg != nullptr;
+  const uint32_t kv_bar = smem_u32(smem + L::kBar);
+  const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 + 8 * kStages;
 
-  // ---- k and v tiles into shared memory (zeros past S) ----
-  const size_t kv_rs = (size_t)p.KV * kD;
-  const size_t kv_base = (size_t)b * p.S * kv_rs + (size_t)kvh * kD;
-  load_tile<kD, kBKB>(k_s, p.k + kv_base, kv_rs, k0, p.S, tid);
-  load_tile<kD, kBKB>(v_s, p.v + kv_base, kv_rs, k0, p.S, tid);
-  cp_async_commit();
+  if (lane == 0) {
+    mbar_arrive_tx(kv_bar, 2 * L::kKV);
+#pragma unroll
+    for (int x = 0; x < kD / 64 + (kD < 64); ++x) {
+      tma_load_4d(smem_u32(smem + L::kK + x * L::kKBox), tk, kv_bar, 64 * x, kvh, k0, b);
+      tma_load_4d(smem_u32(smem + L::kV + x * L::kKBox), tv, kv_bar, 64 * x, kvh, k0, b);
+    }
+  }
+  int kstat[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
+  for (int i = lane; i < kBKB && k0 + i < p.S; i += 32) {
+    const int pos = p.kpos[(size_t)b * p.S + k0 + i];
+    const int seg = segmented ? p.kseg[(size_t)b * p.S + k0 + i] : 0;
+    kstat[0] = min(kstat[0], pos); kstat[1] = max(kstat[1], pos);
+    kstat[2] = min(kstat[2], seg); kstat[3] = max(kstat[3], seg);
+  }
+  kstat[0] = warp_min(kstat[0]); kstat[1] = warp_max(kstat[1]);
+  kstat[2] = warp_min(kstat[2]); kstat[3] = warp_max(kstat[3]);
 
-  // ---- this thread's two keys (rows of s^T), and the key tile's stats ----
+  int stage = 0;
+  uint32_t phase = 0;
+  const int n_qt = (p.T + kBQ - 1) / kBQ;
+  for (int t = 0; t < n_qt; ++t) {
+    const int q0 = t * kBQ;
+    bool ok[2];
+    int pos[2], seg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + lane + 32 * i;
+      ok[i] = r < p.T;
+      pos[i] = ok[i] ? p.qpos[(size_t)b * p.T + r] : 0;
+      seg[i] = (ok[i] && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
+    }
+    int qstat[4];
+    qstat[0] = warp_min(min(ok[0] ? pos[0] : kIntMax, ok[1] ? pos[1] : kIntMax));
+    qstat[1] = warp_max(max(ok[0] ? pos[0] : kIntMin, ok[1] ? pos[1] : kIntMin));
+    qstat[2] = warp_min(min(ok[0] ? seg[0] : kIntMax, ok[1] ? seg[1] : kIntMax));
+    qstat[3] = warp_max(max(ok[0] ? seg[0] : kIntMin, ok[1] ? seg[1] : kIntMin));
+    if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
+    const int full = q0 + kBQ <= p.T && k0 + kBKB <= p.S &&
+                     tiles_full(qstat, kstat, segmented, p.causal, p.window);
+    for (int gi = 0; gi < group; ++gi) {
+      const int hq = kvh * group + gi;
+      mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+      float* const lse_s = reinterpret_cast<float*>(smem + L::kMeta) + stage * 4 * kBQ;
+      float* const dlt_s = lse_s + kBQ;
+      int* const qpos_s = reinterpret_cast<int*>(dlt_s + kBQ);
+      int* const qseg_s = qpos_s + kBQ;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = lane + 32 * i;
+        const size_t li = ((size_t)b * p.H + hq) * p.T + q0 + rr;
+        lse_s[rr] = ok[i] ? p.lse[li] * kLog2e : 0.f;
+        dlt_s[rr] = ok[i] ? p.delta[li] : 0.f;
+        qpos_s[rr] = pos[i];
+        qseg_s[rr] = seg[i];
+      }
+      const uint32_t fb = full_bar + 8 * stage;
+      if (lane == 0) {
+        reinterpret_cast<int4*>(smem + L::kItem)[stage] = make_int4(q0, hq, full, 0);
+        mbar_arrive_tx(fb, 2 * L::kQ);
+        uint8_t* const qb = smem + L::kQD + stage * 2 * L::kQ;
+#pragma unroll
+        for (int x = 0; x < kD / 64 + (kD < 64); ++x) {
+          tma_load_4d(smem_u32(qb + x * L::kQBox), tq, fb, 64 * x, hq, q0, b);
+          tma_load_4d(smem_u32(qb + L::kQ + x * L::kQBox), tdo, fb, 64 * x, hq, q0, b);
+        }
+      } else {
+        mbar_arrive(fb);
+      }
+      if (++stage == kStages) { stage = 0; phase ^= 1; }
+    }
+  }
+  mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+  if (lane == 0)
+    reinterpret_cast<int4*>(smem + L::kItem)[stage] = make_int4(-1, 0, 0, 0);
+  mbar_arrive(full_bar + 8 * stage);
+}
+
+// The two consumer warpgroups: warpgroup wg takes keys [64 wg, 64 wg + 64)
+// of the block's tile for s^T, dp^T, dv and dk, and columns
+// [wg D / 2, (wg + 1) D / 2) of dq.
+template <int kD>
+__device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
+                                        int ct) {
+  using L = Smem<kD>;
+  constexpr int kRB = L::kRB;
+  const int wg = ct / 128, w4 = (ct / 32) % 4, lane = ct % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
+  const bool segmented = p.qseg != nullptr;
+  uint8_t* const ds_s = smem + L::kDS;
+  float* const dq_s = reinterpret_cast<float*>(smem + L::kDQ);
+  const uint32_t kv_bar = smem_u32(smem + L::kBar);
+  const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 + 8 * kStages;
+
+  // this thread's two keys: rows g and g + 8 of its warp's 16 in s^T
   int key[2], kp[2], ks[2];
   bool key_ok[2];
 #pragma unroll
@@ -149,100 +216,33 @@ mha_bwd_kernel(const Params p) {
     kp[j] = key_ok[j] ? p.kpos[(size_t)b * p.S + k0 + key[j]] : 0;
     ks[j] = (key_ok[j] && segmented) ? p.kseg[(size_t)b * p.S + k0 + key[j]] : 0;
   }
-  int kstat[4];
-  {
-    const bool ok = tid < kBKB && k0 + tid < p.S;
-    const int pos = ok ? p.kpos[(size_t)b * p.S + k0 + tid] : 0;
-    const int seg = (ok && segmented) ? p.kseg[(size_t)b * p.S + k0 + tid] : 0;
-    if (warp < 4) {
-      const int r0 = warp_min(ok ? pos : kIntMax), r1 = warp_max(ok ? pos : kIntMin);
-      const int r2 = warp_min(ok ? seg : kIntMax), r3 = warp_max(ok ? seg : kIntMin);
-      if (lane == 0) {
-        part[warp][0] = r0; part[warp][1] = r1;
-        part[warp][2] = r2; part[warp][3] = r3;
-      }
-    }
-    __syncthreads();
-    kstat[0] = min(min(part[0][0], part[1][0]), min(part[2][0], part[3][0]));
-    kstat[1] = max(max(part[0][1], part[1][1]), max(part[2][1], part[3][1]));
-    kstat[2] = min(min(part[0][2], part[1][2]), min(part[2][2], part[3][2]));
-    kstat[3] = max(max(part[0][3], part[1][3]), max(part[2][3], part[3][3]));
-  }
 
   float dk[kD / 2], dv[kD / 2];
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const size_t q_rs = (size_t)p.H * kD;
-  const int n_qt = (p.T + kBQ - 1) / kBQ;
-  const int n_items = n_qt * group;   // (query tile, head of the group) pairs
-
-  // The first live item at or after `it` (query tile it / group, q head
-  // kvh * group + it % group), n_items if none. Its lse (log2 units),
-  // delta, positions and segment ids go to buffer buf.
-  auto find_live = [&](int it, int buf, bool& full_out) -> int {
-    while (it < n_items) {
-      const int t = it / group, hq = kvh * group + it % group, q0 = t * kBQ;
-      const int r = q0 + tid;
-      const bool ok = tid < kBQ && r < p.T;
-      const int pos = ok ? p.qpos[(size_t)b * p.T + r] : 0;
-      const int seg = (ok && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
-      if (tid < kBQ) {
-        const size_t li = ((size_t)b * p.H + hq) * p.T + r;
-        lse_s[buf * kBQ + tid] = ok ? p.lse[li] * kLog2e : 0.f;
-        dlt_s[buf * kBQ + tid] = ok ? p.delta[li] : 0.f;
-        qpos_s[buf * kBQ + tid] = pos;
-        qseg_s[buf * kBQ + tid] = seg;
-      }
-      int qstat[4];
-      tile_stats(ok, pos, seg, part, qstat);
-      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) {
-        it = (t + 1) * group;   // dead for every head: next query tile
-        continue;
-      }
-      full_out = q0 + kBQ <= p.T && k0 + kBKB <= p.S &&
-                 tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      return it;
-    }
-    return n_items;
-  };
-
-  auto issue = [&](int it, int buf) {
-    const int t = it / group, hq = kvh * group + it % group;
-    const size_t base = (size_t)b * p.T * q_rs + (size_t)hq * kD;
-    uint8_t* const qb = qd_s + buf * 2 * L::kQ;
-    load_tile<kD, kBQ>(qb, p.q + base, q_rs, t * kBQ, p.T, tid);
-    load_tile<kD, kBQ>(qb + L::kQ, p.dout + base, q_rs, t * kBQ, p.T, tid);
-    cp_async_commit();
-  };
-
   const float scale_log2 = p.sm_scale * kLog2e;
-  const uint32_t k_a = smem_u32(k_s) + wg * 64 * kRB;   // this warpgroup's keys
-  const uint32_t v_a = smem_u32(v_s) + wg * 64 * kRB;
-  const int col0 = wg * (kD / 2);                       // its half of D for dq
-  const uint32_t kq_a = smem_u32(k_s) + (col0 / 64) * L::kKBox + (col0 % 64) * 2;
+  const uint32_t k_a = smem_u32(smem + L::kK) + wg * 64 * kRB;
+  const uint32_t v_a = smem_u32(smem + L::kV) + wg * 64 * kRB;
+  const int col0 = wg * (kD / 2);
+  const uint32_t kq_a = smem_u32(smem + L::kK) + (col0 / 64) * L::kKBox + (col0 % 64) * 2;
   const uint32_t ds_a = smem_u32(ds_s);
 
-  bool full = false, full_next = false;
-  int cur = find_live(0, 0, full);
-  if (cur < n_items) issue(cur, 0);
-  for (int buf = 0; cur < n_items; buf ^= 1) {
-    const int next = find_live(cur + 1, buf ^ 1, full_next);
-    if (next < n_items) {
-      issue(next, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_proxy_async();
-    __syncthreads();   // k, v and item cur's q and do are in shared memory
-    const int q0 = (cur / group) * kBQ, hq = kvh * group + cur % group;
-    const uint32_t q_a = smem_u32(qd_s + buf * 2 * L::kQ);
+  mbar_wait(kv_bar, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(full_bar + 8 * stage, phase);
+    const int4 item = reinterpret_cast<const int4*>(smem + L::kItem)[stage];
+    if (item.x < 0) break;
+    const int q0 = item.x, hq = item.y;
+    const bool full = item.z != 0;
+    const uint32_t q_a = smem_u32(smem + L::kQD + stage * 2 * L::kQ);
     const uint32_t do_a = q_a + L::kQ;
-    const float* const lse_b = lse_s + buf * kBQ;
-    const float* const dlt_b = dlt_s + buf * kBQ;
-    const int* const qpos_b = qpos_s + buf * kBQ;
-    const int* const qseg_b = qseg_s + buf * kBQ;
+    const float* const lse_b = reinterpret_cast<const float*>(smem + L::kMeta) + stage * 4 * kBQ;
+    const float* const dlt_b = lse_b + kBQ;
+    const int* const qpos_b = reinterpret_cast<const int*>(dlt_b + kBQ);
+    const int* const qseg_b = qpos_b + kBQ;
 
     // ---- s^T = k q^T and dp^T = v do^T: 64 keys x 64 rows per warpgroup ----
     float s[32], dp[32];
@@ -311,6 +311,8 @@ mha_bwd_kernel(const Params p) {
     wgmma_commit();
 
     // ---- ds^T to shared memory: 64 query rows (128 B) per key, swizzled ----
+    if (ct == 0) bulk_wait_read();   // the last item's dq tile has left dq_s
+    named_barrier(1, kConsumers);    // and both warpgroups are done with ds^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -318,7 +320,7 @@ mha_bwd_kernel(const Params p) {
         *reinterpret_cast<uint32_t*>(ds_s + key[kj] * 128 + ((j ^ g) << 4) + 4 * c) =
             sa[j >> 1][(j & 1) * 2 + kj];
     fence_proxy_async();
-    __syncthreads();   // ds^T of all 128 keys is in shared memory
+    named_barrier(1, kConsumers);    // ds^T of all 128 keys is in shared memory
 
     // ---- dq = ds k for this warpgroup's half of D, over the 128 keys ----
     float dqa[kD / 4];
@@ -339,22 +341,28 @@ mha_bwd_kernel(const Params p) {
       fence_regs(pa[kq]);
       fence_regs(sa[kq]);
     }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);   // q, do, meta are free
 
-    // ---- added into the fp32 accumulator: rows 16 w4 + g (+ 8) ----
-    float* const acc = p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0) * kD + col0;
+    // ---- the dq tile to shared memory, then one reduce-add of it into the
+    // fp32 accumulator: rows 16 w4 + g (+ 8), columns col0 + 8 j + 2 c ----
 #pragma unroll
     for (int j = 0; j < kD / 16; ++j)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        atomicAdd(reinterpret_cast<float2*>(acc + (w4 * 16 + g + 8 * i) * kD + 8 * j + 2 * c),
-                  make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]));
-    __syncthreads();   // buffer buf and ds^T are free
-    cur = next;
-    full = full_next;
+        *reinterpret_cast<float2*>(dq_s + (w4 * 16 + g + 8 * i) * kD + col0 + 8 * j + 2 * c) =
+            make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]);
+    fence_proxy_async();
+    named_barrier(1, kConsumers);    // the whole dq tile is in shared memory
+    if (ct == 0)
+      bulk_reduce_add_f32(p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0) * kD,
+                          smem_u32(dq_s), kBQ * kD * 4);
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
-  cp_async_wait<0>();  // no copy outlives the block, even with no live item
+  if (ct == 0) bulk_wait();
 
   // ---- dk, dv: element i of this thread's keys, column 8 (i / 4) + 2c ----
+  const size_t kv_rs = (size_t)p.KV * kD;
 #pragma unroll
   for (int kj = 0; kj < 2; ++kj) {
     if (!key_ok[kj]) continue;
@@ -370,22 +378,106 @@ mha_bwd_kernel(const Params p) {
 }
 
 template <int kD>
-void launch(const Params& p, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const Params p) {
+  using L = Smem<kD>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const uint32_t kv_bar = smem_u32(smem + L::kBar);
+    mbar_init(kv_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(kv_bar + 8 + 8 * s, 32);                     // full: the producer warp
+      mbar_init(kv_bar + 8 + 8 * kStages + 8 * s, kConsumers / 32);   // empty: each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid < 128) {   // the producer warpgroup: one warp works, three idle
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid < 32) produce<kD>(&tq, &tdo, &tk, &tv, p, smem, tid);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume<kD>(p, smem, tid - 128);
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous bf16 (B, rows, heads, D) tensor, innermost
+// first (D, heads, rows, B), with boxes of (min(D, 64), 1, box_rows, 1)
+// swizzled as Smem lays them out. Rows past `rows` read as zeros.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+              int D, int box_rows) {
+  const EncodeFn encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint32_t inner = D < 64 ? D : 64;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)rows * heads * D * 2};
+  const cuuint32_t box[4] = {inner, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swz = inner == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : inner == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int kD>
+int launch(const void* q, const void* k, const void* v, const void* dout,
+           const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tdo, tk, tv;
+  if (!make_map(&tq, q, p.B, p.T, p.H, kD, kBQ) ||
+      !make_map(&tdo, dout, p.B, p.T, p.H, kD, kBQ) ||
+      !make_map(&tk, k, p.B, p.S, p.KV, kD, kBKB) ||
+      !make_map(&tv, v, p.B, p.S, p.KV, kD, kBKB))
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mha_bwd_kernel<kD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        Smem<kD>::kBytes);
   mha_bwd_kernel<kD><<<dim3((p.S + kBKB - 1) / kBKB, p.KV, p.B), kThreads,
-                       Smem<kD>::kBytes, stream>>>(p);
+                       Smem<kD>::kBytes, stream>>>(tq, tdo, tk, tv, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
 // positions and segment ids int32 (B,T) / (B,S), segment ids both null or
-// both set; all contiguous, D in {16, 32, 64, 128}. Adds ds k (unscaled)
-// into dq_acc, fp32 (B,H,T rounded up to 64,D), zeroed by the caller, and
-// writes dk, dv: bf16 (B,S,KV,D). Launches on `stream` and returns
-// cudaGetLastError().
+// both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128}.
+// Adds ds k (unscaled) into dq_acc, fp32 (B,H,T rounded up to 64,D),
+// zeroed by the caller, and writes dk, dv: bf16 (B,S,KV,D). Launches on
+// `stream` and returns a CUDA error code (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* qpos,
@@ -397,10 +489,6 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.q = static_cast<const uint16_t*>(q);
-  p.k = static_cast<const uint16_t*>(k);
-  p.v = static_cast<const uint16_t*>(v);
-  p.dout = static_cast<const uint16_t*>(dout);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.qpos = static_cast<const int*>(qpos);
@@ -416,11 +504,10 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.sm_scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: launch<16>(p, st); break;
-    case 32: launch<32>(p, st); break;
-    case 64: launch<64>(p, st); break;
-    case 128: launch<128>(p, st); break;
+    case 16: return launch<16>(q, k, v, dout, p, st);
+    case 32: return launch<32>(q, k, v, dout, p, st);
+    case 64: return launch<64>(q, k, v, dout, p, st);
+    case 128: return launch<128>(q, k, v, dout, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
