@@ -401,8 +401,7 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     # the whole backward's other parts: delta, the zeroed accumulator, the cast
     delta_ms = _cuda_time(torch, lambda: fa.attention_delta(o, do), iters)
     zeros_ms = _cuda_time(torch, lambda: fa.dq_accumulator(q), iters)
-    cast_ms = _cuda_time(torch, lambda: fa.dq_from_accumulator(
-        acc, t, 1.0 / q.shape[3] ** 0.5), iters)
+    cast_ms = _cuda_time(torch, lambda: fa.dq_from_accumulator(acc, t), iters)
     del acc
     plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
                           3, warmup=1)

@@ -87,7 +87,9 @@ struct Smem {
   static constexpr int kK = 0, kV = kKV;
   static constexpr int kQD = 2 * kKV;                      // [stage][q, do]
   static constexpr int kDS = kQD + kStages * 2 * kQ;       // ds^T [128][64] bf16
-  static constexpr int kDQ = kDS + kBKB * kBQ * 2;         // dq [64][D] fp32
+  static constexpr int kDQ = kDS + kBKB * kBQ * 2;         // dq, fp32 boxes
+  static constexpr int kDQRB = kD >= 32 ? 128 : kD * 4;    // bytes of a box row
+  static constexpr int kDQBox = kBQ * kDQRB;               // [64][32] or [64][16]
   static constexpr int kMeta = kDQ + kBQ * kD * 4;         // [stage][4][kBQ]
   static constexpr int kItem = kMeta + kStages * 4 * kBQ * 4;   // int4 [stage]
   static constexpr int kBar = kItem + kStages * 16;        // kv, full[], empty[]
@@ -131,18 +133,30 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
 
   int stage = 0;
   uint32_t phase = 0;
-  const int n_qt = (p.T + kBQ - 1) / kBQ;
+  // A tile of padding keys (segment -1) is seen by no query: no live item.
+  const int n_qt = segmented && kstat[3] < 0 ? 0 : (p.T + kBQ - 1) / kBQ;
+  // the positions and segment ids of tile t + 1 load while tile t is handled
+  int pos_next[2], seg_next[2];
+  auto load = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = t * kBQ + lane + 32 * i;
+      pos_next[i] = r < p.T ? p.qpos[(size_t)b * p.T + r] : 0;
+      seg_next[i] = (r < p.T && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
+    }
+  };
+  if (n_qt > 0) load(0);
   for (int t = 0; t < n_qt; ++t) {
     const int q0 = t * kBQ;
     bool ok[2];
     int pos[2], seg[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int r = q0 + lane + 32 * i;
-      ok[i] = r < p.T;
-      pos[i] = ok[i] ? p.qpos[(size_t)b * p.T + r] : 0;
-      seg[i] = (ok[i] && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
+      ok[i] = q0 + lane + 32 * i < p.T;
+      pos[i] = pos_next[i];
+      seg[i] = seg_next[i];
     }
+    if (t + 1 < n_qt) load(t + 1);
     int qstat[4];
     qstat[0] = warp_min(min(ok[0] ? pos[0] : kIntMax, ok[1] ? pos[1] : kIntMax));
     qstat[1] = warp_max(max(ok[0] ? pos[0] : kIntMin, ok[1] ? pos[1] : kIntMin));
@@ -189,11 +203,50 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   mbar_arrive(full_bar + 8 * stage);
 }
 
+// p^T and ds^T in place of s^T and dp^T for this thread's elements: element
+// i is key (i % 4) / 2 of the thread's two, query row 8 (i / 4) + 2c + i % 2.
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void p_ds(float (&s)[32], float (&dp)[32],
+                                     const float* lse2, const float* dlt,
+                                     const int* qpos, const int* qseg,
+                                     const bool (&key_ok)[2], const int (&kp)[2],
+                                     const int (&ks)[2], int q0, int c,
+                                     const Params& p) {
+  const bool segmented = p.qseg != nullptr;
+  const float scale_log2 = p.sm_scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qi = 8 * j + 2 * c;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + qi);
+    const float2 dl = *reinterpret_cast<const float2*>(dlt + qi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, kj = e >> 1, r = qi + (e & 1);
+      float pe, ds = dp[i] - ((e & 1) ? dl.y : dl.x);
+      if constexpr (kCap) {
+        const float th = tanhf(s[i] * p.sm_scale / p.softcap);
+        pe = exp2f(p.softcap * th * kLog2e - ((e & 1) ? l2.y : l2.x));
+        ds *= 1.f - th * th;
+      } else {
+        pe = exp2f(s[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+      }
+      if constexpr (kMask)
+        if (!(q0 + r < p.T && key_ok[kj] &&
+              visible(qpos[r], qseg[r], kp[kj], ks[kj], segmented, p.causal,
+                      p.window)))
+          pe = 0.f;
+      s[i] = pe;
+      dp[i] = pe * ds;
+    }
+  }
+}
+
 // The two consumer warpgroups: warpgroup wg takes keys [64 wg, 64 wg + 64)
 // of the block's tile for s^T, dp^T, dv and dk, and columns
 // [wg D / 2, (wg + 1) D / 2) of dq.
 template <int kD>
-__device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
+__device__ __forceinline__ void consume(const CUtensorMap* tdq,
+                                        const Params& p, uint8_t* smem,
                                         int ct) {
   using L = Smem<kD>;
   constexpr int kRB = L::kRB;
@@ -202,7 +255,7 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
   const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
   const bool segmented = p.qseg != nullptr;
   uint8_t* const ds_s = smem + L::kDS;
-  float* const dq_s = reinterpret_cast<float*>(smem + L::kDQ);
+  uint8_t* const dq_s = smem + L::kDQ;
   const uint32_t kv_bar = smem_u32(smem + L::kBar);
   const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 + 8 * kStages;
 
@@ -221,7 +274,6 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
 #pragma unroll
   for (int i = 0; i < kD / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const float scale_log2 = p.sm_scale * kLog2e;
   const uint32_t k_a = smem_u32(smem + L::kK) + wg * 64 * kRB;
   const uint32_t v_a = smem_u32(smem + L::kV) + wg * 64 * kRB;
   const int col0 = wg * (kD / 2);
@@ -263,34 +315,14 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
     fence_regs(s);
     fence_regs(dp);
 
-    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2) ----
-    // element i of s: key key[(i % 4) / 2], query row 8 (i / 4) + 2c + i % 2
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int qi = 8 * j + 2 * c;
-      const float2 l2 = *reinterpret_cast<const float2*>(lse_b + qi);
-      const float2 dl = *reinterpret_cast<const float2*>(dlt_b + qi);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = 4 * j + e, kj = e >> 1, r = qi + (e & 1);
-        const float lse2 = (e & 1) ? l2.y : l2.x;
-        const float dlt = (e & 1) ? dl.y : dl.x;
-        float pe, chain = 1.f;
-        if (p.softcap > 0.f) {
-          const float th = tanhf(s[i] * p.sm_scale / p.softcap);
-          chain = 1.f - th * th;
-          pe = exp2f(p.softcap * th * kLog2e - lse2);
-        } else {
-          pe = exp2f(s[i] * scale_log2 - lse2);
-        }
-        if (!full && !(q0 + r < p.T && key_ok[kj] &&
-                       visible(qpos_b[r], qseg_b[r], kp[kj], ks[kj],
-                               segmented, p.causal, p.window)))
-          pe = 0.f;
-        s[i] = pe;
-        dp[i] = pe * (dp[i] - dlt) * chain;
-      }
-    }
+    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2), in one of
+    // four forms chosen per item: with or without softcap, with or without
+    // the element mask ----
+    const bool mask = !full, cap = p.softcap > 0.f;
+    if (cap && mask) p_ds<true, true>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, c, p);
+    else if (cap) p_ds<true, false>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, c, p);
+    else if (mask) p_ds<false, true>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, c, p);
+    else p_ds<false, false>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, c, p);
     // as bf16 A fragments, one per 16 query rows
     uint32_t pa[4][4], sa[4][4];
 #pragma unroll
@@ -344,19 +376,30 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_bar + 8 * stage);   // q, do, meta are free
 
-    // ---- the dq tile to shared memory, then one reduce-add of it into the
-    // fp32 accumulator: rows 16 w4 + g (+ 8), columns col0 + 8 j + 2 c ----
+    // ---- the dq tile, scaled by 1/sqrt(D), to shared memory as swizzled
+    // boxes of kDQRB-byte rows, then reduce-adds of them into the fp32
+    // accumulator: rows 16 w4 + g (+ 8), columns col0 + 8 j + 2 c ----
 #pragma unroll
     for (int j = 0; j < kD / 16; ++j)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        *reinterpret_cast<float2*>(dq_s + (w4 * 16 + g + 8 * i) * kD + col0 + 8 * j + 2 * c) =
-            make_float2(dqa[4 * j + 2 * i], dqa[4 * j + 2 * i + 1]);
+      for (int i = 0; i < 2; ++i) {
+        const int col = (col0 + 8 * j + 2 * c) * 4;   // in bytes
+        const int row = w4 * 16 + g + 8 * i;
+        *reinterpret_cast<float2*>(
+            dq_s + (col / L::kDQRB) * L::kDQBox +
+            swizzle<L::kDQRB>(row * L::kDQRB + col % L::kDQRB)) =
+            make_float2(dqa[4 * j + 2 * i] * p.sm_scale,
+                        dqa[4 * j + 2 * i + 1] * p.sm_scale);
+      }
     fence_proxy_async();
     named_barrier(1, kConsumers);    // the whole dq tile is in shared memory
-    if (ct == 0)
-      bulk_reduce_add_f32(p.dq_acc + (((size_t)b * p.H + hq) * p.T_pad + q0) * kD,
-                          smem_u32(dq_s), kBQ * kD * 4);
+    if (ct == 0) {
+#pragma unroll
+      for (int x = 0; x < kD * 4 / L::kDQRB; ++x)
+        tma_reduce_add_4d(tdq, smem_u32(dq_s + x * L::kDQBox),
+                          x * L::kDQRB / 4, q0, hq, b);
+      bulk_commit();
+    }
     if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
   if (ct == 0) bulk_wait();
@@ -382,7 +425,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, const Params p) {
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdq, const Params p) {
   using L = Smem<kD>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -397,12 +441,16 @@ mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_init_fence();
   }
   __syncthreads();
+  // Registers: the launch gives every thread 168 (65536 / 384, rounded
+  // down to 8). The producer warpgroup gives back 168 - 40 a thread and
+  // the consumers take 232 - 168; the two must match (40 + 2 x 232 =
+  // 3 x 168), or setmaxnreg.inc waits for ever.
   if (tid < 128) {   // the producer warpgroup: one warp works, three idle
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (tid < 32) produce<kD>(&tq, &tdo, &tk, &tv, p, smem, tid);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<kD>(p, smem, tid - 128);
+    consume<kD>(&tdq, p, smem, tid - 128);
   }
 }
 
@@ -430,25 +478,24 @@ EncodeFn encode_fn() {
   return fn;
 }
 
-// A 4-D map over a contiguous bf16 (B, rows, heads, D) tensor, innermost
-// first (D, heads, rows, B), with boxes of (min(D, 64), 1, box_rows, 1)
-// swizzled as Smem lays them out. Rows past `rows` read as zeros.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
-              int D, int box_rows) {
+// A 4-D map over a contiguous tensor of `elem`-byte values with extents
+// dims (innermost first) and boxes of `box`, the box's rows swizzled by
+// their width (32, 64 or 128 bytes) as Smem lays them out. Coordinates past
+// an extent read as zeros.
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+              const void* ptr, const cuuint64_t (&dims)[4],
+              const cuuint32_t (&box)[4]) {
   const EncodeFn encode = encode_fn();
   if (encode == nullptr) return false;
-  const cuuint32_t inner = D < 64 ? D : 64;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)rows * heads * D * 2};
-  const cuuint32_t box[4] = {inner, 1, (cuuint32_t)box_rows, 1};
+  const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
+                                 dims[0] * dims[1] * dims[2] * elem};
   const cuuint32_t one[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle swz = inner == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : inner == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                               : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+  const cuuint32_t row = box[0] * elem;
+  const CUtensorMapSwizzle swz = row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -456,17 +503,28 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
 template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const Params& p, cudaStream_t stream) {
-  CUtensorMap tq, tdo, tk, tv;
-  if (!make_map(&tq, q, p.B, p.T, p.H, kD, kBQ) ||
-      !make_map(&tdo, dout, p.B, p.T, p.H, kD, kBQ) ||
-      !make_map(&tk, k, p.B, p.S, p.KV, kD, kBKB) ||
-      !make_map(&tv, v, p.B, p.S, p.KV, kD, kBKB))
+  using L = Smem<kD>;
+  constexpr auto kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint32_t inner = L::kRB / 2;
+  // q and do (B, T, H, D), k and v (B, S, KV, D) in bf16; the accumulator
+  // (B, H, T_pad, D) in fp32
+  const cuuint64_t qdims[4] = {kD, (cuuint64_t)p.H, (cuuint64_t)p.T, (cuuint64_t)p.B};
+  const cuuint64_t kdims[4] = {kD, (cuuint64_t)p.KV, (cuuint64_t)p.S, (cuuint64_t)p.B};
+  const cuuint64_t adims[4] = {kD, (cuuint64_t)p.T_pad, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint32_t qbox[4] = {inner, 1, kBQ, 1}, kbox[4] = {inner, 1, kBKB, 1};
+  const cuuint32_t abox[4] = {L::kDQRB / 4, kBQ, 1, 1};
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  if (!make_map(&tq, kBF16, 2, q, qdims, qbox) ||
+      !make_map(&tdo, kBF16, 2, dout, qdims, qbox) ||
+      !make_map(&tk, kBF16, 2, k, kdims, kbox) ||
+      !make_map(&tv, kBF16, 2, v, kdims, kbox) ||
+      !make_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.dq_acc, adims, abox))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mha_bwd_kernel<kD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        Smem<kD>::kBytes);
   mha_bwd_kernel<kD><<<dim3((p.S + kBKB - 1) / kBKB, p.KV, p.B), kThreads,
-                       Smem<kD>::kBytes, stream>>>(tq, tdo, tk, tv, p);
+                       Smem<kD>::kBytes, stream>>>(tq, tdo, tk, tv, tdq, p);
   return (int)cudaGetLastError();
 }
 

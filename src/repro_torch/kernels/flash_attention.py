@@ -15,8 +15,7 @@ the other.
   tile) pairs. dk and dv are summed in registers and stored once. dq is
   summed across key tiles into a zeroed fp32 scratch (B, H, T rounded up
   to ``BWD_QTILE``, D) by reduce-adds, whose order differs between runs;
-  :func:`dq_from_accumulator` then scales it and casts it to bf16
-  (B, T, H, D).
+  :func:`dq_from_accumulator` then casts it to bf16 (B, T, H, D).
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
@@ -288,20 +287,21 @@ def check_backward_cuda_args(q, k, v, q_positions, kv_positions,
     _check_bwd_args(q, o, lse, do, delta)
 
 
-def dq_from_accumulator(acc, t, scale):
+def dq_from_accumulator(acc, t):
     """dq (B,T,H,D) bf16 from the backward kernel's fp32 accumulator
-    (B,H,T rounded up to the query tile,D): rows past T dropped, scaled by
-    ``scale`` (1/sqrt(D)) and cast, in one elementwise pass."""
+    (B,H,T rounded up to the query tile,D), which already holds
+    ds k / sqrt(D): rows past T dropped, transposed and cast in one copy."""
     b, h, _, d = acc.shape
     dq = torch.empty((b, t, h, d), dtype=torch.bfloat16, device=acc.device)
-    torch.mul(acc[:, :, :t], scale, out=dq.permute(0, 2, 1, 3))
+    dq.permute(0, 2, 1, 3).copy_(acc[:, :, :t])
     return dq
 
 
 def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
                      kv_segment_ids, o, lse, do, delta, acc, dk, dv, *,
                      causal, window, softcap):
-    """The kernel alone: adds dS k into ``acc`` and writes dk and dv."""
+    """The kernel alone: adds ds k / sqrt(D) into ``acc`` and writes dk and
+    dv."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -339,8 +339,7 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_backward(*args, acc, dk, dv, causal=causal, window=window,
                      softcap=softcap)
-    scale = 1.0 / math.sqrt(q.shape[3])
-    return dq_from_accumulator(acc, q.shape[1], scale), dk, dv
+    return dq_from_accumulator(acc, q.shape[1]), dk, dv
 
 
 def _check_softcap(softcap):

@@ -1,13 +1,11 @@
 """The Python side of the fused attention-backward kernel, without a card.
 
-The kernel adds dS k for each (query tile, key tile) pair into a zeroed
-fp32 accumulator (B, H, T rounded up to the query tile, D); the wrapper
-then scales it by 1/sqrt(D) and casts it to dq (B, T, H, D) bf16. That
-step, and the wrapper's refusals, run here on the CPU; the kernel itself
-runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+The kernel adds ds k / sqrt(D) for each (query tile, key tile) pair into a
+zeroed fp32 accumulator (B, H, T rounded up to the query tile, D); the
+wrapper then casts it to dq (B, T, H, D) bf16. That step, and the
+wrapper's refusals, run here on the CPU; the kernel itself runs only on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
-import math
-
 import numpy as np
 import pytest
 import torch
@@ -24,7 +22,7 @@ torch.set_num_threads(2)
     (2, 1, 2, 64),        # one row
     (1, 130, 2, 128),
 ])
-def test_dq_accumulator_shape_and_scale_and_cast(b, t, h, d):
+def test_dq_accumulator_shape_and_cast(b, t, h, d):
     q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
     acc = fa.dq_accumulator(q)
     t_pad = -(-t // fa.BWD_QTILE) * fa.BWD_QTILE
@@ -34,12 +32,10 @@ def test_dq_accumulator_shape_and_scale_and_cast(b, t, h, d):
     assert acc.stride(2) == d and acc.stride(1) == t_pad * d
     rng = np.random.default_rng(0)
     acc = torch.from_numpy(rng.standard_normal(acc.shape).astype(np.float32))
-    scale = 1.0 / math.sqrt(d)
-    dq = fa.dq_from_accumulator(acc, t, scale)
+    dq = fa.dq_from_accumulator(acc, t)
     assert dq.shape == (b, t, h, d) and dq.dtype == torch.bfloat16
     assert dq.is_contiguous()
-    direct = np.transpose(acc.numpy()[:, :, :t] * np.float32(scale),
-                          (0, 2, 1, 3))
+    direct = np.transpose(acc.numpy()[:, :, :t], (0, 2, 1, 3))
     want = torch.from_numpy(np.ascontiguousarray(direct)).to(torch.bfloat16)
     assert torch.equal(dq, want)
 
