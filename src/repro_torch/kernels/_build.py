@@ -6,7 +6,9 @@ go to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source builds anew and an unchanged one is loaded as it is.
 Nothing is built when the module is imported: :func:`library` builds at the
-first launch.
+first launch. Nothing links against the driver library: the backward
+kernel's TMA tensor maps are encoded with ``cuTensorMapEncodeTiled``,
+reached at run time through the runtime's ``cudaGetDriverEntryPoint``.
 """
 from __future__ import annotations
 

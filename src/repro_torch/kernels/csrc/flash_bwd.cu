@@ -24,23 +24,40 @@
 // overflows to inf there. Keys past S and query rows past T (loaded as
 // zeros) are masked too, so any T and S work.
 //
-// Design. One block per (128 keys, KV head, batch row), two warpgroups of
-// 64 keys each. The k and v tiles stay in shared memory for the whole pass;
-// the block loops over the live (64-row query tile, q head of the GQA group)
-// items. For each, with wgmma: s^T = k q^T and dp^T = v do^T from shared
-// memory; p^T and ds^T in registers (fp32, rounded to bf16 as operands);
-// dv += p^T do and dk += ds^T q with A from registers and do, q read
-// transposed through the descriptors. dk and dv stay in fp32 registers
-// until one bf16 store, summed over the group without atomics. ds^T goes to
-// shared memory as bf16, and each warpgroup computes dq for half of D over
-// the block's 128 keys (one more wgmma) and adds it into the fp32
-// accumulator with atomics. The order of those adds differs between runs,
-// so dq's fp32 sums round differently from run to run (about 1e-6
-// relative), far inside the gradient tolerances; nothing compares two runs
-// bit for bit. A (query tile, key tile) pair that the forward skips
-// (`tiles_live`, the reference's `_live_terms` on the tiles' min/max) is
-// never visited, and a pair every element of which is visible skips the
-// element mask.
+// Bound. On an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM) the
+// training shapes (T = S = 2048, D = 128, 32 heads) are bound by
+// operations: 10 D FLOPs per visible pair (s, dp, dv, dk and dq, 2 D each)
+// against reading q, k, v, do once and writing dq, dk and dv once. The
+// reference's two passes (and this port's first two kernels) computed s and
+// dp twice, 14 D per pair.
+//
+// Design. One pass over the live (query tile, key tile) pairs.
+//  - One block per (128 keys, KV head, batch row): a producer warp and two
+//    consumer warpgroups of 64 keys each. The k and v tiles stay in shared
+//    memory for the whole pass; the block loops over the live (64-row query
+//    tile, q head of the GQA group) items.
+//  - The producer warp scans the tile liveness (the min/max of positions
+//    and segment ids, `tiles_live`, the reference's `_live_terms`) and keeps
+//    two stages of (q, do, lse, delta, positions, segment ids) in flight:
+//    q and do by TMA from 4-D tensor maps over (D, heads, T, B), whose
+//    out-of-bounds fill gives the zero rows past T; mbarriers hand stages
+//    to the consumers and back. setmaxnreg moves registers from the
+//    producer to the consumers.
+//  - Per item, each consumer warpgroup runs five wgmma products: s^T = k q^T
+//    and dp^T = v do^T from shared memory; p^T and ds^T in registers (fp32,
+//    rounded to bf16 as operands), in one of four forms chosen per item
+//    (softcap or not, element mask or not, the mask skipped where every
+//    pair is visible); dv += p^T do and dk += ds^T q with A from registers
+//    and do, q read transposed through the descriptors; ds^T to shared
+//    memory, then dq = ds k for the warpgroup's half of D over the block's
+//    128 keys. dk and dv stay in fp32 registers until one bf16 store,
+//    summed over the GQA group without atomics (deterministic).
+//  - dq, scaled by 1/sqrt(D), goes to shared memory as 128-byte-swizzled
+//    fp32 boxes and is added into the caller's zeroed fp32 accumulator
+//    (B, H, T rounded up to 64, D) by TMA reduce-adds. Blocks add into the
+//    same rows in an order that differs between runs, so dq's fp32 sums
+//    round differently from run to run (about 1e-6 relative), far inside
+//    the gradient tolerances; nothing compares two runs bit for bit.
 #include <cuda.h>   // CUtensorMap and its encoding enums; the driver is
                     // reached through cudaGetDriverEntryPoint, no -lcuda
 
@@ -297,18 +314,16 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
     const int* const qseg_b = qpos_b + kBQ;
 
     // ---- s^T = k q^T and dp^T = v do^T: 64 keys x 64 rows per warpgroup ----
-    float s[32], dp[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    float s[32], dp[32];   // the first k-step overwrites them
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
       const uint32_t ko = (kk / 4) * L::kKBox + (kk % 4) * 32;
       const uint32_t qo = (kk / 4) * L::kQBox + (kk % 4) * 32;
       wgmma_ss<64, 0, 0>(s, desc<kRB>(k_a + ko, 16, 8 * kRB),
-                         desc<kRB>(q_a + qo, 16, 8 * kRB), 1);
+                         desc<kRB>(q_a + qo, 16, 8 * kRB), kk > 0);
       wgmma_ss<64, 0, 0>(dp, desc<kRB>(v_a + ko, 16, 8 * kRB),
-                         desc<kRB>(do_a + qo, 16, 8 * kRB), 1);
+                         desc<kRB>(do_a + qo, 16, 8 * kRB), kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();

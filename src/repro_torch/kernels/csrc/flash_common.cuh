@@ -1,6 +1,7 @@
-// Pieces shared by the attention kernels K1 (flash_fwd.cu) and K2/K3
-// (flash_bwd.cu): tensor-core and copy instructions, the per-tile min/max
-// statistics, and the reference's block-skip predicate and element mask.
+// Pieces shared by the attention kernels, K1 (flash_fwd.cu) and the fused
+// backward (flash_bwd.cu): mma.sync and cp.async for K1, the per-tile
+// min/max statistics, and the reference's block-skip predicate and element
+// mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,20 +41,6 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-// Two transposed matrices; only lanes 0..15 give addresses.
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const uint16_t* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
-}
-
-// The A fragment of a 16 x 16 block at p (row stride `stride`): lane L
-// addresses row L % 16, column 8 (L / 16).
-__device__ __forceinline__ void ldsm_a(uint32_t (&r)[4], const uint16_t* p,
-                                       int stride, int lane) {
-  ldsm_x4(r, p + (lane & 15) * stride + (lane >> 4) * 8);
-}
-
 // 16 bytes global -> shared without a register round trip; zeros when !full.
 __device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src,
                                            bool full) {
@@ -70,21 +57,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Rows [r0, r0 + n) of a (.., row stride `rs` elements) bf16 tensor, each
-// of kD values from column `col`, into shared rows of `stride`; zeros for
-// rows at or past `limit`. Every thread of the block takes part.
-template <int kD, int kThreads>
-__device__ __forceinline__ void load_rows(uint16_t* dst, int stride,
-                                          const uint16_t* src, size_t rs,
-                                          int r0, int n, int limit, int tid) {
-  for (int i = tid; i < n * (kD / 8); i += kThreads) {
-    const int r = i / (kD / 8), ch = i % (kD / 8);
-    const bool in = r0 + r < limit;
-    const size_t off = in ? (size_t)(r0 + r) * rs + ch * 8 : 0;
-    cp_async16(dst + r * stride + ch * 8, src + off, in);
-  }
 }
 
 // Two floats to one register of two bf16, the first in the low half.
