@@ -82,7 +82,6 @@ struct Params {
   const int* kpos;
   const int* qseg;   // nullptr: not segmented
   const int* kseg;
-  float* dq_acc;     // (B, H, T_pad, D) fp32, zeroed by the caller
   uint16_t* dk;
   uint16_t* dv;
   int B, T, S, H, KV, T_pad;
@@ -517,7 +516,7 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
 
 template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           const Params& p, cudaStream_t stream) {
+           void* dq_acc, const Params& p, cudaStream_t stream) {
   using L = Smem<kD>;
   constexpr auto kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint32_t inner = L::kRB / 2;
@@ -533,7 +532,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
       !make_map(&tdo, kBF16, 2, dout, qdims, qbox) ||
       !make_map(&tk, kBF16, 2, k, kdims, kbox) ||
       !make_map(&tv, kBF16, 2, v, kdims, kbox) ||
-      !make_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, p.dq_acc, adims, abox))
+      !make_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq_acc, adims, abox))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mha_bwd_kernel<kD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -548,7 +547,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
 // positions and segment ids int32 (B,T) / (B,S), segment ids both null or
 // both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128}.
-// Adds ds k (unscaled) into dq_acc, fp32 (B,H,T rounded up to 64,D),
+// Adds ds k / sqrt(D) into dq_acc, fp32 (B,H,T rounded up to 64,D),
 // zeroed by the caller, and writes dk, dv: bf16 (B,S,KV,D). Launches on
 // `stream` and returns a CUDA error code (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
@@ -568,7 +567,6 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.kpos = static_cast<const int*>(kpos);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
-  p.dq_acc = static_cast<float*>(dq_acc);
   p.dk = static_cast<uint16_t*>(dk);
   p.dv = static_cast<uint16_t*>(dv);
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
@@ -577,10 +575,10 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.sm_scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, dout, p, st);
-    case 32: return launch<32>(q, k, v, dout, p, st);
-    case 64: return launch<64>(q, k, v, dout, p, st);
-    case 128: return launch<128>(q, k, v, dout, p, st);
+    case 16: return launch<16>(q, k, v, dout, dq_acc, p, st);
+    case 32: return launch<32>(q, k, v, dout, dq_acc, p, st);
+    case 64: return launch<64>(q, k, v, dout, dq_acc, p, st);
+    case 128: return launch<128>(q, k, v, dout, dq_acc, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -40,7 +40,7 @@ from repro_torch.kernels import ref as _ref
 NEG_INF = -1e30
 
 HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
-BWD_QTILE = 64                   # query rows per tile of the backward kernel
+BWD_QTILE = 64    # query rows per tile of the backward kernel (its kBQ)
 
 # Launches of each CUDA kernel, counted where the wrapper launches it: K1,
 # and the fused backward (K2 and K3).
@@ -333,7 +333,8 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     args = (q, k, v, q_positions, kv_positions, q_segment_ids,
             kv_segment_ids, o, lse, do, delta)
     if q.device.type != "cuda":
-        raise ValueError(f"mha_backward_cuda takes CUDA tensors, got {q.device}")
+        raise ValueError(f"mha_backward_cuda takes CUDA tensors, got "
+                         f"{q.device}")
     check_backward_cuda_args(*args)
     acc = dq_accumulator(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
