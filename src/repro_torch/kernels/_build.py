@@ -37,7 +37,8 @@ KERNELS = {
                          _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     }),
     "flash_bwd": ("flash_bwd.cu", {
-        "mha_bwd_bf16": [_P] * 13 + [_I] * 8 + [ctypes.c_float, _P],
+        "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P] + [_I] * 8
+                        + [ctypes.c_float, _P],
     }),
     "ssd_fwd": ("ssd_fwd.cu", {
         "ssd_fwd_bf16": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_P],

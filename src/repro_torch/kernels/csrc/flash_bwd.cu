@@ -84,7 +84,7 @@ struct Params {
   const int* kseg;
   uint16_t* dk;
   uint16_t* dv;
-  int B, T, S, H, KV, T_pad;
+  int B, T, S, H, KV;
   int causal, window;
   float softcap;     // 0: none
   float sm_scale;
@@ -516,15 +516,15 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
 
 template <int kD>
 int launch(const void* q, const void* k, const void* v, const void* dout,
-           void* dq_acc, const Params& p, cudaStream_t stream) {
+           void* dq_acc, int T_acc, const Params& p, cudaStream_t stream) {
   using L = Smem<kD>;
   constexpr auto kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint32_t inner = L::kRB / 2;
   // q and do (B, T, H, D), k and v (B, S, KV, D) in bf16; the accumulator
-  // (B, H, T_pad, D) in fp32
+  // (B, H, T_acc, D) in fp32
   const cuuint64_t qdims[4] = {kD, (cuuint64_t)p.H, (cuuint64_t)p.T, (cuuint64_t)p.B};
   const cuuint64_t kdims[4] = {kD, (cuuint64_t)p.KV, (cuuint64_t)p.S, (cuuint64_t)p.B};
-  const cuuint64_t adims[4] = {kD, (cuuint64_t)p.T_pad, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint64_t adims[4] = {kD, (cuuint64_t)T_acc, (cuuint64_t)p.H, (cuuint64_t)p.B};
   const cuuint32_t qbox[4] = {inner, 1, kBQ, 1}, kbox[4] = {inner, 1, kBKB, 1};
   const cuuint32_t abox[4] = {L::kDQRB / 4, kBQ, 1, 1};
   CUtensorMap tq, tdo, tk, tv, tdq;
@@ -547,18 +547,21 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
 // positions and segment ids int32 (B,T) / (B,S), segment ids both null or
 // both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128}.
-// Adds ds k / sqrt(D) into dq_acc, fp32 (B,H,T rounded up to 64,D),
-// zeroed by the caller, and writes dk, dv: bf16 (B,S,KV,D). Launches on
-// `stream` and returns a CUDA error code (0: launched).
+// Adds ds k / sqrt(D) into dq_acc, fp32 (B,H,T_acc,D) zeroed by the
+// caller, where T_acc must be T rounded up to kBQ (refused otherwise, so
+// the reduce-adds never pass the buffer's end), and writes dk, dv: bf16
+// (B,S,KV,D). Launches on `stream` and returns a CUDA error code
+// (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* qpos,
                             const void* kpos, const void* qseg,
-                            const void* kseg, void* dq_acc, void* dk, void* dv,
-                            int B, int T, int S, int H, int KV, int D,
-                            int causal, int window, float softcap,
-                            void* stream) {
-  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
+                            const void* kseg, void* dq_acc, int T_acc,
+                            void* dk, void* dv, int B, int T, int S, int H,
+                            int KV, int D, int causal, int window,
+                            float softcap, void* stream) {
+  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0 ||
+      T_acc != (T + kBQ - 1) / kBQ * kBQ)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.lse = static_cast<const float*>(lse);
@@ -570,15 +573,14 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.dk = static_cast<uint16_t*>(dk);
   p.dv = static_cast<uint16_t*>(dv);
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
-  p.T_pad = (T + kBQ - 1) / kBQ * kBQ;
   p.causal = causal; p.window = window; p.softcap = softcap;
   p.sm_scale = 1.0f / sqrtf((float)D);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(q, k, v, dout, dq_acc, p, st);
-    case 32: return launch<32>(q, k, v, dout, dq_acc, p, st);
-    case 64: return launch<64>(q, k, v, dout, dq_acc, p, st);
-    case 128: return launch<128>(q, k, v, dout, dq_acc, p, st);
+    case 16: return launch<16>(q, k, v, dout, dq_acc, T_acc, p, st);
+    case 32: return launch<32>(q, k, v, dout, dq_acc, T_acc, p, st);
+    case 64: return launch<64>(q, k, v, dout, dq_acc, T_acc, p, st);
+    case 128: return launch<128>(q, k, v, dout, dq_acc, T_acc, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -152,9 +152,11 @@ def _element_mask(qpos, kpos, qseg, kseg, causal, window):
 def attention_delta(o, do):
     """delta = rowsum(do * o), (B,H,T) fp32: the reduction the reference
     takes outside its kernels (``flash_attention.py:392``). The products of
-    bf16 values are exact in fp32; one cast, one product and one sum, no
-    batched matrix product."""
-    return o.float().mul_(do).sum(-1).transpose(1, 2).contiguous()
+    bf16 values are exact in fp32; one cast into a new tensor (a copy even
+    where ``o`` is fp32, so ``o`` is never written), one product in place
+    and one sum, no batched matrix product."""
+    return (o.to(torch.float32, copy=True).mul_(do).sum(-1)
+            .transpose(1, 2).contiguous())
 
 
 def mha_backward_plain(q, k, v, q_positions, kv_positions,
@@ -301,14 +303,21 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
                      kv_segment_ids, o, lse, do, delta, acc, dk, dv, *,
                      causal, window, softcap):
     """The kernel alone: adds ds k / sqrt(D) into ``acc`` and writes dk and
-    dv."""
+    dv. The kernel refuses an ``acc`` whose third dim is not T rounded up to
+    its own query tile."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
+    if (acc.dtype != torch.float32 or acc.dim() != 4
+            or (acc.shape[0], acc.shape[1], acc.shape[3]) != (b, h, d)
+            or acc.device != q.device or not acc.is_contiguous()):
+        raise ValueError(f"the dq accumulator must be contiguous fp32 "
+                         f"({b}, {h}, T_pad, {d}) on {q.device}, got "
+                         f"{acc.dtype} {tuple(acc.shape)}")
     _build.launch(_build.library("flash_bwd").mha_bwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
-            _ptr(kv_segment_ids), _ptr(acc), _ptr(dk), _ptr(dv),
+            _ptr(kv_segment_ids), _ptr(acc), acc.shape[2], _ptr(dk), _ptr(dv),
             b, t, s, h, kvh, d, int(causal), int(window),
             float(softcap or 0.0), device=q.device)
     LAUNCHES["mha_backward"] += 1

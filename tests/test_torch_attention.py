@@ -218,3 +218,124 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         tfa._check_bwd_args(qb, qb, lse, qb.float(), lse)
     with pytest.raises(ValueError, match="delta must be"):
         tfa._check_bwd_args(qb, qb, lse, qb, lse.transpose(1, 2))
+
+
+# ----------------------------------------------------------------------
+# the Python side of the fused backward kernel, without a card: the kernel
+# adds ds k / sqrt(D) for each (query tile, key tile) pair into a zeroed
+# fp32 accumulator (B, H, T rounded up to the query tile, D), which the
+# wrapper then casts to dq (B, T, H, D) bf16
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,t,h,d", [
+    (2, 64, 4, 16),       # T a multiple of the query tile
+    (1, 100, 3, 32),      # ragged: 28 padded rows dropped
+    (2, 1, 2, 64),        # one row
+    (1, 130, 2, 128),
+])
+def test_dq_accumulator_shape_and_cast(b, t, h, d):
+    q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
+    acc = tfa.dq_accumulator(q)
+    t_pad = -(-t // tfa.BWD_QTILE) * tfa.BWD_QTILE
+    assert acc.shape == (b, h, t_pad, d) and acc.dtype == torch.float32
+    assert acc.is_contiguous() and not acc.any()
+    # one query tile is one contiguous block of the accumulator
+    assert acc.stride(2) == d and acc.stride(1) == t_pad * d
+    rng = np.random.default_rng(0)
+    acc = torch.from_numpy(rng.standard_normal(acc.shape).astype(np.float32))
+    dq = tfa.dq_from_accumulator(acc, t)
+    assert dq.shape == (b, t, h, d) and dq.dtype == torch.bfloat16
+    assert dq.is_contiguous()
+    direct = np.transpose(acc.numpy()[:, :, :t], (0, 2, 1, 3))
+    want = torch.from_numpy(np.ascontiguousarray(direct)).to(torch.bfloat16)
+    assert torch.equal(dq, want)
+
+
+def _residuals(d, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+    b, t, h = 1, 8, 2
+    q, k, v, o, do = (torch.randn((b, t, h, d), generator=g).to(dtype)
+                      for _ in range(5))
+    pos = torch.arange(t, dtype=torch.int32)[None]
+    lse = torch.zeros((b, h, t), dtype=torch.float32)
+    return q, k, v, pos, pos, None, None, o, lse, do
+
+
+def test_backward_cuda_refuses_a_cpu_tensor():
+    args = _residuals(64)
+    before = dict(tfa.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.mha_backward_cuda(*args, tfa.attention_delta(args[7], args[9]),
+                              causal=True, window=0, softcap=None)
+    assert tfa.LAUNCHES == before
+    assert "flash_bwd" not in _build._loaded
+
+
+def test_backward_cuda_args_refuse_an_unsupported_head_dim():
+    args = _residuals(48)
+    delta = tfa.attention_delta(args[7], args[9])
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.check_backward_cuda_args(*args, delta)
+    with pytest.raises(ValueError):
+        tfa.mha_backward_cuda(*args, delta, causal=True, window=0,
+                              softcap=None)
+
+
+@pytest.mark.parametrize("acc_dtype,acc_heads", [
+    (torch.bfloat16, 2),   # not fp32
+    (torch.float32, 3),    # (B, H, T_pad, D) with the wrong H
+])
+def test_backward_launch_refuses_a_bad_accumulator(acc_dtype, acc_heads):
+    # checked before the kernel is built, so this runs without a card
+    args = _residuals(64)
+    q, k = args[0], args[1]
+    delta = tfa.attention_delta(args[7], args[9])
+    acc = torch.zeros((1, acc_heads, tfa.BWD_QTILE, 64), dtype=acc_dtype)
+    with pytest.raises(ValueError, match="dq accumulator"):
+        tfa._launch_backward(*args, delta, acc, torch.empty_like(k),
+                             torch.empty_like(k), causal=True, window=0,
+                             softcap=None)
+    assert "flash_bwd" not in _build._loaded
+
+
+def test_backward_on_the_cpu_takes_the_plain_version():
+    q, k, v, qp, kp, qs, ks, o, lse, do = _residuals(16)
+    before = dict(tfa.LAUNCHES)
+    out = tfa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=True)
+    ref = tfa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                 causal=True)
+    for a, r in zip(out, ref):
+        assert torch.equal(a, r)
+    assert tfa.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_leaves_its_residuals_unchanged(dtype):
+    args = _residuals(16, TORCH[dtype])
+    o, do = args[7], args[9]
+    kept = [x.clone() for x in (o, do)]
+    delta = tfa.attention_delta(o, do)
+    first = tfa.mha_backward(*args, causal=True)
+    assert torch.equal(o, kept[0]) and torch.equal(do, kept[1])
+    # a second backward from the same residuals sees the same delta
+    torch.testing.assert_close(tfa.attention_delta(o, do), delta,
+                               atol=0, rtol=0)
+    for a, r in zip(tfa.mha_backward(*args, causal=True), first):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_attention_grad_twice_from_one_graph(dtype):
+    # the saved o is the tensor forward returned: the backward must neither
+    # write it nor trip autograd's saved-tensor version check
+    q, k, v = (torch.from_numpy(x).to(TORCH[dtype]).requires_grad_()
+               for x in _arrays(4, 1, 16, 16, 4, 2, 16))
+    out = tfa.flash_attention(q, k, v, causal=True)
+    kept = out.detach().clone()
+    do = torch.from_numpy(
+        np.random.default_rng(5).standard_normal(out.shape, np.float32)
+    ).to(out.dtype)
+    first = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    second = torch.autograd.grad(out, (q, k, v), do)
+    assert torch.equal(out.detach(), kept)
+    for a, r in zip(second, first):
+        assert torch.equal(a, r)

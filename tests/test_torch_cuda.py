@@ -164,6 +164,26 @@ def test_backward_kernel_row_whose_keys_are_all_padding(cuda, d):
     assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
 
 
+@pytest.mark.parametrize("t_acc", [64, 192])   # T 100 needs 128 rows
+def test_backward_kernel_refuses_an_accumulator_of_another_length(cuda,
+                                                                 t_acc):
+    # the kernel's own query tile decides the padded length; a buffer cut
+    # short or padded otherwise is refused before anything is launched
+    q, k, v, qp, kp = _inputs(cuda, 1, 100, 100, 2, 2, 64)
+    o, lse = fa.mha_forward(q, k, v, qp, kp, causal=True)
+    do = torch.randn_like(o)
+    acc = torch.zeros((1, 2, t_acc, 64), dtype=torch.float32, device=cuda)
+    before = ops.launch_counts()["mha_backward"]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa._launch_backward(q, k, v, qp, kp, None, None, o, lse, do,
+                            fa.attention_delta(o, do), acc,
+                            torch.empty_like(k), torch.empty_like(v),
+                            causal=True, window=0, softcap=None)
+    torch.cuda.synchronize()
+    assert not acc.any()
+    assert ops.launch_counts()["mha_backward"] == before
+
+
 def test_autograd_through_the_kernels_matches_the_cpu(cuda):
     q, k, v, qp, kp = _inputs(cuda, 2, 100, 100, 4, 2, 64)
     seg = torch.zeros_like(qp)
