@@ -11,15 +11,17 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernel (K1 in ``flash_fwd.cu``, the fused backward that
              replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``),
              one nvcc per source, all started together, from the sources in
-             this checkout, with ptxas's register and spill lines;
+             this checkout, with ptxas's register and spill lines and the
+             dynamic shared memory of K1's prefill form;
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
              the card, at the serving and training paths' shapes and on
              small cases (GQA, window, softcap, segmented with padding and
-             fully masked rows, ragged lengths, a non-causal cross shape);
-             the backward elementwise and per 64-row tile, where the tile
-             check must also fail a planted fault (a dropped key tile);
+             fully masked rows, a 128-row query tile of pure padding, ragged
+             lengths, a non-causal cross shape, the serve's prefill into a
+             longer cache); both elementwise and per 64-row tile, where the
+             tile check must also fail a planted fault (a dropped key tile);
              with times of the kernels (the backward alone and as the whole
              CUDA backward: delta, the zeroed dq accumulator, the kernel and
              dq's cast), the plain versions and
@@ -81,6 +83,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # bf16 tolerance of the reference's own kernel tests (tests/test_kernels.py:28):
 # o and lse are rounded or summed at other points in the two versions.
 TOL_BF16 = 2e-2
+# ||o - plain|| / ||plain|| per 64-row tile and head, K1 in the kernel
+# phase. The elementwise TOL_BF16 cannot fail a tile whose entries are
+# under 2e-2, as o's are on long rows (an average of many v rows). The
+# limit lies between K1's readings and those of the planted fault, the
+# plain forward without each row's last live key tile (PERF.md, section 6).
+FWD_REL_TOL = 1e-2
 # bf16 gradient tolerance of the reference's kernel-gradient tests
 # (GRAD_TOL, tests/test_kernel_grads.py:21)
 GRAD_TOL_BF16 = 4e-2
@@ -119,7 +127,8 @@ TRAIN_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=2048,
 KERNELS = {
     "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
            "src/repro/kernels/flash_attention.py:354", "prefill",
-           {"decode": "decode", "causal_2048": "prefill"}, ("train", "serve")),
+           {"decode": "decode", "causal_2048": "prefill",
+            "train_segmented": "train-segmented"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
@@ -172,6 +181,10 @@ def phase_device(torch):
                 print(f"[device]   {name}: {fn.group(1)}<{args}>")
             elif "registers" in line or "spill" in line:
                 print(f"[device]   {name}:   {line.strip()}")
+    from repro_torch.kernels import flash_attention as fa
+    smem = _build.library("flash_fwd").mha_fwd_prefill_smem
+    print("[device]   flash_fwd: mha_fwd_prefill_kernel dynamic shared memory "
+          + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
     return smi_line
 
 
@@ -291,12 +304,23 @@ def _tile_rel(torch, out, ref, tile=64):
 
 def _last_live_key_tile(torch, live, tile=64):
     """(B, S) bool: the keys of each row's last tile that holds a key some
-    query sees. Dropping them plants the fault of a backward that skips
-    or mishandles that tile."""
+    query sees. Dropping them plants the fault of a kernel that skips or
+    mishandles that tile."""
     live_k = live.any(dim=1)
     idx = torch.arange(live_k.shape[1], device=live_k.device)
     last = torch.where(live_k, idx, -1).max(dim=1).values
     return (idx[None] // tile == (last // tile)[:, None]) & (last[:, None] >= 0)
+
+
+def _dropped_key_segments(torch, qs, ks, live, t, s):
+    """Segment ids (q side, kv side) that plant the dropped-key fault in a
+    plain version: segment -1 on each row's last live key tile, all else
+    as given (zeros where the case has no segments)."""
+    b = live.shape[0]
+    zeros = lambda n: torch.zeros((b, n), dtype=torch.int32, device="cuda")
+    ks_f = (zeros(s) if ks is None else ks).clone()
+    ks_f[_last_live_key_tile(torch, live)] = -1
+    return (zeros(t) if qs is None else qs), ks_f
 
 
 def _bwd_bound_ms(torch, q, k, qpos, kpos, qseg, kseg, causal, window):
@@ -351,12 +375,8 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     ref = fa.mha_backward_plain(*res, **opts)
     live = _live_pairs(torch, qp, kp, qs, ks, opts["causal"], opts["window"])
     # the planted fault: segment -1 on the dropped keys, lse and delta kept
-    b, t, s = q.shape[0], q.shape[1], k.shape[1]
-    qs_f = torch.zeros((b, t), dtype=torch.int32, device="cuda") \
-        if qs is None else qs
-    ks_f = (torch.zeros((b, s), dtype=torch.int32, device="cuda")
-            if ks is None else ks).clone()
-    ks_f[_last_live_key_tile(torch, live)] = -1
+    t = q.shape[1]
+    qs_f, ks_f = _dropped_key_segments(torch, qs, ks, live, t, k.shape[1])
     fault = fa.mha_backward_plain(q, k, v, qp, kp, qs_f, ks_f, o, lse, do,
                                   **opts)
     errs, rels, fault_rels, fault_ok = {}, {}, {}, True
@@ -447,6 +467,12 @@ def phase_kernel(torch):
     seg_pos = [list(range(100)) + list(range(120)) + [0] * 80,
                list(range(50)) + [0] * 250]
     tr_seg, tr_pos = _train_rows(TRAIN_ROWS, 2048)
+    # row 0: a sample of 200 tokens, then padding, so that query rows
+    # 256..383 are a 128-row tile of pure padding; row 1: one of 300
+    pad_seg, pad_pos = _train_rows((200, 300), 384)
+    # the serve's prefill into a cache longer than the prompt: keys past the
+    # prompt are masked by position
+    cache_kpos = [list(range(216))] * 2
     # name, shape, options, K1 timed, backward: None, "check" or the name
     # of its timed record
     cases = [
@@ -456,7 +482,12 @@ def phase_kernel(torch):
                         q_pos=[[POS_DEC]] * B_DEC), {}, True, None),
         ("train-segmented", dict(b=4, t=2048, s=2048, h=32, kv=32,
                                  q_pos=tr_pos, kv_pos=tr_pos, q_seg=tr_seg,
-                                 kv_seg=tr_seg), {}, False, "train-segmented"),
+                                 kv_seg=tr_seg), {}, True, "train-segmented"),
+        ("prefill-cache", dict(b=2, t=200, s=216, h=4, kv=4,
+                               kv_pos=cache_kpos), {}, False, None),
+        ("padding-tile", dict(b=2, t=384, s=384, h=4, kv=2, q_pos=pad_pos,
+                              kv_pos=pad_pos, q_seg=pad_seg, kv_seg=pad_seg),
+         {}, False, None),
         ("gqa", dict(b=2, t=256, s=256, h=8, kv=2), {}, False, "check"),
         ("window", dict(b=2, t=512, s=512, h=4, kv=4), dict(window=128), False,
          "check"),
@@ -472,8 +503,8 @@ def phase_kernel(torch):
         ("cross-noncausal", dict(b=2, t=130, s=200, h=4, kv=1),
          dict(causal=False), False, "check"),
     ]
-    # worst |out - plain| and, for K2 and K3, worst tile relative error
-    records, worst = {}, {"K1": (0.0, None), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
+    # worst |out - plain| and worst tile relative error
+    records, worst = {}, {"K1": (0.0, 0.0), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
     for name, shape, opts, timed, bwd in cases:
         opts = {"causal": True, "window": 0, "softcap": None, **opts}
         q, k, v, qp, kp, qs, ks = _case_inputs(torch, gen, **shape)
@@ -490,15 +521,34 @@ def phase_kernel(torch):
               f"K1 {name}: fully masked rows lost the -1e30 sentinel")
         check(bool((o[~seen.permute(0, 2, 1)] == 0).all()),
               f"K1 {name}: fully masked rows are not zero")
-        worst["K1"] = (max(worst["K1"][0], err_o, err_l), None)
+        # per 64-row tile and head, against the planted fault: the plain
+        # forward without each row's last live key tile
+        live = _live_pairs(torch, qp, kp, qs, ks, opts["causal"],
+                           opts["window"])
+        qs_f, ks_f = _dropped_key_segments(torch, qs, ks, live, q.shape[1],
+                                           k.shape[1])
+        o_fault = fa.mha_forward_plain(q, k, v, qp, kp, qs_f, ks_f, **opts)[0]
+        rel, f_rel = _tile_rel(torch, o, o_ref), _tile_rel(torch, o_fault, o_ref)
+        f_ok = _grad_close(o_fault, o_ref, TOL_BF16)[1]
+        del live, o_fault
+        worst["K1"] = (max(worst["K1"][0], err_o, err_l),
+                       max(worst["K1"][1], rel))
         line = (f"[kernel] {name:20s} q {tuple(q.shape)} k {tuple(k.shape)} "
                 f"max|o-plain| {err_o:.3e} max|lse-plain| {err_l:.3e} "
-                f"(tol {TOL_BF16}) masked rows {int((~seen).sum())}")
+                f"(tol {TOL_BF16}) masked rows {int((~seen).sum())}; worst "
+                f"tile ||o-plain||/||plain|| {rel:.3e}, planted fault (last "
+                f"live key tile dropped) {f_rel:.3e}, elementwise TOL "
+                f"{'passes' if f_ok else 'fails'} it (FWD_REL_TOL "
+                f"{FWD_REL_TOL})")
         check(err_o <= TOL_BF16 and err_l <= TOL_BF16,
               f"K1 {name}: disagrees with its plain version: {line}")
+        check(rel <= FWD_REL_TOL, f"K1 {name}: a tile's relative error "
+              f"{rel:.3e} exceeds FWD_REL_TOL {FWD_REL_TOL}")
+        check(f_rel > FWD_REL_TOL, f"K1 {name}: the per-tile check does not "
+              "see the planted fault")
         del o_ref, lse_ref
         if timed:
-            iters = 20 if name == "prefill" else 100
+            iters = 100 if name == "decode" else 20
             ms = _cuda_time(torch, lambda: fa.mha_forward(*args, **opts), iters)
             plain_ms = _cuda_time(
                 torch, lambda: fa.mha_forward_plain(*args, **opts),
@@ -985,7 +1035,8 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase 6: profiles (not run by default)
 # ----------------------------------------------------------------------
-KERNEL_SYMBOLS = {"K1": "mha_fwd_kernel", "K2/K3": "mha_bwd_kernel",
+# K1's two forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel
+KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_kernel",
                   "K4": "ssd_fwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies

@@ -6,9 +6,10 @@ go to ``build/repro_torch_kernels/`` at the root of the checkout, named by a
 hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
 an edited source builds anew and an unchanged one is loaded as it is.
 Nothing is built when the module is imported: :func:`library` builds at the
-first launch. Nothing links against the driver library: the backward
-kernel's TMA tensor maps are encoded with ``cuTensorMapEncodeTiled``,
-reached at run time through the runtime's ``cudaGetDriverEntryPoint``.
+first launch. Nothing links against the driver library: the TMA tensor maps
+of K1's prefill form and of the backward are encoded with
+``cuTensorMapEncodeTiled``, reached at run time through the runtime's
+``cudaGetDriverEntryPoint`` (``csrc/hopper.cuh``).
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ _L = ctypes.c_longlong
 # name -> (source file, {C function: argtypes}); every function returns int
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
-        "mha_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        "mha_fwd_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+        "mha_fwd_prefill_smem": [_I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
         "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P] + [_I] * 8

@@ -58,9 +58,6 @@
 //    same rows in an order that differs between runs, so dq's fp32 sums
 //    round differently from run to run (about 1e-6 relative), far inside
 //    the gradient tolerances; nothing compares two runs bit for bit.
-#include <cuda.h>   // CUtensorMap and its encoding enums; the driver is
-                    // reached through cudaGetDriverEntryPoint, no -lcuda
-
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -466,52 +463,6 @@ mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     consume<kD>(&tdq, p, smem, tid - 128);
   }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime.
-using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeFn encode_fn() {
-  static EncodeFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                            &res);
-#endif
-    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeFn>(ptr);
-  }
-  return fn;
-}
-
-// A 4-D map over a contiguous tensor of `elem`-byte values with extents
-// dims (innermost first) and boxes of `box`, the box's rows swizzled by
-// their width (32, 64 or 128 bytes) as Smem lays them out. Coordinates past
-// an extent read as zeros.
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
-              const void* ptr, const cuuint64_t (&dims)[4],
-              const cuuint32_t (&box)[4]) {
-  const EncodeFn encode = encode_fn();
-  if (encode == nullptr) return false;
-  const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
-                                 dims[0] * dims[1] * dims[2] * elem};
-  const cuuint32_t one[4] = {1, 1, 1, 1};
-  const cuuint32_t row = box[0] * elem;
-  const CUtensorMapSwizzle swz = row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                 : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, one,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int kD>

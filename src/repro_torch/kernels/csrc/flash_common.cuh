@@ -1,7 +1,7 @@
 // Pieces shared by the attention kernels, K1 (flash_fwd.cu) and the fused
-// backward (flash_bwd.cu): mma.sync and cp.async for K1, the per-tile
-// min/max statistics, and the reference's block-skip predicate and element
-// mask.
+// backward (flash_bwd.cu): mma.sync and cp.async for K1's decode form, the
+// per-tile min/max statistics, and the reference's block-skip predicate and
+// element mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,7 +10,7 @@
 
 namespace flash {
 
-constexpr int kBK = 64;            // keys per kv tile
+constexpr int kBK = 64;            // keys per kv tile of K1's decode form
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;

@@ -1,8 +1,12 @@
 // Hopper (sm_90a) building blocks: warpgroup matrix multiply (wgmma) with
 // shared-memory descriptors, the 16-byte swizzles TMA writes and wgmma
-// reads, mbarriers, TMA tile loads and the bulk reduce-add.
+// reads, mbarriers, TMA tile loads and stores, the bulk reduce-add, and on
+// the host the encoding of the TMA tensor maps.
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its encoding enums; the driver is
+                    // reached through cudaGetDriverEntryPoint, no -lcuda
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -101,6 +105,20 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// Writes a box from shared memory at src, laid out as the 4-D tensor map
+// describes it, to the tensor at coordinates (c0, c1, c2, c3); elements
+// past the tensor's extent are not written. Asynchronous: commit, then
+// wait before src is written again or the block exits.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // Adds a box of fp32 in shared memory at src, laid out as the 4-D tensor
 // map describes it, into the tensor at coordinates (c0, c1, c2, c3),
 // element by element and atomically with respect to other reduce-adds,
@@ -134,6 +152,12 @@ __device__ __forceinline__ void bulk_wait() {
 // to 15; 0 is __syncthreads).
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Counts this warp's threads toward barrier `id` of `threads` threads
+// without waiting for it.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // ---------------------------------------------------------------------
@@ -212,6 +236,17 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
 }
 
+template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTA), "n"(kTB));
+}
+
 template <int kTB>
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4],
                                              uint64_t b, int scale_d) {
@@ -263,11 +298,13 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 template <int N, int kTA, int kTB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64, "wgmma_ss width");
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 128,
+                "wgmma_ss width");
   if constexpr (N == 8) wgmma_ss_n8<kTA, kTB>(d, a, b, scale_d);
   else if constexpr (N == 16) wgmma_ss_n16<kTA, kTB>(d, a, b, scale_d);
   else if constexpr (N == 32) wgmma_ss_n32<kTA, kTB>(d, a, b, scale_d);
-  else wgmma_ss_n64<kTA, kTB>(d, a, b, scale_d);
+  else if constexpr (N == 64) wgmma_ss_n64<kTA, kTB>(d, a, b, scale_d);
+  else wgmma_ss_n128<kTA, kTB>(d, a, b, scale_d);
 }
 
 template <int N, int kTB>
@@ -279,6 +316,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   else if constexpr (N == 32) wgmma_rs_n32<kTB>(d, a, b, scale_d);
   else if constexpr (N == 64) wgmma_rs_n64<kTB>(d, a, b, scale_d);
   else wgmma_rs_n128<kTB>(d, a, b, scale_d);
+}
+
+// ---------------------------------------------------------------------
+// host: TMA tensor maps
+// ---------------------------------------------------------------------
+// cuTensorMapEncodeTiled, from the driver through the runtime.
+using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeFn encode_fn() {
+  static EncodeFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult res = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                     cudaEnableDefault, &res);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                            &res);
+#endif
+    if (res == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D map over a contiguous tensor of `elem`-byte values with extents
+// dims (innermost first) and boxes of `box`, the box's rows swizzled by
+// their width (32, 64 or 128 bytes), as the kernels' shared-memory tiles
+// are laid out. Coordinates past an extent read as zeros and are not
+// written.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                     const void* ptr, const cuuint64_t (&dims)[4],
+                     const cuuint32_t (&box)[4]) {
+  const EncodeFn encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t strides[3] = {dims[0] * elem, dims[0] * dims[1] * elem,
+                                 dims[0] * dims[1] * dims[2] * elem};
+  const cuuint32_t one[4] = {1, 1, 1, 1};
+  const cuuint32_t row = box[0] * elem;
+  const CUtensorMapSwizzle swz = row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : row == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                             : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box, one,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -83,6 +83,9 @@ CASES = {
     "segmented_noncausal": (2, 64, 64, 2, 2, 16, dict(causal=False), True),
     "decode_t1": (3, 1, 40, 4, 2, 32, dict(causal=True), False),
     "ragged_t70": (2, 70, 70, 2, 2, 32, dict(causal=True), False),
+    # the serve's prefill into a longer cache: query positions 0..T-1, key
+    # positions 0..S-1, the keys past the prompt masked by position
+    "prefill_cache": (2, 48, 64, 4, 2, 32, dict(causal=True), False),
 }
 
 

@@ -63,6 +63,50 @@ def test_kernel_matches_plain_version(cuda, d, t, s, h, kv, opts):
     torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
 
 
+# K1's prefill form (T > 16): one block per 128 query rows
+PREFILL_CASES = {
+    # name: (t, s, h, kv, opts); query positions 0..T-1, key positions 0..S-1
+    "t17": (17, 17, 4, 2, dict(causal=True)),       # just past decode
+    "cache": (129, 145, 4, 4, dict(causal=True)),   # prefill into a cache
+    "gqa4": (256, 256, 8, 2, dict(causal=True)),    # a GQA group of 4
+    "window_softcap": (300, 300, 4, 2, dict(causal=True, window=64,
+                                             softcap=5.0)),
+}
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("case", sorted(PREFILL_CASES))
+def test_prefill_kernel_matches_plain_version(cuda, d, case):
+    t, s, h, kv, opts = PREFILL_CASES[case]
+    q, k, v, qp, kp = _inputs(cuda, 2, t, s, h, kv, d)
+    ops.reset_launch_counts()
+    o, lse = fa.mha_forward(q, k, v, qp, kp, **opts)
+    assert ops.launch_counts()["mha_forward"] == 1
+    o_ref, lse_ref = fa.mha_forward_plain(q, k, v, qp, kp, **opts)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_prefill_kernel_query_tile_of_pure_padding(cuda, d):
+    # row 0: a sample of 100 tokens, then padding, so that its query rows
+    # 128..255 are a whole tile with no visible key; row 1: a sample of 200
+    q, k, v, _, _ = _inputs(cuda, 2, 256, 256, 4, 2, d)
+    seg = torch.full((2, 256), -1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros_like(seg)
+    for row, n in enumerate((100, 200)):
+        seg[row, :n] = 0
+        pos[row, :n] = torch.arange(n, device=cuda)
+    o, lse = fa.mha_forward(q, k, v, pos, pos, seg, seg, causal=True)
+    o_ref, lse_ref = fa.mha_forward_plain(q, k, v, pos, pos, seg, seg,
+                                          causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
+    assert (o[0, 128:] == 0).all() and (lse[0, :, 128:] < -1e29).all()
+    dead = seg < 0
+    assert (o[dead] == 0).all() and (lse.permute(0, 2, 1)[dead] < -1e29).all()
+
+
 def test_kernel_segmented_with_fully_masked_rows(cuda):
     q, k, v, _, _ = _inputs(cuda, 2, 96, 96, 4, 2, 128)
     seg = torch.full((2, 96), -1, dtype=torch.int32, device=cuda)
