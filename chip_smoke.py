@@ -9,10 +9,12 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit, and the build of every CUDA
              kernel (K1 in ``flash_fwd.cu``, the fused backward that
-             replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``),
-             one nvcc per source, all started together, from the sources in
-             this checkout, with ptxas's register and spill lines and the
-             dynamic shared memory of K1's prefill form;
+             replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``
+             and its first, serial form, the yardstick, in
+             ``ssd_fwd_serial.cu``), one nvcc per source, all started
+             together, from the sources in this checkout, with ptxas's
+             register and spill lines and the dynamic shared memory of K1's
+             prefill form;
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -22,7 +24,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              lengths, a non-causal cross shape, the serve's prefill into a
              longer cache); both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
-             with times of the kernels (the backward alone and as the whole
+             the backward must give dq, dk and dv equal to the bit over
+             three calls; with times of the kernels (the backward alone and as the whole
              CUDA backward: delta, the zeroed dq accumulator, the kernel and
              dq's cast), the plain versions and
              ``scaled_dot_product_attention``'s forward and backward (a
@@ -32,8 +35,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              small cases (groups, T 1, a decay past -60 within a chunk),
              elementwise and per (batch row, head, 64-step chunk) relative
              norm, which must also fail a planted fault (the state reset at
-             every chunk boundary), with its time beside its bound and the
-             plain version's (no single PyTorch call computes the SSD);
+             every chunk boundary), the states it writes at each chunk's
+             start against the plain pass over chunks, and two calls equal to the
+             bit; it prints how each product rounds its operands, and its
+             time beside its first, serial form's (step 0, in turns), its
+             bound and the plain version's (no single PyTorch call computes
+             the SSD);
 3. serve   — ``repro_torch.serve`` at full gpt-paper width, 32 layers,
              random seeded weights: the launch count of K1 must equal
              n_layers x (prefill batches x (1 + decode steps)) and every
@@ -48,7 +55,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              with the kernels and once with the plain versions, must agree
              on a grad step's loss and every gradient leaf (elementwise and
              by each leaf's relative norm, which must also fail a backward
-             planted to return a zero dq) and on 2 iterations' losses;
+             planted to return a zero dq) and on 2 iterations' losses; and
+             two such 2-iteration runs with the kernels must give equal
+             losses, grad norms and parameters to the bit;
 5. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
              (24 layers), random seeded weights, the serve phase's requests:
              K4 must launch 24 x prefill batches times and K1 never, and
@@ -174,11 +183,13 @@ def phase_device(torch):
           f"{took:.1f}s with {_build.nvcc()}")
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            fn = re.search(r"Compiling entry function "
-                           r"'\w*?\d((?:mha|ssd)_[a-z_]+?_kernel)I(\w*?)EEv", line)
+            fn = re.search(r"Compiling entry function '\w*?\d"
+                           r"((?:mha|ssd)_[a-z_]+?_kernel)(?:I(\w*?)EE)?", line)
             if fn:   # the kernel and its template arguments, demangled
-                args = ", ".join(re.findall(r"L[ib](\d+)E", fn.group(2) + "E"))
-                print(f"[device]   {name}: {fn.group(1)}<{args}>")
+                args = ", ".join(re.findall(r"L[ib](\d+)E",
+                                            (fn.group(2) or "") + "E"))
+                print(f"[device]   {name}: {fn.group(1)}"
+                      + (f"<{args}>" if args else ""))
             elif "registers" in line or "spill" in line:
                 print(f"[device]   {name}:   {line.strip()}")
     from repro_torch.kernels import flash_attention as fa
@@ -363,8 +374,9 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     """The fused backward against mha_backward_plain on K1's residuals,
     elementwise (GRAD_TOL) and per tile (GRAD_REL_TOL); the per-tile check
     must fail a planted fault, the plain backward without each row's last
-    live key tile. With `timed`, its times (the kernel alone, and the whole
-    CUDA backward) beside its bound, the plain version's and SDPA's."""
+    live key tile; two more calls must give dq, dk and dv equal to the bit.
+    With `timed`, its times (the kernel alone, and the whole CUDA backward)
+    beside its bound, the plain version's and SDPA's."""
     q, k, v, qp, kp, qs, ks = args
     gen = torch.Generator(device="cuda").manual_seed(1)
     do = torch.randn(o.shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -409,20 +421,32 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
           f"relative error exceeds GRAD_REL_TOL {GRAD_REL_TOL}")
     check(max(fault_rels.values()) > GRAD_REL_TOL, f"backward {name}: the "
           "per-tile check does not see the planted fault")
+    # repeatable bit for bit: dq's tiles are added in a fixed order
+    same = True
+    for _ in range(2):
+        again = fa.mha_backward_cuda(*res, delta, **opts)
+        same &= all(bool(torch.equal(a, b)) for a, b in zip((dq, dk, dv), again))
+        del again
+    print(f"[kernel] {name:20s} backward: two more calls equal to the bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    check(same, f"backward {name}: dq, dk or dv differ between calls")
     worst = {"K2": (errs["dq"], rels["dq"]),
              "K3": (max(errs["dk"], errs["dv"]), max(rels["dk"], rels["dv"]))}
     if not timed:
         return {}, worst
     iters = 10
-    acc = fa.dq_accumulator(q)
+    acc, sem = fa.dq_accumulator(q)
+    # a zeroed set of dq counters for each launch, made before the timing
+    sems = iter(torch.zeros((iters + 2,) + sem.shape, dtype=torch.int32,
+                            device="cuda"))
     ms = _cuda_time(torch, lambda: fa._launch_backward(
-        *res, delta, acc, dk, dv, **opts), iters)
+        *res, delta, acc, dk, dv, sem=next(sems), **opts), iters)
     whole_ms = _cuda_time(torch, lambda: fa.mha_backward(*res, **opts), iters)
     # the whole backward's other parts: delta, the zeroed accumulator, the cast
     delta_ms = _cuda_time(torch, lambda: fa.attention_delta(o, do), iters)
     zeros_ms = _cuda_time(torch, lambda: fa.dq_accumulator(q), iters)
     cast_ms = _cuda_time(torch, lambda: fa.dq_from_accumulator(acc, t), iters)
-    del acc
+    del acc, sem, sems
     plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
                           3, warmup=1)
     lib = (_library_bwd_fn(torch, q, k, v, qp, kp, qs, ks, opts["causal"],
@@ -436,12 +460,13 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
                zeros_ms=zeros_ms, cast_ms=cast_ms, live_pairs=pairs,
                covers="dq, dk and dv in one launch: the work of the "
                "reference's K2 and K3; backward_ms adds delta, the zeroed "
-               "dq accumulator and dq's cast")
+               "dq accumulator and counters, and dq's cast",
+               repeatable=same)
     lib_s = library_ms if library_ms is None else round(library_ms, 4)
     print(f"[kernel] {name:20s} backward kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {pairs} live pairs), whole "
           f"CUDA backward {whole_ms:.4f} ms (delta {delta_ms:.4f}, zeroed "
-          f"accumulator {zeros_ms:.4f}, dq cast {cast_ms:.4f}); bound "
+          f"accumulator and counters {zeros_ms:.4f}, dq cast {cast_ms:.4f}); bound "
           f"{bound_ms:.4f} ms by "
           f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound, "
           f"{100 * bound_ms / whole_ms:.1f}% for the whole); plain "
@@ -595,16 +620,21 @@ def _ssd_inputs(torch, gen, *, b, t, h, p, g, n, a_scale=1.0):
     return x, dt, A, B, C
 
 
+# the chunk length at which K4's bound counts FLOPs, whatever chunk K4 takes,
+# so that the times of all its forms divide by the same work
+SSD_BOUND_CHUNK = 64
+
+
 def _ssd_bound_ms(x, B):
     """Least time of K4 for these inputs: the chunked algorithm's FLOPs at
-    K4's 64-step chunks, 2 L (L N + L P + 2 N P) per (batch row, head,
-    chunk of L real steps), over the bf16 peak (x, B and C are bf16),
-    against the bytes of x and y (bf16), B and C (bf16), dt (fp32), A and
-    the final state (fp32), each once, over HBM."""
-    from repro_torch.kernels import ssd as SSD
+    64-step chunks, 2 L (L N + L P + 2 N P) per (batch row, head, chunk of
+    L real steps), over the bf16 peak (x, B and C are bf16), against the
+    bytes of x and y (bf16), B and C (bf16), dt (fp32), A and the final
+    state (fp32), each once, over HBM."""
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
-    lens = [min(SSD.CHUNK, t - t0) for t0 in range(0, t, SSD.CHUNK)]
+    c = SSD_BOUND_CHUNK
+    lens = [min(c, t - t0) for t0 in range(0, t, c)]
     flops = float(b * h * sum(2 * L * (L * n + L * p + 2 * n * p)
                               for L in lens))
     nbytes = (2 * b * t * h * p * 2 + 2 * b * t * g * n * 2 + b * t * h * 4
@@ -634,12 +664,28 @@ def _rel_per_head(torch, out, ref):
                              torch.where(d > 0, float("inf"), 0.0)).max())
 
 
+def _rel_per_chunk_state(torch, out, ref):
+    """Worst ||out - ref|| / ||ref|| over (batch row, head, chunk) of K4's
+    chunk-start states (B, H, chunks - 1, P, N)."""
+    if out.shape[2] == 0:
+        return 0.0
+    d = (out.float() - ref.float()).flatten(3).norm(dim=3)
+    r = ref.float().flatten(3).norm(dim=3)
+    return float(torch.where(r > 0, d / r.clamp_min(1e-30),
+                             torch.where(d > 0, float("inf"), 0.0)).max())
+
+
 def phase_kernel_ssd(torch):
     """K4 against its plain version: elementwise (SSD_TOL_BF16) and per
     chunk (SSD_REL_TOL), the planted fault read on every case and required
-    to fail the per-chunk check wherever the state carries across chunks."""
+    to fail the per-chunk check wherever the state carries across chunks;
+    the states it writes at each chunk's start against the plain pass over
+    chunks (per chunk, SSD_REL_TOL); two calls equal to the bit; at the timed shapes,
+    K4 and its first, serial form (step 0) in turns."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as SSD
+    print("[kernel] K4 products (fp32 sums throughout): " + "; ".join(
+        f"{k}: {v}" for k, v in SSD.PRECISION.items()), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(2)
     serve = dict(h=24, p=64, g=1, n=128)          # mamba2-130m's mixer
     # name, shape, timed, whether the planted fault must be seen
@@ -656,9 +702,15 @@ def phase_kernel_ssd(torch):
     for name, shape, timed, fault_seen in cases:
         args = _ssd_inputs(torch, gen, **shape)
         x, dt, A, B, C = args
-        y, st = SSD.ssd_chunked(*args)
+        y, st, starts = SSD._ssd_cuda(*args, chunk_states=True)
         torch.cuda.synchronize()
         y_ref, st_ref = ref.ssd_ref_chunked(*args)
+        # the state's recurrence alone, against the plain pass over chunks
+        starts_rel = _rel_per_chunk_state(
+            torch, starts, ref.ssd_chunk_parallel(*args)[2])
+        y2, st2 = SSD.ssd_chunked(*args)
+        same = bool(torch.equal(y, y2)) and bool(torch.equal(st, st2))
+        del y2, st2, starts
         check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(st).all()),
               f"K4 {name}: non-finite output")
         err_y, ok_y = _grad_close(y, y_ref, SSD_TOL_BF16)
@@ -680,25 +732,44 @@ def phase_kernel_ssd(torch):
                 f"{rel:.3e}; planted fault (state reset per 64-step chunk) "
                 f"{f_rel:.3e}, elementwise tol {'passes' if f_ok else 'fails'}"
                 f" it (SSD_REL_TOL {SSD_REL_TOL}); least sum of dt A over a "
-                f"first chunk {a_min:.1f}")
+                f"first chunk {a_min:.1f}; chunk-start states (hi + lo) "
+                f"vs the plain pass, worst per chunk {starts_rel:.3e}; a "
+                f"second call equal to the bit: {'yes' if same else 'NO'}")
         print(line, flush=True)
         check(ok_y and ok_s, f"K4 {name}: disagrees with its plain version")
         check(rel <= SSD_REL_TOL, f"K4 {name}: a chunk's relative error "
               f"{rel:.3e} exceeds SSD_REL_TOL {SSD_REL_TOL}")
+        check(starts_rel <= SSD_REL_TOL, f"K4 {name}: a chunk-start state's "
+              f"relative error {starts_rel:.3e} exceeds SSD_REL_TOL")
+        check(same, f"K4 {name}: two calls differ")
         if fault_seen:
             check(f_rel > SSD_REL_TOL, f"K4 {name}: the per-chunk check does "
                   "not see the planted fault")
         if timed:
-            ms = _cuda_time(torch, lambda: SSD.ssd_chunked(*args), 20)
+            # step 0 (the serial form) and K4 in turns: s0, K4, K4, s0
+            step0 = lambda: SSD.ssd_serial_cuda(*args)     # noqa: E731
+            y0, st0 = step0()
+            check(_grad_close(y0, y_ref, SSD_TOL_BF16)[1]
+                  and _grad_close(st0, st_ref, SSD_TOL_BF16)[1],
+                  f"K4 step 0 {name}: disagrees with the plain version")
+            del y0, st0
+            turns = [_cuda_time(torch, f, 20)
+                     for f in (step0, lambda: SSD.ssd_chunked(*args),
+                               lambda: SSD.ssd_chunked(*args), step0)]
+            ms, step0_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
             plain_ms = _cuda_time(torch, lambda: ref.ssd_ref_chunked(*args),
                                   3, warmup=1)
             bound_ms, bound_by, flops, nbytes = _ssd_bound_ms(x, B)
             records[("K4", name)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
-                library="none: no single PyTorch call computes the SSD")
+                library="none: no single PyTorch call computes the SSD",
+                step0_ms=step0_ms, turns_ms=turns, precision=SSD.PRECISION,
+                repeatable=same)
             print(f"[kernel] {name:20s} K4 {ms:.4f} ms ({flops / ms / 1e9:.1f} "
-                  f"TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), plain "
+                  f"TFLOP/s, {nbytes / ms / 1e6:.1f} GB/s), step 0 (serial "
+                  f"form) {step0_ms:.4f} ms ({step0_ms / ms:.2f}x; turns "
+                  f"{', '.join(f'{t:.4f}' for t in turns)}), plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
                   f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
                   f"{100 * bound_ms / ms:.1f}% of bound)", flush=True)
@@ -899,18 +970,33 @@ def phase_train(torch):
         ls, ws, g = step(params0, batch)
         return float(ls) / float(ws), [x.float() / float(ws) for x in leaves(g)]
 
+    # the kernels' 2-iteration run twice: the trajectories must be equal to
+    # the bit
     runs = {}
-    for name in ("kernels", "plain"):
+    for name in ("kernels", "plain", "kernels again"):
         patches = _plain_attention() if name == "plain" else ()
         with contextlib.ExitStack() as stack:
             for p in patches:
                 stack.enter_context(p)
-            loss, g = grad_step()
-            _, h2, _ = _train(torch, 2, 2, seed=1,
-                              params=tree_map(lambda x: x.clone(), params0),
-                              log_every=0)[4:]
-            runs[name] = (loss, g, h2)
-    (lk, gk, hk), (lp, gp, hp) = runs["kernels"], runs["plain"]
+            loss, g = grad_step() if name != "kernels again" else (None, None)
+            p2, h2, _ = _train(torch, 2, 2, seed=1,
+                               params=tree_map(lambda x: x.clone(), params0),
+                               log_every=0)[4:]
+            runs[name] = (loss, g, h2, p2)
+    (lk, gk, hk, pk), (lp, gp, hp, _) = runs["kernels"], runs["plain"]
+    _, _, hk2, pk2 = runs["kernels again"]
+    same = ([(h["loss"], h["grad_norm"]) for h in hk]
+            == [(h["loss"], h["grad_norm"]) for h in hk2]
+            and all(bool(torch.equal(a, b))
+                    for a, b in zip(leaves(pk), leaves(pk2))))
+    print(f"[train] 2 layers, two 2-iteration runs with the kernels from one "
+          f"seed: losses {[h['loss'] for h in hk]} and "
+          f"{[h['loss'] for h in hk2]}; losses, grad norms and all "
+          f"{len(leaves(pk))} parameter leaves equal to the bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    check(same, "two 2-layer, 2-iteration runs with the kernels from one "
+          "seed differ")
+    del pk, pk2, runs["kernels again"]
 
     def leaf_errs(gs):
         """Max |diff|, worst ||diff|| / ||plain|| over the leaves, and

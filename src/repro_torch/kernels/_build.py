@@ -38,11 +38,15 @@ KERNELS = {
         "mha_fwd_prefill_smem": [_I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
-        "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P] + [_I] * 8
+        "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P, _P] + [_I] * 8
                         + [ctypes.c_float, _P],
     }),
     "ssd_fwd": ("ssd_fwd.cu", {
-        "ssd_fwd_bf16": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_P],
+        "ssd_fwd_bf16": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_P],
+    }),
+    # K4's first, serial form: a yardstick chip_smoke.py times, on no path
+    "ssd_fwd_serial": ("ssd_fwd_serial.cu", {
+        "ssd_fwd_serial_bf16": [_P] * 7 + [_I] * 6 + [_L] * 12 + [_P],
     }),
 }
 

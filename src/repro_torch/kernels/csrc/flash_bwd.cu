@@ -32,17 +32,21 @@
 // dp twice, 14 D per pair.
 //
 // Design. One pass over the live (query tile, key tile) pairs.
-//  - One block per (128 keys, KV head, batch row): a producer warp and two
-//    consumer warpgroups of 64 keys each. The k and v tiles stay in shared
-//    memory for the whole pass; the block loops over the live (64-row query
-//    tile, q head of the GQA group) items.
-//  - The producer warp scans the tile liveness (the min/max of positions
-//    and segment ids, `tiles_live`, the reference's `_live_terms`) and keeps
-//    two stages of (q, do, lse, delta, positions, segment ids) in flight:
-//    q and do by TMA from 4-D tensor maps over (D, heads, T, B), whose
+//  - One block per (128 keys, KV head, batch row): a producer warpgroup and
+//    two consumer warpgroups of 64 keys each. The k and v tiles stay in
+//    shared memory for the whole pass; the block loops over the live
+//    (64-row query tile, q head of the GQA group) items, query tiles from
+//    the last to the first.
+//  - The producer warpgroup's warps 1-3 first take the min/max of the
+//    positions and segment ids of the key tiles up to the block's own into
+//    a table in shared memory (at most kMaxKeyTiles tiles: S <= 65536).
+//    Warp 0 then scans the query tiles' liveness against the block's key
+//    tile (`tiles_live`, the reference's `_live_terms`) and keeps two
+//    stages of (q, do, lse, delta, positions, segment ids) in flight: q and
+//    do by TMA from 4-D tensor maps over (D, heads, T, B), whose
 //    out-of-bounds fill gives the zero rows past T; mbarriers hand stages
 //    to the consumers and back. setmaxnreg moves registers from the
-//    producer to the consumers.
+//    producer warpgroup to the consumers.
 //  - Per item, each consumer warpgroup runs five wgmma products: s^T = k q^T
 //    and dp^T = v do^T from shared memory; p^T and ds^T in registers (fp32,
 //    rounded to bf16 as operands), in one of four forms chosen per item
@@ -51,13 +55,28 @@
 //    and do, q read transposed through the descriptors; ds^T to shared
 //    memory, then dq = ds k for the warpgroup's half of D over the block's
 //    128 keys. dk and dv stay in fp32 registers until one bf16 store,
-//    summed over the GQA group without atomics (deterministic).
-//  - dq, scaled by 1/sqrt(D), goes to shared memory as 128-byte-swizzled
-//    fp32 boxes and is added into the caller's zeroed fp32 accumulator
-//    (B, H, T rounded up to 64, D) by TMA reduce-adds. Blocks add into the
-//    same rows in an order that differs between runs, so dq's fp32 sums
-//    round differently from run to run (about 1e-6 relative), far inside
-//    the gradient tolerances; nothing compares two runs bit for bit.
+//    summed over the GQA group without atomics.
+//  - dq, scaled by 1/sqrt(D), goes to one of two shared-memory slots as
+//    128-byte-swizzled fp32 boxes, item by item in turn. Warps 1 and 2 of
+//    the producer warpgroup, one per slot, add each tile into the caller's
+//    zeroed fp32 accumulator (B, H, T rounded up to 64, D) by TMA
+//    reduce-adds, while the consumers go on with the next item.
+//
+// Sum order. For every (batch row, q head, 64-row query tile), dq's tiles
+// are added in ascending key tile, so dq is repeatable bit for bit, as dk
+// and dv are. An int32 counter per (batch row, q head, query tile), zeroed
+// by the caller beside the accumulator, counts the key tiles that have
+// added theirs. Before adding, the block of key tile j waits (acquire)
+// until the counter reaches the number of live key tiles before j for
+// that query tile, which warp 0 counts from the table with the same
+// `tiles_live` predicate that skips dead pairs, so a dead pair is never
+// waited for. The block then adds its tile, waits until the adds are
+// complete in global memory and bumps the counter (release). A block waits
+// only on blocks of lower blockIdx.x in its own (KV head, batch row),
+// which are launched before it, so every wait ends. Because every block
+// walks the query tiles in the same (descending) order, the blocks of a
+// (KV head, batch row) reach a query tile at about the same time, and
+// the waits are short.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -69,6 +88,8 @@ using namespace hopper;
 constexpr int kBQ = 64;              // query rows per item
 constexpr int kBKB = 128;            // keys per block
 constexpr int kStages = 2;           // (q, do, lse, delta) tiles in flight
+constexpr int kDQSlots = 2;          // dq tiles between the consumers and the adds
+constexpr int kMaxKeyTiles = 512;    // key tiles in the statistics table
 constexpr int kConsumers = 2 * 128;  // two consumer warpgroups
 constexpr int kThreads = 128 + kConsumers;
 
@@ -79,6 +100,7 @@ struct Params {
   const int* kpos;
   const int* qseg;   // nullptr: not segmented
   const int* kseg;
+  int* dq_sem;       // (B, H, T_acc / kBQ): key tiles added into dq's tile
   uint16_t* dk;
   uint16_t* dv;
   int B, T, S, H, KV;
@@ -100,19 +122,60 @@ struct Smem {
   static constexpr int kK = 0, kV = kKV;
   static constexpr int kQD = 2 * kKV;                      // [stage][q, do]
   static constexpr int kDS = kQD + kStages * 2 * kQ;       // ds^T [128][64] bf16
-  static constexpr int kDQ = kDS + kBKB * kBQ * 2;         // dq, fp32 boxes
+  static constexpr int kDQ = kDS + kBKB * kBQ * 2;         // dq, fp32 boxes [slot]
   static constexpr int kDQRB = kD >= 32 ? 128 : kD * 4;    // bytes of a box row
   static constexpr int kDQBox = kBQ * kDQRB;               // [64][32] or [64][16]
-  static constexpr int kMeta = kDQ + kBQ * kD * 4;         // [stage][4][kBQ]
+  static constexpr int kDQTile = kBQ * kD * 4;
+  static constexpr int kMeta = kDQ + kDQSlots * kDQTile;   // [stage][4][kBQ]
   static constexpr int kItem = kMeta + kStages * 4 * kBQ * 4;   // int4 [stage]
-  static constexpr int kBar = kItem + kStages * 16;        // kv, full[], empty[]
-  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int kDQInfo = kItem + kStages * 16;     // int4 [slot]
+  static constexpr int kStat = kDQInfo + kDQSlots * 16;    // int4 [kMaxKeyTiles]
+  static constexpr int kBar = kStat + kMaxKeyTiles * 16;   // kv, full[], empty[],
+                                                           // dq_full[], dq_empty[]
+  static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages + 2 * kDQSlots) + 1024;
 };
 
-// The producer warp: the key tile's statistics, the k and v tiles, then for
-// each live (query tile, q head) item its lse (log2 units), delta,
-// positions and segment ids and, by TMA, its q and do tiles into the next
-// free stage; a sentinel item (q0 = -1) ends the consumers' loop.
+// Barriers of the block, in shared memory from L::kBar.
+struct Bars {
+  uint32_t kv, full, empty, dq_full, dq_empty;   // full[s] = full + 8 s, ...
+  __device__ explicit Bars(uint32_t base)
+      : kv(base), full(base + 8), empty(base + 8 + 8 * kStages),
+        dq_full(base + 8 + 16 * kStages),
+        dq_empty(base + 8 + 16 * kStages + 8 * kDQSlots) {}
+};
+
+// Warps 1-3 of the producer warpgroup: the min/max of the positions and
+// segment ids of the key tiles up to the block's own, into the table at
+// L::kStat.
+template <int kD>
+__device__ __forceinline__ void key_tile_table(const Params& p, uint8_t* smem,
+                                               int warp, int lane) {
+  using L = Smem<kD>;
+  const int b = blockIdx.z;
+  int4* const stats = reinterpret_cast<int4*>(smem + L::kStat);
+  const int* const kseg = p.kseg != nullptr ? p.kseg + (size_t)b * p.S : nullptr;
+  for (int i = warp - 1; i <= (int)blockIdx.x; i += 3) {
+    const int4 st = row_tile_stats(p.kpos + (size_t)b * p.S, kseg, p.S,
+                                   i * kBKB, lane);
+    if (lane == 0) stats[i] = st;
+  }
+}
+
+// `tiles_live` on a key tile's entry of the table: the producer's skip
+// predicate, and the one that counts the key tiles whose dq tiles come
+// before this block's.
+__device__ __forceinline__ bool pair_live(const int (&q)[4], int4 k4,
+                                          bool segmented, const Params& p) {
+  const int k[4] = {k4.x, k4.y, k4.z, k4.w};
+  return tiles_live(q, k, segmented, p.causal, p.window);
+}
+
+// The producer warp: the k and v tiles, then for each live (query tile, q
+// head) item, query tiles from the last to the first, its lse (log2 units),
+// delta, positions and segment ids and, by TMA, its q and do tiles into the
+// next free stage, with the number of live key tiles before this block's
+// for that query tile (the count dq's adds wait for); a sentinel item
+// (q0 = -1) ends the consumers' loop.
 template <int kD>
 __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tdo,
@@ -120,35 +183,28 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tv, const Params& p,
                                         uint8_t* smem, int lane) {
   using L = Smem<kD>;
-  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
+  const int b = blockIdx.z, kvh = blockIdx.y, kt = blockIdx.x, k0 = kt * kBKB;
   const int group = p.H / p.KV;
   const bool segmented = p.qseg != nullptr;
-  const uint32_t kv_bar = smem_u32(smem + L::kBar);
-  const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 + 8 * kStages;
+  const Bars bar(smem_u32(smem + L::kBar));
+  const int4* const stats = reinterpret_cast<const int4*>(smem + L::kStat);
 
   if (lane == 0) {
-    mbar_arrive_tx(kv_bar, 2 * L::kKV);
+    mbar_arrive_tx(bar.kv, 2 * L::kKV);
 #pragma unroll
     for (int x = 0; x < kD / 64 + (kD < 64); ++x) {
-      tma_load_4d(smem_u32(smem + L::kK + x * L::kKBox), tk, kv_bar, 64 * x, kvh, k0, b);
-      tma_load_4d(smem_u32(smem + L::kV + x * L::kKBox), tv, kv_bar, 64 * x, kvh, k0, b);
+      tma_load_4d(smem_u32(smem + L::kK + x * L::kKBox), tk, bar.kv, 64 * x, kvh, k0, b);
+      tma_load_4d(smem_u32(smem + L::kV + x * L::kKBox), tv, bar.kv, 64 * x, kvh, k0, b);
     }
   }
-  int kstat[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
-  for (int i = lane; i < kBKB && k0 + i < p.S; i += 32) {
-    const int pos = p.kpos[(size_t)b * p.S + k0 + i];
-    const int seg = segmented ? p.kseg[(size_t)b * p.S + k0 + i] : 0;
-    kstat[0] = min(kstat[0], pos); kstat[1] = max(kstat[1], pos);
-    kstat[2] = min(kstat[2], seg); kstat[3] = max(kstat[3], seg);
-  }
-  kstat[0] = warp_min(kstat[0]); kstat[1] = warp_max(kstat[1]);
-  kstat[2] = warp_min(kstat[2]); kstat[3] = warp_max(kstat[3]);
+  named_barrier(2, 128);   // warps 1-3 have filled the key tiles' table
+  const int4 kstat = stats[kt];
 
   int stage = 0;
   uint32_t phase = 0;
   // A tile of padding keys (segment -1) is seen by no query: no live item.
-  const int n_qt = segmented && kstat[3] < 0 ? 0 : (p.T + kBQ - 1) / kBQ;
-  // the positions and segment ids of tile t + 1 load while tile t is handled
+  const int n_qt = segmented && kstat.w < 0 ? 0 : (p.T + kBQ - 1) / kBQ;
+  // the positions and segment ids of tile t - 1 load while tile t is handled
   int pos_next[2], seg_next[2];
   auto load = [&](int t) {
 #pragma unroll
@@ -158,8 +214,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       seg_next[i] = (r < p.T && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
     }
   };
-  if (n_qt > 0) load(0);
-  for (int t = 0; t < n_qt; ++t) {
+  if (n_qt > 0) load(n_qt - 1);
+  for (int t = n_qt - 1; t >= 0; --t) {
     const int q0 = t * kBQ;
     bool ok[2];
     int pos[2], seg[2];
@@ -169,18 +225,26 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       pos[i] = pos_next[i];
       seg[i] = seg_next[i];
     }
-    if (t + 1 < n_qt) load(t + 1);
+    if (t > 0) load(t - 1);
     int qstat[4];
     qstat[0] = warp_min(min(ok[0] ? pos[0] : kIntMax, ok[1] ? pos[1] : kIntMax));
     qstat[1] = warp_max(max(ok[0] ? pos[0] : kIntMin, ok[1] ? pos[1] : kIntMin));
     qstat[2] = warp_min(min(ok[0] ? seg[0] : kIntMax, ok[1] ? seg[1] : kIntMax));
     qstat[3] = warp_max(max(ok[0] ? seg[0] : kIntMin, ok[1] ? seg[1] : kIntMin));
-    if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
+    if (!pair_live(qstat, kstat, segmented, p)) continue;
+    const int ks[4] = {kstat.x, kstat.y, kstat.z, kstat.w};
     const int full = q0 + kBQ <= p.T && k0 + kBKB <= p.S &&
-                     tiles_full(qstat, kstat, segmented, p.causal, p.window);
+                     tiles_full(qstat, ks, segmented, p.causal, p.window);
+    int before = 0;   // live key tiles before this one for query tile t
+    for (int i0 = 0; i0 < kt; i0 += 32) {
+      const int i = i0 + lane;
+      before += __popc(__ballot_sync(
+          0xffffffffu,
+          i < kt && pair_live(qstat, stats[min(i, kt - 1)], segmented, p)));
+    }
     for (int gi = 0; gi < group; ++gi) {
       const int hq = kvh * group + gi;
-      mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+      mbar_wait(bar.empty + 8 * stage, phase ^ 1);
       float* const lse_s = reinterpret_cast<float*>(smem + L::kMeta) + stage * 4 * kBQ;
       float* const dlt_s = lse_s + kBQ;
       int* const qpos_s = reinterpret_cast<int*>(dlt_s + kBQ);
@@ -194,9 +258,9 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
         qpos_s[rr] = pos[i];
         qseg_s[rr] = seg[i];
       }
-      const uint32_t fb = full_bar + 8 * stage;
+      const uint32_t fb = bar.full + 8 * stage;
       if (lane == 0) {
-        reinterpret_cast<int4*>(smem + L::kItem)[stage] = make_int4(q0, hq, full, 0);
+        reinterpret_cast<int4*>(smem + L::kItem)[stage] = make_int4(q0, hq, full, before);
         mbar_arrive_tx(fb, 2 * L::kQ);
         uint8_t* const qb = smem + L::kQD + stage * 2 * L::kQ;
 #pragma unroll
@@ -210,10 +274,50 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       if (++stage == kStages) { stage = 0; phase ^= 1; }
     }
   }
-  mbar_wait(empty_bar + 8 * stage, phase ^ 1);
+  mbar_wait(bar.empty + 8 * stage, phase ^ 1);
   if (lane == 0)
     reinterpret_cast<int4*>(smem + L::kItem)[stage] = make_int4(-1, 0, 0, 0);
-  mbar_arrive(full_bar + 8 * stage);
+  mbar_arrive(bar.full + 8 * stage);
+}
+
+// Warp 1 + slot of the producer warpgroup: adds each dq tile the consumers
+// hand over in its slot into the accumulator, in ascending key tile per
+// (batch row, q head, query tile). For each: wait until the tile's counter
+// holds the number of live key tiles before this block's, add the tile by
+// TMA reduce-adds, free the slot once they have read it, and bump the
+// counter once they are complete in global memory. The two slots hold
+// different items, so their adds need no order between them. Info with
+// q0 = -1 ends it.
+template <int kD>
+__device__ __forceinline__ void add_dq(const CUtensorMap* tdq, const Params& p,
+                                       uint8_t* smem, int lane, int slot) {
+  using L = Smem<kD>;
+  const int b = blockIdx.z;
+  const int n_qt = (p.T + kBQ - 1) / kBQ;
+  const Bars bar(smem_u32(smem + L::kBar));
+  const int4* const info = reinterpret_cast<const int4*>(smem + L::kDQInfo);
+  for (uint32_t phase = 0;; phase ^= 1) {
+    mbar_wait(bar.dq_full + 8 * slot, phase);
+    const int4 it = info[slot];   // q0, q head, -, live key tiles before
+    if (it.x < 0) break;
+    if (lane == 0) {
+      int* const sem = p.dq_sem + ((size_t)b * p.H + it.y) * n_qt + it.x / kBQ;
+      while (ld_acquire_gpu(sem) < it.w) __nanosleep(64);
+      fence_proxy_async_global();   // the earlier tiles' adds before ours
+      const uint32_t src = smem_u32(smem + L::kDQ + slot * L::kDQTile);
+#pragma unroll
+      for (int x = 0; x < kD * 4 / L::kDQRB; ++x)
+        tma_reduce_add_4d(tdq, src + x * L::kDQBox, x * L::kDQRB / 4, it.x,
+                          it.y, b);
+      bulk_commit();
+      bulk_wait_read();
+      mbar_arrive(bar.dq_empty + 8 * slot);   // the slot may be written again
+      bulk_wait();
+      fence_proxy_async_global();
+      red_release_gpu_add(sem, 1);
+    }
+    __syncwarp();
+  }
 }
 
 // p^T and ds^T in place of s^T and dp^T for this thread's elements: element
@@ -256,10 +360,10 @@ __device__ __forceinline__ void p_ds(float (&s)[32], float (&dp)[32],
 
 // The two consumer warpgroups: warpgroup wg takes keys [64 wg, 64 wg + 64)
 // of the block's tile for s^T, dp^T, dv and dk, and columns
-// [wg D / 2, (wg + 1) D / 2) of dq.
+// [wg D / 2, (wg + 1) D / 2) of dq, whose tile goes to the next dq slot
+// for add_dq.
 template <int kD>
-__device__ __forceinline__ void consume(const CUtensorMap* tdq,
-                                        const Params& p, uint8_t* smem,
+__device__ __forceinline__ void consume(const Params& p, uint8_t* smem,
                                         int ct) {
   using L = Smem<kD>;
   constexpr int kRB = L::kRB;
@@ -268,9 +372,8 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
   const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBKB;
   const bool segmented = p.qseg != nullptr;
   uint8_t* const ds_s = smem + L::kDS;
-  uint8_t* const dq_s = smem + L::kDQ;
-  const uint32_t kv_bar = smem_u32(smem + L::kBar);
-  const uint32_t full_bar = kv_bar + 8, empty_bar = kv_bar + 8 + 8 * kStages;
+  int4* const dq_info = reinterpret_cast<int4*>(smem + L::kDQInfo);
+  const Bars bar(smem_u32(smem + L::kBar));
 
   // this thread's two keys: rows g and g + 8 of its warp's 16 in s^T
   int key[2], kp[2], ks[2];
@@ -293,14 +396,14 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
   const uint32_t kq_a = smem_u32(smem + L::kK) + (col0 / 64) * L::kKBox + (col0 % 64) * 2;
   const uint32_t ds_a = smem_u32(ds_s);
 
-  mbar_wait(kv_bar, 0);
-  int stage = 0;
-  uint32_t phase = 0;
+  mbar_wait(bar.kv, 0);
+  int stage = 0, slot = 0;
+  uint32_t phase = 0, dq_phase = 0;
   for (;;) {
-    mbar_wait(full_bar + 8 * stage, phase);
+    mbar_wait(bar.full + 8 * stage, phase);
     const int4 item = reinterpret_cast<const int4*>(smem + L::kItem)[stage];
     if (item.x < 0) break;
-    const int q0 = item.x, hq = item.y;
+    const int q0 = item.x;
     const bool full = item.z != 0;
     const uint32_t q_a = smem_u32(smem + L::kQD + stage * 2 * L::kQ);
     const uint32_t do_a = q_a + L::kQ;
@@ -354,8 +457,7 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
     wgmma_commit();
 
     // ---- ds^T to shared memory: 64 query rows (128 B) per key, swizzled ----
-    if (ct == 0) bulk_wait_read();   // the last item's dq tile has left dq_s
-    named_barrier(1, kConsumers);    // and both warpgroups are done with ds^T
+    named_barrier(1, kConsumers);    // both warpgroups are done with the last ds^T
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -385,11 +487,13 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
       fence_regs(sa[kq]);
     }
     __syncwarp();
-    if (lane == 0) mbar_arrive(empty_bar + 8 * stage);   // q, do, meta are free
+    if (lane == 0) mbar_arrive(bar.empty + 8 * stage);   // q, do, meta are free
 
-    // ---- the dq tile, scaled by 1/sqrt(D), to shared memory as swizzled
-    // boxes of kDQRB-byte rows, then reduce-adds of them into the fp32
-    // accumulator: rows 16 w4 + g (+ 8), columns col0 + 8 j + 2 c ----
+    // ---- the dq tile, scaled by 1/sqrt(D), to the next dq slot as swizzled
+    // boxes of kDQRB-byte rows, for add_dq: rows 16 w4 + g (+ 8), columns
+    // col0 + 8 j + 2 c ----
+    mbar_wait(bar.dq_empty + 8 * slot, dq_phase ^ 1);
+    uint8_t* const dq_s = smem + L::kDQ + slot * L::kDQTile;
 #pragma unroll
     for (int j = 0; j < kD / 16; ++j)
 #pragma unroll
@@ -403,17 +507,20 @@ __device__ __forceinline__ void consume(const CUtensorMap* tdq,
                         dqa[4 * j + 2 * i + 1] * p.sm_scale);
       }
     fence_proxy_async();
-    named_barrier(1, kConsumers);    // the whole dq tile is in shared memory
-    if (ct == 0) {
-#pragma unroll
-      for (int x = 0; x < kD * 4 / L::kDQRB; ++x)
-        tma_reduce_add_4d(tdq, smem_u32(dq_s + x * L::kDQBox),
-                          x * L::kDQRB / 4, q0, hq, b);
-      bulk_commit();
-    }
+    if (ct == 0) dq_info[slot] = item;   // q0, q head, -, key tiles before
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar.dq_full + 8 * slot);
+    if (++slot == kDQSlots) { slot = 0; dq_phase ^= 1; }
     if (++stage == kStages) { stage = 0; phase ^= 1; }
   }
-  if (ct == 0) bulk_wait();
+  // the end of both add_dq loops
+  for (int k = 0; k < kDQSlots; ++k) {
+    mbar_wait(bar.dq_empty + 8 * slot, dq_phase ^ 1);
+    if (ct == 0) dq_info[slot] = make_int4(-1, 0, 0, 0);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar.dq_full + 8 * slot);
+    if (++slot == kDQSlots) { slot = 0; dq_phase ^= 1; }
+  }
 
   // ---- dk, dv: element i of this thread's keys, column 8 (i / 4) + 2c ----
   const size_t kv_rs = (size_t)p.KV * kD;
@@ -443,11 +550,15 @@ mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
   uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
   if (tid == 0) {
-    const uint32_t kv_bar = smem_u32(smem + L::kBar);
-    mbar_init(kv_bar, 1);
+    const Bars bar(smem_u32(smem + L::kBar));
+    mbar_init(bar.kv, 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(kv_bar + 8 + 8 * s, 32);                     // full: the producer warp
-      mbar_init(kv_bar + 8 + 8 * kStages + 8 * s, kConsumers / 32);   // empty: each consumer warp
+      mbar_init(bar.full + 8 * s, 32);                // the producer warp
+      mbar_init(bar.empty + 8 * s, kConsumers / 32);  // each consumer warp
+    }
+    for (int s = 0; s < kDQSlots; ++s) {
+      mbar_init(bar.dq_full + 8 * s, kConsumers / 32);   // each consumer warp
+      mbar_init(bar.dq_empty + 8 * s, 1);                // its add_dq warp
     }
     mbar_init_fence();
   }
@@ -456,12 +567,16 @@ mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
   // down to 8). The producer warpgroup gives back 168 - 40 a thread and
   // the consumers take 232 - 168; the two must match (40 + 2 x 232 =
   // 3 x 168), or setmaxnreg.inc waits for ever.
-  if (tid < 128) {   // the producer warpgroup: one warp works, three idle
+  if (tid < 128) {   // the producer warpgroup: warp 0 feeds, 1 and 2 add dq
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (tid < 32) produce<kD>(&tq, &tdo, &tk, &tv, p, smem, tid);
+    const int warp = tid / 32, lane = tid % 32;
+    if (warp > 0) key_tile_table<kD>(p, smem, warp, lane);
+    if (warp == 0) produce<kD>(&tq, &tdo, &tk, &tv, p, smem, lane);
+    else named_barrier_arrive(2, 128);
+    if (warp == 1 || warp == 2) add_dq<kD>(&tdq, p, smem, lane, warp - 1);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume<kD>(&tdq, p, smem, tid - 128);
+    consume<kD>(p, smem, tid - 128);
   }
 }
 
@@ -500,19 +615,23 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128}.
 // Adds ds k / sqrt(D) into dq_acc, fp32 (B,H,T_acc,D) zeroed by the
 // caller, where T_acc must be T rounded up to kBQ (refused otherwise, so
-// the reduce-adds never pass the buffer's end), and writes dk, dv: bf16
-// (B,S,KV,D). Launches on `stream` and returns a CUDA error code
-// (0: launched).
+// the reduce-adds never pass the buffer's end), in ascending key tile per
+// (batch row, head, query tile), ordered by dq_sem, int32 (B,H,T_acc / kBQ)
+// zeroed by the caller (refused when null); writes dk, dv: bf16
+// (B,S,KV,D). S is at most kMaxKeyTiles x 128 = 65536. Launches on
+// `stream` and returns a CUDA error code (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* qpos,
                             const void* kpos, const void* qseg,
                             const void* kseg, void* dq_acc, int T_acc,
-                            void* dk, void* dv, int B, int T, int S, int H,
+                            void* dq_sem, void* dk, void* dv, int B, int T,
+                            int S, int H,
                             int KV, int D, int causal, int window,
                             float softcap, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0 ||
-      T_acc != (T + kBQ - 1) / kBQ * kBQ)
+      S > kMaxKeyTiles * kBKB || T_acc != (T + kBQ - 1) / kBQ * kBQ ||
+      dq_sem == nullptr)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.lse = static_cast<const float*>(lse);
@@ -521,6 +640,7 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.kpos = static_cast<const int*>(kpos);
   p.qseg = static_cast<const int*>(qseg);
   p.kseg = static_cast<const int*>(kseg);
+  p.dq_sem = static_cast<int*>(dq_sem);
   p.dk = static_cast<uint16_t*>(dk);
   p.dv = static_cast<uint16_t*>(dv);
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;

@@ -104,6 +104,24 @@ __device__ __forceinline__ void tile_stats(bool valid, int pos, int seg,
   out[3] = max(part[0][3], part[1][3]);
 }
 
+// The min/max of the positions and segment ids of the 128 rows at `r0` of
+// a (B, n) row, by one warp: every lane of the warp gets them.
+__device__ __forceinline__ int4 row_tile_stats(const int* pos, const int* seg,
+                                               int n, int r0, int lane) {
+  int st[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + lane + 32 * i;
+    if (r < n) {
+      const int ps = pos[r], sg = seg != nullptr ? seg[r] : 0;
+      st[0] = min(st[0], ps); st[1] = max(st[1], ps);
+      st[2] = min(st[2], sg); st[3] = max(st[3], sg);
+    }
+  }
+  return make_int4(warp_min(st[0]), warp_max(st[1]), warp_min(st[2]),
+                   warp_max(st[3]));
+}
+
 // `_live_terms` (src/repro/kernels/flash_attention.py:67) on the (min, max)
 // statistics of a query tile and a key tile: false only if no pair of the
 // two tiles can be visible.

@@ -465,24 +465,6 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// The min/max of the positions and segment ids of the 128 rows at `r0` of
-// a (B, n) row, by one warp: every lane of the warp gets them.
-__device__ __forceinline__ int4 row_tile_stats(const int* pos, const int* seg,
-                                               int n, int r0, int lane) {
-  int st[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + lane + 32 * i;
-    if (r < n) {
-      const int ps = pos[r], sg = seg != nullptr ? seg[r] : 0;
-      st[0] = min(st[0], ps); st[1] = max(st[1], ps);
-      st[2] = min(st[2], sg); st[3] = max(st[3], sg);
-    }
-  }
-  return make_int4(warp_min(st[0]), warp_max(st[1]), warp_min(st[2]),
-                   warp_max(st[3]));
-}
-
 // The producer warpgroup. Its four warps take the min/max of every key
 // tile into shared memory (kStatTiles at a time), with many loads in
 // flight, so that a dead tile costs the walk below no load. Warp 0 loads

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks: warpgroup matrix multiply (wgmma) with
 // shared-memory descriptors, the 16-byte swizzles TMA writes and wgmma
-// reads, mbarriers, TMA tile loads and stores, the bulk reduce-add, and on
-// the host the encoding of the TMA tensor maps.
+// reads, mbarriers, TMA tile loads and stores, the bulk reduce-add, the
+// acquire and release of a global counter, and on the host the encoding of
+// the TMA tensor maps.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its encoding enums; the driver is
@@ -146,6 +147,26 @@ __device__ __forceinline__ void bulk_wait_read() {
 // Waits until this thread's bulk copies have completed.
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's global-memory accesses through the async proxy
+// (bulk copies and reduce-adds) with its generic ones, both ways.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// A load of a global int with acquire semantics at GPU scope.
+__device__ __forceinline__ int ld_acquire_gpu(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Adds v to a global int with release semantics at GPU scope.
+__device__ __forceinline__ void red_release_gpu_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
 }
 
 // A barrier over `threads` threads (a multiple of 32) on barrier `id` (1

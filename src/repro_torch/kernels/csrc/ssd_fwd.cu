@@ -1,324 +1,515 @@
-// K4 — Mamba2 SSD forward (the chunked scan) for Hopper (sm_90a).
+// K4 — Mamba2 SSD forward (the chunked scan) for Hopper (sm_90a): chunks
+// walked by blocks in flight together, every product on the tensor cores.
 //
 // Replaces the TPU kernel `ssd_chunked` in src/repro/kernels/ssd.py
 // (pl.pallas_call at :114, body `_ssd_kernel` at :31).
 //
 // What it computes, for x (B,T,H,P) bf16, dt (B,T,H) fp32 (> 0), A (H,) fp32
 // (< 0), B/C (B,T,G,N) bf16 read at group h / (H / G), from a zero state:
-// per chunk of kChunk steps, with a = dt·A and cum its in-chunk prefix sum,
+// per chunk of kL = 64 steps, with a = dt·A and cum its in-chunk prefix sum,
 //   y     = ((C Bᵀ) ∘ L ∘ dt) x + e^{max(cum, -60)} ∘ (C stateᵀ)
 //           L[i][j] = e^{clip(cum_i - cum_j, -60, 0)} for j <= i, else 0
 //   state = e^{max(a_tot, -60)} state + xᵀ (B ∘ e^{clip(a_tot - cum, -60, 0)} dt)
 // y (B,T,H,P) in bf16, the final state (B,H,P,N) in fp32. The clips are the
-// reference's (`ssd.py:63, :74, :80, :85`). Every product runs in fp32 FMA
-// from fp32 copies in shared memory, as the reference computes them from
-// fp32 copies; the chunking is exact algebra, so only rounding (and where
-// the -60 clips bite, far under the tolerance) differs from its 128-step
-// chunks. Any T works: x, dt, B and C are zero-filled past T in the last
-// chunk, so its padded steps add no decay (a = 0) and nothing to the state
-// (dt = 0), and y is stored only below T. x, dt, B and C are read through
-// their batch, time and head (group) strides, so the slices of the conv
-// output that `mamba_fwd` passes need no copy; the last axis of x, B and C
-// must be contiguous. y and the state are written contiguous.
-//
-// Design. The TPU grid runs its chunk axis in order and carries the state
-// in VMEM scratch across grid steps. Here one block per (head, batch row)
-// loops over the chunks itself and keeps the (P, N) fp32 state in shared
-// memory for the whole sequence (32 KB at mamba2-130m's P 64, N 128); it
-// writes the state once, after the last chunk. Blocks never communicate, so
-// the result is deterministic. Per chunk, 256 threads: one warp scans
-// cum = cumsum(dt·A) in fp32 (shuffles, two steps per lane); then each
-// thread computes a 4 × 4 register tile of W = (C Bᵀ) ∘ L ∘ dt, then a 4 × 4
-// tile of y, then a 4 × 8 tile of the state update, each from float4 reads
-// of shared rows padded by 4 floats so that the rows a quarter-warp reads
-// fall on distinct banks. The chunk length is 64, not the reference's 128:
-// shared memory holds x, B, C, W and the state in fp32 (137 KB at P 64,
-// N 128; 128 steps would need 258 KB), and the in-chunk work per step,
-// 2 kChunk (N + P) FLOPs, halves with it.
+// reference's (`ssd.py:63, :74, :80, :85`); the chunking is exact algebra,
+// so only rounding (and where the -60 clips bite, far under the tolerance)
+// differs from its 128-step chunks. Any T works: x, dt, B and C are
+// zero-filled past T in the last chunk, so its padded steps add no decay
+// (a = 0) and nothing to the state (dt = 0), and y is stored only below T.
+// x, dt, B and C are read in place through their batch, time and head
+// (group) strides, so the slices of the conv output that `mamba_fwd` passes
+// need no copy.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s HBM), at the
 // mamba2-130m serve shape (B 8, T 2048, H 24, P 64, N 128, G 1): about
-// 23 GFLOP at kChunk 64 (0.023 ms) against 117 MB of x, y, B, C, dt and
-// the state (0.035 ms), so by bytes, with operations close behind. This
-// first kernel is far from either: its products run on the fp32 FMA pipes
-// and its operands come from shared memory, one block of 137 KB per SM, and
-// 192 blocks fill 132 SMs in 1.5 waves. Not yet done: bf16 tensor-core
-// products (mma/wgmma) for C Bᵀ, and a chunk-parallel three-pass design
-// (chunk states, then the scan over chunks, then y) that puts B · T / 64
-// blocks in flight instead of B · H.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 23 GFLOP at 64-step chunks (0.023 ms) against 117 MB of x, y, B, C, dt
+// and the final state, each moved once (0.035 ms): bound by bytes.
+//
+// Design. The TPU grid carries the (P, N) state in VMEM across its
+// sequential chunk axis. Here one block of eight warps per (head, batch
+// row) walks its chunks in order and carries the state in fp32 registers
+// (a warp holds 16 rows of P by a share of N), so nothing but x, B, C, dt,
+// y and the final state crosses device memory: no chunk states are stored
+// on the way. The blocks of all heads and batch rows run together: at the
+// serve shape 192 blocks, two per SM (104 KB of shared memory and at most
+// 128 registers a thread at P <= 64), so that one block's loads and
+// barriers hide behind the other's products. The chunks of a block run in
+// series, not in parallel: a chunk-parallel form (every chunk's state
+// first, then the pass over chunks, then y) ran slower on the H100, its
+// chunk states, split as below, costing more than the series loses. A
+// chunk's C, x and dt load by cp.async while the chunk before is
+// computed, its B as soon as the chunk before has used its own. Per
+// chunk, on mma.sync (m16n8k16, bf16 operands, fp32 accumulators) from
+// ldmatrix reads of padded rows in shared memory:
+//  - one warp scans cum with shuffles, and u = e^{clip(a_tot - cum, -60,
+//    0)} dt;
+//  - each warp adds y = e^{max(cum, -60)} ∘ (C Sᵀ) for its 16 steps and
+//    half of P, computes C Bᵀ for its steps up to the diagonal, builds
+//    W = (C Bᵀ) ∘ L ∘ dt in registers and feeds it to mma as the A operand
+//    without a trip through shared memory, and adds W x, skipping the
+//    k-steps above the diagonal (L = 0);
+//  - then S <- e^{max(a_tot, -60)} S + (x ∘ u)ᵀ B in registers, x ∘ u
+//    formed from xᵀ's fragments in registers, and S goes to shared memory
+//    for the next chunk's C Sᵀ.
+// C Bᵀ does not depend on the head but is recomputed per head (1 MFLOP a
+// chunk, against about 3 MFLOP of the rest): sharing it across the heads
+// of a group would mean either storing each chunk's start state or walking
+// all heads in one block, and both cost more than the products.
+// Precision: C Bᵀ has two bf16 operands, as the inputs are; the three
+// products with an fp32 operand (W, x ∘ u, and the carried state in C Sᵀ)
+// take it split into two bf16 parts, hi = bf16(v) and lo = bf16(v - hi),
+// one mma each: about 16 bits of mantissa.
+// Rounded to bf16 alone, they failed the elementwise tolerance where y
+// cancels (errors near 0.1 where |y| is small); TF32 would keep 11 bits.
+// Every sum is fp32, nothing is added by atomics and every sum has a fixed
+// order, so K4 is repeatable bit for bit.
+// With a chunk_state buffer the block also writes the state at each
+// chunk's start (as bf16 hi and lo), so that a check can hold the state's
+// recurrence apart from y; the serving path passes none.
+// Rows are read by 16-byte cp.async: x, B and C need 16-byte aligned
+// pointers and batch, time and head (group) strides (the wrapper checks),
+// P a multiple of 16 up to 128, N a multiple of 16 up to 128 (the
+// launcher checks).
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPad = 4;            // floats added to every shared row
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
+using flash::ldsm_x4;
+using flash::ldsm_x4_trans;
+using flash::mma_bf16;
+using flash::pack_bf16;
+
+constexpr int kL = 64;          // steps per chunk
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
 
 struct Params {
-  const __nv_bfloat16* x;
+  const uint16_t* x;
   const float* dt;
   const float* A;
-  const __nv_bfloat16* b;
-  const __nv_bfloat16* c;
-  __nv_bfloat16* y;
-  float* state;
-  long long sx_b, sx_t, sx_h;      // element strides
+  const uint16_t* b;
+  const uint16_t* c;
+  uint16_t* y;
+  float* state;                 // (B, H, P, N) fp32
+  uint16_t* chunk_state;        // (B, H, chunks - 1, 2, P, N) bf16 hi, lo, or null
+  long long sx_b, sx_t, sx_h;   // element strides
   long long sdt_b, sdt_t, sdt_h;
   long long sb_b, sb_t, sb_g;
   long long sc_b, sc_t, sc_g;
-  int T, H, G, P, N;
+  int T, H, G, P, N, nc;
 };
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// 4 bytes global -> shared; zero when !full.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool full) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(full ? 4 : 0));
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
+// Two floats as bf16 pairs hi and lo with hi + lo within 2^-16 of them
+// (relative): the fp32 operand of a product, fed to mma as two bf16 ones.
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - hf.x, v1 - hf.y);
 }
 
-__device__ __forceinline__ float comp(float4 v, int k) {
-  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+// One warp: cum = cumsum(dt·A) over a chunk's 64 steps, steps 2l and
+// 2l + 1 on lane l, into cum[]; returns a_tot on every lane.
+__device__ __forceinline__ float chunk_cumsum(const float* dts, float a_h,
+                                              float* cum, int lane) {
+  const float a0 = dts[2 * lane] * a_h, a1 = dts[2 * lane + 1] * a_h;
+  float s = a0 + a1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float o = __shfl_up_sync(0xffffffffu, s, off);
+    if (lane >= off) s += o;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, s, 1);
+  if (lane == 0) excl = 0.f;
+  cum[2 * lane] = excl + a0;
+  cum[2 * lane + 1] = s;
+  return __shfl_sync(0xffffffffu, s, 31);
 }
 
-template <int kChunk>
-__global__ void __launch_bounds__(kThreads)
+// Shared memory, in bf16 elements from the start: two stages of the C tile
+// [kL][N + 8], the x tile [kL][kP + 8] and dt (kL floats); one B tile
+// [kL][N + 8]; the state at the chunk's start as hi and lo tiles
+// [2][kP][N + 8]; then floats cum, u, e^{max(cum, -60)} [kL] and the
+// chunk's decay. At P 64, N 128: 104.3 KB, two blocks per SM.
+template <int kP>
+struct Smem {
+  static constexpr int sx = kP + 8;
+  int sn, stage, bt, s, f;
+  __host__ __device__ explicit Smem(int N)
+      : sn(N + 8), stage(kL * sn + kL * sx + 2 * kL), bt(2 * stage),
+        s(bt + kL * sn), f(s + 2 * kP * sn) {}
+  __host__ __device__ int c(int st) const { return st * stage; }
+  __host__ __device__ int x(int st) const { return st * stage + kL * sn; }
+  __host__ __device__ int dt(int st) const {
+    return st * stage + kL * sn + kL * sx;
+  }
+  __host__ __device__ int bytes() const { return 2 * f + (3 * kL + 4) * 4; }
+};
+
+// One block of eight warps per (head, batch row) walks the chunks in order.
+// Per chunk: warp 0 scans cum; warps (rg, ph) take rows 16 rg of the chunk
+// and half ph of P for y (with kP 16, only ph 0): C Sᵀ, then C Bᵀ for their
+// rows and W x; then warps (pg, wn) take rows 16 pg of the state and pairs
+// of its 8-column tiles wn, wn + kWPG, ... for the update
+// S <- e^{max(a_tot, -60)} S + (x ∘ u)ᵀ B, x ∘ u formed in registers, and
+// write the new state to shared memory for the next chunk's y. The next
+// chunk's C, x and dt load during the chunk, its B once this one's update
+// has read B.
+template <int kP>
+__global__ void __launch_bounds__(kThreads, kP <= 64 ? 2 : 1)
 ssd_fwd_kernel(const Params p) {
-  static_assert(kChunk == 64, "the scan gives each lane two steps and the "
-                "W tile maps 16 x 4 rows");
-  const int h = blockIdx.x, bi = blockIdx.y;
-  const int g = h / (p.H / p.G);
-  const int P = p.P, N = p.N, PQ = P / 4, NQ = N / 8;
-  const int sx = P + kPad, sn = N + kPad, sw = kChunk + kPad;
-  const int tid = threadIdx.x;
+  constexpr int sx = kP + 8;
+  constexpr int kPG = kP / 16;               // groups of 16 rows of P
+  constexpr int kWPG = kWarps / kPG;         // warps per group, for S
+  constexpr int kPairs = 8 / kWPG;           // a warp's pairs of S tiles (N <= 128)
+  constexpr int kYC = kP == 16 ? 16 : kP / 2;   // columns of y per warp
+  constexpr int kYT = kYC / 8;
+  const Smem<kP> L(p.N);
+  const int sn = L.sn, n16 = p.N / 16;
+  const int h = blockIdx.x, bi = blockIdx.y, g = h / (p.H / p.G);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gr = lane >> 2, qc = lane & 3;
+  const int rg = warp & 3, ph = warp >> 2, pc0 = ph * kYC;
+  const bool y_warp = kP > 16 || ph == 0;
+  const int pg = warp % kPG, wn = warp / kPG;
+  const bool s_warp = 16 * pg < p.P;
 
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);   // [kChunk][sx]  x
-  float* bs = xs + kChunk * sx;                  // [kChunk][sn]  B
-  float* cs = bs + kChunk * sn;                  // [kChunk][sn]  C
-  float* ss = cs + kChunk * sn;                  // [P][sn]       the state
-  float* ws = ss + P * sn;                       // [kChunk][sw]  W
-  float* dts = ws + kChunk * sw;                 // [kChunk]      dt
-  float* cum = dts + kChunk;                     // [kChunk]      cumsum(dt·A)
-  float* cdec = cum + kChunk;                    // [kChunk]      e^{max(cum,-60)}
-  float* u = cdec + kChunk;                      // [kChunk]      decay to end · dt
+  extern __shared__ uint4 smem4[];
+  uint16_t* const sm = reinterpret_cast<uint16_t*>(smem4);
+  float* const cum = reinterpret_cast<float*>(sm + L.f);
+  float* const u = cum + kL;
+  float* const ecum = u + kL;
+  float* const decay = ecum + kL;
 
-  for (int e = tid; e < P * sn; e += kThreads) ss[e] = 0.f;
+  const uint16_t* const xb = p.x + bi * p.sx_b + h * p.sx_h;
+  const float* const dtb = p.dt + bi * p.sdt_b + h * p.sdt_h;
+  const uint16_t* const bb = p.b + bi * p.sb_b + g * p.sb_g;
+  const uint16_t* const cb = p.c + bi * p.sc_b + g * p.sc_g;
   const float a_h = p.A[h];
-  const __nv_bfloat16* xb = p.x + bi * p.sx_b + h * p.sx_h;
-  const float* dtb = p.dt + bi * p.sdt_b + h * p.sdt_h;
-  const __nv_bfloat16* bb = p.b + bi * p.sb_b + g * p.sb_g;
-  const __nv_bfloat16* cb = p.c + bi * p.sc_b + g * p.sc_g;
+  const int nq = p.N / 8;   // 16-byte pieces of a row of N
 
-  for (int t0 = 0; t0 < p.T; t0 += kChunk) {
-    const int len = min(kChunk, p.T - t0);
-    // ---- load the chunk in fp32, zeros past T
-    for (int e = tid; e < kChunk * P; e += kThreads) {
-      const int i = e / P, q = e - i * P;
-      xs[i * sx + q] = i < len
-          ? __bfloat162float(xb[(t0 + i) * p.sx_t + q]) : 0.f;
+  auto load_b = [&](int c) {   // B of chunk c; committed with the next load
+    const int t0 = c * kL;
+    for (int e = tid; e < kL * nq; e += kThreads) {
+      const int j = e / nq, q = (e - j * nq) * 8;
+      const bool ok = t0 + j < p.T;
+      cp_async16(sm + L.bt + j * sn + q, ok ? bb + (t0 + j) * p.sb_t + q : bb,
+                 ok);
     }
-    for (int e = tid; e < kChunk * N; e += kThreads) {
-      const int i = e / N, n = e - i * N;
-      const bool in = i < len;
-      bs[i * sn + n] = in ? __bfloat162float(bb[(t0 + i) * p.sb_t + n]) : 0.f;
-      cs[i * sn + n] = in ? __bfloat162float(cb[(t0 + i) * p.sc_t + n]) : 0.f;
+  };
+  auto load = [&](int c, int st) {   // C, x and dt of chunk c
+    const int t0 = c * kL;
+    uint16_t* const cs = sm + L.c(st);
+    uint16_t* const xs = sm + L.x(st);
+    for (int e = tid; e < kL * nq; e += kThreads) {
+      const int j = e / nq, q = (e - j * nq) * 8;
+      const bool ok = t0 + j < p.T;
+      cp_async16(cs + j * sn + q, ok ? cb + (t0 + j) * p.sc_t + q : cb, ok);
     }
-    if (tid < kChunk) dts[tid] = tid < len ? dtb[(t0 + tid) * p.sdt_t] : 0.f;
-    __syncthreads();
+    for (int e = tid; e < kL * kP / 8; e += kThreads) {
+      const int j = e / (kP / 8), q = (e % (kP / 8)) * 8;
+      const bool ok = t0 + j < p.T && q < p.P;
+      cp_async16(xs + j * sx + q, ok ? xb + (t0 + j) * p.sx_t + q : xb, ok);
+    }
+    if (tid < kL) {
+      const bool ok = t0 + tid < p.T;
+      cp_async4(reinterpret_cast<float*>(sm + L.dt(st)) + tid,
+                ok ? dtb + (t0 + tid) * p.sdt_t : dtb, ok);
+    }
+    cp_async_commit();
+  };
 
-    // ---- cum = cumsum(dt·A): one warp, steps 2l and 2l + 1 on lane l
-    if (tid < 32) {
-      const float a0 = dts[2 * tid] * a_h, a1 = dts[2 * tid + 1] * a_h;
-      float s = a0 + a1;
+  // this warp's part of the state: rows 16 pg + gr (+ 8), columns
+  // 16 (wn + kWPG i) + 8 t + 2 qc (+ 1)
+  float s[kPairs][2][4];
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float o = __shfl_up_sync(0xffffffffu, s, off);
-        if (tid >= off) s += o;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, s, 1);
-      if (tid == 0) excl = 0.f;
-      const float a_tot = __shfl_sync(0xffffffffu, s, 31);
-      const float c0 = excl + a0;
-      cum[2 * tid] = c0;
-      cum[2 * tid + 1] = s;
-      cdec[2 * tid] = expf(fmaxf(c0, -60.f));
-      cdec[2 * tid + 1] = expf(fmaxf(s, -60.f));
-      u[2 * tid] = expf(fminf(fmaxf(a_tot - c0, -60.f), 0.f)) * dts[2 * tid];
-      u[2 * tid + 1] = expf(fminf(fmaxf(a_tot - s, -60.f), 0.f))
-                       * dts[2 * tid + 1];
-    }
-    __syncthreads();
+  for (int i = 0; i < kPairs; ++i)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][t][e] = 0.f;
+  const int r0 = 16 * rg + gr, r1 = r0 + 8;   // this thread's rows of y
 
-    // ---- W = (C Bᵀ) ∘ L ∘ dt: rows ti + 16 r, columns tj + 16 c
-    {
-      const int ti = tid >> 4, tj = tid & 15;
-      float acc[4][4] = {};
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[4], bv[4];
+  load_b(0);
+  load(0, 0);
+  for (int c = 0; c < p.nc; ++c) {
+    const int st = c & 1, t0 = c * kL, len = min(kL, p.T - t0);
+    cp_async_wait<0>();
+    __syncthreads();   // chunk c has landed; chunk c - 1 is done everywhere
+    if (c + 1 < p.nc) load(c + 1, st ^ 1);
+    const uint16_t* const cs = sm + L.c(st);
+    const uint16_t* const bs = sm + L.bt;
+    const uint16_t* const xs = sm + L.x(st);
+    const float* const dts = reinterpret_cast<const float*>(sm + L.dt(st));
+    if (warp == 0) {
+      const float a_tot = chunk_cumsum(dts, a_h, cum, lane);
 #pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = ld4(cs + (ti + 16 * r) * sn + n);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = ld4(bs + (tj + 16 * c) * sn + n);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = dot4(cv[r], bv[c], acc[r][c]);
+      for (int i = 0; i < 2; ++i) {
+        const int j = 2 * lane + i;
+        u[j] = expf(fminf(fmaxf(a_tot - cum[j], -60.f), 0.f)) * dts[j];
+        ecum[j] = expf(fmaxf(cum[j], -60.f));
       }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int i = ti + 16 * r, j = tj + 16 * c;
-          float w = 0.f;
-          if (j <= i)
-            w = acc[r][c] * expf(fminf(fmaxf(cum[i] - cum[j], -60.f), 0.f))
-                * dts[j];
-          ws[i * sw + j] = w;
-        }
+      if (lane == 0) *decay = expf(fmaxf(a_tot, -60.f));
     }
-    __syncthreads();
-
-    // ---- y = W x + e^{cum} ∘ (C stateᵀ): rows ti + 16 r, columns tp + PQ c
-    for (int wi = tid; wi < 16 * PQ; wi += kThreads) {
-      const int ti = wi / PQ, tp = wi - ti * PQ;
-      float acc[4][4] = {}, st[4][4] = {};
-      for (int j = 0; j < kChunk; j += 4) {
-        float4 wv[4];
+    __syncthreads();   // cum, u, ecum, decay
+    if (y_warp) {
+      float acc[kYT][4];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) wv[r] = ld4(ws + (ti + 16 * r) * sw + j);
+      for (int nt = 0; nt < kYT; ++nt)
 #pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          float xv[4];
+        for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+      if (c > 0) {
+        // e^{max(cum, -60)} ∘ (C Sᵀ): the start state's hi, then lo rows
+        for (int kk = 0; kk < n16; ++kk) {
+          uint32_t a[4];
+          ldsm_x4(a, cs + (16 * rg + ((lane >> 3) & 1) * 8 + (lane & 7)) * sn
+                         + 16 * kk + (lane >> 4) * 8);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) xv[c] = xs[(j + jj) * sx + tp + PQ * c];
+          for (int part = 0; part < 2; ++part) {
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[r][c] = fmaf(comp(wv[r], jj), xv[c], acc[r][c]);
-        }
-      }
-      for (int n = 0; n < N; n += 4) {
-        float4 cv[4], sv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) cv[r] = ld4(cs + (ti + 16 * r) * sn + n);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) sv[c] = ld4(ss + (tp + PQ * c) * sn + n);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) st[r][c] = dot4(cv[r], sv[c], st[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ti + 16 * r;
-        if (i >= len) continue;
-        __nv_bfloat16* yrow =
-            p.y + (((long long)bi * p.T + t0 + i) * p.H + h) * P;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          yrow[tp + PQ * c] =
-              __float2bfloat16(fmaf(cdec[i], st[r][c], acc[r][c]));
-      }
-    }
-    __syncthreads();
-
-    // ---- state = e^{a_tot} state + xᵀ (B ∘ u): rows tp + PQ r, columns
-    // 4 tn .. 4 tn + 3 and N / 2 + 4 tn .. N / 2 + 4 tn + 3
-    {
-      const float decay = expf(fmaxf(cum[kChunk - 1], -60.f));
-      for (int wi = tid; wi < PQ * NQ; wi += kThreads) {
-        const int tp = wi / NQ, tn = wi - tp * NQ;
-        const int n0 = 4 * tn, n1 = N / 2 + 4 * tn;
-        float acc[4][8] = {};
-        for (int j = 0; j < kChunk; ++j) {
-          const float uj = u[j];
-          const float4 b0 = ld4(bs + j * sn + n0), b1 = ld4(bs + j * sn + n1);
-          const float bv[8] = {b0.x * uj, b0.y * uj, b0.z * uj, b0.w * uj,
-                               b1.x * uj, b1.y * uj, b1.z * uj, b1.w * uj};
-#pragma unroll
-          for (int r = 0; r < 4; ++r) {
-            const float xv = xs[j * sx + tp + PQ * r];
-#pragma unroll
-            for (int k = 0; k < 8; ++k) acc[r][k] = fmaf(xv, bv[k], acc[r][k]);
+            for (int np = 0; np < kYT / 2; ++np) {
+              uint32_t bq[4];
+              ldsm_x4(bq, sm + L.s + (part * kP + pc0 + 16 * np + (lane >> 4) * 8
+                                      + (lane & 7)) * sn
+                              + 16 * kk + ((lane >> 3) & 1) * 8);
+              mma_bf16(acc[2 * np], a, bq[0], bq[1]);
+              mma_bf16(acc[2 * np + 1], a, bq[2], bq[3]);
+            }
           }
         }
+        const float e0 = ecum[r0], e1 = ecum[r1];
 #pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          float4* s0 = reinterpret_cast<float4*>(ss + (tp + PQ * r) * sn + n0);
-          float4* s1 = reinterpret_cast<float4*>(ss + (tp + PQ * r) * sn + n1);
-          float4 v0 = *s0, v1 = *s1;
-          v0.x = fmaf(v0.x, decay, acc[r][0]);
-          v0.y = fmaf(v0.y, decay, acc[r][1]);
-          v0.z = fmaf(v0.z, decay, acc[r][2]);
-          v0.w = fmaf(v0.w, decay, acc[r][3]);
-          v1.x = fmaf(v1.x, decay, acc[r][4]);
-          v1.y = fmaf(v1.y, decay, acc[r][5]);
-          v1.z = fmaf(v1.z, decay, acc[r][6]);
-          v1.w = fmaf(v1.w, decay, acc[r][7]);
-          *s0 = v0;
-          *s1 = v1;
+        for (int nt = 0; nt < kYT; ++nt) {
+          acc[nt][0] *= e0; acc[nt][1] *= e0;
+          acc[nt][2] *= e1; acc[nt][3] *= e1;
         }
       }
+      // C Bᵀ for rows 16 rg, columns up to the diagonal (n-tiles <= 2 rg + 1)
+      float cbt[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cbt[nt][e] = 0.f;
+      for (int kk = 0; kk < n16; ++kk) {
+        uint32_t a[4];
+        ldsm_x4(a, cs + (16 * rg + ((lane >> 3) & 1) * 8 + (lane & 7)) * sn
+                       + 16 * kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          if (jp > rg) break;
+          uint32_t bq[4];
+          ldsm_x4(bq, bs + (16 * jp + (lane >> 4) * 8 + (lane & 7)) * sn
+                          + 16 * kk + ((lane >> 3) & 1) * 8);
+          mma_bf16(cbt[2 * jp], a, bq[0], bq[1]);
+          mma_bf16(cbt[2 * jp + 1], a, bq[2], bq[3]);
+        }
+      }
+      // + W x over the steps j <= these rows, W = (C Bᵀ) ∘ L ∘ dt as hi, lo
+      const float cum0 = cum[r0], cum1 = cum[r1];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk > rg) break;
+        uint32_t ah[4], al[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int nt = 2 * kk + half, j = 8 * nt + 2 * qc;
+          const float cj0 = cum[j], cj1 = cum[j + 1];
+          const float d0 = dts[j], d1 = dts[j + 1];
+          auto w = [](float cbv, float ci, float cj, float dj, bool on) {
+            return on ? cbv * expf(fminf(fmaxf(ci - cj, -60.f), 0.f)) * dj
+                      : 0.f;
+          };
+          split_bf16(w(cbt[nt][0], cum0, cj0, d0, j <= r0),
+                     w(cbt[nt][1], cum0, cj1, d1, j + 1 <= r0),
+                     ah[2 * half], al[2 * half]);
+          split_bf16(w(cbt[nt][2], cum1, cj0, d0, j <= r1),
+                     w(cbt[nt][3], cum1, cj1, d1, j + 1 <= r1),
+                     ah[2 * half + 1], al[2 * half + 1]);
+        }
+#pragma unroll
+        for (int np = 0; np < kYT / 2; ++np) {
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, xs + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * sx
+                               + pc0 + 16 * np + (lane >> 4) * 8);
+          mma_bf16(acc[2 * np], ah, bq[0], bq[1]);
+          mma_bf16(acc[2 * np + 1], ah, bq[2], bq[3]);
+          mma_bf16(acc[2 * np], al, bq[0], bq[1]);
+          mma_bf16(acc[2 * np + 1], al, bq[2], bq[3]);
+        }
+      }
+      // y rows t0 + r0 and t0 + r1, below T
+#pragma unroll
+      for (int nt = 0; nt < kYT; ++nt) {
+        const int q = pc0 + 8 * nt + 2 * qc;
+        if (q >= p.P) continue;
+        if (r0 < len)
+          *reinterpret_cast<uint32_t*>(
+              p.y + (((size_t)bi * p.T + t0 + r0) * p.H + h) * p.P + q) =
+              pack_bf16(acc[nt][0], acc[nt][1]);
+        if (r1 < len)
+          *reinterpret_cast<uint32_t*>(
+              p.y + (((size_t)bi * p.T + t0 + r1) * p.H + h) * p.P + q) =
+              pack_bf16(acc[nt][2], acc[nt][3]);
+      }
     }
-    __syncthreads();
+    __syncthreads();   // the start state has been read
+    if (s_warp) {
+      const int pr = 16 * pg + gr;
+      if (p.chunk_state != nullptr && c > 0) {   // the start state, hi and lo
+        uint16_t* const out = p.chunk_state +
+            (((size_t)bi * p.H + h) * (p.nc - 1) + c - 1) * 2 * p.P * p.N;
+        const size_t lo = (size_t)p.P * p.N;
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+          const int pair = wn + kWPG * i;
+          if (pair >= n16) break;
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              uint16_t* const o =
+                  out + (size_t)(pr + 8 * r) * p.N + 16 * pair + 8 * t + 2 * qc;
+              split_bf16(s[i][t][2 * r], s[i][t][2 * r + 1],
+                         *reinterpret_cast<uint32_t*>(o),
+                         *reinterpret_cast<uint32_t*>(o + lo));
+            }
+        }
+      }
+      const float d = *decay;
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[i][t][e] *= d;
+      // S += (x ∘ u)ᵀ B: A = xᵀ read transposed, times u of its steps
+      // (2 qc, + 1, + 8, + 9 of the k-step) in registers, as hi and lo
+#pragma unroll
+      for (int kk = 0; kk < kL / 16; ++kk) {
+        uint32_t xa[4];
+        ldsm_x4_trans(xa, xs + (16 * kk + ((lane >> 4) & 1) * 8 + (lane & 7)) * sx
+                              + 16 * pg + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int j = 16 * kk + 2 * qc + 8 * (r >> 1);
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xa[r]));
+          split_bf16(xv.x * u[j], xv.y * u[j + 1], ah[r], al[r]);
+        }
+#pragma unroll
+        for (int i = 0; i < kPairs; ++i) {
+          const int pair = wn + kWPG * i;
+          if (pair >= n16) break;
+          uint32_t bq[4];
+          ldsm_x4_trans(bq, bs + (16 * kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * sn
+                               + 16 * pair + (lane >> 4) * 8);
+          mma_bf16(s[i][0], ah, bq[0], bq[1]);
+          mma_bf16(s[i][1], ah, bq[2], bq[3]);
+          mma_bf16(s[i][0], al, bq[0], bq[1]);
+          mma_bf16(s[i][1], al, bq[2], bq[3]);
+        }
+      }
+      // the new state, hi and lo, for the next chunk's y
+#pragma unroll
+      for (int i = 0; i < kPairs; ++i) {
+        const int pair = wn + kWPG * i;
+        if (pair >= n16) break;
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int off = (pr + 8 * r) * sn + 16 * pair + 8 * t + 2 * qc;
+            split_bf16(s[i][t][2 * r], s[i][t][2 * r + 1],
+                       *reinterpret_cast<uint32_t*>(sm + L.s + off),
+                       *reinterpret_cast<uint32_t*>(sm + L.s + kP * sn + off));
+          }
+      }
+    }
+    if (c + 1 < p.nc) {
+      __syncthreads();   // every warp is done with this chunk's B
+      load_b(c + 1);
+      cp_async_commit();
+    }
   }
-
-  float* out = p.state + ((long long)bi * p.H + h) * P * N;
-  for (int e = tid; e < P * N; e += kThreads) {
-    const int q = e / N, n = e - q * N;
-    out[e] = ss[q * sn + n];
+  if (s_warp) {   // the final state in fp32
+    float* const out = p.state + ((size_t)bi * p.H + h) * p.P * p.N;
+    const int pr = 16 * pg + gr;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int pair = wn + kWPG * i;
+      if (pair >= n16) break;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(
+              out + (size_t)(pr + 8 * r) * p.N + 16 * pair + 8 * t + 2 * qc) =
+              make_float2(s[i][t][2 * r], s[i][t][2 * r + 1]);
+    }
   }
 }
 
-constexpr int kChunkLen = 64;
-
-// Shared memory of one block, in bytes. Past what a block may have,
-// cudaFuncSetAttribute refuses it and the launcher returns its error.
-int smem_bytes(int P, int N) {
-  const int c = kChunkLen;
-  return 4 * (c * (P + kPad) + 2 * c * (N + kPad) + P * (N + kPad)
-              + c * (c + kPad) + 4 * c);
+template <int kP>
+int launch(const Params& p, int batch, cudaStream_t stream) {
+  const int bytes = Smem<kP>(p.N).bytes();
+  // above 48 KB only when asked for; set per launch, as it is per device
+  cudaError_t e = cudaFuncSetAttribute(
+      ssd_fwd_kernel<kP>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  ssd_fwd_kernel<kP><<<dim3(p.H, batch), kThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int ssd_fwd_bf16(const void* x, const void* dt, const void* A,
-                            const void* b, const void* c, void* y, void* state,
-                            int batch, int T, int H, int G, int P, int N,
-                            long long sx_b, long long sx_t, long long sx_h,
-                            long long sdt_b, long long sdt_t, long long sdt_h,
-                            long long sb_b, long long sb_t, long long sb_g,
-                            long long sc_b, long long sc_t, long long sc_g,
-                            void* stream) {
+// x (B,T,H,P), B and C (B,T,G,N) bf16 with their last axis contiguous and
+// rows 16-byte aligned; dt (B,T,H) and A (H,) fp32; y (B,T,H,P) bf16 and
+// state (B,H,P,N) fp32 contiguous; chunk_state null, or bf16
+// (B,H,ceil(T/64) - 1,2,P,N) contiguous, filled with the state at each
+// chunk's start after the first, as hi and lo parts. Launches on `stream`
+// and returns a CUDA error code (0: launched).
+extern "C" int ssd_fwd_bf16(
+    const void* x, const void* dt, const void* A, const void* b,
+    const void* c, void* y, void* state, void* chunk_state, int batch, int T,
+    int H, int G, int P, int N, long long sx_b, long long sx_t,
+    long long sx_h, long long sdt_b, long long sdt_t, long long sdt_h,
+    long long sb_b, long long sb_t, long long sb_g, long long sc_b,
+    long long sc_t, long long sc_g, void* stream) {
   if (batch <= 0 || T <= 0 || H <= 0 || G <= 0 || H % G != 0 || P <= 0 ||
-      N <= 0 || P % 4 != 0 || N % 8 != 0 || batch > 65535)
+      N <= 0 || P % 16 != 0 || P > 128 || N % 16 != 0 || N > 128 ||
+      batch > 65535)
     return (int)cudaErrorInvalidValue;
   Params p;
-  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.x = static_cast<const uint16_t*>(x);
   p.dt = static_cast<const float*>(dt);
   p.A = static_cast<const float*>(A);
-  p.b = static_cast<const __nv_bfloat16*>(b);
-  p.c = static_cast<const __nv_bfloat16*>(c);
-  p.y = static_cast<__nv_bfloat16*>(y);
+  p.b = static_cast<const uint16_t*>(b);
+  p.c = static_cast<const uint16_t*>(c);
+  p.y = static_cast<uint16_t*>(y);
   p.state = static_cast<float*>(state);
+  p.chunk_state = static_cast<uint16_t*>(chunk_state);
   p.sx_b = sx_b; p.sx_t = sx_t; p.sx_h = sx_h;
   p.sdt_b = sdt_b; p.sdt_t = sdt_t; p.sdt_h = sdt_h;
   p.sb_b = sb_b; p.sb_t = sb_t; p.sb_g = sb_g;
   p.sc_b = sc_b; p.sc_t = sc_t; p.sc_g = sc_g;
   p.T = T; p.H = H; p.G = G; p.P = P; p.N = N;
-  const int bytes = smem_bytes(P, N);
-  // above 48 KB only when asked for; set per launch, as it is per device
-  cudaError_t e = cudaFuncSetAttribute(
-      ssd_fwd_kernel<kChunkLen>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (e != cudaSuccess) return (int)e;
-  ssd_fwd_kernel<kChunkLen><<<dim3(H, batch), kThreads, bytes,
-                              static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+  p.nc = (T + kL - 1) / kL;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (P <= 16) return launch<16>(p, batch, st);
+  if (P <= 32) return launch<32>(p, batch, st);
+  if (P <= 64) return launch<64>(p, batch, st);
+  return launch<128>(p, batch, st);
 }

@@ -14,8 +14,11 @@ the other.
   computes dq, dk and dv in a single pass over the live (query tile, key
   tile) pairs. dk and dv are summed in registers and stored once. dq is
   summed across key tiles into a zeroed fp32 scratch (B, H, T rounded up
-  to ``BWD_QTILE``, D) by reduce-adds, whose order differs between runs;
-  :func:`dq_from_accumulator` then casts it to bf16 (B, T, H, D).
+  to ``BWD_QTILE``, D) by reduce-adds in a fixed order, ascending key tile
+  per (batch row, head, query tile), which int32 counters beside the
+  scratch enforce (:func:`dq_accumulator`); so the backward is repeatable
+  bit for bit. :func:`dq_from_accumulator` then casts dq to bf16
+  (B, T, H, D).
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
@@ -41,6 +44,9 @@ NEG_INF = -1e30
 
 HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
 BWD_QTILE = 64    # query rows per tile of the backward kernel (its kBQ)
+# keys the backward kernel takes: its table of key-tile statistics holds
+# kMaxKeyTiles = 512 tiles of 128
+BWD_MAX_KEYS = 512 * 128
 
 # Launches of each CUDA kernel, counted where the wrapper launches it: K1,
 # and the fused backward (K2 and K3).
@@ -283,9 +289,13 @@ def _check_bwd_args(q, o, lse, do, delta):
 def check_backward_cuda_args(q, k, v, q_positions, kv_positions,
                              q_segment_ids, kv_segment_ids, o, lse, do, delta):
     """Everything the backward kernel assumes of its arguments: device, dtype,
-    shape, alignment and contiguity. Raises on the first that fails."""
+    shape (at most ``BWD_MAX_KEYS`` keys), alignment and contiguity. Raises
+    on the first that fails."""
     _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
                                         q_segment_ids, kv_segment_ids))
+    if k.shape[1] > BWD_MAX_KEYS:
+        raise ValueError(f"the backward kernel takes at most {BWD_MAX_KEYS} "
+                         f"keys, got {k.shape[1]}")
     _check_bwd_args(q, o, lse, do, delta)
 
 
@@ -301,10 +311,11 @@ def dq_from_accumulator(acc, t):
 
 def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
                      kv_segment_ids, o, lse, do, delta, acc, dk, dv, *,
-                     causal, window, softcap):
-    """The kernel alone: adds ds k / sqrt(D) into ``acc`` and writes dk and
-    dv. The kernel refuses an ``acc`` whose third dim is not T rounded up to
-    its own query tile."""
+                     causal, window, softcap, sem=None):
+    """The kernel alone: adds ds k / sqrt(D) into ``acc`` in ascending key
+    tile, ordered by the zeroed counters ``sem`` (allocated here when not
+    given), and writes dk and dv. The kernel refuses an ``acc`` whose third
+    dim is not T rounded up to its own query tile."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -314,22 +325,34 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
         raise ValueError(f"the dq accumulator must be contiguous fp32 "
                          f"({b}, {h}, T_pad, {d}) on {q.device}, got "
                          f"{acc.dtype} {tuple(acc.shape)}")
+    n_qt = -(-acc.shape[2] // BWD_QTILE)
+    if sem is None:
+        sem = torch.zeros((b, h, n_qt), dtype=torch.int32, device=q.device)
+    if (sem.dtype != torch.int32 or sem.shape != (b, h, n_qt)
+            or sem.device != q.device or not sem.is_contiguous()):
+        raise ValueError(f"the dq counters must be contiguous int32 "
+                         f"({b}, {h}, {n_qt}) on {q.device}, got "
+                         f"{sem.dtype} {tuple(sem.shape)}")
     _build.launch(_build.library("flash_bwd").mha_bwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
-            _ptr(kv_segment_ids), _ptr(acc), acc.shape[2], _ptr(dk), _ptr(dv),
-            b, t, s, h, kvh, d, int(causal), int(window),
+            _ptr(kv_segment_ids), _ptr(acc), acc.shape[2], _ptr(sem),
+            _ptr(dk), _ptr(dv), b, t, s, h, kvh, d, int(causal), int(window),
             float(softcap or 0.0), device=q.device)
     LAUNCHES["mha_backward"] += 1
 
 
 def dq_accumulator(q):
-    """The zeroed fp32 dq accumulator the backward kernel adds into:
-    (B, H, T rounded up to BWD_QTILE, D), one contiguous block per tile."""
+    """The backward kernel's zeroed dq scratch, from one allocation and one
+    fill: ``(acc, sem)``, the fp32 accumulator (B, H, T rounded up to
+    BWD_QTILE, D) it adds into, one contiguous block per tile, and the int32
+    counters (B, H, T rounded up / BWD_QTILE) that order those adds."""
     b, t, h, d = q.shape
-    t_pad = -(-t // BWD_QTILE) * BWD_QTILE
-    return torch.zeros((b, h, t_pad, d), dtype=torch.float32,
-                       device=q.device)
+    n_qt = -(-t // BWD_QTILE)
+    n = b * h * n_qt * BWD_QTILE * d
+    buf = torch.zeros(n + b * h * n_qt, dtype=torch.float32, device=q.device)
+    return (buf[:n].view(b, h, n_qt * BWD_QTILE, d),
+            buf[n:].view(torch.int32).view(b, h, n_qt))
 
 
 def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
@@ -338,17 +361,18 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     """Check the arguments, then launch the fused backward kernel once:
     ``(dq, dk, dv)``, dq (B,T,H,D) and dk, dv (B,S,KV,D) bf16, dk and dv
     summed over each GQA group. Arguments as :func:`mha_backward`, plus
-    ``delta`` from :func:`attention_delta`."""
+    ``delta`` from :func:`attention_delta`. The kernel takes at most
+    ``BWD_MAX_KEYS`` (65536) keys; more raise."""
     args = (q, k, v, q_positions, kv_positions, q_segment_ids,
             kv_segment_ids, o, lse, do, delta)
     if q.device.type != "cuda":
         raise ValueError(f"mha_backward_cuda takes CUDA tensors, got "
                          f"{q.device}")
     check_backward_cuda_args(*args)
-    acc = dq_accumulator(q)
+    acc, sem = dq_accumulator(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_backward(*args, acc, dk, dv, causal=causal, window=window,
-                     softcap=softcap)
+                     softcap=softcap, sem=sem)
     return dq_from_accumulator(acc, q.shape[1]), dk, dv
 
 

@@ -4,7 +4,10 @@ Counterparts of ``repro.kernels.ref.attention_ref`` and
 ``attention_ref_lse``, where the whole (T, S) score matrix is materialised
 in fp32, and of the reference's SSD oracles ``ssd_ref``, ``ssd_ref_chunked``
 and ``ssd_decode_ref``. They are the ground truth the CUDA kernels are held
-against on the card, and the path every CPU tensor takes.
+against on the card, and the path every CPU tensor takes. Beside them,
+:func:`ssd_chunk_parallel` is the plain form of K4's own passes (chunk
+states, the pass over chunks, y), which lets a check on the card tell a
+fault in one pass from a fault in another.
 """
 from __future__ import annotations
 
@@ -166,6 +169,82 @@ def ssd_ref_chunked(x, dt, A, B, C):
             a_tot[:, 0, :], min=-60.0))[:, :, None, None] + upd
         ys.append(y)
     return torch.cat(ys, dim=1)[:, :t].to(x.dtype), state
+
+
+def _chunked(v, nc, chunk):
+    """(B, T, ...) -> (B, nc, chunk, ...), zero-filled past T."""
+    pad = nc * chunk - v.shape[1]
+    v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, pad))
+    return v.reshape(v.shape[0], nc, chunk, *v.shape[2:])
+
+
+def ssd_chunk_states(x, dt, A, B, chunk=64):
+    """The first pass of K4's chunk-parallel form: every chunk's own state
+    from a zero start, ``Sk = xᵀ (B ∘ e^{clip(a_tot - cum, -60, 0)} dt)``
+    (B, nc, H, P, N) fp32, and its total log decay ``a_tot`` (B, nc, H);
+    x, dt and B zero-filled past T as in :func:`ssd_ref_chunked`."""
+    b, t, h, p = x.shape
+    g = B.shape[2]
+    nc = -(-t // chunk)
+    xs = _chunked(x.float(), nc, chunk)                   # (B,nc,L,H,P)
+    dts = _chunked(dt.float(), nc, chunk)                 # (B,nc,L,H)
+    Bs = _chunked(_repeat_groups(B, h // g, 2), nc, chunk)
+    cum = torch.cumsum(dts * A[None, None, None, :], dim=2)
+    a_tot = cum[:, :, -1]
+    dec_end = torch.exp(torch.clamp(a_tot[:, :, None] - cum, -60.0, 0.0)) * dts
+    return torch.einsum("bclh,bclhn,bclhp->bchpn", dec_end, Bs, xs), a_tot
+
+
+def ssd_state_pass(chunk_states, a_tot):
+    """The pass over chunks: S <- e^{max(a_tot, -60)} S + Sk from a zero
+    state. Returns ``(starts, final)``: the state at the start of every
+    chunk after the first, (B, H, nc - 1, P, N) as K4 writes them when
+    asked (there as bf16 hi and lo parts), and the final state (B, H, P, N),
+    both fp32."""
+    s = torch.zeros_like(chunk_states[:, 0])
+    starts = []
+    for c in range(chunk_states.shape[1]):
+        if c:
+            starts.append(s)
+        s = s * torch.exp(torch.clamp(a_tot[:, c], min=-60.0))[
+            :, :, None, None] + chunk_states[:, c]
+    b, _, h, p, n = chunk_states.shape
+    return (torch.stack(starts, dim=2) if starts
+            else s.new_zeros((b, h, 0, p, n))), s
+
+
+def ssd_chunk_y(x, dt, A, B, C, starts, chunk=64):
+    """The y pass: per chunk, ``((C Bᵀ) ∘ L ∘ dt) x + e^{max(cum, -60)} ∘
+    (C Sᵀ)`` with S the chunk's start state from :func:`ssd_state_pass`
+    (zero for the first chunk). Returns y (B, T, H, P) in x's dtype."""
+    b, t, h, p = x.shape
+    g = B.shape[2]
+    nc = -(-t // chunk)
+    xs = _chunked(x.float(), nc, chunk)
+    dts = _chunked(dt.float(), nc, chunk)
+    Bs = _chunked(_repeat_groups(B, h // g, 2), nc, chunk)
+    Cs = _chunked(_repeat_groups(C, h // g, 2), nc, chunk)
+    cum = torch.cumsum(dts * A[None, None, None, :], dim=2)    # (B,nc,L,H)
+    seg = torch.clamp(cum[:, :, :, None] - cum[:, :, None], -60.0, 0.0)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    w = torch.einsum("bcihn,bcjhn->bcijh", Cs, Bs) * torch.where(
+        tri[None, None, :, :, None], torch.exp(seg), 0.0) * dts[:, :, None]
+    y = torch.einsum("bcijh,bcjhp->bcihp", w, xs)
+    prev = torch.cat([starts.new_zeros((b, h, 1) + starts.shape[3:]),
+                      starts.float()], dim=2)              # (B,H,nc,P,N)
+    y = y + torch.einsum("bcihn,bhcpn,bcih->bcihp", Cs, prev,
+                         torch.exp(torch.clamp(cum, min=-60.0)))
+    return y.reshape(b, nc * chunk, h, p)[:, :t].to(x.dtype)
+
+
+def ssd_chunk_parallel(x, dt, A, B, C, chunk=64):
+    """K4's chunk-parallel form in plain PyTorch, pass by pass: the chunk
+    states, the pass over chunks, then y. Returns ``(y, final_state,
+    starts)``, starts as :func:`ssd_state_pass` gives them, so that each of
+    K4's passes can be held to its own plain version."""
+    chunk_states, a_tot = ssd_chunk_states(x, dt, A, B, chunk)
+    starts, final = ssd_state_pass(chunk_states, a_tot)
+    return ssd_chunk_y(x, dt, A, B, C, starts, chunk), final, starts
 
 
 def ssd_decode_ref(x, dt, A, B, C, state):

@@ -226,8 +226,9 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 # ----------------------------------------------------------------------
 # the Python side of the fused backward kernel, without a card: the kernel
 # adds ds k / sqrt(D) for each (query tile, key tile) pair into a zeroed
-# fp32 accumulator (B, H, T rounded up to the query tile, D), which the
-# wrapper then casts to dq (B, T, H, D) bf16
+# fp32 accumulator (B, H, T rounded up to the query tile, D), in an order
+# that zeroed int32 counters (B, H, query tiles) beside it fix, and the
+# wrapper then casts it to dq (B, T, H, D) bf16
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("b,t,h,d", [
     (2, 64, 4, 16),       # T a multiple of the query tile
@@ -237,12 +238,16 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
 ])
 def test_dq_accumulator_shape_and_cast(b, t, h, d):
     q = torch.zeros((b, t, h, d), dtype=torch.bfloat16)
-    acc = tfa.dq_accumulator(q)
+    acc, sem = tfa.dq_accumulator(q)
     t_pad = -(-t // tfa.BWD_QTILE) * tfa.BWD_QTILE
     assert acc.shape == (b, h, t_pad, d) and acc.dtype == torch.float32
     assert acc.is_contiguous() and not acc.any()
     # one query tile is one contiguous block of the accumulator
     assert acc.stride(2) == d and acc.stride(1) == t_pad * d
+    # one zeroed counter per query tile, from the same allocation
+    assert sem.shape == (b, h, t_pad // tfa.BWD_QTILE)
+    assert sem.dtype == torch.int32 and sem.is_contiguous() and not sem.any()
+    assert sem.untyped_storage().data_ptr() == acc.untyped_storage().data_ptr()
     rng = np.random.default_rng(0)
     acc = torch.from_numpy(rng.standard_normal(acc.shape).astype(np.float32))
     dq = tfa.dq_from_accumulator(acc, t)
@@ -281,6 +286,22 @@ def test_backward_cuda_args_refuse_an_unsupported_head_dim():
     with pytest.raises(ValueError):
         tfa.mha_backward_cuda(*args, delta, causal=True, window=0,
                               softcap=None)
+
+
+def test_backward_cuda_args_refuse_more_keys_than_the_kernel_takes():
+    # the kernel's table of key-tile statistics holds BWD_MAX_KEYS keys
+    q, k, v, qp, kp, qs, ks, o, lse, do = _residuals(16)
+    delta = tfa.attention_delta(o, do)
+    for s, ok in ((tfa.BWD_MAX_KEYS, True), (tfa.BWD_MAX_KEYS + 1, False)):
+        kl = torch.zeros((1, s, 2, 16), dtype=torch.bfloat16)
+        kpl = torch.arange(s, dtype=torch.int32)[None]
+        args = (q, kl, kl.clone(), qp, kpl, qs, ks, o, lse, do, delta)
+        if ok:
+            tfa.check_backward_cuda_args(*args)
+        else:
+            with pytest.raises(ValueError, match="at most 65536 keys"):
+                tfa.check_backward_cuda_args(*args)
+    assert "flash_bwd" not in _build._loaded
 
 
 @pytest.mark.parametrize("acc_dtype,acc_heads", [

@@ -208,6 +208,55 @@ def test_backward_kernel_row_whose_keys_are_all_padding(cuda, d):
     assert (dq[1] == 0).all() and (dk[1] == 0).all() and (dv[1] == 0).all()
 
 
+def _segments(dev, b, t, lengths):
+    """Rows of samples then padding (segment -1), positions restarting at 0."""
+    seg = torch.full((b, t), -1, dtype=torch.int32, device=dev)
+    pos = torch.zeros_like(seg)
+    for row, lens in enumerate(lengths):
+        at = 0
+        for i, n in enumerate(lens):
+            seg[row, at:at + n] = i
+            pos[row, at:at + n] = torch.arange(n, device=dev)
+            at += n
+    return pos, seg
+
+
+# name: (t, h, kv, samples per row or None for plain causal positions)
+REPEAT_CASES = {
+    "causal": (320, 4, 4, None),
+    "causal-gqa4": (320, 8, 2, None),
+    "segmented-gqa4": (320, 8, 2, [[150, 100], [200]]),
+    # row 0's query tile 192..255 is padding: no live key tile at all
+    "dead-query-tile": (384, 8, 2, [[190], [300, 60]]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REPEAT_CASES))
+def test_backward_kernel_is_repeatable_bit_for_bit(cuda, case):
+    # dq's tiles are added in ascending key tile, so two calls agree to the
+    # bit, as dk and dv do
+    t, h, kv, lengths = REPEAT_CASES[case]
+    q, k, v, qp, kp = _inputs(cuda, 2, t, t, h, kv, 128, seed=3)
+    qs = ks = None
+    if lengths is not None:
+        qp, qs = _segments(cuda, 2, t, lengths)
+        kp, ks = qp, qs
+    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, causal=True)
+    do = torch.randn_like(o)
+    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=True)
+    for _ in range(3):
+        again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                causal=True)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), f"{case}: {name} differs between calls"
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                causal=True)
+    for a, r in zip(first, ref):
+        _grad_close(a, r)
+    if case == "dead-query-tile":
+        assert (first[0][0, 190:] == 0).all()
+
+
 @pytest.mark.parametrize("t_acc", [64, 192])   # T 100 needs 128 rows
 def test_backward_kernel_refuses_an_accumulator_of_another_length(cuda,
                                                                  t_acc):
@@ -223,6 +272,28 @@ def test_backward_kernel_refuses_an_accumulator_of_another_length(cuda,
                             fa.attention_delta(o, do), acc,
                             torch.empty_like(k), torch.empty_like(v),
                             causal=True, window=0, softcap=None)
+    torch.cuda.synchronize()
+    assert not acc.any()
+    assert ops.launch_counts()["mha_backward"] == before
+
+
+def test_backward_kernel_refuses_more_keys_than_its_table(cuda):
+    # S past BWD_MAX_KEYS: the wrapper raises before any launch, and the C
+    # entry, reached past the wrapper's check, refuses to launch
+    s = fa.BWD_MAX_KEYS + 1
+    q, k, v, qp, kp = _inputs(cuda, 1, 64, s, 2, 2, 16)
+    o, lse = fa.mha_forward(q, k, v, qp, kp, causal=False)
+    do = torch.randn_like(o)
+    delta = fa.attention_delta(o, do)
+    before = ops.launch_counts()["mha_backward"]
+    with pytest.raises(ValueError, match="at most 65536 keys"):
+        fa.mha_backward_cuda(q, k, v, qp, kp, None, None, o, lse, do, delta,
+                             causal=False, window=0, softcap=None)
+    acc, sem = fa.dq_accumulator(q)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa._launch_backward(q, k, v, qp, kp, None, None, o, lse, do, delta,
+                            acc, torch.empty_like(k), torch.empty_like(v),
+                            causal=False, window=0, softcap=None, sem=sem)
     torch.cuda.synchronize()
     assert not acc.any()
     assert ops.launch_counts()["mha_backward"] == before
@@ -284,6 +355,40 @@ def test_grad_step_on_the_card_matches_the_cpu_and_counts_launches(cuda):
         _grad_close(a.cpu(), b)
 
 
+def test_runner_trajectory_on_the_card_is_repeatable_bit_for_bit(cuda):
+    # two 2-iteration runs of the 2-layer runner from one seed: equal
+    # losses, grad norms and parameters to the bit (the backward's dq, the
+    # embedding gradient, the loss and AdamW all sum in a fixed order)
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg = SV.make_config("gpt-paper", "reduced", 2)
+    runs = []
+    for _ in range(2):
+        stream = MultiTaskStream(StreamConfig(
+            n_tasks=8, global_tokens=1024, max_len=128, vocab=cfg.vocab,
+            tail_fraction=0.1, tail_alpha=1.2, seed=0))
+        pal = ShapePalette.build(min_seq=32, max_seq=128, seq_align=32,
+                                 max_mbs=8)
+        pcfg = PlannerConfig(n_stages=1, d_model=cfg.d_model, palette=pal)
+        rcfg = RunnerConfig(n_iters=2, use_executor=False, log_every=0,
+                            seed=0, device="cuda")
+        ops.reset_launch_counts()
+        params, hist, _ = PlanAheadRunner(
+            cfg, AnalyticCostModel(cfg, n_stages=1), pcfg, rcfg,
+            stream).run()
+        assert ops.launch_counts()["mha_backward"] > 0
+        runs.append((params, hist))
+    (p0, h0), (p1, h1) = runs
+    for a, b in zip(h0, h1):
+        assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+    from repro_torch.tree import leaves
+    for a, b in zip(leaves(p0), leaves(p1)):
+        assert torch.equal(a, b)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -309,9 +414,9 @@ def test_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     assert all(np.isfinite(t).all() for t in on_gpu.tokens)
 
 
-def _ssd_inputs(dev, b, t, h, p, g, n, seed=0):
+def _ssd_inputs(dev, b, t, h, p, g, n, seed=0, a_scale=1.0):
     """x, B, C as strided views of one (B, T, H·P + 2·G·N) bf16 tensor, as
-    mamba_fwd passes them; dt and A fp32."""
+    mamba_fwd passes them; dt and A fp32 (A times ``a_scale``)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     u = torch.randn((b, t, h * p + 2 * g * n), generator=gen, device=dev
                     ).to(torch.bfloat16)
@@ -320,26 +425,50 @@ def _ssd_inputs(dev, b, t, h, p, g, n, seed=0):
     C = u[..., h * p + g * n:].reshape(b, t, g, n)
     dt = torch.nn.functional.softplus(
         torch.randn((b, t, h), generator=gen, device=dev))
-    A = -torch.exp(torch.randn((h,), generator=gen, device=dev))
+    A = -torch.exp(torch.randn((h,), generator=gen, device=dev)) * a_scale
     return x, dt, A, B, C
 
 
-@pytest.mark.parametrize("b,t,h,p,g,n", [
-    (2, 1, 4, 16, 1, 16),        # one step
-    (2, 96, 4, 16, 2, 16),       # under one chunk, two groups
-    (2, 192, 24, 64, 1, 128),    # ragged: three chunks, mamba2-130m's heads
-    (1, 300, 8, 32, 4, 32),
-])
-def test_ssd_kernel_matches_plain_version(cuda, b, t, h, p, g, n):
-    x, dt, A, B, C = _ssd_inputs(cuda, b, t, h, p, g, n)
+SSD_CASES = [   # b, t, h, p, g, n, a_scale
+    (2, 1, 4, 16, 2, 16, 1.0),        # one step, two groups
+    (2, 96, 4, 16, 2, 16, 1.0),       # under two chunks, two groups
+    (2, 192, 24, 64, 1, 128, 1.0),    # three chunks, mamba2-130m's heads
+    (2, 192, 4, 16, 2, 16, 1.0),
+    (1, 300, 8, 32, 4, 32, 1.0),      # ragged, four groups
+    (2, 300, 4, 16, 2, 16, 1.0),
+    (2, 300, 4, 64, 2, 128, 40.0),    # a decay past -60 within a chunk
+    (1, 200, 4, 128, 1, 64, 1.0),     # the widest head K4 takes
+]
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,a_scale", SSD_CASES)
+def test_ssd_kernel_matches_plain_version(cuda, b, t, h, p, g, n, a_scale):
+    x, dt, A, B, C = _ssd_inputs(cuda, b, t, h, p, g, n, a_scale=a_scale)
     assert not x.is_contiguous()
     ops.reset_launch_counts()
-    y, st = SSD.ssd_chunked(x, dt, A, B, C)
+    y, st, starts = SSD._ssd_cuda(x, dt, A, B, C, chunk_states=True)
     assert ops.launch_counts()["ssd_chunked"] == 1
     y_ref, st_ref = tref.ssd_ref_chunked(x, dt, A, B, C)
     torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL,
                                rtol=SSD_TOL)
     torch.testing.assert_close(st, st_ref, atol=SSD_TOL, rtol=SSD_TOL)
+    # the state's recurrence alone: K4's chunk-start states against the
+    # plain pass over chunks
+    _, st_cp, starts_cp = tref.ssd_chunk_parallel(x, dt, A, B, C)
+    assert starts.shape == starts_cp.shape
+    torch.testing.assert_close(starts.float(), starts_cp, atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    torch.testing.assert_close(st, st_cp, atol=SSD_TOL, rtol=SSD_TOL)
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,a_scale", SSD_CASES[1:3])
+def test_ssd_kernel_is_repeatable_bit_for_bit(cuda, b, t, h, p, g, n,
+                                              a_scale):
+    args = _ssd_inputs(cuda, b, t, h, p, g, n, a_scale=a_scale)
+    y, st = SSD.ssd_chunked(*args)
+    for _ in range(3):
+        y2, st2 = SSD.ssd_chunked(*args)
+        assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 def test_ssd_kernel_refuses_a_gradient_and_an_initial_state(cuda):

@@ -141,6 +141,49 @@ def test_plain_ssd_takes_ragged_lengths_and_strong_decay(t, a_scale):
     _close(st, sq, SSD_TOL["float32"], "state vs the port's ssd_ref")
 
 
+@pytest.mark.parametrize("b,t,h,p,g,n,block", [
+    (1, 64, 2, 16, 1, 16, 32),
+    (2, 128, 4, 32, 2, 16, 32),
+    (1, 256, 2, 64, 1, 32, 64),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunk_parallel_form_matches_reference_kernel_in_interpret_mode(
+        b, t, h, p, g, n, block, dtype):
+    (jx, jdt, jA, jB, jC), targs = _both(_ssd_inputs(b, t, h, p, g, n), dtype)
+    yr, sr = j_ssd_chunked(jx, jdt, jA, jB, jC, block_t=block, interpret=True)
+    y, st, starts = tref.ssd_chunk_parallel(*targs)
+    assert y.dtype == targs[0].dtype and st.dtype == torch.float32
+    assert tuple(starts.shape) == (b, h, -(-t // 64) - 1, p, n)
+    _close(y, yr, SSD_TOL[dtype], "y")
+    _close(st, sr, SSD_TOL[dtype], "final state")
+
+
+@pytest.mark.parametrize("t,g,a_scale", [(1, 2, 1.0), (96, 2, 1.0),
+                                         (192, 1, 1.0), (300, 2, 1.0),
+                                         (300, 4, 40.0)],
+                         ids=["T1", "T96-groups", "T192", "T300-groups",
+                              "strong-decay"])
+def test_chunk_parallel_form_matches_the_chunked_plain_version(t, g, a_scale):
+    # ragged T (the last 64-step chunk zero-filled), groups, and a decay
+    # that sums past -60 within a chunk; each pass against the reference's
+    # quadratic oracle too: the start states are its state after each
+    # 64-step prefix
+    arrays = _ssd_inputs(2, t, 4, 16, g, 16, seed=6, a_scale=a_scale)
+    (jx, jdt, jA, jB, jC), targs = _both(arrays, "float32")
+    y, st, starts = tref.ssd_chunk_parallel(*targs)
+    y2, st2 = tref.ssd_ref_chunked(*targs)
+    _close(y, y2, SSD_TOL["float32"], "y vs ssd_ref_chunked")
+    _close(st, st2, SSD_TOL["float32"], "state vs ssd_ref_chunked")
+    yr, sr = jref.ssd_ref(jx, jdt, jA, jB, jC, return_state=True)
+    _close(y, yr, SSD_TOL["float32"], "y vs the reference's ssd_ref")
+    _close(st, sr, SSD_TOL["float32"], "state vs the reference's ssd_ref")
+    for c in range(starts.shape[2]):
+        end = 64 * (c + 1)
+        _, sc = jref.ssd_ref(jx[:, :end], jdt[:, :end], jA, jB[:, :end],
+                             jC[:, :end], return_state=True)
+        _close(starts[:, :, c], sc, SSD_TOL["float32"], f"start of chunk {c + 1}")
+
+
 def test_ssd_with_an_initial_state_matches_reference_on_the_cpu():
     arrays = _ssd_inputs(1, 24, 2, 8, 1, 8, seed=2)
     (jx, jdt, jA, jB, jC), targs = _both(arrays, "float32")
