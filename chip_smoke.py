@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py                        # device, kernel, serve, train, mamba
+    python3 chip_smoke.py        # device, kernel, serve, train, pipeline, t5, mamba
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
 
@@ -22,7 +22,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              small cases (GQA, window, softcap, segmented with padding and
              fully masked rows, a 128-row query tile of pure padding, ragged
              lengths, a non-causal cross shape, the serve's prefill into a
-             longer cache); both elementwise and per 64-row tile, where the
+             longer cache) and at the t5 phase's shapes (``t5-enc``: the
+             encoder's non-causal self-attention, B 16, T = S 512, 128
+             heads; ``t5-cross``: 128 decoder tokens to 512 encoder tokens,
+             packed rows whose decoder segments see only their encoder
+             segments, both sides padded); both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
              the backward must give dq, dk and dv equal to the bit over
              three calls; with times of the kernels (the backward alone and as the whole
@@ -58,17 +62,37 @@ Phases, each printing its own lines; any failure exits non-zero:
              planted to return a zero dq) and on 2 iterations' losses; and
              two such 2-iteration runs with the kernels must give equal
              losses, grad norms and parameters to the bit;
-5. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
+5. pipeline — the same runner on the threaded stage pipeline: gpt-paper at
+             full width, 8 layers over 4 stages (each on its own CUDA
+             stream), 4 iterations of the train phase's stream: K1 must
+             launch 3 x layers x micro-batches times (stage forward, the
+             stage backward's forward again, the period checkpoint's
+             recompute), the backward layers x micro-batches times, every
+             loss and grad norm finite; on one plan the pipeline against
+             the sequential grad steps (mean loss within 1e-4 relative,
+             each gradient leaf within GRAD_REL_TOL); two 2-iteration runs
+             at 4 layers equal to the bit;
+6. t5      — t5-paper at full width (d_model 1024, 128 heads x 128, d_ff
+             65536), 4 encoder + 4 decoder layers over 2 encoder and 2
+             decoder stages, 3 iterations of bench_e2e's t5 stream: exact
+             launch counts (two attentions per decoder layer), finite
+             losses; at 2 + 2 layers, one plan with the kernels and with the
+             plain versions patched in must agree on the loss and every
+             gradient leaf (which must fail a backward planted to return a
+             zero dq), the encoder's gradients must be nonzero, and two
+             2-iteration runs must be equal to the bit;
+7. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
              (24 layers), random seeded weights, the serve phase's requests:
              K4 must launch 24 x prefill batches times and K1 never, and
              every logit must be finite; then the same serve with 2 layers
              runs once with K4 and once with the plain SSD, and their logits
              must agree;
-6. profile — (not run by default) torch.profiler over one full-width prefill
+8. profile — (not run by default) torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
-             mamba2-130m, and over one training iteration at 8 layers:
-             device time by kernel, K1, the backward and K4 singled out, and
-             the device's idle share.
+             mamba2-130m, over one training iteration at 8 layers, and over
+             one pipelined iteration of gpt-paper (8 layers) and of t5-paper
+             (4 + 4 layers), each over 4 stages: device time by kernel, K1,
+             the backward and K4 singled out, and the device's idle share.
 
 The third line from the end is the kernels' JSON record, the second the
 card's name and power limit, the last the device record. Nothing is
@@ -130,6 +154,23 @@ TRAIN_ROWS = (2048, 1500, 900, 300)
 TRAIN_LAYERS, TRAIN_ITERS = 8, 4
 TRAIN_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=2048,
                     tail_fraction=0.1, tail_alpha=1.2, seed=0)
+# the kernel phase's t5 cases, at the t5 phase's shapes: B 16 rows of 512
+# encoder tokens, one sample each, from 512 down to 64 tokens, then padding
+T5_ENC_ROWS = (512, 400, 352, 320, 288, 256, 224, 192, 176, 160, 144, 128,
+               112, 96, 80, 64)
+T5_DEC_LEN = 128
+# the pipeline phase: gpt-paper at full width, the train phase's 8 layers
+# over 4 stages (2 periods each), the train phase's stream and palette
+PIPE_STAGES, PIPE_ITERS = 4, 4
+# the t5 phase: t5-paper at full width (DynaPipe Table 1), depth cut to 4
+# encoder + 4 decoder layers (1.91 B parameters, 38 GB at 20 bytes a
+# parameter; 24 + 24 would need about 220 GB), 4 stages: 2 encoder stages
+# then 2 decoder stages; bench_e2e's t5 stream at the model's vocabulary
+T5_LAYERS, T5_STAGES, T5_ITERS = 4, 4, 3
+T5_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=512, vocab=32128,
+                 tail_fraction=0.1, tail_alpha=1.2, encdec_fraction=1.0,
+                 seed=0)
+T5_PALETTE = dict(min_seq=64, max_seq=512, seq_align=64, max_mbs=16)
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -137,14 +178,17 @@ KERNELS = {
     "K1": ("mha_forward", "src/repro_torch/kernels/csrc/flash_fwd.cu",
            "src/repro/kernels/flash_attention.py:354", "prefill",
            {"decode": "decode", "causal_2048": "prefill",
-            "train_segmented": "train-segmented"}, ("train", "serve")),
+            "train_segmented": "train-segmented", "t5_enc": "t5-enc",
+            "t5_cross": "t5-cross"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
-           {"causal_2048": "causal-2048"}, ("train", "serve")),
+           {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
+            "t5_cross": "t5-cross"}, ("train", "serve")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
-           {"causal_2048": "causal-2048"}, ("train", "serve")),
+           {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
+            "t5_cross": "t5-cross"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
            ("mamba",)),
@@ -482,6 +526,26 @@ def _train_rows(lengths, t):
     return seg, pos
 
 
+def _cross_rows(enc_lengths, t_enc, t_dec):
+    """Segment ids (decoder side, encoder side) of cross-attention rows:
+    row r holds an encoder sample of enc_lengths[r] tokens and a decoder
+    sample of a quarter of that (at most t_dec); odd rows split both into
+    two samples, segments 0 and 1; the last row is all padding."""
+    dec, enc = [], []
+    for r, n in enumerate(enc_lengths):
+        m = min(t_dec, max(2, n // 4))
+        if r == len(enc_lengths) - 1:
+            n = m = 0
+        if r % 2:
+            e = [0] * (n // 2) + [1] * (n - n // 2)
+            d = [0] * (m // 2) + [1] * (m - m // 2)
+        else:
+            e, d = [0] * n, [0] * m
+        enc.append(e + [-1] * (t_enc - n))
+        dec.append(d + [-1] * (t_dec - m))
+    return dec, enc
+
+
 def phase_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -498,6 +562,12 @@ def phase_kernel(torch):
     # the serve's prefill into a cache longer than the prompt: keys past the
     # prompt are masked by position
     cache_kpos = [list(range(216))] * 2
+    # the t5 phase's attention: the encoder's self-attention over rows of
+    # one sample each, and cross-attention from 128 decoder tokens to them,
+    # where odd rows pack two samples (segments 0 and 1 on both sides) and
+    # the last row is all padding
+    enc_seg, enc_pos = _train_rows(T5_ENC_ROWS, 512)
+    x_dec_seg, x_enc_seg = _cross_rows(T5_ENC_ROWS, 512, T5_DEC_LEN)
     # name, shape, options, K1 timed, backward: None, "check" or the name
     # of its timed record
     cases = [
@@ -527,6 +597,12 @@ def phase_kernel(torch):
         ("ragged-700", dict(b=2, t=700, s=700, h=4, kv=4), {}, False, "check"),
         ("cross-noncausal", dict(b=2, t=130, s=200, h=4, kv=1),
          dict(causal=False), False, "check"),
+        ("t5-enc", dict(b=16, t=512, s=512, h=128, kv=128, q_pos=enc_pos,
+                        kv_pos=enc_pos, q_seg=enc_seg, kv_seg=enc_seg),
+         dict(causal=False), True, "t5-enc"),
+        ("t5-cross", dict(b=16, t=T5_DEC_LEN, s=512, h=128, kv=128,
+                          q_seg=x_dec_seg, kv_seg=x_enc_seg),
+         dict(causal=False), True, "t5-cross"),
     ]
     # worst |out - plain| and worst tile relative error
     records, worst = {}, {"K1": (0.0, 0.0), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
@@ -867,9 +943,10 @@ def phase_serve(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase 4: train at full width
 # ----------------------------------------------------------------------
-def _train_setup(torch, n_layers):
+def _train_setup(torch, n_layers, n_stages=1):
     """gpt-paper at full width and ``n_layers``, its stream, cost model and
-    planner config as the train phase runs them."""
+    planner config as the train phase runs them (the pipeline phase: over
+    ``n_stages``)."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.cost_model import AnalyticCostModel
@@ -881,18 +958,23 @@ def _train_setup(torch, n_layers):
     pal = ShapePalette.build(min_seq=64, max_seq=TRAIN_STREAM["max_len"],
                              seq_align=64, max_mbs=16)
     pcfg = PlannerConfig(
-        n_stages=1, d_model=cfg.d_model, palette=pal,
+        n_stages=n_stages, d_model=cfg.d_model, palette=pal,
         device_mem=float(torch.cuda.get_device_properties(0).total_memory))
-    return cfg, stream, AnalyticCostModel(cfg, n_stages=1), pcfg
+    return cfg, stream, AnalyticCostModel(cfg, n_stages=n_stages), pcfg
 
 
-def _train(torch, n_layers, iters, seed, params=None, log_every=1):
+def _train(torch, n_layers, iters, seed, params=None, log_every=1,
+           n_stages=1):
+    """The plan-ahead runner on gpt-paper; with ``n_stages`` > 1 on the
+    threaded stage pipeline."""
     from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
-    cfg, stream, cost, pcfg = _train_setup(torch, n_layers)
-    rcfg = RunnerConfig(n_iters=iters, use_executor=False, seed=seed,
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, n_stages)
+    rcfg = RunnerConfig(n_iters=iters, use_executor=n_stages > 1, seed=seed,
                         log_every=log_every, device="cuda")
     runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream, params=params)
     params, history, stats = runner.run()
+    check(stats.faults == 0, f"{n_stages}-stage training retried after "
+          f"{stats.faults} faults: {stats.recoveries}")
     return cfg, stream, cost, pcfg, params, history, stats
 
 
@@ -904,6 +986,30 @@ def _plain_attention():
                               lambda *a, **o: fa.mha_forward_plain(*a, **o)),
             mock.patch.object(fa, "mha_backward",
                               lambda *a, **o: fa.mha_backward_plain(*a, **o)))
+
+
+def _leaf_errs(torch, gs, ref):
+    """Max |diff|, worst ||diff|| / ||ref|| over the leaves, and whether
+    every element is within GRAD_TOL, of two gradients by path."""
+    worst_abs, worst_rel, ok = 0.0, 0.0, True
+    for k, b in ref.items():
+        d = (gs[k] - b).abs()
+        ok &= bool((d <= GRAD_TOL_BF16 + GRAD_TOL_BF16 * b.abs()).all())
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float(torch.linalg.vector_norm(gs[k] - b)
+                                         / torch.linalg.vector_norm(b)))
+    return worst_abs, worst_rel, ok
+
+
+def _same_runs(torch, a, b):
+    """Two (params, history) runs: losses, grad norms and every parameter
+    equal to the bit."""
+    from repro_torch.tree import leaves
+    (pa, ha), (pb, hb) = a, b
+    return ([(h["loss"], h["grad_norm"]) for h in ha]
+            == [(h["loss"], h["grad_norm"]) for h in hb]
+            and all(bool(torch.equal(x, y))
+                    for x, y in zip(leaves(pa), leaves(pb))))
 
 
 def phase_train(torch):
@@ -985,10 +1091,7 @@ def phase_train(torch):
             runs[name] = (loss, g, h2, p2)
     (lk, gk, hk, pk), (lp, gp, hp, _) = runs["kernels"], runs["plain"]
     _, _, hk2, pk2 = runs["kernels again"]
-    same = ([(h["loss"], h["grad_norm"]) for h in hk]
-            == [(h["loss"], h["grad_norm"]) for h in hk2]
-            and all(bool(torch.equal(a, b))
-                    for a, b in zip(leaves(pk), leaves(pk2))))
+    same = _same_runs(torch, (pk, hk), (pk2, hk2))
     print(f"[train] 2 layers, two 2-iteration runs with the kernels from one "
           f"seed: losses {[h['loss'] for h in hk]} and "
           f"{[h['loss'] for h in hk2]}; losses, grad norms and all "
@@ -1001,14 +1104,7 @@ def phase_train(torch):
     def leaf_errs(gs):
         """Max |diff|, worst ||diff|| / ||plain|| over the leaves, and
         whether every element is within GRAD_TOL, against the plain run."""
-        worst_abs, worst_rel, ok = 0.0, 0.0, True
-        for a, b in zip(gs, gp):
-            d = (a - b).abs()
-            ok &= bool((d <= GRAD_TOL_BF16 + GRAD_TOL_BF16 * b.abs()).all())
-            worst_abs = max(worst_abs, float(d.max()))
-            worst_rel = max(worst_rel, float(torch.linalg.vector_norm(a - b)
-                                             / torch.linalg.vector_norm(b)))
-        return worst_abs, worst_rel, ok
+        return _leaf_errs(torch, dict(enumerate(gs)), dict(enumerate(gp)))
 
     worst_leaf, worst_rel, ok = leaf_errs(gk)
     # planted faults, on the kernel's backward: a dq of zeros, and a
@@ -1064,7 +1160,303 @@ def phase_train(torch):
 
 
 # ----------------------------------------------------------------------
-# phase 5: serve mamba2-130m at full width and depth
+# phase 5: the threaded stage pipeline, gpt-paper at full width
+# ----------------------------------------------------------------------
+def _plan_batches(plan, gb):
+    from repro_torch.data.dataset import materialize_micro_batch
+    return {m.mb_id: materialize_micro_batch(m, gb.tokens, lengths=gb.lengths)
+            for m in plan.micro_batches}
+
+
+def _executed(torch, backend, plan, params, batches):
+    """One plan on ``backend``, and its host time ending in a device
+    synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = backend.execute_plan(plan, params=params, batches=batches)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _mean_grads(res):
+    """The gradient of the mean loss, leaf by leaf in fp32, by path."""
+    from repro_torch.tree import flatten
+    return {k: g.float() / res.weight_sum for k, g in flatten(res.grads)}
+
+
+def _history_lines(tag, hist, split_of):
+    for h in hist:
+        print(f"[{tag}] iter {h['iter']}: {h['time_s'] * 1e3:.1f} ms, loss "
+              f"{h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+              f"{h['tokens']} real / {h['padded_tokens']} padded tokens "
+              f"(padding efficiency {h['tokens'] / h['padded_tokens']:.3f}), "
+              f"{h['tokens'] / h['time_s']:.1f} real tokens/s, micro-batches "
+              f"{split_of(h['iter'])}", flush=True)
+    steady = hist[1:]
+    return (sum(h["tokens"] for h in steady) / sum(h["time_s"] for h in steady),
+            sum(h["time_s"] for h in steady) / len(steady))
+
+
+def phase_pipeline(torch):
+    """gpt-paper at full width, 8 layers over 4 stages on the threaded
+    executor: launch counts, the pipeline against the sequential steps on
+    one plan, and two runs equal to the bit."""
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _train(
+        torch, TRAIN_LAYERS, PIPE_ITERS, seed=0, n_stages=PIPE_STAGES)
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("pipeline", hist, lambda it: [
+        (m.mbs, m.seq) for m in plan_iteration(
+            stream.batch(it).lengths[:, 0], cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    # per layer and micro-batch: the stage forward, the stage backward's
+    # forward again, and the period checkpoint's recompute in it; one
+    # backward
+    expected = {"mha_forward": 3 * cfg.n_layers * n_micro,
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+    print(f"[pipeline] {cfg.name} {cfg.n_layers} layers over {PIPE_STAGES} "
+          f"stages ({cfg.n_params() / 1e9:.2f} B params), {len(hist)} "
+          f"iterations, {n_micro} micro-batches in {took:.1f}s incl. init; "
+          f"iterations after the first: {tok_s:.1f} real tokens/s, mean step "
+          f"{1e3 * step_s:.1f} ms; peak memory {peak:.1f} GiB; planning "
+          f"overlap {stats.overlap_fraction:.3f}; launches {counts} (expected "
+          f"{expected}: 3 K1 and 1 backward per layer and micro-batch)",
+          flush=True)
+    check(counts == expected, f"pipeline launches {counts}, expected "
+          f"{expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "non-finite loss or grad norm in the pipeline")
+
+    # one plan: the pipeline against the sequential grad steps
+    gb = stream.batch(0)
+    plan = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0]
+    batches = _plan_batches(plan, gb)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1), cfg,
+                            device="cuda")
+    pipe, seq = (ThreadsBackend(cfg, PIPE_STAGES, use_executor=on,
+                                device="cuda") for on in (True, False))
+    rp, pipe_s = _executed(torch, pipe, plan, params, batches)
+    rs, seq_s = _executed(torch, seq, plan, params, batches)
+    lp, ls = rp.loss_sum / rp.weight_sum, rs.loss_sum / rs.weight_sum
+    gs = _mean_grads(rs)
+    del rs
+    g_abs, g_rel, _ = _leaf_errs(torch, _mean_grads(rp), gs)
+    del rp, gs, params
+    torch.cuda.empty_cache()
+    print(f"[pipeline] one plan {[(m.mbs, m.seq) for m in plan.micro_batches]}"
+          f": pipelined loss {lp:.8f} vs sequential {ls:.8f} (equal to the "
+          f"bit: {'yes' if lp == ls else 'no'}); gradient leaves max |diff| "
+          f"{g_abs:.3e}, worst ||diff|| / ||sequential|| {g_rel:.3e} "
+          f"(GRAD_REL_TOL {GRAD_REL_TOL}); pipelined {1e3 * pipe_s:.1f} ms, "
+          f"sequential {1e3 * seq_s:.1f} ms", flush=True)
+    check(abs(lp - ls) <= 1e-4 * abs(ls), "pipelined and sequential mean "
+          f"losses differ: {lp} vs {ls}")
+    check(g_rel <= GRAD_REL_TOL, f"a pipelined gradient leaf's relative "
+          f"error {g_rel:.3e} exceeds GRAD_REL_TOL")
+
+    # two 2-iteration runs from one seed, one layer per stage
+    runs = [_train(torch, PIPE_STAGES, 2, seed=1, log_every=0,
+                   n_stages=PIPE_STAGES)[4:6] for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[pipeline] {PIPE_STAGES} layers, two 2-iteration runs from one "
+          f"seed: losses {[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and "
+          f"parameters equal to the bit: {'yes' if same else 'NO'}",
+          flush=True)
+    check(same, "two pipelined runs from one seed differ")
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 6: t5-paper at full width on the encoder-decoder pipeline
+# ----------------------------------------------------------------------
+def _t5_setup(torch, n_layers):
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    cfg = dataclasses.replace(get_arch("t5-paper"), n_layers=n_layers)
+    pcfg = PlannerConfig(
+        n_stages=T5_STAGES, d_model=cfg.d_model,
+        palette=ShapePalette.build(**T5_PALETTE),
+        device_mem=float(torch.cuda.get_device_properties(0).total_memory))
+    return (cfg, MultiTaskStream(StreamConfig(**T5_STREAM)),
+            AnalyticCostModel(cfg, n_stages=T5_STAGES), pcfg)
+
+
+def _t5_train(torch, n_layers, iters, seed, log_every=1):
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg, stream, cost, pcfg = _t5_setup(torch, n_layers)
+    rcfg = RunnerConfig(n_iters=iters, seed=seed, log_every=log_every,
+                        device="cuda")
+    params, history, stats = PlanAheadRunner(cfg, cost, pcfg, rcfg,
+                                             stream).run()
+    check(stats.faults == 0, f"t5 training retried after {stats.faults} "
+          f"faults: {stats.recoveries}")
+    return cfg, stream, cost, pcfg, params, history, stats
+
+
+def phase_t5(torch):
+    """t5-paper at full width, 4 + 4 layers over 2 encoder and 2 decoder
+    stages: launch counts, then at 2 + 2 layers the kernels against the
+    plain attention through the pipeline, and two runs equal to the bit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import leaves, tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _t5_train(
+        torch, T5_LAYERS, T5_ITERS, seed=0)
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_params = sum(x.numel() for x in leaves(params))
+    del params
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("t5", hist, lambda it: [
+        (m.mbs, *m.seq) for m in plan_iteration(
+            stream.batch(it).lengths, cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    # 3 K1 and 1 backward per attention per micro-batch (the stage forward,
+    # its forward again in the stage backward, the period checkpoint's
+    # recompute): one attention per encoder layer, two per decoder layer
+    attn = cfg.n_layers + 2 * cfg.n_layers
+    expected = {"mha_forward": 3 * attn * n_micro,
+                "mha_backward": attn * n_micro, "ssd_chunked": 0}
+    real = sum(h["tokens"] for h in hist)
+    padded = sum(h["padded_tokens"] for h in hist)
+    print(f"[t5] {cfg.name} {cfg.n_layers} + {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} {cfg.n_heads} heads x {cfg.d_head} d_ff {cfg.d_ff} "
+          f"({n_params / 1e9:.2f} B params) over {T5_STAGES} stages, "
+          f"{len(hist)} iterations, {n_micro} micro-batches in {took:.1f}s "
+          f"incl. init; iterations after the first: {tok_s:.1f} real "
+          f"tokens/s, mean step {1e3 * step_s:.1f} ms; padding efficiency "
+          f"{real / padded:.3f}; peak memory {peak:.1f} GiB; launches "
+          f"{counts} (expected {expected})", flush=True)
+    check(counts == expected, f"t5 launches {counts}, expected {expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "non-finite loss or grad norm in t5 training")
+
+    # 2 + 2 layers: one plan through the pipeline, with the kernels, with
+    # the plain versions patched in, with a backward planted to return a
+    # zero dq, and in f32 (plain versions, params cast): T5's bf16
+    # gradients of either attention lie about 3% from the f32 ones on
+    # some leaves (the decoder's first wq and wk), as far from each other,
+    # so each leaf is held by how much farther the kernels' gradient lies
+    # from the f32 one than the plain version's
+    cfg2, stream2, cost2, pcfg2 = _t5_setup(torch, 2)
+    gb = stream2.batch(0)
+    plan = plan_iteration(gb.lengths, cost2, pcfg2).replica_plans[0]
+    batches = _plan_batches(plan, gb)
+    params0 = T.init_encdec(torch.Generator(device="cuda").manual_seed(1),
+                            cfg2, device="cuda")
+    real_backward = fa.mha_backward
+
+    def zero_dq(*a, **o):
+        dq, dk, dv = real_backward(*a, **o)
+        return torch.zeros_like(dq), dk, dv
+
+    out = {}
+    for name in ("kernels", "plain", "dq = 0", "f32"):
+        patches = (_plain_attention() if name in ("plain", "f32") else
+                   (mock.patch.object(fa, "mha_backward", zero_dq),)
+                   if name == "dq = 0" else ())
+        cfg_r, params_r = cfg2, params0
+        if name == "f32":
+            cfg_r = dataclasses.replace(cfg2, dtype="float32")
+            params_r = tree_map(lambda x: x.float(), params0)
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            res = _executed(torch, ThreadsBackend(cfg_r, T5_STAGES,
+                                                  device="cuda"),
+                            plan, params_r, batches)[0]
+        out[name] = (res.loss_sum / res.weight_sum, _mean_grads(res))
+        del res, params_r
+    (lk, gk), (lp, gp), (_, gf), (l32, g32) = (
+        out[name] for name in ("kernels", "plain", "dq = 0", "f32"))
+    enc_max = max(float(g.abs().max()) for k, g in gk.items()
+                  if k[0] == "enc")
+    k_abs, k_rel, k_ok = _leaf_errs(torch, gk, gp)
+    f_abs, f_rel, f_ok = _leaf_errs(torch, gf, gp)
+
+    def from_f32(gs):
+        """||gs - f32|| / ||f32|| by leaf."""
+        return {k: float(torch.linalg.vector_norm(gs[k] - b)
+                         / torch.linalg.vector_norm(b))
+                for k, b in g32.items()}
+    k32, p32, f32 = from_f32(gk), from_f32(gp), from_f32(gf)
+    # the worst distance from f32 beyond the plain version's, over leaves
+    k_exc = max(k32[k] - p32[k] for k in g32)
+    f_exc = max(f32[k] - p32[k] for k in g32)
+    print(f"[t5] 2 + 2 layers over {T5_STAGES} stages, one plan "
+          f"{[(m.mbs, *m.seq) for m in plan.micro_batches]}: loss kernels "
+          f"{lk:.6f}, plain {lp:.6f}, f32 {l32:.6f}; {len(gk)} gradient "
+          f"leaves, kernels vs plain: max |diff| {k_abs:.3e} (GRAD_TOL "
+          f"{GRAD_TOL_BF16}), worst ||diff|| / ||plain|| {k_rel:.3e}; worst "
+          f"||out - f32|| / ||f32|| kernels {max(k32.values()):.3e}, plain "
+          f"{max(p32.values()):.3e}; worst distance from f32 beyond the "
+          f"plain version's {k_exc:.3e} "
+          f"(GRAD_REL_TOL {GRAD_REL_TOL}); largest encoder gradient "
+          f"{enc_max:.3e}; planted fault (dq = 0): max |diff| {f_abs:.3e}, "
+          f"worst ||diff|| / ||plain|| {f_rel:.3e}, beyond the plain "
+          f"version's distance from f32 {f_exc:.3e}, elementwise GRAD_TOL "
+          f"{'passes' if f_ok else 'fails'} it", flush=True)
+    check(k_ok, "t5 gradient leaves: kernels and plain disagree elementwise")
+    check(k_exc <= GRAD_REL_TOL, "t5 gradient leaves: the kernels' lie "
+          f"{k_exc:.3e} farther from f32 than the plain version's")
+    check(f_exc > GRAD_REL_TOL, "the t5 leaf check does not see a backward "
+          "whose dq is zero")
+    check(abs(lk - lp) <= GRAD_TOL_BF16 * max(1.0, abs(lp)),
+          f"t5 losses: kernels and plain disagree ({lk} vs {lp})")
+    check(enc_max > 0, "no gradient reached the encoder")
+    del out, gk, gp, gf, g32, params0
+    torch.cuda.empty_cache()
+
+    # two 2-iteration runs from one seed at 2 + 2 layers
+    runs = [_t5_train(torch, 2, 2, seed=1, log_every=0)[4:6]
+            for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[t5] 2 + 2 layers, two 2-iteration runs from one seed: losses "
+          f"{[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and "
+          f"parameters equal to the bit: {'yes' if same else 'NO'}",
+          flush=True)
+    check(same, "two t5 runs from one seed differ")
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 7: serve mamba2-130m at full width and depth
 # ----------------------------------------------------------------------
 def phase_mamba(torch, requests, max_prompt, decode_steps):
     from repro_torch.kernels import ops
@@ -1119,7 +1511,7 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 6: profiles (not run by default)
+# phase 8: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's two forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_kernel",
@@ -1248,11 +1640,54 @@ def phase_profile_train(torch):
     torch.cuda.empty_cache()
 
 
+def phase_profile_pipeline(torch):
+    """Where the time goes in one pipelined iteration (the stage pipeline,
+    the gradient merge and AdamW), after a warm-up iteration: gpt-paper
+    with 8 layers and t5-paper with 4 + 4 layers, each over 4 stages, on
+    their phases' first batches. Device time is summed over the stage
+    streams, so it can exceed the host time where stages overlap."""
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.runner import scale_
+    cases = (("gpt-paper, 8 layers", lambda: _train_setup(
+                  torch, TRAIN_LAYERS, PIPE_STAGES), MD.init_params,
+              lambda gb: gb.lengths[:, 0]),
+             ("t5-paper, 4 + 4 layers", lambda: _t5_setup(torch, T5_LAYERS),
+              T.init_encdec, lambda gb: gb.lengths))
+    for name, setup, init, lengths in cases:
+        torch.cuda.empty_cache()
+        cfg, stream, cost, pcfg = setup()
+        gb = stream.batch(0)
+        plan = plan_iteration(lengths(gb), cost, pcfg).replica_plans[0]
+        batches = _plan_batches(plan, gb)
+        params = init(torch.Generator(device="cuda").manual_seed(0), cfg,
+                      device="cuda")
+        ocfg = AdamWConfig(lr=3e-4)
+        opt = init_opt_state(params, ocfg)
+        backend = ThreadsBackend(cfg, pcfg.n_stages, device="cuda")
+
+        def iteration():
+            res = backend.execute_plan(plan, params=params, batches=batches)
+            scale_(res.grads, 1.0 / max(res.weight_sum, 1.0))
+            backend.optimizer_step(params, res.grads, opt, ocfg)
+
+        iteration()       # warm-up
+        split = [(m.mbs, m.seq) for m in plan.micro_batches]
+        _profile_window(torch, f"pipelined iteration, {name} over "
+                        f"{pcfg.n_stages} stages, {split}", iteration)
+        del params, opt, backend
+    torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="device,kernel,serve,train,mamba",
-                    help="comma-separated: kernel, serve, train, mamba, "
-                    "profile (the device phase always runs)")
+    ap.add_argument("--phases",
+                    default="device,kernel,serve,train,pipeline,t5,mamba",
+                    help="comma-separated: kernel, serve, train, pipeline, "
+                    "t5, mamba, profile (the device phase always runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1282,6 +1717,10 @@ def main():
         paths["serve"] = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "train" in phases:
         paths["train"] = phase_train(torch)
+    if "pipeline" in phases:
+        paths["pipeline"] = phase_pipeline(torch)
+    if "t5" in phases:
+        paths["t5"] = phase_t5(torch)
     if "mamba" in phases:
         paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "profile" in phases:
@@ -1289,6 +1728,7 @@ def main():
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,
                             arch="mamba2-130m", n_layers=MAMBA_LAYERS)
         phase_profile_train(torch)
+        phase_profile_pipeline(torch)
     kernels = []
     for kid, (name, source, replaces, main_case, other_cases,
               kpaths) in KERNELS.items():

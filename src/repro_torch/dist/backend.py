@@ -1,22 +1,30 @@
-"""ExecutionBackend and the threads backend's sequential path.
+"""ExecutionBackend and the threads backend.
 
 Counterpart of ``repro.dist.backend``. The planner emits
 :class:`~repro_torch.core.instructions.ExecutionPlan`s; a backend turns one
-replica's plan into gradients. Ported so far:
+replica's plan into gradients. :class:`ThreadsBackend` is the host plane:
 
-- :class:`ThreadsBackend` with ``n_stages == 1`` (or ``use_executor=False``):
-  the sequential per-micro-batch grad loop of the reference
-  (``dist/backend.py:227-243``), gradients summed in place over the
-  micro-batches.
+- the threaded stage pipeline, when ``use_executor`` and the model's
+  periods split evenly over ``n_stages > 1`` (for an encoder-decoder
+  model the stage boundary must also fall on the enc/dec boundary):
+  ``core/executor.py`` runs one thread per stage over a
+  :class:`~repro_torch.train.pipeline_adapter.PipelinedModel` or
+  :class:`~repro_torch.train.pipeline_adapter.EncDecPipelinedModel`, each
+  stage on its own CUDA stream on the card;
+- otherwise the sequential per-micro-batch grad loop (``build_grad_step``,
+  or ``build_encdec_grad_step`` for 2-D micro-batches), gradients summed in
+  place; with identical math;
+- ``callbacks=``: the raw host plane, the caller's stage callbacks on the
+  executor.
 
-Where the reference would run the threaded stage pipeline
-(``use_executor`` with ``n_stages > 1``, ROADMAP A9), verify plans
-(``strict``, A4), train an encoder-decoder model (A11) or take the mesh
-backend (A13), this module raises
-``NotImplementedError``: it never runs something else in their place.
+Where the reference would verify plans (``strict``, ROADMAP A4) or take
+the mesh backend (A13) or the process fault domain (A14), this module
+raises ``NotImplementedError``: it never runs something else in their
+place.
 """
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
@@ -24,20 +32,25 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.executor import PipelineExecutor, StageCallbacks
 from repro_torch.core.instructions import ExecutionPlan
 from repro_torch.train.optimizer import adamw_update
-from repro_torch.train.pipeline_adapter import (build_grad_step,
+from repro_torch.train.pipeline_adapter import (EncDecPipelinedModel,
+                                                PipelinedModel,
+                                                build_encdec_grad_step,
+                                                build_grad_step,
                                                 model_cache_namespace)
 from repro_torch.train.step_cache import CompiledStepCache
-from repro_torch.tree import leaves
+from repro_torch.tree import add_into
 
 
 @dataclass
 class BackendResult:
     """What executing one replica's plan produced.
 
-    ``timings`` entries are ``(kind, mb_id, seconds)``; the sequential path
-    records ``"total"`` (forward and backward of the micro-batch).
+    ``timings`` entries are ``(kind, mb_id, seconds)`` with ``kind`` one of
+    ``"f"``/``"b"`` (a stage's forward or backward, pipeline) or
+    ``"total"`` (the micro-batch's forward and backward, sequential path).
     """
     grads: Any
     loss_sum: float
@@ -48,15 +61,17 @@ class BackendResult:
 
 class ExecutionBackend:
     """Protocol of the execution planes: ``execute_plan(plan, *, params,
-    batches, collect_timings=False) -> BackendResult`` runs one replica's
-    plan;
+    batches, callbacks=None, collect_timings=False, timeout=None) ->
+    BackendResult`` runs one replica's plan (the reference's ``hook``, for
+    fault injection, comes with ROADMAP A12);
     :meth:`place_opt_state` / :meth:`optimizer_step` own the optimizer's
     layout (the default: one device, eager AdamW)."""
 
     name = "abstract"
 
     def execute_plan(self, plan: ExecutionPlan, *, params=None, batches=None,
-                     collect_timings: bool = False) -> BackendResult:
+                     callbacks=None, collect_timings: bool = False,
+                     timeout: Optional[float] = None) -> BackendResult:
         raise NotImplementedError
 
     def place_opt_state(self, opt_state):
@@ -66,31 +81,40 @@ class ExecutionBackend:
         return adamw_update(params, grads, opt_state, opt_cfg)
 
 
-def add_into(acc, g):
-    """``acc += g`` leaf by leaf, in place; returns ``acc``."""
-    for a, b in zip(leaves(acc), leaves(g)):
-        a.add_(b)
-    return acc
+def _timed_callbacks(cbs: list[StageCallbacks], records: list, lock,
+                     streams: Optional[list]):
+    """Wrap every stage's forward and backward with wall timers that stop
+    once the stage's work is done on the card (an event on the stage's
+    stream, synchronised), not when it was queued. Records ``("f" | "b",
+    mb_id, seconds)`` under ``lock``: callbacks run on stage threads."""
+    def wrap(j, cb: StageCallbacks) -> StageCallbacks:
+        def timed(kind, fn):
+            def run(mb_id, *a):
+                t0 = time.perf_counter()
+                out = fn(mb_id, *a)
+                if streams is not None:
+                    ev = torch.cuda.Event()
+                    ev.record(streams[j])
+                    ev.synchronize()
+                with lock:
+                    records.append((kind, mb_id, time.perf_counter() - t0))
+                return out
+            return run
+        return StageCallbacks(timed("f", cb.forward), timed("b", cb.backward),
+                              cb.step)
+    return [wrap(j, cb) for j, cb in enumerate(cbs)]
 
 
 class ThreadsBackend(ExecutionBackend):
-    """Host plane, sequential path: each micro-batch's grad step in turn,
-    on ``device``, gradients accumulated in place."""
+    """Host plane: the threaded stage pipeline, or sequential accumulation
+    (see the module docstring for which), on ``device``."""
 
     name = "threads"
 
     def __init__(self, cfg: ArchConfig, n_stages: int,
                  step_cache: Optional[CompiledStepCache] = None, *,
-                 use_executor: bool = True, strict: bool = False,
-                 device="cuda"):
-        if cfg.family == "encdec":
-            raise NotImplementedError(
-                "encoder-decoder training is not ported yet (ROADMAP A11)")
-        if use_executor and n_stages > 1 and cfg.n_periods % n_stages == 0:
-            raise NotImplementedError(
-                "the threaded stage pipeline (use_executor with n_stages > 1) "
-                "is not ported yet (ROADMAP A9); pass use_executor=False for "
-                "the sequential path")
+                 use_executor: bool = True, exec_timeout: float = 120.0,
+                 strict: bool = False, device="cuda"):
         if strict:
             raise NotImplementedError(
                 "strict plan verification is not ported yet (ROADMAP A4)")
@@ -98,20 +122,68 @@ class ThreadsBackend(ExecutionBackend):
         self.n_stages = n_stages
         self.step_cache = step_cache if step_cache is not None \
             else CompiledStepCache()
+        self.exec_timeout = exec_timeout
         self.device = torch.device(device)
+        if cfg.family == "encdec":
+            # total periods = enc + dec; a stage must also not straddle
+            # the enc/dec boundary
+            total = 2 * cfg.n_periods
+            pipelined = (use_executor and n_stages > 1
+                         and total % n_stages == 0
+                         and cfg.n_periods % (total // n_stages) == 0)
+            model = EncDecPipelinedModel
+        else:
+            pipelined = (use_executor and n_stages > 1
+                         and cfg.n_periods % n_stages == 0)
+            model = PipelinedModel
+        self.pm = (model(cfg, None, n_stages, step_cache=self.step_cache)
+                   if pipelined else None)
+        if pipelined and self.device.type == "cuda":
+            # built here, not inside a stage thread on the executor's clock
+            from repro_torch.kernels import _build
+            for name in ("flash_fwd", "flash_bwd"):
+                _build.library(name)
 
     def _grad_fn(self, shape: tuple):
+        """shape: (mbs, seq) decoder-only or (mbs, enc, dec) enc-dec."""
         key = ("grad", model_cache_namespace(self.cfg)) + shape
-        return self.step_cache.get(key, lambda: build_grad_step(self.cfg))
+        build = build_encdec_grad_step if len(shape) == 3 else build_grad_step
+        return self.step_cache.get(key, lambda: build(self.cfg))
 
     @staticmethod
     def _batch_shape(b) -> tuple:
+        if "enc_tokens" in b:
+            return (int(b["enc_tokens"].shape[0]),
+                    int(b["enc_tokens"].shape[1]),
+                    int(b["dec_tokens"].shape[1]))
         return int(b["tokens"].shape[0]), int(b["tokens"].shape[1])
 
     def execute_plan(self, plan: ExecutionPlan, *, params=None, batches=None,
-                     collect_timings: bool = False) -> BackendResult:
+                     callbacks=None, collect_timings: bool = False,
+                     timeout: Optional[float] = None) -> BackendResult:
+        timeout = timeout if timeout is not None else self.exec_timeout
+        if callbacks is not None:
+            # raw host-plane mode: the caller owns the stage callbacks
+            PipelineExecutor(plan, callbacks, timeout=timeout).run()
+            return BackendResult(None, 0.0, 0.0)
         if not plan.micro_batches:
             return BackendResult(None, 0.0, 0.0)
+
+        if self.pm is not None:
+            pm = self.pm
+            pm.set_params(params)
+            cbs, result = pm.make_callbacks(plan, batches)
+            records: list = []
+            if collect_timings:
+                cbs = _timed_callbacks(cbs, records, threading.Lock(),
+                                       pm.streams)
+            try:
+                PipelineExecutor(plan, cbs, timeout=timeout).run()
+            finally:
+                pm.join_streams()
+            grads = pm.merge_stage_grads(result["stage_grads"])
+            return BackendResult(grads, result["loss_sum"],
+                                 result["weight_sum"], records)
 
         grads, loss_sum, w_sum = None, 0.0, 0.0
         timings: list = []
@@ -131,12 +203,13 @@ class ThreadsBackend(ExecutionBackend):
 
 def make_backend(name: str, cfg: ArchConfig, n_stages: int, *,
                  step_cache: Optional[CompiledStepCache] = None,
-                 use_executor: bool = True, strict: bool = False,
-                 device="cuda") -> ExecutionBackend:
+                 use_executor: bool = True, exec_timeout: float = 120.0,
+                 strict: bool = False, device="cuda") -> ExecutionBackend:
     """Backend factory keyed by ``RunnerConfig.backend``."""
     if name == "threads":
         return ThreadsBackend(cfg, n_stages, step_cache=step_cache,
-                              use_executor=use_executor, strict=strict,
+                              use_executor=use_executor,
+                              exec_timeout=exec_timeout, strict=strict,
                               device=device)
     if name == "mesh":
         raise NotImplementedError(

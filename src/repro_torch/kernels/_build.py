@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -51,6 +52,7 @@ KERNELS = {
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()           # loads, and every launch counter
 
 
 def nvcc() -> str:
@@ -102,15 +104,17 @@ def build(names=None) -> dict[str, float]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_target(name)))
-        for fn, argtypes in KERNELS[name][1].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+    """The loaded library of kernel ``name``, built first if needed; from
+    any thread."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_target(name)))
+            for fn, argtypes in KERNELS[name][1].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _loaded[name] = lib
     return lib
 
 
@@ -121,6 +125,19 @@ def launch(fn, *args, device):
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {rc}")
+
+
+def count_launch(counts: dict, name: str) -> None:
+    """Add one launch of kernel ``name`` to a wrapper's ``counts``. Stage
+    threads launch concurrently, so every count goes through here."""
+    with _lock:
+        counts[name] += 1
+
+
+def reset_counts(counts: dict) -> None:
+    with _lock:
+        for name in counts:
+            counts[name] = 0
 
 
 def build_log(name: str) -> str:

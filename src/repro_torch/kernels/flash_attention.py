@@ -48,8 +48,8 @@ BWD_QTILE = 64    # query rows per tile of the backward kernel (its kBQ)
 # kMaxKeyTiles = 512 tiles of 128
 BWD_MAX_KEYS = 512 * 128
 
-# Launches of each CUDA kernel, counted where the wrapper launches it: K1,
-# and the fused backward (K2 and K3).
+# Launches of each CUDA kernel, counted where the wrapper launches it
+# (``_build.count_launch``): K1, and the fused backward (K2 and K3).
 LAUNCHES = {"mha_forward": 0, "mha_backward": 0}
 
 
@@ -266,7 +266,7 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
             _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
             b, t, s, h, kvh, d, int(causal), int(window),
             float(softcap or 0.0), device=q.device)
-    LAUNCHES["mha_forward"] += 1
+    _build.count_launch(LAUNCHES, "mha_forward")
     return o, lse
 
 
@@ -339,7 +339,7 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
             _ptr(kv_segment_ids), _ptr(acc), acc.shape[2], _ptr(sem),
             _ptr(dk), _ptr(dv), b, t, s, h, kvh, d, int(causal), int(window),
             float(softcap or 0.0), device=q.device)
-    LAUNCHES["mha_backward"] += 1
+    _build.count_launch(LAUNCHES, "mha_backward")
 
 
 def dq_accumulator(q):

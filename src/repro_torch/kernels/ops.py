@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ragged_attention as _ra
 from repro_torch.kernels import ref as _ref
@@ -25,8 +26,7 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for counts in _COUNTERS:
-        for name in counts:
-            counts[name] = 0
+        _build.reset_counts(counts)
 
 
 def attention(q, k, v, *, causal=True, window=0, softcap=None,

@@ -33,7 +33,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-# Launches of K4, counted where the wrapper launches it.
+# Launches of K4, counted where the wrapper launches it
+# (``_build.count_launch``).
 LAUNCHES = {"ssd_chunked": 0}
 
 CHUNK = 64                     # K4's chunk length (kL in ssd_fwd.cu)
@@ -105,7 +106,7 @@ def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False):
         starts.data_ptr() if chunk_states else None, b, t, h, g, p, n,
         *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
         device=x.device)
-    LAUNCHES["ssd_chunked"] += 1
+    _build.count_launch(LAUNCHES, "ssd_chunked")
     if chunk_states:
         return y, state, starts[:, :, :, 0].float() + starts[:, :, :, 1].float()
     return y, state

@@ -1,13 +1,16 @@
 """Training launcher: DynaPipe-planned multi-task training in PyTorch.
 
 Counterpart of ``repro.launch.train``, with the same flags plus
-``--device`` (default ``cuda``; ``cpu`` only when asked for). Only the
-sequential path is ported: ``--stages`` > 1 needs ``--no-executor`` until
-the threaded stage pipeline is (ROADMAP A9). Examples:
+``--device`` (default ``cuda``; ``cpu`` only when asked for). By default
+it trains on the threaded 2-stage pipeline; ``--no-executor`` takes the
+sequential path. ``--arch t5-paper`` trains the encoder-decoder on 2-D
+micro-batches. Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
-      --stages 1 --iters 20 --tokens 1024 --max-seq 128
-  PYTHONPATH=src python -m repro_torch.launch.train --reduced --stages 1
+      --iters 20 --tokens 1024 --max-seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+      --arch t5-paper --iters 5 --tokens 512 --max-seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --reduced --stages 4
 """
 from __future__ import annotations
 

@@ -1,4 +1,4 @@
-"""Period-stacked decoder stack in PyTorch.
+"""Period-stacked decoder stack and T5-style encoder-decoder in PyTorch.
 
 Counterpart of ``repro.models.transformer`` for attention and Mamba2
 mixers with dense MLPs. Parameters keep the reference's layout: every leaf stacked on a
@@ -7,10 +7,14 @@ leading ``n_periods`` axis, one period being one repetition of
 ``jax.lax.scan``. In training each period runs under
 ``torch.utils.checkpoint`` (non-reentrant) in place of the reference's
 ``jax.checkpoint`` with the "nothing" policy: only the period inputs are
-kept for the backward, which recomputes the rest. MoE layers are a later
-slice.
+kept for the backward, which recomputes the rest. The encoder-decoder
+(:func:`init_encdec` to :func:`encdec_fwd`) adds a period-major stack of
+cross-attention blocks, one after each decoder period. MoE layers are a
+later slice.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -18,8 +22,9 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.kernels import ops
 from repro_torch.models import mamba as M
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 
 def _check_spec(spec: LayerSpec):
@@ -96,18 +101,23 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
 # ----------------------------------------------------------------------
 # the stack
 # ----------------------------------------------------------------------
-def init_stack(gen, cfg: ArchConfig, device):
-    """Params stacked over periods: leaf shape (n_periods, *leaf_shape).
-    Each period is drawn into its slot, so no second copy is held."""
+def _stacked(n: int, make_period):
+    """``make_period()`` drawn ``n`` times into one tree of leaf shape
+    (n, *leaf_shape), each draw into its slot, so no second copy is held."""
     stack = None
-    for i in range(cfg.n_periods):
-        period = {f"l{j}": init_block(gen, cfg, spec, device)
-                  for j, spec in enumerate(cfg.layer_pattern)}
+    for i in range(n):
+        period = make_period()
         if stack is None:
-            stack = tree_map(
-                lambda x: x.new_empty((cfg.n_periods, *x.shape)), period)
+            stack = tree_map(lambda x: x.new_empty((n, *x.shape)), period)
         tree_map(lambda dst, src, i=i: dst[i].copy_(src), stack, period)
     return stack
+
+
+def init_stack(gen, cfg: ArchConfig, device):
+    """Params stacked over periods: leaf shape (n_periods, *leaf_shape)."""
+    return _stacked(cfg.n_periods, lambda: {
+        f"l{j}": init_block(gen, cfg, spec, device)
+        for j, spec in enumerate(cfg.layer_pattern)})
 
 
 def _periods(params, n_periods):
@@ -161,3 +171,109 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
             h = _period_fwd(pparams, h, cfg, positions, segment_ids, caches,
                             cache_pos, mode)
     return h, cache
+
+
+# ----------------------------------------------------------------------
+# T5-style encoder-decoder (the paper's flagship workload)
+# ----------------------------------------------------------------------
+def init_encdec(gen, cfg: ArchConfig, device="cuda"):
+    """Params ``{embed, enc, dec, cross, enc_norm, dec_norm}`` with the
+    reference's keys, shapes and scales, drawn from ``gen`` (on
+    ``device``). The cross-attention blocks are stacked *period-major*
+    like the encoder and decoder stacks, so decoder stage j owns
+    ``cross[j*k:(j+1)*k]`` beside ``dec[j*k:(j+1)*k]``."""
+    device = resolve_device(device)
+    if gen.device.type != device.type:
+        raise ValueError(f"generator on {gen.device}, params on {device}")
+    dt = L._dtype(cfg)
+    embed = L._init(gen, (cfg.vocab_padded, cfg.d_model), 1.0, dt, device)
+    enc = init_stack(gen, cfg, device)
+    dec = init_stack(gen, cfg, device)
+    cross = _stacked(cfg.n_periods, lambda: {
+        "ln": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+        "attn": L.init_attention(gen, cfg, device)})
+    return {
+        "embed": embed, "enc": enc, "dec": dec, "cross": cross,
+        "enc_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+        "dec_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
+    }
+
+
+def cross_attention_fwd(p, x, he, cfg: ArchConfig, *,
+                        q_segment_ids=None, kv_segment_ids=None):
+    """One cross-attention block: queries from the decoder stream ``x``,
+    keys and values from the encoder output ``he``, no RoPE and no mask
+    but the segments' (padded encoder keys; in packed rows each decoder
+    segment on its own encoder segment). Returns the residual delta."""
+    xn = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    hh, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, t = xn.shape[:2]
+    q = (xn @ p["attn"]["wq"]).reshape(b, t, hh, dh)
+    k = (he @ p["attn"]["wk"]).reshape(b, -1, kv, dh)
+    v = (he @ p["attn"]["wv"]).reshape(b, -1, kv, dh)
+    o = ops.attention(q, k, v, causal=False, q_segment_ids=q_segment_ids,
+                      kv_segment_ids=kv_segment_ids)
+    return o.reshape(b, t, hh * dh) @ p["attn"]["wo"]
+
+
+def enc_stage_fwd(stack_params, h, cfg: ArchConfig, *,
+                  positions, segment_ids=None, remat=True):
+    """Encoder slice: the non-causal stack over ``stack_params``' periods
+    (``cfg.n_periods`` must be the slice's count). ``h`` is embedded."""
+    h, _ = stack_fwd(stack_params, h, dataclasses.replace(cfg, causal=False),
+                     positions=positions, segment_ids=segment_ids,
+                     remat=remat)
+    return h
+
+
+def _dec_period(pparams, cross_p, h, he, cfg: ArchConfig, positions,
+                segment_ids, enc_segment_ids):
+    h = _period_fwd(pparams, h, cfg, positions, segment_ids, None, None,
+                    "train")
+    return h + cross_attention_fwd(cross_p, h, he, cfg,
+                                   q_segment_ids=segment_ids,
+                                   kv_segment_ids=enc_segment_ids)
+
+
+def dec_stage_fwd(params, hd, he, cfg: ArchConfig, *,
+                  positions, segment_ids=None, enc_segment_ids=None,
+                  remat=True):
+    """Decoder slice: each period's causal self-attention block(s), then
+    its cross-attention block against the *final* encoder output ``he``,
+    checkpointed together as the reference's ``dec_period`` under
+    ``jax.checkpoint``. ``params`` holds period-major ``stack`` and
+    ``cross`` slices of equal length."""
+    n = next(iter(leaves(params["cross"]))).shape[0]
+    for pparams, cross_p in zip(_periods(params["stack"], n),
+                                _periods(params["cross"], n)):
+        args = (pparams, cross_p, hd, he, cfg, positions, segment_ids,
+                enc_segment_ids)
+        hd = (checkpoint(_dec_period, *args, use_reentrant=False) if remat
+              else _dec_period(*args))
+    return hd
+
+
+def encdec_fwd(params, enc_tokens, dec_tokens, cfg: ArchConfig, *,
+               enc_segments=None, dec_segments=None,
+               enc_positions=None, dec_positions=None, remat=True):
+    """Sequential oracle: the whole encoder-decoder forward from the same
+    :func:`enc_stage_fwd` and :func:`dec_stage_fwd` the pipeline slices.
+    Returns the decoder's normed hidden states (B, T_dec, D)."""
+    def arange(tok):
+        b, t = tok.shape
+        return torch.arange(t, dtype=torch.int32, device=tok.device)[None] \
+            .expand(b, t)
+
+    if enc_positions is None:
+        enc_positions = arange(enc_tokens)
+    if dec_positions is None:
+        dec_positions = arange(dec_tokens)
+    he = enc_stage_fwd(params["enc"], params["embed"][enc_tokens], cfg,
+                       positions=enc_positions, segment_ids=enc_segments,
+                       remat=remat)
+    he = L.rms_norm(he, params["enc_norm"], cfg.norm_eps)
+    hd = dec_stage_fwd({"stack": params["dec"], "cross": params["cross"]},
+                       params["embed"][dec_tokens], he, cfg,
+                       positions=dec_positions, segment_ids=dec_segments,
+                       enc_segment_ids=enc_segments, remat=remat)
+    return L.rms_norm(hd, params["dec_norm"], cfg.norm_eps)

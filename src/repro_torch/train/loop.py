@@ -33,10 +33,13 @@ def train(cfg: ArchConfig, cost: CostModel, pcfg: PlannerConfig,
           lcfg: RunnerConfig, opt_cfg: AdamWConfig = AdamWConfig(lr=3e-4),
           dataset: Optional[MultiTaskDataset] = None, monitor=None):
     """Returns (params, history). ``monitor`` (the straggler monitor) is not
-    ported: the runner raises if one is given."""
+    ported: the runner raises if one is given. For an encoder-decoder
+    config the default dataset gives every sample a decoder target (the
+    reference's leaves it without one, which its runner refuses)."""
     ds = dataset or MultiTaskDataset(n_tasks=16, max_len=pcfg.palette.seq_buckets[-1]
                                      if pcfg.palette else 512,
-                                     seed=lcfg.seed)
+                                     seed=lcfg.seed,
+                                     encdec=cfg.family == "encdec")
     stream = DatasetStream(ds, max(2, lcfg.global_tokens // 256), cfg.vocab)
     runner = PlanAheadRunner(cfg, cost, pcfg, lcfg, stream,
                              opt_cfg=opt_cfg, monitor=monitor)

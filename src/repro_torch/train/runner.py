@@ -1,20 +1,25 @@
 """Plan-ahead runtime: double-buffered planning over deterministic streams.
 
-Counterpart of ``repro.train.runner`` on the threads backend's sequential
-path. While iteration *k* executes, a ``PlannerPool`` already plans
-iteration *k+1* (dp_split -> adaptive schedule -> comm plan -> instruction
-lowering), so planning stays off the critical path; ``synchronous=True``
-plans inline instead, and both execute identical plans over identical
-batches, so their trajectories are equal bit for bit.
+Counterpart of ``repro.train.runner`` on the threads backend. While
+iteration *k* executes, a ``PlannerPool`` already plans iteration *k+1*
+(dp_split -> adaptive schedule -> comm plan -> instruction lowering), so
+planning stays off the critical path; ``synchronous=True`` plans inline
+instead, and both execute identical plans over identical batches, so their
+trajectories are equal bit for bit.
 
-Per iteration, every replica's plan runs its micro-batches through
-:func:`~repro_torch.train.pipeline_adapter.build_grad_step` on
-``RunnerConfig.device`` (attention through the CUDA kernels K1, K2 and K3
-on the card), the gradients are summed in place, scaled by 1 / (loss
-weight sum) and AdamW updates the params in place.
+Per iteration, every replica's plan runs on ``RunnerConfig.device``
+through the threads backend: the threaded stage pipeline when
+``use_executor`` and the periods split over the planner's stages, else the
+sequential grad loop (attention through the CUDA kernels K1 and the fused
+backward on the card). The gradients are summed in place, scaled by
+1 / (loss weight sum) and AdamW updates the params in place. An
+encoder-decoder config (``family == "encdec"``) starts from
+``init_encdec`` and runs 2-D ``(enc, dec)`` micro-batches; its stream must
+give every sample a decoder target.
 
-A failed plan (a planner future that times out or breaks) is replanned
-and retried up to ``max_retries`` times, as in the reference. What the
+A failed plan (a planner future that times out or breaks) or a failed
+iteration (a ``PipelineError`` from the executor) is replanned and
+retried up to ``max_retries`` times, as in the reference. What the
 reference adds around that is not ported yet and raises
 ``NotImplementedError`` when asked for: strict plan verification (ROADMAP
 A4), checkpoints (A10), fault injection and the straggler monitor (A12),
@@ -39,20 +44,19 @@ from repro_torch.core.planner import PlannerConfig, PlannerPool, plan_iteration
 from repro_torch.data.dataset import materialize_micro_batch
 from repro_torch.data.streams import GlobalBatch
 from repro_torch.device import resolve_device
-from repro_torch.dist.backend import (ExecutionBackend, add_into,
-                                      make_backend)
+from repro_torch.dist.backend import ExecutionBackend, make_backend
 from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.step_cache import CompiledStepCache
-from repro_torch.tree import leaves
+from repro_torch.tree import add_into, leaves
 
 
 @dataclass
 class RunnerConfig:
     """The run configuration: the reference's fields, plus ``device``,
-    without ``impl`` (the port dispatches by device), ``drift_tolerance``
-    (no straggler monitor yet) and ``exec_timeout`` (no stage threads
-    yet)."""
+    without ``impl`` (the port dispatches by device) and
+    ``drift_tolerance`` (no straggler monitor yet)."""
     n_iters: int = 50
     backend: str = "threads"         # "threads" ("mesh": not ported)
     lookahead: int = 1               # plans kept in flight ahead of execution
@@ -65,6 +69,7 @@ class RunnerConfig:
     ckpt_dir: str = ""
     seed: int = 0
     plan_timeout: float = 300.0
+    exec_timeout: float = 120.0      # executor rendezvous timeout (s)
     # ------------------------ fault tolerance --------------------------
     max_retries: int = 2             # per-iteration retry budget on faults
     retry_backoff_s: float = 0.05    # base backoff between retries
@@ -275,25 +280,33 @@ class PlanAheadRunner:
         return gb, plan, it_plan, wait, it_plan.planning_seconds
 
     # ------------------------- execution side --------------------------
+    @property
+    def _encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
     def _execute_replica(self, plan: ExecutionPlan, gb: GlobalBatch, params):
         """One replica's plan -> (grads, loss_sum, weight_sum)."""
         if not plan.micro_batches:
             return None, 0.0, 0.0   # idle replica (fewer micro-batches than dp)
-        if any(isinstance(m.seq, (tuple, list)) for m in plan.micro_batches):
-            raise NotImplementedError(
-                "encoder-decoder micro-batches are not ported yet "
-                "(ROADMAP A11)")
         batches = {m.mb_id: materialize_micro_batch(
                        m, gb.tokens, lengths=gb.lengths)
                    for m in plan.micro_batches}
         res = self.backend.execute_plan(
             plan, params=params, batches=batches,
-            collect_timings=self._calibrator is not None)
-        if self._calibrator is not None:
+            collect_timings=self._calibrator is not None,
+            timeout=self.rcfg.exec_timeout)
+        if self._calibrator is not None and res.timings:
             by_id = {m.mb_id: m for m in plan.micro_batches}
-            for _kind, mb_id, secs in res.timings:
+            for kind, mb_id, secs in res.timings:
                 m = by_id[mb_id]
-                self._calibrator.observe_total(m.mbs, m.seq, secs)
+                seq = (tuple(m.seq) if isinstance(m.seq, (tuple, list))
+                       else m.seq)
+                if kind == "f":
+                    self._calibrator.observe(m.mbs, seq, fwd_s=secs)
+                elif kind == "b":
+                    self._calibrator.observe(m.mbs, seq, bwd_s=secs)
+                else:
+                    self._calibrator.observe_total(m.mbs, seq, secs)
         return res.grads, res.loss_sum, res.weight_sum
 
     # ------------------------- recovery side ---------------------------
@@ -330,13 +343,14 @@ class PlanAheadRunner:
         params = self.params
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(rcfg.seed)
-            params = MD.init_params(gen, cfg, device=self.device)
+            init = T.init_encdec if self._encdec else MD.init_params
+            params = init(gen, cfg, device=self.device)
         opt = init_opt_state(params, self.opt_cfg)
 
         self.backend = make_backend(
             rcfg.backend, cfg, self.pcfg.n_stages, step_cache=self.step_cache,
-            use_executor=rcfg.use_executor, strict=rcfg.strict_verify,
-            device=self.device)
+            use_executor=rcfg.use_executor, exec_timeout=rcfg.exec_timeout,
+            strict=rcfg.strict_verify, device=self.device)
         opt = self.backend.place_opt_state(opt)
 
         start, end = 0, rcfg.n_iters
@@ -360,6 +374,14 @@ class PlanAheadRunner:
                         self._submit(it + rcfg.lookahead)
                     gb, plan, it_plan, wait_s, planning_s = \
                         self._obtain(it, stats)
+                    if self._encdec and any(
+                            not isinstance(m.seq, (tuple, list))
+                            for m in plan.micro_batches):
+                        raise ValueError(
+                            "enc-dec model got a decoder-only micro-batch: "
+                            "the stream must carry (enc, dec) lengths with "
+                            "dec > 0 for every sample (use "
+                            "encdec_fraction=1.0)")
                     # every replica's plan executes here (one process stands
                     # in for the DP group) and the grads merge, so the
                     # full-batch gradient does not depend on the split
@@ -392,8 +414,11 @@ class PlanAheadRunner:
                 del grads
                 dt = time.perf_counter() - t0
 
-                padded = sum(m.mbs * m.seq for rp in it_plan.replica_plans
-                             for m in rp.micro_batches)
+                padded = sum(
+                    m.mbs * (sum(m.seq) if isinstance(m.seq, (tuple, list))
+                             else m.seq)
+                    for rp in it_plan.replica_plans
+                    for m in rp.micro_batches)
                 n_micro = sum(len(rp.micro_batches)
                               for rp in it_plan.replica_plans)
                 loss = loss_sum / max(w_sum, 1.0)

@@ -35,3 +35,10 @@ def unflatten(pairs):
             node = node.setdefault(k, {})
         node[path[-1]] = x
     return out
+
+
+def add_into(acc, g):
+    """``acc += g`` leaf by leaf, in place; returns ``acc``."""
+    for a, b in zip(leaves(acc), leaves(g)):
+        a.add_(b)
+    return acc

@@ -389,6 +389,126 @@ def test_runner_trajectory_on_the_card_is_repeatable_bit_for_bit(cuda):
         assert torch.equal(a, b)
 
 
+def _t5_segments(dev, b, t, s, enc_lens):
+    """The t5 slice's attention layouts: the encoder's rows, one sample of
+    enc_lens[r] tokens each, then padding; the decoder's rows of a quarter
+    of that, odd rows packed as two samples on both sides (segments 0 and
+    1), the last row all padding. Returns (dec, enc) segment ids."""
+    dec = torch.full((b, t), -1, dtype=torch.int32)
+    enc = torch.full((b, s), -1, dtype=torch.int32)
+    for r, n in enumerate(enc_lens):
+        m = 0 if r == b - 1 else min(t, max(2, n // 4))
+        n = 0 if r == b - 1 else n
+        for side, length in ((enc, n), (dec, m)):
+            side[r, :length] = 0
+            if r % 2:
+                side[r, length // 2:length] = 1
+    return dec.to(dev), enc.to(dev)
+
+
+@pytest.mark.parametrize("case", ["t5-enc", "t5-cross"])
+def test_kernels_at_the_t5_shapes_match_plain_versions(cuda, case):
+    # the t5 phase's attention at 128 heads x 128 and T = 512 (encoder
+    # self-attention, non-causal) or T 128 to S 512 (cross-attention), on
+    # four rows: K1 and the backward against their plain versions
+    t = 512 if case == "t5-enc" else 128
+    q, k, v, qp, kp = _inputs(cuda, 4, t, 512, 128, 128, 128)
+    dec, enc = _t5_segments(cuda, 4, t, 512, (512, 400, 200, 64))
+    qs = enc if case == "t5-enc" else dec
+    args = (q, k, v, qp, kp, qs, enc)
+    o, lse = fa.mha_forward(*args, causal=False)
+    o_ref, lse_ref = fa.mha_forward_plain(*args, causal=False)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    seen = lse_ref > -1e29
+    torch.testing.assert_close(lse[seen], lse_ref[seen], atol=TOL, rtol=TOL)
+    assert (o[~seen.permute(0, 2, 1)] == 0).all()
+    do = torch.randn_like(o)
+    out = fa.mha_backward(*args, o, lse, do, causal=False)
+    ref = fa.mha_backward_plain(*args, o, lse, do, causal=False)
+    for a, r in zip(out, ref):
+        _grad_close(a, r)
+
+
+def _pipeline_runs(cuda, n_runs, n_stages=2):
+    """``n_runs`` 2-iteration runs of the reduced gpt-paper (4 layers) on
+    the threaded pipeline from one seed: (params, history, launch counts)."""
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg = SV.make_config("gpt-paper", "reduced", 4)
+    runs = []
+    for _ in range(n_runs):
+        stream = MultiTaskStream(StreamConfig(
+            n_tasks=8, global_tokens=1024, max_len=128, vocab=cfg.vocab,
+            tail_fraction=0.1, tail_alpha=1.2, seed=0))
+        pal = ShapePalette.build(min_seq=32, max_seq=128, seq_align=32,
+                                 max_mbs=4)
+        pcfg = PlannerConfig(n_stages=n_stages, d_model=cfg.d_model,
+                             palette=pal)
+        rcfg = RunnerConfig(n_iters=2, log_every=0, seed=0, device="cuda")
+        ops.reset_launch_counts()
+        params, hist, stats = PlanAheadRunner(
+            cfg, AnalyticCostModel(cfg, n_stages=n_stages), pcfg, rcfg,
+            stream).run()
+        assert stats.faults == 0
+        n_micro = sum(h["n_micro"] for h in hist)
+        assert ops.launch_counts() == {"mha_forward": 3 * 4 * n_micro,
+                                       "mha_backward": 4 * n_micro,
+                                       "ssd_chunked": 0}
+        runs.append((params, hist))
+    return runs
+
+
+def test_pipelined_step_on_the_card_matches_the_sequential_step(cuda):
+    # one plan of the reduced gpt-paper over 2 stages, each on its own CUDA
+    # stream, against the sequential grad steps over the same micro-batches
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig, plan_iteration
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.tree import flatten
+    cfg = SV.make_config("gpt-paper", "reduced", 4)
+    gb = MultiTaskStream(StreamConfig(n_tasks=8, global_tokens=1024,
+                                      max_len=128, vocab=cfg.vocab,
+                                      seed=0)).batch(0)
+    pcfg = PlannerConfig(n_stages=2, d_model=cfg.d_model,
+                         palette=ShapePalette.build(min_seq=32, max_seq=128,
+                                                    seq_align=32, max_mbs=4))
+    plan = plan_iteration(gb.lengths[:, 0], AnalyticCostModel(cfg, n_stages=2),
+                          pcfg).replica_plans[0]
+    assert len(plan.micro_batches) >= 2
+    batches = {m.mb_id: materialize_micro_batch(m, gb.tokens,
+                                                lengths=gb.lengths)
+               for m in plan.micro_batches}
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    pipe = ThreadsBackend(cfg, 2, device=cuda)
+    assert pipe.pm is not None
+    res = pipe.execute_plan(plan, params=params, batches=batches)
+    assert len(pipe.pm.streams) == 2
+    seq = ThreadsBackend(cfg, 2, use_executor=False, device=cuda)
+    sres = seq.execute_plan(plan, params=params, batches=batches)
+    assert res.weight_sum == sres.weight_sum
+    np.testing.assert_allclose(res.loss_sum / res.weight_sum,
+                               sres.loss_sum / sres.weight_sum, rtol=1e-4)
+    ref = dict(flatten(sres.grads))
+    for key, g in flatten(res.grads):
+        _grad_close(g, ref[key])
+
+
+def test_pipelined_runs_on_the_card_are_repeatable_bit_for_bit(cuda):
+    (p0, h0), (p1, h1) = _pipeline_runs(cuda, 2)
+    for a, b in zip(h0, h1):
+        assert (a["loss"], a["grad_norm"]) == (b["loss"], b["grad_norm"])
+    from repro_torch.tree import leaves
+    for a, b in zip(leaves(p0), leaves(p1)):
+        assert torch.equal(a, b)
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

@@ -280,8 +280,11 @@ def test_strict_verification_raises_until_ported():
 def test_stage_pipeline_and_unported_features_raise():
     _, tcfg = _cfgs("float32")
     from repro_torch.dist.backend import ThreadsBackend, make_backend
-    with pytest.raises(NotImplementedError, match="A9"):
-        ThreadsBackend(tcfg, 2, use_executor=True, device="cpu")
+    from repro_torch.train.pipeline_adapter import PipelinedModel
+    # the stage pipeline (ROADMAP A9) is ported: 2 stages over the 2
+    # periods run it
+    assert isinstance(ThreadsBackend(tcfg, 2, use_executor=True,
+                                     device="cpu").pm, PipelinedModel)
     with pytest.raises(NotImplementedError, match="A13"):
         make_backend("mesh", tcfg, 1, device="cpu")
     for kw, item in ((dict(ckpt_dir="x"), "A10"), (dict(backend="mesh"), "A13"),
@@ -291,6 +294,7 @@ def test_stage_pipeline_and_unported_features_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         PlanAheadRunner(tcfg, None, None, RunnerConfig(device="cpu"), None,
                         chaos=object())
-    # the sequential fallback the reference also takes: 2 stages that do
-    # not divide the periods, or no executor
-    assert ThreadsBackend(tcfg, 2, use_executor=False, device="cpu")
+    # the sequential fallback the reference also takes: stages that do not
+    # divide the periods, or no executor
+    assert ThreadsBackend(tcfg, 2, use_executor=False, device="cpu").pm is None
+    assert ThreadsBackend(tcfg, 3, use_executor=True, device="cpu").pm is None
