@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py        # device, kernel, serve, train, pipeline, t5, mamba
+    python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba, fault
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
 
@@ -87,7 +87,22 @@ Phases, each printing its own lines; any failure exits non-zero:
              every logit must be finite; then the same serve with 2 layers
              runs once with K4 and once with the plain SSD, and their logits
              must agree;
-8. profile — (not run by default) torch.profiler over one full-width prefill
+8. fault   — the fault-tolerant loop: gpt-paper at full width, 2 layers
+             over 2 stages (threads on their own CUDA streams), strict plan
+             verification, 6 iterations of the train phase's stream: run A
+             fault-free, run B with checkpoints every 3 iterations under
+             build/ (removed after) and a planner loss, a straggler, a
+             state-losing crash in stage 1's backward (restored from step
+             3, iterations 3 and 4 replayed) and a crash in stage 0's
+             forward (retried in memory); B's last-occurrence losses and
+             grad norms, parameters, master, m, v and step must equal A's
+             to the bit, its newest checkpoint must reload (CRCs verified)
+             equal to its state, and a byte flipped in that checkpoint must
+             be refused with the fallback to step 3; prints the free disk,
+             each save's seconds (device synchronise, device to host, CRC,
+             write), each load's, recovery_s, strict verification's time
+             per plan, peak memory and both runs' launches;
+9. profile — (not run by default) torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
              mamba2-130m, over one training iteration at 8 layers, and over
              one pipelined iteration of gpt-paper (8 layers) and of t5-paper
@@ -171,6 +186,13 @@ T5_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=512, vocab=32128,
                  tail_fraction=0.1, tail_alpha=1.2, encdec_fraction=1.0,
                  seed=0)
 T5_PALETTE = dict(min_seq=64, max_seq=512, seq_align=64, max_mbs=16)
+# the fault phase: gpt-paper at full width, depth cut to 2 layers (0.816 B
+# parameters; a checkpoint of the bf16 params and fp32 master, m and v is
+# 14 bytes a parameter, 11.4 GB, against 28.3 GB at 8 layers) over 2
+# stages of 1 layer, the train phase's stream and palette; 6 iterations,
+# a checkpoint every 3; a lost plan costs the plan timeout
+FAULT_LAYERS, FAULT_STAGES, FAULT_ITERS, FAULT_CKPT_EVERY = 2, 2, 6, 3
+FAULT_PLAN_TIMEOUT = 3.0
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -1511,7 +1533,245 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 8: profiles (not run by default)
+# phase 8: the fault-tolerant training loop, gpt-paper at full width
+# ----------------------------------------------------------------------
+def _fault_run(torch, chaos=None, ckpt_dir="", ckpt_every=0):
+    """The runner on the fault configuration, with a straggler monitor on
+    a logical clock (one replica: its factors leave the plans alone):
+    returns (cfg, params, the optimizer state, history, stats, monitor)."""
+    from repro_torch.dist.chaos import LogicalClock
+    from repro_torch.dist.fault import StragglerMonitor
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg, stream, cost, pcfg = _train_setup(torch, FAULT_LAYERS, FAULT_STAGES)
+    rcfg = RunnerConfig(n_iters=FAULT_ITERS, seed=0, log_every=0,
+                        device="cuda", strict_verify=True,
+                        ckpt_dir=str(ckpt_dir), ckpt_every=ckpt_every,
+                        plan_timeout=FAULT_PLAN_TIMEOUT, retry_backoff_s=0.01)
+    monitor = StragglerMonitor(1, heartbeat_timeout=2.0,
+                               window=2 * FAULT_ITERS, clock=LogicalClock())
+    runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream, chaos=chaos,
+                             monitor=monitor)
+    params, history, stats = runner.run()
+    return cfg, params, runner.opt_state, history, stats, monitor
+
+
+def _flip_a_byte(path: Path) -> None:
+    """The planted fault: one data byte of a leaf file inverted."""
+    at = path.stat().st_size // 2
+    with open(path, "r+b") as fh:
+        fh.seek(at)
+        b = fh.read(1)
+        fh.seek(at)
+        fh.write(bytes([b[0] ^ 0xFF]))
+
+
+def phase_fault(torch, card):
+    """gpt-paper at full width, 2 layers over 2 stages with strict plan
+    verification: run A fault-free, run B under a planner loss, a
+    straggler, a state-losing crash restored from step 3 and a crash
+    retried in memory, both 6 iterations from one seed. B must end equal
+    to A to the bit (last-occurrence losses and grad norms, every
+    parameter, master, m and v, the step); its newest checkpoint must
+    reload equal to B's state; a byte flipped in it must be refused, with
+    the fallback to the step before. Disk: each save writes 11.4 GB (14
+    bytes a parameter), up to two steps are kept (22.8 GB), and the phase
+    moves about 60 GB in all (2 saves, the restore, the reload check, the
+    corrupt load and its fallback, each load reading its step twice: its
+    checksums, then its copy)."""
+    import shutil
+    import warnings
+    from repro_torch.dist import backend as BK
+    from repro_torch.dist.chaos import FaultEvent, FaultKind, FaultSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.tree import flatten, tree_map
+
+    on = f"({card})"
+    ckpt_dir = ROOT / "build" / "fault_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    try:
+        cfg, _, _, _ = _train_setup(torch, FAULT_LAYERS, FAULT_STAGES)
+        est = 14 * cfg.n_params()
+        free = shutil.disk_usage(ckpt_dir).free
+        print(f"[fault] {cfg.name} {cfg.n_layers} layers over {FAULT_STAGES} "
+              f"stages ({cfg.n_params() / 1e9:.3f} B params): a checkpoint "
+              f"holds about {est / 1e9:.1f} GB; free disk under build/ "
+              f"before the phase {free / 1e9:.1f} GB {on}", flush=True)
+        check(free > 2.1 * est, f"the fault phase needs about "
+              f"{2.1 * est / 1e9:.1f} GB of disk under build/ (two steps "
+              f"kept), {free / 1e9:.1f} GB free")
+
+        verify_s: list = []
+        real_reject = BK.reject_bad_plan
+
+        def timed_reject(plan, where):
+            t0 = time.perf_counter()
+            try:
+                real_reject(plan, where)
+            finally:
+                verify_s.append(time.perf_counter() - t0)
+
+        runs = {}
+        chaos = FaultSchedule([
+            FaultEvent(1, FaultKind.PLANNER_LOST),
+            FaultEvent(2, FaultKind.STRAGGLER, stage=1, delay_s=0.2),
+            FaultEvent(4, FaultKind.STAGE_CRASH, stage=1, op="B",
+                       state_lost=True),
+            FaultEvent(5, FaultKind.STAGE_CRASH, stage=0, op="F")])
+        for name in ("A", "B"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            verify_s.clear()
+            t0 = time.perf_counter()
+            with mock.patch.object(BK, "reject_bad_plan", timed_reject):
+                _, params, opt, hist, stats, mon = _fault_run(
+                    torch, **(dict(chaos=chaos, ckpt_dir=ckpt_dir,
+                                   ckpt_every=FAULT_CKPT_EVERY)
+                              if name == "B" else {}))
+            runs[name] = dict(
+                hist=hist, stats=stats, counts=ops.launch_counts(),
+                took=time.perf_counter() - t0, verify=list(verify_s),
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                replica_s=mon.mean_iter_time(0))
+            if name == "A":
+                # A's final state to the host: B runs alone on the card
+                state_a = {p: x.cpu() if isinstance(x, torch.Tensor) else x
+                           for p, x in flatten({"params": params,
+                                                "opt": opt})}
+                del params, opt
+            else:
+                state_b = {"params": params, "opt": opt}
+        a, b = runs["A"], runs["B"]
+        for name, r in runs.items():
+            _history_lines(f"fault {name}", r["hist"],
+                           lambda it, h=r["hist"]: next(
+                               x["n_micro"] for x in h if x["iter"] == it))
+            v = r["verify"]
+            print(f"[fault] run {name}: {len(r['hist'])} logged iterations "
+                  f"in {r['took']:.1f}s incl. init; strict verification "
+                  f"of {len(v)} plans (one an iteration attempt), "
+                  f"{1e3 * sum(v) / max(1, len(v)):.2f} ms a plan "
+                  f"({1e3 * max(v, default=0):.2f} ms at most); "
+                  f"peak memory {r['peak']:.1f} GiB; launches {r['counts']} "
+                  f"{on}", flush=True)
+            # the monitor's replica times end on a device synchronise: the
+            # pipeline's join alone would stop the clock at enqueue time
+            it_s = sum(h["time_s"] for h in r["hist"]) / len(r["hist"])
+            print(f"[fault] run {name}: the straggler monitor's replica time "
+                  f"{r['replica_s']:.4f}s an iteration (closed on a device "
+                  f"synchronise), the whole iteration {it_s:.4f}s {on}",
+                  flush=True)
+            check(r["replica_s"] and 0 < r["replica_s"] <= it_s * 1.5,
+                  f"run {name}: monitor replica time {r['replica_s']}")
+
+        # what B recovered from
+        sb = b["stats"]
+        kinds = [(x["kind"], x["iter"], x.get("restored_step"))
+                 for x in sb.recoveries]
+        print(f"[fault] B: {sb.faults} faults, recoveries {kinds}, "
+              f"recovery_s {sb.recovery_s:.3f} {on}", flush=True)
+        check(not chaos.pending(), f"faults never fired: {chaos.pending()}")
+        for want in (("planner_resubmit", 1, None),
+                     ("checkpoint_restore", 4, FAULT_CKPT_EVERY),
+                     ("retry", 5, None)):
+            check(want in kinds, f"B's recoveries {kinds} lack {want}")
+        for c in sb.checkpoints:
+            gb = c["bytes"] / 1e9
+            if c["kind"] == "save":
+                total = c["sync_s"] + c["d2h_s"] + c["crc_s"] + c["write_s"]
+                print(f"[fault] save of step {c['step']}: {gb:.3f} GB in "
+                      f"{total:.2f}s ({gb / total:.2f} GB/s): device "
+                      f"synchronise {c['sync_s']:.3f}s, device to host "
+                      f"{c['d2h_s']:.2f}s, CRC {c['crc_s']:.2f}s, write "
+                      f"{c['write_s']:.2f}s {on}", flush=True)
+            else:
+                print(f"[fault] restore of step {c['step']} in place on the "
+                      f"card: {gb:.3f} GB in {c['load_s']:.2f}s "
+                      f"({gb / c['load_s']:.2f} GB/s, checksums first) {on}",
+                      flush=True)
+
+        # B against A, to the bit
+        last_a = {h["iter"]: (h["loss"], h["grad_norm"]) for h in a["hist"]}
+        last_b = {h["iter"]: (h["loss"], h["grad_norm"]) for h in b["hist"]}
+        flat_b = dict(flatten(state_b))
+        same_state = sorted(flat_b) == sorted(state_a) and all(
+            bool(torch.equal(x.cpu(), state_a[p]))
+            if isinstance(x, torch.Tensor) else x == state_a[p]
+            for p, x in flat_b.items())
+        print(f"[fault] B's iterations {[h['iter'] for h in b['hist']]}; "
+              f"last-occurrence losses and grad norms equal to A's to the "
+              f"bit: {'yes' if last_a == last_b else 'NO'}; every parameter, "
+              f"master, m and v leaf ({len(flat_b) - 1}) and the step "
+              f"({flat_b[('opt', 'step')]}) equal to A's: "
+              f"{'yes' if same_state else 'NO'}", flush=True)
+        check(last_a == last_b, "B's trajectory differs from A's: "
+              f"{last_b} vs {last_a}")
+        check(same_state, "B's final state differs from A's")
+        del state_a
+        n_a = sum(h["n_micro"] for h in a["hist"])
+        expected = {"mha_forward": 3 * cfg.n_layers * n_a,
+                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0}
+        check(a["counts"] == expected, f"A's launches {a['counts']}, "
+              f"expected {expected}")
+        # B launches at least A's and the replayed iteration 3's
+        n3 = next(h["n_micro"] for h in a["hist"] if h["iter"] == 3)
+        for k, x in expected.items():
+            check(b["counts"][k] >= x + x // n_a * n3,
+                  f"B's {k} launches {b['counts'][k]}: fewer than A's {x} "
+                  "and the replay's")
+
+        # the newest checkpoint reloads, in place into tensors on the card,
+        # equal to B's state; then a planted corrupt byte is refused
+        like = tree_map(lambda x: torch.empty_like(x)
+                        if isinstance(x, torch.Tensor) else 0, state_b)
+        timings: dict = {}
+        got, manifest = CKPT.load(ckpt_dir, like, timings=timings)
+        gb = timings["bytes"] / 1e9
+        same_ckpt = all(bool(torch.equal(x, flat_b[p]))
+                        if isinstance(x, torch.Tensor) else x == flat_b[p]
+                        for p, x in flatten(got))
+        print(f"[fault] reload of step {manifest['step']} (CRCs verified): "
+              f"{gb:.3f} GB in {timings['load_s']:.2f}s "
+              f"({gb / timings['load_s']:.2f} GB/s); equal to B's final "
+              f"state to the bit: {'yes' if same_ckpt else 'NO'} {on}",
+              flush=True)
+        check(manifest["step"] == FAULT_ITERS and same_ckpt,
+              "the newest checkpoint does not hold B's final state")
+        leaf = sorted(manifest["leaves"])[-1]
+        step_dir = ckpt_dir / f"step_{manifest['step']:08d}"
+        _flip_a_byte(step_dir / manifest["leaves"][leaf]["file"])
+        try:
+            CKPT.load(ckpt_dir, like)
+            refused = "no"
+        except CKPT.CheckpointCorruptError as e:
+            refused = str(e).split(": ", 1)[-1]
+        untouched = all(bool(torch.equal(x, flat_b[p]))
+                        if isinstance(x, torch.Tensor) else True
+                        for p, x in flatten(like))
+        timings = {}
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            _, fallback = CKPT.load_latest_valid(ckpt_dir, like, timings)
+        print(f"[fault] planted fault, one byte of {leaf} flipped in step "
+              f"{manifest['step']}: load refuses it ({refused}); the live "
+              f"tree untouched: {'yes' if untouched else 'NO'}; "
+              f"load_latest_valid falls back to step {fallback['step']} in "
+              f"{timings['load_s']:.2f}s {on}", flush=True)
+        check(refused != "no", "a flipped byte in a leaf was not detected")
+        check(untouched, "a refused load changed the live tree")
+        check(fallback["step"] == FAULT_CKPT_EVERY, "load_latest_valid did "
+              f"not fall back to step {FAULT_CKPT_EVERY}")
+        del like, got, state_b, flat_b
+        torch.cuda.empty_cache()
+        return b["counts"]
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# phase 9: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's two forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_kernel",
@@ -1685,9 +1945,11 @@ def phase_profile_pipeline(torch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,kernel,serve,train,pipeline,t5,mamba",
+                    default="device,kernel,serve,train,pipeline,t5,mamba,"
+                    "fault",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, profile (the device phase always runs)")
+                    "t5, mamba, fault, profile (the device phase always "
+                    "runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1723,6 +1985,8 @@ def main():
         paths["t5"] = phase_t5(torch)
     if "mamba" in phases:
         paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+    if "fault" in phases:
+        paths["fault"] = phase_fault(torch, smi_line)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,

@@ -17,9 +17,13 @@ replica's plan into gradients. :class:`ThreadsBackend` is the host plane:
 - ``callbacks=``: the raw host plane, the caller's stage callbacks on the
   executor.
 
-Where the reference would verify plans (``strict``, ROADMAP A4) or take
-the mesh backend (A13) or the process fault domain (A14), this module
-raises ``NotImplementedError``: it never runs something else in their
+``strict=True`` verifies every plan statically (``repro_torch.analysis``)
+and refuses an ERROR-level one before anything runs; ``hook=`` is the
+fault-injection point (``repro_torch.dist.chaos``), called before every
+instruction on the pipeline's stage threads and before each micro-batch
+on the sequential path. The mesh backend (ROADMAP A13) and the process
+fault domain (A14) are not ported: :func:`make_backend` raises
+``NotImplementedError`` for them and never runs something else in their
 place.
 """
 from __future__ import annotations
@@ -32,8 +36,9 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.executor import PipelineExecutor, StageCallbacks
-from repro_torch.core.instructions import ExecutionPlan
+from repro_torch.core.executor import (PipelineExecutor, StageCallbacks,
+                                      reject_bad_plan)
+from repro_torch.core.instructions import ExecutionPlan, Instr, Op
 from repro_torch.train.optimizer import adamw_update
 from repro_torch.train.pipeline_adapter import (EncDecPipelinedModel,
                                                 PipelinedModel,
@@ -61,16 +66,15 @@ class BackendResult:
 
 class ExecutionBackend:
     """Protocol of the execution planes: ``execute_plan(plan, *, params,
-    batches, callbacks=None, collect_timings=False, timeout=None) ->
-    BackendResult`` runs one replica's plan (the reference's ``hook``, for
-    fault injection, comes with ROADMAP A12);
+    batches, callbacks=None, hook=None, collect_timings=False,
+    timeout=None) -> BackendResult`` runs one replica's plan;
     :meth:`place_opt_state` / :meth:`optimizer_step` own the optimizer's
     layout (the default: one device, eager AdamW)."""
 
     name = "abstract"
 
     def execute_plan(self, plan: ExecutionPlan, *, params=None, batches=None,
-                     callbacks=None, collect_timings: bool = False,
+                     callbacks=None, hook=None, collect_timings: bool = False,
                      timeout: Optional[float] = None) -> BackendResult:
         raise NotImplementedError
 
@@ -115,14 +119,12 @@ class ThreadsBackend(ExecutionBackend):
                  step_cache: Optional[CompiledStepCache] = None, *,
                  use_executor: bool = True, exec_timeout: float = 120.0,
                  strict: bool = False, device="cuda"):
-        if strict:
-            raise NotImplementedError(
-                "strict plan verification is not ported yet (ROADMAP A4)")
         self.cfg = cfg
         self.n_stages = n_stages
         self.step_cache = step_cache if step_cache is not None \
             else CompiledStepCache()
         self.exec_timeout = exec_timeout
+        self.strict = strict
         self.device = torch.device(device)
         if cfg.family == "encdec":
             # total periods = enc + dec; a stage must also not straddle
@@ -159,12 +161,15 @@ class ThreadsBackend(ExecutionBackend):
         return int(b["tokens"].shape[0]), int(b["tokens"].shape[1])
 
     def execute_plan(self, plan: ExecutionPlan, *, params=None, batches=None,
-                     callbacks=None, collect_timings: bool = False,
+                     callbacks=None, hook=None, collect_timings: bool = False,
                      timeout: Optional[float] = None) -> BackendResult:
         timeout = timeout if timeout is not None else self.exec_timeout
+        if self.strict:
+            reject_bad_plan(plan, "ThreadsBackend")
         if callbacks is not None:
             # raw host-plane mode: the caller owns the stage callbacks
-            PipelineExecutor(plan, callbacks, timeout=timeout).run()
+            PipelineExecutor(plan, callbacks, timeout=timeout,
+                             hook=hook).run()
             return BackendResult(None, 0.0, 0.0)
         if not plan.micro_batches:
             return BackendResult(None, 0.0, 0.0)
@@ -178,8 +183,14 @@ class ThreadsBackend(ExecutionBackend):
                 cbs = _timed_callbacks(cbs, records, threading.Lock(),
                                        pm.streams)
             try:
-                PipelineExecutor(plan, cbs, timeout=timeout).run()
+                PipelineExecutor(plan, cbs, timeout=timeout, hook=hook).run()
             finally:
+                # also when a stage failed (an injected fault raised on one
+                # stage thread aborts the others): kernels the other stages
+                # queued may still run on their streams, and a retry must
+                # not reuse their memory before they end. The failed
+                # attempt's stage gradients die with its ``result``; the
+                # retry's callbacks start from none.
                 pm.join_streams()
             grads = pm.merge_stage_grads(result["stage_grads"])
             return BackendResult(grads, result["loss_sum"],
@@ -188,6 +199,11 @@ class ThreadsBackend(ExecutionBackend):
         grads, loss_sum, w_sum = None, 0.0, 0.0
         timings: list = []
         for mb_id in sorted(batches):
+            if hook is not None:
+                # no stage threads here: one stage-0 forward per
+                # micro-batch, so stage-0 faults and stragglers fire as on
+                # the pipeline
+                hook(0, Instr(Op.FORWARD, mb_id))
             b = {k: torch.as_tensor(v).to(self.device)
                  for k, v in batches[mb_id].items()}
             t0 = time.perf_counter()

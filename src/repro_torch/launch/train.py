@@ -4,12 +4,16 @@ Counterpart of ``repro.launch.train``, with the same flags plus
 ``--device`` (default ``cuda``; ``cpu`` only when asked for). By default
 it trains on the threaded 2-stage pipeline; ``--no-executor`` takes the
 sequential path. ``--arch t5-paper`` trains the encoder-decoder on 2-D
-micro-batches. Examples:
+micro-batches. ``--ckpt-dir D --ckpt-every N`` writes a format-2
+checkpoint every N iterations; a later call with the same ``--ckpt-dir``
+resumes from the newest valid step and trains ``--iters`` more. Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --iters 20 --tokens 1024 --max-seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --arch t5-paper --iters 5 --tokens 512 --max-seq 64
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
+      --iters 4 --ckpt-dir /tmp/run --ckpt-every 2   # again: iterations 4-7
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --stages 4
 """
 from __future__ import annotations
@@ -74,6 +78,9 @@ def main(argv=None):
                             opt_cfg=AdamWConfig(lr=args.lr))
     first = sum(h["loss"] for h in history[:5]) / max(len(history[:5]), 1)
     last = sum(h["loss"] for h in history[-5:]) / max(len(history[-5:]), 1)
+    if history:
+        print(f"\ntrained iterations {history[0]['iter']}-"
+              f"{history[-1]['iter']}")
     print(f"\nloss: first5={first:.4f} last5={last:.4f} "
           f"({'improved' if last < first else 'NOT improved'})")
     return history

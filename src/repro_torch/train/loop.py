@@ -32,10 +32,13 @@ class LoopConfig(RunnerConfig):
 def train(cfg: ArchConfig, cost: CostModel, pcfg: PlannerConfig,
           lcfg: RunnerConfig, opt_cfg: AdamWConfig = AdamWConfig(lr=3e-4),
           dataset: Optional[MultiTaskDataset] = None, monitor=None):
-    """Returns (params, history). ``monitor`` (the straggler monitor) is not
-    ported: the runner raises if one is given. For an encoder-decoder
-    config the default dataset gives every sample a decoder target (the
-    reference's leaves it without one, which its runner refuses)."""
+    """Returns (params, history). ``monitor`` (a ``StragglerMonitor``) goes
+    to the runner, which feeds it each replica's iteration time. With
+    ``lcfg.ckpt_dir`` the run resumes from the newest valid checkpoint
+    there and trains ``lcfg.n_iters`` iterations from it. For an
+    encoder-decoder config the default dataset gives every sample a
+    decoder target (the reference's leaves it without one, which its
+    runner refuses)."""
     ds = dataset or MultiTaskDataset(n_tasks=16, max_len=pcfg.palette.seq_buckets[-1]
                                      if pcfg.palette else 512,
                                      seed=lcfg.seed,

@@ -67,9 +67,25 @@ def compress_for_reduce(grads, state, cfg: AdamWConfig):
     return compressed, dict(state, err=new_err)
 
 
+def _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg: AdamWConfig):
+    """One leaf's AdamW update, in place, a slice at a time."""
+    p, g, m, v, ma = (x.view(-1) for x in (p, g.contiguous(), m, v, ma))
+    for i in range(0, g.numel(), _SLICE):
+        sl = slice(i, i + _SLICE)
+        gs = g[sl].float() * scale
+        ms = m[sl].mul_(cfg.b1).add_(gs, alpha=1 - cfg.b1)
+        vs = v[sl].mul_(cfg.b2).addcmul_(gs, gs, value=1 - cfg.b2)
+        upd = (ms / b1c) / (torch.sqrt(vs / b2c) + cfg.eps)
+        mas = ma[sl]
+        mas.sub_(cfg.lr * (upd + cfg.weight_decay * mas))
+        p[sl].copy_(mas)
+
+
 def adamw_update(params, grads, state, cfg: AdamWConfig):
     """Returns ``(params, state, metrics)``; params and state are updated in
-    place (see the module docstring)."""
+    place (see the module docstring), so an exception escaping from inside
+    leaves the state torn between two steps (the runner checkpoints no
+    such state)."""
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     step = state["step"] + 1
@@ -78,15 +94,6 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     for p, g, m, v, ma in zip(leaves(params), leaves(grads),
                               leaves(state["m"]), leaves(state["v"]),
                               leaves(state["master"])):
-        p, g, m, v, ma = (x.view(-1) for x in (p, g.contiguous(), m, v, ma))
-        for i in range(0, g.numel(), _SLICE):
-            sl = slice(i, i + _SLICE)
-            gs = g[sl].float() * scale
-            ms = m[sl].mul_(cfg.b1).add_(gs, alpha=1 - cfg.b1)
-            vs = v[sl].mul_(cfg.b2).addcmul_(gs, gs, value=1 - cfg.b2)
-            upd = (ms / b1c) / (torch.sqrt(vs / b2c) + cfg.eps)
-            mas = ma[sl]
-            mas.sub_(cfg.lr * (upd + cfg.weight_decay * mas))
-            p[sl].copy_(mas)
+        _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg)
     state["step"] = step
     return params, state, {"grad_norm": gnorm}

@@ -17,19 +17,32 @@ encoder-decoder config (``family == "encdec"``) starts from
 ``init_encdec`` and runs 2-D ``(enc, dec)`` micro-batches; its stream must
 give every sample a decoder target.
 
-A failed plan (a planner future that times out or breaks) or a failed
-iteration (a ``PipelineError`` from the executor) is replanned and
-retried up to ``max_retries`` times, as in the reference. What the
-reference adds around that is not ported yet and raises
-``NotImplementedError`` when asked for: strict plan verification (ROADMAP
-A4), checkpoints (A10), fault injection and the straggler monitor (A12),
-the mesh backend (A13) and the process fault domain (A14).
+Fault tolerance, as in the reference: the loop survives the fault classes
+of :mod:`repro_torch.dist.chaos`. A failed iteration (a ``PipelineError``
+from the executor, or an ``InjectedFault`` on the sequential path) is
+retried up to ``max_retries`` times: in-flight plans are drained and the
+stream replanned, and when the fault lost the state (``state_lost``)
+params and optimizer state are restored in place from the newest valid
+checkpoint and the stream replayed from its step; since the kernels repeat
+bit for bit, the replayed trajectory equals the fault-free one to the bit.
+Planner futures that time out or break are resubmitted; a replica that
+stops heartbeating triggers an :class:`ElasticPlanManager` sweep that
+shrinks ``dp_size`` to the survivors. ``strict_verify`` has the backend
+verify every plan before it runs. Checkpoints are written every
+``ckpt_every`` iterations and restored at start; anything that escapes the
+loop leaves an emergency checkpoint, unless it escaped from inside the
+in-place optimizer update (see :meth:`PlanAheadRunner.run`).
+
+Not ported, raising ``NotImplementedError``: the mesh backend (ROADMAP
+A13) and the process fault domain (A14).
 """
 from __future__ import annotations
 
 import concurrent.futures as cf
 import contextlib
+import dataclasses
 import time
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -45,8 +58,12 @@ from repro_torch.data.dataset import materialize_micro_batch
 from repro_torch.data.streams import GlobalBatch
 from repro_torch.device import resolve_device
 from repro_torch.dist.backend import ExecutionBackend, make_backend
+from repro_torch.dist.chaos import FaultSchedule, InjectedFault, LogicalClock
+from repro_torch.dist.fault import (ElasticPlanManager, StragglerMonitor,
+                                    make_planner_replan)
 from repro_torch.models import model as MD
 from repro_torch.models import transformer as T
+from repro_torch.train import checkpoint as CKPT
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 from repro_torch.train.step_cache import CompiledStepCache
 from repro_torch.tree import add_into, leaves
@@ -55,17 +72,16 @@ from repro_torch.tree import add_into, leaves
 @dataclass
 class RunnerConfig:
     """The run configuration: the reference's fields, plus ``device``,
-    without ``impl`` (the port dispatches by device) and
-    ``drift_tolerance`` (no straggler monitor yet)."""
+    without ``impl`` (the port dispatches by device)."""
     n_iters: int = 50
-    backend: str = "threads"         # "threads" ("mesh": not ported)
+    backend: str = "threads"         # "threads" ("mesh": not ported, A13)
     lookahead: int = 1               # plans kept in flight ahead of execution
     synchronous: bool = False        # plan inline (fallback / bitwise oracle)
     use_processes: bool = False      # PlannerPool backend (core/planner.py)
     use_executor: bool = True        # threaded pipeline vs sequential accum
     global_tokens: int = 4096        # tokens per global batch (loop entry)
     log_every: int = 10
-    ckpt_every: int = 0              # 0 = off (checkpoints: not ported)
+    ckpt_every: int = 0              # 0 = off
     ckpt_dir: str = ""
     seed: int = 0
     plan_timeout: float = 300.0
@@ -73,9 +89,13 @@ class RunnerConfig:
     # ------------------------ fault tolerance --------------------------
     max_retries: int = 2             # per-iteration retry budget on faults
     retry_backoff_s: float = 0.05    # base backoff between retries
+    drift_tolerance: float = 1.2     # apply measured speed factors to plans
+                                     # only past this slowest/fastest ratio
     calibrate: bool = False          # online cost-model calibration
-    strict_verify: bool = False      # verify each plan (not ported)
-    fault_domain: str = "thread"     # ("process": not ported)
+    strict_verify: bool = False      # the backend verifies each plan and
+                                     # refuses an ERROR-level one
+    fault_domain: str = "thread"     # faults are in-process (chaos hooks);
+                                     # "process": not ported (A14)
     device: str = "cuda"             # where params, batches and steps live
 
 
@@ -132,6 +152,9 @@ class RunnerStats:
     recoveries: list = field(default_factory=list)   # event dicts
     calibration: dict = field(default_factory=dict)  # OnlineCalibrator summary
     cluster: dict = field(default_factory=dict)      # (process domain)
+    # one dict per checkpoint written or restored: kind "save" (step,
+    # bytes, sync_s, d2h_s, crc_s, write_s) or "load" (step, bytes, load_s)
+    checkpoints: list = field(default_factory=list)
 
     @property
     def overlap_fraction(self) -> float:
@@ -159,6 +182,7 @@ class RunnerStats:
             "recoveries": list(self.recoveries),
             "calibration": dict(self.calibration),
             "cluster": dict(self.cluster),
+            "checkpoints": list(self.checkpoints),
         }
 
 
@@ -168,35 +192,43 @@ def scale_(tree, scale: float):
         x.mul_(scale)
 
 
+def _injected_event(err: BaseException):
+    """Walk the cause chain for an InjectedFault; returns its FaultEvent."""
+    seen = set()
+    e: Optional[BaseException] = err
+    while e is not None and id(e) not in seen:
+        seen.add(id(e))
+        if isinstance(e, InjectedFault):
+            return e.event
+        e = e.__cause__ or e.__context__
+    return None
+
+
 class PlanAheadRunner:
     """Drives training with planning double-buffered ahead of execution.
 
     ``params`` (optional) is the initial parameter tree on
     ``rcfg.device``, which the runner trains in place; by default it draws
-    one from a ``torch.Generator`` seeded with ``rcfg.seed``.
+    one from a ``torch.Generator`` seeded with ``rcfg.seed``. ``monitor``
+    (a :class:`StragglerMonitor`) receives each replica's iteration time
+    and drives elastic replanning; ``chaos`` (a :class:`FaultSchedule`)
+    injects faults. After :meth:`run`, ``opt_state`` holds the final
+    optimizer state.
     """
 
     def __init__(self, cfg: ArchConfig, cost: CostModel, pcfg: PlannerConfig,
                  rcfg: RunnerConfig, stream,
                  opt_cfg: Optional[AdamWConfig] = None,
-                 monitor=None, step_cache: Optional[CompiledStepCache] = None,
-                 chaos=None, mesh=None, params=None):
-        unported = {
-            "strict plan verification (strict_verify)": "A4",
-            "checkpoints (ckpt_dir / ckpt_every)": "A10",
-            "fault injection (chaos)": "A12",
-            "the straggler monitor": "A12",
-            "the mesh backend": "A13",
-            "the process fault domain": "A14",
-        }
-        asked = [rcfg.strict_verify, rcfg.ckpt_dir or rcfg.ckpt_every,
-                 chaos is not None, monitor is not None,
-                 rcfg.backend == "mesh" or mesh is not None,
-                 rcfg.fault_domain == "process"]
-        for (what, item), on in zip(unported.items(), asked):
-            if on:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP {item})")
+                 monitor: Optional[StragglerMonitor] = None,
+                 step_cache: Optional[CompiledStepCache] = None,
+                 chaos: Optional[FaultSchedule] = None, mesh=None,
+                 params=None):
+        if rcfg.backend == "mesh" or mesh is not None:
+            raise NotImplementedError(
+                "the mesh backend is not ported yet (ROADMAP A13)")
+        if rcfg.fault_domain == "process":
+            raise NotImplementedError(
+                "the process fault domain is not ported yet (ROADMAP A14)")
         self.device = resolve_device(rcfg.device)
         self.cfg = cfg
         self.cost = cost
@@ -206,15 +238,24 @@ class PlanAheadRunner:
         self.params = params
         self.backend: Optional[ExecutionBackend] = None  # built in run()
         self.opt_cfg = opt_cfg if opt_cfg is not None else AdamWConfig(lr=3e-4)
+        self.monitor = monitor
+        self.chaos = chaos
         self.step_cache = step_cache if step_cache is not None \
             else CompiledStepCache()
         self.store = InstructionStore()
         self.pool: Optional[PlannerPool] = None
         self._pending: dict[int, GlobalBatch] = {}
         self._futures: dict = {}
+        # positions in the alive list <-> original replica ids; shrinks on
+        # replica death (ElasticPlanManager sweep)
+        self._alive: list[int] = list(range(max(1, pcfg.dp_size)))
+        self.elastic = (ElasticPlanManager(monitor,
+                                           make_planner_replan(cost, pcfg))
+                        if monitor is not None else None)
         self._calibrator = (OnlineCalibrator(cost)
                             if rcfg.calibrate else None)
         self._end = 0
+        self.opt_state = None
 
     # ------------------------- planning side ---------------------------
     @staticmethod
@@ -222,11 +263,34 @@ class PlanAheadRunner:
         L = gb.lengths
         return L[:, 0] if not np.any(L[:, 1]) else L
 
+    def _pcfg_now(self) -> PlannerConfig:
+        p = self.pcfg
+        if self.monitor is not None and p.dp_size > 1 \
+                and self.monitor.drift() > self.rcfg.drift_tolerance:
+            # past the drift tolerance the imbalance is a straggler, not
+            # timing noise: bake the measured factors into the next plan
+            all_sf = self.monitor.speed_factors()
+            sf = [all_sf[r] if r < len(all_sf) else 1.0
+                  for r in self._alive]
+            sf = (sf + [1.0] * p.dp_size)[:p.dp_size]
+            p = dataclasses.replace(p, speed_factors=sf)
+        return p
+
     def _submit(self, it: int) -> None:
         gb = self.stream.batch(it)
         self._pending[it] = gb
-        self._futures[it] = self.pool.submit(
-            it, self._plan_lengths(gb), self.cost, self.pcfg)
+        fut = self.pool.submit(
+            it, self._plan_lengths(gb), self.cost, self._pcfg_now())
+        if self.chaos is not None:
+            ev = self.chaos.take_planner_fault(it)
+            if ev is not None:
+                # the real submission still runs (its store push is
+                # idempotent); the future the main loop sees is corrupted
+                # (crash) or lost (never completes): _obtain recovers
+                fut = cf.Future()
+                if ev.kind.value == "planner_crash":
+                    fut.set_exception(InjectedFault(ev))
+        self._futures[it] = fut
 
     def _reset_pool(self) -> None:
         if self.pool is not None:
@@ -238,14 +302,23 @@ class PlanAheadRunner:
 
     def _obtain(self, it: int, stats: Optional[RunnerStats] = None):
         """Returns (global_batch, replica-0 plan, IterationPlan, wait_s,
-        planning_s). A planner future that times out or breaks is
-        resubmitted with backoff instead of killing the run."""
+        planning_s). Planner faults (timeout, crashed or lost future,
+        broken pool) resubmit with backoff instead of killing the run; a
+        lost future costs ``plan_timeout``."""
         rcfg = self.rcfg
         if rcfg.synchronous:
             gb = self.stream.batch(it)
             t0 = time.perf_counter()
+            if self.chaos is not None:
+                ev = self.chaos.take_planner_fault(it)
+                if ev is not None and stats is not None:
+                    # inline planning: a dead planner is just run again
+                    stats.faults += 1
+                    stats.recoveries.append(
+                        {"iter": it, "kind": "planner_replanned",
+                         "fault": ev.describe()})
             it_plan = plan_iteration(self._plan_lengths(gb), self.cost,
-                                     self.pcfg)
+                                     self._pcfg_now())
             self.store.push(it, it_plan.replica_plans[0])
             plan = self.store.fetch(it, timeout=rcfg.plan_timeout)
             wait = time.perf_counter() - t0
@@ -259,7 +332,7 @@ class PlanAheadRunner:
                     it_plan = fut.result(timeout=rcfg.plan_timeout)
                     break
                 except (TimeoutError, cf.TimeoutError, cf.CancelledError,
-                        cf.BrokenExecutor) as e:
+                        cf.BrokenExecutor, InjectedFault) as e:
                     if attempt >= rcfg.max_retries:
                         raise PipelineError(
                             f"plan for iteration {it} failed after "
@@ -284,15 +357,18 @@ class PlanAheadRunner:
     def _encdec(self) -> bool:
         return self.cfg.family == "encdec"
 
-    def _execute_replica(self, plan: ExecutionPlan, gb: GlobalBatch, params):
+    def _execute_replica(self, it: int, rep: int, plan: ExecutionPlan,
+                         gb: GlobalBatch, params):
         """One replica's plan -> (grads, loss_sum, weight_sum)."""
         if not plan.micro_batches:
             return None, 0.0, 0.0   # idle replica (fewer micro-batches than dp)
         batches = {m.mb_id: materialize_micro_batch(
                        m, gb.tokens, lengths=gb.lengths)
                    for m in plan.micro_batches}
+        hook = (self.chaos.executor_hook(it, replica=rep)
+                if self.chaos is not None else None)
         res = self.backend.execute_plan(
-            plan, params=params, batches=batches,
+            plan, params=params, batches=batches, hook=hook,
             collect_timings=self._calibrator is not None,
             timeout=self.rcfg.exec_timeout)
         if self._calibrator is not None and res.timings:
@@ -311,7 +387,8 @@ class PlanAheadRunner:
 
     # ------------------------- recovery side ---------------------------
     def _drain(self) -> None:
-        """Cancel in-flight plans and forget buffered state."""
+        """Cancel in-flight plans and forget buffered state: they were
+        made under a topology or speed assumption that just died."""
         if self.pool is not None:
             self.pool.drain()
         for fut in self._futures.values():
@@ -327,14 +404,97 @@ class PlanAheadRunner:
             if i not in self._futures:
                 self._submit(i)
 
-    def _recover(self, it: int, err: BaseException, stats: RunnerStats):
-        """Post-fault path: drain, replan, retry the iteration with the
-        params in memory (nothing was applied: the update comes last)."""
+    def _topology_sweep(self, it: int, stats: RunnerStats) -> None:
+        """The replica set changed: run an ElasticPlanManager sweep, shrink
+        (or re-grow) ``dp_size`` to the survivors, drain and resubmit."""
+        gb = self.stream.batch(it)
+        res = self.elastic.plan(self._plan_lengths(gb))
+        alive = res["alive"]
+        if not alive:
+            raise PipelineError(f"iteration {it}: all replicas dead")
+        self._alive = list(alive)
+        self.pcfg = dataclasses.replace(
+            self.pcfg, dp_size=len(alive),
+            speed_factors=list(res["speed_factors"]))
+        if self.elastic.replan is not None:
+            # later sweeps replan under the surviving topology
+            self.elastic.replan = make_planner_replan(self.cost, self.pcfg)
+        stats.faults += len(res["dead_this_sweep"])
+        stats.recoveries.append({
+            "iter": it, "kind": "replica_set_change",
+            "alive": list(alive), "dead": list(res["dead"]),
+            "dead_this_sweep": list(res["dead_this_sweep"]),
+            "recovered_this_sweep": list(res["recovered_this_sweep"]),
+        })
         self._drain()
-        stats.recoveries.append({"iter": it, "kind": "retry",
-                                 "fault": repr(err)})
-        time.sleep(self.rcfg.retry_backoff_s)
         self._resubmit_window(it)
+
+    def _recover(self, it: int, err: BaseException, params, opt,
+                 stats: RunnerStats):
+        """Post-fault path: drain, maybe restore, replan. Returns
+        (params, opt, resume_iteration). A restore copies the checkpoint
+        into the live tensors; a step that fails to load leaves them
+        untouched, so the fallback retries with the state in memory."""
+        self._drain()
+        resume = it
+        ev = _injected_event(err)
+        if ev is not None and ev.state_lost and self.rcfg.ckpt_dir:
+            try:
+                timings: dict = {}
+                state, manifest = CKPT.load_latest_valid(
+                    self.rcfg.ckpt_dir, {"params": params, "opt": opt},
+                    timings)
+                params, opt = state["params"], state["opt"]
+                if self.backend is not None:
+                    opt = self.backend.place_opt_state(opt)
+                resume = int(manifest["step"])
+                stats.checkpoints.append(
+                    {"kind": "load", "step": resume, **timings})
+                stats.recoveries.append(
+                    {"iter": it, "kind": "checkpoint_restore",
+                     "restored_step": resume, "fault": repr(err)})
+            except FileNotFoundError:
+                warnings.warn(
+                    f"iteration {it}: state lost but no restorable "
+                    "checkpoint — retrying with in-memory params",
+                    stacklevel=2)
+                stats.recoveries.append(
+                    {"iter": it, "kind": "retry_no_checkpoint",
+                     "fault": repr(err)})
+        else:
+            stats.recoveries.append(
+                {"iter": it, "kind": "retry", "fault": repr(err)})
+        time.sleep(self.rcfg.retry_backoff_s)
+        self._resubmit_window(resume)
+        return params, opt, resume
+
+    def _save(self, step: int, params, opt, stats: RunnerStats,
+              extra: Optional[dict] = None) -> None:
+        timings: dict = {}
+        CKPT.save(self.rcfg.ckpt_dir, step, {"params": params, "opt": opt},
+                  extra=extra, timings=timings)
+        stats.checkpoints.append({"kind": "save", "step": step, **timings})
+
+    def _emergency_save(self, params, opt, stats: RunnerStats) -> None:
+        """Best-effort final checkpoint before the run dies; it never masks
+        the original failure. After a sticky CUDA error the save's own
+        device synchronise raises too: that is warned about, and the
+        original exception goes on.
+
+        The step is the optimizer's own count of committed updates, not the
+        loop's iteration: between an iteration's update and the loop's
+        ``it += 1`` (the heartbeats, the history, the periodic save) the
+        state already holds iteration ``it``'s update, and a checkpoint
+        labelled ``it`` would replay that iteration a second time on
+        restart."""
+        if not self.rcfg.ckpt_dir:
+            return
+        step = opt["step"]
+        try:
+            self._save(step, params, opt, stats, extra={"emergency": True})
+        except Exception as e:   # noqa: BLE001 — reporting path
+            warnings.warn(f"emergency checkpoint at step {step} "
+                          f"failed: {e!r}", stacklevel=2)
 
     # ------------------------------ run --------------------------------
     def run(self):
@@ -346,6 +506,18 @@ class PlanAheadRunner:
             init = T.init_encdec if self._encdec else MD.init_params
             params = init(gen, cfg, device=self.device)
         opt = init_opt_state(params, self.opt_cfg)
+        stats = RunnerStats(
+            mode="synchronous" if rcfg.synchronous else "plan-ahead")
+        start = 0
+        if rcfg.ckpt_dir:
+            timings: dict = {}
+            state, start = CKPT.restore_or_init(
+                rcfg.ckpt_dir, lambda: {"params": params, "opt": opt},
+                timings)
+            if start:
+                params, opt = state["params"], state["opt"]
+                stats.checkpoints.append(
+                    {"kind": "load", "step": start, **timings})
 
         self.backend = make_backend(
             rcfg.backend, cfg, self.pcfg.n_stages, step_cache=self.step_cache,
@@ -353,7 +525,7 @@ class PlanAheadRunner:
             strict=rcfg.strict_verify, device=self.device)
         opt = self.backend.place_opt_state(opt)
 
-        start, end = 0, rcfg.n_iters
+        end = start + rcfg.n_iters
         self._end = end
         if not rcfg.synchronous:
             self._reset_pool()
@@ -361,14 +533,24 @@ class PlanAheadRunner:
                 self._submit(i)
 
         history = []
-        stats = RunnerStats(
-            mode="synchronous" if rcfg.synchronous else "plan-ahead")
         it = start
         attempts = 0
+        # True while AdamW overwrites params, master, m and v leaf by leaf:
+        # unlike the reference's pure update, an exception escaping from
+        # inside it (an OOM, a CUDA error, an interrupt) leaves some leaves
+        # at step k + 1 and the rest at step k. No checkpoint is written
+        # from such a state: one labelled k holding part of k + 1 would
+        # restore silently wrong.
+        updating = False
         try:
             while it < end:
                 t0 = time.perf_counter()
                 try:
+                    if self.elastic is not None \
+                            and self.monitor.alive() != self._alive:
+                        t_rec = time.perf_counter()
+                        self._topology_sweep(it, stats)
+                        stats.recovery_s += time.perf_counter() - t_rec
                     if not rcfg.synchronous and it + rcfg.lookahead < end \
                             and (it + rcfg.lookahead) not in self._futures:
                         self._submit(it + rcfg.lookahead)
@@ -382,37 +564,64 @@ class PlanAheadRunner:
                             "the stream must carry (enc, dec) lengths with "
                             "dec > 0 for every sample (use "
                             "encdec_fraction=1.0)")
-                    # every replica's plan executes here (one process stands
-                    # in for the DP group) and the grads merge, so the
-                    # full-batch gradient does not depend on the split
+                    # every surviving replica's plan executes here (one
+                    # process stands in for the DP group) and the grads
+                    # merge, so the full-batch gradient does not depend on
+                    # the split
                     grads, loss_sum, w_sum = None, 0.0, 0.0
+                    replica_s: dict[int, float] = {}
                     for pos, rplan in enumerate(it_plan.replica_plans):
+                        rep = (self._alive[pos] if pos < len(self._alive)
+                               else pos)
                         # replica 0 executes the store-roundtripped plan;
                         # others roundtrip locally for identical semantics
                         xplan = plan if pos == 0 else \
                             ExecutionPlan.from_json(rplan.to_json())
-                        g, ls, ws = self._execute_replica(xplan, gb, params)
+                        rt0 = time.perf_counter()
+                        g, ls, ws = self._execute_replica(
+                            it, rep, xplan, gb, params)
+                        if self.monitor is not None \
+                                and self.device.type == "cuda":
+                            # the pipeline's join only makes this stream
+                            # wait on the stages: end the replica's time
+                            # when its work has run, not when it was queued
+                            torch.cuda.synchronize(self.device)
+                        replica_s[rep] = time.perf_counter() - rt0
                         loss_sum += ls
                         w_sum += ws
                         if g is not None:
                             grads = g if grads is None else add_into(grads, g)
-                except PipelineError as e:
+                except (PipelineError, InjectedFault) as e:
                     stats.faults += 1
                     attempts += 1
                     if attempts > rcfg.max_retries:
+                        # retry budget spent: the handler below writes the
+                        # emergency checkpoint
                         raise
                     t_rec = time.perf_counter()
-                    self._recover(it, e, stats)
+                    params, opt, it = self._recover(it, e, params, opt,
+                                                    stats)
                     stats.recovery_s += time.perf_counter() - t_rec
                     continue
                 attempts = 0
 
                 scale_(grads, 1.0 / max(w_sum, 1.0))
+                updating = True
                 params, opt, om = self.backend.optimizer_step(
                     params, grads, opt, self.opt_cfg)
+                updating = False
                 grad_norm = float(om["grad_norm"])   # syncs the device
                 del grads
                 dt = time.perf_counter() - t0
+                if self.monitor is not None:
+                    for rep in self._alive:
+                        if self.chaos is not None \
+                                and self.chaos.replica_silent(it, rep):
+                            continue
+                        self.monitor.heartbeat(
+                            rep, iter_time=replica_s.get(rep, dt))
+                    if isinstance(self.monitor.clock, LogicalClock):
+                        self.monitor.clock.advance(1.0)
 
                 padded = sum(
                     m.mbs * (sum(m.seq) if isinstance(m.seq, (tuple, list))
@@ -442,7 +651,22 @@ class PlanAheadRunner:
                     print(f"iter {it:5d}  loss {loss:8.4f}  micro-batches "
                           f"{n_micro:3d}  {dt*1e3:7.1f} ms  "
                           f"plan-wait {wait_s*1e3:6.1f} ms", flush=True)
+                if rcfg.ckpt_dir and rcfg.ckpt_every \
+                        and (it + 1) % rcfg.ckpt_every == 0:
+                    self._save(it + 1, params, opt, stats)
                 it += 1
+        except BaseException:
+            if updating:
+                warnings.warn(
+                    f"iteration {it}: the failure escaped from inside the "
+                    "in-place optimizer update, which leaves the state part "
+                    f"at step {it + 1} and part at step {it}; no emergency "
+                    "checkpoint is written", stacklevel=2)
+            else:
+                # anything else that escapes the retry loop (retries
+                # spent included) leaves a final restart point
+                self._emergency_save(params, opt, stats)
+            raise
         finally:
             if self.pool is not None:
                 self.pool.shutdown()
@@ -450,4 +674,5 @@ class PlanAheadRunner:
         stats.cache = self.step_cache.stats()
         if self._calibrator is not None:
             stats.calibration = self._calibrator.summary()
+        self.opt_state = opt
         return params, history, stats

@@ -619,3 +619,86 @@ def test_mamba_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
         a, b = a.cpu().float()[0], b.float()[0]     # prefill logits
         err = float((a - b).abs().max()) / (1 + float(b.abs().max()))
         assert err <= TOL
+
+
+def test_checkpoint_save_and_restore_in_place_on_the_card(cuda, tmp_path):
+    # a CUDA tree of bf16 params, fp32 master, m and v and the int step:
+    # saved, scribbled over, restored in place, equal to the bit, every
+    # tensor at its old address
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train import optimizer as TO
+    from repro_torch.tree import flatten, tree_map
+    cfg = SV.make_config("gpt-paper", "reduced", 2)
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    opt = TO.init_opt_state(params, TO.AdamWConfig())
+    grads = tree_map(torch.ones_like, params)
+    params, opt, _ = TO.adamw_update(params, grads, opt, TO.AdamWConfig())
+    state = {"params": params, "opt": opt}
+    want = {p: x.clone() for p, x in flatten(state)
+            if isinstance(x, torch.Tensor)}
+    ptrs = {p: x.data_ptr() for p, x in flatten(state)
+            if isinstance(x, torch.Tensor)}
+    CKPT.save(tmp_path, 1, state)
+    for _, x in flatten(state):
+        if isinstance(x, torch.Tensor):
+            x.fill_(7)
+    state["opt"]["step"] = 0
+    got, manifest = CKPT.load(tmp_path, state)
+    assert manifest["step"] == 1 and got["opt"]["step"] == 1
+    for p, x in flatten(got):
+        if isinstance(x, torch.Tensor):
+            assert x.is_cuda and x.data_ptr() == ptrs[p], p
+            assert torch.equal(x, want[p]), p
+
+
+def test_pipelined_fault_run_on_the_card_equals_the_fault_free_run(
+        cuda, tmp_path):
+    # 2 stages at reduced width: a state-losing crash on stage 1's backward
+    # (stage 0 mid-plan on its own stream) restores step 2 and replays; a
+    # crash on stage 0's forward retries in memory. Trajectory and final
+    # parameters equal the fault-free run's to the bit. A straggler monitor
+    # takes each replica's time, closed on a device synchronise.
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    from repro_torch.dist.chaos import (FaultEvent, FaultKind, FaultSchedule,
+                                        LogicalClock)
+    from repro_torch.dist.fault import StragglerMonitor
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    from repro_torch.tree import leaves
+    cfg = SV.make_config("gpt-paper", "reduced", 2)
+    monitors = []
+
+    def run(chaos, ckpt_dir):
+        monitors.append(StragglerMonitor(1, heartbeat_timeout=2.0,
+                                         clock=LogicalClock()))
+        stream = MultiTaskStream(StreamConfig(
+            n_tasks=8, global_tokens=1024, max_len=128, vocab=cfg.vocab,
+            tail_fraction=0.1, tail_alpha=1.2, seed=0))
+        pcfg = PlannerConfig(n_stages=2, d_model=cfg.d_model,
+                             palette=ShapePalette.build(
+                                 min_seq=32, max_seq=128, seq_align=32,
+                                 max_mbs=4))
+        rcfg = RunnerConfig(n_iters=5, log_every=0, seed=0, device="cuda",
+                            ckpt_dir=str(ckpt_dir), ckpt_every=2,
+                            strict_verify=True, retry_backoff_s=0.01)
+        return PlanAheadRunner(cfg, AnalyticCostModel(cfg, n_stages=2), pcfg,
+                               rcfg, stream, chaos=chaos,
+                               monitor=monitors[-1]).run()
+
+    chaos = FaultSchedule([
+        FaultEvent(3, FaultKind.STAGE_CRASH, stage=1, op="B", state_lost=True),
+        FaultEvent(4, FaultKind.STAGE_CRASH, stage=0, op="F")])
+    pf, hf, sf = run(chaos, tmp_path / "fault")
+    p0, h0, _ = run(None, tmp_path / "free")
+    assert not chaos.pending()
+    assert [(r["kind"], r.get("restored_step")) for r in sf.recoveries] == \
+        [("checkpoint_restore", 2), ("retry", None)]
+    assert [h["iter"] for h in hf] == [0, 1, 2, 2, 3, 4]
+    last = {h["iter"]: (h["loss"], h["grad_norm"]) for h in hf}
+    assert last == {h["iter"]: (h["loss"], h["grad_norm"]) for h in h0}
+    for a, b in zip(leaves(pf), leaves(p0)):
+        assert torch.equal(a, b)
+    assert all(m.mean_iter_time(0) > 0 for m in monitors)

@@ -31,7 +31,8 @@ COPIED = sorted(str(p.relative_to(REPO / "src" / "repro"))
     "core/comm_plan.py", "core/recompute.py", "core/planner.py",
     "core/executor.py", "analysis/__init__.py", "analysis/hb_graph.py",
     "analysis/lint.py", "analysis/memory.py", "analysis/report.py",
-    "data/dataset.py", "data/streams.py", "train/step_cache.py"]
+    "data/dataset.py", "data/streams.py", "train/step_cache.py",
+    "dist/chaos.py", "dist/fault.py", "analysis/__main__.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)

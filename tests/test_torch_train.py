@@ -266,20 +266,28 @@ def test_loss_fn_matches_reference():
 
 
 def test_strict_verification_raises_until_ported():
-    # the backend and the runner refuse strict mode instead of running
-    # unverified plans
+    # strict verification is ported (ROADMAP A4): the backend and the
+    # runner take it, and the backend refuses a plan the verifier flags
+    # instead of running it
+    from repro_torch.core.executor import PlanRejectedError
+    from repro_torch.core.instructions import ExecutionPlan, Instr, Op
     from repro_torch.dist.backend import make_backend
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="A4"):
-        make_backend("threads", tcfg, 1, use_executor=False, strict=True,
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A4"):
-        _port_runner(tcfg, None, strict_verify=True)
+    backend = make_backend("threads", tcfg, 1, use_executor=False,
+                           strict=True, device="cpu")
+    assert backend.strict
+    _, hist, _ = _port_runner(tcfg, None, strict_verify=True).run()
+    assert len(hist) == 3
+    bad = ExecutionPlan(n_stages=2, micro_batches=[], per_stage=[
+        [Instr(Op.SEND_ACT_START, 0, peer=1)], []])
+    with pytest.raises(PlanRejectedError):
+        backend.execute_plan(bad, params=None, batches={})
 
 
 def test_stage_pipeline_and_unported_features_raise():
     _, tcfg = _cfgs("float32")
     from repro_torch.dist.backend import ThreadsBackend, make_backend
+    from repro_torch.dist.chaos import FaultSchedule
     from repro_torch.train.pipeline_adapter import PipelinedModel
     # the stage pipeline (ROADMAP A9) is ported: 2 stages over the 2
     # periods run it
@@ -287,13 +295,15 @@ def test_stage_pipeline_and_unported_features_raise():
                                      device="cpu").pm, PipelinedModel)
     with pytest.raises(NotImplementedError, match="A13"):
         make_backend("mesh", tcfg, 1, device="cpu")
-    for kw, item in ((dict(ckpt_dir="x"), "A10"), (dict(backend="mesh"), "A13"),
+    for kw, item in ((dict(backend="mesh"), "A13"),
                      (dict(fault_domain="process"), "A14")):
         with pytest.raises(NotImplementedError, match=item):
             _port_runner(tcfg, None, **kw)
-    with pytest.raises(NotImplementedError, match="A12"):
-        PlanAheadRunner(tcfg, None, None, RunnerConfig(device="cpu"), None,
-                        chaos=object())
+    # checkpoints (A10) and fault injection (A12) are ported: the runner
+    # takes them
+    _port_runner(tcfg, None, ckpt_dir="x")
+    PlanAheadRunner(tcfg, None, PlannerConfig(n_stages=1),
+                    RunnerConfig(device="cpu"), None, chaos=FaultSchedule([]))
     # the sequential fallback the reference also takes: stages that do not
     # divide the periods, or no executor
     assert ThreadsBackend(tcfg, 2, use_executor=False, device="cpu").pm is None
