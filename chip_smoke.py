@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba, fault
+    python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
+                            # fault, moe, frames, mixed
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
 
@@ -26,7 +27,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              encoder's non-causal self-attention, B 16, T = S 512, 128
              heads; ``t5-cross``: 128 decoder tokens to 512 encoder tokens,
              packed rows whose decoder segments see only their encoder
-             segments, both sides padded); both elementwise and per 64-row tile, where the
+             segments, both sides padded), at the moe phase's training
+             shape (``granite-train``: B 8, T 2048, 24 q and 8 kv heads x
+             64, rows as train-segmented's) and the frames phase's
+             (``hubert-4k``: B 4, T = S 4096, 16 heads x 80, non-causal,
+             one segment; head dim 80 runs zero-padded to 128, and the
+             padding's time is printed); both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
              the backward must give dq, dk and dv equal to the bit over
              three calls; with times of the kernels (the backward alone and as the whole
@@ -102,7 +108,36 @@ Phases, each printing its own lines; any failure exits non-zero:
              each save's seconds (device synchronise, device to host, CRC,
              write), each load's, recovery_s, strict verification's time
              per plan, peak memory and both runs' launches;
-9. profile — (not run by default) torch.profiler over one full-width prefill
+9. moe     — granite-moe-3b-a800m at full width (40 experts x 512, top-8):
+             served at full depth (32 layers) with the serve phase's
+             requests, K1 launched exactly layers x (batches + batches x
+             decode steps) times; trained at 16 layers on the train phase's
+             stream, 4 iterations, exact launches, and two 2-iteration runs
+             equal to the bit; llama4-scout-17b-a16e (top-1 and a shared
+             expert) served at 4 layers, 8 requests, 4 decode steps. Each
+             is held at 2 layers to the plain versions on the kernels' own
+             routes (recorded in the kernel run and replayed by a patch of
+             ``layers.moe_route``, since bf16 noise flips some routes; the
+             flips are counted): logits within TOL_BF16, and the first
+             iteration's loss and gradient leaves within GRAD_TOL and
+             GRAD_REL_TOL, each of which must fail a planted fault, every
+             token's second expert dropped;
+10. frames — hubert-xlarge at full width and depth (48 layers, 16 heads x
+             80): 4 AdamW steps of ``build_grad_step`` on seeded (4, 4096)
+             frame batches (spans of 10 masked frames from starts drawn at
+             8%, the loss on the masked frames), exact launches of K1 and
+             the backward at head dim 80, then the encoder forward
+             (prefill) at the same shape; at 2 layers the gradient leaves
+             against the plain versions, which must fail a zero dq;
+11. mixed  — llava-next-34b at full width, 16 of 60 layers: 4 rows of 2880
+             seeded patch embeddings and 512 text tokens prefilled, 8
+             greedy decode steps, exact K1 launches, finite logits; at 2
+             layers the logits against the plain attention;
+12. profile — (not run by default; ``profile-models`` the same for the
+             moe, frames and mixed configurations: granite-moe's serve
+             windows and a 16-layer training iteration, a hubert-xlarge
+             step and encoder forward, llava-next's prefill and decode)
+             torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
              mamba2-130m, over one training iteration at 8 layers, and over
              one pipelined iteration of gpt-paper (8 layers) and of t5-paper
@@ -117,6 +152,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import re
 import subprocess
@@ -147,6 +183,12 @@ GRAD_TOL_BF16 = 4e-2
 # lies between the kernels' readings and those of the planted faults each
 # phase also reads (PERF.md, section 6).
 GRAD_REL_TOL = 1e-2
+# ||logits - plain|| / ||plain|| per row of a prefill's logits, in the moe
+# phase's serve comparisons. At 2 layers one expert in eight dropped moves
+# the logits by about 2% of their norm, and TOL_BF16 over max |logit|
+# barely sees it; the limit lies between the kernel runs' readings and
+# those of that planted fault (PERF.md, section 6).
+LOGIT_REL_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 # the serve and mamba phases: requests, longest prompt, greedy steps
@@ -193,6 +235,27 @@ T5_PALETTE = dict(min_seq=64, max_seq=512, seq_align=64, max_mbs=16)
 # a checkpoint every 3; a lost plan costs the plan timeout
 FAULT_LAYERS, FAULT_STAGES, FAULT_ITERS, FAULT_CKPT_EVERY = 2, 2, 6, 3
 FAULT_PLAN_TIMEOUT = 3.0
+# the moe phase: granite-moe-3b-a800m at full width (32 layers, d_model
+# 1536, 24 q and 8 kv heads x 64, 40 experts x 512 top-8, 3.30 B
+# parameters), served at full depth with the serve phase's requests;
+# trained with depth cut to 16 layers (1.69 B parameters, 34 GB at 20
+# bytes a parameter; 32 layers' 66 GB of state leave too little for the
+# MoE buffers and activations) on the train phase's stream (at the model's
+# vocabulary), palette and device_mem; llama4-scout-17b-a16e (top-1 and a
+# shared expert) with depth cut to 4 of 48 layers (10.9 B parameters, 21.8
+# GB in bf16; 48 layers are 216 GB), 8 requests and 4 decode steps; each
+# against the plain versions at 2 layers on the kernels' routes
+MOE_ARCH, MOE_TRAIN_LAYERS = "granite-moe-3b-a800m", 16
+LLAMA4_LAYERS, LLAMA4_REQUESTS, LLAMA4_DECODE_STEPS = 4, 8, 4
+# the frames phase: hubert-xlarge at full width and depth (48 layers, 0.95
+# B parameters, 19 GB of state), 4 AdamW steps on (4, 4096) frame batches,
+# the reference's train_4k length; nothing cut
+HUBERT_BATCH, HUBERT_SEQ, HUBERT_STEPS = 4, 4096, 4
+# the mixed phase: llava-next-34b at full width with depth cut to 16 of 60
+# layers (9.8 B parameters, 19.7 GB; 60 layers are 68.9 GB before
+# activations), 4 rows of 2880 patch positions and 512 text tokens, 8
+# greedy decode steps
+LLAVA_LAYERS, LLAVA_ROWS, LLAVA_TEXT, LLAVA_DECODE_STEPS = 16, 4, 512, 8
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -201,16 +264,19 @@ KERNELS = {
            "src/repro/kernels/flash_attention.py:354", "prefill",
            {"decode": "decode", "causal_2048": "prefill",
             "train_segmented": "train-segmented", "t5_enc": "t5-enc",
-            "t5_cross": "t5-cross"}, ("train", "serve")),
+            "t5_cross": "t5-cross", "granite_train": "granite-train",
+            "hubert_4k": "hubert-4k"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
-            "t5_cross": "t5-cross"}, ("train", "serve")),
+            "t5_cross": "t5-cross", "granite_train": "granite-train",
+            "hubert_4k": "hubert-4k"}, ("train", "serve")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
-            "t5_cross": "t5-cross"}, ("train", "serve")),
+            "t5_cross": "t5-cross", "granite_train": "granite-train",
+            "hubert_4k": "hubert-4k"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
            ("mamba",)),
@@ -283,12 +349,12 @@ def _cuda_time(torch, fn, iters, warmup=2):
 
 
 def _case_inputs(torch, gen, *, b, t, s, h, kv, q_pos=None, kv_pos=None,
-                 q_seg=None, kv_seg=None, q_scale=1.0):
+                 q_seg=None, kv_seg=None, q_scale=1.0, d=128):
     dev = "cuda"
-    q = (torch.randn((b, t, h, 128), generator=gen, device=dev) * q_scale
+    q = (torch.randn((b, t, h, d), generator=gen, device=dev) * q_scale
          ).to(torch.bfloat16)
-    k = torch.randn((b, s, kv, 128), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((b, s, kv, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
 
     def ints(x, n):
         if x is None:
@@ -349,6 +415,8 @@ def _library_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window,
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, **gqa)
     mask = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)[:, None]
+    if bool(mask.all()):     # every pair live (hubert's one segment)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa)
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, **gqa)
 
@@ -427,10 +495,12 @@ def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
     h = q.shape[2]
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
     gqa = {"enable_gqa": True} if h != k.shape[2] else {}
+    mask = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)[:, None]
     if qseg is None and causal and window == 0 and q.shape[1] == k.shape[1]:
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+    elif bool(mask.all()):   # every pair live (hubert's one segment)
+        out = F.scaled_dot_product_attention(qt, kt, vt, **gqa)
     else:
-        mask = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)[:, None]
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
@@ -501,12 +571,22 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     if not timed:
         return {}, worst
     iters = 10
-    acc, sem = fa.dq_accumulator(q)
+    # the kernel alone runs at an instantiated head dim, on the operands
+    # the wrapper pads (hubert's 80 to 128) with the scale it passes
+    d = q.shape[-1]
+    (pq, pk, pv, po, pdo), sm_scale = fa.kernel_operands(q, k, v, o, do)
+    kd = pq.shape[-1]
+    pad_ms = (_cuda_time(torch, lambda: fa.kernel_operands(q, k, v, o, do),
+                         iters) if kd != d else 0.0)
+    acc, sem = fa.dq_accumulator(pq)
+    dkp, dvp = torch.empty_like(pk), torch.empty_like(pv)
     # a zeroed set of dq counters for each launch, made before the timing
     sems = iter(torch.zeros((iters + 2,) + sem.shape, dtype=torch.int32,
                             device="cuda"))
     ms = _cuda_time(torch, lambda: fa._launch_backward(
-        *res, delta, acc, dk, dv, sem=next(sems), **opts), iters)
+        pq, pk, pv, qp, kp, qs, ks, po, lse, pdo, delta, acc, dkp, dvp,
+        sm_scale=sm_scale, sem=next(sems), **opts), iters)
+    del pq, pk, pv, po, pdo, dkp, dvp
     whole_ms = _cuda_time(torch, lambda: fa.mha_backward(*res, **opts), iters)
     # the whole backward's other parts: delta, the zeroed accumulator, the cast
     delta_ms = _cuda_time(torch, lambda: fa.attention_delta(o, do), iters)
@@ -528,6 +608,8 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
                "reference's K2 and K3; backward_ms adds delta, the zeroed "
                "dq accumulator and counters, and dq's cast",
                repeatable=same)
+    if kd != d:
+        rec.update(head_dim=d, kernel_head_dim=kd, pad_ms=pad_ms)
     lib_s = library_ms if library_ms is None else round(library_ms, 4)
     print(f"[kernel] {name:20s} backward kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {pairs} live pairs), whole "
@@ -536,7 +618,10 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
           f"{bound_ms:.4f} ms by "
           f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound, "
           f"{100 * bound_ms / whole_ms:.1f}% for the whole); plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_s} ms", flush=True)
+          f"{plain_ms:.4f} ms, sdpa {lib_s} ms"
+          + (f"; head dim {d} padded to {kd}: the kernel at {kd}, the "
+             f"padding of q, k, v, o and do {pad_ms:.4f} ms (in the whole)"
+             if kd != d else ""), flush=True)
     return {"K2": rec, "K3": rec}, worst
 
 
@@ -590,6 +675,11 @@ def phase_kernel(torch):
     # the last row is all padding
     enc_seg, enc_pos = _train_rows(T5_ENC_ROWS, 512)
     x_dec_seg, x_enc_seg = _cross_rows(T5_ENC_ROWS, 512, T5_DEC_LEN)
+    # the moe phase's training attention (granite: 24 q and 8 kv heads x
+    # 64), rows of one sample each as in train-segmented; the frames
+    # phase's (hubert: 16 heads x 80, non-causal, one segment)
+    gr_seg, gr_pos = _train_rows(TRAIN_ROWS * 2, 2048)
+    hb_seg = [[0] * HUBERT_SEQ] * HUBERT_BATCH
     # name, shape, options, K1 timed, backward: None, "check" or the name
     # of its timed record
     cases = [
@@ -625,6 +715,12 @@ def phase_kernel(torch):
         ("t5-cross", dict(b=16, t=T5_DEC_LEN, s=512, h=128, kv=128,
                           q_seg=x_dec_seg, kv_seg=x_enc_seg),
          dict(causal=False), True, "t5-cross"),
+        ("granite-train", dict(b=8, t=2048, s=2048, h=24, kv=8, d=64,
+                               q_pos=gr_pos, kv_pos=gr_pos, q_seg=gr_seg,
+                               kv_seg=gr_seg), {}, True, "granite-train"),
+        ("hubert-4k", dict(b=HUBERT_BATCH, t=HUBERT_SEQ, s=HUBERT_SEQ, h=16,
+                           kv=16, d=80, q_seg=hb_seg, kv_seg=hb_seg),
+         dict(causal=False), True, "hubert-4k"),
     ]
     # worst |out - plain| and worst tile relative error
     records, worst = {}, {"K1": (0.0, 0.0), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
@@ -684,12 +780,21 @@ def phase_kernel(torch):
             records[("K1", name)] = dict(ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound_ms, bound_by=bound_by,
                                          library_ms=library_ms)
+            d, kd = q.shape[-1], fa.kernel_head_dim(q.shape[-1])
+            pad_note = ""
+            if kd != d:   # ms covers the padding of q, k, v and o's cut
+                pad_ms = _cuda_time(
+                    torch, lambda: fa.kernel_operands(q, k, v), iters)
+                records[("K1", name)].update(head_dim=d, kernel_head_dim=kd,
+                                             pad_ms=pad_ms)
+                pad_note = (f"; head dim {d} padded to {kd}, the padding of "
+                            f"q, k and v {pad_ms:.4f} ms of it")
             line += (f"\n[kernel] {name:20s} kernel {ms:.4f} ms "
                      f"({flops / ms / 1e9:.1f} TFLOP/s, "
                      f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
                      f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
                      f"bound {bound_ms:.4f} ms by {bound_by} "
-                     f"({100 * bound_ms / ms:.1f}% of bound)")
+                     f"({100 * bound_ms / ms:.1f}% of bound){pad_note}")
         print(line, flush=True)
         if bwd is not None:
             recs, errs = _check_backward(torch, fa, name, args, opts, o, lse,
@@ -965,17 +1070,17 @@ def phase_serve(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase 4: train at full width
 # ----------------------------------------------------------------------
-def _train_setup(torch, n_layers, n_stages=1):
-    """gpt-paper at full width and ``n_layers``, its stream, cost model and
-    planner config as the train phase runs them (the pipeline phase: over
-    ``n_stages``)."""
+def _train_setup(torch, n_layers, n_stages=1, arch="gpt-paper"):
+    """``arch`` (gpt-paper) at full width and ``n_layers``, its stream at
+    the model's vocabulary, cost model and planner config as the train
+    phase runs them (the pipeline phase: over ``n_stages``)."""
     import dataclasses
     from repro_torch.configs.base import get_arch
     from repro_torch.core.cost_model import AnalyticCostModel
     from repro_torch.core.planner import PlannerConfig
     from repro_torch.core.shapes import ShapePalette
     from repro_torch.data.streams import MultiTaskStream, StreamConfig
-    cfg = dataclasses.replace(get_arch("gpt-paper"), n_layers=n_layers)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=n_layers)
     stream = MultiTaskStream(StreamConfig(vocab=cfg.vocab, **TRAIN_STREAM))
     pal = ShapePalette.build(min_seq=64, max_seq=TRAIN_STREAM["max_len"],
                              seq_align=64, max_mbs=16)
@@ -986,11 +1091,11 @@ def _train_setup(torch, n_layers, n_stages=1):
 
 
 def _train(torch, n_layers, iters, seed, params=None, log_every=1,
-           n_stages=1):
-    """The plan-ahead runner on gpt-paper; with ``n_stages`` > 1 on the
+           n_stages=1, arch="gpt-paper"):
+    """The plan-ahead runner on ``arch``; with ``n_stages`` > 1 on the
     threaded stage pipeline."""
     from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
-    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, n_stages)
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, n_stages, arch)
     rcfg = RunnerConfig(n_iters=iters, use_executor=n_stages > 1, seed=seed,
                         log_every=log_every, device="cuda")
     runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream, params=params)
@@ -1771,7 +1876,591 @@ def phase_fault(torch, card):
 
 
 # ----------------------------------------------------------------------
-# phase 9: profiles (not run by default)
+# phase 9: MoE, granite-moe served at full width and depth and trained at
+# 16 layers, llama4-scout served at 4 layers
+# ----------------------------------------------------------------------
+def _route_recorder():
+    """A patch of the port's router that records each call's top-k
+    experts, in call order (the forward's layers, then each period's
+    recompute in the backward): ``(routes, patch)``."""
+    from repro_torch.models import layers as L
+    routes, real = [], L.moe_route
+
+    def record(xf, router, cfg):
+        out = real(xf, router, cfg)
+        routes.append(out[2].clone())
+        return out
+    return routes, mock.patch.object(L, "moe_route", record)
+
+
+def _route_replayer(torch, routes, drop_second=False):
+    """A patch of the port's router that computes its own probabilities but
+    takes the recorded experts (call by call), their weights renormalised
+    from its own probabilities; ``flips`` counts the tokens whose own top-k
+    set differs. ``drop_second`` plants a fault: each token's second
+    expert weighs 0."""
+    from repro_torch.models import layers as L
+    it, real = iter(routes), L.moe_route
+    flips = {"tokens": 0, "flipped": 0}
+
+    def replay(xf, router, cfg):
+        probs, _, own = real(xf, router, cfg)
+        top_i = next(it)
+        flips["tokens"] += top_i.shape[0]
+        flips["flipped"] += int((own.sort(-1).values
+                                 != top_i.sort(-1).values).any(-1).sum())
+        top_p = probs.gather(1, top_i)
+        top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        if drop_second:
+            top_p = top_p * (torch.arange(top_p.shape[1], device=top_p.device)
+                             != 1)
+        return probs, top_p, top_i
+    return flips, mock.patch.object(L, "moe_route", replay)
+
+
+def _prefill_rel(torch, a, b):
+    """Worst ||a - b|| / ||b|| over the rows of the prefills' logits, which
+    both runs computed from the same tokens."""
+    return max(float((torch.linalg.vector_norm(la[0] - lb[0], dim=-1)
+                      / torch.linalg.vector_norm(lb[0], dim=-1)).max())
+               for la, lb in zip(a.logits, b.logits))
+
+
+def _serve_against_plain(torch, arch, n_layers, kw, tag, fault=True):
+    """The serve at ``n_layers`` with the kernels, recording the routes, and
+    again with the plain versions replaying them: the logits within
+    TOL_BF16, and each prefill row's logits within LOGIT_REL_TOL by norm;
+    with ``fault``, a replay without each token's second expert must fail
+    the latter."""
+    routes, record = _route_recorder()
+    with record:
+        _, _, with_k = _serve(torch, n_layers, arch=arch, tag=tag, **kw)
+    runs = {}
+    for name in ("plain",) + (("fault",) if fault else ()):
+        flips, replay = _route_replayer(torch, routes,
+                                        drop_second=name == "fault")
+        with contextlib.ExitStack() as stack:
+            for p in (*_plain_attention(), replay):
+                stack.enter_context(p)
+            runs[name] = (_serve(torch, n_layers, arch=arch, tag=tag,
+                                 **kw)[2], flips)
+    err, compared = _compare_serves(torch, with_k, runs["plain"][0], TOL_BF16)
+    rel = _prefill_rel(torch, with_k, runs["plain"][0])
+    flips = runs["plain"][1]
+    line = (f"[{tag}] {n_layers} layers, kernels vs plain versions on the "
+            f"kernels' routes: max |logit diff| / (1 + max|logit|) {err:.3e} "
+            f"over {compared} (row, step) logit vectors (tol {TOL_BF16}); "
+            f"worst prefill row ||diff|| / ||plain|| {rel:.3e} (LOGIT_REL_TOL "
+            f"{LOGIT_REL_TOL}); the plain run's own routes differ for "
+            f"{flips['flipped']} of {flips['tokens']} token routings")
+    if fault:
+        f_rel = _prefill_rel(torch, runs["fault"][0], runs["plain"][0])
+        line += (f"; planted fault (each token's second expert dropped): "
+                 f"worst prefill row {f_rel:.3e}")
+    print(line, flush=True)
+    check(err <= TOL_BF16 and rel <= LOGIT_REL_TOL, f"{n_layers}-layer "
+          f"{arch} serve logits: kernels and plain versions disagree")
+    if fault:
+        check(f_rel > LOGIT_REL_TOL, f"the {arch} serve comparison does not "
+              "see a router that drops each token's second expert")
+
+
+def _serve_line(tag, cfg, res, tokens, took, counts, expected, extra=""):
+    import numpy as np
+    from repro_torch.serve import report
+    lens = np.array([len(t) for t in tokens])
+    for line in report(res, lens).splitlines():
+        print(f"[{tag}] {line}")
+    print(f"[{tag}] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"({cfg.n_params() / 1e9:.2f} B params){extra}, {len(tokens)} "
+          f"requests in {took:.1f}s incl. init; launches {counts} (expected "
+          f"{expected}); peak memory {_peak_gib():.1f} GiB", flush=True)
+
+
+def _peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_moe(torch, requests, max_prompt, decode_steps):
+    """granite-moe at full width: served at full depth (every logit finite,
+    K1 launched layers x (batches + batches x decode steps) times), trained
+    at MOE_TRAIN_LAYERS layers (exact launches, two runs equal to the bit),
+    and at 2 layers against the plain versions on the kernels' routes;
+    llama4-scout at LLAMA4_LAYERS layers served and compared the same way."""
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.tree import leaves
+
+    print(f"[moe] cuts: {MOE_ARCH} served at full width and depth; trained "
+          f"at depth 32 -> {MOE_TRAIN_LAYERS} layers; llama4-scout-17b-a16e "
+          f"served at depth 48 -> {LLAMA4_LAYERS} layers; comparisons with "
+          "the plain versions at 2 layers", flush=True)
+    counts = {}
+    # (a) the serve at full depth; garbage of earlier phases (tensors held
+    # by the fault phase's tracebacks) is collected first, so that the peak
+    # memory readings are this phase's
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, tokens, res = _serve(torch, 32, n_requests=requests,
+                              max_prompt=max_prompt, decode_steps=decode_steps,
+                              seed=0, arch=MOE_ARCH, tag="moe")
+    counts["serve"] = ops.launch_counts()
+    nb = len(res.batches)
+    expected = {"mha_forward": cfg.n_layers * (nb + nb * decode_steps),
+                "mha_backward": 0, "ssd_chunked": 0}
+    _serve_line("moe", cfg, res, tokens, time.perf_counter() - t0,
+                counts["serve"], expected,
+                f", {cfg.n_experts} experts x {cfg.d_ff_expert} top-"
+                f"{cfg.top_k}, {decode_steps} decode steps")
+    check(counts["serve"] == expected, f"{MOE_ARCH} serve launches "
+          f"{counts['serve']}, expected {expected}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          f"non-finite logits in the {MOE_ARCH} serve")
+    del res
+    torch.cuda.empty_cache()
+    _serve_against_plain(torch, MOE_ARCH, 2, dict(
+        n_requests=requests, max_prompt=max_prompt,
+        decode_steps=decode_steps, seed=1), "moe")
+
+    # (b) training at MOE_TRAIN_LAYERS layers on the sequential runner
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _train(
+        torch, MOE_TRAIN_LAYERS, TRAIN_ITERS, seed=0, arch=MOE_ARCH)
+    counts["moe-train"] = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = _peak_gib()
+    del params
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("moe", hist, lambda it: [
+        (m.mbs, m.seq) for m in plan_iteration(
+            stream.batch(it).lengths[:, 0], cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+    print(f"[moe] {cfg.name} trained at {cfg.n_layers} layers "
+          f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
+          f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
+          f"after the first: {tok_s:.1f} real tokens/s, mean step "
+          f"{1e3 * step_s:.1f} ms; peak memory {peak:.1f} GiB; planning "
+          f"overlap {stats.overlap_fraction:.3f}; launches "
+          f"{counts['moe-train']} (expected {expected})", flush=True)
+    check(counts["moe-train"] == expected, f"{MOE_ARCH} train launches "
+          f"{counts['moe-train']}, expected {expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), f"non-finite loss or grad norm in {MOE_ARCH} "
+          "training")
+    runs = [_train(torch, MOE_TRAIN_LAYERS, 2, seed=1, log_every=0,
+                   arch=MOE_ARCH)[4:6] for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[moe] {MOE_TRAIN_LAYERS} layers, two 2-iteration runs from one "
+          f"seed: losses {[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and all "
+          f"{len(leaves(runs[0][0]))} parameter leaves equal to the bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    check(same, f"two {MOE_ARCH} training runs from one seed differ")
+    del runs
+    torch.cuda.empty_cache()
+
+    # the first iteration's largest micro-batch at 2 layers: the grad step
+    # with the kernels, recording the routes, and with the plain versions
+    # on them (and a planted fault: each token's second expert dropped)
+    cfg2, stream2, cost2, pcfg2 = _train_setup(torch, 2, arch=MOE_ARCH)
+    gb = stream2.batch(0)
+    big = max(plan_iteration(gb.lengths[:, 0], cost2, pcfg2).replica_plans[0]
+              .micro_batches, key=lambda m: m.mbs * m.seq)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in materialize_micro_batch(
+        big, gb.tokens, lengths=gb.lengths).items()}
+    params0 = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg2, device="cuda")
+    step = build_grad_step(cfg2)
+
+    def grad_step():
+        ls, ws, g = step(params0, batch)
+        return float(ls) / float(ws), {i: x.float() / float(ws)
+                                       for i, x in enumerate(leaves(g))}
+    routes, record = _route_recorder()
+    with record:
+        lk, gk = grad_step()
+    out = {}
+    for name in ("plain", "fault"):
+        flips, replay = _route_replayer(torch, routes,
+                                        drop_second=name == "fault")
+        with contextlib.ExitStack() as stack:
+            for p in (*_plain_attention(), replay):
+                stack.enter_context(p)
+            out[name] = grad_step() + (flips,)
+    (lp, gp, flips), (lf, gf, _) = out["plain"], out["fault"]
+    g_abs, g_rel, ok = _leaf_errs(torch, gk, gp)
+    f_abs, f_rel, f_ok = _leaf_errs(torch, gf, gp)
+    loss_err = abs(lk - lp) / max(1.0, abs(lp))
+    print(f"[moe] 2 layers, kernels vs plain versions on the kernels' routes, "
+          f"a micro-batch of {big.mbs} x {big.seq}: loss {lk:.6f} vs "
+          f"{lp:.6f}; {len(gk)} gradient leaves, max |diff| {g_abs:.3e}, worst "
+          f"||diff|| / ||plain|| {g_rel:.3e} (GRAD_TOL {GRAD_TOL_BF16}, "
+          f"GRAD_REL_TOL {GRAD_REL_TOL}); the plain run's own routes differ "
+          f"for {flips['flipped']} of {flips['tokens']} token routings; "
+          f"planted fault (each token's second expert dropped): loss "
+          f"{lf:.6f}, worst ||diff|| / ||plain|| {f_rel:.3e}, elementwise "
+          f"GRAD_TOL {'passes' if f_ok else 'fails'} it", flush=True)
+    check(ok and g_rel <= GRAD_REL_TOL, "2-layer MoE gradient leaves: "
+          "kernels and plain versions disagree")
+    check(loss_err <= GRAD_TOL_BF16, "2-layer MoE losses: kernels and plain "
+          f"versions disagree ({loss_err:.3e})")
+    check(f_rel > GRAD_REL_TOL, "the MoE gradient check does not see a "
+          "router that drops each token's second expert")
+    del params0, gk, gp, gf, routes, out
+    torch.cuda.empty_cache()
+
+    # (c) llama4-scout: top-1 and a shared expert
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, tokens, res = _serve(torch, LLAMA4_LAYERS,
+                              n_requests=LLAMA4_REQUESTS,
+                              max_prompt=max_prompt,
+                              decode_steps=LLAMA4_DECODE_STEPS, seed=0,
+                              arch="llama4-scout-17b-a16e", tag="moe")
+    counts["llama4-serve"] = ops.launch_counts()
+    nb = len(res.batches)
+    expected = {"mha_forward": cfg.n_layers * (nb + nb * LLAMA4_DECODE_STEPS),
+                "mha_backward": 0, "ssd_chunked": 0}
+    _serve_line("moe", cfg, res, tokens, time.perf_counter() - t0,
+                counts["llama4-serve"], expected,
+                f", {cfg.n_experts} experts x {cfg.d_ff_expert} top-"
+                f"{cfg.top_k} + {cfg.n_shared_experts} shared, "
+                f"{LLAMA4_DECODE_STEPS} decode steps")
+    check(counts["llama4-serve"] == expected, f"llama4 serve launches "
+          f"{counts['llama4-serve']}, expected {expected}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          "non-finite logits in the llama4 serve")
+    del res
+    torch.cuda.empty_cache()
+    _serve_against_plain(torch, "llama4-scout-17b-a16e", 2, dict(
+        n_requests=LLAMA4_REQUESTS, max_prompt=max_prompt,
+        decode_steps=LLAMA4_DECODE_STEPS, seed=1), "moe", fault=False)
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 10: frames, hubert-xlarge trained at full width and depth
+# ----------------------------------------------------------------------
+def _frame_batch(torch, cfg, b, s, seed):
+    """One seeded train batch as ``launch/dryrun.py::batch_specs`` lays it
+    out: frames (B, S, d_model) bf16, the mask (spans of 10 frames from
+    starts drawn at 8%, HuBERT's masking), labels in [0, vocab), loss
+    weights on the masked frames, positions and zero segment ids."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    starts = torch.rand((b, s), generator=g, device="cuda") < 0.08
+    cs = torch.cumsum(starts.int(), dim=1)
+    mask = (cs - torch.nn.functional.pad(cs, (10, 0))[:, :s]) > 0
+    return {
+        "frames": torch.randn((b, s, cfg.d_model), generator=g,
+                              device="cuda").to(torch.bfloat16),
+        "mask": mask,
+        "labels": torch.randint(0, cfg.vocab, (b, s), generator=g,
+                                device="cuda", dtype=torch.int32),
+        "loss_weights": mask.float(),
+        "positions": torch.arange(s, dtype=torch.int32, device="cuda")[None]
+        .expand(b, s).contiguous(),
+        "segment_ids": torch.zeros((b, s), dtype=torch.int32, device="cuda"),
+    }
+
+
+def _dense_grads_against_plain(torch, cfg, params, batch, tag):
+    """The grad step with the kernels and with the plain versions on one
+    batch: the loss and every gradient leaf (GRAD_TOL, GRAD_REL_TOL), and
+    the leaf check must fail a backward planted to return a zero dq."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.tree import leaves
+    step = build_grad_step(cfg)
+
+    def grad_step():
+        ls, ws, g = step(params, batch)
+        return float(ls) / float(ws), {i: x.float() / float(ws)
+                                       for i, x in enumerate(leaves(g))}
+    lk, gk = grad_step()
+    with contextlib.ExitStack() as stack:
+        for p in _plain_attention():
+            stack.enter_context(p)
+        lp, gp = grad_step()
+    real_backward = fa.mha_backward
+
+    def zero_dq(*a, **o):
+        dq, dk, dv = real_backward(*a, **o)
+        return torch.zeros_like(dq), dk, dv
+    with mock.patch.object(fa, "mha_backward", zero_dq):
+        _, gf = grad_step()
+    g_abs, g_rel, ok = _leaf_errs(torch, gk, gp)
+    f_rel = _leaf_errs(torch, gf, gp)[1]
+    loss_err = abs(lk - lp) / max(1.0, abs(lp))
+    print(f"[{tag}] {cfg.n_layers} layers, kernels vs plain versions: loss "
+          f"{lk:.6f} vs {lp:.6f}; {len(gk)} gradient leaves, max |diff| "
+          f"{g_abs:.3e}, worst ||diff|| / ||plain|| {g_rel:.3e} (GRAD_TOL "
+          f"{GRAD_TOL_BF16}, GRAD_REL_TOL {GRAD_REL_TOL}); planted fault "
+          f"(dq = 0): worst ||diff|| / ||plain|| {f_rel:.3e}", flush=True)
+    check(ok and g_rel <= GRAD_REL_TOL, f"{cfg.name} gradient leaves: "
+          "kernels and plain versions disagree")
+    check(loss_err <= GRAD_TOL_BF16, f"{cfg.name} losses: kernels and plain "
+          f"versions disagree ({loss_err:.3e})")
+    check(f_rel > GRAD_REL_TOL, f"the {cfg.name} gradient check does not see "
+          "a backward whose dq is zero")
+
+
+def _hubert_train_state(torch, cfg):
+    """hubert's seeded weights, AdamW state and grad step:
+    ``(params, opt, opt_cfg, step)``."""
+    from repro_torch.models import model as MD
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg, device="cuda")
+    opt_cfg = AdamWConfig(lr=3e-4)
+    return params, init_opt_state(params, opt_cfg), opt_cfg, \
+        build_grad_step(cfg)
+
+
+def _hubert_step(step, params, opt, opt_cfg, batch):
+    """One AdamW step on ``batch``, the loss weighted by its masked frames:
+    ``(params, opt, loss, grad norm, masked frames)``."""
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.runner import scale_
+    ls, ws, grads = step(params, batch)
+    w = float(ws)
+    scale_(grads, 1.0 / max(w, 1.0))
+    params, opt, m = adamw_update(params, grads, opt, opt_cfg)
+    return params, opt, float(ls) / max(w, 1.0), float(m["grad_norm"]), int(w)
+
+
+def phase_frames(torch):
+    """hubert-xlarge at full width and depth: HUBERT_STEPS AdamW steps of
+    ``build_grad_step`` on (HUBERT_BATCH, HUBERT_SEQ) frame batches, then
+    the encoder forward (prefill) at the same shape; exact launches of K1
+    and the backward at head dim 80; at 2 layers against the plain
+    versions."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+
+    cfg = get_arch("hubert-xlarge")
+    print(f"[frames] {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads x "
+          f"{cfg.d_head}, d_ff {cfg.d_ff}, {cfg.act}, non-causal); nothing "
+          "cut", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, opt, opt_cfg, step = _hubert_train_state(torch, cfg)
+    hist = []
+    for it in range(HUBERT_STEPS):
+        batch = _frame_batch(torch, cfg, HUBERT_BATCH, HUBERT_SEQ, seed=it)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, loss, gn, w = _hubert_step(step, params, opt, opt_cfg,
+                                                batch)
+        torch.cuda.synchronize()
+        hist.append((time.perf_counter() - t1, loss, gn, w))
+        print(f"[frames] step {it}: {1e3 * hist[-1][0]:.1f} ms, loss "
+              f"{loss:.4f}, grad norm {gn:.4f}, {w} masked frames of "
+              f"{HUBERT_BATCH * HUBERT_SEQ}, "
+              f"{HUBERT_BATCH * HUBERT_SEQ / hist[-1][0]:.1f} frames/s",
+              flush=True)
+    counts = ops.launch_counts()
+    steady = [h[0] for h in hist[1:]]
+    step_s = sum(steady) / len(steady)
+    L = cfg.n_layers
+    expected = {"mha_forward": 2 * L * HUBERT_STEPS,
+                "mha_backward": L * HUBERT_STEPS, "ssd_chunked": 0}
+    print(f"[frames] {cfg.n_params() / 1e9:.3f} B params, {HUBERT_STEPS} "
+          f"steps in {time.perf_counter() - t0:.1f}s incl. init; steps after "
+          f"the first: {HUBERT_BATCH * HUBERT_SEQ / step_s:.1f} frames/s, "
+          f"mean step {1e3 * step_s:.1f} ms; peak memory {_peak_gib():.1f} "
+          f"GiB; launches {counts} (expected {expected})", flush=True)
+    check(counts == expected, f"hubert train launches {counts}, expected "
+          f"{expected}")
+    check(all(np.isfinite(h[1]) and np.isfinite(h[2]) for h in hist),
+          "non-finite loss or grad norm in hubert training")
+    del opt
+    torch.cuda.empty_cache()
+
+    # the encoder forward at the same shape: prefill of an encoder-only model
+    batch = _frame_batch(torch, cfg, HUBERT_BATCH, HUBERT_SEQ, seed=99)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        MD.prefill(params, batch, cfg)           # warm
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, cache = MD.prefill(params, batch, cfg)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t1
+    prefill_counts = ops.launch_counts()
+    print(f"[frames] prefill (the encoder forward) of {HUBERT_BATCH} x "
+          f"{HUBERT_SEQ} frames: {1e3 * pre_s:.1f} ms, "
+          f"{HUBERT_BATCH * HUBERT_SEQ / pre_s:.1f} frames/s; launches "
+          f"{prefill_counts} (two prefills)", flush=True)
+    check(cache is None and bool(torch.isfinite(logits).all()),
+          "hubert prefill: a cache or non-finite logits")
+    check(prefill_counts["mha_forward"] == 2 * L, "hubert prefill launched "
+          f"K1 {prefill_counts['mha_forward']} times, expected {2 * L}")
+    counts = {k: counts[k] + prefill_counts[k] for k in counts}
+    del params, logits, batch
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg2, device="cuda")
+    _dense_grads_against_plain(torch, cfg2, params, _frame_batch(
+        torch, cfg2, HUBERT_BATCH, HUBERT_SEQ, seed=7), "frames")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 11: mixed, llava-next-34b prefilled and decoded at full width
+# ----------------------------------------------------------------------
+def _greedy(torch, logits):
+    return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+
+
+def _greedy_decode(torch, params, cfg, nxt, cache, start, steps):
+    """``steps`` greedy decode steps of the batch ``nxt`` (B, 1) from
+    position ``start``: ``(logits per step, tokens per step, cache)``."""
+    from repro_torch.models import model as MD
+    b = nxt.shape[0]
+    steps_logits, steps_tokens = [], []
+    for i in range(steps):
+        logits, cache = MD.decode(params, {
+            "tokens": nxt, "cache": cache, "cache_pos": start + i,
+            "positions": torch.full((b, 1), start + i, dtype=torch.int32,
+                                    device="cuda")}, cfg)
+        nxt = _greedy(torch, logits)
+        steps_logits.append(logits)
+        steps_tokens.append(nxt)
+    return steps_logits, steps_tokens, cache
+
+
+def _llava_setup(torch, n_layers, seed):
+    """llava at full width and ``n_layers`` with weights from ``seed``, and
+    a batch of LLAVA_ROWS rows of seeded patches and LLAVA_TEXT text
+    tokens: ``(cfg, params, batch)``."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as MD
+    cfg = dataclasses.replace(get_arch("llava-next-34b"), n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = MD.init_params(gen, cfg, device="cuda")
+    b, p, t = LLAVA_ROWS, cfg.n_patches, LLAVA_TEXT
+    g = torch.Generator(device="cuda").manual_seed(1000 + seed)
+    batch = {
+        "patches": torch.randn((b, p, cfg.d_model), generator=g,
+                               device="cuda").to(torch.bfloat16),
+        "tokens": torch.randint(0, cfg.vocab, (b, t), generator=g,
+                                device="cuda", dtype=torch.int32),
+        "positions": torch.arange(p + t, dtype=torch.int32, device="cuda")
+        [None].expand(b, p + t).contiguous()}
+    return cfg, params, batch
+
+
+def _llava_prefill(params, batch, cfg):
+    """The prompt (patches and text) into a cache with room for
+    LLAVA_DECODE_STEPS: ``(last logits, cache)``."""
+    from repro_torch.models import model as MD
+    n = batch["positions"].shape[1]
+    return MD.prefill(params, batch, cfg, cache_len=n + LLAVA_DECODE_STEPS)
+
+
+def _mixed_serve(torch, n_layers, seed):
+    """llava at full width and ``n_layers`` (:func:`_llava_setup`): the
+    prompt prefilled, then LLAVA_DECODE_STEPS greedy steps. Returns a
+    record with ``logits`` and ``tokens`` laid out as
+    ``repro_torch.serve``'s."""
+    import types
+    cfg, params, batch = _llava_setup(torch, n_layers, seed)
+    n = batch["positions"].shape[1]
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = _llava_prefill(params, batch, cfg)
+        nxt = _greedy(torch, logits)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps_logits, steps_tokens, cache = _greedy_decode(
+            torch, params, cfg, nxt, cache, n, LLAVA_DECODE_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    steps_logits, steps_tokens = [logits] + steps_logits, [nxt] + steps_tokens
+    del params, cache
+    return cfg, types.SimpleNamespace(
+        logits=[torch.stack(steps_logits)],
+        tokens=[torch.cat(steps_tokens, dim=1).cpu().numpy()],
+        prefill_s=t1 - t0, decode_s=t2 - t1)
+
+
+def phase_mixed(torch):
+    """llava-next-34b at full width and LLAVA_LAYERS layers: prefill of
+    patches and text, greedy decode; exact K1 launches, finite logits; at
+    2 layers against the plain attention."""
+    from repro_torch.kernels import ops
+    print(f"[mixed] cuts: llava-next-34b at full width, depth 60 -> "
+          f"{LLAVA_LAYERS} layers", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, res = _mixed_serve(torch, LLAVA_LAYERS, seed=0)
+    counts = ops.launch_counts()
+    expected = {"mha_forward": cfg.n_layers * (1 + LLAVA_DECODE_STEPS),
+                "mha_backward": 0, "ssd_chunked": 0}
+    b, p, t = LLAVA_ROWS, cfg.n_patches, LLAVA_TEXT
+    print(f"[mixed] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"({cfg.n_params() / 1e9:.2f} B params): prefill of {b} rows of "
+          f"{p} patches + {t} text tokens in {res.prefill_s:.3f}s = "
+          f"{b * (p + t) / res.prefill_s:.1f} tok/s; {LLAVA_DECODE_STEPS} "
+          f"decode steps in {res.decode_s:.3f}s = "
+          f"{b * LLAVA_DECODE_STEPS / res.decode_s:.1f} tok/s; "
+          f"{time.perf_counter() - t0:.1f}s incl. init; launches {counts} "
+          f"(expected {expected}); peak memory {_peak_gib():.1f} GiB",
+          flush=True)
+    check(counts == expected, f"llava launches {counts}, expected {expected}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          "non-finite logits in the llava serve")
+    del res
+    torch.cuda.empty_cache()
+    _, with_k1 = _mixed_serve(torch, 2, seed=1)
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_attention():
+            stack.enter_context(patch)
+        _, with_plain = _mixed_serve(torch, 2, seed=1)
+    err, compared = _compare_serves(torch, with_k1, with_plain, TOL_BF16)
+    print(f"[mixed] 2 layers, K1 vs plain attention: max |logit diff| / "
+          f"(1 + max|logit|) {err:.3e} over {compared} (row, step) logit "
+          f"vectors (tol {TOL_BF16})", flush=True)
+    check(err <= TOL_BF16, "2-layer llava logits: K1 and plain disagree")
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 12: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's two forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_kernel",
@@ -1842,15 +2531,11 @@ def phase_profile_serve(torch, max_prompt, decode_steps, arch="gpt-paper",
     def prefill():
         logits, state["cache"] = MD.prefill(params, batch, cfg,
                                             cache_len=s + decode_steps)
-        state["nxt"] = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        state["nxt"] = _greedy(torch, logits)
 
     def decode():
-        for step in range(decode_steps):
-            pos = torch.full((b, 1), s + step, dtype=torch.int32, device="cuda")
-            logits, state["cache"] = MD.decode(params, {
-                "tokens": state["nxt"], "positions": pos,
-                "cache": state["cache"], "cache_pos": s + step}, cfg)
-            state["nxt"] = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        *_, state["cache"] = _greedy_decode(torch, params, cfg, state["nxt"],
+                                            state["cache"], s, decode_steps)
 
     with torch.inference_mode():
         prefill()
@@ -1862,9 +2547,11 @@ def phase_profile_serve(torch, max_prompt, decode_steps, arch="gpt-paper",
     torch.cuda.empty_cache()
 
 
-def phase_profile_train(torch):
-    """Where the time goes in one full-width training iteration (8 layers,
-    the train phase's first batch), after a warm-up iteration."""
+def phase_profile_train(torch, arch="gpt-paper", n_layers=TRAIN_LAYERS,
+                        adamw=True):
+    """Where the time goes in one full-width training iteration (the train
+    phase's first batch), after a warm-up iteration; with ``adamw``, in the
+    optimizer step alone too."""
     torch.cuda.empty_cache()
     from repro_torch.core.planner import plan_iteration
     from repro_torch.data.dataset import materialize_micro_batch
@@ -1872,7 +2559,7 @@ def phase_profile_train(torch):
     from repro_torch.models import model as MD
     from repro_torch.train.optimizer import AdamWConfig, init_opt_state
     from repro_torch.train.runner import scale_
-    cfg, stream, cost, pcfg = _train_setup(torch, TRAIN_LAYERS)
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, arch=arch)
     gb = stream.batch(0)
     plan = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0]
     batches = {m.mb_id: materialize_micro_batch(m, gb.tokens, lengths=gb.lengths)
@@ -1889,14 +2576,72 @@ def phase_profile_train(torch):
         backend.optimizer_step(params, res.grads, opt, ocfg)
 
     iteration()       # warm-up
-    _profile_window(torch, f"train iteration, {TRAIN_LAYERS} layers, "
+    _profile_window(torch, f"{arch} train iteration, {n_layers} layers, "
                     f"{[(m.mbs, m.seq) for m in plan.micro_batches]}",
                     iteration)
-    grads = backend.execute_plan(plan, params=params, batches=batches).grads
-    _profile_window(torch, "AdamW step alone",
-                    lambda: backend.optimizer_step(params, grads, opt, ocfg))
-    del grads
+    if adamw:
+        grads = backend.execute_plan(plan, params=params,
+                                     batches=batches).grads
+        _profile_window(torch, "AdamW step alone",
+                        lambda: backend.optimizer_step(params, grads, opt,
+                                                       ocfg))
+        del grads
     del params, opt
+    torch.cuda.empty_cache()
+
+
+def phase_profile_frames(torch):
+    """Where the time goes in one hubert-xlarge step at full width and
+    depth (grad step and AdamW) and in its encoder forward, after a
+    warm-up."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as MD
+    torch.cuda.empty_cache()
+    cfg = get_arch("hubert-xlarge")
+    params, opt, ocfg, step = _hubert_train_state(torch, cfg)
+    batch = _frame_batch(torch, cfg, HUBERT_BATCH, HUBERT_SEQ, seed=0)
+
+    def train_step():   # AdamW updates params and opt in place
+        _hubert_step(step, params, opt, ocfg, batch)
+
+    def encode():
+        with torch.inference_mode():
+            MD.prefill(params, batch, cfg)
+    train_step()
+    encode()          # warm-up of both
+    _profile_window(torch, f"hubert-xlarge step, {HUBERT_BATCH}x{HUBERT_SEQ} "
+                    "frames", train_step)
+    _profile_window(torch, f"hubert-xlarge encoder forward, {HUBERT_BATCH}x"
+                    f"{HUBERT_SEQ} frames", encode)
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def phase_profile_mixed(torch):
+    """Where the time goes in llava-next's prefill of patches and text and
+    its decode steps (LLAVA_LAYERS layers), after a warm-up."""
+    torch.cuda.empty_cache()
+    cfg, params, batch = _llava_setup(torch, LLAVA_LAYERS, seed=0)
+    b, p, t = LLAVA_ROWS, cfg.n_patches, LLAVA_TEXT
+    state = {}
+
+    def prefill():
+        logits, state["cache"] = _llava_prefill(params, batch, cfg)
+        state["nxt"] = _greedy(torch, logits)
+
+    def decode():
+        *_, state["cache"] = _greedy_decode(torch, params, cfg, state["nxt"],
+                                            state["cache"], p + t,
+                                            LLAVA_DECODE_STEPS)
+
+    with torch.inference_mode():
+        prefill()
+        decode()          # warm-up of both
+        _profile_window(torch, f"llava-next-34b prefill {b}x({p}+{t})",
+                        prefill)
+        _profile_window(torch, f"llava-next-34b decode {LLAVA_DECODE_STEPS} "
+                        f"steps of {b}", decode)
+    del params, state
     torch.cuda.empty_cache()
 
 
@@ -1946,10 +2691,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault",
+                    "fault,moe,frames,mixed",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, fault, profile (the device phase always "
-                    "runs)")
+                    "t5, mamba, fault, moe, frames, mixed, profile, "
+                    "profile-models (the device phase always runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -1987,12 +2732,26 @@ def main():
         paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "fault" in phases:
         paths["fault"] = phase_fault(torch, smi_line)
+    if "moe" in phases:
+        moe = phase_moe(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        paths.update({"moe-serve": moe["serve"], "moe-train": moe["moe-train"],
+                      "llama4-serve": moe["llama4-serve"]})
+    if "frames" in phases:
+        paths["frames"] = phase_frames(torch)
+    if "mixed" in phases:
+        paths["mixed"] = phase_mixed(torch)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,
                             arch="mamba2-130m", n_layers=MAMBA_LAYERS)
         phase_profile_train(torch)
         phase_profile_pipeline(torch)
+    if "profile-models" in phases:
+        phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS, arch=MOE_ARCH)
+        phase_profile_train(torch, arch=MOE_ARCH, n_layers=MOE_TRAIN_LAYERS,
+                            adamw=False)
+        phase_profile_frames(torch)
+        phase_profile_mixed(torch)
     kernels = []
     for kid, (name, source, replaces, main_case, other_cases,
               kpaths) in KERNELS.items():

@@ -35,12 +35,12 @@ _L = ctypes.c_longlong
 # name -> (source file, {C function: argtypes}); every function returns int
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
-        "mha_fwd_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float, _P],
+        "mha_fwd_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float] * 2 + [_P],
         "mha_fwd_prefill_smem": [_I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
         "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P, _P] + [_I] * 8
-                        + [ctypes.c_float, _P],
+                        + [ctypes.c_float] * 2 + [_P],
     }),
     "ssd_fwd": ("ssd_fwd.cu", {
         "ssd_fwd_bf16": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_P],

@@ -114,6 +114,10 @@ struct Params {
 // D <= 64), each box rows of kRB bytes with the kRB-byte swizzle.
 template <int kD>
 struct Smem {
+  // a tile is whole boxes of 64 columns, or one narrower box: any other
+  // D would load and store only part of each row
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD % 64 == 0,
+                "head dim: 16, 32, 64 or a multiple of 64");
   static constexpr int kRB = kD >= 64 ? 128 : kD * 2;
   static constexpr int kKBox = kBKB * kRB;   // one box of k or v
   static constexpr int kQBox = kBQ * kRB;    // one box of q or do
@@ -612,8 +616,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
 // positions and segment ids int32 (B,T) / (B,S), segment ids both null or
-// both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128}.
-// Adds ds k / sqrt(D) into dq_acc, fp32 (B,H,T_acc,D) zeroed by the
+// both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128};
+// sm_scale is 1/sqrt(D), or 1/sqrt of the caller's head dim where it
+// padded q, k, v and do with zero columns up to D.
+// Adds ds k x sm_scale into dq_acc, fp32 (B,H,T_acc,D) zeroed by the
 // caller, where T_acc must be T rounded up to kBQ (refused otherwise, so
 // the reduce-adds never pass the buffer's end), in ascending key tile per
 // (batch row, head, query tile), ordered by dq_sem, int32 (B,H,T_acc / kBQ)
@@ -628,7 +634,7 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             void* dq_sem, void* dk, void* dv, int B, int T,
                             int S, int H,
                             int KV, int D, int causal, int window,
-                            float softcap, void* stream) {
+                            float softcap, float sm_scale, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0 ||
       S > kMaxKeyTiles * kBKB || T_acc != (T + kBQ - 1) / kBQ * kBQ ||
       dq_sem == nullptr)
@@ -645,7 +651,7 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   p.dv = static_cast<uint16_t*>(dv);
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
   p.causal = causal; p.window = window; p.softcap = softcap;
-  p.sm_scale = 1.0f / sqrtf((float)D);
+  p.sm_scale = sm_scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, dout, dq_acc, T_acc, p, st);

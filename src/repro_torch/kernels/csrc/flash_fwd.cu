@@ -424,6 +424,10 @@ constexpr int kPrefillThreads = 128 + kConsumers;
 // D <= 64), each box rows of kRB bytes with the kRB-byte swizzle.
 template <int kD>
 struct Smem {
+  // a tile is whole boxes of 64 columns, or one narrower box: any other
+  // D would load and store only part of each row
+  static_assert(kD == 16 || kD == 32 || kD == 64 || kD % 64 == 0,
+                "head dim: 16, 32, 64 or a multiple of 64");
   static constexpr int kRB = kD >= 64 ? 128 : kD * 2;
   static constexpr int kBoxes = kD > 64 ? kD / 64 : 1;
   static constexpr int kBox = kBN * kRB;                   // one box of a tile
@@ -898,16 +902,18 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: bf16, contiguous (B,T,H,D) / (B,S,KV,D), 16-byte aligned, with
 // D in {16, 32, 64, 128}; positions and segment ids: int32 (B,T) / (B,S),
-// segment ids both null or both set; lse: fp32 (B,H,T). Launches on `stream`
-// the decode form for T <= 16, else the prefill form, and returns a CUDA
-// error code (0: launched).
+// segment ids both null or both set; lse: fp32 (B,H,T). sm_scale multiplies
+// q k^T: 1/sqrt(D), or 1/sqrt of the caller's own head dim where it padded
+// q, k and v with zero columns up to D. Launches on `stream` the decode
+// form for T <= 16, else the prefill form, and returns a CUDA error code
+// (0: launched).
 extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
                             const void* qpos, const void* kpos,
                             const void* qseg, const void* kseg,
                             void* o, void* lse,
                             int B, int T, int S, int H, int KV, int D,
                             int causal, int window, float softcap,
-                            void* stream) {
+                            float sm_scale, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -922,7 +928,7 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
   p.lse = static_cast<float*>(lse);
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
   p.causal = causal; p.window = window; p.softcap = softcap;
-  p.sm_scale = 1.0f / sqrtf((float)D);
+  p.sm_scale = sm_scale;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, o, p, st);

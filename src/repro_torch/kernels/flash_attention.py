@@ -20,6 +20,13 @@ the other.
   bit for bit. :func:`dq_from_accumulator` then casts dq to bf16
   (B, T, H, D).
 
+The kernels are instantiated at head dims ``HEAD_DIMS``. A head dim
+between two of them (hubert's 80) is zero-padded by the wrappers to the
+next one up and cut back after the launch: zero columns add nothing to
+q kᵀ or to ds·k, and their outputs are zero, so the result is exact; the
+softmax scale stays 1/√(the caller's head dim). A head dim past 128
+raises (ROADMAP A18).
+
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
 It masks ragged tails instead of shrinking its tiles, so ``shrink_block``
@@ -37,6 +44,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 
@@ -211,11 +219,45 @@ def mha_backward_plain(q, k, v, q_positions, kv_positions,
 # ----------------------------------------------------------------------
 # the kernels' wrappers
 # ----------------------------------------------------------------------
+def kernel_head_dim(d: int) -> int:
+    """The kernels' instantiation that takes head dim ``d``: ``d`` itself,
+    or the next one up, reached by zero-padding. Raises past 128."""
+    for kd in HEAD_DIMS:
+        if d <= kd:
+            return kd
+    raise NotImplementedError(
+        f"head dim {d}: the CUDA kernels take at most {HEAD_DIMS[-1]} "
+        "(head dim 256 is ROADMAP A18)")
+
+
+def softmax_scale(d: int) -> float:
+    """1/sqrt(d) rounded to fp32 as the kernels computed it from their own
+    head dim (``1.0f / sqrtf(D)``)."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def pad_head(x, kd: int):
+    """``x`` (..., d) with zero columns up to ``kd`` (``x`` itself at d == kd)."""
+    return x if x.shape[-1] == kd else F.pad(x, (0, kd - x.shape[-1]))
+
+
+def kernel_operands(*xs):
+    """``(padded, sm_scale)``: the head-dim operands ``xs`` (..., d) zero-
+    padded to ``kernel_head_dim(d)``, and the softmax scale of ``d`` itself.
+    Zero columns add nothing to q k^T and come out as zeros, so cutting the
+    outputs back to ``d`` columns gives the unpadded result exactly."""
+    d = xs[0].shape[-1]
+    kd = kernel_head_dim(d)
+    return tuple(pad_head(x, kd) for x in xs), softmax_scale(d)
+
+
 def _check_cuda_args(q, k, v, ints):
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, got {d}")
+        raise NotImplementedError(
+            f"the CUDA kernels are instantiated at head dims {HEAD_DIMS}, got "
+            f"{d} (pad to kernel_head_dim; head dim 256 is ROADMAP A18)")
     if k.shape != (b, s, kvh, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -256,6 +298,8 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
+    (q, k, v), sm_scale = kernel_operands(q, k, v)
+    kd = q.shape[-1]
     _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
                                         q_segment_ids, kv_segment_ids))
     lib = _build.library("flash_fwd")
@@ -264,10 +308,10 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     _build.launch(lib.mha_fwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
             _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
-            b, t, s, h, kvh, d, int(causal), int(window),
-            float(softcap or 0.0), device=q.device)
+            b, t, s, h, kvh, kd, int(causal), int(window),
+            float(softcap or 0.0), sm_scale, device=q.device)
     _build.count_launch(LAUNCHES, "mha_forward")
-    return o, lse
+    return (o if kd == d else o[..., :d].contiguous()), lse
 
 
 def _check_bwd_args(q, o, lse, do, delta):
@@ -311,11 +355,13 @@ def dq_from_accumulator(acc, t):
 
 def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
                      kv_segment_ids, o, lse, do, delta, acc, dk, dv, *,
-                     causal, window, softcap, sem=None):
-    """The kernel alone: adds ds k / sqrt(D) into ``acc`` in ascending key
-    tile, ordered by the zeroed counters ``sem`` (allocated here when not
-    given), and writes dk and dv. The kernel refuses an ``acc`` whose third
-    dim is not T rounded up to its own query tile."""
+                     causal, window, softcap, sm_scale, sem=None):
+    """The kernel alone, on tensors at one of ``HEAD_DIMS`` (padded by
+    :func:`kernel_operands`, which also gives ``sm_scale``): adds ds k x
+    ``sm_scale`` into ``acc`` in ascending key tile,
+    ordered by the zeroed counters ``sem`` (allocated here when not given),
+    and writes dk and dv. The kernel refuses an ``acc`` whose third dim is
+    not T rounded up to its own query tile."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -338,7 +384,7 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
             _ptr(kv_segment_ids), _ptr(acc), acc.shape[2], _ptr(sem),
             _ptr(dk), _ptr(dv), b, t, s, h, kvh, d, int(causal), int(window),
-            float(softcap or 0.0), device=q.device)
+            float(softcap or 0.0), float(sm_scale), device=q.device)
     _build.count_launch(LAUNCHES, "mha_backward")
 
 
@@ -362,18 +408,24 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     ``(dq, dk, dv)``, dq (B,T,H,D) and dk, dv (B,S,KV,D) bf16, dk and dv
     summed over each GQA group. Arguments as :func:`mha_backward`, plus
     ``delta`` from :func:`attention_delta`. The kernel takes at most
-    ``BWD_MAX_KEYS`` (65536) keys; more raise."""
-    args = (q, k, v, q_positions, kv_positions, q_segment_ids,
-            kv_segment_ids, o, lse, do, delta)
+    ``BWD_MAX_KEYS`` (65536) keys; more raise. A head dim between the
+    kernel's instantiations is zero-padded and cut back."""
     if q.device.type != "cuda":
         raise ValueError(f"mha_backward_cuda takes CUDA tensors, got "
                          f"{q.device}")
+    d = q.shape[-1]
+    (q, k, v, o, do), sm_scale = kernel_operands(q, k, v, o, do)
+    args = (q, k, v, q_positions, kv_positions, q_segment_ids,
+            kv_segment_ids, o, lse, do, delta)
     check_backward_cuda_args(*args)
     acc, sem = dq_accumulator(q)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_backward(*args, acc, dk, dv, causal=causal, window=window,
-                     softcap=softcap, sem=sem)
-    return dq_from_accumulator(acc, q.shape[1]), dk, dv
+                     softcap=softcap, sm_scale=sm_scale, sem=sem)
+    dq = dq_from_accumulator(acc, q.shape[1])
+    if q.shape[-1] == d:
+        return dq, dk, dv
+    return tuple(x[..., :d].contiguous() for x in (dq, dk, dv))
 
 
 def _check_softcap(softcap):
@@ -388,8 +440,8 @@ def mha_forward(q, k, v, q_positions, kv_positions,
 
     q (B,T,H,D), k/v (B,S,KV,D) with H % KV == 0; positions and segment ids
     (B,T)/(B,S) int32, segment ids -1 on padding. CUDA tensors launch K1
-    (bf16, D in ``HEAD_DIMS``, contiguous); CPU tensors take the plain
-    version.
+    (bf16, contiguous, D at most 128: a D between the ``HEAD_DIMS`` is
+    zero-padded); CPU tensors take the plain version.
     """
     _check_softcap(softcap)
     if q.device.type == "cuda":

@@ -1,14 +1,17 @@
-"""Dense-decoder layers in PyTorch: norm, RoPE, GQA attention, MLP.
+"""Decoder layers in PyTorch: norm, RoPE, GQA attention, MLP, MoE.
 
 Counterpart of ``repro.models.layers`` over the same nested parameter
 dicts (same keys, shapes and dtypes). The ``shard(...)`` annotations of
-the reference are dropped: the port runs on one GPU. MoE is a later slice.
+the reference are dropped: the port runs on one GPU, so MoE takes the
+reference's unsharded path (its expert-sliced ``_moe_local_compute`` and
+``_moe_fwd_shardmap`` belong to ROADMAP A13).
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -177,3 +180,101 @@ def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         h = act(h)
     return h @ p["w_out"]
+
+
+# ----------------------------------------------------------------------
+# MoE (top-k, capacity-dropped, scatter/gather dispatch)
+# ----------------------------------------------------------------------
+def init_moe(gen, cfg: ArchConfig, device):
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    dt = _dtype(cfg)
+    p = {
+        "router": _init(gen, (d, e), d ** -0.5, torch.float32, device),
+        "w_in": _init(gen, (e, d, f), d ** -0.5, dt, device),
+        "w_out": _init(gen, (e, f, d), f ** -0.5, dt, device),
+    }
+    if cfg.mlp_gated:
+        p["w_gate"] = _init(gen, (e, d, f), d ** -0.5, dt, device)
+    if cfg.n_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, device,
+                               d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+    return p
+
+
+def moe_capacity(n: int, cfg: ArchConfig) -> int:
+    """Slots per expert for ``n`` tokens (padding tokens count, as in the
+    reference): ceil(n k / E x capacity_factor), at least 8, aligned up to 8."""
+    cap = int(math.ceil(n * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return max(8, -(-cap // 8) * 8)
+
+
+def moe_route(xf: torch.Tensor, router: torch.Tensor, cfg: ArchConfig):
+    """The router: fp32 logits, softmax, top-k, the top-k renormalised.
+    xf (N, D). Returns ``(probs (N, E), top_p (N, k), top_i (N, k))``.
+    Equal probabilities go to the lower expert first, as
+    ``jax.lax.top_k`` breaks ties (``torch.topk`` does not promise an
+    order): a stable descending sort, then its first k."""
+    probs = torch.softmax(xf.float() @ router.float(), dim=-1)
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_i = top_p[:, :cfg.top_k], top_i[:, :cfg.top_k]
+    top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+    return probs, top_p, top_i
+
+
+def moe_slots(top_i: torch.Tensor, cfg: ArchConfig, cap: int):
+    """Each choice's slot in the (E x cap + 1)-row dispatch buffer:
+    ``(dests, keeps)``, (k, N) int64 and (k, N) bool. Slots fill choice-major
+    as the reference fills them: choice j of token t comes after every
+    choice < j and after choice j of every earlier token. A choice past its
+    expert's capacity is dropped to the last row, E x cap. Kept slots are
+    unique. One scan over the k x N choices, along its inner axis."""
+    e = cfg.n_experts
+    flat = top_i.t().reshape(-1)                               # (k N,)
+    experts = torch.arange(e, device=top_i.device)
+    oh = (flat[None, :] == experts[:, None]).to(torch.int32)   # (E, k N)
+    pos = torch.cumsum(oh, dim=1).gather(0, flat[None, :])[0] - 1
+    keep = pos < cap
+    dest = torch.where(keep, flat * cap + pos, e * cap)
+    return dest.view(cfg.top_k, -1), keep.view(cfg.top_k, -1)
+
+
+def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
+    """Returns ``(y, aux)``, aux the Switch load-balance term
+    E x sum(frac_tokens x frac_probs). Static shapes throughout: no
+    ``nonzero``, boolean indexing or host read, so a decode step adds no
+    device synchronisation. The dispatch copies each kept choice into its
+    own slot, so the forward sums nothing into a slot. The gather reads
+    each kept slot for its one choice; a dropped choice reads slot
+    E x cap - 1 at weight 0, so in the backward it adds only a +-0 into
+    that slot's gradient, which leaves the sum the same in any order: the
+    layer repeats bit for bit."""
+    b, t, d = x.shape
+    n = b * t
+    e, k = cfg.n_experts, cfg.top_k
+    act = act_fn(cfg.act)
+    xf = x.reshape(n, d)
+    probs, top_p, top_i = moe_route(xf, p["router"], cfg)
+    cap = moe_capacity(n, cfg)
+    dests, keeps = moe_slots(top_i, cfg, cap)
+
+    buf = xf.new_zeros((e * cap + 1, d))
+    # dropped choices all land on the last row, which is cut off
+    buf.index_copy_(0, dests.reshape(-1), xf.repeat(k, 1))
+    buf = buf[:e * cap].view(e, cap, d)
+    h = torch.bmm(buf, p["w_in"])
+    if cfg.mlp_gated:
+        h = act(torch.bmm(buf, p["w_gate"])) * h
+    else:
+        h = act(h)
+    out = torch.bmm(h, p["w_out"]).view(e * cap, d)
+
+    got = out.index_select(0, dests.clamp(max=e * cap - 1).reshape(-1))
+    w = (top_p.t() * keeps).float()                            # (k, N)
+    y = (got.view(k, n, d).float() * w[..., None]).sum(dim=0)
+    if cfg.n_shared_experts:
+        y = y + mlp_fwd(p["shared"], x, cfg).reshape(n, d).float()
+
+    frac_tokens = F.one_hot(top_i[:, 0], e).float().mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    aux = e * torch.sum(frac_tokens * frac_probs)
+    return y.reshape(b, t, d).to(x.dtype), aux

@@ -1,10 +1,21 @@
 """Model facade in PyTorch: init / forward / loss / prefill / decode.
 
-Counterpart of ``repro.models.model`` for token-input models. Parameters
-are the reference's nested dict (``embed``, the period-stacked ``stack``,
-``final_norm``, ``head`` when untied) with the same keys, shapes and
-dtypes; :func:`repro_torch.convert.params_from_jax` carries a reference
-tree across. The ``frames``/``mixed`` input modes are later slices.
+Counterpart of ``repro.models.model`` in its three input modes: tokens;
+``frames`` (hubert: precomputed frame embeddings through an adapter, a
+learned mask embedding on the masked frames); ``mixed`` (llava: patch
+embeddings through an adapter, prepended to the token embeddings except
+in decode). Parameters are the reference's nested dict (``embed``, the
+period-stacked ``stack``, ``final_norm``, ``frame_adapter`` and
+``mask_emb`` or ``patch_adapter`` by input mode, ``head`` when untied)
+with the same keys, shapes and dtypes;
+:func:`repro_torch.convert.params_from_jax` carries a reference tree
+across.
+
+Batch schemas, as in the reference:
+  tokens : {tokens, labels, loss_weights, positions, segment_ids}
+  mixed  : + patches (B, P, d_model); tokens (B, S - P)
+  frames : {frames (B, S, d_model), mask (B, S) bool, labels,
+           loss_weights, positions, segment_ids}
 
 Entry points run on the card by default. They run on the CPU only when
 the caller passes ``device="cpu"``, and raise if CUDA is asked for and is
@@ -21,6 +32,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 LOSS_CHUNK = 512
+# weight of the MoE load-balance aux in the loss, the default of the
+# reference's loss_fn (model.py:152), which no caller changes
+MOE_AUX_WEIGHT = 0.01
 
 
 # ----------------------------------------------------------------------
@@ -30,8 +44,6 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
     """Random params with the reference's shapes and scales. ``gen`` must
     live on ``device``; its numbers differ from ``jax.random``'s."""
     device = resolve_device(device)
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported")
     if gen.device.type != device.type:
         raise ValueError(f"generator on {gen.device}, params on {device}")
     dt = L._dtype(cfg)
@@ -40,6 +52,13 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
         "stack": T.init_stack(gen, cfg, device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dt, device=device),
     }
+    if cfg.input_mode == "frames":
+        p["frame_adapter"] = L._init(gen, (cfg.d_model, cfg.d_model),
+                                     cfg.d_model ** -0.5, dt, device)
+        p["mask_emb"] = L._init(gen, (cfg.d_model,), 0.02, dt, device)
+    if cfg.input_mode == "mixed":
+        p["patch_adapter"] = L._init(gen, (cfg.d_model, cfg.d_model),
+                                     cfg.d_model ** -0.5, dt, device)
     if not cfg.tie_embeddings:
         p["head"] = L._init(gen, (cfg.vocab_padded, cfg.d_model),
                             cfg.d_model ** -0.5, dt, device)
@@ -53,11 +72,22 @@ def _head_weight(params):
 # ----------------------------------------------------------------------
 # embedding / trunk
 # ----------------------------------------------------------------------
-def embed_inputs(params, batch, cfg: ArchConfig):
-    """Returns h (B, S, D). Token inputs only."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported")
-    h = params["embed"][batch["tokens"]]
+def embed_inputs(params, batch, cfg: ArchConfig, *, mode="train"):
+    """Returns h (B, S, D): frames through the frame adapter, masked frames
+    replaced by ``mask_emb``; or patches through the patch adapter ahead of
+    the token embeddings (not in decode, whose one token follows the
+    cached patches); or the token embeddings."""
+    dt = L._dtype(cfg)
+    if cfg.input_mode == "frames":
+        h = batch["frames"].to(dt) @ params["frame_adapter"]
+        h = torch.where(batch["mask"][..., None],
+                        params["mask_emb"].to(h.dtype), h)
+    elif cfg.input_mode == "mixed" and mode != "decode":
+        htok = params["embed"][batch["tokens"]]
+        hpatch = batch["patches"].to(dt) @ params["patch_adapter"]
+        h = torch.cat([hpatch, htok], dim=1)
+    else:
+        h = params["embed"][batch["tokens"]]
     if cfg.scale_embed:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
     return h
@@ -65,15 +95,17 @@ def embed_inputs(params, batch, cfg: ArchConfig):
 
 def forward(params, batch, cfg: ArchConfig, *, mode="train",
             cache=None, cache_pos=None, remat=True):
-    h = embed_inputs(params, batch, cfg)
-    h, new_cache = T.stack_fwd(
+    """Returns ``(h, cache, aux)``: the normed hidden states, the cache
+    (written in place) and the stack's MoE aux sum."""
+    h = embed_inputs(params, batch, cfg, mode=mode)
+    h, new_cache, aux = T.stack_fwd(
         params["stack"], h, cfg,
         positions=batch["positions"],
         segment_ids=batch.get("segment_ids"),
         cache=cache, cache_pos=cache_pos, mode=mode, remat=remat,
     )
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, new_cache
+    return h, new_cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -117,13 +149,14 @@ def lm_loss(params, h, labels, weights, cfg: ArchConfig):
 
 
 def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
-    """Scalar training loss and its parts. MoE (and its load-balance aux
-    term) is not ported, so the aux term is 0."""
-    h, _ = forward(params, batch, cfg, mode="train", remat=remat)
+    """Scalar training loss and its parts: the xent, plus ``MOE_AUX_WEIGHT``
+    x the MoE load-balance aux / n_layers for an MoE config. As in the
+    reference, the ``"xent"`` entry holds that sum."""
+    h, _, aux = forward(params, batch, cfg, mode="train", remat=remat)
     loss = lm_loss(params, h, batch["labels"], batch["loss_weights"], cfg)
-    return loss, {"xent": loss,
-                  "moe_aux": torch.zeros((), dtype=torch.float32,
-                                         device=loss.device)}
+    if cfg.has_moe:
+        loss = loss + MOE_AUX_WEIGHT * aux / cfg.n_layers
+    return loss, {"xent": loss, "moe_aux": aux}
 
 
 def _last_logits(params, h, cfg: ArchConfig):
@@ -149,10 +182,11 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len=None):
     if cfg.decode:
         cache = T.init_cache(cfg, b, s, dtype=L._dtype(cfg),
                              device=batch["positions"].device)
-        h, new_cache = forward(params, batch, cfg, mode="prefill",
-                               cache=cache, cache_pos=0, remat=False)
+        h, new_cache, _ = forward(params, batch, cfg, mode="prefill",
+                                  cache=cache, cache_pos=0, remat=False)
     else:  # encoder-only: prefill == full encode forward (no cache)
-        h, new_cache = forward(params, batch, cfg, mode="train", remat=False)
+        h, new_cache, _ = forward(params, batch, cfg, mode="train",
+                                  remat=False)
     return _last_logits(params, h, cfg), new_cache
 
 
@@ -160,7 +194,7 @@ def decode(params, batch, cfg: ArchConfig):
     """One decode step. batch: {tokens (B,1), positions (B,1), cache,
     cache_pos (int)}. Returns (logits (B, Vp) fp32, cache), the cache
     written in place."""
-    h, new_cache = forward(
+    h, new_cache, _ = forward(
         params, batch, cfg, mode="decode",
         cache=batch["cache"], cache_pos=batch["cache_pos"], remat=False,
     )

@@ -1,16 +1,18 @@
 """Period-stacked decoder stack and T5-style encoder-decoder in PyTorch.
 
-Counterpart of ``repro.models.transformer`` for attention and Mamba2
-mixers with dense MLPs. Parameters keep the reference's layout: every leaf stacked on a
-leading ``n_periods`` axis, one period being one repetition of
-``cfg.layer_pattern``. A Python loop over periods takes the place of
-``jax.lax.scan``. In training each period runs under
+Counterpart of ``repro.models.transformer``: attention and Mamba2
+mixers, each followed by a dense MLP or an MoE layer as the layer's spec
+says (jamba's period mixes all four). Parameters keep the reference's
+layout: every leaf stacked on a leading ``n_periods`` axis, one period
+being one repetition of ``cfg.layer_pattern``. A Python loop over periods
+takes the place of ``jax.lax.scan``. In training each period runs under
 ``torch.utils.checkpoint`` (non-reentrant) in place of the reference's
 ``jax.checkpoint`` with the "nothing" policy: only the period inputs are
-kept for the backward, which recomputes the rest. The encoder-decoder
-(:func:`init_encdec` to :func:`encdec_fwd`) adds a period-major stack of
-cross-attention blocks, one after each decoder period. MoE layers are a
-later slice.
+kept for the backward, which recomputes the rest. The MoE layers' aux
+terms are summed per period and over the stack, as the reference sums
+them. The encoder-decoder (:func:`init_encdec` to :func:`encdec_fwd`)
+adds a period-major stack of cross-attention blocks, one after each
+decoder period.
 """
 from __future__ import annotations
 
@@ -27,24 +29,20 @@ from repro_torch.models import mamba as M
 from repro_torch.tree import leaves, tree_map
 
 
-def _check_spec(spec: LayerSpec):
-    if spec.moe:
-        raise NotImplementedError(
-            f"layer {spec} is not ported yet (MoE is ROADMAP A15)")
-
-
 # ----------------------------------------------------------------------
 # per-layer block
 # ----------------------------------------------------------------------
 def init_block(gen, cfg: ArchConfig, spec: LayerSpec, device):
-    _check_spec(spec)
     dt = L._dtype(cfg)
     p: dict = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=device)}
     if spec.mixer == "mamba":
         p["mixer"] = M.init_mamba(gen, cfg, device)
     else:
         p["mixer"] = L.init_attention(gen, cfg, device)
-    if cfg.d_ff:
+    if spec.moe:
+        p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
+        p["ffn"] = L.init_moe(gen, cfg, device)
+    elif cfg.d_ff:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
     return p
@@ -53,7 +51,8 @@ def init_block(gen, cfg: ArchConfig, spec: LayerSpec, device):
 def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
               positions, segment_ids, cache=None, cache_pos=None,
               mode="train"):
-    _check_spec(spec)
+    """Returns ``(h, new_cache, aux)``; aux is the MoE layer's load-balance
+    term, None for a dense layer (the reference's 0, with no launch)."""
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":    # positions, segment ids, cache_pos unused
         y, new_cache = M.mamba_fwd(p["mixer"], x, cfg, cache=cache, mode=mode)
@@ -64,10 +63,15 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
             cache=cache, cache_pos=cache_pos, mode=mode,
         )
     h = h + y
+    aux = None
     if "ffn" in p:
         x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-        h = h + L.mlp_fwd(p["ffn"], x, cfg)
-    return h, new_cache
+        if spec.moe:
+            y, aux = L.moe_fwd(p["ffn"], x, cfg)
+        else:
+            y = L.mlp_fwd(p["ffn"], x, cfg)
+        h = h + y
+    return h, new_cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -83,7 +87,6 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
     caches = []
     np_ = cfg.n_periods
     for spec in cfg.layer_pattern:
-        _check_spec(spec)
         if spec.mixer == "mamba":
             _, _, n, hh, conv_ch = M._dims(cfg)
             caches.append({
@@ -143,34 +146,45 @@ def _remat(cfg: ArchConfig) -> bool:
 
 def _period_fwd(pparams, h, cfg: ArchConfig, positions, segment_ids,
                 caches, cache_pos, mode):
+    """One period's blocks: ``(h, aux)``, aux summed over its MoE layers
+    (None where it has none)."""
+    aux = None
     for j, spec in enumerate(cfg.layer_pattern):
-        h, _ = block_fwd(
+        h, _, a = block_fwd(
             pparams[f"l{j}"], h, cfg, spec,
             positions=positions, segment_ids=segment_ids,
             cache=None if caches is None else caches[j],
             cache_pos=cache_pos, mode=mode,
         )
-    return h
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return h, aux
 
 
 def stack_fwd(params, h, cfg: ArchConfig, *,
               positions, segment_ids, cache=None, cache_pos=None,
               mode="train", remat=True):
-    """Loop over periods. Returns ``(h, cache)``; the cache tensors (if
-    any) are updated in place and returned. ``remat`` recomputes each
-    period in the backward, as ``cfg.remat_policy`` says."""
+    """Loop over periods. Returns ``(h, cache, aux)``; the cache tensors
+    (if any) are updated in place and returned, aux is the periods' MoE
+    aux summed. ``remat`` recomputes each period in the backward, as
+    ``cfg.remat_policy`` says."""
     remat = remat and _remat(cfg)
+    auxs = []
     for i, pparams in enumerate(_periods(params, cfg.n_periods)):
         caches = (None if cache is None else
                   [{name: c[i] for name, c in lc.items()} for lc in cache])
         if remat:
-            h = checkpoint(_period_fwd, pparams, h, cfg, positions,
-                           segment_ids, caches, cache_pos, mode,
-                           use_reentrant=False)
+            h, aux = checkpoint(_period_fwd, pparams, h, cfg, positions,
+                                segment_ids, caches, cache_pos, mode,
+                                use_reentrant=False)
         else:
-            h = _period_fwd(pparams, h, cfg, positions, segment_ids, caches,
-                            cache_pos, mode)
-    return h, cache
+            h, aux = _period_fwd(pparams, h, cfg, positions, segment_ids,
+                                 caches, cache_pos, mode)
+        if aux is not None:
+            auxs.append(aux)
+    aux = (torch.stack(auxs).sum() if auxs else
+           torch.zeros((), dtype=torch.float32, device=h.device))
+    return h, cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -220,16 +234,17 @@ def enc_stage_fwd(stack_params, h, cfg: ArchConfig, *,
                   positions, segment_ids=None, remat=True):
     """Encoder slice: the non-causal stack over ``stack_params``' periods
     (``cfg.n_periods`` must be the slice's count). ``h`` is embedded."""
-    h, _ = stack_fwd(stack_params, h, dataclasses.replace(cfg, causal=False),
-                     positions=positions, segment_ids=segment_ids,
-                     remat=remat)
+    h, _, _ = stack_fwd(stack_params, h,
+                        dataclasses.replace(cfg, causal=False),
+                        positions=positions, segment_ids=segment_ids,
+                        remat=remat)
     return h
 
 
 def _dec_period(pparams, cross_p, h, he, cfg: ArchConfig, positions,
                 segment_ids, enc_segment_ids):
-    h = _period_fwd(pparams, h, cfg, positions, segment_ids, None, None,
-                    "train")
+    h, _ = _period_fwd(pparams, h, cfg, positions, segment_ids, None, None,
+                       "train")
     return h + cross_attention_fwd(cross_p, h, he, cfg,
                                    q_segment_ids=segment_ids,
                                    kv_segment_ids=enc_segment_ids)

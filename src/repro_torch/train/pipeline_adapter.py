@@ -6,10 +6,10 @@ Counterpart of ``repro.train.pipeline_adapter``:
   sequential-path steps (one micro-batch's loss and gradient);
 - :class:`PipelinedModel`, which splits the period stack into ``n_stages``
   contiguous groups driven by the threaded executor
-  (``core/executor.py``): stage 0 also owns the embedding, the last stage
-  the final norm and the head (tied embeddings: a second copy of the
-  embedding, whose gradients :meth:`PipelinedModel.merge_stage_grads`
-  sums);
+  (``core/executor.py``): stage 0 also owns the embedding and the
+  modality adapters, the last stage the final norm and the head (tied
+  embeddings: a second copy of the embedding, whose gradients
+  :meth:`PipelinedModel.merge_stage_grads` sums);
 - :class:`EncDecPipelinedModel`, the T5 layout: encoder periods on the
   early stages, decoder periods with their cross-attention blocks on the
   later ones, and the final encoder output riding the pipe to every
@@ -67,7 +67,9 @@ def _value_and_grad(loss_fn, params):
     with torch.enable_grad():
         xs = [x.detach().requires_grad_() for x in xs]
         loss_sum, w_sum = loss_fn(unflatten(zip(paths, xs)))
-        grads = torch.autograd.grad(loss_sum, xs)
+        # zeros for a leaf the loss does not read (hubert's embedding), as
+        # jax.grad gives
+        grads = torch.autograd.grad(loss_sum, xs, materialize_grads=True)
     return loss_sum.detach(), w_sum, unflatten(zip(paths, grads))
 
 
@@ -75,11 +77,12 @@ def build_grad_step(cfg: ArchConfig):
     """The sequential-path training step: ``grad_mb(params, batch) ->
     (loss_sum, w_sum, grads)``, the value and gradient of the summed xent
     over one micro-batch. Attention runs where the params lie (K1 and the
-    fused backward on the card)."""
+    fused backward on the card). Like the reference, the step trains on
+    the xent alone: an MoE layer's aux term is dropped here."""
 
     def grad_mb(params, batch):
         def f(p):
-            h, _ = MD.forward(p, batch, cfg, mode="train")
+            h, _, _ = MD.forward(p, batch, cfg, mode="train")
             return _xent_sum(MD._head_weight(p), h, batch["labels"],
                              batch["loss_weights"], cfg)
         return _value_and_grad(f, params)
@@ -113,11 +116,13 @@ def _sub_cfg(cfg: ArchConfig, k: int) -> ArchConfig:
 def _stage_apply(cfg: ArchConfig, k: int, n_stages: int, j: int,
                  sparams, x_or_batch, batch_aux):
     """Stage forward, a function of static config: h_out, or ``(loss_sum,
-    w_sum)`` on the last stage."""
+    w_sum)`` on the last stage. The MoE aux term is dropped, as in
+    :func:`build_grad_step`."""
     h = MD.embed_inputs(sparams, x_or_batch, cfg) if j == 0 else x_or_batch
-    h, _ = T.stack_fwd(sparams["stack"], h, _sub_cfg(cfg, k),
-                       positions=batch_aux["positions"],
-                       segment_ids=batch_aux.get("segment_ids"), remat=True)
+    h, _, _ = T.stack_fwd(sparams["stack"], h, _sub_cfg(cfg, k),
+                          positions=batch_aux["positions"],
+                          segment_ids=batch_aux.get("segment_ids"),
+                          remat=True)
     if j == n_stages - 1:
         h = L.rms_norm(h, sparams["final_norm"], cfg.norm_eps)
         head = sparams.get("head", sparams.get("embed"))
@@ -197,7 +202,8 @@ def _stage_bwd_step(apply_fn, static, j, last):
                 outs, g_outs, passed = (out[1],), (g_out[1],), g_out[0]
             else:
                 outs, g_outs, passed = (out,), (g_out,), None
-            grads = torch.autograd.grad(outs, [*ps, *xs], g_outs)
+            grads = torch.autograd.grad(outs, [*ps, *xs], g_outs,
+                                        materialize_grads=True)
         gp = unflatten(zip(paths, grads[:len(ps)]))
         gx = list(grads[len(ps):])
         if passed is not None:
@@ -254,8 +260,10 @@ class PipelinedModel:
 
     @staticmethod
     def _batch_shape(b) -> tuple:
-        tok = b["tokens"]
-        return int(tok.shape[0]), int(tok.shape[1])
+        # positions span the whole row in every input mode (frames carry
+        # no tokens; mixed rows are patches, then tokens)
+        pos = b["positions"]
+        return int(pos.shape[0]), int(pos.shape[1])
 
     def set_params(self, params):
         """Swap in updated weights; the cached stage steps take them as
@@ -265,12 +273,16 @@ class PipelinedModel:
     # ------------------------- param slicing ---------------------------
     def stage_params(self, j: int):
         """Stage ``j``'s params: views of its period slice of the stack,
-        and the shared tensors it owns."""
+        and the shared tensors it owns (stage 0 the embedding and the
+        modality adapters)."""
         k, full = self.k, self.full_params
         p: dict[str, Any] = {
             "stack": tree_map(lambda x: x[j * k:(j + 1) * k], full["stack"])}
         if j == 0:
-            p["embed"] = full["embed"]
+            for key in ("embed", "frame_adapter", "mask_emb",
+                        "patch_adapter"):
+                if key in full:
+                    p[key] = full[key]
         if j == self.n_stages - 1:
             p["final_norm"] = full["final_norm"]
             if "head" in full:

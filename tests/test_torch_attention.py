@@ -206,8 +206,24 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     q = torch.zeros((1, 4, 2, 48), dtype=torch.bfloat16)
     k = torch.zeros((1, 4, 2, 48), dtype=torch.bfloat16)
     pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(ValueError, match="head dims"):
+    # a head dim between the instantiations reaches the kernel only padded
+    # to the next one (48 -> 64, hubert's 80 -> 128); past 128 nothing
+    # takes it (ROADMAP A18)
+    with pytest.raises(NotImplementedError, match="A18"):
         tfa._check_cuda_args(q, k, k, (("q_positions", pos, 4),))
+    assert [tfa.kernel_head_dim(d) for d in (8, 16, 48, 64, 80, 128)] == \
+        [16, 16, 64, 64, 128, 128]
+    for d in (136, 256):
+        with pytest.raises(NotImplementedError, match="A18"):
+            tfa.kernel_head_dim(d)
+    assert tfa.softmax_scale(80) == float(np.float32(1) / np.sqrt(
+        np.float32(80)))
+    padded = tfa.pad_head(q, 64)
+    assert padded.shape == (1, 4, 2, 64) and not padded[..., 48:].any()
+    assert tfa.pad_head(padded, 64) is padded
+    (pq, pk), scale = tfa.kernel_operands(q, k)
+    assert pq.shape == pk.shape == (1, 4, 2, 64) and not pk[..., 48:].any()
+    assert scale == tfa.softmax_scale(48)
     q32 = torch.zeros((1, 4, 2, 128))
     with pytest.raises(TypeError, match="bf16"):
         tfa._check_cuda_args(q32, q32, q32, ())
@@ -281,7 +297,7 @@ def test_backward_cuda_refuses_a_cpu_tensor():
 def test_backward_cuda_args_refuse_an_unsupported_head_dim():
     args = _residuals(48)
     delta = tfa.attention_delta(args[7], args[9])
-    with pytest.raises(ValueError, match="head dims"):
+    with pytest.raises(NotImplementedError, match="A18"):
         tfa.check_backward_cuda_args(*args, delta)
     with pytest.raises(ValueError):
         tfa.mha_backward_cuda(*args, delta, causal=True, window=0,
@@ -317,7 +333,7 @@ def test_backward_launch_refuses_a_bad_accumulator(acc_dtype, acc_heads):
     with pytest.raises(ValueError, match="dq accumulator"):
         tfa._launch_backward(*args, delta, acc, torch.empty_like(k),
                              torch.empty_like(k), causal=True, window=0,
-                             softcap=None)
+                             softcap=None, sm_scale=tfa.softmax_scale(64))
     assert "flash_bwd" not in _build._loaded
 
 

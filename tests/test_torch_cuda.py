@@ -46,7 +46,7 @@ def _inputs(dev, b, t, s, h, kv, d, seed=0):
             pos[None, :s].expand(b, s).contiguous())
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("t,s,h,kv,opts", [
     (130, 130, 4, 2, dict(causal=True)),
     (70, 190, 2, 1, dict(causal=False)),
@@ -74,7 +74,7 @@ PREFILL_CASES = {
 }
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("case", sorted(PREFILL_CASES))
 def test_prefill_kernel_matches_plain_version(cuda, d, case):
     t, s, h, kv, opts = PREFILL_CASES[case]
@@ -87,7 +87,7 @@ def test_prefill_kernel_matches_plain_version(cuda, d, case):
     torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_prefill_kernel_query_tile_of_pure_padding(cuda, d):
     # row 0: a sample of 100 tokens, then padding, so that its query rows
     # 128..255 are a whole tile with no visible key; row 1: a sample of 200
@@ -138,7 +138,7 @@ def _grad_close(out, ref):
                                rtol=GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 @pytest.mark.parametrize("t,s,h,kv,opts", [
     (130, 130, 4, 2, dict(causal=True)),
     (70, 190, 2, 1, dict(causal=False)),
@@ -183,7 +183,7 @@ def test_backward_kernels_segmented_with_fully_masked_rows(cuda):
         and (dv[dead] == 0).all()
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
 def test_backward_kernel_row_whose_keys_are_all_padding(cuda, d):
     # row 1 is all padding (segment -1 everywhere): its dq, dk and dv are 0;
     # row 0 has a sample that ends mid-tile, then padding
@@ -257,6 +257,33 @@ def test_backward_kernel_is_repeatable_bit_for_bit(cuda, case):
         assert (first[0][0, 190:] == 0).all()
 
 
+@pytest.mark.parametrize("case", ["causal", "segmented-gqa4"])
+def test_backward_kernel_at_head_dim_80_is_repeatable_bit_for_bit(cuda, case):
+    # hubert's head dim: q, k, v, o and do padded with zero columns to 128,
+    # the kernels run at 128 with the scale of 80, and the results are cut
+    # back to 80 columns
+    t, h, kv, lengths = REPEAT_CASES[case]
+    q, k, v, qp, kp = _inputs(cuda, 2, t, t, h, kv, 80, seed=5)
+    qs = ks = None
+    if lengths is not None:
+        qp, qs = _segments(cuda, 2, t, lengths)
+        kp, ks = qp, qs
+    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, causal=False)
+    assert o.shape == q.shape and o.is_contiguous()
+    do = torch.randn_like(o)
+    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=False)
+    for _ in range(2):
+        again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                causal=False)
+        for name, a, b in zip(("dq", "dk", "dv"), first, again):
+            assert torch.equal(a, b), f"{case}: {name} differs between calls"
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                causal=False)
+    for a, r in zip(first, ref):
+        assert a.shape == r.shape
+        _grad_close(a, r)
+
+
 @pytest.mark.parametrize("t_acc", [64, 192])   # T 100 needs 128 rows
 def test_backward_kernel_refuses_an_accumulator_of_another_length(cuda,
                                                                  t_acc):
@@ -271,7 +298,8 @@ def test_backward_kernel_refuses_an_accumulator_of_another_length(cuda,
         fa._launch_backward(q, k, v, qp, kp, None, None, o, lse, do,
                             fa.attention_delta(o, do), acc,
                             torch.empty_like(k), torch.empty_like(v),
-                            causal=True, window=0, softcap=None)
+                            causal=True, window=0, softcap=None,
+                            sm_scale=fa.softmax_scale(64))
     torch.cuda.synchronize()
     assert not acc.any()
     assert ops.launch_counts()["mha_backward"] == before
@@ -293,7 +321,8 @@ def test_backward_kernel_refuses_more_keys_than_its_table(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         fa._launch_backward(q, k, v, qp, kp, None, None, o, lse, do, delta,
                             acc, torch.empty_like(k), torch.empty_like(v),
-                            causal=False, window=0, softcap=None, sem=sem)
+                            causal=False, window=0, softcap=None,
+                            sm_scale=fa.softmax_scale(16), sem=sem)
     torch.cuda.synchronize()
     assert not acc.any()
     assert ops.launch_counts()["mha_backward"] == before
@@ -702,3 +731,96 @@ def test_pipelined_fault_run_on_the_card_equals_the_fault_free_run(
     for a, b in zip(leaves(pf), leaves(p0)):
         assert torch.equal(a, b)
     assert all(m.mean_iter_time(0) > 0 for m in monitors)
+
+
+def _moe_cfg():
+    import dataclasses
+    from repro_torch.configs.base import get_arch, reduced
+    # reduced granite-moe at a width the kernels' callers see (d 256), 8
+    # experts top-2 with a shared expert, capacity that drops some tokens
+    return dataclasses.replace(reduced(get_arch("granite-moe-3b-a800m")),
+                               d_model=256, n_experts=8, d_ff_expert=128,
+                               n_shared_experts=1, capacity_factor=1.0)
+
+
+def test_moe_layer_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda):
+    # the dispatch copies each kept choice into its own slot and the gather
+    # reads each once, so the forward and backward add nothing in an order
+    # that varies: two calls agree to the bit
+    from repro_torch.models import layers as TL
+    from repro_torch.tree import flatten, tree_map
+    cfg = _moe_cfg()
+    params = TL.init_moe(torch.Generator().manual_seed(0), cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 256, cfg.d_model), generator=g).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g)
+
+    def run(dev):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+        xd = x.to(dev).requires_grad_()
+        y, aux = TL.moe_fwd(p, xd, cfg)
+        ((y.float() * ct.to(dev)).sum() + aux).backward()
+        return y, aux, xd.grad, {k: v.grad for k, v in flatten(p)}
+    y, aux, gx, gp = run(cuda)
+    y2, aux2, gx2, gp2 = run(cuda)
+    assert torch.equal(y, y2) and torch.equal(aux, aux2)
+    assert torch.equal(gx, gx2)
+    assert all(torch.equal(gp[k], gp2[k]) for k in gp)
+    yc, auxc, _, _ = run(torch.device("cpu"))
+    torch.testing.assert_close(aux.cpu(), auxc, atol=1e-5, rtol=1e-5)
+    # routes may flip between devices where two experts' probabilities
+    # tie in the last bits; the rows whose routes agree are compared
+    from repro_torch.models.layers import moe_route
+    xf = x.reshape(-1, cfg.d_model)
+    same = (moe_route(xf.to(cuda), params["router"].to(cuda), cfg)[2].cpu()
+            == moe_route(xf, params["router"], cfg)[2]).all(-1)
+    assert same.float().mean() > 0.99
+    torch.testing.assert_close(y.float().cpu().reshape(-1, cfg.d_model)[same],
+                               yc.float().reshape(-1, cfg.d_model)[same],
+                               atol=TOL, rtol=TOL)
+
+
+def test_jamba_period_on_the_card_matches_the_cpu(cuda):
+    # one reduced jamba period (mamba and attention mixers, MoE on odd
+    # layers) through K1, K4 and the MoE layer: forward, prefill and
+    # decode only, since K4 has no backward on the card (ROADMAP D)
+    import dataclasses
+    from repro_torch.configs.base import get_arch, reduced
+    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
+                              capacity_factor=16.0)
+    params = MD.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    r = np.random.default_rng(0)
+    b, s = 2, 64
+    tok = torch.from_numpy(r.integers(0, cfg.vocab, (b, s + 1),
+                                      dtype=np.int32))
+    pos = torch.arange(s + 1, dtype=torch.int32)[None].expand(b, s + 1)
+    full = {"tokens": tok, "positions": pos.contiguous()}
+    pre = {"tokens": tok[:, :s], "positions": pos[:, :s].contiguous()}
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = _to(params, dev)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            h, _, aux = MD.forward(p, _to(full, dev), cfg, remat=False)
+            logits, cache = MD.prefill(p, _to(pre, dev), cfg,
+                                       cache_len=s + 1)
+            dec, _ = MD.decode(p, {
+                "tokens": tok[:, -1:].to(dev),
+                "positions": torch.full((b, 1), s, dtype=torch.int32,
+                                        device=dev),
+                "cache": cache, "cache_pos": s}, cfg)
+        out[dev.type] = (MD._last_logits(p, h, cfg), logits, dec, aux)
+        n = 1 if dev.type == "cuda" else 0
+        # attention: forward, prefill, decode; mamba: forward and prefill
+        assert ops.launch_counts() == {"mha_forward": 3 * n,
+                                       "mha_backward": 0,
+                                       "ssd_chunked": 2 * 7 * n}
+    for a, c in zip(out["cuda"], out["cpu"]):
+        a, c = a.float().cpu(), c.float()
+        err = float((a - c).abs().max()) / (1 + float(c.abs().max()))
+        assert err <= TOL
+    # decode against the full forward's last position, on the card
+    got, want = out["cuda"][2], out["cuda"][0]
+    err = float((got - want).abs().max()) / (1 + float(want.abs().max()))
+    assert err <= TOL

@@ -278,15 +278,24 @@ def test_replica_death_shrinks_dp_and_matches_trajectory():
 
 
 def test_straggler_shifts_monitor_speed_factors():
-    """A delay of 1 s on replica 1, against a replica's few ms at this
-    size: a margin wide enough for a loaded machine. It falls on
-    iterations 1 and 3, where the fixed split (no speed factors: the drift
-    tolerance is out of reach) gives replica 1 work. Asserts only the
-    order of the factors and the drift."""
+    """A delay on replica 1 on iterations 1 and 3, where the fixed split
+    (no speed factors: the drift tolerance is out of reach) gives replica 1
+    work. Asserts only the order of the factors and the drift.
+
+    The delay is 1 s or ten times replica 0's iteration time in a warm
+    run just before, whichever is longer. An iteration at this size takes
+    about 0.1 s on an idle CPU host but up to about 0.7 s on a loaded one,
+    where a fixed 1 s left the drift near 1. The warm run also takes the
+    process's one-time start-up costs (1.2-1.9 s), which would otherwise
+    land in replica 0's first iteration time."""
+    warm = StragglerMonitor(2, heartbeat_timeout=50.0, window=1,
+                            clock=LogicalClock())
+    _runner(n_iters=2, dp_size=2, monitor=warm, drift_tolerance=1e9).run()
+    delay = max(1.0, 10.0 * warm.mean_iter_time(0))
     clk = LogicalClock()
     mon = StragglerMonitor(2, heartbeat_timeout=50.0, window=4, clock=clk)
     chaos = FaultSchedule([
-        FaultEvent(i, FaultKind.STRAGGLER, stage=0, replica=1, delay_s=1.0)
+        FaultEvent(i, FaultKind.STRAGGLER, stage=0, replica=1, delay_s=delay)
         for i in (1, 3)])
     _runner(n_iters=4, dp_size=2, chaos=chaos, monitor=mon,
             drift_tolerance=1e9).run()
