@@ -2,7 +2,8 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # fault, moe, frames, mixed
+                            # fault, moe, frames, mixed, gemma2
+    python3 chip_smoke.py --phases kernel,gemma2  # head dim 256 and gemma2-2b
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
 
@@ -15,7 +16,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``ssd_fwd_serial.cu``), one nvcc per source, all started
              together, from the sources in this checkout, with ptxas's
              register and spill lines and the dynamic shared memory of K1's
-             prefill form;
+             prefill forms and of the backward at every head dim (D 256
+             has forms of its own);
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -32,7 +34,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              64, rows as train-segmented's) and the frames phase's
              (``hubert-4k``: B 4, T = S 4096, 16 heads x 80, non-causal,
              one segment; head dim 80 runs zero-padded to 128, and the
-             padding's time is printed); both elementwise and per 64-row tile, where the
+             padding's time is printed), and the gemma2 phase's, at head
+             dim 256 with 8 q and 4 kv heads and softcap 50
+             (``gemma2-train``: B 4, T 2048, the train rows;
+             ``d256-causal``: the same without softcap, for SDPA's time;
+             ``gemma2-local-8k``: B 2, T = S 8192, window 4096;
+             ``gemma2-decode``: B 16, S 8200 at position 8199, window 4096;
+             ``padding-tile-d256``: a 128-row query tile of pure padding);
+             both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
              the backward must give dq, dk and dv equal to the bit over
              three calls; with times of the kernels (the backward alone and as the whole
@@ -133,10 +142,26 @@ Phases, each printing its own lines; any failure exits non-zero:
              seeded patch embeddings and 512 text tokens prefilled, 8
              greedy decode steps, exact K1 launches, finite logits; at 2
              layers the logits against the plain attention;
-12. profile — (not run by default; ``profile-models`` the same for the
+12. gemma2 — gemma2-2b at full width (26 layers, d_model 2304, 8 q and 4
+             kv heads x 256, a 4096-token window on every other layer,
+             softcaps 50 and 30), its attention on the head-dim-256
+             kernels: served at full depth with the serve phase's requests
+             (K1 launched exactly layers x (batches + batches x decode
+             steps) times, logits finite and within the final softcap); at
+             2 layers against the plain versions (prefill logits by row
+             within LOGIT_REL_TOL, which must fail a planted fault, K1
+             reading kv head h mod KV); trained at full depth on the
+             train phase's stream for 4 iterations (exact launches), two
+             2-layer runs equal to
+             the bit, and at 2 layers every gradient leaf against the
+             plain versions (GRAD_TOL, GRAD_REL_TOL, which must fail a zero
+             dq);
+13. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
-             step and encoder forward, llava-next's prefill and decode)
+             step and encoder forward, llava-next's prefill and decode;
+             ``profile-gemma2`` gemma2-2b's serve windows and a training
+             iteration at full depth)
              torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
              mamba2-130m, over one training iteration at 8 layers, and over
@@ -256,6 +281,16 @@ HUBERT_BATCH, HUBERT_SEQ, HUBERT_STEPS = 4, 4096, 4
 # activations), 4 rows of 2880 patch positions and 512 text tokens, 8
 # greedy decode steps
 LLAVA_LAYERS, LLAVA_ROWS, LLAVA_TEXT, LLAVA_DECODE_STEPS = 16, 4, 512, 8
+# the gemma2 phase: gemma2-2b at full width (arXiv:2408.00118, hf
+# google/gemma-2-2b: 26 layers, d_model 2304, 8 q and 4 kv heads x 256,
+# d_ff 9216, a 4096-token window on every other layer, attention softcap
+# 50, final softcap 30, tied embeddings, 2.61 B parameters), served at full
+# depth with the serve phase's requests, and trained at full depth on the
+# train phase's stream (at the model's vocabulary), palette and device_mem
+# (52 GB of state at 20 bytes a parameter). The kernel phase's D 256 cases
+# take its attention's shapes
+GEMMA2_ARCH = "gemma2-2b"
+GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_WINDOW, GEMMA2_SOFTCAP = 8, 4, 4096, 50.0
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -265,18 +300,24 @@ KERNELS = {
            {"decode": "decode", "causal_2048": "prefill",
             "train_segmented": "train-segmented", "t5_enc": "t5-enc",
             "t5_cross": "t5-cross", "granite_train": "granite-train",
-            "hubert_4k": "hubert-4k"}, ("train", "serve")),
+            "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
+            "d256_causal": "d256-causal", "gemma2_local_8k": "gemma2-local-8k",
+            "gemma2_decode": "gemma2-decode"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
             "t5_cross": "t5-cross", "granite_train": "granite-train",
-            "hubert_4k": "hubert-4k"}, ("train", "serve")),
+            "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
+            "d256_causal": "d256-causal",
+            "gemma2_local_8k": "gemma2-local-8k"}, ("train", "serve")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
             "t5_cross": "t5-cross", "granite_train": "granite-train",
-            "hubert_4k": "hubert-4k"}, ("train", "serve")),
+            "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
+            "d256_causal": "d256-causal",
+            "gemma2_local_8k": "gemma2-local-8k"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
            ("mamba",)),
@@ -316,7 +357,8 @@ def phase_device(torch):
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
             fn = re.search(r"Compiling entry function '\w*?\d"
-                           r"((?:mha|ssd)_[a-z_]+?_kernel)(?:I(\w*?)EE)?", line)
+                           r"((?:mha|ssd)_[a-z0-9_]+?_kernel)(?:I(\w*?)EE)?",
+                           line)
             if fn:   # the kernel and its template arguments, demangled
                 args = ", ".join(re.findall(r"L[ib](\d+)E",
                                             (fn.group(2) or "") + "E"))
@@ -325,8 +367,14 @@ def phase_device(torch):
             elif "registers" in line or "spill" in line:
                 print(f"[device]   {name}:   {line.strip()}")
     from repro_torch.kernels import flash_attention as fa
+    # the wgmma forms up to D 128, the mma.sync forms at D 256
     smem = _build.library("flash_fwd").mha_fwd_prefill_smem
-    print("[device]   flash_fwd: mha_fwd_prefill_kernel dynamic shared memory "
+    print("[device]   flash_fwd: prefill dynamic shared memory (D 256: "
+          "mha_fwd_prefill_d256_kernel) "
+          + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
+    smem = _build.library("flash_bwd").mha_bwd_smem
+    print("[device]   flash_bwd: dynamic shared memory (D 256: "
+          "mha_bwd_d256_kernel) "
           + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
     return smi_line
 
@@ -402,9 +450,12 @@ def _bound_ms(torch, q, k, qpos, kpos, qseg, kseg, causal, window):
 
 def _library_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window,
                 softcap):
-    """One PyTorch call computing the same attention, or None."""
+    """(name, call): one PyTorch call computing the same attention, its
+    output o as (B, H, T, D). With a softcap, flex_attention (SDPA has
+    none); else scaled_dot_product_attention."""
     if softcap is not None:
-        return None
+        return "flex_attention", _flex_fn(torch, q, k, v, qpos, kpos, qseg,
+                                          kseg, causal, window, softcap)
     import torch.nn.functional as F
     b, t, h, d = q.shape
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -412,13 +463,62 @@ def _library_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window,
     causal_plain = (causal and window == 0 and qseg is None and t == k.shape[1]
                     and bool((qpos == kpos).all()))
     if causal_plain:
-        return lambda: F.scaled_dot_product_attention(
+        return "sdpa", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, **gqa)
     mask = _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window)[:, None]
     if bool(mask.all()):     # every pair live (hubert's one segment)
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa)
-    return lambda: F.scaled_dot_product_attention(
+        return "sdpa", lambda: F.scaled_dot_product_attention(qt, kt, vt, **gqa)
+    return "sdpa", lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, **gqa)
+
+
+_FLEX = []
+
+
+def _flex_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, softcap,
+             do=None):
+    """torch.nn.attention.flex_attention, compiled once, with the softcap as
+    its score_mod, the live pairs (causal, window, segments) as its mask_mod
+    and block mask (built here, outside the timed call), GQA native and the
+    lse returned: the one PyTorch call that computes K1's function with a
+    softcap, a yardstick the port never calls. Without `do` the call gives
+    o (B, H, T, D); with it, the call is torch.autograd.grad of one retained
+    forward and gives (dq, dk, dv) as (B, H, T, D)."""
+    from torch.nn.attention import flex_attention as FA
+    if not _FLEX:
+        _FLEX.append(torch.compile(FA.flex_attention, dynamic=False))
+    flex = _FLEX[0]
+    b, t, h, d = q.shape
+
+    def mask_mod(bi, hi, qi, ki):
+        m = qi >= 0
+        if causal:
+            m = m & (qpos[bi, qi] >= kpos[bi, ki])
+            if window > 0:
+                m = m & (qpos[bi, qi] - kpos[bi, ki] < window)
+        if qseg is not None:
+            m = m & (qseg[bi, qi] == kseg[bi, ki]) & (kseg[bi, ki] >= 0)
+        return m
+
+    def score_mod(score, bi, hi, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    block_mask = FA.create_block_mask(mask_mod, b, None, t, k.shape[1],
+                                      device=q.device)
+    lse = ({"return_aux": FA.AuxRequest(lse=True)}
+           if hasattr(FA, "AuxRequest") else {"return_lse": True})
+    grad = do is not None
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_(grad)
+                  for x in (q, k, v))
+
+    def call():
+        return flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+                    enable_gqa=h != k.shape[2], **lse)[0]
+    if not grad:
+        return call
+    out, dot = call(), do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def _grad_close(out, ref, tol):
@@ -488,9 +588,15 @@ def _bwd_bound_ms(torch, q, k, qpos, kpos, qseg, kseg, causal, window):
             else "bytes", flops, pairs)
 
 
-def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
-    """torch.autograd.grad through one retained scaled_dot_product_attention
-    forward at the same shape: a yardstick the port never calls."""
+def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window,
+                    softcap, do):
+    """(name, call): torch.autograd.grad through one retained forward of the
+    library call at the same shape (flex_attention with a softcap, else
+    scaled_dot_product_attention), giving (dq, dk, dv) as (B, H, T, D): a
+    yardstick the port never calls."""
+    if softcap is not None:
+        return "flex_attention", _flex_fn(torch, q, k, v, qpos, kpos, qseg,
+                                          kseg, causal, window, softcap, do)
     import torch.nn.functional as F
     h = q.shape[2]
     qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v))
@@ -503,7 +609,8 @@ def _library_bwd_fn(torch, q, k, v, qpos, kpos, qseg, kseg, causal, window, do):
     else:
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
     dot = do.transpose(1, 2)
-    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    return "sdpa", lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                               retain_graph=True)
 
 
 def _check_backward(torch, fa, name, args, opts, o, lse, timed):
@@ -595,14 +702,27 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
     del acc, sem, sems
     plain_ms = _cuda_time(torch, lambda: fa.mha_backward_plain(*res, **opts),
                           3, warmup=1)
-    lib = (_library_bwd_fn(torch, q, k, v, qp, kp, qs, ks, opts["causal"],
-                           opts["window"], do)
-           if opts["softcap"] is None else None)
-    library_ms = _cuda_time(torch, lib, iters) if lib else None
+    # the library call, held to the plain version on the rows and keys
+    # some pair reaches. Its output on a row with no visible key is not
+    # K1's zero (SDPA's is a mean of v), so do is zero there for it, as a
+    # training step's gradient is on padding
+    lib_name, lib = _library_bwd_fn(torch, q, k, v, qp, kp, qs, ks,
+                                    opts["causal"], opts["window"],
+                                    opts["softcap"],
+                                    do * ~dead_rows[:, :, None, None])
+    lib_err = 0.0
+    for g, out, r, sel in zip(("dq", "dk", "dv"), lib(), ref,
+                              (~dead_rows, ~dead_keys, ~dead_keys)):
+        err, ok = _grad_close(out.transpose(1, 2)[sel], r[sel], GRAD_TOL_BF16)
+        check(ok, f"backward {name}: {lib_name}'s {g} outside GRAD_TOL "
+              f"{GRAD_TOL_BF16} of the plain version (max |diff| {err:.3e})")
+        lib_err = max(lib_err, err)
+    library_ms = _cuda_time(torch, lib, iters)
     bound_ms, bound_by, flops, pairs = _bwd_bound_ms(
         torch, q, k, qp, kp, qs, ks, opts["causal"], opts["window"])
     rec = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms, backward_ms=whole_ms, delta_ms=delta_ms,
+               library_ms=library_ms, library=lib_name, library_err=lib_err,
+               backward_ms=whole_ms, delta_ms=delta_ms,
                zeros_ms=zeros_ms, cast_ms=cast_ms, live_pairs=pairs,
                covers="dq, dk and dv in one launch: the work of the "
                "reference's K2 and K3; backward_ms adds delta, the zeroed "
@@ -610,7 +730,6 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
                repeatable=same)
     if kd != d:
         rec.update(head_dim=d, kernel_head_dim=kd, pad_ms=pad_ms)
-    lib_s = library_ms if library_ms is None else round(library_ms, 4)
     print(f"[kernel] {name:20s} backward kernel {ms:.4f} ms "
           f"({flops / ms / 1e9:.1f} TFLOP/s over {pairs} live pairs), whole "
           f"CUDA backward {whole_ms:.4f} ms (delta {delta_ms:.4f}, zeroed "
@@ -618,7 +737,8 @@ def _check_backward(torch, fa, name, args, opts, o, lse, timed):
           f"{bound_ms:.4f} ms by "
           f"{bound_by} ({100 * bound_ms / ms:.1f}% of bound, "
           f"{100 * bound_ms / whole_ms:.1f}% for the whole); plain "
-          f"{plain_ms:.4f} ms, sdpa {lib_s} ms"
+          f"{plain_ms:.4f} ms, {lib_name} {library_ms:.4f} ms (max |d-plain| "
+          f"{lib_err:.3e})"
           + (f"; head dim {d} padded to {kd}: the kernel at {kd}, the "
              f"padding of q, k, v, o and do {pad_ms:.4f} ms (in the whole)"
              if kd != d else ""), flush=True)
@@ -680,6 +800,14 @@ def phase_kernel(torch):
     # phase's (hubert: 16 heads x 80, non-causal, one segment)
     gr_seg, gr_pos = _train_rows(TRAIN_ROWS * 2, 2048)
     hb_seg = [[0] * HUBERT_SEQ] * HUBERT_BATCH
+    # the gemma2 phase's attention at head dim 256 (8 q and 4 kv heads,
+    # softcap 50): its training rows, a local layer past its 4096-token
+    # window (which the 2048-token paths never reach), a decode step at
+    # position 8199 with the window in effect, and the training rows
+    # without softcap for SDPA's time
+    gm = dict(h=GEMMA2_HEADS, kv=GEMMA2_KV_HEADS, d=256)
+    gm_opts = dict(softcap=GEMMA2_SOFTCAP)
+    gm_local = dict(window=GEMMA2_WINDOW, softcap=GEMMA2_SOFTCAP)
     # name, shape, options, K1 timed, backward: None, "check" or the name
     # of its timed record
     cases = [
@@ -721,6 +849,19 @@ def phase_kernel(torch):
         ("hubert-4k", dict(b=HUBERT_BATCH, t=HUBERT_SEQ, s=HUBERT_SEQ, h=16,
                            kv=16, d=80, q_seg=hb_seg, kv_seg=hb_seg),
          dict(causal=False), True, "hubert-4k"),
+        ("gemma2-train", dict(b=4, t=2048, s=2048, q_pos=tr_pos, kv_pos=tr_pos,
+                              q_seg=tr_seg, kv_seg=tr_seg, **gm), gm_opts,
+         True, "gemma2-train"),
+        ("d256-causal", dict(b=4, t=2048, s=2048, q_pos=tr_pos, kv_pos=tr_pos,
+                             q_seg=tr_seg, kv_seg=tr_seg, **gm), {}, True,
+         "d256-causal"),
+        ("gemma2-local-8k", dict(b=2, t=8192, s=8192, **gm), gm_local, True,
+         "gemma2-local-8k"),
+        ("gemma2-decode", dict(b=B_DEC, t=1, s=8200, q_pos=[[8199]] * B_DEC,
+                               **gm), gm_local, True, None),
+        ("padding-tile-d256", dict(b=2, t=384, s=384, h=4, kv=2, d=256,
+                                   q_pos=pad_pos, kv_pos=pad_pos, q_seg=pad_seg,
+                                   kv_seg=pad_seg), gm_opts, False, "check"),
     ]
     # worst |out - plain| and worst tile relative error
     records, worst = {}, {"K1": (0.0, 0.0), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
@@ -765,21 +906,28 @@ def phase_kernel(torch):
               f"{rel:.3e} exceeds FWD_REL_TOL {FWD_REL_TOL}")
         check(f_rel > FWD_REL_TOL, f"K1 {name}: the per-tile check does not "
               "see the planted fault")
-        del o_ref, lse_ref
         if timed:
             iters = 100 if name == "decode" else 20
             ms = _cuda_time(torch, lambda: fa.mha_forward(*args, **opts), iters)
             plain_ms = _cuda_time(
                 torch, lambda: fa.mha_forward_plain(*args, **opts),
                 max(3, iters // 10), warmup=1)
-            lib = _library_fn(torch, *args, opts["causal"], opts["window"],
-                              opts["softcap"])
-            library_ms = _cuda_time(torch, lib, iters) if lib else None
+            # the library call, held to the plain version on seen rows
+            lib_name, lib = _library_fn(torch, *args, opts["causal"],
+                                        opts["window"], opts["softcap"])
+            rows = seen.permute(0, 2, 1)
+            lib_err = float((lib().transpose(1, 2)[rows].float()
+                             - o_ref[rows].float()).abs().max())
+            check(lib_err <= TOL_BF16, f"K1 {name}: {lib_name} disagrees with "
+                  f"the plain version: max |o-plain| {lib_err:.3e}")
+            library_ms = _cuda_time(torch, lib, iters)
             bound_ms, bound_by, flops, nbytes = _bound_ms(
                 torch, q, k, qp, kp, qs, ks, opts["causal"], opts["window"])
             records[("K1", name)] = dict(ms=ms, plain_ms=plain_ms,
                                          bound_ms=bound_ms, bound_by=bound_by,
-                                         library_ms=library_ms)
+                                         library_ms=library_ms,
+                                         library=lib_name,
+                                         library_err=lib_err)
             d, kd = q.shape[-1], fa.kernel_head_dim(q.shape[-1])
             pad_note = ""
             if kd != d:   # ms covers the padding of q, k, v and o's cut
@@ -792,10 +940,12 @@ def phase_kernel(torch):
             line += (f"\n[kernel] {name:20s} kernel {ms:.4f} ms "
                      f"({flops / ms / 1e9:.1f} TFLOP/s, "
                      f"{nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, "
-                     f"sdpa {library_ms if library_ms is None else round(library_ms, 4)} ms, "
+                     f"{lib_name} {library_ms:.4f} ms (max |o-plain| "
+                     f"{lib_err:.3e}), "
                      f"bound {bound_ms:.4f} ms by {bound_by} "
                      f"({100 * bound_ms / ms:.1f}% of bound){pad_note}")
         print(line, flush=True)
+        del o_ref, lse_ref
         if bwd is not None:
             recs, errs = _check_backward(torch, fa, name, args, opts, o, lse,
                                          timed=bwd != "check")
@@ -2460,10 +2610,164 @@ def phase_mixed(torch):
 
 
 # ----------------------------------------------------------------------
-# phase 12: profiles (not run by default)
+# phase 12: gemma2, gemma2-2b served and trained at full width (head dim 256)
 # ----------------------------------------------------------------------
-# K1's two forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel
-KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_kernel",
+def _gqa_fault(torch):
+    """A patch of K1 by a planted fault on the plain forward: every q head
+    h reads kv head h mod KV in place of h / group, an indexing fault of
+    GQA."""
+    from repro_torch.kernels import flash_attention as fa
+
+    def forward(q, k, v, *a, **o):
+        idx = torch.arange(q.shape[2], device=k.device) % k.shape[2]
+        return fa.mha_forward_plain(q, k[:, :, idx], v[:, :, idx], *a, **o)
+    return mock.patch.object(fa, "_mha_forward_cuda", forward)
+
+
+def phase_gemma2(torch, requests, max_prompt, decode_steps):
+    """gemma2-2b at full width, its attention on the D 256 kernels: served
+    at full depth (K1 launched layers x (batches + batches x decode steps)
+    times, every logit finite and within the final softcap), at 2 layers
+    against the plain versions (prefill logits within LOGIT_REL_TOL, which
+    must fail a planted GQA fault); trained at full depth on the
+    sequential runner (exact launches),
+    two 2-layer runs equal to the bit, and at 2 layers each gradient leaf
+    against the plain versions (which must fail a zero dq)."""
+    import numpy as np
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.tree import leaves
+
+    cfg = get_arch(GEMMA2_ARCH)
+    print(f"[gemma2] {cfg.name} at full width ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} q and {cfg.n_kv_heads} kv heads x "
+          f"{cfg.d_head}, window {cfg.window} on every other layer, softcaps "
+          f"{cfg.attn_softcap} and {cfg.final_softcap}); served and trained "
+          "at full depth; comparisons with the plain versions at 2 layers", flush=True)
+    counts = {}
+    # (a) the serve at full depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, tokens, res = _serve(torch, cfg.n_layers, n_requests=requests,
+                              max_prompt=max_prompt, decode_steps=decode_steps,
+                              seed=0, arch=GEMMA2_ARCH, tag="gemma2")
+    counts["serve"] = ops.launch_counts()
+    nb = len(res.batches)
+    expected = {"mha_forward": cfg.n_layers * (nb + nb * decode_steps),
+                "mha_backward": 0, "ssd_chunked": 0}
+    top = max(float(x.abs().max()) for x in res.logits)
+    _serve_line("gemma2", cfg, res, tokens, time.perf_counter() - t0,
+                counts["serve"], expected, f", {decode_steps} decode steps, "
+                f"max |logit| {top:.4f} (final softcap {cfg.final_softcap})")
+    check(counts["serve"] == expected, f"{GEMMA2_ARCH} serve launches "
+          f"{counts['serve']}, expected {expected}")
+    check(all(bool(torch.isfinite(x).all()) for x in res.logits),
+          f"non-finite logits in the {GEMMA2_ARCH} serve")
+    check(top <= cfg.final_softcap, f"{GEMMA2_ARCH} logits past the final "
+          f"softcap: {top}")
+    del res
+    torch.cuda.empty_cache()
+
+    # the serve at 2 layers with the kernels, the plain versions and a
+    # planted fault in K1's place
+    kw = dict(n_requests=requests, max_prompt=max_prompt,
+              decode_steps=decode_steps, seed=1)
+    runs = {}
+    for name, patches in (("kernels", ()), ("plain", _plain_attention()),
+                          ("fault", (_gqa_fault(torch),))):
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            runs[name] = _serve(torch, 2, arch=GEMMA2_ARCH, tag="gemma2",
+                                **kw)[2]
+    err, compared = _compare_serves(torch, runs["kernels"], runs["plain"],
+                                    TOL_BF16)
+    rel, f_rel = (_prefill_rel(torch, runs[n], runs["plain"])
+                  for n in ("kernels", "fault"))
+    print(f"[gemma2] 2 layers, kernels vs plain versions: max |logit diff| / "
+          f"(1 + max|logit|) {err:.3e} over {compared} (row, step) logit "
+          f"vectors (tol {TOL_BF16}); worst prefill row ||diff|| / ||plain|| "
+          f"{rel:.3e} (LOGIT_REL_TOL {LOGIT_REL_TOL}); planted fault (kv head "
+          f"h mod KV): worst prefill row {f_rel:.3e}", flush=True)
+    check(err <= TOL_BF16 and rel <= LOGIT_REL_TOL, f"2-layer {GEMMA2_ARCH} "
+          "serve logits: kernels and plain versions disagree")
+    check(f_rel > LOGIT_REL_TOL, f"the {GEMMA2_ARCH} serve comparison does "
+          "not see K1 reading the wrong kv head")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) training at full depth on the sequential runner
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _train(
+        torch, cfg.n_layers, TRAIN_ITERS, seed=0, arch=GEMMA2_ARCH)
+    counts["train"] = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = _peak_gib()
+    del params
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("gemma2", hist, lambda it: [
+        (m.mbs, m.seq) for m in plan_iteration(
+            stream.batch(it).lengths[:, 0], cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+    print(f"[gemma2] {cfg.name} trained at {cfg.n_layers} layers "
+          f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
+          f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
+          f"after the first: {tok_s:.1f} real tokens/s, mean step "
+          f"{1e3 * step_s:.1f} ms; peak memory {peak:.1f} GiB; planning "
+          f"overlap {stats.overlap_fraction:.3f}; launches {counts['train']} "
+          f"(expected {expected})", flush=True)
+    check(counts["train"] == expected, f"{GEMMA2_ARCH} train launches "
+          f"{counts['train']}, expected {expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), f"non-finite loss or grad norm in {GEMMA2_ARCH} "
+          "training")
+    runs = [_train(torch, 2, 2, seed=1, log_every=0, arch=GEMMA2_ARCH)[4:6]
+            for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[gemma2] 2 layers, two 2-iteration runs from one seed: losses "
+          f"{[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and all "
+          f"{len(leaves(runs[0][0]))} parameter leaves equal to the bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    check(same, f"two {GEMMA2_ARCH} training runs from one seed differ")
+    del runs
+    torch.cuda.empty_cache()
+
+    # the first iteration's largest micro-batch at 2 layers: every gradient
+    # leaf with the kernels against the plain versions
+    cfg2, stream2, cost2, pcfg2 = _train_setup(torch, 2, arch=GEMMA2_ARCH)
+    gb = stream2.batch(0)
+    big = max(plan_iteration(gb.lengths[:, 0], cost2, pcfg2).replica_plans[0]
+              .micro_batches, key=lambda m: m.mbs * m.seq)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in materialize_micro_batch(
+        big, gb.tokens, lengths=gb.lengths).items()}
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg2, device="cuda")
+    print(f"[gemma2] gradients against the plain versions on a micro-batch of "
+          f"{big.mbs} x {big.seq}", flush=True)
+    _dense_grads_against_plain(torch, cfg2, params, batch, "gemma2")
+    del params, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 13: profiles (not run by default)
+# ----------------------------------------------------------------------
+# K1's forms are mha_fwd_prefill_kernel, mha_fwd_prefill_d256_kernel and
+# mha_fwd_decode_kernel; the backward's mha_bwd_kernel and mha_bwd_d256_kernel
+KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_",
                   "K4": "ssd_fwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies
@@ -2691,10 +2995,11 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault,moe,frames,mixed",
+                    "fault,moe,frames,mixed,gemma2",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, fault, moe, frames, mixed, profile, "
-                    "profile-models (the device phase always runs)")
+                    "t5, mamba, fault, moe, frames, mixed, gemma2, profile, "
+                    "profile-models, profile-gemma2 (the device phase always "
+                    "runs)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -2740,6 +3045,10 @@ def main():
         paths["frames"] = phase_frames(torch)
     if "mixed" in phases:
         paths["mixed"] = phase_mixed(torch)
+    if "gemma2" in phases:
+        gemma2 = phase_gemma2(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        paths.update({"gemma2-serve": gemma2["serve"],
+                      "gemma2-train": gemma2["train"]})
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,
@@ -2752,6 +3061,13 @@ def main():
                             adamw=False)
         phase_profile_frames(torch)
         phase_profile_mixed(torch)
+    if "profile-gemma2" in phases:
+        from repro_torch.configs.base import get_arch
+        depth = get_arch(GEMMA2_ARCH).n_layers
+        phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS, arch=GEMMA2_ARCH,
+                            n_layers=depth)
+        phase_profile_train(torch, arch=GEMMA2_ARCH, n_layers=depth,
+                            adamw=False)
     kernels = []
     for kid, (name, source, replaces, main_case, other_cases,
               kpaths) in KERNELS.items():

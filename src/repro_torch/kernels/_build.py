@@ -41,6 +41,7 @@ KERNELS = {
     "flash_bwd": ("flash_bwd.cu", {
         "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P, _P] + [_I] * 8
                         + [ctypes.c_float] * 2 + [_P],
+        "mha_bwd_smem": [_I],
     }),
     "ssd_fwd": ("ssd_fwd.cu", {
         "ssd_fwd_bf16": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_P],

@@ -31,7 +31,9 @@
 // reference's two passes (and this port's first two kernels) computed s and
 // dp twice, 14 D per pair.
 //
-// Design. One pass over the live (query tile, key tile) pairs.
+// Design (D up to 128; D 256 has its own form, `mha_bwd_d256_kernel`, at
+// the end of this file). One pass over the live (query tile, key tile)
+// pairs.
 //  - One block per (128 keys, KV head, batch row): a producer warpgroup and
 //    two consumer warpgroups of 64 keys each. The k and v tiles stay in
 //    shared memory for the whole pass; the block loops over the live
@@ -612,11 +614,381 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------
+// head dim 256
+// ---------------------------------------------------------------------
+// The wgmma form above does not fit at D 256: k and v resident at 64 KiB
+// each, two stages of q and do at 128 KiB and two fp32 dq slots of 64 rows
+// x 256 at 128 KiB come to about 421000 B of shared memory against
+// 232448, and dk and dv would take 256 fp32 registers of each consumer
+// thread. This form is simple instead, on mma.sync m16n8k16 with ldmatrix
+// from shared rows padded to 264 bf16:
+//  - One block per (64 keys, KV head, batch row), eight warps. Warp w
+//    takes keys [16 (w % 4), +16) and columns [128 (w / 4), +128): its
+//    dk and dv are 16 keys x 128 columns, 64 fp32 registers each. The two
+//    warps of a key group both compute s^T = k q^T and dp^T = v do^T over
+//    the whole of D (the products of s and dp are done twice: 14 D FLOPs a
+//    pair where 10 D are needed), so no partial sums cross warps.
+//  - The block walks the live (64-row query tile, q head of the GQA group)
+//    items, query tiles from the last to the first, as the other form;
+//    every warp finds the live query tiles itself (`tiles_live` on the
+//    tiles' min/max), and the next item's q, do, lse, delta, positions and
+//    segment ids load by cp.async into the second of two stages while this
+//    one is computed.
+//  - Per item: p^T and ds^T in registers (the softcap chain as the other
+//    form), dv += p^T do and dk += ds^T q (do and q read transposed by
+//    ldmatrix), ds^T to shared memory, then dq = ds k with warp w taking
+//    query rows [16 (w % 4), +16) and columns [128 (w / 4), +128).
+//  - dq's tile is added into the caller's zeroed fp32 accumulator in the
+//    same order as the other form: the block waits until the counter of
+//    (batch row, q head, query tile) holds the number of live key tiles
+//    before its own (counted by warp 0 from a table of the key tiles'
+//    statistics), then every thread adds its part with loads and stores
+//    that bypass L1, and after a fence and a barrier one thread bumps the
+//    counter (release). So dq is repeatable bit for bit, its sums taken
+//    in ascending key tile as fp32 adds, as the reduce-adds of the other
+//    form take them.
+// Shared memory: k and v 64 x 264 bf16 (67584 B), two stages of q and do
+// (135168 B), ds^T 64 x 72 bf16 (9216 B), two stages of lse, delta,
+// positions and segment ids (2048 B), the statistics of up to 1024 key
+// tiles (16384 B: S <= 65536 as the other form): 230400 B of the 232448 a
+// block may have. Bound as the other form: 10 D FLOPs per visible pair.
+constexpr int kD256 = 256;
+constexpr int kStride256 = kD256 + 8;       // bf16 per shared row of k, v, q, do
+constexpr int kBK256 = 64;                  // keys per block
+constexpr int kDSStride = kBQ + 8;          // bf16 per shared row of ds^T
+constexpr int kMaxKeyTiles256 = kMaxKeyTiles * kBKB / kBK256;
+constexpr int kThreads256 = 256;
+struct Smem256 {
+  static constexpr int kTile = 64 * kStride256 * 2;          // 64 rows of k, v, q or do
+  static constexpr int kK = 0, kV = kTile;
+  static constexpr int kQD = 2 * kTile;                      // [stage][q, do]
+  static constexpr int kDS = kQD + kStages * 2 * kTile;      // ds^T [key][row]
+  static constexpr int kMeta = kDS + kBK256 * kDSStride * 2; // [stage][lse, delta, pos, seg][kBQ]
+  static constexpr int kStat = kMeta + kStages * 4 * kBQ * 4;   // int4 [kMaxKeyTiles256]
+  static constexpr int kBytes = kStat + kMaxKeyTiles256 * 16;
+};
+static_assert(kBQ == 64 && Smem256::kBytes <= 232448, "shared memory of a block");
+
+__global__ void __launch_bounds__(kThreads256, 1)
+mha_bwd_d256_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                    float* dq_acc, int T_acc, const Params p) {
+  using L = Smem256;
+  constexpr int kD = kD256, kStride = kStride256;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* const k_s = reinterpret_cast<uint16_t*>(smem + L::kK);
+  uint16_t* const v_s = reinterpret_cast<uint16_t*>(smem + L::kV);
+  uint16_t* const ds_s = reinterpret_cast<uint16_t*>(smem + L::kDS);
+  int4* const stats = reinterpret_cast<int4*>(smem + L::kStat);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
+  const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
+  const int kg = warp & 3, col0 = (warp >> 2) * 128;   // key (and dq row) group, columns
+  const int b = blockIdx.z, kvh = blockIdx.y, kt = blockIdx.x, k0 = kt * kBK256;
+  const int group = p.H / p.KV;
+  const bool segmented = p.qseg != nullptr;
+  const int* const kpos = p.kpos + (size_t)b * p.S;
+  const int* const kseg = segmented ? p.kseg + (size_t)b * p.S : nullptr;
+  const int* const qpos = p.qpos + (size_t)b * p.T;
+  const int* const qseg = segmented ? p.qseg + (size_t)b * p.T : nullptr;
+  const size_t q_rs = (size_t)p.H * kD, kv_rs = (size_t)p.KV * kD;
+
+  // ---- k and v of the block's keys, zeros past S: one cp.async group ----
+#pragma unroll
+  for (int j = 0; j < kBK256 * (kD / 8) / kThreads256; ++j) {
+    const int i = tid + j * kThreads256;
+    const int r = i / (kD / 8), ch = i % (kD / 8);
+    const bool in = k0 + r < p.S;
+    const size_t off = in ? ((size_t)b * p.S + k0 + r) * kv_rs + (size_t)kvh * kD + ch * 8 : 0;
+    cp_async16(k_s + r * kStride + ch * 8, k + off, in);
+    cp_async16(v_s + r * kStride + ch * 8, v + off, in);
+  }
+  cp_async_commit();
+  // ---- the statistics of key tiles 0..kt ----
+  for (int i = warp; i <= kt; i += kThreads256 / 32) {
+    const int4 st = row_tile_stats<kBK256>(kpos, kseg, p.S, i * kBK256, lane);
+    if (lane == 0) stats[i] = st;
+  }
+  __syncthreads();
+  const int kstat[4] = {stats[kt].x, stats[kt].y, stats[kt].z, stats[kt].w};
+
+  // this thread's two keys: rows g and g + 8 of its warp's 16 in s^T
+  int key[2], kp[2], ks[2];
+  bool key_ok[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    key[j] = kg * 16 + g + 8 * j;
+    key_ok[j] = k0 + key[j] < p.S;
+    kp[j] = key_ok[j] ? kpos[k0 + key[j]] : 0;
+    ks[j] = (key_ok[j] && segmented) ? kseg[k0 + key[j]] : 0;
+  }
+
+  // The next live query tile at or below t (-1 if none), and whether every
+  // pair of it and the block's keys is visible.
+  auto next_live = [&](int t, bool& full) -> int {
+    for (; t >= 0; --t) {
+      const int4 q4 = row_tile_stats<kBQ>(qpos, qseg, p.T, t * kBQ, lane);
+      const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
+      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
+      full = (t + 1) * kBQ <= p.T && k0 + kBK256 <= p.S &&
+             tiles_full(qstat, kstat, segmented, p.causal, p.window);
+      return t;
+    }
+    return -1;
+  };
+  // q and do of (query tile t, q head hq), zeros past T, their lse (log2
+  // units), delta, positions and segment ids, into stage `stage`
+  auto issue = [&](int t, int hq, int stage) {
+    uint16_t* const qb = reinterpret_cast<uint16_t*>(smem + L::kQD + stage * 2 * L::kTile);
+    uint16_t* const db = qb + kBQ * kStride;
+#pragma unroll
+    for (int j = 0; j < kBQ * (kD / 8) / kThreads256; ++j) {
+      const int i = tid + j * kThreads256;
+      const int r = i / (kD / 8), ch = i % (kD / 8);
+      const int row = t * kBQ + r;
+      const bool in = row < p.T;
+      const size_t off = in ? ((size_t)b * p.T + row) * q_rs + (size_t)hq * kD + ch * 8 : 0;
+      cp_async16(qb + r * kStride + ch * 8, q + off, in);
+      cp_async16(db + r * kStride + ch * 8, dout + off, in);
+    }
+    cp_async_commit();
+    if (tid < kBQ) {
+      float* const meta = reinterpret_cast<float*>(smem + L::kMeta) + stage * 4 * kBQ;
+      const int row = t * kBQ + tid;
+      const bool ok = row < p.T;
+      const size_t li = ((size_t)b * p.H + hq) * p.T + row;
+      meta[tid] = ok ? p.lse[li] * kLog2e : 0.f;
+      meta[kBQ + tid] = ok ? p.delta[li] : 0.f;
+      reinterpret_cast<int*>(meta)[2 * kBQ + tid] = ok ? qpos[row] : 0;
+      reinterpret_cast<int*>(meta)[3 * kBQ + tid] = (ok && segmented) ? qseg[row] : 0;
+    }
+  };
+
+  float dk[kD / 16][4], dv[kD / 16][4];   // 16 keys x 128 columns each
+#pragma unroll
+  for (int n = 0; n < kD / 16; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  const float scale_log2 = p.sm_scale * kLog2e;
+  const uint16_t* const kw = k_s + kg * 16 * kStride;
+  const uint16_t* const vw = v_s + kg * 16 * kStride;
+
+  const int n_qt = (p.T + kBQ - 1) / kBQ;
+  bool full = false, full_next = false;
+  int t = next_live(n_qt - 1, full), gi = 0, stage = 0;
+  if (t >= 0) issue(t, kvh * group, 0);
+  while (t >= 0) {
+    const int hq = kvh * group + gi;
+    int t_next = t, gi_next = gi + 1;   // the item after this one
+    full_next = full;
+    if (gi_next == group) {
+      gi_next = 0;
+      t_next = next_live(t - 1, full_next);
+    }
+    if (t_next >= 0) {
+      issue(t_next, kvh * group + gi_next, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // k, v and this item's stage are in shared memory
+    const uint16_t* const qb = reinterpret_cast<const uint16_t*>(
+        smem + L::kQD + stage * 2 * L::kTile);
+    const uint16_t* const db = qb + kBQ * kStride;
+    const float* const lse2 = reinterpret_cast<const float*>(smem + L::kMeta) + stage * 4 * kBQ;
+    const float* const dlt = lse2 + kBQ;
+    const int* const qpos_b = reinterpret_cast<const int*>(dlt + kBQ);
+    const int* const qseg_b = qpos_b + kBQ;
+    const int q0 = t * kBQ;
+
+    // ---- s^T = k q^T and dp^T = v do^T: the warp's 16 keys x 64 rows ----
+    float s[kBQ / 8][4], dp[kBQ / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      uint32_t ka[4], va[4];   // A fragments: the warp's keys, dims 16 kk..
+      ldsm_x4(ka, kw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
+      ldsm_x4(va, vw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int n = 0; n < kBQ / 8; n += 2) {
+        uint32_t qf[4], df[4];   // b0, b1 of n-tiles (query rows) n and n + 1
+        const int off = ((n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8;
+        ldsm_x4(qf, qb + off);
+        ldsm_x4(df, db + off);
+        mma_bf16(s[n], ka, qf[0], qf[1]);
+        mma_bf16(s[n + 1], ka, qf[2], qf[3]);
+        mma_bf16(dp[n], va, df[0], df[1]);
+        mma_bf16(dp[n + 1], va, df[2], df[3]);
+      }
+    }
+
+    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2): element e of
+    // n-tile n is key g + 8 (e / 2), query row 8 n + 2 c + e % 2 ----
+#pragma unroll
+    for (int n = 0; n < kBQ / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = e >> 1, r = 8 * n + 2 * c + (e & 1);
+        float pe, ds = dp[n][e] - dlt[r];
+        if (p.softcap > 0.f) {
+          const float th = tanhf(s[n][e] * p.sm_scale / p.softcap);
+          pe = exp2f(p.softcap * th * kLog2e - lse2[r]);
+          ds *= 1.f - th * th;
+        } else {
+          pe = exp2f(s[n][e] * scale_log2 - lse2[r]);
+        }
+        if (!full &&
+            !(q0 + r < p.T && key_ok[kj] &&
+              visible(qpos_b[r], qseg_b[r], kp[kj], ks[kj], segmented,
+                      p.causal, p.window)))
+          pe = 0.f;
+        s[n][e] = pe;
+        dp[n][e] = pe * ds;
+      }
+    }
+    // as bf16 A fragments (keys x 16 query rows), one per 16 rows
+    uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq) {
+      pa[kq][0] = pack_bf16(s[2 * kq][0], s[2 * kq][1]);
+      pa[kq][1] = pack_bf16(s[2 * kq][2], s[2 * kq][3]);
+      pa[kq][2] = pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]);
+      pa[kq][3] = pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3]);
+      sa[kq][0] = pack_bf16(dp[2 * kq][0], dp[2 * kq][1]);
+      sa[kq][1] = pack_bf16(dp[2 * kq][2], dp[2 * kq][3]);
+      sa[kq][2] = pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
+      sa[kq][3] = pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
+    }
+
+    // ---- dv += p^T do, dk += ds^T q over the warp's 128 columns ----
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq) {
+      const int off = (kq * 16 + (mi & 1) * 8 + r8) * kStride + col0 + (mi >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < kD / 16; n += 2) {
+        uint32_t bf[4];   // b0, b1 of n-tiles (columns) n and n + 1
+        ldsm_x4_trans(bf, db + off + n * 8);
+        mma_bf16(dv[n], pa[kq], bf[0], bf[1]);
+        mma_bf16(dv[n + 1], pa[kq], bf[2], bf[3]);
+        ldsm_x4_trans(bf, qb + off + n * 8);
+        mma_bf16(dk[n], sa[kq], bf[0], bf[1]);
+        mma_bf16(dk[n + 1], sa[kq], bf[2], bf[3]);
+      }
+    }
+
+    // ---- ds^T to shared memory, [key][query row], by the warps of the
+    // first column half (the second holds the same) ----
+    if (col0 == 0) {
+#pragma unroll
+      for (int kq = 0; kq < kBQ / 16; ++kq)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          *reinterpret_cast<uint32_t*>(
+              ds_s + (kg * 16 + g + 8 * (r & 1)) * kDSStride + kq * 16 +
+              8 * (r >> 1) + 2 * c) = sa[kq][r];
+    }
+    __syncthreads();   // ds^T of the block's 64 keys is in shared memory
+
+    // ---- dq = ds k: query rows 16 kg.., columns col0.., over the 64 keys;
+    // ds read transposed from ds^T ----
+    float dqa[kD / 16][4];
+#pragma unroll
+    for (int n = 0; n < kD / 16; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK256 / 16; ++kk) {
+      uint32_t af[4];
+      ldsm_x4_trans(af, ds_s + (kk * 16 + (mi >> 1) * 8 + r8) * kDSStride +
+                            kg * 16 + (mi & 1) * 8);
+      const uint16_t* const kb = k_s + (kk * 16 + (mi & 1) * 8 + r8) * kStride +
+                                 col0 + (mi >> 1) * 8;
+#pragma unroll
+      for (int n = 0; n < kD / 16; n += 2) {
+        uint32_t bf[4];
+        ldsm_x4_trans(bf, kb + n * 8);
+        mma_bf16(dqa[n], af, bf[0], bf[1]);
+        mma_bf16(dqa[n + 1], af, bf[2], bf[3]);
+      }
+    }
+
+    // ---- dq's tile into the accumulator, after the live key tiles before
+    // this one (for this query tile), in ascending order ----
+    int* const sem = p.dq_sem + ((size_t)b * p.H + hq) * n_qt + t;
+    if (warp == 0) {
+      const int4 q4 = row_tile_stats<kBQ>(qpos, qseg, p.T, q0, lane);
+      const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
+      int before = 0;
+      for (int i0 = 0; i0 < kt; i0 += 32) {
+        const int i = min(i0 + lane, kt - 1);
+        const int st[4] = {stats[i].x, stats[i].y, stats[i].z, stats[i].w};
+        before += __popc(__ballot_sync(
+            0xffffffffu, i0 + lane < kt &&
+                             tiles_live(qstat, st, segmented, p.causal, p.window)));
+      }
+      if (lane == 0)
+        while (ld_acquire_gpu(sem) < before) __nanosleep(64);
+    }
+    __syncthreads();   // the earlier key tiles' adds are complete
+    float* const acc = dq_acc + (((size_t)b * p.H + hq) * T_acc + q0 + kg * 16) * kD + col0;
+#pragma unroll
+    for (int n = 0; n < kD / 16; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float2* const a = reinterpret_cast<float2*>(acc + (g + 8 * i) * kD + 8 * n + 2 * c);
+        float2 x = __ldcg(a);
+        x.x += dqa[n][2 * i] * p.sm_scale;
+        x.y += dqa[n][2 * i + 1] * p.sm_scale;
+        __stcg(a, x);
+      }
+    __threadfence();
+    __syncthreads();   // every thread's adds are in global memory
+    if (tid == 0) red_release_gpu_add(sem, 1);
+
+    t = t_next;
+    gi = gi_next;
+    full = full_next;
+    stage ^= 1;
+  }
+  cp_async_wait<0>();   // k and v, where no item was live
+
+  // ---- dk, dv: element e of n-tile n is key g + 8 (e / 2), column col0 +
+  // 8 n + 2 c + e % 2 ----
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (!key_ok[j]) continue;
+    const size_t r = ((size_t)b * p.S + k0 + key[j]) * kv_rs + (size_t)kvh * kD + col0;
+#pragma unroll
+    for (int n = 0; n < kD / 16; ++n) {
+      const int d = 8 * n + 2 * c;
+      *reinterpret_cast<uint32_t*>(p.dk + r + d) =
+          pack_bf16(dk[n][2 * j] * p.sm_scale, dk[n][2 * j + 1] * p.sm_scale);
+      *reinterpret_cast<uint32_t*>(p.dv + r + d) = pack_bf16(dv[n][2 * j], dv[n][2 * j + 1]);
+    }
+  }
+}
+
+int launch_d256(const void* q, const void* k, const void* v, const void* dout,
+                void* dq_acc, int T_acc, const Params& p, cudaStream_t stream) {
+  cudaFuncSetAttribute(mha_bwd_d256_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, Smem256::kBytes);
+  // blocks of lower blockIdx.x in a (KV head, batch row) launch first: the
+  // dq order's waits end, as in the other form
+  mha_bwd_d256_kernel<<<dim3((p.S + kBK256 - 1) / kBK256, p.KV, p.B), kThreads256,
+                        Smem256::kBytes, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
+      static_cast<float*>(dq_acc), T_acc, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q, do: bf16 (B,T,H,D); k, v: bf16 (B,S,KV,D); lse, delta: fp32 (B,H,T);
 // positions and segment ids int32 (B,T) / (B,S), segment ids both null or
-// both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128};
+// both set; all contiguous and 16-byte aligned, D in {16, 32, 64, 128, 256};
 // sm_scale is 1/sqrt(D), or 1/sqrt of the caller's head dim where it
 // padded q, k, v and do with zero columns up to D.
 // Adds ds k x sm_scale into dq_acc, fp32 (B,H,T_acc,D) zeroed by the
@@ -624,7 +996,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // the reduce-adds never pass the buffer's end), in ascending key tile per
 // (batch row, head, query tile), ordered by dq_sem, int32 (B,H,T_acc / kBQ)
 // zeroed by the caller (refused when null); writes dk, dv: bf16
-// (B,S,KV,D). S is at most kMaxKeyTiles x 128 = 65536. Launches on
+// (B,S,KV,D). S is at most kMaxKeyTiles x 128 = 65536. D 256 takes its
+// own form, mha_bwd_d256_kernel, with the same arguments. Launches on
 // `stream` and returns a CUDA error code (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -658,6 +1031,21 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
     case 32: return launch<32>(q, k, v, dout, dq_acc, T_acc, p, st);
     case 64: return launch<64>(q, k, v, dout, dq_acc, T_acc, p, st);
     case 128: return launch<128>(q, k, v, dout, dq_acc, T_acc, p, st);
+    case 256: return launch_d256(q, k, v, dout, dq_acc, T_acc, p, st);
     default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The dynamic shared memory of the backward at head dim D, in bytes (the
+// wgmma form's up to D 128, alignment slack included; at D 256 the
+// mma.sync form's), or 0 for a head dim it does not take.
+extern "C" int mha_bwd_smem(int D) {
+  switch (D) {
+    case 16: return Smem<16>::kBytes;
+    case 32: return Smem<32>::kBytes;
+    case 64: return Smem<64>::kBytes;
+    case 128: return Smem<128>::kBytes;
+    case 256: return Smem256::kBytes;
+    default: return 0;
   }
 }

@@ -1,7 +1,7 @@
 // Pieces shared by the attention kernels, K1 (flash_fwd.cu) and the fused
-// backward (flash_bwd.cu): mma.sync and cp.async for K1's decode form, the
-// per-tile min/max statistics, and the reference's block-skip predicate and
-// element mask.
+// backward (flash_bwd.cu): mma.sync, ldmatrix and cp.async for K1's decode
+// form and the head-dim-256 forms of both, the per-tile min/max
+// statistics, and the reference's block-skip predicate and element mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,13 +104,14 @@ __device__ __forceinline__ void tile_stats(bool valid, int pos, int seg,
   out[3] = max(part[0][3], part[1][3]);
 }
 
-// The min/max of the positions and segment ids of the 128 rows at `r0` of
-// a (B, n) row, by one warp: every lane of the warp gets them.
+// The min/max of the positions and segment ids of the kRows rows at `r0`
+// of a (B, n) row, by one warp: every lane of the warp gets them.
+template <int kRows = 128>
 __device__ __forceinline__ int4 row_tile_stats(const int* pos, const int* seg,
                                                int n, int r0, int lane) {
   int st[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kRows / 32; ++i) {
     const int r = r0 + lane + 32 * i;
     if (r < n) {
       const int ps = pos[r], sg = seg != nullptr ? seg[r] : 0;

@@ -5,7 +5,8 @@
 // (`flash_attention`) and its segmented form (`ragged_attention`).
 //
 // What it computes, for q (B,T,H,D), k/v (B,S,KV,D) with a head dim D of 16,
-// 32, 64 or 128 (gpt-paper: 128; its reduced widths: 16), positions and
+// 32, 64, 128 or 256 (gpt-paper: 128; gemma2-2b: 256; the reduced widths:
+// 16), positions and
 // segment ids (B,T)/(B,S) int32:
 //   o   (B,T,H,D) bf16 = softmax(mask(cap(q k^T / sqrt(D)))) v
 //   lse (B,H,T)   fp32 = m + log(max(l, 1e-30)), the finite sentinel -1e30
@@ -67,7 +68,17 @@
 // the rows and each takes 16 keys of every 64-key tile; their partial
 // (m, l, acc) are merged through shared memory at the end. It loads the
 // next live tile with cp.async into a second buffer while the current one
-// is computed. Not yet done: splitting the cache across blocks.
+// is computed. Not yet done: splitting the cache across blocks. At D 256
+// q's fragments would take 64 registers beside o's 128, so they are
+// re-read from a copy of q in shared memory for every tile.
+//
+// Prefill at D 256, `mha_fwd_prefill_d256_kernel`: the wgmma form does not
+// fit there (its q tile and two stages of 128-key k and v tiles would take
+// 339032 B of shared memory against 232448, and o alone 128 of a consumer
+// thread's 232 registers beside a 128-key score tile). So this form is
+// simple: mma.sync as the decode form, one block per (128 query rows, q
+// head, batch row), eight warps of 16 rows each over 64-key tiles (see its
+// own comment).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -106,13 +117,17 @@ mha_fwd_decode_kernel(const Params p) {
                                              // rows land on distinct banks
   constexpr int kRows = 16;                  // query rows per block
   constexpr int kNT = 2;                     // 8-key n-tiles per warp per tile
+  // q's fragments: in registers up to D 128; at D 256 they would take 64 of
+  // the registers o needs, so they are re-read from shared memory
+  constexpr bool kQSmem = kD > 128;
   // dynamic shared memory: two buffers of (k tile, v tile), each
   // [kBK][kStride] bf16, then two buffers of the tile's positions and
-  // segment ids, [kBK] int each
+  // segment ids, [kBK] int each, then at D 256 q, [kRows][kStride] bf16
   extern __shared__ __align__(16) uint8_t smem[];
   uint16_t* const kv_s = reinterpret_cast<uint16_t*>(smem);
   int* const kpos_s = reinterpret_cast<int*>(kv_s + 4 * kBK * kStride);
   int* const kseg_s = kpos_s + 2 * kBK;
+  uint16_t* const q_s = reinterpret_cast<uint16_t*>(kseg_s + 2 * kBK);
   __shared__ int part[2][4];
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -134,6 +149,21 @@ mha_fwd_decode_kernel(const Params p) {
     qp[i] = row_ok[i] ? p.qpos[(size_t)b * p.T + row[i]] : 0;
     qs[i] = (row_ok[i] && segmented) ? p.qseg[(size_t)b * p.T + row[i]] : 0;
   }
+  // ---- at D 256, q (16 rows, zeros past T) into shared memory, read
+  // after the barriers of tile_stats ----
+  if constexpr (kQSmem) {
+    const size_t rs = (size_t)p.H * kD;   // token stride of q
+#pragma unroll
+    for (int j = 0; j < kRows * (kD / 8) / kThreads; ++j) {
+      const int i = tid + j * kThreads;
+      const int r = i / (kD / 8), ch = i % (kD / 8);
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (r < p.T)
+        x = *reinterpret_cast<const uint4*>(
+            p.q + ((size_t)b * p.T + r) * rs + (size_t)h * kD + ch * 8);
+      *reinterpret_cast<uint4*>(q_s + r * kStride + ch * 8) = x;
+    }
+  }
   int qstat[4];
   {
     const bool ok = tid < kRows && tid < p.T;
@@ -142,9 +172,9 @@ mha_fwd_decode_kernel(const Params p) {
     tile_stats(ok, pos, seg, part, qstat);
   }
 
-  // ---- q fragments: 16 rows x kD dims, in registers ----
-  uint32_t qa[kD / 16][4];
-  {
+  // ---- q fragments: 16 rows x kD dims, in registers (up to D 128) ----
+  uint32_t qa[kQSmem ? 1 : kD / 16][4];
+  if constexpr (!kQSmem) {
     const size_t rs = (size_t)p.H * kD;   // token stride of q
     const uint16_t* q_r0 = p.q + ((size_t)b * p.T + row[0]) * rs + (size_t)h * kD;
     const uint16_t* q_r1 = p.q + ((size_t)b * p.T + row[1]) * rs + (size_t)h * kD;
@@ -252,13 +282,17 @@ mha_fwd_decode_kernel(const Params p) {
       for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t qf[4];   // at D 256, the A fragment of rows 0-15, dims 16 kk..
+        if constexpr (kQSmem)
+          ldsm_x4(qf, q_s + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
+        const uint32_t (&qk)[4] = kQSmem ? qf : qa[kk];
 #pragma unroll
         for (int n = 0; n < kNT; n += 2) {
           uint32_t kb[4];   // b0, b1 of n-tiles n and n + 1
           ldsm_x4(kb, ks + (koff + (n + (mi >> 1)) * 8 + r8) * kStride +
                           kk * 16 + (mi & 1) * 8);
-          mma_bf16(s[n], qa[kk], kb[0], kb[1]);
-          mma_bf16(s[n + 1], qa[kk], kb[2], kb[3]);
+          mma_bf16(s[n], qk, kb[0], kb[1]);
+          mma_bf16(s[n + 1], qk, kb[2], kb[3]);
         }
       }
 
@@ -860,17 +894,300 @@ mha_fwd_prefill_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ---------------------------------------------------------------------
+// prefill at head dim 256 (T > 16)
+// ---------------------------------------------------------------------
+// One block per (128 query rows, q head, batch row): eight warps, warp w
+// owning query rows [16 w, 16 w + 16) of the tile, each walking every live
+// kv tile of 64 keys, on mma.sync m16n8k16 with ldmatrix from shared rows
+// padded to 264 bf16 (8 rows of an ldmatrix land on distinct banks).
+//  - q stays in shared memory; its fragments are re-read for every kv
+//    tile, so that a thread holds o (128 fp32), the 64-key score tile (32)
+//    and little else.
+//  - The next live kv tile's k, v, key positions and segment ids load by
+//    cp.async into a second buffer while this one is computed.
+//  - Every warp finds the live tiles itself, by `tiles_live` (the
+//    reference's `_live_terms`) on the min/max of the q tile and of each
+//    kv tile, all warps reaching the same answer: a dead tile costs no
+//    barrier and no load of k or v. A tile that every pair sees skips the
+//    element mask (`tiles_full`).
+//  - The softmax is the decode form's (log2 domain, masked entries chosen
+//    by select), with the element mask taken per row as a segment and an
+//    interval of key positions, as the wgmma form takes it.
+// Shared memory: q 128 x 264 bf16 (67584 B), two buffers of k and v, 64 x
+// 264 bf16 each (135168 B), two of the keys' positions and segment ids
+// (1024 B): 203776 B of the 232448 a block may have. Bound as the other
+// prefill form (operations at the training shapes), which this one, on
+// mma.sync and without warp specialisation, is far from: it is the simple
+// form, to be made fast later.
+constexpr int kD256 = 256;
+constexpr int kStride256 = kD256 + 8;   // bf16 per shared row
+constexpr int kBM256 = 128;             // query rows per block
+constexpr int kBN256 = 64;              // keys per kv tile
+constexpr int kThreads256 = kBM256 / 16 * 32;
+struct Smem256 {
+  static constexpr int kTile = kBN256 * kStride256 * 2;     // k or v tile
+  static constexpr int kQ = 0;
+  static constexpr int kKV = kBM256 * kStride256 * 2;       // [buf][k, v]
+  static constexpr int kMeta = kKV + 2 * 2 * kTile;         // [buf][pos, seg][kBN256]
+  static constexpr int kBytes = kMeta + 2 * 2 * kBN256 * 4;
+};
+static_assert(Smem256::kBytes <= 232448, "shared memory of a block");
+
+__global__ void __launch_bounds__(kThreads256, 1)
+mha_fwd_prefill_d256_kernel(const Params p) {
+  using L = Smem256;
+  constexpr int kD = kD256, kStride = kStride256, kNT = kBN256 / 8;
+  extern __shared__ __align__(16) uint8_t smem[];
+  uint16_t* const q_s = reinterpret_cast<uint16_t*>(smem + L::kQ);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
+  const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
+  const int b = blockIdx.z, h = blockIdx.y, q0 = tile_q0();
+  const int kvh = h / (p.H / p.KV);
+  const bool segmented = p.qseg != nullptr;
+  const int* const kpos = p.kpos + (size_t)b * p.S;
+  const int* const kseg = segmented ? p.kseg + (size_t)b * p.S : nullptr;
+  const size_t q_rs = (size_t)p.H * kD, kv_rs = (size_t)p.KV * kD;
+
+  // ---- the q tile, zeros past T: one cp.async group ----
+#pragma unroll
+  for (int j = 0; j < kBM256 * (kD / 8) / kThreads256; ++j) {
+    const int i = tid + j * kThreads256;
+    const int r = i / (kD / 8), ch = i % (kD / 8);
+    const bool in = q0 + r < p.T;
+    const size_t off = in ? ((size_t)b * p.T + q0 + r) * q_rs + (size_t)h * kD + ch * 8 : 0;
+    cp_async16(q_s + r * kStride + ch * 8, p.q + off, in);
+  }
+  cp_async_commit();
+
+  // this thread's two rows and their element mask: key (kp, ks) is visible
+  // to row i iff ks == qs[i] and lo[i] <= kp <= hi[i]; keys past S carry
+  // segment kNoKey, and a row past T or of padding sees nothing
+  int qs[2], lo[2], hi[2];
+  bool row_ok[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + warp * 16 + g + 8 * i;
+    row_ok[i] = r < p.T;
+    const int qp = row_ok[i] ? p.qpos[(size_t)b * p.T + r] : 0;
+    qs[i] = (row_ok[i] && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
+    const bool sees = row_ok[i] && qs[i] >= 0;
+    hi[i] = !sees ? kIntMin : p.causal ? qp : kIntMax;
+    lo[i] = !sees ? kIntMax
+          : (p.causal && p.window > 0) ? qp - p.window + 1 : kIntMin;
+  }
+  const int4 q4 = row_tile_stats<kBM256>(p.qpos + (size_t)b * p.T,
+                                         segmented ? p.qseg + (size_t)b * p.T : nullptr,
+                                         p.T, q0, lane);
+  const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
+  const int n_tiles = (p.S + kBN256 - 1) / kBN256;
+
+  // The first live kv tile at or after t (n_tiles if none), and whether
+  // every (row, key) pair of it is visible.
+  auto find_live = [&](int t, bool& full) -> int {
+    for (; t < n_tiles; ++t) {
+      const int4 k4 = row_tile_stats<kBN256>(kpos, kseg, p.S, t * kBN256, lane);
+      const int kstat[4] = {k4.x, k4.y, k4.z, k4.w};
+      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
+      full = (t + 1) * kBN256 <= p.S &&
+             tiles_full(qstat, kstat, segmented, p.causal, p.window);
+      return t;
+    }
+    return n_tiles;
+  };
+  // k, v (zeros past S), positions and segment ids of tile t into buffer buf
+  auto issue = [&](int t, int buf) {
+    const int k0 = t * kBN256;
+    uint16_t* const kb = reinterpret_cast<uint16_t*>(smem + L::kKV + buf * 2 * L::kTile);
+    uint16_t* const vb = kb + kBN256 * kStride;
+#pragma unroll
+    for (int j = 0; j < kBN256 * (kD / 8) / kThreads256; ++j) {
+      const int i = tid + j * kThreads256;
+      const int r = i / (kD / 8), ch = i % (kD / 8);
+      const bool in = k0 + r < p.S;
+      const size_t off = in ? ((size_t)b * p.S + k0 + r) * kv_rs + (size_t)kvh * kD + ch * 8 : 0;
+      cp_async16(kb + r * kStride + ch * 8, p.k + off, in);
+      cp_async16(vb + r * kStride + ch * 8, p.v + off, in);
+    }
+    cp_async_commit();
+    if (tid < kBN256) {
+      int* const meta = reinterpret_cast<int*>(smem + L::kMeta) + buf * 2 * kBN256;
+      const int kk = k0 + tid;
+      meta[tid] = kk < p.S ? kpos[kk] : 0;
+      meta[kBN256 + tid] = kk < p.S ? (segmented ? kseg[kk] : 0) : kNoKey;
+    }
+  };
+
+  float o[kD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
+  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
+  const float qscale = p.softcap > 0.f ? p.sm_scale : p.sm_scale * kLog2e;
+  const uint16_t* const qw = q_s + warp * 16 * kStride;
+
+  bool full = false, full_next = false;
+  int cur = find_live(0, full);
+  if (cur < n_tiles) issue(cur, 0);
+  for (int buf = 0; cur < n_tiles; buf ^= 1) {
+    const int next = find_live(cur + 1, full_next);
+    if (next < n_tiles) {
+      issue(next, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // q and tile cur are in shared memory for every thread
+    const uint16_t* const ks = reinterpret_cast<const uint16_t*>(
+        smem + L::kKV + buf * 2 * L::kTile);
+    const uint16_t* const vs = ks + kBN256 * kStride;
+    const int* const kpos_b = reinterpret_cast<const int*>(smem + L::kMeta) + buf * 2 * kBN256;
+    const int* const kseg_b = kpos_b + kBN256;
+    {
+      // ---- s = q k^T for the warp's 16 rows x 64 keys ----
+      float s[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        uint32_t qf[4];   // the A fragment of the warp's rows, dims 16 kk..
+        ldsm_x4(qf, qw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+        for (int n = 0; n < kNT; n += 2) {
+          uint32_t kb[4];   // b0, b1 of n-tiles n and n + 1
+          ldsm_x4(kb, ks + ((n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8);
+          mma_bf16(s[n], qf, kb[0], kb[1]);
+          mma_bf16(s[n + 1], qf, kb[2], kb[3]);
+        }
+      }
+
+      // ---- scale (to log2), cap, mask; online softmax update ----
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          float x = s[n][e] * qscale;
+          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap) * kLog2e;
+          if (!full) {
+            const int key = n * 8 + c * 2 + (e & 1);
+            const int kp = kpos_b[key], kq = kseg_b[key];
+            if (!((kq == qs[i]) & (kp >= lo[i]) & (kp <= hi[i]))) x = kNegInf;
+          }
+          s[n][e] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+      float alpha[2], mnew[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        mnew[i] = fmaxf(m[i], mx[i]);
+        alpha[i] = exp2f(m[i] - mnew[i]);
+        m[i] = mnew[i];
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          // a masked entry holds exactly kNegInf; it contributes nothing
+          const float pe = s[n][e] == kNegInf ? 0.f : exp2f(s[n][e] - mnew[i]);
+          s[n][e] = pe;
+          l[i] += pe;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kD / 8; ++n) {
+        o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
+      }
+
+      // ---- o += p v: p from the s fragments, v by transposed ldmatrix ----
+#pragma unroll
+      for (int kk = 0; kk < kNT / 2; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        const uint16_t* v0 = vs + (kk * 16 + (mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
+#pragma unroll
+        for (int n = 0; n < kD / 8; n += 2) {
+          uint32_t vb[4];   // b0, b1 of n-tiles n and n + 1
+          ldsm_x4_trans(vb, v0 + n * 8);
+          mma_bf16(o[n], pa, vb[0], vb[1]);
+          mma_bf16(o[n + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();   // buffer buf is free for the tile after next
+    cur = next;
+    full = full_next;
+  }
+  cp_async_wait<0>();   // the q tile, where no kv tile was live
+
+  // ---- o = acc / l, lse = m + log l (natural log) ----
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+    if (!row_ok[i]) continue;
+    const float inv = 1.f / l[i];
+    const int r = q0 + warp * 16 + g + 8 * i;
+    uint16_t* const orow = p.o + (((size_t)b * p.T + r) * p.H + h) * kD;
+#pragma unroll
+    for (int n = 0; n < kD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(orow + n * 8 + c * 2) =
+          pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
+    if (c == 0) {
+      const float mn = m[i] == kNegInf ? kNegInf : m[i] * kLn2;
+      p.lse[((size_t)b * p.H + h) * p.T + r] = mn + logf(l[i]);
+    }
+  }
+}
+
+template <int kD>
+int launch_prefill(const void* q, const void* k, const void* v, void* o,
+                   const Params& p, cudaStream_t stream);
+
+// K1 at head dim kD: the decode form for T <= 16, else a prefill form.
 template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o,
            const Params& p, cudaStream_t stream) {
   if (p.T <= 16) {
-    constexpr int kBytes = 4 * kBK * (kD + 8) * 2 + 4 * kBK * 4;
+    // at D 256 q's 16 rows are kept in shared memory too
+    constexpr int kBytes = 4 * kBK * (kD + 8) * 2 + 4 * kBK * 4 +
+                           (kD > 128 ? 16 * (kD + 8) * 2 : 0);
     // above 48 KB only when asked for; set per launch, as it is per device
     cudaFuncSetAttribute(mha_fwd_decode_kernel<kD>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
     mha_fwd_decode_kernel<kD><<<dim3(1, p.H, p.B), kThreads, kBytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
+  if constexpr (kD == kD256) {
+    if (p.H > 65535 || p.B > 65535) return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(mha_fwd_prefill_d256_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, Smem256::kBytes);
+    // the query tile is the fastest grid axis, reversed in tile_q0, as in
+    // the other prefill form
+    mha_fwd_prefill_d256_kernel<<<dim3((p.T + kBM256 - 1) / kBM256, p.H, p.B),
+                                  kThreads256, Smem256::kBytes, stream>>>(p);
+    return (int)cudaGetLastError();
+  } else {
+    return launch_prefill<kD>(q, k, v, o, p, stream);
+  }
+}
+
+// The wgmma prefill form (D <= 128).
+template <int kD>
+int launch_prefill(const void* q, const void* k, const void* v, void* o,
+                   const Params& p, cudaStream_t stream) {
   using L = Smem<kD>;
   const int n_qt = (p.T + kBM - 1) / kBM;
   if (p.H > 65535 || p.B > 65535) return (int)cudaErrorInvalidValue;
@@ -901,7 +1218,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, k, v, o: bf16, contiguous (B,T,H,D) / (B,S,KV,D), 16-byte aligned, with
-// D in {16, 32, 64, 128}; positions and segment ids: int32 (B,T) / (B,S),
+// D in {16, 32, 64, 128, 256}; positions and segment ids: int32 (B,T) / (B,S),
 // segment ids both null or both set; lse: fp32 (B,H,T). sm_scale multiplies
 // q k^T: 1/sqrt(D), or 1/sqrt of the caller's own head dim where it padded
 // q, k and v with zero columns up to D. Launches on `stream` the decode
@@ -935,18 +1252,21 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
     case 32: return launch<32>(q, k, v, o, p, st);
     case 64: return launch<64>(q, k, v, o, p, st);
     case 128: return launch<128>(q, k, v, o, p, st);
+    case 256: return launch<256>(q, k, v, o, p, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // The dynamic shared memory of the prefill form at head dim D, in bytes
-// (alignment slack included), or 0 for a head dim it does not take.
+// (the wgmma form's up to D 128, alignment slack included; at D 256 the
+// mma.sync form's), or 0 for a head dim it does not take.
 extern "C" int mha_fwd_prefill_smem(int D) {
   switch (D) {
     case 16: return Smem<16>::kBytes;
     case 32: return Smem<32>::kBytes;
     case 64: return Smem<64>::kBytes;
     case 128: return Smem<128>::kBytes;
+    case 256: return Smem256::kBytes;
     default: return 0;
   }
 }

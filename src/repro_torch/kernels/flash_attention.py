@@ -21,11 +21,13 @@ the other.
   (B, T, H, D).
 
 The kernels are instantiated at head dims ``HEAD_DIMS``. A head dim
-between two of them (hubert's 80) is zero-padded by the wrappers to the
-next one up and cut back after the launch: zero columns add nothing to
-q kᵀ or to ds·k, and their outputs are zero, so the result is exact; the
-softmax scale stays 1/√(the caller's head dim). A head dim past 128
-raises (ROADMAP A18).
+between two of them (hubert's 80, or anything from 129 to 255) is
+zero-padded by the wrappers to the next one up and cut back after the
+launch: zero columns add nothing to q kᵀ or to ds·k, and their outputs are
+zero, so the result is exact; the softmax scale stays 1/√(the caller's head
+dim). Head dim 256 (gemma2-2b) has its own forms of K1's prefill and of the
+backward, on mma.sync, because the wgmma forms' tiles do not fit in shared
+memory and registers there. A head dim past 256 raises.
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.
@@ -50,7 +52,7 @@ from repro_torch.kernels import ref as _ref
 
 NEG_INF = -1e30
 
-HEAD_DIMS = (16, 32, 64, 128)    # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)    # the kernels' instantiations
 BWD_QTILE = 64    # query rows per tile of the backward kernel (its kBQ)
 # keys the backward kernel takes: its table of key-tile statistics holds
 # kMaxKeyTiles = 512 tiles of 128
@@ -221,13 +223,12 @@ def mha_backward_plain(q, k, v, q_positions, kv_positions,
 # ----------------------------------------------------------------------
 def kernel_head_dim(d: int) -> int:
     """The kernels' instantiation that takes head dim ``d``: ``d`` itself,
-    or the next one up, reached by zero-padding. Raises past 128."""
+    or the next one up, reached by zero-padding. Raises past 256."""
     for kd in HEAD_DIMS:
         if d <= kd:
             return kd
     raise NotImplementedError(
-        f"head dim {d}: the CUDA kernels take at most {HEAD_DIMS[-1]} "
-        "(head dim 256 is ROADMAP A18)")
+        f"head dim {d}: the CUDA kernels take at most {HEAD_DIMS[-1]}")
 
 
 def softmax_scale(d: int) -> float:
@@ -257,7 +258,7 @@ def _check_cuda_args(q, k, v, ints):
     if d not in HEAD_DIMS:
         raise NotImplementedError(
             f"the CUDA kernels are instantiated at head dims {HEAD_DIMS}, got "
-            f"{d} (pad to kernel_head_dim; head dim 256 is ROADMAP A18)")
+            f"{d} (pad to kernel_head_dim)")
     if k.shape != (b, s, kvh, d) or v.shape != k.shape or h % kvh:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
@@ -440,7 +441,7 @@ def mha_forward(q, k, v, q_positions, kv_positions,
 
     q (B,T,H,D), k/v (B,S,KV,D) with H % KV == 0; positions and segment ids
     (B,T)/(B,S) int32, segment ids -1 on padding. CUDA tensors launch K1
-    (bf16, contiguous, D at most 128: a D between the ``HEAD_DIMS`` is
+    (bf16, contiguous, D at most 256: a D between the ``HEAD_DIMS`` is
     zero-padded); CPU tensors take the plain version.
     """
     _check_softcap(softcap)

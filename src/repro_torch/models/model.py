@@ -32,6 +32,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 LOSS_CHUNK = 512
+# tokens (rows x positions) a loss chunk holds at most: its fp32 logits
+# take 4 x vocab bytes a token, 1 GiB per 1024 tokens at gemma2-2b's
+# vocabulary of 256000
+LOSS_TOKENS = 2048
 # weight of the MoE load-balance aux in the loss, the default of the
 # reference's loss_fn (model.py:152), which no caller changes
 MOE_AUX_WEIGHT = 0.01
@@ -130,21 +134,35 @@ def _xent_chunk(head_w, h_c, labels_c, w_c, cfg: ArchConfig):
     return torch.sum((lse - ll) * w), torch.sum(w)
 
 
-def lm_loss(params, h, labels, weights, cfg: ArchConfig):
-    """Chunked softmax-xent. h (B,T,D); labels/weights (B,T). Each chunk's
-    logits are recomputed in the backward, as the reference's
-    ``jax.checkpoint`` on its scan body."""
-    t = h.shape[1]
-    chunk = min(LOSS_CHUNK, t)
+def xent_sums(head_w, h, labels, weights, cfg: ArchConfig):
+    """``(loss sum, weight sum)`` of the softmax-xent. h (B,T,D);
+    labels/weights (B,T). Chunked along T, at most LOSS_CHUNK positions and
+    LOSS_TOKENS tokens a chunk; each chunk's logits are recomputed in the
+    backward, as the reference's ``jax.checkpoint`` on its scan body. The
+    training steps sum it over each micro-batch, where the reference's
+    ``_xent_sum`` takes the micro-batch's logits at once: at gemma2-2b's
+    vocabulary those are 1 GiB of fp32 per 1024 tokens, more than one card
+    holds beside the model and its optimizer state."""
+    b, t = h.shape[:2]
+    # the token cap rounded down to a power of two, so that halving it
+    # finds a divisor of t (a multiple of 64) at once
+    cap = 1 << max(0, (LOSS_TOKENS // b).bit_length() - 1)
+    chunk = min(LOSS_CHUNK, t, cap)
     while t % chunk:
         chunk //= 2
-    head_w = _head_weight(params)
     loss_sum = w_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, t, chunk):
         sl = slice(c0, c0 + chunk)
         ls, ws = checkpoint(_xent_chunk, head_w, h[:, sl], labels[:, sl],
                             weights[:, sl], cfg, use_reentrant=False)
         loss_sum, w_sum = loss_sum + ls, w_sum + ws
+    return loss_sum, w_sum
+
+
+def lm_loss(params, h, labels, weights, cfg: ArchConfig):
+    """Chunked softmax-xent (:func:`xent_sums`), the mean over the
+    weights."""
+    loss_sum, w_sum = xent_sums(_head_weight(params), h, labels, weights, cfg)
     return loss_sum / torch.clamp(w_sum, min=1.0)
 
 

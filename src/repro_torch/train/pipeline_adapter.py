@@ -83,8 +83,8 @@ def build_grad_step(cfg: ArchConfig):
     def grad_mb(params, batch):
         def f(p):
             h, _, _ = MD.forward(p, batch, cfg, mode="train")
-            return _xent_sum(MD._head_weight(p), h, batch["labels"],
-                             batch["loss_weights"], cfg)
+            return MD.xent_sums(MD._head_weight(p), h, batch["labels"],
+                                batch["loss_weights"], cfg)
         return _value_and_grad(f, params)
     return grad_mb
 
@@ -103,8 +103,8 @@ def build_encdec_grad_step(cfg: ArchConfig):
                 dec_segments=batch["dec_segment_ids"],
                 enc_positions=batch["enc_positions"],
                 dec_positions=batch["dec_positions"])
-            return _xent_sum(p["embed"], hd, batch["labels"],
-                             batch["loss_weights"], cfg)
+            return MD.xent_sums(p["embed"], hd, batch["labels"],
+                                batch["loss_weights"], cfg)
         return _value_and_grad(f, params)
     return grad_mb
 
@@ -126,8 +126,8 @@ def _stage_apply(cfg: ArchConfig, k: int, n_stages: int, j: int,
     if j == n_stages - 1:
         h = L.rms_norm(h, sparams["final_norm"], cfg.norm_eps)
         head = sparams.get("head", sparams.get("embed"))
-        return _xent_sum(head, h, batch_aux["labels"],
-                         batch_aux["loss_weights"], cfg)
+        return MD.xent_sums(head, h, batch_aux["labels"],
+                            batch_aux["loss_weights"], cfg)
     return h
 
 
@@ -166,8 +166,8 @@ def _encdec_stage_apply(cfg: ArchConfig, k: int, n_stages: int,
                          enc_segment_ids=enc_seg, remat=True)
     if j == n_stages - 1:
         hd = L.rms_norm(hd, sparams["dec_norm"], cfg.norm_eps)
-        return _xent_sum(sparams["embed"], hd, batch_aux["labels"],
-                         batch_aux["loss_weights"], cfg)
+        return MD.xent_sums(sparams["embed"], hd, batch_aux["labels"],
+                            batch_aux["loss_weights"], cfg)
     return he, hd
 
 
@@ -510,9 +510,3 @@ class EncDecPipelinedModel(PipelinedModel):
         return {"enc": ("stack", range(e)), "dec": ("stack", range(e, c)),
                 "cross": ("cross", range(e, c))}
 
-
-def _xent_sum(head_w, h, labels, weights, cfg: ArchConfig):
-    """Sum (not mean) xent + weight sum over the whole micro-batch: the
-    function of one ``lm_loss`` chunk. Summed across micro-batches, the
-    iteration mean is taken once at optimizer time."""
-    return MD._xent_chunk(head_w, h, labels, weights, cfg)

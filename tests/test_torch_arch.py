@@ -12,7 +12,9 @@ carried across with ``params_from_jax``; batches are made with numpy. The
 reference runs with ``impl="ref"`` (its plain attention and SSD), the port
 on the CPU, where attention and the SSD take their plain versions.
 t5-paper is the encoder-decoder of tests/test_torch_encdec.py. gemma2-2b
-is left out: its head dim 256 has no CUDA kernel yet (ROADMAP A18).
+also runs at its own head dim, 256 (the one the CUDA kernels' D 256 forms
+take), with the other widths reduced: forward, loss, gradients, and
+prefill and decode against the reference's.
 
 Tolerance 2e-4 (atol = rtol), the reference's f32 ``GRAD_TOL``
 (tests/test_kernel_grads.py:21), for the loss, the aux term, the hidden
@@ -47,7 +49,7 @@ from repro_torch.tree import add_into, flatten
 torch.set_num_threads(2)
 
 TOL = 2e-4
-ARCHS = [a for a in ARCH_IDS if a not in ("gemma2-2b", "t5-paper")]
+ARCHS = [a for a in ARCH_IDS if a != "t5-paper"]
 KEY = jax.random.PRNGKey(0)
 
 
@@ -149,7 +151,11 @@ def _routes(jparams, tparams, batch, jcfg, tcfg):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward_loss_and_grads_match_reference(arch):
-    jcfg, tcfg = _cfgs(arch)
+    _check_forward_loss_and_grads(arch)
+
+
+def _check_forward_loss_and_grads(arch, **kw):
+    jcfg, tcfg = _cfgs(arch, **kw)
     jparams, tparams = _params(jcfg)
     batch = make_batch(tcfg)
     tb = _torch(batch)
@@ -210,6 +216,33 @@ def test_prefill_decode_matches_full_forward(arch):
         "positions": torch.full((b, 1), s, dtype=torch.int32),
         "cache": cache, "cache_pos": s}, tcfg)
     _close(got, want, f"{arch} decode vs full forward", tol=2e-3)
+
+
+def test_gemma2_at_head_dim_256_matches_reference():
+    """gemma2-2b at its own head dim (256), its other widths reduced
+    (window 32, softcaps 50 and 30): forward, loss and gradients, then a
+    prefill of 24 tokens and one decode step, each logit against the
+    reference's ``prefill`` and ``decode``."""
+    _check_forward_loss_and_grads("gemma2-2b", d_head=256)
+    jcfg, tcfg = _cfgs("gemma2-2b", d_head=256)
+    assert tcfg.d_head == 256 and tcfg.attn_softcap and tcfg.final_softcap
+    jparams, tparams = _params(jcfg)
+    b, s = 2, 24
+    full = make_batch(tcfg, b=b, s=s + 1, seed=3)
+    pb = {"positions": full["positions"][:, :s], "tokens": full["tokens"][:, :-1]}
+    db = {"tokens": full["tokens"][:, -1:],
+          "positions": np.full((b, 1), s, np.int32)}
+    j_logits, j_cache = jax.jit(lambda p, bt: JM.prefill(
+        p, bt, jcfg, impl="ref", cache_len=s + 1))(jparams, _jax(pb))
+    t_logits, t_cache = TM.prefill(tparams, _torch(pb), tcfg, cache_len=s + 1)
+    _close(t_logits, j_logits, "gemma2 d_head 256 prefill logits")
+    j_dec, _ = jax.jit(lambda p, bt: JM.decode(p, bt, jcfg, impl="ref"))(
+        jparams, dict(_jax(db), cache=j_cache,
+                      cache_pos=jnp.asarray(s, jnp.int32)))
+    t_dec, _ = TM.decode(tparams, dict(_torch(db), cache=t_cache,
+                                       cache_pos=s), tcfg)
+    _close(t_dec, j_dec, "gemma2 d_head 256 decode logits")
+    assert float(t_dec.abs().max()) <= tcfg.final_softcap
 
 
 def test_encoder_only_prefill_is_the_full_forward():

@@ -86,6 +86,13 @@ CASES = {
     # the serve's prefill into a longer cache: query positions 0..T-1, key
     # positions 0..S-1, the keys past the prompt masked by position
     "prefill_cache": (2, 48, 64, 4, 2, 32, dict(causal=True), False),
+    # head dim 256 (gemma2-2b: GQA 2, softcap 50, a window on local layers)
+    "d256_causal_gqa": (1, 64, 64, 2, 1, 256, dict(causal=True), False),
+    "d256_window_softcap": (1, 128, 128, 2, 1, 256,
+                            dict(causal=True, window=24, softcap=50.0), False),
+    "d256_segmented": (2, 64, 64, 2, 1, 256, dict(causal=True), True),
+    "d256_decode_t1": (3, 1, 40, 2, 1, 256, dict(causal=True, softcap=50.0),
+                       False),
 }
 
 
@@ -95,7 +102,7 @@ def test_mha_forward_matches_reference(case, dtype):
     b, t, s, h, kv, d, opts, segmented = CASES[case]
     q, k, v = _arrays(7, b, t, s, h, kv, d)
     (jq, tq), (jk, tk), (jv, tv) = (_both(x, dtype) for x in (q, k, v))
-    if case == "decode_t1":   # one new token per row at different cache fill
+    if t == 1:   # decode: one new token per row at different cache fill
         qpos = np.array([[5], [17], [39]], np.int32)
         kpos = np.broadcast_to(np.arange(s, dtype=np.int32), (b, s))
     else:
@@ -207,14 +214,15 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
     k = torch.zeros((1, 4, 2, 48), dtype=torch.bfloat16)
     pos = torch.arange(4, dtype=torch.int32)[None]
     # a head dim between the instantiations reaches the kernel only padded
-    # to the next one (48 -> 64, hubert's 80 -> 128); past 128 nothing
-    # takes it (ROADMAP A18)
-    with pytest.raises(NotImplementedError, match="A18"):
+    # to the next one (48 -> 64, hubert's 80 -> 128, 136 -> 256); past 256
+    # nothing takes it
+    with pytest.raises(NotImplementedError, match="pad to kernel_head_dim"):
         tfa._check_cuda_args(q, k, k, (("q_positions", pos, 4),))
-    assert [tfa.kernel_head_dim(d) for d in (8, 16, 48, 64, 80, 128)] == \
-        [16, 16, 64, 64, 128, 128]
-    for d in (136, 256):
-        with pytest.raises(NotImplementedError, match="A18"):
+    assert [tfa.kernel_head_dim(d) for d in (8, 16, 48, 64, 80, 128, 136,
+                                             200, 256)] == \
+        [16, 16, 64, 64, 128, 128, 256, 256, 256]
+    for d in (257, 512):
+        with pytest.raises(NotImplementedError, match="at most 256"):
             tfa.kernel_head_dim(d)
     assert tfa.softmax_scale(80) == float(np.float32(1) / np.sqrt(
         np.float32(80)))
@@ -295,13 +303,19 @@ def test_backward_cuda_refuses_a_cpu_tensor():
 
 
 def test_backward_cuda_args_refuse_an_unsupported_head_dim():
-    args = _residuals(48)
-    delta = tfa.attention_delta(args[7], args[9])
-    with pytest.raises(NotImplementedError, match="A18"):
-        tfa.check_backward_cuda_args(*args, delta)
-    with pytest.raises(ValueError):
-        tfa.mha_backward_cuda(*args, delta, causal=True, window=0,
-                              softcap=None)
+    # 48 is no instantiation (the wrapper pads it to 64); past 256 nothing
+    # takes a head dim, padded or not
+    for d in (48, 264):
+        args = _residuals(d)
+        delta = tfa.attention_delta(args[7], args[9])
+        with pytest.raises(NotImplementedError, match="instantiated at head "
+                           r"dims \(16, 32, 64, 128, 256\)"):
+            tfa.check_backward_cuda_args(*args, delta)
+        with pytest.raises(ValueError):
+            tfa.mha_backward_cuda(*args, delta, causal=True, window=0,
+                                  softcap=None)
+    with pytest.raises(NotImplementedError, match="at most 256"):
+        tfa.kernel_operands(*_residuals(264)[:3])
 
 
 def test_backward_cuda_args_refuse_more_keys_than_the_kernel_takes():

@@ -40,6 +40,11 @@ CASES = {
     "gqa": (1, 64, 64, 4, 1, 16, dict(causal=True), False),
     "segmented": (2, 64, 64, 2, 1, 16, dict(causal=True), True),
     "cross": (1, 32, 64, 2, 1, 16, dict(causal=False), False),
+    # head dim 256 (gemma2-2b: GQA 2, softcap 50, a window on local layers)
+    "d256_causal_gqa": (1, 64, 64, 2, 1, 256, dict(causal=True), False),
+    "d256_window_softcap": (1, 64, 64, 2, 1, 256,
+                            dict(causal=True, window=24, softcap=50.0), False),
+    "d256_segmented": (2, 64, 64, 2, 1, 256, dict(causal=True), True),
 }
 
 

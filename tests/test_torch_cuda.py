@@ -46,7 +46,7 @@ def _inputs(dev, b, t, s, h, kv, d, seed=0):
             pos[None, :s].expand(b, s).contiguous())
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 200, 256])
 @pytest.mark.parametrize("t,s,h,kv,opts", [
     (130, 130, 4, 2, dict(causal=True)),
     (70, 190, 2, 1, dict(causal=False)),
@@ -74,7 +74,7 @@ PREFILL_CASES = {
 }
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("case", sorted(PREFILL_CASES))
 def test_prefill_kernel_matches_plain_version(cuda, d, case):
     t, s, h, kv, opts = PREFILL_CASES[case]
@@ -87,7 +87,7 @@ def test_prefill_kernel_matches_plain_version(cuda, d, case):
     torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 def test_prefill_kernel_query_tile_of_pure_padding(cuda, d):
     # row 0: a sample of 100 tokens, then padding, so that its query rows
     # 128..255 are a whole tile with no visible key; row 1: a sample of 200
@@ -138,7 +138,7 @@ def _grad_close(out, ref):
                                rtol=GRAD_TOL)
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 200, 256])
 @pytest.mark.parametrize("t,s,h,kv,opts", [
     (130, 130, 4, 2, dict(causal=True)),
     (70, 190, 2, 1, dict(causal=False)),
@@ -183,7 +183,7 @@ def test_backward_kernels_segmented_with_fully_masked_rows(cuda):
         and (dv[dead] == 0).all()
 
 
-@pytest.mark.parametrize("d", [16, 32, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 128, 256])
 def test_backward_kernel_row_whose_keys_are_all_padding(cuda, d):
     # row 1 is all padding (segment -1 everywhere): its dq, dk and dv are 0;
     # row 0 has a sample that ends mid-tile, then padding
@@ -231,57 +231,62 @@ REPEAT_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(REPEAT_CASES))
-def test_backward_kernel_is_repeatable_bit_for_bit(cuda, case):
+# head dim: (options, seed, cases). At 80, hubert's head dim: q, k, v, o
+# and do padded with zero columns to 128, the kernels run at 128 with the
+# scale of 80, and the results cut back to 80 columns. At 256, gemma2-2b's
+# head dim and softcap, with a GQA group of 2 where the case has one of 4
+# or more
+REPEAT_FORMS = {
+    128: (dict(causal=True), 3, sorted(REPEAT_CASES)),
+    80: (dict(causal=False), 5, ["causal", "segmented-gqa4"]),
+    256: (dict(causal=True, softcap=50.0), 7, sorted(REPEAT_CASES)),
+}
+
+
+@pytest.mark.parametrize("d,case", [(d, case) for d, (_, _, cases)
+                                    in REPEAT_FORMS.items() for case in cases])
+def test_backward_kernel_is_repeatable_bit_for_bit(cuda, d, case):
     # dq's tiles are added in ascending key tile, so two calls agree to the
     # bit, as dk and dv do
+    opts, seed, _ = REPEAT_FORMS[d]
     t, h, kv, lengths = REPEAT_CASES[case]
-    q, k, v, qp, kp = _inputs(cuda, 2, t, t, h, kv, 128, seed=3)
+    if d == 256:
+        kv = max(kv, h // 2)
+    q, k, v, qp, kp = _inputs(cuda, 2, t, t, h, kv, d, seed=seed)
     qs = ks = None
     if lengths is not None:
         qp, qs = _segments(cuda, 2, t, lengths)
         kp, ks = qp, qs
-    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, causal=True)
-    do = torch.randn_like(o)
-    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=True)
-    for _ in range(3):
-        again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do,
-                                causal=True)
-        for name, a, b in zip(("dq", "dk", "dv"), first, again):
-            assert torch.equal(a, b), f"{case}: {name} differs between calls"
-    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
-                                causal=True)
-    for a, r in zip(first, ref):
-        _grad_close(a, r)
-    if case == "dead-query-tile":
-        assert (first[0][0, 190:] == 0).all()
-
-
-@pytest.mark.parametrize("case", ["causal", "segmented-gqa4"])
-def test_backward_kernel_at_head_dim_80_is_repeatable_bit_for_bit(cuda, case):
-    # hubert's head dim: q, k, v, o and do padded with zero columns to 128,
-    # the kernels run at 128 with the scale of 80, and the results are cut
-    # back to 80 columns
-    t, h, kv, lengths = REPEAT_CASES[case]
-    q, k, v, qp, kp = _inputs(cuda, 2, t, t, h, kv, 80, seed=5)
-    qs = ks = None
-    if lengths is not None:
-        qp, qs = _segments(cuda, 2, t, lengths)
-        kp, ks = qp, qs
-    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, causal=False)
+    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, **opts)
     assert o.shape == q.shape and o.is_contiguous()
     do = torch.randn_like(o)
-    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=False)
-    for _ in range(2):
-        again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do,
-                                causal=False)
+    ops.reset_launch_counts()
+    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
+    assert ops.launch_counts()["mha_backward"] == 1
+    for _ in range(3):
+        again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
         for name, a, b in zip(("dq", "dk", "dv"), first, again):
             assert torch.equal(a, b), f"{case}: {name} differs between calls"
-    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
-                                causal=False)
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
     for a, r in zip(first, ref):
         assert a.shape == r.shape
         _grad_close(a, r)
+    if lengths is not None:     # padding: no query sees it, it sees no key
+        dead = qs < 0
+        assert all((g[dead] == 0).all() for g in first)
+
+
+def test_shared_memory_of_the_kernel_forms(cuda):
+    # the wgmma forms' plans at D <= 128 are unchanged; D 256 has its own
+    # forms, each under the 232448 bytes a block may have
+    from repro_torch.kernels import _build
+    fwd = _build.library("flash_fwd").mha_fwd_prefill_smem
+    bwd = _build.library("flash_bwd").mha_bwd_smem
+    assert {d: fwd(d) for d in fa.HEAD_DIMS} == {
+        16: 31832, 32: 52312, 64: 93272, 128: 175192, 256: 203776}
+    assert {d: bwd(d) for d in fa.HEAD_DIMS} == {
+        16: 52360, 32: 76936, 64: 126088, 128: 224392, 256: 230400}
+    assert fwd(80) == bwd(80) == fwd(512) == bwd(512) == 0
 
 
 @pytest.mark.parametrize("t_acc", [64, 192])   # T 100 needs 128 rows

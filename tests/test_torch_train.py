@@ -265,6 +265,48 @@ def test_loss_fn_matches_reference():
     assert torch.isfinite(leaf.grad).all() and leaf.grad.abs().sum() > 0
 
 
+@pytest.mark.parametrize("b,t,max_tokens,n_chunks", [
+    (4, 96, 64, 6),       # 16 positions a chunk: the token bound
+    (2, 1024, 4096, 2),   # 512 positions a chunk: LOSS_CHUNK
+    (3, 40, 2048, 1),     # the whole micro-batch in one chunk
+    (5, 2048, 2048, 8),   # 409 tokens a row, rounded down to 256
+])
+def test_xent_sum_in_chunks_matches_the_references_whole_micro_batch(
+        monkeypatch, b, t, max_tokens, n_chunks):
+    # the training step's xent over a micro-batch, taken in chunks of at
+    # most LOSS_CHUNK positions and LOSS_TOKENS tokens, against the
+    # reference's _xent_sum, which takes the micro-batch's logits at once:
+    # the sums and the gradients of h and of the head
+    from repro.train.pipeline_adapter import _xent_sum as j_xent_sum
+    from repro_torch.models import model as TM
+    monkeypatch.setattr(TM, "LOSS_TOKENS", max_tokens)
+    cfg = dataclasses.replace(reduced(get_arch("gemma2-2b")), dtype="float32")
+    r = np.random.default_rng(2)
+    h = r.standard_normal((b, t, cfg.d_model)).astype(np.float32)
+    head = (0.3 * r.standard_normal((cfg.vocab_padded, cfg.d_model))
+            ).astype(np.float32)
+    labels = r.integers(0, cfg.vocab, (b, t), dtype=np.int32)
+    weights = (r.random((b, t)) < 0.8).astype(np.float32)
+    (jl, jw), jg = jax.value_and_grad(
+        lambda hd, x: j_xent_sum(hd, x, jnp.asarray(labels),
+                                 jnp.asarray(weights), cfg),
+        argnums=(0, 1), has_aux=True)(jnp.asarray(head), jnp.asarray(h))
+    th, thead = (torch.from_numpy(x).requires_grad_() for x in (h, head))
+    chunks = []
+    xent_chunk = TM._xent_chunk
+    monkeypatch.setattr(TM, "_xent_chunk",
+                        lambda *a: chunks.append(a[1].shape[1]) or xent_chunk(*a))
+    tl, tw = TM.xent_sums(thead, th, torch.from_numpy(labels),
+                          torch.from_numpy(weights), cfg)
+    assert chunks == [t // n_chunks] * n_chunks   # the forward's chunks
+    tl.backward()
+    assert float(tw) == float(jw)
+    np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=2e-5)
+    for out, ref in ((thead.grad, jg[0]), (th.grad, jg[1])):
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5,
+                                   rtol=2e-4)
+
+
 def test_strict_verification_raises_until_ported():
     # strict verification is ported (ROADMAP A4): the backend and the
     # runner take it, and the backend refuses a plan the verifier flags
