@@ -15,9 +15,11 @@ Phases, each printing its own lines; any failure exits non-zero:
              and its first, serial form, the yardstick, in
              ``ssd_fwd_serial.cu``), one nvcc per source, all started
              together, from the sources in this checkout, with ptxas's
-             register and spill lines and the dynamic shared memory of K1's
-             prefill forms and of the backward at every head dim (D 256
-             has forms of its own);
+             register and spill lines (each kernel and head dim it is
+             instantiated at, D 256 among them) and the dynamic shared
+             memory of K1's prefill form and of the backward at every head
+             dim (K1 takes 64-key tiles at D 256, the backward a form of
+             its own);
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -40,7 +42,10 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``d256-causal``: the same without softcap, for SDPA's time;
              ``gemma2-local-8k``: B 2, T = S 8192, window 4096;
              ``gemma2-decode``: B 16, S 8200 at position 8199, window 4096;
-             ``padding-tile-d256``: a 128-row query tile of pure padding);
+             ``padding-tile-d256``: a 128-row query tile of pure padding;
+             ``d256-keys-40960``: B 1, 2 q heads and 1 kv head, the last
+             256 of 40960 positions, where K1's walk over its key-tile
+             statistics goes in two chunks of 512 tiles);
              both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
              the backward must give dq, dk and dv equal to the bit over
@@ -302,7 +307,9 @@ KERNELS = {
             "t5_cross": "t5-cross", "granite_train": "granite-train",
             "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
             "d256_causal": "d256-causal", "gemma2_local_8k": "gemma2-local-8k",
-            "gemma2_decode": "gemma2-decode"}, ("train", "serve")),
+            "gemma2_decode": "gemma2-decode",
+            "padding_tile_d256": "padding-tile-d256",
+            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
@@ -310,14 +317,18 @@ KERNELS = {
             "t5_cross": "t5-cross", "granite_train": "granite-train",
             "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
             "d256_causal": "d256-causal",
-            "gemma2_local_8k": "gemma2-local-8k"}, ("train", "serve")),
+            "gemma2_local_8k": "gemma2-local-8k",
+            "padding_tile_d256": "padding-tile-d256",
+            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
             "t5_cross": "t5-cross", "granite_train": "granite-train",
             "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
             "d256_causal": "d256-causal",
-            "gemma2_local_8k": "gemma2-local-8k"}, ("train", "serve")),
+            "gemma2_local_8k": "gemma2-local-8k",
+            "padding_tile_d256": "padding-tile-d256",
+            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
            ("mamba",)),
@@ -367,11 +378,9 @@ def phase_device(torch):
             elif "registers" in line or "spill" in line:
                 print(f"[device]   {name}:   {line.strip()}")
     from repro_torch.kernels import flash_attention as fa
-    # the wgmma forms up to D 128, the mma.sync forms at D 256
     smem = _build.library("flash_fwd").mha_fwd_prefill_smem
-    print("[device]   flash_fwd: prefill dynamic shared memory (D 256: "
-          "mha_fwd_prefill_d256_kernel) "
-          + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
+    print("[device]   flash_fwd: prefill dynamic shared memory (64-key tiles "
+          "at D 256) " + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
     smem = _build.library("flash_bwd").mha_bwd_smem
     print("[device]   flash_bwd: dynamic shared memory (D 256: "
           "mha_bwd_d256_kernel) "
@@ -803,8 +812,10 @@ def phase_kernel(torch):
     # the gemma2 phase's attention at head dim 256 (8 q and 4 kv heads,
     # softcap 50): its training rows, a local layer past its 4096-token
     # window (which the 2048-token paths never reach), a decode step at
-    # position 8199 with the window in effect, and the training rows
-    # without softcap for SDPA's time
+    # position 8199 with the window in effect, the training rows without
+    # softcap for SDPA's time, and a global layer's last 256 queries over
+    # 40960 keys, past the 32768 that K1's table of 512 key-tile statistics
+    # covers at once at D 256
     gm = dict(h=GEMMA2_HEADS, kv=GEMMA2_KV_HEADS, d=256)
     gm_opts = dict(softcap=GEMMA2_SOFTCAP)
     gm_local = dict(window=GEMMA2_WINDOW, softcap=GEMMA2_SOFTCAP)
@@ -861,7 +872,11 @@ def phase_kernel(torch):
                                **gm), gm_local, True, None),
         ("padding-tile-d256", dict(b=2, t=384, s=384, h=4, kv=2, d=256,
                                    q_pos=pad_pos, kv_pos=pad_pos, q_seg=pad_seg,
-                                   kv_seg=pad_seg), gm_opts, False, "check"),
+                                   kv_seg=pad_seg), gm_opts, True,
+         "padding-tile-d256"),
+        ("d256-keys-40960", dict(b=1, t=256, s=40960, h=2, kv=1, d=256,
+                                 q_pos=[list(range(40704, 40960))]), gm_opts,
+         True, "d256-keys-40960"),
     ]
     # worst |out - plain| and worst tile relative error
     records, worst = {}, {"K1": (0.0, 0.0), "K2": (0.0, 0.0), "K3": (0.0, 0.0)}
@@ -2765,8 +2780,8 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase 13: profiles (not run by default)
 # ----------------------------------------------------------------------
-# K1's forms are mha_fwd_prefill_kernel, mha_fwd_prefill_d256_kernel and
-# mha_fwd_decode_kernel; the backward's mha_bwd_kernel and mha_bwd_d256_kernel
+# K1's forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel; the
+# backward's mha_bwd_kernel and mha_bwd_d256_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_",
                   "K4": "ssd_fwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),

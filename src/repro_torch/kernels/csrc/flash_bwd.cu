@@ -31,8 +31,8 @@
 // reference's two passes (and this port's first two kernels) computed s and
 // dp twice, 14 D per pair.
 //
-// Design (D up to 128; D 256 has its own form, `mha_bwd_d256_kernel`, at
-// the end of this file). One pass over the live (query tile, key tile)
+// Design (D up to 128; D 256 has its own wgmma form, `mha_bwd_d256_kernel`,
+// at the end of this file). One pass over the live (query tile, key tile)
 // pairs.
 //  - One block per (128 keys, KV head, batch row): a producer warpgroup and
 //    two consumer warpgroups of 64 keys each. The k and v tiles stay in
@@ -151,18 +151,16 @@ struct Bars {
 };
 
 // Warps 1-3 of the producer warpgroup: the min/max of the positions and
-// segment ids of the key tiles up to the block's own, into the table at
-// L::kStat.
-template <int kD>
-__device__ __forceinline__ void key_tile_table(const Params& p, uint8_t* smem,
+// segment ids of the key tiles of kKeys keys up to the block's own, into
+// the table `stats`.
+template <int kKeys>
+__device__ __forceinline__ void key_tile_table(const Params& p, int4* stats,
                                                int warp, int lane) {
-  using L = Smem<kD>;
   const int b = blockIdx.z;
-  int4* const stats = reinterpret_cast<int4*>(smem + L::kStat);
   const int* const kseg = p.kseg != nullptr ? p.kseg + (size_t)b * p.S : nullptr;
   for (int i = warp - 1; i <= (int)blockIdx.x; i += 3) {
-    const int4 st = row_tile_stats(p.kpos + (size_t)b * p.S, kseg, p.S,
-                                   i * kBKB, lane);
+    const int4 st = row_tile_stats<kKeys>(p.kpos + (size_t)b * p.S, kseg, p.S,
+                                          i * kKeys, lane);
     if (lane == 0) stats[i] = st;
   }
 }
@@ -576,7 +574,8 @@ mha_bwd_kernel(const __grid_constant__ CUtensorMap tq,
   if (tid < 128) {   // the producer warpgroup: warp 0 feeds, 1 and 2 add dq
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     const int warp = tid / 32, lane = tid % 32;
-    if (warp > 0) key_tile_table<kD>(p, smem, warp, lane);
+    if (warp > 0)
+      key_tile_table<kBKB>(p, reinterpret_cast<int4*>(smem + L::kStat), warp, lane);
     if (warp == 0) produce<kD>(&tq, &tdo, &tk, &tv, p, smem, lane);
     else named_barrier_arrive(2, 128);
     if (warp == 1 || warp == 2) add_dq<kD>(&tdq, p, smem, lane, warp - 1);
@@ -617,370 +616,523 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // ---------------------------------------------------------------------
 // head dim 256
 // ---------------------------------------------------------------------
-// The wgmma form above does not fit at D 256: k and v resident at 64 KiB
-// each, two stages of q and do at 128 KiB and two fp32 dq slots of 64 rows
-// x 256 at 128 KiB come to about 421000 B of shared memory against
-// 232448, and dk and dv would take 256 fp32 registers of each consumer
-// thread. This form is simple instead, on mma.sync m16n8k16 with ldmatrix
-// from shared rows padded to 264 bf16:
-//  - One block per (64 keys, KV head, batch row), eight warps. Warp w
-//    takes keys [16 (w % 4), +16) and columns [128 (w / 4), +128): its
-//    dk and dv are 16 keys x 128 columns, 64 fp32 registers each. The two
-//    warps of a key group both compute s^T = k q^T and dp^T = v do^T over
-//    the whole of D (the products of s and dp are done twice: 14 D FLOPs a
-//    pair where 10 D are needed), so no partial sums cross warps.
-//  - The block walks the live (64-row query tile, q head of the GQA group)
-//    items, query tiles from the last to the first, as the other form;
-//    every warp finds the live query tiles itself (`tiles_live` on the
-//    tiles' min/max), and the next item's q, do, lse, delta, positions and
-//    segment ids load by cp.async into the second of two stages while this
-//    one is computed.
-//  - Per item: p^T and ds^T in registers (the softcap chain as the other
-//    form), dv += p^T do and dk += ds^T q (do and q read transposed by
-//    ldmatrix), ds^T to shared memory, then dq = ds k with warp w taking
-//    query rows [16 (w % 4), +16) and columns [128 (w / 4), +128).
-//  - dq's tile is added into the caller's zeroed fp32 accumulator in the
-//    same order as the other form: the block waits until the counter of
-//    (batch row, q head, query tile) holds the number of live key tiles
-//    before its own (counted by warp 0 from a table of the key tiles'
-//    statistics), then every thread adds its part with loads and stores
-//    that bypass L1, and after a fence and a barrier one thread bumps the
-//    counter (release). So dq is repeatable bit for bit, its sums taken
-//    in ascending key tile as fp32 adds, as the reduce-adds of the other
-//    form take them.
-// Shared memory: k and v 64 x 264 bf16 (67584 B), two stages of q and do
-// (135168 B), ds^T 64 x 72 bf16 (9216 B), two stages of lse, delta,
-// positions and segment ids (2048 B), the statistics of up to 1024 key
-// tiles (16384 B: S <= 65536 as the other form): 230400 B of the 232448 a
-// block may have. Bound as the other form: 10 D FLOPs per visible pair.
+// The form above does not fit at D 256: for 128 keys, k and v resident
+// (128 KiB), two stages of q and do (128 KiB) and two fp32 dq slots
+// (128 KiB) come to about 421000 B of shared memory against 232448, and dk
+// and dv would take 256 fp32 registers of a consumer thread. This form
+// splits the work of an item otherwise, each product done once (10 D
+// FLOPs per pair):
+//  - One block per (64 keys, KV head, batch row): a producer warpgroup and
+//    two consumer warpgroups. k and v stay in shared memory; the block
+//    walks the live (64-row query tile, q head of the GQA group) items,
+//    query tiles from the last to the first, as the other form.
+//  - Per item, consumer warpgroup w takes query rows [32 w, 32 w + 32):
+//    s^T = k q^T and dp^T = v do^T over the whole of D (wgmma, 64 keys x 32
+//    rows), then p^T and ds^T = p^T (dp^T - delta) (1 - tanh^2) in fp32
+//    registers (the softcap chain and the element mask in one of four
+//    forms, as the other form), rounded to bf16 into the item's buffer of
+//    p^T and ds^T in shared memory. The two warpgroups do this elementwise
+//    work side by side, each on half of the item.
+//  - Two barriers of both warpgroups (named barriers 2, the last item's
+//    p^T and ds^T are no longer read, and 1, this item's are written)
+//    frame the writes. Then each warpgroup owns one 128-column half of D:
+//    dv += p^T do and dk += ds^T q, both operands from shared memory (64 +
+//    64 fp32 registers a thread), and dq = ds k in two 64-column quarters
+//    (32 fp32), ds read transposed from ds^T through its descriptor.
+//  - q and do have one buffer each, released on their own as soon as their
+//    last readers are done: do after dp^T and both dv products, q (with the
+//    item's lse, delta, positions and segment ids) after s^T and both dk
+//    products. The producer loads the next item's do during the dk and dq
+//    products, and its q during the dq products. A second stage of q and
+//    do (+65536 B) does not fit; a cluster of two blocks sharing them by
+//    TMA multicast would, at the cost of pairing blocks whose items differ
+//    (their key tiles see different query tiles), so this form keeps one
+//    block and the early release.
+//  - Warpgroup w stages its dq quarters, scaled by 1/sqrt(D), in its own
+//    two slots, 2 w and 2 w + 1 (64 x 64 fp32 each, as 128-byte-swizzled
+//    boxes of 32 columns), so that it waits for the adds only when they
+//    are a whole item behind. Warp 1 + w of the producer warpgroup adds
+//    them into the caller's zeroed accumulator by TMA reduce-adds, after
+//    waiting (acquire) until the counter of (batch row, q head, query tile)
+//    reaches twice the number of live key tiles before its own, and bumps
+//    it (release) once the second quarter is complete in global memory:
+//    each key tile bumps it twice, once per column half. So dq's sums are
+//    taken in ascending key tile, as the other form takes them, and dq, dk
+//    and dv repeat bit for bit.
+// Shared memory: k, v, q and do 64 x 256 bf16 each (131072 B); p^T and
+// ds^T (16384 B); four dq slots (65536 B); lse, delta, positions and
+// segment ids (1024 B); items; the statistics of up to 1024 key tiles
+// (16384 B: S <= 65536 as the other form); barriers and the alignment
+// slack: 231608 B of the 232448 a block may have. Registers: dk and dv
+// (128 fp32) and s^T and dp^T (32) or a dq quarter (32) a consumer thread,
+// under the 232 setmaxnreg gives it. Bound as the other form: 10 D FLOPs
+// per visible pair.
 constexpr int kD256 = 256;
-constexpr int kStride256 = kD256 + 8;       // bf16 per shared row of k, v, q, do
 constexpr int kBK256 = 64;                  // keys per block
-constexpr int kDSStride = kBQ + 8;          // bf16 per shared row of ds^T
 constexpr int kMaxKeyTiles256 = kMaxKeyTiles * kBKB / kBK256;
-constexpr int kThreads256 = 256;
 struct Smem256 {
-  static constexpr int kTile = 64 * kStride256 * 2;          // 64 rows of k, v, q or do
-  static constexpr int kK = 0, kV = kTile;
-  static constexpr int kQD = 2 * kTile;                      // [stage][q, do]
-  static constexpr int kDS = kQD + kStages * 2 * kTile;      // ds^T [key][row]
-  static constexpr int kMeta = kDS + kBK256 * kDSStride * 2; // [stage][lse, delta, pos, seg][kBQ]
-  static constexpr int kStat = kMeta + kStages * 4 * kBQ * 4;   // int4 [kMaxKeyTiles256]
-  static constexpr int kBytes = kStat + kMaxKeyTiles256 * 16;
+  static constexpr int kRB = 128;                   // bytes of a box row: 64 bf16
+  static constexpr int kBox = 64 * kRB;             // 64 rows x 64 columns
+  static constexpr int kTile = kD256 / 64 * kBox;   // 64 rows x 256: k, v, q, do
+  static constexpr int kK = 0, kV = kTile, kQ = 2 * kTile, kDO = 3 * kTile;
+  static constexpr int kPS = 4 * kTile;             // p^T, ds^T bf16 [key][row]
+  static constexpr int kDQBox = 64 * 128;           // 64 rows of 32 fp32
+  static constexpr int kDQTile = 2 * kDQBox;        // a dq quarter, 64 x 64 fp32
+  static constexpr int kDQ = kPS + 2 * kBox;        // [2 w + quarter] dq quarter
+  static constexpr int kMeta = kDQ + 4 * kDQTile;   // lse, delta, pos, seg [kBQ] each
+  static constexpr int kItem = kMeta + 4 * kBQ * 4; // int4
+  static constexpr int kDQInfo = kItem + 16;        // int4 [slot]
+  static constexpr int kStat = kDQInfo + 4 * 16;    // int4 [kMaxKeyTiles256]
+  // barriers: kv, q full, q empty, do full, do empty, dq full [4], dq empty [4]
+  static constexpr int kBar = kStat + kMaxKeyTiles256 * 16;
+  static constexpr int kBytes = kBar + 8 * 13 + 1024;
 };
 static_assert(kBQ == 64 && Smem256::kBytes <= 232448, "shared memory of a block");
 
-__global__ void __launch_bounds__(kThreads256, 1)
-mha_bwd_d256_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                    float* dq_acc, int T_acc, const Params p) {
+struct Bars256 {
+  uint32_t kv, q_full, q_empty, do_full, do_empty, dq_full, dq_empty;   // dq_*[slot]
+  __device__ explicit Bars256(uint32_t base)
+      : kv(base), q_full(base + 8), q_empty(base + 16), do_full(base + 24),
+        do_empty(base + 32), dq_full(base + 40), dq_empty(base + 72) {}
+};
+
+// The producer warp: the k and v tiles, then for each live (query tile,
+// q head) item, query tiles from the last to the first, its do tile, then
+// its lse (log2 units), delta, positions and segment ids, the item (q0,
+// q head, full, live key tiles before this block's) and its q tile, each
+// into its buffer once the consumers have freed it; a sentinel item
+// (q0 = -1) ends the consumers' loop.
+__device__ __forceinline__ void produce256(const CUtensorMap* tq,
+                                           const CUtensorMap* tdo,
+                                           const CUtensorMap* tk,
+                                           const CUtensorMap* tv,
+                                           const Params& p, uint8_t* smem,
+                                           int lane) {
   using L = Smem256;
-  constexpr int kD = kD256, kStride = kStride256;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* const k_s = reinterpret_cast<uint16_t*>(smem + L::kK);
-  uint16_t* const v_s = reinterpret_cast<uint16_t*>(smem + L::kV);
-  uint16_t* const ds_s = reinterpret_cast<uint16_t*>(smem + L::kDS);
-  int4* const stats = reinterpret_cast<int4*>(smem + L::kStat);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
-  const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
-  const int kg = warp & 3, col0 = (warp >> 2) * 128;   // key (and dq row) group, columns
   const int b = blockIdx.z, kvh = blockIdx.y, kt = blockIdx.x, k0 = kt * kBK256;
   const int group = p.H / p.KV;
   const bool segmented = p.qseg != nullptr;
-  const int* const kpos = p.kpos + (size_t)b * p.S;
-  const int* const kseg = segmented ? p.kseg + (size_t)b * p.S : nullptr;
-  const int* const qpos = p.qpos + (size_t)b * p.T;
-  const int* const qseg = segmented ? p.qseg + (size_t)b * p.T : nullptr;
-  const size_t q_rs = (size_t)p.H * kD, kv_rs = (size_t)p.KV * kD;
+  const Bars256 bar(smem_u32(smem + L::kBar));
+  const int4* const stats = reinterpret_cast<const int4*>(smem + L::kStat);
 
-  // ---- k and v of the block's keys, zeros past S: one cp.async group ----
+  if (lane == 0) {
+    mbar_arrive_tx(bar.kv, 2 * L::kTile);
 #pragma unroll
-  for (int j = 0; j < kBK256 * (kD / 8) / kThreads256; ++j) {
-    const int i = tid + j * kThreads256;
-    const int r = i / (kD / 8), ch = i % (kD / 8);
-    const bool in = k0 + r < p.S;
-    const size_t off = in ? ((size_t)b * p.S + k0 + r) * kv_rs + (size_t)kvh * kD + ch * 8 : 0;
-    cp_async16(k_s + r * kStride + ch * 8, k + off, in);
-    cp_async16(v_s + r * kStride + ch * 8, v + off, in);
+    for (int x = 0; x < kD256 / 64; ++x) {
+      tma_load_4d(smem_u32(smem + L::kK + x * L::kBox), tk, bar.kv, 64 * x, kvh, k0, b);
+      tma_load_4d(smem_u32(smem + L::kV + x * L::kBox), tv, bar.kv, 64 * x, kvh, k0, b);
+    }
   }
-  cp_async_commit();
-  // ---- the statistics of key tiles 0..kt ----
-  for (int i = warp; i <= kt; i += kThreads256 / 32) {
-    const int4 st = row_tile_stats<kBK256>(kpos, kseg, p.S, i * kBK256, lane);
-    if (lane == 0) stats[i] = st;
+  named_barrier(5, 128);   // warps 1-3 have filled the key tiles' table
+  const int4 kstat = stats[kt];
+
+  uint32_t phase = 0;
+  // A tile of padding keys (segment -1) is seen by no query: no live item.
+  const int n_qt = segmented && kstat.w < 0 ? 0 : (p.T + kBQ - 1) / kBQ;
+  for (int t = n_qt - 1; t >= 0; --t) {
+    const int q0 = t * kBQ;
+    bool ok[2];
+    int pos[2], seg[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + lane + 32 * i;
+      ok[i] = r < p.T;
+      pos[i] = ok[i] ? p.qpos[(size_t)b * p.T + r] : 0;
+      seg[i] = (ok[i] && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
+    }
+    int qstat[4];
+    qstat[0] = warp_min(min(ok[0] ? pos[0] : kIntMax, ok[1] ? pos[1] : kIntMax));
+    qstat[1] = warp_max(max(ok[0] ? pos[0] : kIntMin, ok[1] ? pos[1] : kIntMin));
+    qstat[2] = warp_min(min(ok[0] ? seg[0] : kIntMax, ok[1] ? seg[1] : kIntMax));
+    qstat[3] = warp_max(max(ok[0] ? seg[0] : kIntMin, ok[1] ? seg[1] : kIntMin));
+    if (!pair_live(qstat, kstat, segmented, p)) continue;
+    const int ks[4] = {kstat.x, kstat.y, kstat.z, kstat.w};
+    const int full = q0 + kBQ <= p.T && k0 + kBK256 <= p.S &&
+                     tiles_full(qstat, ks, segmented, p.causal, p.window);
+    int before = 0;   // live key tiles before this one for query tile t
+    for (int i0 = 0; i0 < kt; i0 += 32) {
+      const int i = i0 + lane;
+      before += __popc(__ballot_sync(
+          0xffffffffu,
+          i < kt && pair_live(qstat, stats[min(i, kt - 1)], segmented, p)));
+    }
+    for (int gi = 0; gi < group; ++gi) {
+      const int hq = kvh * group + gi;
+      mbar_wait(bar.do_empty, phase ^ 1);
+      if (lane == 0) {
+        mbar_arrive_tx(bar.do_full, L::kTile);
+#pragma unroll
+        for (int x = 0; x < kD256 / 64; ++x)
+          tma_load_4d(smem_u32(smem + L::kDO + x * L::kBox), tdo, bar.do_full,
+                      64 * x, hq, q0, b);
+      }
+      mbar_wait(bar.q_empty, phase ^ 1);
+      float* const lse_s = reinterpret_cast<float*>(smem + L::kMeta);
+      float* const dlt_s = lse_s + kBQ;
+      int* const qpos_s = reinterpret_cast<int*>(dlt_s + kBQ);
+      int* const qseg_s = qpos_s + kBQ;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = lane + 32 * i;
+        const size_t li = ((size_t)b * p.H + hq) * p.T + q0 + rr;
+        lse_s[rr] = ok[i] ? p.lse[li] * kLog2e : 0.f;
+        dlt_s[rr] = ok[i] ? p.delta[li] : 0.f;
+        qpos_s[rr] = pos[i];
+        qseg_s[rr] = seg[i];
+      }
+      if (lane == 0) {
+        *reinterpret_cast<int4*>(smem + L::kItem) = make_int4(q0, hq, full, before);
+        mbar_arrive_tx(bar.q_full, L::kTile);
+#pragma unroll
+        for (int x = 0; x < kD256 / 64; ++x)
+          tma_load_4d(smem_u32(smem + L::kQ + x * L::kBox), tq, bar.q_full,
+                      64 * x, hq, q0, b);
+      } else {
+        mbar_arrive(bar.q_full);
+      }
+      phase ^= 1;
+    }
   }
-  __syncthreads();
-  const int kstat[4] = {stats[kt].x, stats[kt].y, stats[kt].z, stats[kt].w};
+  mbar_wait(bar.q_empty, phase ^ 1);
+  if (lane == 0) *reinterpret_cast<int4*>(smem + L::kItem) = make_int4(-1, 0, 0, 0);
+  mbar_arrive(bar.q_full);
+}
+
+// Warp 1 + w of the producer warpgroup: adds the dq quarters that consumer
+// warpgroup w stages in its slots 2 w and 2 w + 1 into the accumulator,
+// item by item. Before an item's first quarter it waits until the tile's
+// counter holds twice the live key tiles before this block's; after its
+// second, once the adds are complete in global memory, it bumps the
+// counter. Info with q0 = -1 in slot 2 w ends it.
+__device__ __forceinline__ void add_dq256(const CUtensorMap* tdq,
+                                          const Params& p, uint8_t* smem,
+                                          int lane, int w) {
+  using L = Smem256;
+  const int b = blockIdx.z;
+  const int n_qt = (p.T + kBQ - 1) / kBQ;
+  const Bars256 bar(smem_u32(smem + L::kBar));
+  const int4* const info = reinterpret_cast<const int4*>(smem + L::kDQInfo);
+  for (uint32_t phase = 0;; phase ^= 1) {
+    int* sem = nullptr;
+#pragma unroll 1
+    for (int qt = 0; qt < 2; ++qt) {
+      const int slot = 2 * w + qt;
+      mbar_wait(bar.dq_full + 8 * slot, phase);
+      const int4 it = info[slot];   // q0, q head, -, live key tiles before
+      if (it.x < 0) return;
+      if (lane == 0) {
+        if (qt == 0) {
+          sem = p.dq_sem + ((size_t)b * p.H + it.y) * n_qt + it.x / kBQ;
+          while (ld_acquire_gpu(sem) < 2 * it.w) __nanosleep(64);
+          fence_proxy_async_global();   // the earlier tiles' adds before ours
+        }
+        const uint32_t src = smem_u32(smem + L::kDQ + slot * L::kDQTile);
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          tma_reduce_add_4d(tdq, src + x * L::kDQBox, 128 * w + 64 * qt + 32 * x,
+                            it.x, it.y, b);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(bar.dq_empty + 8 * slot);   // the slot may be written again
+        if (qt == 1) {
+          bulk_wait();
+          fence_proxy_async_global();
+          red_release_gpu_add(sem, 1);
+        }
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// p^T and ds^T in place of s^T and dp^T for this thread's elements of a
+// warpgroup's 32 query rows: element i is key (i % 4) / 2 of the thread's
+// two, query row r0 + 8 (i / 4) + 2c + i % 2 of the item's tile.
+template <bool kCap, bool kMask>
+__device__ __forceinline__ void p_ds256(float (&s)[16], float (&dp)[16],
+                                        const float* lse2, const float* dlt,
+                                        const int* qpos, const int* qseg,
+                                        const bool (&key_ok)[2], const int (&kp)[2],
+                                        const int (&ks)[2], int q0, int r0, int c,
+                                        const Params& p) {
+  const bool segmented = p.qseg != nullptr;
+  const float scale_log2 = p.sm_scale * kLog2e;
+  const float cap_in = kCap ? p.sm_scale / p.softcap : 0.f;
+  const float cap_mul = kCap ? p.softcap * kLog2e : 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int qi = r0 + 8 * j + 2 * c;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse2 + qi);
+    const float2 dl = *reinterpret_cast<const float2*>(dlt + qi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, kj = e >> 1, r = qi + (e & 1);
+      float pe, ds = dp[i] - ((e & 1) ? dl.y : dl.x);
+      if constexpr (kCap) {
+        const float th = tanhf(s[i] * cap_in);
+        pe = ex2(cap_mul * th - ((e & 1) ? l2.y : l2.x));
+        ds *= 1.f - th * th;
+      } else {
+        pe = ex2(s[i] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+      }
+      if constexpr (kMask)
+        if (!(q0 + r < p.T && key_ok[kj] &&
+              visible(qpos[r], qseg[r], kp[kj], ks[kj], segmented, p.causal,
+                      p.window)))
+          pe = 0.f;
+      s[i] = pe;
+      dp[i] = pe * ds;
+    }
+  }
+}
+
+// This warpgroup's 32 query rows of a 64 x 64 bf16 operand tile ([key][query
+// row], 128-byte rows, swizzled) from its fp32 accumulator elements.
+__device__ __forceinline__ void store_keys_by_rows(uint8_t* dst, const float (&x)[16],
+                                                   const int (&key)[2], int wg,
+                                                   int g, int c) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int kj = 0; kj < 2; ++kj)
+      *reinterpret_cast<uint32_t*>(dst + key[kj] * 128 + (((4 * wg + j) ^ g) << 4) +
+                                   4 * c) =
+          pack_bf16(x[4 * j + 2 * kj], x[4 * j + 2 * kj + 1]);
+}
+
+// The two consumer warpgroups (see the notes above): warpgroup wg computes
+// s^T, dp^T, p^T and ds^T for query rows [32 wg, 32 wg + 32) of the item,
+// then dv, dk and dq for columns [128 wg, 128 wg + 128), its dq quarters
+// staged in slot wg for add_dq256.
+__device__ __forceinline__ void consume256(const Params& p, uint8_t* smem,
+                                           int ct) {
+  using L = Smem256;
+  constexpr int kRB = L::kRB;
+  const int wg = ct / 128, t = ct % 128, w4 = t / 32, lane = ct % 32;
+  const int g = lane >> 2, c = lane & 3;
+  const int b = blockIdx.z, kvh = blockIdx.y, k0 = blockIdx.x * kBK256;
+  const bool segmented = p.qseg != nullptr;
+  const Bars256 bar(smem_u32(smem + L::kBar));
+  int4* const dq_info = reinterpret_cast<int4*>(smem + L::kDQInfo);
 
   // this thread's two keys: rows g and g + 8 of its warp's 16 in s^T
   int key[2], kp[2], ks[2];
   bool key_ok[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    key[j] = kg * 16 + g + 8 * j;
+    key[j] = w4 * 16 + g + 8 * j;
     key_ok[j] = k0 + key[j] < p.S;
-    kp[j] = key_ok[j] ? kpos[k0 + key[j]] : 0;
-    ks[j] = (key_ok[j] && segmented) ? kseg[k0 + key[j]] : 0;
+    kp[j] = key_ok[j] ? p.kpos[(size_t)b * p.S + k0 + key[j]] : 0;
+    ks[j] = (key_ok[j] && segmented) ? p.kseg[(size_t)b * p.S + k0 + key[j]] : 0;
   }
 
-  // The next live query tile at or below t (-1 if none), and whether every
-  // pair of it and the block's keys is visible.
-  auto next_live = [&](int t, bool& full) -> int {
-    for (; t >= 0; --t) {
-      const int4 q4 = row_tile_stats<kBQ>(qpos, qseg, p.T, t * kBQ, lane);
-      const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
-      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
-      full = (t + 1) * kBQ <= p.T && k0 + kBK256 <= p.S &&
-             tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      return t;
-    }
-    return -1;
-  };
-  // q and do of (query tile t, q head hq), zeros past T, their lse (log2
-  // units), delta, positions and segment ids, into stage `stage`
-  auto issue = [&](int t, int hq, int stage) {
-    uint16_t* const qb = reinterpret_cast<uint16_t*>(smem + L::kQD + stage * 2 * L::kTile);
-    uint16_t* const db = qb + kBQ * kStride;
+  float dk[64], dv[64];   // 64 keys x this warpgroup's 128 columns
 #pragma unroll
-    for (int j = 0; j < kBQ * (kD / 8) / kThreads256; ++j) {
-      const int i = tid + j * kThreads256;
-      const int r = i / (kD / 8), ch = i % (kD / 8);
-      const int row = t * kBQ + r;
-      const bool in = row < p.T;
-      const size_t off = in ? ((size_t)b * p.T + row) * q_rs + (size_t)hq * kD + ch * 8 : 0;
-      cp_async16(qb + r * kStride + ch * 8, q + off, in);
-      cp_async16(db + r * kStride + ch * 8, dout + off, in);
-    }
-    cp_async_commit();
-    if (tid < kBQ) {
-      float* const meta = reinterpret_cast<float*>(smem + L::kMeta) + stage * 4 * kBQ;
-      const int row = t * kBQ + tid;
-      const bool ok = row < p.T;
-      const size_t li = ((size_t)b * p.H + hq) * p.T + row;
-      meta[tid] = ok ? p.lse[li] * kLog2e : 0.f;
-      meta[kBQ + tid] = ok ? p.delta[li] : 0.f;
-      reinterpret_cast<int*>(meta)[2 * kBQ + tid] = ok ? qpos[row] : 0;
-      reinterpret_cast<int*>(meta)[3 * kBQ + tid] = (ok && segmented) ? qseg[row] : 0;
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  const uint32_t k_a = smem_u32(smem + L::kK), v_a = smem_u32(smem + L::kV);
+  const uint32_t q_a = smem_u32(smem + L::kQ), do_a = smem_u32(smem + L::kDO);
+  const uint32_t half = 2 * wg * L::kBox;   // this warpgroup's columns in a tile
+  const uint32_t rows = wg * 32 * kRB;      // its query rows in a q or do tile
+  const float* const lse_b = reinterpret_cast<const float*>(smem + L::kMeta);
+  const float* const dlt_b = lse_b + kBQ;
+  const int* const qpos_b = reinterpret_cast<const int*>(dlt_b + kBQ);
+  const int* const qseg_b = qpos_b + kBQ;
+  const bool cap = p.softcap > 0.f;
+
+  // x^T = a b^T over D: 64 keys x this warpgroup's 32 query rows, a and b
+  // K-major
+  auto keys_by_rows = [&](float (&x)[16], uint32_t a, uint32_t bb) {
+#pragma unroll
+    for (int kk = 0; kk < kD256 / 16; ++kk) {
+      const uint32_t off = (kk / 4) * L::kBox + (kk % 4) * 32;
+      wgmma_ss<32, 0, 0>(x, desc<kRB>(a + off, 16, 8 * kRB),
+                         desc<kRB>(bb + rows + off, 16, 8 * kRB), kk > 0);
     }
   };
+  // acc += x^T y for this warpgroup's half: x^T [key][row] from shared
+  // memory, y (64 rows x D) read MN-major
+  auto add_half = [&](float (&acc)[64], uint32_t xt, uint32_t y) {
+#pragma unroll
+    for (int kq = 0; kq < kBQ / 16; ++kq)
+      wgmma_ss<128, 0, 1>(acc, desc<128>(xt + kq * 32, 16, 1024),
+                          desc<kRB>(y + half + kq * 16 * kRB, L::kBox, 8 * kRB), 1);
+  };
 
-  float dk[kD / 16][4], dv[kD / 16][4];   // 16 keys x 128 columns each
-#pragma unroll
-  for (int n = 0; n < kD / 16; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-  const float scale_log2 = p.sm_scale * kLog2e;
-  const uint16_t* const kw = k_s + kg * 16 * kStride;
-  const uint16_t* const vw = v_s + kg * 16 * kStride;
+  mbar_wait(bar.kv, 0);
+  uint32_t phase = 0;
+  for (;;) {
+    mbar_wait(bar.q_full, phase);
+    const int4 item = *reinterpret_cast<const int4*>(smem + L::kItem);
+    if (item.x < 0) break;
+    const int q0 = item.x;
+    mbar_wait(bar.do_full, phase);
 
-  const int n_qt = (p.T + kBQ - 1) / kBQ;
-  bool full = false, full_next = false;
-  int t = next_live(n_qt - 1, full), gi = 0, stage = 0;
-  if (t >= 0) issue(t, kvh * group, 0);
-  while (t >= 0) {
-    const int hq = kvh * group + gi;
-    int t_next = t, gi_next = gi + 1;   // the item after this one
-    full_next = full;
-    if (gi_next == group) {
-      gi_next = 0;
-      t_next = next_live(t - 1, full_next);
-    }
-    if (t_next >= 0) {
-      issue(t_next, kvh * group + gi_next, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // k, v and this item's stage are in shared memory
-    const uint16_t* const qb = reinterpret_cast<const uint16_t*>(
-        smem + L::kQD + stage * 2 * L::kTile);
-    const uint16_t* const db = qb + kBQ * kStride;
-    const float* const lse2 = reinterpret_cast<const float*>(smem + L::kMeta) + stage * 4 * kBQ;
-    const float* const dlt = lse2 + kBQ;
-    const int* const qpos_b = reinterpret_cast<const int*>(dlt + kBQ);
-    const int* const qseg_b = qpos_b + kBQ;
-    const int q0 = t * kBQ;
+    // ---- s^T = k q^T and dp^T = v do^T for this warpgroup's rows ----
+    float s[16], dp[16];   // the first k-step overwrites them
+    wgmma_fence();
+    keys_by_rows(s, k_a, q_a);
+    keys_by_rows(dp, v_a, do_a);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
 
-    // ---- s^T = k q^T and dp^T = v do^T: the warp's 16 keys x 64 rows ----
-    float s[kBQ / 8][4], dp[kBQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      uint32_t ka[4], va[4];   // A fragments: the warp's keys, dims 16 kk..
-      ldsm_x4(ka, kw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
-      ldsm_x4(va, vw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-      for (int n = 0; n < kBQ / 8; n += 2) {
-        uint32_t qf[4], df[4];   // b0, b1 of n-tiles (query rows) n and n + 1
-        const int off = ((n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8;
-        ldsm_x4(qf, qb + off);
-        ldsm_x4(df, db + off);
-        mma_bf16(s[n], ka, qf[0], qf[1]);
-        mma_bf16(s[n + 1], ka, qf[2], qf[3]);
-        mma_bf16(dp[n], va, df[0], df[1]);
-        mma_bf16(dp[n + 1], va, df[2], df[3]);
-      }
-    }
+    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2), in one of
+    // four forms, to shared memory as bf16 ----
+    const bool mask = item.z == 0;
+    if (cap && mask) p_ds256<true, true>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, 32 * wg, c, p);
+    else if (cap) p_ds256<true, false>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, 32 * wg, c, p);
+    else if (mask) p_ds256<false, true>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, 32 * wg, c, p);
+    else p_ds256<false, false>(s, dp, lse_b, dlt_b, qpos_b, qseg_b, key_ok, kp, ks, q0, 32 * wg, c, p);
+    uint8_t* const ps = smem + L::kPS;
+    named_barrier(2, kConsumers);   // both are done with the last p^T and ds^T
+    store_keys_by_rows(ps, s, key, wg, g, c);
+    store_keys_by_rows(ps + L::kBox, dp, key, wg, g, c);
+    fence_proxy_async();
+    named_barrier(1, kConsumers);   // both warpgroups' rows are written
+    const uint32_t pb_a = smem_u32(ps), ds_a = pb_a + L::kBox;
 
-    // ---- p^T from lse, ds^T = p^T (dp^T - delta) (1 - th^2): element e of
-    // n-tile n is key g + 8 (e / 2), query row 8 n + 2 c + e % 2 ----
+    // ---- dv += p^T do, dk += ds^T q for this warpgroup's half ----
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    add_half(dv, pb_a, do_a);
+    wgmma_commit();
+    add_half(dk, ds_a, q_a);
+    wgmma_commit();
+    wgmma_wait<1>();   // dv's products
+    fence_regs(dv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar.do_empty);   // do is free
+    wgmma_wait<0>();   // dk's
+    fence_regs(dk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar.q_empty);    // q and the item's metadata are free
+
+    // ---- dq = ds k for this warpgroup's half, a 64-column quarter at a
+    // time, scaled by 1/sqrt(D) into slot 2 wg + quarter for add_dq256: rows
+    // 16 w4 + g (+ 8), columns 8 j + 2 c of the quarter ----
+#pragma unroll 1
+    for (int qt = 0; qt < 2; ++qt) {
+      const int slot = 2 * wg + qt;
+      uint8_t* const dq_s = smem + L::kDQ + slot * L::kDQTile;
+      float dqa[32];
+      wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < kBQ / 8; ++n) {
+      for (int kk = 0; kk < kBK256 / 16; ++kk)
+        wgmma_ss<64, 1, 1>(dqa, desc<128>(ds_a + kk * 16 * 128, 16, 1024),
+                           desc<kRB>(k_a + half + qt * L::kBox + kk * 16 * kRB,
+                                     L::kBox, 8 * kRB), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      mbar_wait(bar.dq_empty + 8 * slot, phase ^ 1);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = e >> 1, r = 8 * n + 2 * c + (e & 1);
-        float pe, ds = dp[n][e] - dlt[r];
-        if (p.softcap > 0.f) {
-          const float th = tanhf(s[n][e] * p.sm_scale / p.softcap);
-          pe = exp2f(p.softcap * th * kLog2e - lse2[r]);
-          ds *= 1.f - th * th;
-        } else {
-          pe = exp2f(s[n][e] * scale_log2 - lse2[r]);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int col = (8 * j + 2 * c) * 4;   // in bytes
+          const int row = w4 * 16 + g + 8 * i;
+          *reinterpret_cast<float2*>(
+              dq_s + (col / 128) * L::kDQBox + swizzle<128>(row * 128 + col % 128)) =
+              make_float2(dqa[4 * j + 2 * i] * p.sm_scale,
+                          dqa[4 * j + 2 * i + 1] * p.sm_scale);
         }
-        if (!full &&
-            !(q0 + r < p.T && key_ok[kj] &&
-              visible(qpos_b[r], qseg_b[r], kp[kj], ks[kj], segmented,
-                      p.causal, p.window)))
-          pe = 0.f;
-        s[n][e] = pe;
-        dp[n][e] = pe * ds;
-      }
+      fence_proxy_async();
+      if (t == 0) dq_info[slot] = make_int4(q0, item.y, 0, item.w);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar.dq_full + 8 * slot);
     }
-    // as bf16 A fragments (keys x 16 query rows), one per 16 rows
-    uint32_t pa[kBQ / 16][4], sa[kBQ / 16][4];
-#pragma unroll
-    for (int kq = 0; kq < kBQ / 16; ++kq) {
-      pa[kq][0] = pack_bf16(s[2 * kq][0], s[2 * kq][1]);
-      pa[kq][1] = pack_bf16(s[2 * kq][2], s[2 * kq][3]);
-      pa[kq][2] = pack_bf16(s[2 * kq + 1][0], s[2 * kq + 1][1]);
-      pa[kq][3] = pack_bf16(s[2 * kq + 1][2], s[2 * kq + 1][3]);
-      sa[kq][0] = pack_bf16(dp[2 * kq][0], dp[2 * kq][1]);
-      sa[kq][1] = pack_bf16(dp[2 * kq][2], dp[2 * kq][3]);
-      sa[kq][2] = pack_bf16(dp[2 * kq + 1][0], dp[2 * kq + 1][1]);
-      sa[kq][3] = pack_bf16(dp[2 * kq + 1][2], dp[2 * kq + 1][3]);
-    }
-
-    // ---- dv += p^T do, dk += ds^T q over the warp's 128 columns ----
-#pragma unroll
-    for (int kq = 0; kq < kBQ / 16; ++kq) {
-      const int off = (kq * 16 + (mi & 1) * 8 + r8) * kStride + col0 + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < kD / 16; n += 2) {
-        uint32_t bf[4];   // b0, b1 of n-tiles (columns) n and n + 1
-        ldsm_x4_trans(bf, db + off + n * 8);
-        mma_bf16(dv[n], pa[kq], bf[0], bf[1]);
-        mma_bf16(dv[n + 1], pa[kq], bf[2], bf[3]);
-        ldsm_x4_trans(bf, qb + off + n * 8);
-        mma_bf16(dk[n], sa[kq], bf[0], bf[1]);
-        mma_bf16(dk[n + 1], sa[kq], bf[2], bf[3]);
-      }
-    }
-
-    // ---- ds^T to shared memory, [key][query row], by the warps of the
-    // first column half (the second holds the same) ----
-    if (col0 == 0) {
-#pragma unroll
-      for (int kq = 0; kq < kBQ / 16; ++kq)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-          *reinterpret_cast<uint32_t*>(
-              ds_s + (kg * 16 + g + 8 * (r & 1)) * kDSStride + kq * 16 +
-              8 * (r >> 1) + 2 * c) = sa[kq][r];
-    }
-    __syncthreads();   // ds^T of the block's 64 keys is in shared memory
-
-    // ---- dq = ds k: query rows 16 kg.., columns col0.., over the 64 keys;
-    // ds read transposed from ds^T ----
-    float dqa[kD / 16][4];
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBK256 / 16; ++kk) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, ds_s + (kk * 16 + (mi >> 1) * 8 + r8) * kDSStride +
-                            kg * 16 + (mi & 1) * 8);
-      const uint16_t* const kb = k_s + (kk * 16 + (mi & 1) * 8 + r8) * kStride +
-                                 col0 + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < kD / 16; n += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, kb + n * 8);
-        mma_bf16(dqa[n], af, bf[0], bf[1]);
-        mma_bf16(dqa[n + 1], af, bf[2], bf[3]);
-      }
-    }
-
-    // ---- dq's tile into the accumulator, after the live key tiles before
-    // this one (for this query tile), in ascending order ----
-    int* const sem = p.dq_sem + ((size_t)b * p.H + hq) * n_qt + t;
-    if (warp == 0) {
-      const int4 q4 = row_tile_stats<kBQ>(qpos, qseg, p.T, q0, lane);
-      const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
-      int before = 0;
-      for (int i0 = 0; i0 < kt; i0 += 32) {
-        const int i = min(i0 + lane, kt - 1);
-        const int st[4] = {stats[i].x, stats[i].y, stats[i].z, stats[i].w};
-        before += __popc(__ballot_sync(
-            0xffffffffu, i0 + lane < kt &&
-                             tiles_live(qstat, st, segmented, p.causal, p.window)));
-      }
-      if (lane == 0)
-        while (ld_acquire_gpu(sem) < before) __nanosleep(64);
-    }
-    __syncthreads();   // the earlier key tiles' adds are complete
-    float* const acc = dq_acc + (((size_t)b * p.H + hq) * T_acc + q0 + kg * 16) * kD + col0;
-#pragma unroll
-    for (int n = 0; n < kD / 16; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float2* const a = reinterpret_cast<float2*>(acc + (g + 8 * i) * kD + 8 * n + 2 * c);
-        float2 x = __ldcg(a);
-        x.x += dqa[n][2 * i] * p.sm_scale;
-        x.y += dqa[n][2 * i + 1] * p.sm_scale;
-        __stcg(a, x);
-      }
-    __threadfence();
-    __syncthreads();   // every thread's adds are in global memory
-    if (tid == 0) red_release_gpu_add(sem, 1);
-
-    t = t_next;
-    gi = gi_next;
-    full = full_next;
-    stage ^= 1;
+    phase ^= 1;
   }
-  cp_async_wait<0>();   // k and v, where no item was live
+  // the end of this warpgroup's add_dq256 loop, in its first slot
+  mbar_wait(bar.dq_empty + 16 * wg, phase ^ 1);
+  if (t == 0) dq_info[2 * wg] = make_int4(-1, 0, 0, 0);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar.dq_full + 16 * wg);
 
-  // ---- dk, dv: element e of n-tile n is key g + 8 (e / 2), column col0 +
-  // 8 n + 2 c + e % 2 ----
+  // ---- dk, dv: element i of this thread's keys, column 128 wg + 8 (i / 4)
+  // + 2c ----
+  const size_t kv_rs = (size_t)p.KV * kD256;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (!key_ok[j]) continue;
-    const size_t r = ((size_t)b * p.S + k0 + key[j]) * kv_rs + (size_t)kvh * kD + col0;
+  for (int kj = 0; kj < 2; ++kj) {
+    if (!key_ok[kj]) continue;
+    const size_t r = ((size_t)b * p.S + k0 + key[kj]) * kv_rs + (size_t)kvh * kD256 +
+                     128 * wg;
 #pragma unroll
-    for (int n = 0; n < kD / 16; ++n) {
-      const int d = 8 * n + 2 * c;
+    for (int j = 0; j < 16; ++j) {
+      const int d = 8 * j + 2 * c, i = 4 * j + 2 * kj;
       *reinterpret_cast<uint32_t*>(p.dk + r + d) =
-          pack_bf16(dk[n][2 * j] * p.sm_scale, dk[n][2 * j + 1] * p.sm_scale);
-      *reinterpret_cast<uint32_t*>(p.dv + r + d) = pack_bf16(dv[n][2 * j], dv[n][2 * j + 1]);
+          pack_bf16(dk[i] * p.sm_scale, dk[i + 1] * p.sm_scale);
+      *reinterpret_cast<uint32_t*>(p.dv + r + d) = pack_bf16(dv[i], dv[i + 1]);
     }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+mha_bwd_d256_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdq, const Params p) {
+  using L = Smem256;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* const smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    const Bars256 bar(smem_u32(smem + L::kBar));
+    mbar_init(bar.kv, 1);
+    mbar_init(bar.q_full, 32);                 // the producer warp
+    mbar_init(bar.do_full, 1);                 // its lane 0
+    mbar_init(bar.q_empty, kConsumers / 32);   // each consumer warp
+    mbar_init(bar.do_empty, kConsumers / 32);
+    for (int s = 0; s < 4; ++s) {
+      mbar_init(bar.dq_full + 8 * s, 4);       // the warps of consumer warpgroup s / 2
+      mbar_init(bar.dq_empty + 8 * s, 1);      // its add_dq256 warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // Registers as in the other form: 40 + 2 x 232 = 3 x 168.
+  if (tid < 128) {   // the producer warpgroup: warp 0 feeds, 1 and 2 add dq
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int warp = tid / 32, lane = tid % 32;
+    if (warp > 0) {
+      key_tile_table<kBK256>(p, reinterpret_cast<int4*>(smem + L::kStat), warp,
+                             lane);
+      named_barrier_arrive(5, 128);
+    } else {
+      produce256(&tq, &tdo, &tk, &tv, p, smem, lane);
+    }
+    if (warp == 1 || warp == 2) add_dq256(&tdq, p, smem, lane, warp - 1);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume256(p, smem, tid - 128);
   }
 }
 
 int launch_d256(const void* q, const void* k, const void* v, const void* dout,
                 void* dq_acc, int T_acc, const Params& p, cudaStream_t stream) {
+  using L = Smem256;
+  constexpr auto kBF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const cuuint64_t qdims[4] = {kD256, (cuuint64_t)p.H, (cuuint64_t)p.T, (cuuint64_t)p.B};
+  const cuuint64_t kdims[4] = {kD256, (cuuint64_t)p.KV, (cuuint64_t)p.S, (cuuint64_t)p.B};
+  const cuuint64_t adims[4] = {kD256, (cuuint64_t)T_acc, (cuuint64_t)p.H, (cuuint64_t)p.B};
+  const cuuint32_t box[4] = {64, 1, 64, 1}, abox[4] = {32, kBQ, 1, 1};
+  CUtensorMap tq, tdo, tk, tv, tdq;
+  if (!make_map(&tq, kBF16, 2, q, qdims, box) ||
+      !make_map(&tdo, kBF16, 2, dout, qdims, box) ||
+      !make_map(&tk, kBF16, 2, k, kdims, box) ||
+      !make_map(&tv, kBF16, 2, v, kdims, box) ||
+      !make_map(&tdq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dq_acc, adims, abox))
+    return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mha_bwd_d256_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, Smem256::kBytes);
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   // blocks of lower blockIdx.x in a (KV head, batch row) launch first: the
   // dq order's waits end, as in the other form
-  mha_bwd_d256_kernel<<<dim3((p.S + kBK256 - 1) / kBK256, p.KV, p.B), kThreads256,
-                        Smem256::kBytes, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<float*>(dq_acc), T_acc, p);
+  mha_bwd_d256_kernel<<<dim3((p.S + kBK256 - 1) / kBK256, p.KV, p.B), kThreads,
+                        L::kBytes, stream>>>(tq, tdo, tk, tv, tdq, p);
   return (int)cudaGetLastError();
 }
 
@@ -997,7 +1149,8 @@ int launch_d256(const void* q, const void* k, const void* v, const void* dout,
 // (batch row, head, query tile), ordered by dq_sem, int32 (B,H,T_acc / kBQ)
 // zeroed by the caller (refused when null); writes dk, dv: bf16
 // (B,S,KV,D). S is at most kMaxKeyTiles x 128 = 65536. D 256 takes its
-// own form, mha_bwd_d256_kernel, with the same arguments. Launches on
+// own form, mha_bwd_d256_kernel, with the same arguments (there the dq
+// counters count two per key tile). Launches on
 // `stream` and returns a CUDA error code (0: launched).
 extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
@@ -1036,9 +1189,8 @@ extern "C" int mha_bwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// The dynamic shared memory of the backward at head dim D, in bytes (the
-// wgmma form's up to D 128, alignment slack included; at D 256 the
-// mma.sync form's), or 0 for a head dim it does not take.
+// The dynamic shared memory of the backward at head dim D, in bytes,
+// alignment slack included, or 0 for a head dim it does not take.
 extern "C" int mha_bwd_smem(int D) {
   switch (D) {
     case 16: return Smem<16>::kBytes;

@@ -1,7 +1,7 @@
 // Pieces shared by the attention kernels, K1 (flash_fwd.cu) and the fused
 // backward (flash_bwd.cu): mma.sync, ldmatrix and cp.async for K1's decode
-// form and the head-dim-256 forms of both, the per-tile min/max
-// statistics, and the reference's block-skip predicate and element mask.
+// form, the per-tile min/max statistics, and the reference's block-skip
+// predicate and element mask.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -57,6 +57,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x on the special function unit; exactly 0 for the masked entries'
+// arguments (about -1e29 and below).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats to one register of two bf16, the first in the low half.

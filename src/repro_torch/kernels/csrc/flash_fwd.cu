@@ -31,15 +31,18 @@
 //  - decode (T = 1 against an S-long cache) is bound by the bytes of the live
 //    kv cache, read once per q head, at a few FLOPs per byte.
 //
-// Prefill (T > 16), `mha_fwd_prefill_kernel`: one block per (128 query rows,
-// q head, batch row). The query tile is the fastest grid axis, reversed:
+// Prefill (T > 16), `mha_fwd_prefill_kernel`, one form at every head dim:
+// one block per (128 query rows, q head, batch row), over key tiles of kBN
+// keys, 128 up to D 128 and 64 at D 256. The query tile is the fastest
+// grid axis, reversed:
 // the blocks in flight together share a few heads, whose k and v stay in
 // L2, and within a head the late (for a causal mask the heaviest) tiles
 // start first. Three warpgroups:
-//  - the producer warpgroup's four warps take the min/max of every 128-key
-//    tile into a table in shared memory, with many loads in flight; warp 0
-//    loads the q tile once by TMA and walks the table: a dead tile costs
-//    no load, and for each live one it sends the tile's item (index, and
+//  - the producer warpgroup's four warps take the min/max of every key
+//    tile into a table in shared memory (512 tiles at a time: at D 256
+//    the walk past 32768 keys goes in chunks), with many loads in flight;
+//    warp 0 loads the q tile once by TMA and walks the table: a dead tile
+//    costs no load, and for each live one it sends the tile's item (index, and
 //    whether every pair is visible) with its k tile, and its v tile, by
 //    TMA (4-D tensor maps over (D, heads, rows, batch), whose out-of-bounds
 //    fill gives the zero rows past S) into two rings of two stages, handed
@@ -49,7 +52,8 @@
 //  - two consumer warpgroups own 64 query rows each and share every k/v
 //    tile. A turn on the tensor cores issues s = q k^T of kv tile n (wgmma,
 //    both operands in shared memory) and o += p v of tile n - 1 (wgmma, p
-//    from registers, v read MN-major through its descriptor); the softmax
+//    from registers, v read MN-major through its descriptor, one product
+//    per 128 columns of o at D 256); the softmax
 //    of tile n follows, on the fp32 accumulator in one of four forms
 //    chosen per tile (softcap or not, element mask or not). Named barriers
 //    make the warpgroups take their turns in alternation, so that one's
@@ -62,6 +66,11 @@
 // off the warps that do the products, and keeps the per-element work of
 // the softmax small: one fused multiply-add and one ex2 per entry, and an
 // element mask of three integer compares against a per-row interval.
+// At D 256 the 64-key tiles are what fit: the q tile (65536 B), two stages
+// each of k and v (131072 B), the metadata, items, tile statistics (8192 B)
+// and barriers come to 206936 B of the 232448 a block may have (128-key
+// tiles would take 339032 B); a consumer thread holds o (128 fp32), s (32)
+// and p's bf16 fragments (16) in the 232 registers setmaxnreg gives it.
 //
 // Decode (T <= 16), `mha_fwd_decode_kernel`: one block per (16 query rows,
 // head, batch row) on mma.sync m16n8k16 with ldmatrix; the four warps share
@@ -72,13 +81,6 @@
 // q's fragments would take 64 registers beside o's 128, so they are
 // re-read from a copy of q in shared memory for every tile.
 //
-// Prefill at D 256, `mha_fwd_prefill_d256_kernel`: the wgmma form does not
-// fit there (its q tile and two stages of 128-key k and v tiles would take
-// 339032 B of shared memory against 232448, and o alone 128 of a consumer
-// thread's 232 registers beside a 128-key score tile). So this form is
-// simple: mma.sync as the decode form, one block per (128 query rows, q
-// head, batch row), eight warps of 16 rows each over 64-key tiles (see its
-// own comment).
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -446,37 +448,41 @@ mha_fwd_decode_kernel(const Params p) {
 // prefill (T > 16)
 // ---------------------------------------------------------------------
 constexpr int kBM = 128;             // query rows per block
-constexpr int kBN = 128;             // keys per kv tile
 constexpr int kStages = 2;           // stages of the k ring and of the v ring
 constexpr int kStatTiles = 512;      // key tiles whose min/max are held at once
 constexpr int kNoKey = -2;           // segment id of the keys past S in a tile's metadata
 constexpr int kConsumers = 2 * 128;  // two consumer warpgroups of 64 rows
 constexpr int kPrefillThreads = 128 + kConsumers;
 
-// Shared memory, each tile on a 1024-byte boundary. A tile of 128 rows of
-// D bf16 is stored as TMA writes it: boxes of 64 columns (one box for
-// D <= 64), each box rows of kRB bytes with the kRB-byte swizzle.
+// Shared memory, each tile on a 1024-byte boundary. A tile of rows of D
+// bf16 is stored as TMA writes it: boxes of 64 columns (one box for
+// D <= 64), each box rows of kRB bytes with the kRB-byte swizzle. The q
+// tile has kBM rows, a k or v tile kBN: 128 up to D 128, 64 at D 256,
+// where two stages of 128-key tiles beside the q tile would take 339032 B.
 template <int kD>
 struct Smem {
   // a tile is whole boxes of 64 columns, or one narrower box: any other
   // D would load and store only part of each row
   static_assert(kD == 16 || kD == 32 || kD == 64 || kD % 64 == 0,
                 "head dim: 16, 32, 64 or a multiple of 64");
+  static constexpr int kBN = kD > 128 ? 64 : 128;          // keys per kv tile
   static constexpr int kRB = kD >= 64 ? 128 : kD * 2;
   static constexpr int kBoxes = kD > 64 ? kD / 64 : 1;
-  static constexpr int kBox = kBN * kRB;                   // one box of a tile
-  static constexpr int kTile = kBN * kD * 2;               // q, k or v tile
+  static constexpr int kQBox = kBM * kRB;                  // one box of the q tile
+  static constexpr int kKBox = kBN * kRB;                  // one box of a k or v tile
+  static constexpr int kQTile = kBM * kD * 2;
+  static constexpr int kKTile = kBN * kD * 2;              // a k or v tile
   static constexpr int kQ = 0;                             // q, then o
-  static constexpr int kK = kTile;                         // [stage] k
-  static constexpr int kV = kK + kStages * kTile;          // [stage] v
-  static constexpr int kMeta = kV + kStages * kTile;       // [stage][pos, seg][kBN]
+  static constexpr int kK = kQTile;                        // [stage] k
+  static constexpr int kV = kK + kStages * kKTile;         // [stage] v
+  static constexpr int kMeta = kV + kStages * kKTile;      // [stage][pos, seg][kBN]
   static constexpr int kItem = kMeta + kStages * 2 * kBN * 4;  // int2 [stage]
   static constexpr int kStat = kItem + kStages * 8;        // int4 [kStatTiles]
   // barriers: q, then per stage k full, v full, k empty, v empty
   static constexpr int kBar = kStat + kStatTiles * 16;
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;
 };
-static_assert(kBM == kBN, "q, k and v tiles share one box shape");
+static_assert(Smem<256>::kBytes <= 232448, "shared memory of a block");
 
 // The mbarriers: q (one arrival and the q tile's bytes), and per stage of
 // the rings k full (the producer warp's 32 arrivals and the k tile's
@@ -495,14 +501,6 @@ __device__ __forceinline__ int tile_q0() {
   return (gridDim.x - 1 - blockIdx.x) * kBM;
 }
 
-// 2^x on the special function unit; exactly 0 for the masked entries'
-// arguments (about -1e29 and below).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The producer warpgroup. Its four warps take the min/max of every key
 // tile into shared memory (kStatTiles at a time), with many loads in
 // flight, so that a dead tile costs the walk below no load. Warp 0 loads
@@ -518,6 +516,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
                                         const CUtensorMap* tv, const Params& p,
                                         uint8_t* smem, int pt) {
   using L = Smem<kD>;
+  constexpr int kBN = L::kBN;
   const int warp = pt / 32, lane = pt % 32;
   const int h = blockIdx.y, b = blockIdx.z, q0 = tile_q0();
   const int kvh = h / (p.H / p.KV);
@@ -531,10 +530,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   int4 q4 = make_int4(0, 0, 0, 0);
   if (warp == 0) {
     if (lane == 0) {
-      mbar_arrive_tx(bar.q, L::kTile);
+      mbar_arrive_tx(bar.q, L::kQTile);
 #pragma unroll
       for (int x = 0; x < L::kBoxes; ++x)
-        tma_load_4d(smem_u32(smem + L::kQ + x * L::kBox), tq, bar.q, 64 * x,
+        tma_load_4d(smem_u32(smem + L::kQ + x * L::kQBox), tq, bar.q, 64 * x,
                     h, q0, b);
     }
     q4 = row_tile_stats(p.qpos + (size_t)b * p.T,
@@ -551,7 +550,7 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
     const int n = min(kStatTiles, n_tiles - c0);
 #pragma unroll 4
     for (int i = warp; i < n; i += 4) {
-      const int4 st = row_tile_stats(kpos, kseg, p.S, (c0 + i) * kBN, lane);
+      const int4 st = row_tile_stats<kBN>(kpos, kseg, p.S, (c0 + i) * kBN, lane);
       if (lane == 0) stats[i] = st;
     }
     named_barrier(5, 128);   // the chunk's statistics are in shared memory
@@ -562,10 +561,10 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       const int t = c0 + i, k0 = t * kBN;
       const int full = k0 + kBN <= p.S &&
                        tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      int pos[4], seg[4];   // loaded before the wait, which hides their latency
+      int pos[kBN / 32], seg[kBN / 32];   // loaded before the wait, which hides their latency
       if (!full) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kBN / 32; ++j) {
           const int kk = k0 + lane + 32 * j;
           pos[j] = kk < p.S ? kpos[kk] : 0;
           seg[j] = kk < p.S ? (segmented ? kseg[kk] : 0) : kNoKey;
@@ -575,27 +574,27 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
       if (!full) {
         int* const meta = reinterpret_cast<int*>(smem + L::kMeta) + stage * 2 * kBN;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < kBN / 32; ++j) {
           meta[lane + 32 * j] = pos[j];
           meta[kBN + lane + 32 * j] = seg[j];
         }
       }
       if (lane == 0) {
         items[stage] = make_int2(t, full);
-        mbar_arrive_tx(bar.k_full + 8 * stage, L::kTile);
+        mbar_arrive_tx(bar.k_full + 8 * stage, L::kKTile);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(smem_u32(smem + L::kK + stage * L::kTile + x * L::kBox),
+          tma_load_4d(smem_u32(smem + L::kK + stage * L::kKTile + x * L::kKBox),
                       tk, bar.k_full + 8 * stage, 64 * x, kvh, k0, b);
       } else {
         mbar_arrive(bar.k_full + 8 * stage);
       }
       mbar_wait(bar.v_empty + 8 * stage, phase ^ 1);
       if (lane == 0) {
-        mbar_arrive_tx(bar.v_full + 8 * stage, L::kTile);
+        mbar_arrive_tx(bar.v_full + 8 * stage, L::kKTile);
 #pragma unroll
         for (int x = 0; x < L::kBoxes; ++x)
-          tma_load_4d(smem_u32(smem + L::kV + stage * L::kTile + x * L::kBox),
+          tma_load_4d(smem_u32(smem + L::kV + stage * L::kKTile + x * L::kKBox),
                       tv, bar.v_full + 8 * stage, 64 * x, kvh, k0, b);
       }
       if (++stage == kStages) { stage = 0; phase ^= 1; }
@@ -608,16 +607,16 @@ __device__ __forceinline__ void produce(const CUtensorMap* tq,
   mbar_arrive(bar.k_full + 8 * stage);
 }
 
-// The online softmax on one tile's s (64 rows x 128 keys per warpgroup, fp32
-// accumulator layout: element 4 j + e is row g + 8 (e / 2), key 8 j + 2 c +
-// e % 2): the running max and sum in the log2 domain, masked entries chosen
+// The online softmax on one tile's s (64 rows x kBN keys per warpgroup,
+// fp32 accumulator layout: element 4 j + e is row g + 8 (e / 2), key 8 j +
+// 2 c + e % 2): the running max and sum in the log2 domain, masked entries chosen
 // by select, o rescaled (no product may be writing it); s is left holding
 // p. kCap and kMask choose the form. Without softcap, s stays unscaled
 // until one fused multiply-add per entry takes it to the log2 domain.
 // The element mask (the reference's `_element_mask`, `visible`) is taken
 // per row as a segment and an interval of key positions: key (kp, ks) is
 // visible to row i iff ks == qs[i] and lo[i] <= kp <= hi[i] (see consume).
-template <int kD, bool kCap, bool kMask>
+template <int kD, bool kCap, bool kMask, int kBN = Smem<kD>::kBN>
 __device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], float (&m)[2],
                                              float (&l)[2], float (&o)[kD / 2],
                                              const int* kpos, const int* kseg,
@@ -695,7 +694,7 @@ template <int kD>
 __device__ __forceinline__ void consume(const CUtensorMap* to, const Params& p,
                                         uint8_t* smem, int ct) {
   using L = Smem<kD>;
-  constexpr int kRB = L::kRB;
+  constexpr int kRB = L::kRB, kBN = L::kBN;
   const int wg = ct / 128, w4 = (ct / 32) % 4, lane = ct % 32;
   const int g = lane >> 2, c = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z, q0 = tile_q0();
@@ -750,20 +749,30 @@ __device__ __forceinline__ void consume(const CUtensorMap* to, const Params& p,
     fence_regs(o);
   };
   float s[kBN / 2];   // the first k-step of s = q k^T overwrites it
-  auto qk = [&]() {   // s = q k^T: 64 rows x 128 keys
-    const uint32_t k_a = smem_u32(smem + L::kK + stage * L::kTile);
+  auto qk = [&]() {   // s = q k^T: 64 rows x kBN keys
+    const uint32_t k_a = smem_u32(smem + L::kK + stage * L::kKTile);
 #pragma unroll
     for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint32_t off = (kk / 4) * L::kBox + (kk % 4) * 32;
-      wgmma_ss<kBN, 0, 0>(s, desc<kRB>(q_a + off, 16, 8 * kRB),
-                          desc<kRB>(k_a + off, 16, 8 * kRB), kk > 0);
+      const uint32_t off = (kk % 4) * 32;
+      wgmma_ss<kBN, 0, 0>(s, desc<kRB>(q_a + (kk / 4) * L::kQBox + off, 16, 8 * kRB),
+                          desc<kRB>(k_a + (kk / 4) * L::kKBox + off, 16, 8 * kRB),
+                          kk > 0);
     }
   };
   auto pv = [&]() {   // o += p v of the last tile, v read MN-major
-    const uint32_t v_a = smem_u32(smem + L::kV + prev * L::kTile);
+    const uint32_t v_a = smem_u32(smem + L::kV + prev * L::kKTile);
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-      wgmma_rs<kD, 1>(o, pa[kk], desc<kRB>(v_a + kk * 16 * kRB, L::kBox, 8 * kRB), 1);
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      if constexpr (kD <= 128) {
+        wgmma_rs<kD, 1>(o, pa[kk], desc<kRB>(v_a + kk * 16 * kRB, L::kKBox, 8 * kRB), 1);
+      } else {   // wgmma_rs stops at n128: one product per 128 columns
+#pragma unroll
+        for (int n = 0; n < kD / 128; ++n)
+          wgmma_rs<128, 1>(*reinterpret_cast<float(*)[64]>(o + 64 * n), pa[kk],
+                           desc<kRB>(v_a + 2 * n * L::kKBox + kk * 16 * kRB,
+                                     L::kKBox, 8 * kRB), 1);
+      }
+    }
   };
   // The softmax of the tile in `stage` (s holds its scores), its k stage
   // freed, p to bf16 A fragments.
@@ -833,7 +842,7 @@ __device__ __forceinline__ void consume(const CUtensorMap* to, const Params& p,
     for (int j = 0; j < kD / 8; ++j) {
       const int col = (8 * j + 2 * c) * 2;   // in bytes
       *reinterpret_cast<uint32_t*>(
-          smem + L::kQ + (col / kRB) * L::kBox +
+          smem + L::kQ + (col / kRB) * L::kQBox +
           swizzle<kRB>(rloc[i] * kRB + col % kRB)) =
           pack_bf16(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
     }
@@ -843,7 +852,7 @@ __device__ __forceinline__ void consume(const CUtensorMap* to, const Params& p,
   if (ct % 128 == 0 && q0 + 64 * wg < p.T) {
 #pragma unroll
     for (int x = 0; x < L::kBoxes; ++x)
-      tma_store_4d(to, smem_u32(smem + L::kQ + x * L::kBox + 64 * wg * kRB),
+      tma_store_4d(to, smem_u32(smem + L::kQ + x * L::kQBox + 64 * wg * kRB),
                    64 * x, h, q0 + 64 * wg, b);
     bulk_commit();
     bulk_wait_read();
@@ -894,264 +903,6 @@ mha_fwd_prefill_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// ---------------------------------------------------------------------
-// prefill at head dim 256 (T > 16)
-// ---------------------------------------------------------------------
-// One block per (128 query rows, q head, batch row): eight warps, warp w
-// owning query rows [16 w, 16 w + 16) of the tile, each walking every live
-// kv tile of 64 keys, on mma.sync m16n8k16 with ldmatrix from shared rows
-// padded to 264 bf16 (8 rows of an ldmatrix land on distinct banks).
-//  - q stays in shared memory; its fragments are re-read for every kv
-//    tile, so that a thread holds o (128 fp32), the 64-key score tile (32)
-//    and little else.
-//  - The next live kv tile's k, v, key positions and segment ids load by
-//    cp.async into a second buffer while this one is computed.
-//  - Every warp finds the live tiles itself, by `tiles_live` (the
-//    reference's `_live_terms`) on the min/max of the q tile and of each
-//    kv tile, all warps reaching the same answer: a dead tile costs no
-//    barrier and no load of k or v. A tile that every pair sees skips the
-//    element mask (`tiles_full`).
-//  - The softmax is the decode form's (log2 domain, masked entries chosen
-//    by select), with the element mask taken per row as a segment and an
-//    interval of key positions, as the wgmma form takes it.
-// Shared memory: q 128 x 264 bf16 (67584 B), two buffers of k and v, 64 x
-// 264 bf16 each (135168 B), two of the keys' positions and segment ids
-// (1024 B): 203776 B of the 232448 a block may have. Bound as the other
-// prefill form (operations at the training shapes), which this one, on
-// mma.sync and without warp specialisation, is far from: it is the simple
-// form, to be made fast later.
-constexpr int kD256 = 256;
-constexpr int kStride256 = kD256 + 8;   // bf16 per shared row
-constexpr int kBM256 = 128;             // query rows per block
-constexpr int kBN256 = 64;              // keys per kv tile
-constexpr int kThreads256 = kBM256 / 16 * 32;
-struct Smem256 {
-  static constexpr int kTile = kBN256 * kStride256 * 2;     // k or v tile
-  static constexpr int kQ = 0;
-  static constexpr int kKV = kBM256 * kStride256 * 2;       // [buf][k, v]
-  static constexpr int kMeta = kKV + 2 * 2 * kTile;         // [buf][pos, seg][kBN256]
-  static constexpr int kBytes = kMeta + 2 * 2 * kBN256 * 4;
-};
-static_assert(Smem256::kBytes <= 232448, "shared memory of a block");
-
-__global__ void __launch_bounds__(kThreads256, 1)
-mha_fwd_prefill_d256_kernel(const Params p) {
-  using L = Smem256;
-  constexpr int kD = kD256, kStride = kStride256, kNT = kBN256 / 8;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* const q_s = reinterpret_cast<uint16_t*>(smem + L::kQ);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
-  const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
-  const int b = blockIdx.z, h = blockIdx.y, q0 = tile_q0();
-  const int kvh = h / (p.H / p.KV);
-  const bool segmented = p.qseg != nullptr;
-  const int* const kpos = p.kpos + (size_t)b * p.S;
-  const int* const kseg = segmented ? p.kseg + (size_t)b * p.S : nullptr;
-  const size_t q_rs = (size_t)p.H * kD, kv_rs = (size_t)p.KV * kD;
-
-  // ---- the q tile, zeros past T: one cp.async group ----
-#pragma unroll
-  for (int j = 0; j < kBM256 * (kD / 8) / kThreads256; ++j) {
-    const int i = tid + j * kThreads256;
-    const int r = i / (kD / 8), ch = i % (kD / 8);
-    const bool in = q0 + r < p.T;
-    const size_t off = in ? ((size_t)b * p.T + q0 + r) * q_rs + (size_t)h * kD + ch * 8 : 0;
-    cp_async16(q_s + r * kStride + ch * 8, p.q + off, in);
-  }
-  cp_async_commit();
-
-  // this thread's two rows and their element mask: key (kp, ks) is visible
-  // to row i iff ks == qs[i] and lo[i] <= kp <= hi[i]; keys past S carry
-  // segment kNoKey, and a row past T or of padding sees nothing
-  int qs[2], lo[2], hi[2];
-  bool row_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = q0 + warp * 16 + g + 8 * i;
-    row_ok[i] = r < p.T;
-    const int qp = row_ok[i] ? p.qpos[(size_t)b * p.T + r] : 0;
-    qs[i] = (row_ok[i] && segmented) ? p.qseg[(size_t)b * p.T + r] : 0;
-    const bool sees = row_ok[i] && qs[i] >= 0;
-    hi[i] = !sees ? kIntMin : p.causal ? qp : kIntMax;
-    lo[i] = !sees ? kIntMax
-          : (p.causal && p.window > 0) ? qp - p.window + 1 : kIntMin;
-  }
-  const int4 q4 = row_tile_stats<kBM256>(p.qpos + (size_t)b * p.T,
-                                         segmented ? p.qseg + (size_t)b * p.T : nullptr,
-                                         p.T, q0, lane);
-  const int qstat[4] = {q4.x, q4.y, q4.z, q4.w};
-  const int n_tiles = (p.S + kBN256 - 1) / kBN256;
-
-  // The first live kv tile at or after t (n_tiles if none), and whether
-  // every (row, key) pair of it is visible.
-  auto find_live = [&](int t, bool& full) -> int {
-    for (; t < n_tiles; ++t) {
-      const int4 k4 = row_tile_stats<kBN256>(kpos, kseg, p.S, t * kBN256, lane);
-      const int kstat[4] = {k4.x, k4.y, k4.z, k4.w};
-      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window)) continue;
-      full = (t + 1) * kBN256 <= p.S &&
-             tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      return t;
-    }
-    return n_tiles;
-  };
-  // k, v (zeros past S), positions and segment ids of tile t into buffer buf
-  auto issue = [&](int t, int buf) {
-    const int k0 = t * kBN256;
-    uint16_t* const kb = reinterpret_cast<uint16_t*>(smem + L::kKV + buf * 2 * L::kTile);
-    uint16_t* const vb = kb + kBN256 * kStride;
-#pragma unroll
-    for (int j = 0; j < kBN256 * (kD / 8) / kThreads256; ++j) {
-      const int i = tid + j * kThreads256;
-      const int r = i / (kD / 8), ch = i % (kD / 8);
-      const bool in = k0 + r < p.S;
-      const size_t off = in ? ((size_t)b * p.S + k0 + r) * kv_rs + (size_t)kvh * kD + ch * 8 : 0;
-      cp_async16(kb + r * kStride + ch * 8, p.k + off, in);
-      cp_async16(vb + r * kStride + ch * 8, p.v + off, in);
-    }
-    cp_async_commit();
-    if (tid < kBN256) {
-      int* const meta = reinterpret_cast<int*>(smem + L::kMeta) + buf * 2 * kBN256;
-      const int kk = k0 + tid;
-      meta[tid] = kk < p.S ? kpos[kk] : 0;
-      meta[kBN256 + tid] = kk < p.S ? (segmented ? kseg[kk] : 0) : kNoKey;
-    }
-  };
-
-  float o[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
-  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
-  const float qscale = p.softcap > 0.f ? p.sm_scale : p.sm_scale * kLog2e;
-  const uint16_t* const qw = q_s + warp * 16 * kStride;
-
-  bool full = false, full_next = false;
-  int cur = find_live(0, full);
-  if (cur < n_tiles) issue(cur, 0);
-  for (int buf = 0; cur < n_tiles; buf ^= 1) {
-    const int next = find_live(cur + 1, full_next);
-    if (next < n_tiles) {
-      issue(next, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // q and tile cur are in shared memory for every thread
-    const uint16_t* const ks = reinterpret_cast<const uint16_t*>(
-        smem + L::kKV + buf * 2 * L::kTile);
-    const uint16_t* const vs = ks + kBN256 * kStride;
-    const int* const kpos_b = reinterpret_cast<const int*>(smem + L::kMeta) + buf * 2 * kBN256;
-    const int* const kseg_b = kpos_b + kBN256;
-    {
-      // ---- s = q k^T for the warp's 16 rows x 64 keys ----
-      float s[kNT][4];
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t qf[4];   // the A fragment of the warp's rows, dims 16 kk..
-        ldsm_x4(qf, qw + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
-#pragma unroll
-        for (int n = 0; n < kNT; n += 2) {
-          uint32_t kb[4];   // b0, b1 of n-tiles n and n + 1
-          ldsm_x4(kb, ks + ((n + (mi >> 1)) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8);
-          mma_bf16(s[n], qf, kb[0], kb[1]);
-          mma_bf16(s[n + 1], qf, kb[2], kb[3]);
-        }
-      }
-
-      // ---- scale (to log2), cap, mask; online softmax update ----
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float x = s[n][e] * qscale;
-          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap) * kLog2e;
-          if (!full) {
-            const int key = n * 8 + c * 2 + (e & 1);
-            const int kp = kpos_b[key], kq = kseg_b[key];
-            if (!((kq == qs[i]) & (kp >= lo[i]) & (kp <= hi[i]))) x = kNegInf;
-          }
-          s[n][e] = x;
-          mx[i] = fmaxf(mx[i], x);
-        }
-      }
-      float alpha[2], mnew[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        mnew[i] = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - mnew[i]);
-        m[i] = mnew[i];
-        l[i] *= alpha[i];
-      }
-#pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          // a masked entry holds exactly kNegInf; it contributes nothing
-          const float pe = s[n][e] == kNegInf ? 0.f : exp2f(s[n][e] - mnew[i]);
-          s[n][e] = pe;
-          l[i] += pe;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        o[n][0] *= alpha[0]; o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1]; o[n][3] *= alpha[1];
-      }
-
-      // ---- o += p v: p from the s fragments, v by transposed ldmatrix ----
-#pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const uint16_t* v0 = vs + (kk * 16 + (mi & 1) * 8 + r8) * kStride + (mi >> 1) * 8;
-#pragma unroll
-        for (int n = 0; n < kD / 8; n += 2) {
-          uint32_t vb[4];   // b0, b1 of n-tiles n and n + 1
-          ldsm_x4_trans(vb, v0 + n * 8);
-          mma_bf16(o[n], pa, vb[0], vb[1]);
-          mma_bf16(o[n + 1], pa, vb[2], vb[3]);
-        }
-      }
-    }
-    __syncthreads();   // buffer buf is free for the tile after next
-    cur = next;
-    full = full_next;
-  }
-  cp_async_wait<0>();   // the q tile, where no kv tile was live
-
-  // ---- o = acc / l, lse = m + log l (natural log) ----
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = fmaxf(l[i], 1e-30f);
-    if (!row_ok[i]) continue;
-    const float inv = 1.f / l[i];
-    const int r = q0 + warp * 16 + g + 8 * i;
-    uint16_t* const orow = p.o + (((size_t)b * p.T + r) * p.H + h) * kD;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + c * 2) =
-          pack_bf16(o[n][2 * i] * inv, o[n][2 * i + 1] * inv);
-    if (c == 0) {
-      const float mn = m[i] == kNegInf ? kNegInf : m[i] * kLn2;
-      p.lse[((size_t)b * p.H + h) * p.T + r] = mn + logf(l[i]);
-    }
-  }
-}
-
 template <int kD>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
                    const Params& p, cudaStream_t stream);
@@ -1170,21 +921,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
     mha_fwd_decode_kernel<kD><<<dim3(1, p.H, p.B), kThreads, kBytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
-  if constexpr (kD == kD256) {
-    if (p.H > 65535 || p.B > 65535) return (int)cudaErrorInvalidValue;
-    cudaFuncSetAttribute(mha_fwd_prefill_d256_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, Smem256::kBytes);
-    // the query tile is the fastest grid axis, reversed in tile_q0, as in
-    // the other prefill form
-    mha_fwd_prefill_d256_kernel<<<dim3((p.T + kBM256 - 1) / kBM256, p.H, p.B),
-                                  kThreads256, Smem256::kBytes, stream>>>(p);
-    return (int)cudaGetLastError();
-  } else {
-    return launch_prefill<kD>(q, k, v, o, p, stream);
-  }
+  return launch_prefill<kD>(q, k, v, o, p, stream);
 }
 
-// The wgmma prefill form (D <= 128).
+// The prefill form.
 template <int kD>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
                    const Params& p, cudaStream_t stream) {
@@ -1197,11 +937,12 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
   // each consumer warpgroup, 64 rows at a time
   const cuuint64_t qdims[4] = {kD, (cuuint64_t)p.H, (cuuint64_t)p.T, (cuuint64_t)p.B};
   const cuuint64_t kdims[4] = {kD, (cuuint64_t)p.KV, (cuuint64_t)p.S, (cuuint64_t)p.B};
-  const cuuint32_t box[4] = {inner, 1, kBN, 1}, obox[4] = {inner, 1, 64, 1};
+  const cuuint32_t qbox[4] = {inner, 1, kBM, 1}, kbox[4] = {inner, 1, L::kBN, 1};
+  const cuuint32_t obox[4] = {inner, 1, 64, 1};
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(&tq, kBF16, 2, q, qdims, box) ||
-      !make_map(&tk, kBF16, 2, k, kdims, box) ||
-      !make_map(&tv, kBF16, 2, v, kdims, box) ||
+  if (!make_map(&tq, kBF16, 2, q, qdims, qbox) ||
+      !make_map(&tk, kBF16, 2, k, kdims, kbox) ||
+      !make_map(&tv, kBF16, 2, v, kdims, kbox) ||
       !make_map(&to, kBF16, 2, o, qdims, obox))
     return (int)cudaErrorInvalidValue;
   cudaFuncSetAttribute(mha_fwd_prefill_kernel<kD>,
@@ -1257,16 +998,15 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
   }
 }
 
-// The dynamic shared memory of the prefill form at head dim D, in bytes
-// (the wgmma form's up to D 128, alignment slack included; at D 256 the
-// mma.sync form's), or 0 for a head dim it does not take.
+// The dynamic shared memory of the prefill form at head dim D, in bytes,
+// alignment slack included, or 0 for a head dim it does not take.
 extern "C" int mha_fwd_prefill_smem(int D) {
   switch (D) {
     case 16: return Smem<16>::kBytes;
     case 32: return Smem<32>::kBytes;
     case 64: return Smem<64>::kBytes;
     case 128: return Smem<128>::kBytes;
-    case 256: return Smem256::kBytes;
+    case 256: return Smem<256>::kBytes;
     default: return 0;
   }
 }

@@ -25,9 +25,10 @@ between two of them (hubert's 80, or anything from 129 to 255) is
 zero-padded by the wrappers to the next one up and cut back after the
 launch: zero columns add nothing to q kᵀ or to ds·k, and their outputs are
 zero, so the result is exact; the softmax scale stays 1/√(the caller's head
-dim). Head dim 256 (gemma2-2b) has its own forms of K1's prefill and of the
-backward, on mma.sync, because the wgmma forms' tiles do not fit in shared
-memory and registers there. A head dim past 256 raises.
+dim). At head dim 256 (gemma2-2b) K1's prefill takes 64-key tiles, and the
+backward has a wgmma form of its own that splits each item's products
+between its two consumer warpgroups, because the D ≤ 128 plans do not fit
+in shared memory and registers there. A head dim past 256 raises.
 
 The numpy helpers ``shrink_block``, ``_live_terms`` and ``live_block_mask``
 are copied verbatim: the kernel evaluates the same skip predicate per tile.

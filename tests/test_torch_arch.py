@@ -46,7 +46,7 @@ from repro_torch.models import model as TM
 from repro_torch.train.pipeline_adapter import PipelinedModel, build_grad_step
 from repro_torch.tree import add_into, flatten
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = 2e-4
 ARCHS = [a for a in ARCH_IDS if a != "t5-paper"]

@@ -22,10 +22,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as tfa
 from repro_torch.kernels import ops as tops
 
-# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
 # oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
 # tests of other files.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 GRAD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
 JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

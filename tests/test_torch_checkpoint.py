@@ -29,7 +29,7 @@ from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import optimizer as TO
 from repro_torch.tree import flatten, tree_map
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 JCFG = dataclasses.replace(j_reduced(j_get_arch("gpt-paper")), n_layers=2)
 TCFG = dataclasses.replace(reduced(get_arch("gpt-paper")), n_layers=2)

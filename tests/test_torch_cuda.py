@@ -29,6 +29,11 @@ TOL = 2e-2
 GRAD_TOL = 4e-2
 SSD_TOL = 5e-2
 
+# Where a CPU reference runs: one intra-op thread, so that pytest-xdist's
+# workers do not oversubscribe the CPU (idle OpenMP threads spin) and slow
+# the wall-clock tests of other files.
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda():
@@ -277,16 +282,64 @@ def test_backward_kernel_is_repeatable_bit_for_bit(cuda, d, case):
 
 
 def test_shared_memory_of_the_kernel_forms(cuda):
-    # the wgmma forms' plans at D <= 128 are unchanged; D 256 has its own
-    # forms, each under the 232448 bytes a block may have
+    # the wgmma forms' plans at D <= 128 are unchanged; at D 256 K1's
+    # prefill takes 64-key tiles and the backward has its own form, each
+    # under the 232448 bytes a block may have
     from repro_torch.kernels import _build
     fwd = _build.library("flash_fwd").mha_fwd_prefill_smem
     bwd = _build.library("flash_bwd").mha_bwd_smem
     assert {d: fwd(d) for d in fa.HEAD_DIMS} == {
-        16: 31832, 32: 52312, 64: 93272, 128: 175192, 256: 203776}
+        16: 31832, 32: 52312, 64: 93272, 128: 175192, 256: 206936}
     assert {d: bwd(d) for d in fa.HEAD_DIMS} == {
-        16: 52360, 32: 76936, 64: 126088, 128: 224392, 256: 230400}
+        16: 52360, 32: 76936, 64: 126088, 128: 224392, 256: 231608}
     assert fwd(80) == bwd(80) == fwd(512) == bwd(512) == 0
+
+
+# gemma2-2b's attention options (softcap 50, a GQA group of 2) at head dim
+# 256, where K1's prefill takes 64-key tiles and the backward its own form.
+# name: (b, t, s, h, kv, samples per row or None, window, first query position)
+D256_CASES = {
+    # a sliding window that acts: query rows see at most 256 keys
+    "window": (2, 1024, 1024, 4, 2, None, 256, 0),
+    # rows of samples, then padding, at a T that is no multiple of 64
+    "segmented-ragged": (2, 333, 333, 4, 2, [[150, 120], [200]], 0, 0),
+    # 40960 keys: K1's walk over its table of key-tile statistics, which
+    # holds 512 tiles of 64 keys, goes in two chunks; the queries are the
+    # last 256 positions, so both chunks hold live tiles
+    "keys-40960": (1, 256, 40960, 2, 1, None, 0, 40704),
+}
+
+
+@pytest.mark.parametrize("case", sorted(D256_CASES))
+def test_d256_kernels_at_gemma2_options_match_plain_versions(cuda, case):
+    b, t, s, h, kv, lengths, window, q_first = D256_CASES[case]
+    opts = dict(causal=True, window=window, softcap=50.0)
+    q, k, v, qp, kp = _inputs(cuda, b, t, s, h, kv, 256, seed=11)
+    qs = ks = None
+    if lengths is not None:
+        qp, qs = _segments(cuda, b, t, lengths)
+        kp, ks = qp, qs
+    qp = qp + q_first
+    ops.reset_launch_counts()
+    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, **opts)
+    assert ops.launch_counts()["mha_forward"] == 1
+    o_ref, lse_ref = fa.mha_forward_plain(q, k, v, qp, kp, qs, ks, **opts)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
+    do = torch.randn_like(o)
+    first = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
+    assert ops.launch_counts()["mha_backward"] == 1
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
+    for a, r in zip(first, ref):
+        assert a.shape == r.shape
+        _grad_close(a, r)
+    again = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, **opts)
+    for name, a, r in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, r), f"{case}: {name} differs between calls"
+    if lengths is not None:     # padding: no query sees it, it sees no key
+        dead = qs < 0
+        assert (o[dead] == 0).all()
+        assert all((g[dead] == 0).all() for g in first)
 
 
 @pytest.mark.parametrize("t_acc", [64, 192])   # T 100 needs 128 rows

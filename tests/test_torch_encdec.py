@@ -62,7 +62,7 @@ from repro_torch.train.step_cache import CompiledStepCache
 from repro_torch.tree import flatten
 from test_torch_pipeline import assert_trees_close
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 GRAD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
@@ -307,6 +307,6 @@ def test_launch_train_cli_trains_t5():
          "--max-seq", "64"],
         capture_output=True, text=True, timeout=300,
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
-             "OMP_NUM_THREADS": "2"})
+             "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert "loss: first5=" in out.stdout and "nan" not in out.stdout

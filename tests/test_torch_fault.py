@@ -50,9 +50,9 @@ from repro_torch.train import optimizer as TO
 from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
 from repro_torch.tree import flatten
 
-# tiny tensors: two intra-op threads, so that pytest-xdist's workers do
+# tiny tensors: one intra-op thread, so that pytest-xdist's workers do
 # not oversubscribe the CPU
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 CFG = dataclasses.replace(reduced(get_arch("gpt-paper")), n_layers=2)
@@ -459,7 +459,8 @@ def test_launcher_resumes_from_its_checkpoint_dir(tmp_path):
            "cpu", "--reduced", "--stages", "1", "--tokens", "512",
            "--max-seq", "64", "--ckpt-dir", str(tmp_path), "--ckpt-every",
            "2", "--iters", "4"]
-    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"}
+    env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+           "OMP_NUM_THREADS": "1"}
     outs = []
     for _ in range(2):
         out = subprocess.run(cmd, capture_output=True, text=True,

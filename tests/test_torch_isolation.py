@@ -12,6 +12,11 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
 PORT_FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
+# One intra-op thread, here and in the subprocess, so that pytest-xdist's
+# workers do not oversubscribe the CPU (idle OpenMP threads spin) and slow
+# the wall-clock tests of other files.
+torch.set_num_threads(1)
+
 
 def _modules():
     return sorted(
@@ -31,7 +36,8 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300,
                          env={"PYTHONPATH": str(REPO / "src"),
-                              "PATH": "/usr/bin:/bin"})
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
 

@@ -20,10 +20,10 @@ from repro_torch.configs.base import get_arch, reduced
 from repro_torch.convert import params_from_jax
 from repro_torch.models import layers as TL
 
-# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
 # oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
 # tests of other files.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = 3e-5
 

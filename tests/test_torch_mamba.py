@@ -40,10 +40,10 @@ from repro_torch.models import mamba as TMB
 from repro_torch.models import model as TM
 from repro_torch.models import transformer as TT
 
-# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
 # oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
 # tests of other files.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SSD_TOL = {"float32": 5e-3, "bfloat16": 5e-2}
 F32_TOL = 1e-4

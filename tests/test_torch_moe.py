@@ -28,7 +28,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
 from repro_torch.tree import flatten, unflatten
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = 3e-5
 GRAD_TOL = 2e-4

@@ -51,7 +51,7 @@ from repro_torch.models import model as TM
 from repro_torch.train.pipeline_adapter import PipelinedModel
 from repro_torch.tree import flatten, tree_map
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 GRAD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
@@ -227,6 +227,6 @@ def test_launch_train_cli_runs_the_pipeline_at_its_defaults():
          "--reduced", "--iters", "2", "--tokens", "512", "--max-seq", "64"],
         capture_output=True, text=True, timeout=300,
         env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
-             "OMP_NUM_THREADS": "2"})
+             "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert "loss: first5=" in out.stdout and "nan" not in out.stdout

@@ -9,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.base import get_arch as j_get_arch, reduced as j_reduced
 from repro.core import microbatch as jmb
@@ -20,6 +21,11 @@ from repro_torch.core import microbatch as tmb
 from repro_torch.core.cost_model import V5E, AnalyticCostModel
 from repro_torch.core.shapes import ShapePalette
 from repro_torch.data.synthetic import MultiTaskDataset
+
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
+# oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
+# tests of other files.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 # every module the port copies verbatim, but for ``repro.`` -> ``repro_torch.``

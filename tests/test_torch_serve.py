@@ -28,10 +28,10 @@ from repro_torch import serve as SV
 from repro_torch.convert import params_from_jax
 from repro_torch.models import model as TM
 
-# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
 # oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
 # tests of other files.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 

@@ -43,10 +43,10 @@ from repro_torch.train import optimizer as TO
 from repro_torch.train.pipeline_adapter import build_grad_step
 from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
 
-# Tiny tensors: two intra-op threads, so that pytest-xdist's workers do not
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
 # oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
 # tests of other files.
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 GRAD_TOL = {"float32": 2e-4, "bfloat16": 4e-2}
@@ -243,7 +243,8 @@ def test_launch_train_cli_runs_on_the_cpu():
          "--reduced", "--stages", "1", "--iters", "1", "--tokens", "512",
          "--max-seq", "64"],
         capture_output=True, text=True, timeout=300,
-        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin"})
+        env={"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
     assert "loss: first5=" in out.stdout
 

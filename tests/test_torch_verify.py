@@ -16,6 +16,7 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.analysis import __main__ as JCLI
 from repro.configs.base import get_arch as j_get_arch, reduced as j_reduced
@@ -30,6 +31,11 @@ from repro_torch.core.executor import (PipelineError, PipelineExecutor,
                                        PlanRejectedError, StageCallbacks)
 from repro_torch.dist import chaos as TC
 from repro_torch.dist.backend import ThreadsBackend
+
+# Tiny tensors: one intra-op thread, so that pytest-xdist's workers do not
+# oversubscribe the CPU (idle OpenMP threads spin) and slow the wall-clock
+# tests of other files.
+torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parents[1]
 SCENARIOS = ("gpt", "t5", "mesh")
@@ -121,7 +127,8 @@ def test_cli_writes_the_references_report(tmp_path):
                            timeout=300,
                            env={"PYTHONPATH": str(REPO / "src"),
                                 "PATH": "/usr/bin:/bin",
-                                "JAX_PLATFORMS": "cpu"})
+                                "JAX_PLATFORMS": "cpu",
+                                "OMP_NUM_THREADS": "1"})
         assert r.returncode == 0, r.stderr
         outs[pkg] = out.read_text()
     # the report has no wall-time field: byte for byte
