@@ -17,9 +17,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              together, from the sources in this checkout, with ptxas's
              register and spill lines (each kernel and head dim it is
              instantiated at, D 256 among them) and the dynamic shared
-             memory of K1's prefill form and of the backward at every head
-             dim (K1 takes 64-key tiles at D 256, the backward a form of
-             its own);
+             memory of K1's prefill and decode forms and of the backward at
+             every head dim (K1 takes 64-key tiles at D 256, the backward a
+             form of its own);
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -45,7 +45,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              ``padding-tile-d256``: a 128-row query tile of pure padding;
              ``d256-keys-40960``: B 1, 2 q heads and 1 kv head, the last
              256 of 40960 positions, where K1's walk over its key-tile
-             statistics goes in two chunks of 512 tiles);
+             statistics goes in two chunks of 512 tiles), and the decode
+             steps of the serve paths (``gemma2-serve-decode``: B 8, S 2064
+             at position 2063, 8 q / 4 kv heads x 256, softcap 50;
+             ``granite-decode``: B 8, S 2064 at 2063, 24 / 8 x 64;
+             ``llava-decode``: B 4, S 3400 at 3399, 56 / 8 x 128; and the
+             untimed ``gqa7-t16-decode``, 16 query rows of 56 / 8 x 128),
+             where every case of K1's decode form (T <= 16) must also
+             repeat bit for bit over two more calls and is timed call by
+             call on the stream after 1 GiB is written to flush L2, as
+             the serve path finds each layer's cache;
              both elementwise and per 64-row tile, where the
              tile check must also fail a planted fault (a dropped key tile);
              the backward must give dq, dk and dv equal to the bit over
@@ -221,6 +230,9 @@ GRAD_REL_TOL = 1e-2
 LOGIT_REL_TOL = 1e-2
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
+# written before each timed decode call: 20 times the 50 MB L2, about 0.3
+# ms of the card's time, longer than a call's host path
+L2_FLUSH_BYTES = 1 << 30
 # the serve and mamba phases: requests, longest prompt, greedy steps
 REQUESTS, MAX_PROMPT, DECODE_STEPS = 32, 2048, 16
 # K4's bf16 tolerance: the reference's SSD kernel test (tests/test_kernels.py
@@ -308,6 +320,8 @@ KERNELS = {
             "hubert_4k": "hubert-4k", "gemma2_train": "gemma2-train",
             "d256_causal": "d256-causal", "gemma2_local_8k": "gemma2-local-8k",
             "gemma2_decode": "gemma2-decode",
+            "gemma2_serve_decode": "gemma2-serve-decode",
+            "granite_decode": "granite-decode", "llava_decode": "llava-decode",
             "padding_tile_d256": "padding-tile-d256",
             "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
@@ -381,6 +395,11 @@ def phase_device(torch):
     smem = _build.library("flash_fwd").mha_fwd_prefill_smem
     print("[device]   flash_fwd: prefill dynamic shared memory (64-key tiles "
           "at D 256) " + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
+    smem = _build.library("flash_fwd").mha_fwd_decode_smem
+    print("[device]   flash_fwd: decode dynamic shared memory (one row tile; "
+          "the most rows a block takes, 64 or 32 at D 256; before the tile "
+          "bits) " + ", ".join(f"D {d}: {smem(d, 16)} B, {smem(d, 64 if d <= 128 else 32)} B"
+                               for d in fa.HEAD_DIMS))
     smem = _build.library("flash_bwd").mha_bwd_smem
     print("[device]   flash_bwd: dynamic shared memory (D 256: "
           "mha_bwd_d256_kernel) "
@@ -421,6 +440,24 @@ def _case_inputs(torch, gen, *, b, t, s, h, kv, q_pos=None, kv_pos=None,
     qs = None if q_seg is None else ints(q_seg, t)
     ks = None if kv_seg is None else ints(kv_seg, s)
     return q, k, v, ints(q_pos, t), ints(kv_pos, s), qs, ks
+
+
+def _cold_ms(torch, fn, iters):
+    """Each call's time on the stream, CUDA events around it, L2 flushed
+    before it by writing L2_FLUSH_BYTES: a flush that outlasts a call's host
+    path, so that the call is on the stream before the device reaches it."""
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda")
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    fn()
+    torch.cuda.synchronize()
+    for a, b in ev:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
 
 
 def _live_pairs(torch, qpos, kpos, qseg, kseg, causal, window):
@@ -870,6 +907,18 @@ def phase_kernel(torch):
          "gemma2-local-8k"),
         ("gemma2-decode", dict(b=B_DEC, t=1, s=8200, q_pos=[[8199]] * B_DEC,
                                **gm), gm_local, True, None),
+        # the serve paths' decode steps: gemma2-2b's (its window not in
+        # effect), granite-moe's and llava-next's, and 16 query rows of a
+        # GQA group of 7 (two row groups of the decode form)
+        ("gemma2-serve-decode", dict(b=8, t=1, s=2064, q_pos=[[2063]] * 8,
+                                     **gm), gm_local, True, None),
+        ("granite-decode", dict(b=8, t=1, s=2064, h=24, kv=8, d=64,
+                                q_pos=[[2063]] * 8), {}, True, None),
+        ("llava-decode", dict(b=4, t=1, s=3400, h=56, kv=8, d=128,
+                              q_pos=[[3399]] * 4), {}, True, None),
+        ("gqa7-t16-decode", dict(b=4, t=16, s=3400, h=56, kv=8, d=128,
+                                 q_pos=[list(range(3384, 3400))] * 4), {},
+         False, None),
         ("padding-tile-d256", dict(b=2, t=384, s=384, h=4, kv=2, d=256,
                                    q_pos=pad_pos, kv_pos=pad_pos, q_seg=pad_seg,
                                    kv_seg=pad_seg), gm_opts, True,
@@ -921,8 +970,24 @@ def phase_kernel(torch):
               f"{rel:.3e} exceeds FWD_REL_TOL {FWD_REL_TOL}")
         check(f_rel > FWD_REL_TOL, f"K1 {name}: the per-tile check does not "
               "see the planted fault")
+        decode = q.shape[1] <= fa.DECODE_MAX_T
+        if decode:   # repeatable bit for bit: every sum in a fixed order
+            same = True
+            for _ in range(2):
+                again = fa.mha_forward(*args, **opts)
+                same &= bool(torch.equal(o, again[0])) and bool(
+                    torch.equal(lse, again[1]))
+                del again
+            b_, t_, h_, _ = q.shape
+            gh, n_split = fa.decode_plan(b_, t_, h_, k.shape[2], k.shape[1],
+                                         fa.kernel_head_dim(q.shape[-1]),
+                                         fa.sm_count(q.device))
+            line += (f"\n[kernel] {name:20s} decode form: {n_split} splits, "
+                     f"{gh} q heads a block; two more calls equal to the "
+                     f"bit: {'yes' if same else 'NO'}")
+            check(same, f"K1 {name}: the decode form differs between calls")
         if timed:
-            iters = 100 if name == "decode" else 20
+            iters = 100 if decode else 20
             ms = _cuda_time(torch, lambda: fa.mha_forward(*args, **opts), iters)
             plain_ms = _cuda_time(
                 torch, lambda: fa.mha_forward_plain(*args, **opts),
@@ -943,6 +1008,24 @@ def phase_kernel(torch):
                                          library_ms=library_ms,
                                          library=lib_name,
                                          library_err=lib_err)
+            dev_note = ""
+            if decode:
+                # a call's host path takes longer than the decode form, and
+                # a small cache stays in L2 between back-to-back calls, where
+                # the serve path finds every layer's cache cold: ms and
+                # library_ms are each call's time on the stream after a
+                # flush of L2, call_ms and library_call_ms the events over
+                # back-to-back calls
+                k1_ms = _cold_ms(torch, lambda: fa.mha_forward(*args, **opts),
+                                 iters)
+                lib_ms = _cold_ms(torch, lib, iters)
+                records[("K1", name)].update(
+                    ms=k1_ms, library_ms=lib_ms, call_ms=ms,
+                    library_call_ms=library_ms, repeatable=same,
+                    n_split=n_split, heads_per_block=gh)
+                dev_note = (f"\n[kernel] {name:20s} each call after a flush of "
+                            f"L2: K1 {k1_ms:.4f} ms, {100 * bound_ms / k1_ms:.1f}% "
+                            f"of bound; {lib_name} {lib_ms:.4f} ms")
             d, kd = q.shape[-1], fa.kernel_head_dim(q.shape[-1])
             pad_note = ""
             if kd != d:   # ms covers the padding of q, k, v and o's cut
@@ -958,7 +1041,8 @@ def phase_kernel(torch):
                      f"{lib_name} {library_ms:.4f} ms (max |o-plain| "
                      f"{lib_err:.3e}), "
                      f"bound {bound_ms:.4f} ms by {bound_by} "
-                     f"({100 * bound_ms / ms:.1f}% of bound){pad_note}")
+                     f"({100 * bound_ms / ms:.1f}% of bound){pad_note}"
+                     f"{dev_note}")
         print(line, flush=True)
         del o_ref, lse_ref
         if bwd is not None:

@@ -35,8 +35,10 @@ _L = ctypes.c_longlong
 # name -> (source file, {C function: argtypes}); every function returns int
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
-        "mha_fwd_bf16": [_P] * 9 + [_I] * 8 + [ctypes.c_float] * 2 + [_P],
+        "mha_fwd_bf16": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 2
+                        + [_I] * 2 + [_L, _P],
         "mha_fwd_prefill_smem": [_I],
+        "mha_fwd_decode_smem": [_I, _I],
     }),
     "flash_bwd": ("flash_bwd.cu", {
         "mha_bwd_bf16": [_P] * 11 + [_I, _P, _P, _P] + [_I] * 8

@@ -1,31 +1,49 @@
-"""Where the head-dim-256 attention backward's time goes, on the card.
+"""Where an attention kernel's time goes, on the card.
 
-Builds variants of a copy of ``flash_bwd.cu`` (given by path: this tree's
+Builds variants of a copy of a kernel source (given by path: this tree's
 or an older checkout's) in ``build/breakdown/``, and times each with CUDA
-events at gemma2-2b's shapes (its training rows, a local layer at 8192
-tokens, and 256 queries over 40960 keys, where dq's ordered adds chain 640
-key tiles) beside the unchanged source:
+events beside the unchanged source. Two kernels, each in the forms its
+sources have had:
 
-- ``as-is``: the source unchanged;
-- ``no-dq-wait``: dq's adds kept, their wait on the ordering counter gone;
-- ``no-dq-add``: dq's adds and their wait gone;
-- ``s-dp-once`` (the mma.sync form only, which computes s and dp in both
-  column-half warps of a key group): the second warp skips the products;
-- ``stamps``: ``clock64()`` stamps between the phases of an item, summed
-  per warp, so each phase's share of the warps' cycles.
+- the head-dim-256 backward (``flash_bwd.cu``; ``--form mma`` for its
+  mma.sync source, ``wgmma`` for this tree's), at gemma2-2b's shapes: its
+  training rows, a local layer at 8192 tokens, and 256 queries over 40960
+  keys, where dq's ordered adds chain 640 key tiles. Variants:
+  ``no-dq-wait`` (dq's adds kept, their wait on the ordering counter
+  gone), ``no-dq-add`` (dq's adds and their wait gone), ``s-dp-once`` (the
+  mma.sync form only, which computes s and dp in both column-half warps of
+  a key group: the second warp skips the products);
+- K1's decode form, T = 1 (``flash_fwd.cu``; ``--form decode-mma`` for the
+  form before the cache split, one block per (16 query rows, q head, batch
+  row); ``decode`` for this tree's, one block per (cache split, KV head,
+  batch row)), at the serve paths' decode shapes: ``decode`` (gpt-paper,
+  B 16, S 2056 at position 1027), ``gemma2-decode`` (B 16, S 8200 at 8199,
+  window 4096), ``gemma2-serve-decode`` (B 8, S 2064 at 2063),
+  ``granite-decode`` (B 8, S 2064 at 2063, 24 q / 8 kv heads x 64) and
+  ``llava-decode`` (B 4, S 3400 at 3399, 56 / 8 x 128). Each launch is
+  timed on the stream after 1 GiB is written to flush L2, as the serve
+  path finds each layer's cache cold; torch.profiler gives its device
+  time by kernel too. ``--split-scales`` also times this tree's form at
+  other multiples of the plan's splits.
 
-Every variant but ``as-is`` computes a wrong dq, dk or dv: only their times
-are read. The variants live only in the build directory; the sources of the
-package are not changed. Run on a machine with a card and nvcc:
+Every form also has ``stamps``: ``clock64()`` stamps between the phases of
+its loop, summed per warp, so each phase's share of the warps' cycles.
+This tree's decode form also has other plans (``stages2``, ``stages4``,
+``bn32``, ``bn64``: the ring's depth, the keys a stage), which compute the
+same outputs; every other variant but ``as-is`` computes wrong ones, and
+only its time is read. The variants live only in the build directory; the
+sources of the package are not changed. Run on a machine with a card and
+nvcc:
 
     python -m repro_torch.kernels.breakdown --source PATH/flash_bwd.cu \\
-        --form mma|wgmma --out chiprun_out/breakdown.json
+        --form mma|wgmma|decode-mma|decode --out breakdown.json
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -38,6 +56,7 @@ from repro_torch.kernels import flash_attention as fa
 
 OUT_DIR = _build.BUILD_DIR.parent / "breakdown"
 ITERS = 10   # timed launches per variant, after two to warm up
+DECODE_ITERS = 50   # the same for K1's decode forms
 
 # a stamp: lane 0 of each warp adds the cycles since its last stamp to
 # phase k of its warp's row, W the warp's index (0-7) in the stamped code
@@ -65,11 +84,13 @@ def _stamp(k: int) -> str:
     return "    " + (_STAMP % k)
 
 
-# per form: the phases the stamps separate, and the variants as lists of
-# (anchor, replacement); "@N" in a replacement is stamp N
+# per form: its source file, the phases the stamps separate, and the
+# variants as lists of (anchor, replacement); "@N" in a replacement is
+# stamp N
 FORMS = {
     # PR 20's form, mha_bwd_d256_kernel on mma.sync: 8 warps over 64 keys
     "mma": {
+        "file": "flash_bwd.cu",
         "warp": "(threadIdx.x / 32)",
         "phases": ["next item and its loads", "s and dp products", "p and ds",
                    "dv and dk products", "ds to shared memory", "dq product",
@@ -116,6 +137,7 @@ FORMS = {
     # the wgmma form, mha_bwd_d256_kernel: warps 0-3 of a block's consumers
     # are warpgroup 0, warps 4-7 warpgroup 1
     "wgmma": {
+        "file": "flash_bwd.cu",
         "warp": "(threadIdx.x / 32 - 4)",
         "phases": ["wait for q and do", "s^T and dp^T products",
                    "p^T and ds^T, to shared memory", "wait for the other warpgroup",
@@ -151,7 +173,89 @@ FORMS = {
                  "@FLUSH  // the end of this warpgroup's add_dq256 loop, in its first slot\n")],
         },
     },
+    # K1's decode form before the cache split, mha_fwd_decode_kernel<kD>: 4
+    # warps, one block per (16 query rows, q head, batch row), a block
+    # barrier per key tile in the tile search, one tile loading behind the
+    # one computed
+    "decode-mma": {
+        "file": "flash_fwd.cu",
+        "warp": "(threadIdx.x / 32)",
+        "phases": ["tile search", "load issue and wait", "s = q k^T",
+                   "softmax", "o += p v", "tile barrier",
+                   "row sums and warp merge"],
+        "variants": {
+            "stamps": [
+                ("  // ---- this thread's two query rows, and the q tile's statistics ----\n",
+                 "@INIT  // ---- this thread's two query rows, and the q tile's statistics ----\n"),
+                ("  int cur = find_live(0, 0, full);\n",
+                 "  int cur = find_live(0, 0, full);\n@0"),
+                ("    const int next = find_live(cur + 1, buf ^ 1, full_next);\n",
+                 "    const int next = find_live(cur + 1, buf ^ 1, full_next);\n@0"),
+                ("    __syncthreads();   // tile cur is in buffer buf for every thread\n",
+                 "    __syncthreads();   // tile cur is in buffer buf for every thread\n@1"),
+                ("      // ---- scale (to log2), cap, mask; online softmax update ----",
+                 "@2      // ---- scale (to log2), cap, mask; online softmax update ----"),
+                ("      // ---- o += p v: p from the s fragments, v by transposed ldmatrix ----",
+                 "@3      // ---- o += p v: p from the s fragments, v by transposed ldmatrix ----"),
+                ("    __syncthreads();   // buffer buf is free for the tile after next\n",
+                 "@4    __syncthreads();   // buffer buf is free for the tile after next\n@5"),
+                ("  if (warp > 0) return;\n", "@6@FLUSH  if (warp > 0) return;\n")],
+        },
+    },
+    # this tree's decode form, mha_fwd_decode_kernel<kD, kMT>: 4 warps, one
+    # block per (cache split, KV head, batch row), a ring of 3 stages
+    "decode": {
+        "file": "flash_fwd.cu",
+        "warp": "(threadIdx.x / 32)",
+        "phases": ["q and the tile search", "load wait", "next stage's issue",
+                   "s = q k^T", "scale, mask, row max and barrier",
+                   "p to shared memory and barrier", "o += p v",
+                   "row sums, out and the splits' merge"],
+        "variants": {
+            # other plans, each computing the same outputs: a ring of 2 or
+            # 4 stages; 32 keys a stage from D 128 (smaller stages, more
+            # blocks an SM), or 64 at D 256 too (one block an SM)
+            "stages2": [("constexpr int kDecStages = 3;", "constexpr int kDecStages = 2;")],
+            "stages4": [("constexpr int kDecStages = 3;", "constexpr int kDecStages = 4;")],
+            "bn32": [("  static constexpr int kBN = kD > 128 ? 32 : 64;",
+                      "  static constexpr int kBN = kD >= 128 ? 32 : 64;")],
+            "bn64": [("  static constexpr int kBN = kD > 128 ? 32 : 64;",
+                      "  static constexpr int kBN = 64;")],
+            "stamps": [
+                ("  // ---- this thread's rows (g and g + 8 of each row tile) and their mask:\n",
+                 "@INIT  // ---- this thread's rows (g and g + 8 of each row tile) and their mask:\n"),
+                ("  const int n_st = (rank1 - rank0) * L::kSub;   // stages this block computes\n",
+                 "  const int n_st = (rank1 - rank0) * L::kSub;   // stages this block computes\n@0"),
+                ("    __syncthreads();   // stage j is in shared memory; stage j - 1 is free\n",
+                 "    __syncthreads();   // stage j is in shared memory; stage j - 1 is free\n@1"),
+                ("    // ---- s = q k^T: every row tile x this warp's kBN / 4 keys ----\n",
+                 "@2    // ---- s = q k^T: every row tile x this warp's kBN / 4 keys ----\n"),
+                ("    // ---- to the log2 domain (and capped), masked; the warp's row maxima ----\n",
+                 "@3    // ---- to the log2 domain (and capped), masked; the warp's row maxima ----\n"),
+                ("    __syncthreads();   // every warp's row maxima\n",
+                 "    __syncthreads();   // every warp's row maxima\n@4"),
+                ("    __syncthreads();   // p of the whole stage\n",
+                 "    __syncthreads();   // p of the whole stage\n@5"),
+                ("    }\n  }\n  cp_async_wait<0>();   // the empty groups of the ring's tail\n",
+                 "    }\n@6  }\n  cp_async_wait<0>();   // the empty groups of the ring's tail\n"),
+                ("      if (tid == 0) *count = 0;   // for the workspace's next use\n    }\n  }\n}\n",
+                 "      if (tid == 0) *count = 0;   // for the workspace's next use\n    }\n  }\n@7@FLUSH}\n")],
+        },
+    },
 }
+# the C entry of each source file, and its argument types
+ENTRY = {"flash_bwd.cu": "mha_bwd_bf16", "flash_fwd.cu": "mha_fwd_bf16"}
+ARGTYPES = {
+    "mma": _build.KERNELS["flash_bwd"][1]["mha_bwd_bf16"],
+    "wgmma": _build.KERNELS["flash_bwd"][1]["mha_bwd_bf16"],
+    # the entry before this tree's decode form: no workspace, splits or
+    # heads per block
+    "decode-mma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+                  + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    "decode": _build.KERNELS["flash_fwd"][1]["mha_fwd_bf16"],
+}
+DECODE_CASES = ("decode", "gemma2-decode", "gemma2-serve-decode",
+                "granite-decode", "llava-decode")
 
 
 def variant_source(src: str, form: str, name: str) -> str:
@@ -174,31 +278,45 @@ def variant_source(src: str, form: str, name: str) -> str:
 
 def build_variants(source: Path, form: str, names, tag: str) -> dict[str, ctypes.CDLL]:
     """The variants `names` of `source`, compiled together, one nvcc each,
-    under build/breakdown/<tag>/."""
+    under build/breakdown/<tag>/; a variant whose source and headers are
+    those of its last build there is loaded as it is."""
     text = source.read_text()
+    file = FORMS[form]["file"]
     procs = {}
     for name in names:
         d = OUT_DIR / tag / name
+        files = {file: variant_source(text, form, name)}
+        files.update({h.name: h.read_text() for h in source.parent.glob("*.cuh")})
+        if (d / "lib.so").exists() and all(
+                (d / f).exists() and (d / f).read_text() == t
+                for f, t in files.items()):
+            procs[name] = None
+            continue
         if d.exists():
             shutil.rmtree(d)
         d.mkdir(parents=True)
-        for header in source.parent.glob("*.cuh"):
-            shutil.copy(header, d / header.name)
-        (d / "flash_bwd.cu").write_text(variant_source(text, form, name))
+        for f, t in files.items():
+            (d / f).write_text(t)
         cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "flash_bwd.cu")]
+               str(d / file)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {form}/{name}:\n{log}")
+        log_file = OUT_DIR / tag / name / "nvcc.log"
+        if proc is None:   # built before
+            log = log_file.read_text() if log_file.exists() else ""
+        else:
+            log, _ = proc.communicate()
+            log_file.write_text(log)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {form}/{name}:\n{log}")
         regs = [line.strip() for line in log.splitlines()
                 if "registers" in line or "spill" in line]
         lib = ctypes.CDLL(str(OUT_DIR / tag / name / "lib.so"))
-        lib.mha_bwd_bf16.argtypes = _build.KERNELS["flash_bwd"][1]["mha_bwd_bf16"]
-        lib.mha_bwd_bf16.restype = ctypes.c_int
+        entry = getattr(lib, ENTRY[file])
+        entry.argtypes = ARGTYPES[form]
+        entry.restype = ctypes.c_int
         libs[name] = lib
         print(f"[breakdown] {form}/{name}: built; ptxas, last kernel: "
               f"{regs[-2:] if regs else '-'}", flush=True)
@@ -240,6 +358,155 @@ def _inputs(case: str, gen):
     return (q, k, v, pos, kpos, seg, seg), opts
 
 
+# K1's decode cases: (b, s, query position, h, kv, d, window, softcap), as
+# chip_smoke.py's kernel phase has them
+DECODE_SHAPES = {
+    "decode": (16, 2056, 1027, 32, 32, 128, 0, None),
+    "gemma2-decode": (16, 8200, 8199, 8, 4, 256, 4096, 50.0),
+    "gemma2-serve-decode": (8, 2064, 2063, 8, 4, 256, 4096, 50.0),
+    "granite-decode": (8, 2064, 2063, 24, 8, 64, 0, None),
+    "llava-decode": (4, 3400, 3399, 56, 8, 128, 0, None),
+}
+
+
+def _decode_call(form, lib, case, gen, split_scale=1.0):
+    """(launch, check): one launch of form `form`'s entry in `lib` at
+    decode case `case` (this tree's form with `split_scale` times the
+    plan's splits), and the largest |o - plain| of its outputs."""
+    b, s, pos, h, kv, d, window, softcap = DECODE_SHAPES[case]
+    dev = "cuda"
+    q = torch.randn((b, 1, h, d), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(torch.bfloat16)
+    qp = torch.full((b, 1), pos, dtype=torch.int32, device=dev)
+    kp = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s).contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, 1), dtype=torch.float32, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+    common = (ptr(q), ptr(k), ptr(v), ptr(qp), ptr(kp), None, None, ptr(o),
+              ptr(lse))
+    shape = (b, 1, s, h, kv, d, 1, window, float(softcap or 0.0),
+             fa.softmax_scale(d))
+    if form == "decode-mma":
+        args = common + shape
+    else:
+        gh, n_split = fa.decode_plan(b, 1, h, kv, s, d, fa.sm_count(q.device))
+        n_split = max(1, round(n_split * split_scale))
+        need = fa.decode_workspace_numel(n_split, b, 1, h, kv, d, gh)
+        ws = torch.zeros(max(need, 1), dtype=torch.float32, device=dev)
+        args = common + (ptr(ws) if need else None,) + shape + (n_split, gh, need)
+    fn = lib.mha_fwd_bf16
+
+    def launch():   # this tree's form: the workspace zeroed, as the wrapper does
+        if form == "decode" and need:
+            ws.zero_()
+        _build.launch(fn, *args, device=q.device)
+
+    def check():
+        ref = fa.mha_forward_plain(q, k, v, qp, kp, causal=True,
+                                   window=window, softcap=softcap)[0]
+        return float((o.float() - ref.float()).abs().max())
+    launch.keep = (q, k, v, qp, kp, o, lse) + (() if form == "decode-mma" else (ws,))
+    return launch, check
+
+
+def _cold_ms(fn, flush, iters):
+    """Each call's time on the stream, CUDA events around it, with `flush`
+    written before it."""
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for a, b in ev:
+        flush.zero_()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in ev) / iters
+
+
+def _device_ms(fn, iters):
+    """Device time per call of `fn` by kernel name (torch.profiler), for the
+    kernels of K1."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "mha_fwd" in e.key:
+            name = re.search(r"mha_fwd_\w+", e.key).group(0)
+            out[name] = (out.get(name, 0.0)
+                         + getattr(e, "self_device_time_total", 0) / 1e3 / iters)
+    return out
+
+
+def _stamp_shares(lib, fn, form):
+    """Each phase's share of the stamped warps' cycles over one call."""
+    lib.bwd_cycles_reset()
+    fn()
+    torch.cuda.synchronize()
+    cyc = (ctypes.c_ulonglong * 64)()
+    lib.bwd_cycles(ctypes.byref(cyc))
+    per = [[cyc[w * 8 + i] for i in range(8)] for w in range(8)]
+    tot = sum(map(sum, per)) or 1
+    phases = FORMS[form]["phases"]
+    return per, {ph: sum(row[i] for row in per) / tot
+                 for i, ph in enumerate(phases)}
+
+
+def decode_main(args, libs) -> dict:
+    """K1's decode forms: each variant's time per case, its kernels' device
+    time, and the stamps' shares."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # 1 GiB written before each timed launch: 20 times the L2, and longer
+    # on the card than a launch's host path
+    flush = torch.empty(1 << 28, device="cuda")
+    cases = {}
+    for case in DECODE_SHAPES:
+        rec = {}
+        for name, lib in libs.items():
+            launch, check = _decode_call(args.form, lib, case, gen)
+            if name == "stamps":
+                _, share = _stamp_shares(lib, launch, args.form)
+                rec["stamps_share"] = share
+                print(f"[breakdown] {args.form} {case}: stamps, share of warp "
+                      "cycles: " + ", ".join(f"{k} {100 * x:.1f}%"
+                                             for k, x in share.items()), flush=True)
+                continue
+            launch()
+            torch.cuda.synchronize()
+            err = check()
+            rec[name] = _cold_ms(launch, flush, DECODE_ITERS)
+
+            def cold():   # the serve path finds each layer's cache cold
+                flush.zero_()
+                launch()
+            rec[name + " device"] = _device_ms(cold, DECODE_ITERS)
+            rec[name + " max_abs_err"] = err
+            print(f"[breakdown] {args.form} {case}: {name} {rec[name]:.4f} ms "
+                  "(each launch after a flush of L2); profiler: " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in rec[name + " device"].items())
+                  + f"; max |o - plain| {err:.3e}", flush=True)
+            del launch
+        for scale in args.split_scales if "as-is" in libs else ():
+            launch, check = _decode_call(args.form, libs["as-is"], case, gen, scale)
+            launch()
+            torch.cuda.synchronize()
+            key = f"as-is, splits x{scale}"
+            rec[key] = _cold_ms(launch, flush, DECODE_ITERS)
+            rec[key + " max_abs_err"] = check()
+            print(f"[breakdown] {args.form} {case}: {key} {rec[key]:.4f} ms; max "
+                  f"|o - plain| {rec[key + ' max_abs_err']:.3e}", flush=True)
+            del launch
+        cases[case] = rec
+        torch.cuda.empty_cache()
+    return cases
+
+
 def _time(fn, iters):
     for _ in range(2):
         fn()
@@ -261,6 +528,10 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default=None,
                     help="comma-separated (default: as-is and every variant "
                     "of the form)")
+    ap.add_argument("--split-scales", default="",
+                    type=lambda x: [float(v) for v in x.split(",") if v],
+                    help="the decode form only: also time as-is with these "
+                    "multiples of the plan's splits (comma-separated)")
     ap.add_argument("--tag", default=None,
                     help="the build directory's name (default: the form)")
     args = ap.parse_args(argv)
@@ -270,9 +541,15 @@ def main(argv=None) -> int:
     names = (args.variants.split(",") if args.variants
              else ["as-is", *FORMS[args.form]["variants"]])
     libs = build_variants(args.source, args.form, names, args.tag or args.form)
-    gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"device": torch.cuda.get_device_name(0), "form": args.form,
               "source": str(args.source), "cases": {}}
+    if FORMS[args.form]["file"] == "flash_fwd.cu":
+        result["cases"] = decode_main(args, libs)
+        if args.out is not None:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(result, indent=1))
+        return 0
+    gen = torch.Generator(device="cuda").manual_seed(0)
     for case in ("train", "local-8k", "keys-40960"):
         (q, k, v, qp, kp, qs, ks), opts = _inputs(case, gen)
         o, lse = fa.mha_forward_plain(q, k, v, qp, kp, qs, ks, **opts)
@@ -296,16 +573,8 @@ def main(argv=None) -> int:
                               d, 1, opts["window"], opts["softcap"],
                               fa.softmax_scale(d), device=q.device)
             if name == "stamps":
-                lib.bwd_cycles_reset()
-                call()
-                torch.cuda.synchronize()
-                cyc = (ctypes.c_ulonglong * 64)()
-                lib.bwd_cycles(ctypes.byref(cyc))
-                per = [[cyc[w * 8 + i] for i in range(8)] for w in range(8)]
-                tot = sum(map(sum, per)) or 1
+                per, share = _stamp_shares(lib, call, args.form)
                 phases = FORMS[args.form]["phases"]
-                share = {ph: sum(row[i] for row in per) / tot
-                         for i, ph in enumerate(phases)}
                 rec["stamps_share"] = share
                 # mma: the column halves' warps; wgmma: warpgroups 0 and 1
                 rec["stamps_share_by_warp_half"] = [

@@ -10,7 +10,7 @@
 
 namespace flash {
 
-constexpr int kBK = 64;            // keys per kv tile of K1's decode form
+constexpr int kBK = 64;            // keys per live tile of K1's decode form
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -49,6 +49,13 @@ __device__ __forceinline__ void cp_async16(uint16_t* dst, const uint16_t* src,
                :: "r"(d), "l"(src), "r"(full ? 16 : 0));
 }
 
+// 4 bytes (an int) global -> shared; zero when !full.
+__device__ __forceinline__ void cp_async4(int* dst, const int* src, bool full) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(full ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -85,31 +92,6 @@ __device__ __forceinline__ int warp_min(int x) {
 __device__ __forceinline__ int warp_max(int x) {
   for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
-}
-
-// min/max of positions and segment ids over the entries held by the first
-// 64 threads (invalid entries pass the identities). Every thread gets the
-// result in out[0..3] = pos min, pos max, seg min, seg max. Every thread of
-// the block must call it.
-__device__ __forceinline__ void tile_stats(bool valid, int pos, int seg,
-                                           int (*part)[4], int (&out)[4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  __syncthreads();   // every thread has read the previous call's part[]
-  if (warp < 2) {
-    int r0 = warp_min(valid ? pos : kIntMax);
-    int r1 = warp_max(valid ? pos : kIntMin);
-    int r2 = warp_min(valid ? seg : kIntMax);
-    int r3 = warp_max(valid ? seg : kIntMin);
-    if (lane == 0) {
-      part[warp][0] = r0; part[warp][1] = r1;
-      part[warp][2] = r2; part[warp][3] = r3;
-    }
-  }
-  __syncthreads();
-  out[0] = min(part[0][0], part[1][0]);
-  out[1] = max(part[0][1], part[1][1]);
-  out[2] = min(part[0][2], part[1][2]);
-  out[3] = max(part[0][3], part[1][3]);
 }
 
 // The min/max of the positions and segment ids of the kRows rows at `r0`

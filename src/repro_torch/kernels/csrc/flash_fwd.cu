@@ -29,7 +29,8 @@
 //  - prefill (T = S = bucket length, causal) is bound by operations:
 //    4·D FLOPs per visible pair against (3·S + T)·H·D·2 bytes per batch row;
 //  - decode (T = 1 against an S-long cache) is bound by the bytes of the live
-//    kv cache, read once per q head, at a few FLOPs per byte.
+//    k/v cache, which it need read only once per KV head: 4·G·T·D FLOPs per
+//    key against 4·D bytes, a few FLOPs per byte.
 //
 // Prefill (T > 16), `mha_fwd_prefill_kernel`, one form at every head dim:
 // one block per (128 query rows, q head, batch row), over key tiles of kBN
@@ -72,14 +73,36 @@
 // tiles would take 339032 B); a consumer thread holds o (128 fp32), s (32)
 // and p's bf16 fragments (16) in the 232 registers setmaxnreg gives it.
 //
-// Decode (T <= 16), `mha_fwd_decode_kernel`: one block per (16 query rows,
-// head, batch row) on mma.sync m16n8k16 with ldmatrix; the four warps share
-// the rows and each takes 16 keys of every 64-key tile; their partial
-// (m, l, acc) are merged through shared memory at the end. It loads the
-// next live tile with cp.async into a second buffer while the current one
-// is computed. Not yet done: splitting the cache across blocks. At D 256
-// q's fragments would take 64 registers beside o's 128, so they are
-// re-read from a copy of q in shared memory for every tile.
+// Decode (T <= 16), `mha_fwd_decode_kernel`, built around the cache bytes:
+//  - one block per (cache split, KV head, batch row) takes all G·T rows of
+//    that KV head's GQA group (G q heads x T positions, head-major), so each
+//    k/v tile is read once per group and a decode step fills G rows of the
+//    mma tile, not 1. G·T <= 16 is one m16 row tile; up to 64 rows (32 at
+//    D 256) take more, and beyond that the group's heads are cut into row
+//    groups, each a block of its own;
+//  - the cache is split over blocks: the host picks n_split from the shapes
+//    and the SM count alone (about two blocks per SM over the grid), each
+//    block finds the batch row's live 64-key tiles itself (each lane one
+//    tile's min/max, 32 tiles a warp with their loads in flight, a ballot
+//    into bits in shared memory: no barrier per tile) and takes its share
+//    of them, ranks [n_live · j / n_split, n_live · (j + 1) / n_split), so a
+//    window leaves no split idle that the live tiles can fill;
+//  - the k/v tiles stream through a ring of three stages by cp.async (two in
+//    flight behind the one computed), 64 keys a stage, 32 at D 256, so that
+//    a block stays near 110 KB of shared memory and two fit on an SM;
+//  - the products stay on mma.sync m16n8k16 (ldmatrix from rows padded to
+//    D + 8): the form is bound by bytes, so the tensor cores are not its
+//    limit, and a row tile of 16 wastes less of them than wgmma's 64. The
+//    four warps share a stage: s = q k^T by keys, the stage's row maxima
+//    through shared memory, p in bf16 through shared memory, o += p v by
+//    16-column chunks of o; q's fragments stay in registers where they take
+//    at most 64 (one row tile at every D), else q is loaded once into
+//    shared memory;
+//  - with one split the block writes o and lse; with more it writes fp32
+//    (acc, m, l) into a workspace the wrapper allocates, and the last block
+//    of each (KV head, batch row) to finish, found by a zeroed int32
+//    counter, merges the splits in ascending order: no second launch.
+//    Every sum runs in a fixed order, so a call repeats bit for bit.
 //
 #include "flash_common.cuh"
 #include "hopper.cuh"
@@ -105,150 +128,304 @@ struct Params {
   float sm_scale;
 };
 
+// The decode form's: cache splits, q heads per block, 32-tile words of the
+// tile search, and with n_split > 1 the splits' fp32 workspace and the
+// zeroed int32 counters after it, one per (batch row, KV head and row
+// group). The prefill form takes Params alone.
+struct DecParams : Params {
+  int n_split, gh, words;
+  float* ws;
+  int* sem;
+};
+
 // ---------------------------------------------------------------------
 // decode (T <= 16)
 // ---------------------------------------------------------------------
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
+constexpr int kDecStages = 3;        // stages of the decode form's k/v ring
 
-// kD: head dim, a multiple of 16 (one mma k-step).
+// The decode form's plan at head dim kD with kMT row tiles of 16 (the
+// block's G·T rows, head-major). A stage holds kBN keys of k and of v, rows
+// of kD + 8 bf16 (ldmatrix's rows land on distinct banks), and the keys'
+// positions and segment ids; a live tile of kBK keys is kSub stages. Then
+// p (bf16, the tile's probabilities), the warps' row maxima, q where its
+// fragments do not stay in registers, and the tiles' live and full bits
+// (their size, 8 bytes per 32 tiles, is added at launch).
+template <int kD, int kMT>
+struct DecSmem {
+  static constexpr int kBN = kD > 128 ? 32 : 64;
+  static constexpr int kSub = kBK / kBN;
+  static constexpr int kStride = kD + 8;
+  static constexpr int kRows = 16 * kMT;
+  static constexpr int kPStride = kBN + 8;
+  // q's A fragments take kMT * kD / 4 registers: kept up to 64
+  static constexpr bool kQRegs = kMT * kD <= 256;
+  static constexpr int kKV = 0;                                  // [stage][k, v][kBN][kStride]
+  static constexpr int kPos = kKV + kDecStages * 2 * kBN * kStride * 2;   // [stage][pos, seg][kBN]
+  static constexpr int kP = kPos + kDecStages * 2 * kBN * 4;     // [kRows][kPStride] bf16
+  static constexpr int kRed = kP + kRows * kPStride * 2;         // [kWarps][kRows] fp32
+  static constexpr int kQ = kRed + kWarps * kRows * 4;           // [kRows][kStride] bf16
+  static constexpr int kBits = kQ + (kQRegs ? 0 : kRows * kStride * 2);
+};
+
+// The largest row tiles per block at head dim kD: 64 rows up to D 128, 32
+// at D 256 (o's accumulator would take 128 registers a thread beyond).
 template <int kD>
+constexpr int dec_max_mt() { return kD > 128 ? 2 : 4; }
+
+// Row `row` of o (B, T, H) from the splits' partials (acc, m, l) in the
+// workspace, by one warp: m = max m_j, l = sum l_j 2^(m_j - m), o = sum
+// acc_j 2^(m_j - m) / l, lse = m + log l. Lane j reads split j's (m, l), 32
+// splits at a time; every lane then adds the splits in ascending order, so
+// the sums run in one fixed order whichever block merges. The partials are
+// read past L1 (other blocks wrote them).
+template <int kD>
+__device__ __forceinline__ void merge_row(const DecParams& p, size_t row, int lane) {
+  constexpr int kCols = (kD + 31) / 32;
+  const size_t n_all = (size_t)p.B * p.T * p.H;
+  const float* const ml = p.ws + (size_t)p.n_split * n_all * kD;
+  float mx = kNegInf;
+  for (int j = lane; j < p.n_split; j += 32)
+    mx = fmaxf(mx, __ldcg(ml + (j * n_all + row) * 2));
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float lsum = 0.f, acc[kCols];
+#pragma unroll
+  for (int x = 0; x < kCols; ++x) acc[x] = 0.f;
+  for (int j0 = 0; j0 < p.n_split; j0 += 32) {
+    float2 mj = make_float2(kNegInf, 0.f);
+    if (j0 + lane < p.n_split)
+      mj = __ldcg(reinterpret_cast<const float2*>(ml + ((j0 + lane) * n_all + row) * 2));
+    const float wl = ex2(mj.x - mx);   // 0 for a split that saw no key
+    const int nj = min(32, p.n_split - j0);
+#pragma unroll 4
+    for (int jj = 0; jj < nj; ++jj) {
+      const float w = __shfl_sync(0xffffffffu, wl, jj);
+      lsum += w * __shfl_sync(0xffffffffu, mj.y, jj);
+      const float* const oj = p.ws + ((j0 + jj) * n_all + row) * kD;
+#pragma unroll
+      for (int x = 0; x < kCols; ++x)
+        if (lane + 32 * x < kD) acc[x] += w * __ldcg(oj + lane + 32 * x);
+    }
+  }
+  lsum = fmaxf(lsum, 1e-30f);
+  const float inv = 1.f / lsum;
+#pragma unroll
+  for (int x = 0; x < kCols; ++x)
+    if (lane + 32 * x < kD)
+      reinterpret_cast<__nv_bfloat16*>(p.o)[row * kD + lane + 32 * x] =
+          __float2bfloat16_rn(acc[x] * inv);
+  if (lane == 0) {
+    const int h = row % p.H, t = (row / p.H) % p.T;
+    const size_t bb = row / ((size_t)p.H * p.T);
+    const float mn = mx == kNegInf ? kNegInf : mx * kLn2;
+    p.lse[(bb * p.H + h) * p.T + t] = mn + logf(lsum);
+  }
+}
+
+// One block per (cache split, KV head and row group, batch row): the rows
+// of the row group's q heads (heads-per-block · T, head-major) against the
+// live key tiles of its split. The four warps share each stage: s = q k^T
+// by keys (kBN / 4 each), the tile's row maxima through shared memory, p to
+// shared memory in bf16, then o += p v by 16-column chunks of o. Every
+// sum runs in a fixed order; with one split the block writes o and lse,
+// with more it writes fp32 (acc, m, l) to the workspace, and the last block
+// of its (KV head and row group, batch row) to count itself on their int32
+// counter merges the group's rows (merge_row) and sets the counter back to
+// zero.
+template <int kD, int kMT>
 __global__ void __launch_bounds__(kThreads)
-mha_fwd_decode_kernel(const Params p) {
-  constexpr int kStride = kD + 8;            // bf16 per shared row: ldmatrix
-                                             // rows land on distinct banks
-  constexpr int kRows = 16;                  // query rows per block
-  constexpr int kNT = 2;                     // 8-key n-tiles per warp per tile
-  // q's fragments: in registers up to D 128; at D 256 they would take 64 of
-  // the registers o needs, so they are re-read from shared memory
-  constexpr bool kQSmem = kD > 128;
-  // dynamic shared memory: two buffers of (k tile, v tile), each
-  // [kBK][kStride] bf16, then two buffers of the tile's positions and
-  // segment ids, [kBK] int each, then at D 256 q, [kRows][kStride] bf16
+mha_fwd_decode_kernel(const DecParams p) {
+  using L = DecSmem<kD, kMT>;
+  constexpr int kBN = L::kBN, kStride = L::kStride, kRows = L::kRows;
+  constexpr int kPStride = L::kPStride;
+  constexpr int kNTw = kBN / 32;                 // 8-key n-tiles per warp in s
+  constexpr int kC = kD / 16;                    // 16-column chunks of o a row tile
+  constexpr int kU = (kMT * kC + kWarps - 1) / kWarps;   // chunks per warp
+  static_assert(kMT == 1 || kC % kU == 0, "a warp's chunks lie in one row tile");
+  static_assert(kNTw == 2 || kC % 2 == 0, "k fragments of two k-steps at once");
+  static_assert(kBN * (kD / 8) % kThreads == 0, "a stage's copies over the block");
   extern __shared__ __align__(16) uint8_t smem[];
-  uint16_t* const kv_s = reinterpret_cast<uint16_t*>(smem);
-  int* const kpos_s = reinterpret_cast<int*>(kv_s + 4 * kBK * kStride);
-  int* const kseg_s = kpos_s + 2 * kBK;
-  uint16_t* const q_s = reinterpret_cast<uint16_t*>(kseg_s + 2 * kBK);
-  __shared__ int part[2][4];
+  uint16_t* const kv_s = reinterpret_cast<uint16_t*>(smem + L::kKV);
+  int* const pos_s = reinterpret_cast<int*>(smem + L::kPos);
+  uint16_t* const p_s = reinterpret_cast<uint16_t*>(smem + L::kP);
+  float* const red_s = reinterpret_cast<float*>(smem + L::kRed);
+  uint16_t* const q_s = reinterpret_cast<uint16_t*>(smem + L::kQ);
+  uint32_t* const live_w = reinterpret_cast<uint32_t*>(smem + L::kBits);
+  uint32_t* const full_w = live_w + p.words;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, c = lane & 3;   // mma fragment row group / column pair
   const int mi = lane >> 3, r8 = lane & 7; // ldmatrix: matrix and row this lane addresses
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kvh = h / (p.H / p.KV);
+  const int split = blockIdx.x, b = blockIdx.z;
+  const int G = p.H / p.KV, n_rg = (G + p.gh - 1) / p.gh;
+  const int kvh = blockIdx.y / n_rg, rg = blockIdx.y % n_rg;
+  const int h0 = kvh * G + rg * p.gh;                  // the block's first q head
+  const int n_rows = min(p.gh, G - rg * p.gh) * p.T;
   const bool segmented = p.qseg != nullptr;
-  const int koff = warp * 16;              // first key of this warp in a tile
-  const float qscale = p.softcap > 0.f ? p.sm_scale : p.sm_scale * kLog2e;
+  const int n_tiles = (p.S + kBK - 1) / kBK;
+  const int* const kpos = p.kpos + (size_t)b * p.S;
+  const int* const kseg = segmented ? p.kseg + (size_t)b * p.S : nullptr;
+  // the q element (row r, column d) of the block, r < n_rows
+  auto q_at = [&](int r, int d) {
+    return p.q + (((size_t)b * p.T + r % p.T) * p.H + h0 + r / p.T) * kD + d;
+  };
 
-  // ---- this thread's two query rows, and the q tile's statistics ----
-  const int row[2] = {g, g + 8};
-  bool row_ok[2];
-  int qp[2], qs[2];
+  // ---- this thread's rows (g and g + 8 of each row tile) and their mask:
+  // key (kp, ks) is visible iff ks == qs (segmented) and lo <= kp <= hi; a
+  // row past n_rows or of padding sees nothing (an empty interval) ----
+  int qs[kMT][2], lo[kMT][2], hi[kMT][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    row_ok[i] = row[i] < p.T;
-    qp[i] = row_ok[i] ? p.qpos[(size_t)b * p.T + row[i]] : 0;
-    qs[i] = (row_ok[i] && segmented) ? p.qseg[(size_t)b * p.T + row[i]] : 0;
-  }
-  // ---- at D 256, q (16 rows, zeros past T) into shared memory, read
-  // after the barriers of tile_stats ----
-  if constexpr (kQSmem) {
-    const size_t rs = (size_t)p.H * kD;   // token stride of q
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < kRows * (kD / 8) / kThreads; ++j) {
-      const int i = tid + j * kThreads;
+    for (int i = 0; i < 2; ++i) {
+      const int r = mt * 16 + g + 8 * i;
+      const bool ok = r < n_rows;
+      const size_t at = (size_t)b * p.T + r % p.T;
+      const int qp = ok ? p.qpos[at] : 0;
+      qs[mt][i] = (ok && segmented) ? p.qseg[at] : 0;
+      const bool sees = ok && qs[mt][i] >= 0;
+      hi[mt][i] = !sees ? kIntMin : p.causal ? qp : kIntMax;
+      lo[mt][i] = !sees ? kIntMax
+                : (p.causal && p.window > 0) ? qp - p.window + 1 : kIntMin;
+    }
+
+  // ---- q: its A fragments in registers (loaded first, so that they are
+  // in flight during the tile search), or once into shared memory ----
+  uint32_t qa[L::kQRegs ? kMT : 1][L::kQRegs ? kC : 1][4];
+  if constexpr (L::kQRegs) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      const int r0 = mt * 16 + g, r1 = r0 + 8;
+#pragma unroll
+      for (int kk = 0; kk < kC; ++kk) {
+        const int d = kk * 16 + c * 2;
+        qa[mt][kk][0] = r0 < n_rows ? load_u32(q_at(r0, d)) : 0u;
+        qa[mt][kk][1] = r1 < n_rows ? load_u32(q_at(r1, d)) : 0u;
+        qa[mt][kk][2] = r0 < n_rows ? load_u32(q_at(r0, d + 8)) : 0u;
+        qa[mt][kk][3] = r1 < n_rows ? load_u32(q_at(r1, d + 8)) : 0u;
+      }
+    }
+  } else {
+    for (int i = tid; i < kRows * (kD / 8); i += kThreads) {
       const int r = i / (kD / 8), ch = i % (kD / 8);
       uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (r < p.T)
-        x = *reinterpret_cast<const uint4*>(
-            p.q + ((size_t)b * p.T + r) * rs + (size_t)h * kD + ch * 8);
+      if (r < n_rows) x = *reinterpret_cast<const uint4*>(q_at(r, ch * 8));
       *reinterpret_cast<uint4*>(q_s + r * kStride + ch * 8) = x;
     }
   }
-  int qstat[4];
-  {
-    const bool ok = tid < kRows && tid < p.T;
-    const int pos = ok ? p.qpos[(size_t)b * p.T + tid] : 0;
-    const int seg = (ok && segmented) ? p.qseg[(size_t)b * p.T + tid] : 0;
-    tile_stats(ok, pos, seg, part, qstat);
-  }
 
-  // ---- q fragments: 16 rows x kD dims, in registers (up to D 128) ----
-  uint32_t qa[kQSmem ? 1 : kD / 16][4];
-  if constexpr (!kQSmem) {
-    const size_t rs = (size_t)p.H * kD;   // token stride of q
-    const uint16_t* q_r0 = p.q + ((size_t)b * p.T + row[0]) * rs + (size_t)h * kD;
-    const uint16_t* q_r1 = p.q + ((size_t)b * p.T + row[1]) * rs + (size_t)h * kD;
+  // ---- the tile search: each lane one key tile's min and max, 32 tiles a
+  // warp at a time with all its loads in flight (16 of int4 where the tile
+  // is whole and 16-byte aligned), against the statistics of the batch
+  // row's T query rows (a lane each, reduced while the keys' loads are in
+  // flight), and a ballot of which tiles are live and which need no
+  // element mask ----
+  const size_t q_at_lane = (size_t)b * p.T + lane;
+  const int lane_qp = lane < p.T ? p.qpos[q_at_lane] : 0;
+  const int lane_qs = lane < p.T && segmented ? p.qseg[q_at_lane] : 0;
+  for (int wd = warp; wd < p.words; wd += kWarps) {
+    const int t = wd * 32 + lane, k0 = t * kBK;
+    const int n = t < n_tiles ? min(kBK, p.S - k0) : 0;
+    const bool vec = n == kBK && ((size_t)b * p.S + k0) % 4 == 0;
+    int st[4] = {kIntMax, kIntMin, kIntMax, kIntMin};
+    // min and max of the tile's n ints at x into st[i], st[i + 1]; with
+    // `vec`, their loads issued first and reduced by reduce()
+    int4 v[kBK / 4];
+    auto load = [&](const int* x) {
+      if (vec) {
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const int d = kk * 16 + c * 2;
-      qa[kk][0] = row_ok[0] ? load_u32(q_r0 + d) : 0u;
-      qa[kk][1] = row_ok[1] ? load_u32(q_r1 + d) : 0u;
-      qa[kk][2] = row_ok[0] ? load_u32(q_r0 + d + 8) : 0u;
-      qa[kk][3] = row_ok[1] ? load_u32(q_r1 + d + 8) : 0u;
-    }
-  }
-
-  float oacc[kD / 8][4];
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf};   // running max, log2 domain
-  float l[2] = {0.f, 0.f};           // this thread's share of the row sums
-
-  const size_t kv_rs = (size_t)p.KV * kD;   // token stride of k and v
-  const int n_tiles = (p.S + kBK - 1) / kBK;
-
-  // Positions and segment ids of key k0 + tid (threads < kBK); `ok` false
-  // past S or for the other threads.
-  auto load_key = [&](int t, int& pos, int& seg, bool& ok) {
-    const int kk = t * kBK + tid;
-    ok = tid < kBK && kk < p.S;
-    pos = ok ? p.kpos[(size_t)b * p.S + kk] : 0;
-    seg = (ok && segmented) ? p.kseg[(size_t)b * p.S + kk] : 0;
-  };
-  // Those of the tile after the one last looked at, loaded ahead so that
-  // the next search does not wait for them.
-  int pf_t = -1, pf_pos = 0, pf_seg = 0;
-  bool pf_ok = false;
-
-  // The first live tile at or after t, n_tiles if none; its positions and
-  // segment ids go to buffer buf, and `full` says whether every (row, key)
-  // pair of it is visible, so that it needs no element mask.
-  auto find_live = [&](int t, int buf, bool& full_out) -> int {
-    for (; t < n_tiles; ++t) {
-      const int k0 = t * kBK;
-      int pos, seg;
-      bool ok;
-      if (t == pf_t) {
-        pos = pf_pos; seg = pf_seg; ok = pf_ok;
-      } else {
-        load_key(t, pos, seg, ok);
+        for (int j = 0; j < kBK / 4; ++j) v[j] = reinterpret_cast<const int4*>(x)[j];
       }
-      pf_t = t + 1;
-      if (pf_t < n_tiles) load_key(pf_t, pf_pos, pf_seg, pf_ok);
-      if (tid < kBK) { kpos_s[buf * kBK + tid] = pos; kseg_s[buf * kBK + tid] = seg; }
-      int kstat[4];
-      tile_stats(ok, pos, seg, part, kstat);
-      if (!tiles_live(qstat, kstat, segmented, p.causal, p.window))
-        continue;   // uniform over the block
-      const bool f = k0 + kBK <= p.S &&
-                     tiles_full(qstat, kstat, segmented, p.causal, p.window);
-      full_out = f;
-      return t;
-    }
-    return n_tiles;
-  };
-
-  // k and v of tile t into buffer buf, zeros past S: one group of
-  // cp.async, every copy of the thread in flight at once.
-  auto issue = [&](int t, int buf) {
-    const int k0 = t * kBK;
-    uint16_t* const kb = kv_s + buf * 2 * kBK * kStride;
-    uint16_t* const vb = kb + kBK * kStride;
+    };
+    auto reduce = [&](const int* x, int i) {
+      if (vec) {
 #pragma unroll
-    for (int j = 0; j < kBK * (kD / 8) / kThreads; ++j) {
-      const int i = tid + j * kThreads;
+        for (int j = 0; j < kBK / 4; ++j) {
+          st[i] = min(st[i], min(min(v[j].x, v[j].y), min(v[j].z, v[j].w)));
+          st[i + 1] = max(st[i + 1], max(max(v[j].x, v[j].y), max(v[j].z, v[j].w)));
+        }
+      } else {
+#pragma unroll 16
+        for (int j = 0; j < kBK; ++j)
+          if (j < n) {
+            st[i] = min(st[i], x[j]);
+            st[i + 1] = max(st[i + 1], x[j]);
+          }
+      }
+    };
+    load(kpos + k0);
+    const bool q_ok = lane < p.T;
+    const int qstat[4] = {warp_min(q_ok ? lane_qp : kIntMax),
+                          warp_max(q_ok ? lane_qp : kIntMin),
+                          warp_min(q_ok ? lane_qs : kIntMax),
+                          warp_max(q_ok ? lane_qs : kIntMin)};
+    reduce(kpos + k0, 0);
+    if (segmented) {
+      load(kseg + k0);
+      reduce(kseg + k0, 2);
+    } else {
+      st[2] = st[3] = 0;
+    }
+    const bool live = t < n_tiles &&
+                      tiles_live(qstat, st, segmented, p.causal, p.window);
+    const bool full = live && k0 + kBK <= p.S &&
+                      tiles_full(qstat, st, segmented, p.causal, p.window);
+    const uint32_t lw = __ballot_sync(0xffffffffu, live);
+    const uint32_t fw = __ballot_sync(0xffffffffu, full);
+    if (lane == 0) { live_w[wd] = lw; full_w[wd] = fw; }
+  }
+  __syncthreads();   // the tiles' bits (and q, where it is in shared memory)
+
+  // ---- this split's share of the live tiles: ranks [rank0, rank1) of
+  // n_live, in ascending tile order ----
+  int n_live = 0;
+  for (int wd = 0; wd < p.words; ++wd) n_live += __popc(live_w[wd]);
+  const int rank0 = (int)((long long)n_live * split / p.n_split);
+  const int rank1 = (int)((long long)n_live * (split + 1) / p.n_split);
+  // the first live tile at or after t (n_tiles if none)
+  auto next_live = [&](int t) -> int {
+    int wd = t >> 5;
+    if (wd >= p.words) return n_tiles;
+    uint32_t w = live_w[wd] & (0xffffffffu << (t & 31));
+    while (w == 0) {
+      if (++wd >= p.words) return n_tiles;
+      w = live_w[wd];
+    }
+    return wd * 32 + __ffs(w) - 1;
+  };
+  auto is_full = [&](int t) { return (full_w[t >> 5] >> (t & 31)) & 1u; };
+  int first = n_tiles;
+  if (rank1 > rank0) {   // the live tile of rank rank0
+    int r = rank0;
+    for (int wd = 0; wd < p.words; ++wd) {
+      uint32_t w = live_w[wd];
+      const int cnt = __popc(w);
+      if (r < cnt) {
+        for (; r > 0; --r) w &= w - 1;
+        first = wd * 32 + __ffs(w) - 1;
+        break;
+      }
+      r -= cnt;
+    }
+  }
+  const int n_st = (rank1 - rank0) * L::kSub;   // stages this block computes
+
+  // stage j of the walk is (tile t, part sub): advance to the next
+  auto advance = [&](int& t, int& sub) {
+    if (++sub == L::kSub) { sub = 0; t = next_live(t + 1); }
+  };
+  // k and v of part sub of tile t into ring stage j % kDecStages, zeros
+  // past S, and the keys' positions and segment ids where the tile needs
+  // the element mask: one group of cp.async, every copy in flight at once
+  auto issue = [&](int j, int t, int sub) {
+    const int stage = j % kDecStages, k0 = t * kBK + sub * kBN;
+    uint16_t* const kb = kv_s + stage * 2 * kBN * kStride;
+    uint16_t* const vb = kb + kBN * kStride;
+    const size_t kv_rs = (size_t)p.KV * kD;   // token stride of k and v
+#pragma unroll
+    for (int jj = 0; jj < kBN * (kD / 8) / kThreads; ++jj) {
+      const int i = tid + jj * kThreads;
       const int r = i / (kD / 8), ch = i % (kD / 8);
       const bool in = k0 + r < p.S;
       const size_t off = in ? ((size_t)b * p.S + k0 + r) * kv_rs +
@@ -256,190 +433,283 @@ mha_fwd_decode_kernel(const Params p) {
       cp_async16(kb + r * kStride + ch * 8, p.k + off, in);
       cp_async16(vb + r * kStride + ch * 8, p.v + off, in);
     }
-    cp_async_commit();
+    if (!is_full(t) && tid < kBN) {
+      int* const ps = pos_s + stage * 2 * kBN;
+      const bool in = k0 + tid < p.S;
+      cp_async4(ps + tid, in ? kpos + k0 + tid : kpos, in);
+      if (segmented) cp_async4(ps + kBN + tid, in ? kseg + k0 + tid : kseg, in);
+    }
   };
 
-  // Two buffers: the next live tile loads while this one is computed.
-  bool full = false, full_next = false;
-  int cur = find_live(0, 0, full);
-  if (cur < n_tiles) issue(cur, 0);
-  for (int buf = 0; cur < n_tiles; buf ^= 1) {
-    const int next = find_live(cur + 1, buf ^ 1, full_next);
-    if (next < n_tiles) {
-      issue(next, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  float acc[kU][2][4];   // o of this warp's chunks, rows g and g + 8
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int n = 0; n < 2; ++n) acc[u][n][0] = acc[u][n][1] = acc[u][n][2] = acc[u][n][3] = 0.f;
+  float m[kMT][2], l[kMT][2];   // running max (log2 domain), this thread's share of the sums
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) m[mt][0] = m[mt][1] = kNegInf, l[mt][0] = l[mt][1] = 0.f;
+  // the row tile of this warp's chunks (a constant with one row tile, so
+  // that the per-row arrays below stay in registers)
+  const int mtw = kMT == 1 ? 0 : warp * kU / kC;
+  // of a per-row array, this thread's two rows of row tile mtw
+  auto pick = [&](const float (&x)[kMT][2], int i) {
+    float y = x[0][i];
+#pragma unroll
+    for (int mt = 1; mt < kMT; ++mt) y = mt == mtw ? x[mt][i] : y;
+    return y;
+  };
+  const bool has_o = warp * kU < kMT * kC && mtw * 16 < n_rows;
+  const float qscale = p.sm_scale * kLog2e;
+  const bool cap = p.softcap > 0.f;
+  const float cap_in = cap ? p.sm_scale / p.softcap : 0.f;
+  const float cap_mul = p.softcap * kLog2e;
+
+  // ---- the walk: a ring of kDecStages stages, kDecStages - 1 in flight
+  // behind the one computed ----
+  int it_t = first, it_sub = 0, ct_t = first, ct_sub = 0;
+#pragma unroll
+  for (int j = 0; j < kDecStages - 1; ++j) {
+    if (j < n_st) { issue(j, it_t, it_sub); advance(it_t, it_sub); }
+    cp_async_commit();
+  }
+  for (int j = 0; j < n_st; ++j) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();   // stage j is in shared memory; stage j - 1 is free
+    if (j + kDecStages - 1 < n_st) {
+      issue(j + kDecStages - 1, it_t, it_sub);
+      advance(it_t, it_sub);
     }
-    __syncthreads();   // tile cur is in buffer buf for every thread
-    const int k0 = cur * kBK;
-    const uint16_t* const ks = kv_s + buf * 2 * kBK * kStride;
-    const uint16_t* const vs = ks + kBK * kStride;
-    const int* const kpos_b = kpos_s + buf * kBK;
-    const int* const kseg_b = kseg_s + buf * kBK;
-    {
-      // ---- s = q k^T for the 16 rows x (kNT * 8) keys of this warp ----
-      float s[kNT][4];
+    cp_async_commit();
+    const int stage = j % kDecStages;
+    const int k0 = ct_t * kBK + ct_sub * kBN;
+    const bool full = is_full(ct_t);
+    advance(ct_t, ct_sub);
+    const uint16_t* const ks = kv_s + stage * 2 * kBN * kStride;
+    const uint16_t* const vs = ks + kBN * kStride;
+    const int* const kp_s = pos_s + stage * 2 * kBN;
+    const int* const kg_s = kp_s + kBN;
+    const int koff = warp * (kBN / 4);   // this warp's first key of the stage
+
+    // ---- s = q k^T: every row tile x this warp's kBN / 4 keys ----
+    float s[kMT][kNTw][4];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk) {
-        uint32_t qf[4];   // at D 256, the A fragment of rows 0-15, dims 16 kk..
-        if constexpr (kQSmem)
-          ldsm_x4(qf, q_s + ((mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
-        const uint32_t (&qk)[4] = kQSmem ? qf : qa[kk];
+      for (int n = 0; n < kNTw; ++n) s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
+    auto qfrag = [&](uint32_t (&qf)[4], int mt, int kk) {
+      if constexpr (L::kQRegs) {
 #pragma unroll
-        for (int n = 0; n < kNT; n += 2) {
-          uint32_t kb[4];   // b0, b1 of n-tiles n and n + 1
-          ldsm_x4(kb, ks + (koff + (n + (mi >> 1)) * 8 + r8) * kStride +
-                          kk * 16 + (mi & 1) * 8);
-          mma_bf16(s[n], qk, kb[0], kb[1]);
-          mma_bf16(s[n + 1], qk, kb[2], kb[3]);
+        for (int x = 0; x < 4; ++x) qf[x] = qa[mt][kk][x];
+      } else {
+        ldsm_x4(qf, q_s + (mt * 16 + (mi & 1) * 8 + r8) * kStride + kk * 16 + (mi >> 1) * 8);
+      }
+    };
+#pragma unroll
+    for (int kk = 0; kk < kC; kk += 3 - kNTw) {
+      uint32_t kb[4];
+      if constexpr (kNTw == 2)   // b0, b1 of n-tiles 0 and 1 at k-step kk
+        ldsm_x4(kb, ks + (koff + (mi >> 1) * 8 + r8) * kStride + kk * 16 + (mi & 1) * 8);
+      else                       // b0, b1 of the n-tile at k-steps kk and kk + 1
+        ldsm_x4(kb, ks + (koff + r8) * kStride + kk * 16 + mi * 8);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        if (mt * 16 >= n_rows) continue;
+        uint32_t qf[4];
+        qfrag(qf, mt, kk);
+        mma_bf16(s[mt][0], qf, kb[0], kb[1]);
+        if constexpr (kNTw == 2) {
+          mma_bf16(s[mt][1], qf, kb[2], kb[3]);
+        } else {
+          qfrag(qf, mt, kk + 1);
+          mma_bf16(s[mt][0], qf, kb[2], kb[3]);
         }
       }
+    }
 
-      // ---- scale (to log2), cap, mask; online softmax update ----
-      float mx[2] = {kNegInf, kNegInf};
+    // ---- to the log2 domain (and capped), masked; the warp's row maxima ----
+    float mx[kMT][2];
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
+    for (int mt = 0; mt < kMT; ++mt) {
+      mx[mt][0] = mx[mt][1] = kNegInf;
+#pragma unroll
+      for (int n = 0; n < kNTw; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;                            // which of the two rows
-          const int key = koff + n * 8 + c * 2 + (e & 1);  // key within the tile
-          float x = s[n][e] * qscale;
-          if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap) * kLog2e;
+          const int i = e >> 1, key = koff + n * 8 + c * 2 + (e & 1);
+          float x = cap ? cap_mul * tanhf(s[mt][n][e] * cap_in)
+                        : s[mt][n][e] * qscale;
           if (!full) {
-            const bool ok = k0 + key < p.S &&
-                            visible(qp[i], qs[i], kpos_b[key], kseg_b[key],
-                                    segmented, p.causal, p.window);
+            const int kp = kp_s[key];
+            bool ok = k0 + key < p.S && kp >= lo[mt][i] && kp <= hi[mt][i];
+            if (segmented) ok = ok && kg_s[key] == qs[mt][i];
             if (!ok) x = kNegInf;
           }
-          s[n][e] = x;
-          mx[i] = fmaxf(mx[i], x);
+          s[mt][n][e] = x;
+          mx[mt][i] = fmaxf(mx[mt][i], x);
         }
-      }
-      float alpha[2], mnew[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        mnew[i] = fmaxf(m[i], mx[i]);
-        alpha[i] = exp2f(m[i] - mnew[i]);
-        m[i] = mnew[i];
-        l[i] *= alpha[i];
+        mx[mt][i] = fmaxf(mx[mt][i], __shfl_xor_sync(0xffffffffu, mx[mt][i], 1));
+        mx[mt][i] = fmaxf(mx[mt][i], __shfl_xor_sync(0xffffffffu, mx[mt][i], 2));
+        if (c == 0) red_s[warp * kRows + mt * 16 + g + 8 * i] = mx[mt][i];
+      }
+    }
+    __syncthreads();   // every warp's row maxima
+
+    // ---- the stage's row maxima, the running max and sum rescaled, p into
+    // shared memory ----
+    float alpha[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = mt * 16 + g + 8 * i;
+        float t4 = red_s[r];
+#pragma unroll
+        for (int w = 1; w < kWarps; ++w) t4 = fmaxf(t4, red_s[w * kRows + r]);
+        const float mnew = fmaxf(m[mt][i], t4);
+        alpha[mt][i] = ex2(m[mt][i] - mnew);
+        m[mt][i] = mnew;
+        l[mt][i] *= alpha[mt][i];
       }
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int n = 0; n < kNTw; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1;
-          // a masked entry holds exactly kNegInf; it contributes nothing
-          const float pe = s[n][e] == kNegInf ? 0.f : exp2f(s[n][e] - mnew[i]);
-          s[n][e] = pe;
-          l[i] += pe;
+          // a masked entry holds exactly kNegInf; it contributes nothing,
+          // also on a row that has seen no key yet (m = kNegInf)
+          const float pe = s[mt][n][e] == kNegInf ? 0.f : ex2(s[mt][n][e] - m[mt][i]);
+          s[mt][n][e] = pe;
+          l[mt][i] += pe;
+        }
+        uint16_t* const pr = p_s + (mt * 16 + g) * kPStride + koff + n * 8 + c * 2;
+        *reinterpret_cast<uint32_t*>(pr) = pack_bf16(s[mt][n][0], s[mt][n][1]);
+        *reinterpret_cast<uint32_t*>(pr + 8 * kPStride) = pack_bf16(s[mt][n][2], s[mt][n][3]);
+      }
+    }
+    __syncthreads();   // p of the whole stage
+
+    // ---- o += p v: this warp's chunks of o over the stage's kBN keys ----
+    if (has_o) {
+      const float a0 = pick(alpha, 0), a1 = pick(alpha, 1);
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          acc[u][n][0] *= a0; acc[u][n][1] *= a0;
+          acc[u][n][2] *= a1; acc[u][n][3] *= a1;
+        }
+      uint32_t pa[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk)
+        ldsm_x4(pa[kk], p_s + (mtw * 16 + (mi & 1) * 8 + r8) * kPStride + kk * 16 + (mi >> 1) * 8);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int gu = warp * kU + u;
+        if (gu >= kMT * kC) break;
+        const int col = (gu % kC) * 16;
+#pragma unroll
+        for (int kk = 0; kk < kBN / 16; ++kk) {
+          uint32_t vb[4];   // b0, b1 of the chunk's two n-tiles
+          ldsm_x4_trans(vb, vs + (kk * 16 + (mi & 1) * 8 + r8) * kStride + col + (mi >> 1) * 8);
+          mma_bf16(acc[u][0], pa[kk], vb[0], vb[1]);
+          mma_bf16(acc[u][1], pa[kk], vb[2], vb[3]);
         }
       }
-#pragma unroll
-      for (int n = 0; n < kD / 8; ++n) {
-        oacc[n][0] *= alpha[0]; oacc[n][1] *= alpha[0];
-        oacc[n][2] *= alpha[1]; oacc[n][3] *= alpha[1];
-      }
+    }
+  }
+  cp_async_wait<0>();   // the empty groups of the ring's tail
 
-      // ---- o += p v: p from the s fragments, v by transposed ldmatrix ----
+  // ---- the row sums: over the four threads of a row, then over the warps
+  // in ascending order (no barrier before: every read of red_s in the walk
+  // came before its last barrier) ----
 #pragma unroll
-      for (int kk = 0; kk < kNT / 2; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        const uint16_t* v0 = vs + (koff + kk * 16 + (mi & 1) * 8 + r8) * kStride +
-                             (mi >> 1) * 8;
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int n = 0; n < kD / 8; n += 2) {
-          uint32_t vb[4];   // b0, b1 of n-tiles n and n + 1
-          ldsm_x4_trans(vb, v0 + n * 8);
-          mma_bf16(oacc[n], pa, vb[0], vb[1]);
-          mma_bf16(oacc[n + 1], pa, vb[2], vb[3]);
+    for (int i = 0; i < 2; ++i) {
+      l[mt][i] += __shfl_xor_sync(0xffffffffu, l[mt][i], 1);
+      l[mt][i] += __shfl_xor_sync(0xffffffffu, l[mt][i], 2);
+      if (c == 0) red_s[warp * kRows + mt * 16 + g + 8 * i] = l[mt][i];
+    }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = mt * 16 + g + 8 * i;
+      float x = red_s[r];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) x += red_s[w * kRows + r];
+      l[mt][i] = x;
+    }
+
+  // ---- out: o = acc / l and lse = m + log l (natural log), or with more
+  // than one split (acc, m, l) into the workspace ----
+  const size_t n_all = (size_t)p.B * p.T * p.H;   // rows of o
+  auto o_row = [&](int r) {   // row r of the block as a row of o (B, T, H)
+    return ((size_t)b * p.T + r % p.T) * p.H + h0 + r / p.T;
+  };
+  if (has_o) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = mtw * 16 + g + 8 * i;
+      if (r >= n_rows) continue;
+      const float inv = 1.f / fmaxf(pick(l, i), 1e-30f);
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int gu = warp * kU + u;
+        if (gu >= kMT * kC) break;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = (gu % kC) * 16 + n * 8 + c * 2;
+          if (p.n_split == 1) {
+            *reinterpret_cast<uint32_t*>(p.o + o_row(r) * kD + col) =
+                pack_bf16(acc[u][n][2 * i] * inv, acc[u][n][2 * i + 1] * inv);
+          } else {
+            *reinterpret_cast<float2*>(p.ws + ((size_t)split * n_all + o_row(r)) * kD + col) =
+                make_float2(acc[u][n][2 * i], acc[u][n][2 * i + 1]);
+          }
         }
       }
     }
-    __syncthreads();   // buffer buf is free for the tile after next
-    cur = next;
-    full = full_next;
+  }
+  if (warp == 0 && c == 0) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = mt * 16 + g + 8 * i;
+        if (r >= n_rows) continue;
+        if (p.n_split == 1) {
+          const float mn = m[mt][i] == kNegInf ? kNegInf : m[mt][i] * kLn2;
+          p.lse[((size_t)b * p.H + h0 + r / p.T) * p.T + r % p.T] =
+              mn + logf(fmaxf(l[mt][i], 1e-30f));
+        } else {
+          *reinterpret_cast<float2*>(p.ws + (size_t)p.n_split * n_all * kD +
+                                     ((size_t)split * n_all + o_row(r)) * 2) =
+              make_float2(m[mt][i], l[mt][i]);
+        }
+      }
   }
 
-  // ---- row sums over the four threads of a row ----
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-
-  // ---- merge the four warps' partial rows; warp 0 writes the result ----
-  __shared__ float ml_s[kWarps][2][16];
-  __syncthreads();   // the tiles in shared memory are no longer read
-  // warps 1..3's accumulators, [3][kD/8][4][32] floats, over the tiles
-  static_assert(3 * kD / 8 * 4 * 32 * 4 <= 4 * kBK * kStride * 2, "smem");
-  float* acc_s = reinterpret_cast<float*>(kv_s);
-  if (c == 0) {
-    ml_s[warp][0][g] = m[0];     ml_s[warp][0][g + 8] = m[1];
-    ml_s[warp][1][g] = l[0];     ml_s[warp][1][g + 8] = l[1];
-  }
-  __syncthreads();
-  float sc[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = g + 8 * i;
-    float mt = ml_s[0][0][r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mt = fmaxf(mt, ml_s[w][0][r]);
-    float lt = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) lt += ml_s[w][1][r] * exp2f(ml_s[w][0][r] - mt);
-    sc[i] = exp2f(m[i] - mt);
-    m[i] = mt;
-    l[i] = lt;
-  }
-  if (warp > 0) {
-    float* dst = acc_s + (size_t)(warp - 1) * (kD / 8) * 4 * 32;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dst[(n * 4 + e) * 32 + lane] = oacc[n][e] * sc[e >> 1];
-  }
-  __syncthreads();
-  if (warp > 0) return;
-#pragma unroll
-  for (int n = 0; n < kD / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = oacc[n][e] * sc[e >> 1];
-#pragma unroll
-      for (int w = 0; w < kWarps - 1; ++w)
-        x += acc_s[((size_t)w * (kD / 8) * 4 + n * 4 + e) * 32 + lane];
-      oacc[n][e] = x;
-    }
-
-  // ---- finalize: o = acc / l, lse = m + log l (natural log) ----
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / l[i];
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (!row_ok[i]) continue;
-    uint16_t* orow = p.o + (((size_t)b * p.T + row[i]) * p.H + h) * kD;
-#pragma unroll
-    for (int n = 0; n < kD / 8; ++n) {
-      *reinterpret_cast<uint32_t*>(orow + n * 8 + c * 2) =
-          pack_bf16(oacc[n][2 * i] * inv[i], oacc[n][2 * i + 1] * inv[i]);
-    }
-    if (c == 0) {
-      const float mn = m[i] == kNegInf ? kNegInf : m[i] * kLn2;
-      p.lse[((size_t)b * p.H + h) * p.T + row[i]] = mn + logf(l[i]);
+  // ---- with more than one split, the group's last block merges its rows:
+  // every block's partials are visible before its count (the fences), so
+  // the last to count reads them all ----
+  if (p.n_split > 1) {
+    __shared__ int last;
+    __threadfence();
+    __syncthreads();
+    int* const count = p.sem + (size_t)b * gridDim.y + blockIdx.y;
+    if (tid == 0) last = atomicAdd(count, 1) == p.n_split - 1;
+    __syncthreads();
+    if (last) {
+      __threadfence();
+      for (int r = warp; r < n_rows; r += kWarps) merge_row<kD>(p, o_row(r), lane);
+      if (tid == 0) *count = 0;   // for the workspace's next use
     }
   }
 }
@@ -907,19 +1177,38 @@ template <int kD>
 int launch_prefill(const void* q, const void* k, const void* v, void* o,
                    const Params& p, cudaStream_t stream);
 
-// K1 at head dim kD: the decode form for T <= 16, else a prefill form.
+// The decode form with kMT row tiles.
+template <int kD, int kMT>
+int launch_decode(const DecParams& p, cudaStream_t stream) {
+  using L = DecSmem<kD, kMT>;
+  const int bytes = L::kBits + 2 * 4 * p.words;
+  const int n_rg = (p.H / p.KV + p.gh - 1) / p.gh;
+  if (bytes > 232448 || (long long)p.KV * n_rg > 65535 || p.B > 65535)
+    return (int)cudaErrorInvalidValue;
+  // above 48 KB only when asked for; set per launch, as it is per device.
+  // The whole carve-out to shared memory: two blocks of about 110 KB fit
+  // on an SM
+  cudaFuncSetAttribute(mha_fwd_decode_kernel<kD, kMT>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncSetAttribute(mha_fwd_decode_kernel<kD, kMT>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  mha_fwd_decode_kernel<kD, kMT><<<dim3(p.n_split, p.KV * n_rg, p.B), kThreads,
+                                   bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// K1 at head dim kD: the decode form for T <= 16 (one row tile where the
+// block's gh · T rows fit in 16), else a prefill form.
 template <int kD>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const Params& p, cudaStream_t stream) {
+           const DecParams& p, cudaStream_t stream) {
   if (p.T <= 16) {
-    // at D 256 q's 16 rows are kept in shared memory too
-    constexpr int kBytes = 4 * kBK * (kD + 8) * 2 + 4 * kBK * 4 +
-                           (kD > 128 ? 16 * (kD + 8) * 2 : 0);
-    // above 48 KB only when asked for; set per launch, as it is per device
-    cudaFuncSetAttribute(mha_fwd_decode_kernel<kD>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
-    mha_fwd_decode_kernel<kD><<<dim3(1, p.H, p.B), kThreads, kBytes, stream>>>(p);
-    return (int)cudaGetLastError();
+    if (p.gh <= 0 || p.gh > p.H / p.KV || p.gh * p.T > 16 * dec_max_mt<kD>() ||
+        p.n_split <= 0 || (p.n_split > 1 && p.ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    return p.gh * p.T <= 16 ? launch_decode<kD, 1>(p, stream)
+                            : launch_decode<kD, dec_max_mt<kD>()>(p, stream);
   }
   return launch_prefill<kD>(q, k, v, o, p, stream);
 }
@@ -962,19 +1251,29 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
 // D in {16, 32, 64, 128, 256}; positions and segment ids: int32 (B,T) / (B,S),
 // segment ids both null or both set; lse: fp32 (B,H,T). sm_scale multiplies
 // q k^T: 1/sqrt(D), or 1/sqrt of the caller's own head dim where it padded
-// q, k and v with zero columns up to D. Launches on `stream` the decode
-// form for T <= 16, else the prefill form, and returns a CUDA error code
-// (0: launched).
+// q, k and v with zero columns up to D. For T <= 16 (the decode form),
+// n_split splits of the live key tiles and gh q heads per block (gh · T at
+// most 64 rows, 32 at D 256), and with n_split > 1 a workspace `ws` of
+// ws_numel >= n_split · B · T · H · (D + 2) fp32 elements and then B · KV ·
+// ceil(H / KV / gh) zeroed int32 counters, which the kernel leaves at zero;
+// the prefill form reads none of the three. Launches on `stream` the
+// decode form for T <= 16, else the prefill form, and returns a CUDA error
+// code (0: launched).
 extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
                             const void* qpos, const void* kpos,
                             const void* qseg, const void* kseg,
-                            void* o, void* lse,
+                            void* o, void* lse, void* ws,
                             int B, int T, int S, int H, int KV, int D,
                             int causal, int window, float softcap,
-                            float sm_scale, void* stream) {
+                            float sm_scale, int n_split, int gh,
+                            long long ws_numel, void* stream) {
   if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
-  Params p;
+  const long long partials = (long long)n_split * B * T * H * (D + 2);
+  if (T <= 16 && n_split > 1 &&
+      (gh <= 0 || ws_numel < partials + (long long)B * KV * ((H / KV + gh - 1) / gh)))
+    return (int)cudaErrorInvalidValue;
+  DecParams p;
   p.q = static_cast<const uint16_t*>(q);
   p.k = static_cast<const uint16_t*>(k);
   p.v = static_cast<const uint16_t*>(v);
@@ -987,6 +1286,10 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
   p.B = B; p.T = T; p.S = S; p.H = H; p.KV = KV;
   p.causal = causal; p.window = window; p.softcap = softcap;
   p.sm_scale = sm_scale;
+  p.n_split = n_split; p.gh = gh;
+  p.words = ((S + kBK - 1) / kBK + 31) / 32;
+  p.ws = static_cast<float*>(ws);
+  p.sem = ws == nullptr ? nullptr : reinterpret_cast<int*>(p.ws + partials);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, o, p, st);
@@ -1007,6 +1310,29 @@ extern "C" int mha_fwd_prefill_smem(int D) {
     case 64: return Smem<64>::kBytes;
     case 128: return Smem<128>::kBytes;
     case 256: return Smem<256>::kBytes;
+    default: return 0;
+  }
+}
+
+// The dynamic shared memory of the decode form at head dim D for blocks of
+// `rows` query rows (G·T), before the tiles' bits (8 bytes per 32 key
+// tiles), in bytes, or 0 for a head dim it does not take or more rows than
+// a block takes (64, 32 at D 256).
+template <int kD>
+int decode_smem(int rows) {
+  return rows <= 0 ? 0
+       : rows <= 16 ? DecSmem<kD, 1>::kBits
+       : rows <= 16 * dec_max_mt<kD>() ? DecSmem<kD, dec_max_mt<kD>()>::kBits
+       : 0;
+}
+
+extern "C" int mha_fwd_decode_smem(int D, int rows) {
+  switch (D) {
+    case 16: return decode_smem<16>(rows);
+    case 32: return decode_smem<32>(rows);
+    case 64: return decode_smem<64>(rows);
+    case 128: return decode_smem<128>(rows);
+    case 256: return decode_smem<256>(rows);
     default: return 0;
   }
 }

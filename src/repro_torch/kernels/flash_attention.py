@@ -8,7 +8,16 @@ tensor they run :func:`mha_forward_plain` and :func:`mha_backward_plain`,
 which materialise the whole score matrix. There is no fallback from one to
 the other.
 
-- K1, the forward, is ``csrc/flash_fwd.cu``.
+- K1, the forward, is ``csrc/flash_fwd.cu``. For T ≤ ``DECODE_MAX_T`` it
+  takes its decode form: one block per (cache split, KV head, batch row)
+  over the GQA group's rows. :func:`decode_plan` picks the number of
+  splits on the host from the shapes and the SM count; with more than one,
+  the wrapper allocates a zeroed fp32 workspace for the splits' partial
+  ``(acc, m, l)`` and int32 counters, by which the last block of each
+  group merges them in ascending split order.
+  :func:`decode_live_tiles`, :func:`decode_split_tiles`,
+  :func:`decode_partial_plain` and :func:`decode_merge_plain` are that
+  split and merge in plain PyTorch, for the tests.
 - The backward is one kernel in ``csrc/flash_bwd.cu``. It replaces both of
   the reference's backward passes: K2 (dq) and K3 (dk, dv). One launch
   computes dq, dk and dv in a single pass over the live (query tile, key
@@ -43,6 +52,7 @@ through the backward kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -54,6 +64,8 @@ from repro_torch.kernels import ref as _ref
 NEG_INF = -1e30
 
 HEAD_DIMS = (16, 32, 64, 128, 256)    # the kernels' instantiations
+DECODE_MAX_T = 16  # K1 takes its decode form up to this many query rows
+DECODE_TILE = 64   # keys per live tile of K1's decode form (its kBK)
 BWD_QTILE = 64    # query rows per tile of the backward kernel (its kBQ)
 # keys the backward kernel takes: its table of key-tile statistics holds
 # kMaxKeyTiles = 512 tiles of 128
@@ -136,6 +148,125 @@ def live_block_mask(q_positions, kv_positions,
         (k_pmin[:, None, :], k_pmax[:, None, :]),
         qseg, kseg, causal, window)
     return np.broadcast_to(np.asarray(live), (b, nq, nk))
+
+
+# ----------------------------------------------------------------------
+# K1's decode form: the split plan on the host, and the split and merge in
+# plain PyTorch (for the tests; the kernel finds its tiles on the card)
+# ----------------------------------------------------------------------
+def decode_plan(b: int, t: int, h: int, kv: int, s: int, d: int,
+                n_sm: int) -> tuple[int, int]:
+    """``(heads_per_block, n_split)`` of K1's decode form at kernel head
+    dim ``d``: a pure function of the shapes and the SM count.
+
+    A block takes ``heads_per_block`` q heads of a GQA group, all T
+    positions each: the whole group where its G·T rows fit in 64 (32 at
+    D 256), else as many heads as fit. The live key tiles of a batch row
+    are cut into ``n_split`` splits, enough to put about two blocks on
+    every SM, and never more than half the row's ``DECODE_TILE``-key tiles.
+    """
+    g = h // kv
+    cap = 32 if d > 128 else 64
+    gh = g if g * t <= cap else max(1, cap // t)
+    blocks = b * kv * -(-g // gh)
+    n_split = max(1, min(2 * n_sm // blocks, -(-s // DECODE_TILE) // 2))
+    return gh, n_split
+
+
+def decode_workspace_numel(n_split: int, b: int, t: int, h: int, kv: int,
+                           d: int, heads_per_block: int) -> int:
+    """Elements of the decode form's fp32 workspace, 0 with one split: each
+    split's acc (B, T, H, d) and then its (m, l) per row, then one int32
+    counter per (batch row, KV head and row group), which must be zero
+    (the kernel leaves them so)."""
+    groups = b * kv * -(-(h // kv) // heads_per_block)
+    return 0 if n_split == 1 else n_split * b * t * h * (d + 2) + groups
+
+
+def decode_live_tiles(q_positions, kv_positions, q_segment_ids=None,
+                      kv_segment_ids=None, *, causal: bool,
+                      window: int = 0) -> np.ndarray:
+    """(B, n_tiles) bool: the ``DECODE_TILE``-key tiles the decode form
+    visits for each batch row, its T query rows one tile: ``_live_terms``
+    on each tile's min/max over its keys (the last tile's keys up to S)."""
+    qp = np.asarray(q_positions).astype(np.int64)
+    kp = np.asarray(kv_positions).astype(np.int64)
+    b, s = kp.shape
+    n = -(-s // DECODE_TILE)
+
+    def key_mm(x):   # (B, n) min and max over each tile's keys
+        lo = np.full((b, n * DECODE_TILE), np.iinfo(np.int64).max)
+        hi = np.full((b, n * DECODE_TILE), np.iinfo(np.int64).min)
+        lo[:, :s], hi[:, :s] = x, x
+        return (lo.reshape(b, n, DECODE_TILE).min(2),
+                hi.reshape(b, n, DECODE_TILE).max(2))
+
+    qseg = kseg = None
+    if q_segment_ids is not None:
+        qs = np.asarray(q_segment_ids).astype(np.int64)
+        qseg = (qs.min(1)[:, None], qs.max(1)[:, None])
+        kseg = key_mm(np.asarray(kv_segment_ids).astype(np.int64))
+    live = _live_terms((qp.min(1)[:, None], qp.max(1)[:, None]), key_mm(kp),
+                       qseg, kseg, causal, window)
+    return np.broadcast_to(np.asarray(live), (b, n)).copy()
+
+
+def decode_split_tiles(live, n_split: int) -> list[list[np.ndarray]]:
+    """``tiles[j][b]``: the tile indices split ``j`` takes in batch row
+    ``b``, as the kernel cuts them: the row's live tiles in ascending
+    order, ranks ``[n · j // n_split, n · (j + 1) // n_split)`` of its
+    ``n`` live tiles."""
+    rows = [np.flatnonzero(r) for r in np.asarray(live)]
+    return [[r[len(r) * j // n_split:len(r) * (j + 1) // n_split]
+             for r in rows] for j in range(n_split)]
+
+
+def decode_partial_plain(q, k, v, q_positions, kv_positions,
+                         q_segment_ids, kv_segment_ids, tiles, *, causal,
+                         window=0, softcap=None):
+    """One split's partial over the keys of ``tiles[b]`` (tile indices
+    per batch row), in fp32: ``(acc, m, l)`` with acc (B, T, H, D) = Σ
+    exp(s - m) v over the split's visible keys, m (B, H, T) their max
+    score (NEG_INF where the split sees none) and l (B, H, T) = Σ exp(s - m)."""
+    b, t, h, d = q.shape
+    s = k.shape[1]
+    group = h // k.shape[2]
+    in_split = torch.zeros((b, s), dtype=torch.bool)
+    for r, ts in enumerate(tiles):
+        for tile in ts:
+            in_split[r, tile * DECODE_TILE:(tile + 1) * DECODE_TILE] = True
+    kf = _ref._repeat_kv(k, group).float()
+    vf = _ref._repeat_kv(v, group).float()
+    sc = torch.einsum("bthd,bshd->bhts", q.float(), kf) / math.sqrt(d)
+    if softcap is not None:
+        sc = softcap * torch.tanh(sc / softcap)
+    vis = in_split[:, None, None, :]
+    mask = _element_mask(q_positions, kv_positions, q_segment_ids,
+                         kv_segment_ids, causal, window)
+    if mask is not None:
+        vis = vis & mask
+    sc = torch.where(vis, sc, NEG_INF)
+    m = sc.amax(-1)
+    p = torch.where(vis, torch.exp(sc - m[..., None]), 0.0)
+    acc = torch.einsum("bhts,bshd->bthd", p, vf)
+    return acc, m, p.sum(-1)
+
+
+def decode_merge_plain(parts, dtype=torch.bfloat16):
+    """``(o, lse)`` from the splits' partials ``[(acc, m, l), ...]`` in
+    ascending split order: m = max m_j, l = Σ l_j exp(m_j - m), o = Σ acc_j
+    exp(m_j - m) / l, lse = m + log l (l at least 1e-30, so a row no split
+    sees gives o = 0 and the -1e30 sentinel)."""
+    m = torch.stack([p[1] for p in parts]).amax(0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(m)
+    for a, mj, lj in parts:
+        w = torch.exp(mj - m)
+        l = l + w * lj
+        acc = acc + a * w.permute(0, 2, 1)[..., None]
+    l = l.clamp_min(1e-30)
+    o = acc / l.permute(0, 2, 1)[..., None]
+    return o.to(dtype), m + torch.log(l)
 
 
 # ----------------------------------------------------------------------
@@ -294,6 +425,40 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
+                    kv_segment_ids, o, lse, ws, *, causal, window, softcap,
+                    sm_scale, n_split=1, heads_per_block=0):
+    """K1 alone, on checked tensors at one of ``HEAD_DIMS``: for T ≤
+    ``DECODE_MAX_T`` the decode form with ``n_split`` splits and
+    ``heads_per_block`` (from :func:`decode_plan`) and, with more than one
+    split, ``ws``: fp32, contiguous, of exactly
+    :func:`decode_workspace_numel` elements, its counters zero; raises on
+    any other."""
+    from repro_torch.kernels import _build
+    b, t, h, d = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    need = (decode_workspace_numel(n_split, b, t, h, kvh, d, heads_per_block)
+            if t <= DECODE_MAX_T else 0)
+    if need and (ws is None or ws.dtype != torch.float32 or ws.numel() != need
+                 or ws.device != q.device or not ws.is_contiguous()):
+        raise ValueError(
+            f"the decode form's workspace must be contiguous fp32 of {need} "
+            f"elements on {q.device}, got "
+            + ("none" if ws is None else f"{ws.dtype} {ws.numel()}"))
+    _build.launch(_build.library("flash_fwd").mha_fwd_bf16,
+            _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
+            _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
+            _ptr(ws) if need else None, b, t, s, h, kvh, d, int(causal),
+            int(window), float(softcap or 0.0), float(sm_scale), n_split,
+            heads_per_block, need, device=q.device)
+
+
 def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
                       q_segment_ids, kv_segment_ids, *,
                       causal, window, softcap):
@@ -304,14 +469,18 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     kd = q.shape[-1]
     _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
                                         q_segment_ids, kv_segment_ids))
-    lib = _build.library("flash_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    _build.launch(lib.mha_fwd_bf16,
-            _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
-            _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
-            b, t, s, h, kvh, kd, int(causal), int(window),
-            float(softcap or 0.0), sm_scale, device=q.device)
+    gh, n_split, ws = 0, 1, None
+    if t <= DECODE_MAX_T:
+        gh, n_split = decode_plan(b, t, h, kvh, s, kd, sm_count(q.device))
+        if n_split > 1:   # one allocation and one fill: the counters zeroed
+            ws = torch.zeros(decode_workspace_numel(n_split, b, t, h, kvh, kd, gh),
+                             dtype=torch.float32, device=q.device)
+    _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
+                    kv_segment_ids, o, lse, ws, causal=causal, window=window,
+                    softcap=softcap, sm_scale=sm_scale, n_split=n_split,
+                    heads_per_block=gh)
     _build.count_launch(LAUNCHES, "mha_forward")
     return (o if kd == d else o[..., :d].contiguous()), lse
 

@@ -129,6 +129,108 @@ def test_kernel_segmented_with_fully_masked_rows(cuda):
     assert (o[dead] == 0).all() and (lse.permute(0, 2, 1)[dead] < -1e29).all()
 
 
+# K1's decode form (T <= 16): one block per (cache split, KV head, batch
+# row) over the GQA group's G x T rows, the splits merged in a fixed order.
+# variant: (b, s, opts, segmented); query positions: row r's T queries end
+# at s - 1 - 517 r
+DECODE_VARIANTS = {
+    "causal": (2, 2056, dict(causal=True), False),
+    "window": (2, 2056, dict(causal=True, window=700), False),
+    "softcap": (2, 2056, dict(causal=True, softcap=50.0), False),
+    # row 0 a sample over keys [0, 1400) whose first two query rows are
+    # padding (they see no key), row 1 all padding, row 2 one sample
+    "segmented": (3, 2056, dict(causal=True), True),
+    # past the 32768 keys of 512 tile statistics: 20 words of tile bits
+    "keys-40960": (1, 40960, dict(causal=True), False),
+}
+
+
+def _decode_inputs(dev, variant, g, t, d, kv=2, seed=5):
+    b, s, opts, segmented = DECODE_VARIANTS[variant]
+    q, k, v, _, kp = _inputs(dev, b, t, s, g * kv, kv, d, seed=seed)
+    last = torch.tensor([s - 1 - 517 * r for r in range(b)], device=dev)
+    qp = (last[:, None] - t + 1 + torch.arange(t, device=dev)).to(torch.int32)
+    qs = ks = None
+    if segmented:
+        qs = torch.zeros((b, t), dtype=torch.int32, device=dev)
+        ks = torch.zeros((b, s), dtype=torch.int32, device=dev)
+        ks[0, 1400:] = -1
+        qp[0] = torch.arange(1400 - t, 1400, device=dev)
+        qs[0, :min(2, t)] = -1
+        qs[1] = -1
+    return (q, k, v, qp.contiguous(), kp, qs, ks), opts
+
+
+def _check_decode(args, opts):
+    """K1 once (one counted launch) against the plain version, then again
+    equal to the bit; rows of padding give o = 0 and the lse sentinel."""
+    ops.reset_launch_counts()
+    o, lse = fa.mha_forward(*args, **opts)
+    assert ops.launch_counts()["mha_forward"] == 1
+    o_ref, lse_ref = fa.mha_forward_plain(*args, **opts)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    torch.testing.assert_close(lse, lse_ref, atol=TOL, rtol=TOL)
+    again = fa.mha_forward(*args, **opts)
+    assert ops.launch_counts()["mha_forward"] == 2
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    qs = args[5]
+    if qs is not None:
+        dead = qs < 0
+        assert (o[dead] == 0).all()
+        assert (lse.permute(0, 2, 1)[dead] < -1e29).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("g", [1, 2, 3, 5, 7])
+def test_decode_form_matches_plain_version(cuda, g, t, d):
+    # G 7 x T 16 = 112 rows: two row groups (one at D 256 would be 32 rows)
+    args, opts = _decode_inputs(cuda, "causal", g, t, d)
+    _check_decode(args, opts)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("t", [1, 16])
+@pytest.mark.parametrize("variant", ["window", "softcap", "segmented",
+                                     "keys-40960"])
+def test_decode_form_variants_match_plain_version(cuda, variant, t, d):
+    g = {"window": 2, "softcap": 7, "segmented": 3, "keys-40960": 5}[variant]
+    args, opts = _decode_inputs(cuda, variant, g, t, d)
+    _check_decode(args, opts)
+
+
+def test_decode_form_refuses_a_workspace_of_another_size(cuda):
+    args, opts = _decode_inputs(cuda, "causal", 2, 1, 128)
+    q, k = args[0], args[1]
+    b, t, h, d = q.shape
+    gh, n_split = fa.decode_plan(b, t, h, k.shape[2], k.shape[1], d,
+                                 fa.sm_count(q.device))
+    assert n_split > 1
+    need = fa.decode_workspace_numel(n_split, b, t, h, k.shape[2], d, gh)
+    o, lse = torch.empty_like(q), torch.empty((b, h, t), device=cuda)
+    for ws in (torch.zeros(need - 1, device=cuda), None,
+               torch.zeros(need, device=cuda, dtype=torch.float64)):
+        with pytest.raises(ValueError, match="workspace"):
+            fa._launch_forward(*args, o, lse, ws, **opts, window=0,
+                               softcap=None, sm_scale=fa.softmax_scale(d),
+                               n_split=n_split, heads_per_block=gh)
+    # the counters zeroed once: the kernel leaves them at zero, so the
+    # workspace serves a second launch, which repeats the first to the bit
+    ws = torch.zeros(need, device=cuda)
+    outs = []
+    for _ in range(2):
+        o, lse = torch.empty_like(q), torch.empty((b, h, t), device=cuda)
+        fa._launch_forward(*args, o, lse, ws, **opts, window=0, softcap=None,
+                           sm_scale=fa.softmax_scale(d), n_split=n_split,
+                           heads_per_block=gh)
+        outs.append((o, lse))
+    o_ref, _ = fa.mha_forward_plain(*args, **opts)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    counters = ws[n_split * b * t * h * (d + 2):].view(torch.int32)
+    assert counters.numel() == b * k.shape[2] and (counters == 0).all()
+
+
 def test_kernel_refuses_a_gradient(cuda):
     # a gradient the kernels cannot take (fp32) raises; it never falls back
     # to the plain backward
@@ -293,6 +395,15 @@ def test_shared_memory_of_the_kernel_forms(cuda):
     assert {d: bwd(d) for d in fa.HEAD_DIMS} == {
         16: 52360, 32: 76936, 64: 126088, 128: 224392, 256: 231608}
     assert fwd(80) == bwd(80) == fwd(512) == bwd(512) == 0
+    # the decode form: one row tile, and the most a block takes (64 rows, 32
+    # at D 256), each near 110 KB or under at one row tile, so that two
+    # blocks fit on an SM
+    dec = _build.library("flash_fwd").mha_fwd_decode_smem
+    assert {d: dec(d, 16) for d in fa.HEAD_DIMS} == {
+        16: 22528, 32: 34816, 64: 59392, 128: 108544, 256: 103680}
+    assert {d: dec(d, 64 if d <= 128 else 32) for d in fa.HEAD_DIMS} == {
+        16: 30208, 32: 42496, 64: 67072, 128: 133632, 256: 122112}
+    assert dec(256, 33) == dec(128, 65) == dec(80, 1) == 0
 
 
 # gemma2-2b's attention options (softcap 50, a GQA group of 2) at head dim
