@@ -2,7 +2,7 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # fault, moe, frames, mixed, gemma2
+                            # fault, cluster, moe, frames, mixed, gemma2
     python3 chip_smoke.py --phases kernel,gemma2  # head dim 256 and gemma2-2b
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
@@ -131,7 +131,23 @@ Phases, each printing its own lines; any failure exits non-zero:
              each save's seconds (device synchronise, device to host, CRC,
              write), each load's, recovery_s, strict verification's time
              per plan, peak memory and both runs' launches;
-9. moe     — granite-moe-3b-a800m at full width (40 experts x 512, top-8):
+9. cluster — the process fault domain (``repro_torch.dist.cluster``): two
+             replica processes, each with its own CUDA context, train
+             gpt-paper at full width with 2 layers on the one card, one
+             stage each, 3 iterations of the train phase's stream,
+             gradients over localhost TCP, a checkpoint every 2 under
+             build/ (removed after); run A fault-free must equal the
+             in-process runner at dp 2 to the bit (losses, grad norms,
+             every parameter) with the same launches; run B's coordinator
+             gets a real SIGKILL at iteration 2: a verified dead pid, an
+             election, a restore, no orphans, and the in-process runner on
+             B's plans (dp 2 to the restored step, dp 1 from its
+             checkpoint) equal to the bit; prints each iteration's trip of
+             the gradients over the wire, each run's wall time and real
+             tokens/s beside the in-process runner's, the time from the
+             kill to the new epoch's first iteration, each worker's peak
+             memory and the workers' launches;
+10. moe    — granite-moe-3b-a800m at full width (40 experts x 512, top-8):
              served at full depth (32 layers) with the serve phase's
              requests, K1 launched exactly layers x (batches + batches x
              decode steps) times; trained at 16 layers on the train phase's
@@ -145,18 +161,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              iteration's loss and gradient leaves within GRAD_TOL and
              GRAD_REL_TOL, each of which must fail a planted fault, every
              token's second expert dropped;
-10. frames — hubert-xlarge at full width and depth (48 layers, 16 heads x
+11. frames — hubert-xlarge at full width and depth (48 layers, 16 heads x
              80): 4 AdamW steps of ``build_grad_step`` on seeded (4, 4096)
              frame batches (spans of 10 masked frames from starts drawn at
              8%, the loss on the masked frames), exact launches of K1 and
              the backward at head dim 80, then the encoder forward
              (prefill) at the same shape; at 2 layers the gradient leaves
              against the plain versions, which must fail a zero dq;
-11. mixed  — llava-next-34b at full width, 16 of 60 layers: 4 rows of 2880
+12. mixed  — llava-next-34b at full width, 16 of 60 layers: 4 rows of 2880
              seeded patch embeddings and 512 text tokens prefilled, 8
              greedy decode steps, exact K1 launches, finite logits; at 2
              layers the logits against the plain attention;
-12. gemma2 — gemma2-2b at full width (26 layers, d_model 2304, 8 q and 4
+13. gemma2 — gemma2-2b at full width (26 layers, d_model 2304, 8 q and 4
              kv heads x 256, a 4096-token window on every other layer,
              softcaps 50 and 30), its attention on the head-dim-256
              kernels: served at full depth with the serve phase's requests
@@ -170,7 +186,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              the bit, and at 2 layers every gradient leaf against the
              plain versions (GRAD_TOL, GRAD_REL_TOL, which must fail a zero
              dq);
-13. profile — (not run by default; ``profile-models`` the same for the
+14. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
              step and encoder forward, llava-next's prefill and decode;
@@ -277,6 +293,20 @@ T5_PALETTE = dict(min_seq=64, max_seq=512, seq_align=64, max_mbs=16)
 # a checkpoint every 3; a lost plan costs the plan timeout
 FAULT_LAYERS, FAULT_STAGES, FAULT_ITERS, FAULT_CKPT_EVERY = 2, 2, 6, 3
 FAULT_PLAN_TIMEOUT = 3.0
+# the cluster phase: gpt-paper at full width, the fault phase's 2 layers
+# (two replicas' training state, 11.4 GB each, share the card), one stage
+# per replica (the sequential path, as the reference's cluster runs), the
+# train phase's stream and palette; 2 replica processes, 3 iterations, a
+# checkpoint every 2 and at the end; run B's coordinator is killed at
+# iteration 2
+CLUSTER_REPLICAS, CLUSTER_ITERS, CLUSTER_CKPT_EVERY, CLUSTER_KILL_AT = \
+    2, 3, 2, 2
+# a gradient tree of 1.6 GB on the wire and a checkpoint of 11.4 GB hold a
+# replica's process for seconds: socket EOF tells a death, and the
+# heartbeats' timeout is long, so that a busy replica is never taken for a
+# dead one
+CLUSTER_TIMEOUTS = dict(heartbeat_timeout_s=60.0, result_timeout_s=600.0,
+                        run_timeout_s=900.0)
 # the moe phase: granite-moe-3b-a800m at full width (32 layers, d_model
 # 1536, 24 q and 8 kv heads x 64, 40 experts x 512 top-8, 3.30 B
 # parameters), served at full depth with the serve phase's requests;
@@ -2125,7 +2155,250 @@ def phase_fault(torch, card):
 
 
 # ----------------------------------------------------------------------
-# phase 9: MoE, granite-moe served at full width and depth and trained at
+# phase 9: the process fault domain, two replica processes on the card
+# ----------------------------------------------------------------------
+def _cluster_setup(torch, dp_size, n_iters, ckpt_dir, fault_domain,
+                   ckpt_every=CLUSTER_CKPT_EVERY):
+    """The cluster phase's configuration: (cfg, stream, cost, pcfg, rcfg).
+    The drift tolerance is out of reach: two processes on one card drift,
+    and measured speed factors would re-shape plans the in-process oracle
+    does not see."""
+    import dataclasses
+    from repro_torch.train.runner import RunnerConfig
+    cfg, stream, cost, pcfg = _train_setup(torch, FAULT_LAYERS, 1)
+    pcfg = dataclasses.replace(pcfg, dp_size=dp_size)
+    rcfg = RunnerConfig(n_iters=n_iters, use_executor=False, seed=0,
+                        log_every=0, device="cuda", ckpt_dir=str(ckpt_dir),
+                        ckpt_every=ckpt_every, drift_tolerance=1e9,
+                        fault_domain=fault_domain)
+    return cfg, stream, cost, pcfg, rcfg
+
+
+def _last_lines(hist) -> dict:
+    """iter -> its last logged line (a replay logs an iteration again)."""
+    return {h["iter"]: h for h in hist}
+
+
+def _host_params(torch, params):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda x: x.cpu(), params)
+
+
+def phase_cluster(torch, card):
+    """gpt-paper at full width, 2 layers, two replica processes sharing
+    the card (one CUDA context each, gradients over localhost TCP):
+    run A fault-free, run B with its coordinator SIGKILLed at iteration
+    2. A must equal the in-process runner (dp 2) to the bit; B must elect
+    a new coordinator, restore, and equal the in-process runner on its
+    plans (dp 2 up to its restored step, then dp 1 from that step's
+    checkpoint) to the bit. Prints each run's time and real tokens/s,
+    the gradients' trip over the wire, the time to recover, each worker's
+    peak memory and the workers' launches, which it returns."""
+    import shutil
+    from repro_torch.dist import cluster as CL
+    from repro_torch.dist.chaos import FaultEvent, FaultKind, FaultSchedule
+    from repro_torch.kernels import ops
+    from repro_torch.train import checkpoint as CKPT
+    from repro_torch.train.runner import PlanAheadRunner
+    from repro_torch.tree import flatten
+
+    on = f"({card})"
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "cluster"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        cfg, _, _, _, _ = _cluster_setup(torch, 2, 1, "", "thread")
+        est = 14 * cfg.n_params()
+        free = shutil.disk_usage(root).free
+        print(f"[cluster] {cfg.name} {cfg.n_layers} layers "
+              f"({cfg.n_params() / 1e9:.3f} B params), {CLUSTER_REPLICAS} "
+              f"replica processes on one card, {CLUSTER_ITERS} iterations, a "
+              f"checkpoint every {CLUSTER_CKPT_EVERY} (about {est / 1e9:.1f} "
+              f"GB each; free disk under build/ {free / 1e9:.1f} GB); "
+              f"ClusterConfig {CLUSTER_TIMEOUTS} {on}", flush=True)
+        check(free > 2.1 * est, f"the cluster phase needs about "
+              f"{2.1 * est / 1e9:.1f} GB of disk under build/ (two steps "
+              f"kept), {free / 1e9:.1f} GB free")
+
+        runs = {}
+        chaos = FaultSchedule([FaultEvent(CLUSTER_KILL_AT,
+                                          FaultKind.KILL_PROCESS,
+                                          target="coordinator")])
+        for name in ("A", "B"):
+            rundir = root / name
+            cfg, stream, cost, pcfg, rcfg = _cluster_setup(
+                torch, CLUSTER_REPLICAS, CLUSTER_ITERS, rundir / "ckpt",
+                "process")
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            params, hist, stats = CL.run_process_cluster(
+                cfg, cost, pcfg, rcfg, stream,
+                chaos=chaos if name == "B" else None,
+                ccfg=CL.ClusterConfig(n_replicas=CLUSTER_REPLICAS,
+                                      rundir=str(rundir), **CLUSTER_TIMEOUTS))
+            took = time.perf_counter() - t0
+            events = CL._read_jsonl(rundir / CL.EVENTS_FILE)
+            cl = stats.cluster
+            check(cl["completed"], f"run {name} did not complete: "
+                  + CL._tail_logs(rundir, CLUSTER_REPLICAS))
+            check(params is not None, f"run {name} left no checkpoint")
+            runs[name] = dict(params=_host_params(torch, params), hist=hist,
+                              cl=cl, events=events, took=took)
+            del params
+            shutil.rmtree(rundir, ignore_errors=True)
+            check(not cl["orphans"] and not cl["tmp_dirs_left"],
+                  f"run {name}: orphans {cl['orphans']}, tmp dirs "
+                  f"{cl['tmp_dirs_left']}")
+
+        # the in-process oracle, after the workers exited: dp 2 over the
+        # same plans, its checkpoint at step 2
+        gc.collect()
+        torch.cuda.empty_cache()
+        ops.reset_launch_counts()
+        cfg, stream, cost, pcfg, rcfg = _cluster_setup(
+            torch, CLUSTER_REPLICAS, CLUSTER_ITERS, root / "oracle",
+            "thread")
+        t0 = time.perf_counter()
+        params, ohist, ostats = PlanAheadRunner(cfg, cost, pcfg, rcfg,
+                                                stream).run()
+        otook = time.perf_counter() - t0
+        ocounts = ops.launch_counts()
+        oparams = _host_params(torch, params)
+        del params
+
+        def same(params_a, params_b):
+            return all(bool(torch.equal(x, y)) for (_, x), (_, y) in zip(
+                flatten(params_a), flatten(params_b)))
+
+        def loss_norms(hist):
+            return {i: (h["loss"], h["grad_norm"])
+                    for i, h in _last_lines(hist).items()}
+
+        def steady(hist, exclude_save):
+            lines = [h for i, h in sorted(_last_lines(hist).items()) if i]
+            secs = sum(h["time_s"] - (h.get("save_s", 0.0)
+                                      if exclude_save else 0.0)
+                       for h in lines)
+            return sum(h["tokens"] for h in lines) / secs
+
+        a, b = runs["A"], runs["B"]
+        for name, r in runs.items():
+            for i, h in sorted(_last_lines(r["hist"]).items()):
+                w = h["wire"]
+                print(f"[cluster] {name} iter {i} (epoch {h['epoch']}, dp "
+                      f"{h['dp_size']}): {h['time_s']:.3f}s (save "
+                      f"{h['save_s']:.3f}s), loss {h['loss']:.4f}, grad norm "
+                      f"{h['grad_norm']:.4f}, {h['n_micro']} micro-batches; "
+                      f"wire: {w['bytes'] / 1e9:.3f} GB of replica "
+                      f"gradients, device to host into the frame "
+                      f"{w['to_bytes_s']:.3f}s, socket {w['socket_s']:.3f}s, "
+                      f"decode and merge {w['merge_s']:.3f}s, broadcast of "
+                      f"{w['bcast_bytes'] / 1e9:.3f} GB {w['bcast_s']:.3f}s, "
+                      f"host to device {w['h2d_s']:.3f}s {on}", flush=True)
+            peaks = {rk: wk["peak_bytes"] / 2**30
+                     for rk, wk in r["cl"]["workers"].items()}
+            print(f"[cluster] run {name}: {r['took']:.1f}s wall (spawn, "
+                  f"init, {len(r['hist'])} logged iterations, saves and the "
+                  f"final load); real tokens/s after the first iteration "
+                  f"{steady(r['hist'], False):.1f} with the saves, "
+                  f"{steady(r['hist'], True):.1f} without; workers' peak "
+                  f"memory {', '.join(f'rank {k} {v:.1f} GiB' for k, v in sorted(peaks.items()))}; "
+                  f"workers' launches {r['cl']['launches']} {on}",
+                  flush=True)
+        print(f"[cluster] in-process runner (dp 2, one process): {otook:.1f}s "
+              f"wall; real tokens/s after the first iteration "
+              f"{steady(ohist, False):.1f}; launches {ocounts} {on}",
+              flush=True)
+
+        # A against the in-process runner, to the bit
+        check([e["kind"] for e in a["events"] if e["kind"] in (
+            "membership", "replica_lost", "election")] ==
+            ["election", "membership"],
+            f"run A changed membership after the bootstrap: {a['events']}")
+        same_a = (loss_norms(a["hist"]) == loss_norms(ohist)
+                  and same(a["params"], oparams))
+        n_a = sum(h["n_micro"] for h in _last_lines(a["hist"]).values())
+        expected = {"mha_forward": 2 * cfg.n_layers * n_a,
+                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0}
+        print(f"[cluster] A against the in-process runner: losses, grad "
+              f"norms and every parameter equal to the bit: "
+              f"{'yes' if same_a else 'NO'}; workers' launches "
+              f"{a['cl']['launches']}, expected {expected}", flush=True)
+        check(same_a, "run A differs from the in-process runner: "
+              f"{loss_norms(a['hist'])} vs {loss_norms(ohist)}")
+        check(a["cl"]["launches"] == expected == ocounts,
+              f"run A's workers launched {a['cl']['launches']}, the "
+              f"in-process runner {ocounts}, expected {expected}")
+
+        # B: the kill, the election, the restore, and its oracle
+        cl = b["cl"]
+        check(not chaos.pending(), f"the kill never fired: {chaos.pending()}")
+        kill = cl["kills"][0] if cl["kills"] else {}
+        check(len(cl["kills"]) == 1 and kill["verified_dead"],
+              f"run B's kill left no verified dead pid: {cl['kills']}")
+        check(cl["elections"] >= 1 and cl["final_alive"] == [1],
+              f"run B: elections {cl['elections']}, final alive "
+              f"{cl['final_alive']}")
+        resume = [e["resume"] for e in b["events"]
+                  if e["kind"] == "restore" and e["epoch"] > 0]
+        last_b = _last_lines(b["hist"])
+        k = min((i for i, h in last_b.items() if h["dp_size"] == 1),
+                default=CLUSTER_ITERS)
+        first = min((h for h in b["hist"] if h["t"] > kill["t"]),
+                    key=lambda h: h["t"])
+        print(f"[cluster] B: coordinator pid {kill['pid']} killed at "
+              f"iteration {kill['at_iteration']}, verified dead; "
+              f"{cl['elections']} election(s), restored step {resume}, "
+              f"final alive {cl['final_alive']}; from the kill to the new "
+              f"epoch's first history line {first['t'] - kill['t']:.2f}s, "
+              f"the line's own save {first['save_s']:.2f}s of it {on}",
+              flush=True)
+        check(resume and resume[-1] == k, f"run B restored {resume} but "
+              f"turned to dp 1 at iteration {k}")
+        check(k == 0 or k in CKPT.all_steps(root / "oracle"),
+              f"no in-process checkpoint at step {k}")
+        for step in CKPT.all_steps(root / "oracle"):
+            if step > k:
+                shutil.rmtree(root / "oracle" / f"step_{step:08d}")
+        ops.reset_launch_counts()
+        cfg, stream, cost, pcfg, rcfg = _cluster_setup(
+            torch, 1, CLUSTER_ITERS - k, root / "oracle" if k else "",
+            "thread", ckpt_every=0)
+        params, ohist1, _ = PlanAheadRunner(cfg, cost, pcfg, rcfg,
+                                            stream).run()
+        oparams_b = _host_params(torch, params)
+        del params
+        want = {i: v for i, v in loss_norms(ohist).items() if i < k}
+        want.update(loss_norms(ohist1))
+        same_b = (loss_norms(b["hist"]) == want
+                  and same(b["params"], oparams_b))
+        n_b = sum(h["n_micro"] for h in last_b.values())
+        print(f"[cluster] B against the in-process runner (dp 2 to step "
+              f"{k}, then dp 1 from its checkpoint): losses, grad norms and "
+              f"every parameter equal to the bit: "
+              f"{'yes' if same_b else 'NO'}; workers' launches "
+              f"{cl['launches']} (at least {2 * cfg.n_layers * n_b} K1 and "
+              f"{cfg.n_layers * n_b} backward)", flush=True)
+        check(same_b, "run B differs from its in-process oracle: "
+              f"{loss_norms(b['hist'])} vs {want}")
+        check(cl["launches"]["mha_forward"] >= 2 * cfg.n_layers * n_b
+              and cl["launches"]["mha_backward"] >= cfg.n_layers * n_b,
+              f"run B's workers launched {cl['launches']}")
+        counts = {key: a["cl"]["launches"][key] + cl["launches"][key]
+                  for key in a["cl"]["launches"]}
+        print(f"[cluster] phase {time.perf_counter() - t_phase:.1f}s; "
+              f"launches over both runs' workers {counts} {on}", flush=True)
+        del runs, a, b, oparams, oparams_b
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
+# phase 10: MoE, granite-moe served at full width and depth and trained at
 # 16 layers, llama4-scout served at 4 layers
 # ----------------------------------------------------------------------
 def _route_recorder():
@@ -2404,7 +2677,7 @@ def phase_moe(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 10: frames, hubert-xlarge trained at full width and depth
+# phase 11: frames, hubert-xlarge trained at full width and depth
 # ----------------------------------------------------------------------
 def _frame_batch(torch, cfg, b, s, seed):
     """One seeded train batch as ``launch/dryrun.py::batch_specs`` lays it
@@ -2583,7 +2856,7 @@ def phase_frames(torch):
 
 
 # ----------------------------------------------------------------------
-# phase 11: mixed, llava-next-34b prefilled and decoded at full width
+# phase 12: mixed, llava-next-34b prefilled and decoded at full width
 # ----------------------------------------------------------------------
 def _greedy(torch, logits):
     return torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
@@ -2709,7 +2982,7 @@ def phase_mixed(torch):
 
 
 # ----------------------------------------------------------------------
-# phase 12: gemma2, gemma2-2b served and trained at full width (head dim 256)
+# phase 13: gemma2, gemma2-2b served and trained at full width (head dim 256)
 # ----------------------------------------------------------------------
 def _gqa_fault(torch):
     """A patch of K1 by a planted fault on the plain forward: every q head
@@ -2862,7 +3135,7 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 13: profiles (not run by default)
+# phase 14: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel; the
 # backward's mha_bwd_kernel and mha_bwd_d256_kernel
@@ -3094,9 +3367,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault,moe,frames,mixed,gemma2",
+                    "fault,cluster,moe,frames,mixed,gemma2",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, fault, moe, frames, mixed, gemma2, profile, "
+                    "t5, mamba, fault, cluster, moe, frames, mixed, gemma2, "
+                    "profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -3136,6 +3410,8 @@ def main():
         paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
     if "fault" in phases:
         paths["fault"] = phase_fault(torch, smi_line)
+    if "cluster" in phases:
+        paths["cluster"] = phase_cluster(torch, smi_line)
     if "moe" in phases:
         moe = phase_moe(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
         paths.update({"moe-serve": moe["serve"], "moe-train": moe["moe-train"],

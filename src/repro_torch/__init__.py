@@ -1,4 +1,4 @@
-"""DynaPipe's serving and training paths ported to PyTorch and CUDA (Hopper).
+"""DynaPipe's training and serving paths ported to PyTorch and CUDA (Hopper).
 
 A package beside ``repro`` (the JAX reference, which it never imports):
 
@@ -6,23 +6,57 @@ A package beside ``repro`` (the JAX reference, which it never imports):
   reference's JAX-free configs, planner (palette, cost model, DP splitter,
   schedules, instruction plans, executor), plan verifier, datasets and
   streams;
-- ``repro_torch.kernels`` — the attention kernels in CUDA C++ for sm_90a,
-  K1 forward (``kernels/csrc/flash_fwd.cu``), K2 and K3 backward
-  (``kernels/csrc/flash_bwd.cu``), their plain PyTorch versions, the
+- ``repro_torch.kernels`` — hand-written CUDA C++ kernels for sm_90a: K1,
+  the attention forward (``kernels/csrc/flash_fwd.cu``, a prefill and a
+  decode form), one fused attention backward doing the work of the
+  reference's K2 and K3 (``kernels/csrc/flash_bwd.cu``), and K4, Mamba2's
+  SSD (``kernels/csrc/ssd_fwd.cu``); their plain PyTorch versions, the
   autograd Function and the dispatch by device in ``kernels.ops``;
-- ``repro_torch.models`` — the dense decoder: init, forward with
-  per-period recompute, loss, prefill, decode;
+- ``repro_torch.models`` — the model zoo: dense, MoE, Mamba2 and hybrid
+  decoders, the T5 encoder-decoder, frame and mixed input modes; init,
+  forward with per-period recompute, loss, prefill, decode;
 - ``repro_torch.serve`` — DP request batching, prefill and greedy decode
   (``python -m repro_torch.serve``; the function is ``serve.serve``);
-- ``repro_torch.train`` and ``dist`` — the grad step, AdamW and the
-  plan-ahead runner on the threads backend's sequential path
+- ``repro_torch.train`` and ``dist`` — the grad step, AdamW, format-2
+  checkpoints, and the plan-ahead runner on the threads backend (the
+  sequential grad loop or the threaded stage pipeline), with in-process
+  fault recovery and the process fault domain (``dist.cluster``)
   (``python -m repro_torch.launch.train``);
 - ``repro_torch.convert.params_from_jax`` — reference weights into the port.
 
-Names resolve lazily, so importing the package builds and loads nothing.
+The public surface re-exports lazily (PEP 562): the reference's names that
+the port has (the mesh backend's ``MeshBackend`` and ``make_stage_mesh``
+come with ROADMAP A13), plus ``serve`` and ``params_from_jax``. Importing
+the package builds and loads nothing::
+
+    from repro_torch import PlanAheadRunner, RunnerConfig, make_backend
 """
 
+# public name -> defining module; resolved on first attribute access
 _PUBLIC = {
+    # execution backends (the ExecutionBackend protocol)
+    "ExecutionBackend": "repro_torch.dist.backend",
+    "ThreadsBackend": "repro_torch.dist.backend",
+    "BackendResult": "repro_torch.dist.backend",
+    "make_backend": "repro_torch.dist.backend",
+    # planning
+    "PlannerConfig": "repro_torch.core.planner",
+    "plan_iteration": "repro_torch.core.planner",
+    "ExecutionPlan": "repro_torch.core.instructions",
+    "ShapePalette": "repro_torch.core.microbatch",
+    "AnalyticCostModel": "repro_torch.core.cost_model",
+    # training runtime
+    "PlanAheadRunner": "repro_torch.train.runner",
+    "RunnerConfig": "repro_torch.train.runner",
+    "CompiledStepCache": "repro_torch.train.step_cache",
+    "AdamWConfig": "repro_torch.train.optimizer",
+    # data
+    "MultiTaskStream": "repro_torch.data.streams",
+    "StreamConfig": "repro_torch.data.streams",
+    # model zoo
+    "get_arch": "repro_torch.configs.base",
+    "reduced": "repro_torch.configs.base",
+    # the port's own
     "serve": "repro_torch.serve",
     "params_from_jax": "repro_torch.convert",
 }

@@ -1,1 +1,34 @@
-"""Execution backends: the threads backend's sequential path."""
+"""``repro_torch.dist`` — the distributed execution substrate.
+
+Counterpart of ``repro.dist``. Everything above this package plans in
+*logical* terms (micro-batches, instruction streams); everything below it
+is devices, threads and processes. Its modules:
+
+- :mod:`repro_torch.dist.backend` — the :class:`ExecutionBackend` protocol
+  behind ``execute_plan``: ``"threads"`` (the sequential grad loop or the
+  threaded stage pipeline, one CUDA stream per stage).
+- :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
+  elastic re-planning over the surviving replica set.
+- :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,
+  replayable fault traces) for the recovery tests.
+- :mod:`repro_torch.dist.cluster` — the process fault domain: one OS
+  process per DP replica, socket heartbeats, coordinator election, kill -9
+  recovery (``RunnerConfig.fault_domain="process"``).
+
+The reference's ``sharding`` and ``pipeline`` modules and its ``"mesh"``
+backend come with ROADMAP A13.
+"""
+from repro_torch.dist import chaos, fault  # noqa: F401
+
+
+def __getattr__(name):
+    # backend imports the training step (models, kernels), and cluster
+    # reaches backend and runner internals at call time: both load on
+    # first access, so importing the package stays cheap
+    if name == "backend":
+        import repro_torch.dist.backend as backend
+        return backend
+    if name == "cluster":
+        import repro_torch.dist.cluster as cluster
+        return cluster
+    raise AttributeError(f"module 'repro_torch.dist' has no attribute {name!r}")

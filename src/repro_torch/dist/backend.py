@@ -21,10 +21,12 @@ replica's plan into gradients. :class:`ThreadsBackend` is the host plane:
 and refuses an ERROR-level one before anything runs; ``hook=`` is the
 fault-injection point (``repro_torch.dist.chaos``), called before every
 instruction on the pipeline's stage threads and before each micro-batch
-on the sequential path. The mesh backend (ROADMAP A13) and the process
-fault domain (A14) are not ported: :func:`make_backend` raises
-``NotImplementedError`` for them and never runs something else in their
-place.
+on the sequential path. The process backend
+(:class:`repro_torch.dist.cluster.ProcessBackend`) is not built here: it
+needs a live cluster coordinator, and ``RunnerConfig.fault_domain=
+"process"`` routes through the cluster. The mesh backend (ROADMAP A13) is
+not ported: :func:`make_backend` raises ``NotImplementedError`` for it and
+never runs something else in its place.
 """
 from __future__ import annotations
 
@@ -232,7 +234,9 @@ def make_backend(name: str, cfg: ArchConfig, n_stages: int, *,
             "the mesh backend is not ported yet (ROADMAP A13)")
     if name == "process":
         raise ValueError(
-            "the process backend is not built by the factory; it is the "
-            "process fault domain, which is not ported yet (ROADMAP A14)")
+            "the process backend is not built by the factory: it needs a "
+            "live cluster coordinator (sockets, membership, election) — "
+            "set RunnerConfig.fault_domain='process' and the runner routes "
+            "through repro_torch.dist.cluster.run_process_cluster instead")
     raise ValueError(f"unknown execution backend {name!r}; "
                      "expected 'threads' or 'mesh'")

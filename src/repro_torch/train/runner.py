@@ -33,8 +33,11 @@ verify every plan before it runs. Checkpoints are written every
 loop leaves an emergency checkpoint, unless it escaped from inside the
 in-place optimizer update (see :meth:`PlanAheadRunner.run`).
 
+``fault_domain="process"`` hands the whole run to
+:func:`repro_torch.dist.cluster.run_process_cluster`: one OS process per DP
+replica, a socket coordinator doing the planning, and real SIGKILL chaos.
 Not ported, raising ``NotImplementedError``: the mesh backend (ROADMAP
-A13) and the process fault domain (A14).
+A13).
 """
 from __future__ import annotations
 
@@ -94,8 +97,8 @@ class RunnerConfig:
     calibrate: bool = False          # online cost-model calibration
     strict_verify: bool = False      # the backend verifies each plan and
                                      # refuses an ERROR-level one
-    fault_domain: str = "thread"     # faults are in-process (chaos hooks);
-                                     # "process": not ported (A14)
+    fault_domain: str = "thread"     # "thread": in-process (chaos hooks);
+                                     # "process": dist/cluster.py
     device: str = "cuda"             # where params, batches and steps live
 
 
@@ -226,9 +229,10 @@ class PlanAheadRunner:
         if rcfg.backend == "mesh" or mesh is not None:
             raise NotImplementedError(
                 "the mesh backend is not ported yet (ROADMAP A13)")
-        if rcfg.fault_domain == "process":
-            raise NotImplementedError(
-                "the process fault domain is not ported yet (ROADMAP A14)")
+        if rcfg.fault_domain == "process" and params is not None:
+            raise ValueError(
+                "params= seeds the in-process runner; the process fault "
+                "domain's workers each draw theirs from rcfg.seed")
         self.device = resolve_device(rcfg.device)
         self.cfg = cfg
         self.cost = cost
@@ -499,6 +503,14 @@ class PlanAheadRunner:
     # ------------------------------ run --------------------------------
     def run(self):
         """Returns (params, history, stats: RunnerStats)."""
+        if self.rcfg.fault_domain == "process":
+            # the process fault domain replaces this whole in-process loop:
+            # one OS process per DP replica, a socket coordinator doing the
+            # planning, and real SIGKILL chaos delivered by the launcher
+            from repro_torch.dist.cluster import run_process_cluster
+            return run_process_cluster(
+                self.cfg, self.cost, self.pcfg, self.rcfg, self.stream,
+                opt_cfg=self.opt_cfg, chaos=self.chaos)
         rcfg, cfg = self.rcfg, self.cfg
         params = self.params
         if params is None:

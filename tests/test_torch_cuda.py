@@ -993,3 +993,41 @@ def test_jamba_period_on_the_card_matches_the_cpu(cuda):
     got, want = out["cuda"][2], out["cuda"][0]
     err = float((got - want).abs().max()) / (1 + float(want.abs().max()))
     assert err <= TOL
+
+
+def test_tree_wire_roundtrips_on_the_card(cuda):
+    # the process fault domain's gradient format: a tree on the card goes
+    # off it in one pinned buffer and comes back equal to the bit, on the
+    # host and on the card; and the coordinator's host merge of bf16 trees
+    # (tree.add_into) rounds as the in-process runner's merge on the card
+    from repro_torch.dist.cluster import _tree_from_bytes, _tree_to_bytes
+    from repro_torch.tree import add_into, flatten, tree_map
+    g = torch.Generator(device=cuda).manual_seed(0)
+    f32 = torch.randn(33, 7, generator=g, device=cuda)
+    f32[0, :3] = torch.tensor([float("nan"), -0.0, float("inf")])
+    scales = torch.logspace(-30, 30, 257, device=cuda)
+    tree = {"w": (torch.randn(4096, 257, generator=g, device=cuda)
+                  * scales).bfloat16(),
+            "b": {"f": f32, "i": torch.arange(-9, 9, dtype=torch.int32,
+                                              device=cuda)},
+            "step": 3}
+    blob = _tree_to_bytes(tree)
+    for device in (None, cuda):
+        back = _tree_from_bytes(blob, device)
+        assert back["step"] == 3
+        for (p, x), (_, y) in zip(flatten(tree), flatten(back)):
+            if isinstance(x, torch.Tensor):
+                assert y.device.type == ("cuda" if device else "cpu"), p
+                assert y.dtype == x.dtype and y.shape == x.shape, p
+                bits = x.view(torch.int16) if x.dtype == torch.bfloat16 \
+                    else x.view(torch.int32)
+                ybits = y.view(torch.int16) if y.dtype == torch.bfloat16 \
+                    else y.view(torch.int32)
+                assert torch.equal(ybits.cpu(), bits.cpu()), p
+    other = {"w": (torch.randn(4096, 257, generator=g, device=cuda)
+                   * scales.flip(0)).bfloat16()}
+    on_card = add_into(tree_map(torch.clone, {"w": tree["w"]}), other)
+    on_host = add_into(tree_map(lambda x: x.cpu(), {"w": tree["w"]}),
+                       tree_map(lambda x: x.cpu(), other))
+    assert torch.equal(on_host["w"].view(torch.int16),
+                       on_card["w"].cpu().view(torch.int16))

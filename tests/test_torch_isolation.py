@@ -96,3 +96,46 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(
     # asked for explicitly, the CPU works
     assert MD.init_params(torch.Generator(), cfg, device="cpu")[
         "embed"].device.type == "cpu"
+
+
+# the reference's public names that come with the mesh backend (ROADMAP
+# A13), and the port's own two
+MESH_NAMES = {"MeshBackend", "make_stage_mesh"}
+PORT_NAMES = {"serve", "params_from_jax"}
+
+
+def test_public_names_are_the_references_and_resolve_in_the_port():
+    import repro
+    import repro_torch
+    assert repro_torch.__all__ == sorted(
+        (set(repro.__all__) - MESH_NAMES) | PORT_NAMES)
+    for name in repro_torch.__all__:
+        obj = getattr(repro_torch, name)
+        where = getattr(obj, "__module__", None) or obj.__name__
+        assert where.split(".")[0] == "repro_torch", (name, where)
+        if name not in PORT_NAMES:
+            # the same kind of object as the reference's: class, function
+            ref = getattr(repro, name)
+            assert isinstance(obj, type) == isinstance(ref, type), name
+            assert obj.__name__ == ref.__name__, name
+    with pytest.raises(AttributeError):
+        repro_torch.MeshBackend  # noqa: B018
+
+
+def test_resolving_the_public_names_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import repro_torch\n"
+        "for n in repro_torch.__all__:\n"
+        "    getattr(repro_torch, n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
+        "             m.startswith('repro.'))\n"
+        "print('N', len(repro_torch.__all__), 'BAD', bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={"PYTHONPATH": str(REPO / "src"),
+                              "PATH": "/usr/bin:/bin",
+                              "OMP_NUM_THREADS": "1"})
+    assert out.returncode == 0, out.stderr
+    assert "N 19 BAD []" in out.stdout, out.stdout

@@ -338,13 +338,14 @@ def test_stage_pipeline_and_unported_features_raise():
                                      device="cpu").pm, PipelinedModel)
     with pytest.raises(NotImplementedError, match="A13"):
         make_backend("mesh", tcfg, 1, device="cpu")
-    for kw, item in ((dict(backend="mesh"), "A13"),
-                     (dict(fault_domain="process"), "A14")):
-        with pytest.raises(NotImplementedError, match=item):
-            _port_runner(tcfg, None, **kw)
-    # checkpoints (A10) and fault injection (A12) are ported: the runner
+    with pytest.raises(NotImplementedError, match="A13"):
+        _port_runner(tcfg, None, backend="mesh")
+    # checkpoints (A10), fault injection (A12) and the process fault
+    # domain (A14, tests/test_torch_cluster.py) are ported: the runner
     # takes them
     _port_runner(tcfg, None, ckpt_dir="x")
+    assert _port_runner(tcfg, None,
+                        fault_domain="process").rcfg.fault_domain == "process"
     PlanAheadRunner(tcfg, None, PlannerConfig(n_stages=1),
                     RunnerConfig(device="cpu"), None, chaos=FaultSchedule([]))
     # the sequential fallback the reference also takes: stages that do not
