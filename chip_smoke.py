@@ -2,7 +2,8 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # fault, cluster, moe, frames, mixed, gemma2
+                            # fault, cluster, moe, frames, mixed, gemma2, mesh
+    python3 chip_smoke.py --phases mesh  # the stage mesh and ZeRO-1
     python3 chip_smoke.py --phases kernel,gemma2  # head dim 256 and gemma2-2b
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
@@ -186,7 +187,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              the bit, and at 2 layers every gradient leaf against the
              plain versions (GRAD_TOL, GRAD_REL_TOL, which must fail a zero
              dq);
-14. profile — (not run by default; ``profile-models`` the same for the
+14. mesh   — the mesh backend (``repro_torch.dist.backend.MeshBackend``):
+             the pipeline phase's configuration, gpt-paper at full width, 8
+             layers over 4 stages, on a stage mesh that repeats the one
+             card (``make_stage_mesh(4, devices=["cuda:0"] * 4)``), the
+             shift register of ``dist/pipeline.py`` with ZeRO-1 optimizer
+             state split over the stages, 4 iterations of the train
+             phase's stream through ``PlanAheadRunner(backend="mesh")``:
+             3 K1 and 1 backward launch per layer and micro-batch, finite
+             losses; on one plan the mesh against the threads backend's
+             sequential steps (mean loss within 1e-4 relative, each
+             gradient leaf within GRAD_REL_TOL), the plan with its
+             injection order reversed giving the same loss to the bit, and
+             ``optimizer_step`` on the placed state equal to
+             ``adamw_update`` on the whole state to the bit (two steps);
+             two 2-iteration runs at 4 layers equal to the bit; prints
+             real tokens/s, the mean step, peak memory and ZeRO-1's bytes
+             on each stage;
+15. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
              step and encoder forward, llava-next's prefill and decode;
@@ -353,7 +371,8 @@ KERNELS = {
             "gemma2_serve_decode": "gemma2-serve-decode",
             "granite_decode": "granite-decode", "llava_decode": "llava-decode",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
+            "d256_keys_40960": "d256-keys-40960"},
+           ("train", "serve", "mesh")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:404", "train-segmented",
@@ -363,7 +382,8 @@ KERNELS = {
             "d256_causal": "d256-causal",
             "gemma2_local_8k": "gemma2-local-8k",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
+            "d256_keys_40960": "d256-keys-40960"},
+           ("train", "serve", "mesh")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
            {"causal_2048": "causal-2048", "t5_enc": "t5-enc",
@@ -372,7 +392,8 @@ KERNELS = {
             "d256_causal": "d256-causal",
             "gemma2_local_8k": "gemma2-local-8k",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"}, ("train", "serve")),
+            "d256_keys_40960": "d256-keys-40960"},
+           ("train", "serve", "mesh")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
            ("mamba",)),
@@ -1684,6 +1705,188 @@ def phase_pipeline(torch):
           f"parameters equal to the bit: {'yes' if same else 'NO'}",
           flush=True)
     check(same, "two pipelined runs from one seed differ")
+    del runs
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 14: the mesh backend, gpt-paper at full width over a stage mesh
+# ----------------------------------------------------------------------
+def _stage_mesh():
+    from repro_torch.launch.mesh import make_stage_mesh
+    return make_stage_mesh(PIPE_STAGES, devices=["cuda:0"] * PIPE_STAGES)
+
+
+def _mesh_train(torch, n_layers, iters, seed, log_every=1):
+    """The plan-ahead runner on the mesh backend: the pipeline phase's
+    configuration on a stage mesh that repeats the card. Returns (cfg,
+    stream, cost, pcfg, params, history, stats, optimizer state)."""
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, PIPE_STAGES)
+    rcfg = RunnerConfig(n_iters=iters, backend="mesh", seed=seed,
+                        log_every=log_every, device="cuda")
+    runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream,
+                             mesh=_stage_mesh())
+    params, history, stats = runner.run()
+    check(stats.faults == 0, f"mesh training retried after {stats.faults} "
+          f"faults: {stats.recoveries}")
+    return cfg, stream, cost, pcfg, params, history, stats, runner.opt_state
+
+
+def _zero_bytes(opt):
+    """Bytes of ZeRO-1 chunks on each stage, and of leaves left whole."""
+    from repro_torch.dist.sharding import ZeroShards
+    from repro_torch.tree import leaves
+    per_stage, whole = {}, 0
+    for key in ("master", "m", "v"):
+        for x in leaves(opt[key]):
+            if isinstance(x, ZeroShards):
+                for s, c in enumerate(x.chunks):
+                    per_stage[s] = (per_stage.get(s, 0)
+                                    + c.numel() * c.element_size())
+            else:
+                whole += x.numel() * x.element_size()
+    return per_stage, whole
+
+
+def phase_mesh(torch):
+    """gpt-paper at full width, 8 layers over a 4-stage mesh on the card:
+    launch counts, the mesh against the threads backend's sequential steps
+    on one plan, the injection order, ZeRO-1's update, and two runs equal
+    to the bit."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.dist.backend import MeshBackend, ThreadsBackend
+    from repro_torch.dist.pipeline import injection_order
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_update,
+                                             init_opt_state)
+    from repro_torch.tree import leaves, tree_map
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats, opt = _mesh_train(
+        torch, TRAIN_LAYERS, PIPE_ITERS, seed=0)
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    per_stage, whole = _zero_bytes(opt)
+    del params, opt
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("mesh", hist, lambda it: [
+        (m.mbs, m.seq) for m in plan_iteration(
+            stream.batch(it).lengths[:, 0], cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    # as the pipeline phase: per layer and real micro-batch the stage
+    # forward, the stage backward's forward again and the period
+    # checkpoint's recompute in it, and one backward; the ring runs nothing
+    # on its warm-up and drain ticks
+    expected = {"mha_forward": 3 * cfg.n_layers * n_micro,
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+    print(f"[mesh] {cfg.name} {cfg.n_layers} layers over a {PIPE_STAGES}-"
+          f"stage mesh on cuda:0 ({cfg.n_params() / 1e9:.2f} B params), "
+          f"{len(hist)} iterations, {n_micro} micro-batches in {took:.1f}s "
+          f"incl. init; iterations after the first: {tok_s:.1f} real "
+          f"tokens/s, mean step {1e3 * step_s:.1f} ms; peak memory "
+          f"{peak:.1f} GiB; ZeRO-1 master, m and v per stage "
+          f"{[round(per_stage[s] / 2**30, 3) for s in sorted(per_stage)]} "
+          f"GiB, left whole {whole / 2**30:.3f} GiB; planning overlap "
+          f"{stats.overlap_fraction:.3f}; launches {counts} (expected "
+          f"{expected}: 3 K1 and 1 backward per layer and micro-batch)",
+          flush=True)
+    check(counts == expected, f"mesh launches {counts}, expected {expected}")
+    check(len(per_stage) == PIPE_STAGES and whole == 0,
+          f"ZeRO-1 left {whole} bytes whole, stages {sorted(per_stage)}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "non-finite loss or grad norm on the mesh")
+
+    # one plan: the mesh against the threads backend's sequential steps
+    gb = stream.batch(0)
+    plan = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0]
+    batches = _plan_batches(plan, gb)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1), cfg,
+                            device="cuda")
+    mesh = MeshBackend(cfg, PIPE_STAGES, mesh=_stage_mesh())
+    seq = ThreadsBackend(cfg, PIPE_STAGES, use_executor=False, device="cuda")
+    rm, mesh_s = _executed(torch, mesh, plan, params, batches)
+    rs, seq_s = _executed(torch, seq, plan, params, batches)
+    lm, ls = rm.loss_sum / rm.weight_sum, rs.loss_sum / rs.weight_sum
+    gs = _mean_grads(rs)
+    del rs
+    g_abs, g_rel, _ = _leaf_errs(torch, _mean_grads(rm), gs)
+    del gs
+    torch.cuda.empty_cache()
+    rev = list(reversed(injection_order(plan)))
+    plan_r = dataclasses.replace(plan, meta=dict(plan.meta,
+                                                 injection_order=rev))
+    rr, _ = _executed(torch, mesh, plan_r, params, batches)
+    same_order = rr.loss_sum == rm.loss_sum
+    del rr
+    print(f"[mesh] one plan {[(m.mbs, m.seq) for m in plan.micro_batches]}: "
+          f"mesh loss {lm:.8f} vs sequential {ls:.8f} (equal to the bit: "
+          f"{'yes' if lm == ls else 'no'}); gradient leaves max |diff| "
+          f"{g_abs:.3e}, worst ||diff|| / ||sequential|| {g_rel:.3e} "
+          f"(GRAD_REL_TOL {GRAD_REL_TOL}); injection order reversed: loss "
+          f"equal to the bit: {'yes' if same_order else 'NO'}; mesh "
+          f"{1e3 * mesh_s:.1f} ms, sequential {1e3 * seq_s:.1f} ms",
+          flush=True)
+    check(abs(lm - ls) <= 1e-4 * abs(ls), "mesh and sequential mean losses "
+          f"differ: {lm} vs {ls}")
+    check(g_rel <= GRAD_REL_TOL, f"a mesh gradient leaf's relative error "
+          f"{g_rel:.3e} exceeds GRAD_REL_TOL")
+    check(same_order, "the reversed injection order changed the mesh loss")
+
+    # ZeRO-1: two optimizer steps on the placed state against adamw_update
+    # on the whole state, from the plan's gradients
+    ocfg = AdamWConfig(lr=3e-4)
+    grads = rm.grads
+    del rm
+    opt = init_opt_state(params, ocfg)
+    placed = mesh.place_opt_state(
+        tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, opt))
+    p_mesh = tree_map(torch.clone, params)
+    t_ref = t_zero = 0.0
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, _ = adamw_update(params, grads, opt, ocfg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        p_mesh, placed, _ = mesh.optimizer_step(p_mesh, grads, placed, ocfg)
+        torch.cuda.synchronize()
+        t_ref += t2 - t1
+        t_zero += time.perf_counter() - t2
+    same = all(bool(torch.equal(a, b))
+               for a, b in zip(leaves(params), leaves(p_mesh)))
+    for key in ("master", "m", "v"):
+        for a, b in zip(leaves(opt[key]), leaves(placed[key])):
+            same &= all(bool(torch.equal(a.narrow(*b.bounds(s)), c))
+                        for s, c in enumerate(b.chunks))
+    print(f"[mesh] ZeRO-1 optimizer_step on the placed state against "
+          f"adamw_update on the whole state, 2 steps: params, master, m and "
+          f"v equal to the bit: {'yes' if same else 'NO'}; "
+          f"{1e3 * t_zero / 2:.1f} ms a step placed, {1e3 * t_ref / 2:.1f} "
+          f"ms whole", flush=True)
+    check(same, "ZeRO-1's update differs from adamw_update")
+    del params, p_mesh, grads, opt, placed, mesh, seq
+    torch.cuda.empty_cache()
+
+    # two 2-iteration runs from one seed, one layer per stage
+    runs = [_mesh_train(torch, PIPE_STAGES, 2, seed=1, log_every=0)[4:6]
+            for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[mesh] {PIPE_STAGES} layers, two 2-iteration runs from one seed: "
+          f"losses {[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and "
+          f"parameters equal to the bit: {'yes' if same else 'NO'}",
+          flush=True)
+    check(same, "two mesh runs from one seed differ")
     del runs
     torch.cuda.empty_cache()
     return counts
@@ -3367,10 +3570,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault,cluster,moe,frames,mixed,gemma2",
+                    "fault,cluster,moe,frames,mixed,gemma2,mesh",
                     help="comma-separated: kernel, serve, train, pipeline, "
                     "t5, mamba, fault, cluster, moe, frames, mixed, gemma2, "
-                    "profile, "
+                    "mesh, profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -3424,6 +3627,8 @@ def main():
         gemma2 = phase_gemma2(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
         paths.update({"gemma2-serve": gemma2["serve"],
                       "gemma2-train": gemma2["train"]})
+    if "mesh" in phases:
+        paths["mesh"] = phase_mesh(torch)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,

@@ -19,15 +19,17 @@ A package beside ``repro`` (the JAX reference, which it never imports):
   (``python -m repro_torch.serve``; the function is ``serve.serve``);
 - ``repro_torch.train`` and ``dist`` — the grad step, AdamW, format-2
   checkpoints, and the plan-ahead runner on the threads backend (the
-  sequential grad loop or the threaded stage pipeline), with in-process
-  fault recovery and the process fault domain (``dist.cluster``)
-  (``python -m repro_torch.launch.train``);
+  sequential grad loop or the threaded stage pipeline) or the mesh
+  backend (the shift register over a stage mesh, ZeRO-1 optimizer
+  state), with in-process fault recovery and the process fault domain
+  (``dist.cluster``) (``python -m repro_torch.launch.train``); the
+  logical sharding rules (``dist.sharding``) and the train state's spec
+  trees (``train.train_state``);
 - ``repro_torch.convert.params_from_jax`` — reference weights into the port.
 
-The public surface re-exports lazily (PEP 562): the reference's names that
-the port has (the mesh backend's ``MeshBackend`` and ``make_stage_mesh``
-come with ROADMAP A13), plus ``serve`` and ``params_from_jax``. Importing
-the package builds and loads nothing::
+The public surface re-exports lazily (PEP 562): the reference's names,
+plus ``serve`` and ``params_from_jax``. Importing the package builds and
+loads nothing::
 
     from repro_torch import PlanAheadRunner, RunnerConfig, make_backend
 """
@@ -37,6 +39,8 @@ _PUBLIC = {
     # execution backends (the ExecutionBackend protocol)
     "ExecutionBackend": "repro_torch.dist.backend",
     "ThreadsBackend": "repro_torch.dist.backend",
+    "MeshBackend": "repro_torch.dist.backend",
+    "make_stage_mesh": "repro_torch.launch.mesh",
     "BackendResult": "repro_torch.dist.backend",
     "make_backend": "repro_torch.dist.backend",
     # planning

@@ -6,7 +6,14 @@ is devices, threads and processes. Its modules:
 
 - :mod:`repro_torch.dist.backend` — the :class:`ExecutionBackend` protocol
   behind ``execute_plan``: ``"threads"`` (the sequential grad loop or the
-  threaded stage pipeline, one CUDA stream per stage).
+  threaded stage pipeline, one CUDA stream per stage) and ``"mesh"`` (the
+  shift register over a stage mesh, ZeRO-1 optimizer state).
+- :mod:`repro_torch.dist.pipeline` — the device plane's GPipe shift
+  register (``pipelined_apply``, ``pipelined_grads``) over a stage mesh,
+  and the plan's injection order.
+- :mod:`repro_torch.dist.sharding` — logical-axis resolution
+  (``spec_for``, ZeRO-1's ``zero1_logical``), the port's ``Mesh`` and the
+  ambient mesh; sharding inside a stage raises (ROADMAP A23).
 - :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
   elastic re-planning over the surviving replica set.
 - :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,
@@ -14,9 +21,6 @@ is devices, threads and processes. Its modules:
 - :mod:`repro_torch.dist.cluster` — the process fault domain: one OS
   process per DP replica, socket heartbeats, coordinator election, kill -9
   recovery (``RunnerConfig.fault_domain="process"``).
-
-The reference's ``sharding`` and ``pipeline`` modules and its ``"mesh"``
-backend come with ROADMAP A13.
 """
 from repro_torch.dist import chaos, fault  # noqa: F401
 

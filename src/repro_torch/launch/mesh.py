@@ -1,0 +1,77 @@
+"""Mesh construction, counterpart of ``repro.launch.mesh``.
+
+Functions, not module-level constants: importing this module touches no
+device. A mesh here is :class:`repro_torch.dist.sharding.Mesh`, axis names
+over an array of ``torch.device``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.dist.sharding import Mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh, (16, 16) data x model or (2, 16,
+    16) pod x data x model, as an abstract mesh: axis names and sizes, no
+    devices. The spec functions and a dry run read only those."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(None, axes, axis_sizes=shape)
+
+
+def _cuda_devices() -> list:
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
+    """A mesh of ``shape`` over the first CUDA devices, in order; raises
+    when there are fewer than it needs."""
+    n = 1
+    for s in shape:
+        n *= int(s)
+    devs = _cuda_devices()
+    if n > len(devs):
+        raise ValueError(f"need {n} devices for a {shape} mesh, have "
+                         f"{len(devs)} CUDA devices")
+    arr = np.empty(n, dtype=object)
+    arr[:] = devs[:n]
+    return Mesh(arr.reshape(shape), axes)
+
+
+def make_stage_mesh(n_stages: int, *, axis: str = "stage",
+                    devices: Optional[Sequence] = None) -> Mesh:
+    """1-D pipeline-stage mesh: stage ``s`` on ``devices[s]``.
+
+    By default the first ``n_stages`` CUDA devices; with fewer this raises,
+    as the reference does, and never repeats a device or takes the CPU
+    unasked. A caller that wants otherwise names the devices:
+    ``["cpu"] * 4`` (four stages in one CPU process, the tests' mesh) or
+    ``["cuda:0"] * 4`` (a 4-stage ring on one card). The axis name must be
+    one of ``repro_torch.dist.sharding._STAGE_AXES`` for the ZeRO-1
+    ``"zero"`` dim to resolve onto it."""
+    if devices is None:
+        devs = _cuda_devices()
+        if n_stages > len(devs):
+            raise ValueError(
+                f"need {n_stages} devices for {n_stages} pipeline stages, "
+                f"have {len(devs)} CUDA devices (pass devices=, e.g. "
+                f"['cuda:0'] * {n_stages} or ['cpu'] * {n_stages})")
+        devices = devs[:n_stages]
+    if len(devices) != n_stages:
+        raise ValueError(f"{len(devices)} devices for {n_stages} stages")
+    return Mesh([torch.device(d) for d in devices], (axis,))
+
+
+def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
+    """Small data x model mesh over however many CUDA devices exist, as the
+    reference's over its host devices (tests and examples)."""
+    n = max(1, len(_cuda_devices()))
+    data = min(data, n)
+    model = min(model, max(1, n // data))
+    return make_mesh((data, model), ("data", "model"))

@@ -1,10 +1,13 @@
 """Decoder layers in PyTorch: norm, RoPE, GQA attention, MLP, MoE.
 
 Counterpart of ``repro.models.layers`` over the same nested parameter
-dicts (same keys, shapes and dtypes). The ``shard(...)`` annotations of
-the reference are dropped: the port runs on one GPU, so MoE takes the
-reference's unsharded path (its expert-sliced ``_moe_local_compute`` and
-``_moe_fwd_shardmap`` belong to ROADMAP A13).
+dicts (same keys, shapes and dtypes), with the reference's ``*_logical``
+trees of logical sharding dims (resolved by ``repro_torch.dist.sharding``)
+and ``heads_even``. A layer runs on one device: the reference's in-layer
+``shard(...)`` annotations are left out, and MoE takes the reference's
+unsharded path. Under an ambient mesh with a model axis, where the
+reference takes ``_moe_fwd_shardmap``, :func:`moe_fwd` raises (sharding
+inside a stage, ROADMAP A23).
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.
@@ -18,6 +21,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
+                                       axis_map, axis_size)
 from repro_torch.kernels import ops
 
 
@@ -70,6 +75,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ----------------------------------------------------------------------
 # attention (GQA + RoPE + window + softcap + KV cache)
 # ----------------------------------------------------------------------
+def heads_even(cfg: ArchConfig) -> bool:
+    """Whether attention heads divide the ambient mesh's model axis (the
+    reference's head-parallel test): always with no mesh or ``tp`` 1;
+    ``pad_heads`` promotes uneven archs, ``attn_tp=False`` demotes all."""
+    if not cfg.attn_tp:
+        return False
+    tp = axis_size("tp")
+    return tp == 1 or cfg.n_heads % tp == 0 or cfg.pad_heads
+
+
 def init_attention(gen, cfg: ArchConfig, device):
     d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     dt = _dtype(cfg)
@@ -83,6 +98,20 @@ def init_attention(gen, cfg: ArchConfig, device):
         p["bq"] = torch.zeros((h * dh,), dtype=dt, device=device)
         p["bk"] = torch.zeros((kv * dh,), dtype=dt, device=device)
         p["bv"] = torch.zeros((kv * dh,), dtype=dt, device=device)
+    return p
+
+
+def attention_logical(cfg: ArchConfig):
+    if not cfg.attn_tp:  # replicated attention weights
+        p = {"wq": (None, None), "wk": (None, None), "wv": (None, None),
+             "wo": (None, None)}
+        if cfg.qkv_bias:
+            p.update(bq=(None,), bk=(None,), bv=(None,))
+        return p
+    p = {"wq": (None, "tp"), "wk": (None, "tp"), "wv": (None, "tp"),
+         "wo": ("tp", None)}
+    if cfg.qkv_bias:
+        p.update(bq=("tp",), bk=("tp",), bv=("tp",))
     return p
 
 
@@ -172,6 +201,13 @@ def init_mlp(gen, cfg: ArchConfig, device, d_ff: Optional[int] = None):
     return p
 
 
+def mlp_logical(cfg: ArchConfig):
+    p = {"w_in": (None, "tp"), "w_out": ("tp", None)}
+    if cfg.mlp_gated:
+        p["w_gate"] = (None, "tp")
+    return p
+
+
 def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     act = act_fn(cfg.act)
     h = x @ p["w_in"]
@@ -198,6 +234,18 @@ def init_moe(gen, cfg: ArchConfig, device):
     if cfg.n_shared_experts:
         p["shared"] = init_mlp(gen, cfg, device,
                                d_ff=cfg.n_shared_experts * cfg.d_ff_expert)
+    return p
+
+
+def moe_logical(cfg: ArchConfig):
+    # EP when E % tp == 0; when not (granite's 40 experts on a 16-way
+    # axis), the d_ff "tp" dim takes the axis: expert-internal TP
+    p = {"router": (None, None), "w_in": ("ep", None, "tp"),
+         "w_out": ("ep", "tp", None)}
+    if cfg.mlp_gated:
+        p["w_gate"] = ("ep", None, "tp")
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_logical(cfg)
     return p
 
 
@@ -248,6 +296,11 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
     E x cap - 1 at weight 0, so in the backward it adds only a +-0 into
     that slot's gradient, which leaves the sum the same in any order: the
     layer repeats bit for bit."""
+    mesh = ambient_mesh()
+    if mesh is not None and axis_map(mesh).get("tp"):
+        raise NotImplementedError(
+            f"{IN_STAGE_SHARDING}: the expert-parallel MoE "
+            f"(_moe_fwd_shardmap) on {mesh}")
     b, t, d = x.shape
     n = b * t
     e, k = cfg.n_experts, cfg.top_k

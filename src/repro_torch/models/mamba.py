@@ -6,8 +6,10 @@ causal depthwise conv over [x | B | C], softplus(dt + bias), the SSD core
 (K4 on the card through ``kernels.ops.ssd``), per-head D skip, gated
 RMSNorm, out_proj. Decode keeps (conv_state, ssm_state) and costs O(1) per
 token; the SSD step of decode is plain PyTorch, as the reference's is jnp.
-The reference's ``shard(...)`` calls and ``_tp_ok`` are dropped: the port
-runs on one GPU. Caches are written in place, as the KV cache is.
+The reference's in-block ``shard(...)`` calls are left out: a block runs
+on one device (sharding inside a stage is ROADMAP A23); ``_tp_ok`` and
+``mamba_logical`` are the reference's. Caches are written in place, as
+the KV cache is.
 """
 from __future__ import annotations
 
@@ -18,8 +20,16 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import axis_size
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _dtype, _init, rms_norm
+
+
+def _tp_ok(cfg: ArchConfig) -> bool:
+    """Whether the SSD head count divides the ambient mesh's model axis
+    (the reference shards Mamba internals only then)."""
+    tp = axis_size("tp")
+    return tp == 1 or cfg.ssm_heads % tp == 0
 
 
 def _dims(cfg: ArchConfig):
@@ -47,6 +57,19 @@ def init_mamba(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
         "D": torch.ones((hh,), **f32),
         "norm_w": torch.zeros((di,), dtype=dt, device=device),
         "out_proj": _init(gen, (di, d), di ** -0.5, dt, device),
+    }
+
+
+def mamba_logical(cfg: ArchConfig):
+    return {
+        "in_proj": (None, "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "A_log": (None,),
+        "dt_bias": (None,),
+        "D": (None,),
+        "norm_w": ("tp",),
+        "out_proj": ("tp", None),
     }
 
 

@@ -7,9 +7,9 @@ embeddings through an adapter, prepended to the token embeddings except
 in decode). Parameters are the reference's nested dict (``embed``, the
 period-stacked ``stack``, ``final_norm``, ``frame_adapter`` and
 ``mask_emb`` or ``patch_adapter`` by input mode, ``head`` when untied)
-with the same keys, shapes and dtypes;
-:func:`repro_torch.convert.params_from_jax` carries a reference tree
-across.
+with the same keys, shapes and dtypes, and :func:`params_logical` their
+logical sharding dims; :func:`repro_torch.convert.params_from_jax`
+carries a reference tree across.
 
 Batch schemas, as in the reference:
   tokens : {tokens, labels, loss_weights, positions, segment_ids}
@@ -28,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import shard
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -46,9 +47,11 @@ MOE_AUX_WEIGHT = 0.01
 # ----------------------------------------------------------------------
 def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
     """Random params with the reference's shapes and scales. ``gen`` must
-    live on ``device``; its numbers differ from ``jax.random``'s."""
+    live on ``device``; its numbers differ from ``jax.random``'s. On the
+    ``meta`` device (any ``gen``) nothing is allocated: shapes and dtypes
+    only."""
     device = resolve_device(device)
-    if gen.device.type != device.type:
+    if gen.device.type != device.type and device.type != "meta":
         raise ValueError(f"generator on {gen.device}, params on {device}")
     dt = L._dtype(cfg)
     p = {
@@ -66,6 +69,24 @@ def init_params(gen: torch.Generator, cfg: ArchConfig, device="cuda"):
     if not cfg.tie_embeddings:
         p["head"] = L._init(gen, (cfg.vocab_padded, cfg.d_model),
                             cfg.d_model ** -0.5, dt, device)
+    return p
+
+
+def params_logical(cfg: ArchConfig):
+    # untied: embed D-sharded (cheap lookup), head vocab-sharded (cheap
+    # loss); tied: one table, vocab-sharded for the loss side
+    p = {
+        "embed": ("tp", None) if cfg.tie_embeddings else (None, "tp"),
+        "stack": T.stack_logical(cfg),
+        "final_norm": (None,),
+    }
+    if cfg.input_mode == "frames":
+        p["frame_adapter"] = (None, "tp")
+        p["mask_emb"] = (None,)
+    if cfg.input_mode == "mixed":
+        p["patch_adapter"] = (None, "tp")
+    if not cfg.tie_embeddings:
+        p["head"] = ("tp", None)
     return p
 
 
@@ -94,7 +115,7 @@ def embed_inputs(params, batch, cfg: ArchConfig, *, mode="train"):
         h = params["embed"][batch["tokens"]]
     if cfg.scale_embed:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
-    return h
+    return shard(h, "dp", "sp", None)
 
 
 def forward(params, batch, cfg: ArchConfig, *, mode="train",

@@ -12,7 +12,12 @@ kept for the backward, which recomputes the rest. The MoE layers' aux
 terms are summed per period and over the stack, as the reference sums
 them. The encoder-decoder (:func:`init_encdec` to :func:`encdec_fwd`)
 adds a period-major stack of cross-attention blocks, one after each
-decoder period.
+decoder period. ``block_logical``, ``cache_logical`` and ``stack_logical``
+are the reference's logical sharding trees; each block's output passes
+``shard(h, "dp", "sp", None)``, the identity unless an ambient mesh
+would split it (then it raises: sharding inside a stage is ROADMAP A23),
+and so does ``_pin_fsdp`` for ``fsdp_params`` archs under an ambient
+mesh.
 """
 from __future__ import annotations
 
@@ -23,6 +28,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
+                                       map_logical, shard)
 from repro_torch.models import layers as L
 from repro_torch.kernels import ops
 from repro_torch.models import mamba as M
@@ -45,6 +52,19 @@ def init_block(gen, cfg: ArchConfig, spec: LayerSpec, device):
     elif cfg.d_ff:
         p["ln2"] = torch.zeros((cfg.d_model,), dtype=dt, device=device)
         p["ffn"] = L.init_mlp(gen, cfg, device)
+    return p
+
+
+def block_logical(cfg: ArchConfig, spec: LayerSpec):
+    p: dict = {"ln1": (None,)}
+    p["mixer"] = (M.mamba_logical(cfg) if spec.mixer == "mamba"
+                  else L.attention_logical(cfg))
+    if spec.moe:
+        p["ln2"] = (None,)
+        p["ffn"] = L.moe_logical(cfg)
+    elif cfg.d_ff:
+        p["ln2"] = (None,)
+        p["ffn"] = L.mlp_logical(cfg)
     return p
 
 
@@ -71,7 +91,7 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
         else:
             y = L.mlp_fwd(p["ffn"], x, cfg)
         h = h + y
-    return h, new_cache, aux
+    return shard(h, "dp", "sp", None), new_cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -101,6 +121,20 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
     return tuple(caches)
 
 
+def cache_logical(cfg: ArchConfig):
+    out = []
+    for spec in cfg.layer_pattern:
+        if spec.mixer == "mamba":
+            out.append({"conv": (None, "dp", None, "tp"),
+                        "ssm": (None, "dp", "tp", None, None)})
+        else:
+            # batch over dp, seq over the model axis (flash-decode style:
+            # kv heads are usually fewer than the axis)
+            out.append({"k": (None, "dp", "sp", None, None),
+                        "v": (None, "dp", "sp", None, None)})
+    return tuple(out)
+
+
 # ----------------------------------------------------------------------
 # the stack
 # ----------------------------------------------------------------------
@@ -121,6 +155,24 @@ def init_stack(gen, cfg: ArchConfig, device):
     return _stacked(cfg.n_periods, lambda: {
         f"l{j}": init_block(gen, cfg, spec, device)
         for j, spec in enumerate(cfg.layer_pattern)})
+
+
+def stack_logical(cfg: ArchConfig):
+    one = {f"l{i}": block_logical(cfg, spec)
+           for i, spec in enumerate(cfg.layer_pattern)}
+    # the periods axis first, never sharded
+    return map_logical(lambda lg: (None,) + lg, one)
+
+
+def _pin_fsdp(pparams, cfg: ArchConfig):
+    """The reference re-asserts ZeRO-3 sharding on each period's weights
+    under an ambient mesh for ``fsdp_params`` archs; the port raises there
+    (ROADMAP A23) and otherwise returns the weights."""
+    mesh = ambient_mesh()
+    if mesh is None or not cfg.fsdp_params:
+        return pparams
+    raise NotImplementedError(
+        f"{IN_STAGE_SHARDING}: fsdp_params weights of {cfg.name} on {mesh}")
 
 
 def _periods(params, n_periods):
@@ -171,6 +223,7 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
     remat = remat and _remat(cfg)
     auxs = []
     for i, pparams in enumerate(_periods(params, cfg.n_periods)):
+        pparams = _pin_fsdp(pparams, cfg)
         caches = (None if cache is None else
                   [{name: c[i] for name, c in lc.items()} for lc in cache])
         if remat:

@@ -28,6 +28,11 @@ The state lives on the card and is updated in place (``adamw_update``,
   ``tree_like`` (``copy_``), allocating no second tree on the card; the
   tensors keep their identity, so whatever holds them (the stage
   pipeline's ``set_params``) sees the restored values.
+
+A leaf the mesh backend split by ZeRO-1 (a
+:class:`~repro_torch.dist.sharding.ZeroShards`) is written whole, its
+chunks gathered on the host, and restored by scattering the whole value
+back into its chunks: the files do not depend on the placement.
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import ZeroShards
 from repro_torch.tree import flatten, unflatten
 
 
@@ -51,8 +57,23 @@ class CheckpointCorruptError(RuntimeError):
     """Checkpoint exists but fails structural or checksum validation."""
 
 
+def _is_array(leaf) -> bool:
+    return isinstance(leaf, (torch.Tensor, ZeroShards))
+
+
+def _cuda_indices(leaves) -> list[int]:
+    """The CUDA devices the leaves (or their chunks) lie on."""
+    devs = set()
+    for x in leaves:
+        if isinstance(x, torch.Tensor):
+            devs.add(x.device)
+        elif isinstance(x, ZeroShards):
+            devs.update(x.devices)
+    return sorted({d.index or 0 for d in devs if d.type == "cuda"})
+
+
 def _dtype_name(leaf) -> str:
-    if isinstance(leaf, torch.Tensor):
+    if _is_array(leaf):
         return str(leaf.dtype).removeprefix("torch.")
     if isinstance(leaf, int) and not isinstance(leaf, bool):
         return "int32"
@@ -64,7 +85,7 @@ def _to_host(leaf) -> np.ndarray:
     """The array written for ``leaf``: bf16 as its uint16 bits."""
     if isinstance(leaf, int):
         return np.asarray(leaf, np.int32)
-    t = leaf.detach()
+    t = leaf.whole() if isinstance(leaf, ZeroShards) else leaf.detach()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).cpu().numpy().view(np.uint16)
     return t.cpu().numpy()
@@ -140,8 +161,7 @@ def save(ckpt_dir: str | Path, step: int, tree, keep: int = 3,
     t0 = time.perf_counter()
     # every stage stream too: a leaf is read only after each kernel that
     # writes it has ended
-    for dev in sorted({x.device.index or 0 for x in flat.values()
-                       if isinstance(x, torch.Tensor) and x.is_cuda}):
+    for dev in _cuda_indices(flat.values()):
         torch.cuda.synchronize(dev)
     _add(timings, "sync_s", time.perf_counter() - t0)
     # the uuid: a restart that reuses this pid never renames over (or
@@ -246,7 +266,7 @@ def load(ckpt_dir: str | Path, tree_like, step: Optional[int] = None,
             f"model has {len(my_keys)}; missing={missing} extra={extra})")
     for key, leaf in flat_like.items():
         info = manifest["leaves"][key]
-        shape = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+        shape = tuple(leaf.shape) if _is_array(leaf) else ()
         if (tuple(info["shape"]), info["dtype"]) != (shape, _dtype_name(leaf)):
             raise ValueError(
                 f"{d}: leaf {key} is {info['dtype']}{info['shape']} in the "
@@ -266,14 +286,13 @@ def load(ckpt_dir: str | Path, tree_like, step: Optional[int] = None,
             info = manifest["leaves"][key]
             arr = _read(d, key, info)
             nbytes += arr.nbytes
-            if isinstance(leaf, torch.Tensor):
+            if _is_array(leaf):
                 leaf.copy_(_from_host(arr, info["dtype"]))
                 pairs.append((path, leaf))
             else:
                 pairs.append((path, int(arr)))
             del arr
-        for dev in sorted({x.device.index or 0 for _, x in pairs
-                           if isinstance(x, torch.Tensor) and x.is_cuda}):
+        for dev in _cuda_indices(x for _, x in pairs):
             torch.cuda.synchronize(dev)
     _add(timings, "load_s", time.perf_counter() - t_start)
     _add(timings, "bytes", nbytes)

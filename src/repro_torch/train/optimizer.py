@@ -68,8 +68,11 @@ def compress_for_reduce(grads, state, cfg: AdamWConfig):
 
 
 def _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg: AdamWConfig):
-    """One leaf's AdamW update, in place, a slice at a time."""
-    p, g, m, v, ma = (x.view(-1) for x in (p, g.contiguous(), m, v, ma))
+    """One leaf's AdamW update, in place, a slice at a time: ``m``, ``v``
+    and ``ma`` (master) contiguous fp32, ``p`` the params' view of the
+    same elements, or None (then the caller writes them from ``ma``)."""
+    g, m, v, ma = (x.view(-1) for x in (g.contiguous(), m, v, ma))
+    p = None if p is None else p.view(-1)
     for i in range(0, g.numel(), _SLICE):
         sl = slice(i, i + _SLICE)
         gs = g[sl].float() * scale
@@ -78,7 +81,18 @@ def _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg: AdamWConfig):
         upd = (ms / b1c) / (torch.sqrt(vs / b2c) + cfg.eps)
         mas = ma[sl]
         mas.sub_(cfg.lr * (upd + cfg.weight_decay * mas))
-        p[sl].copy_(mas)
+        if p is not None:
+            p[sl].copy_(mas)
+
+
+def step_scalars(grads, state, cfg: AdamWConfig):
+    """``(grad_norm, clip scale, step, b1c, b2c)`` of the next update: the
+    global norm of the whole gradients, the step count after it and the
+    bias corrections."""
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    step = state["step"] + 1
+    return gnorm, scale, step, 1.0 - cfg.b1 ** step, 1.0 - cfg.b2 ** step
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig):
@@ -86,11 +100,7 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     place (see the module docstring), so an exception escaping from inside
     leaves the state torn between two steps (the runner checkpoints no
     such state)."""
-    gnorm = global_norm(grads)
-    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
-    step = state["step"] + 1
-    b1c = 1.0 - cfg.b1 ** step
-    b2c = 1.0 - cfg.b2 ** step
+    gnorm, scale, step, b1c, b2c = step_scalars(grads, state, cfg)
     for p, g, m, v, ma in zip(leaves(params), leaves(grads),
                               leaves(state["m"]), leaves(state["v"]),
                               leaves(state["master"])):

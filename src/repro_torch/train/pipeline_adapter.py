@@ -214,6 +214,27 @@ def _stage_bwd_step(apply_fn, static, j, last):
     return bwd
 
 
+def stage_slice(cfg: ArchConfig, full, n_stages: int, j: int):
+    """Stage ``j``'s params of a decoder model: views of its period slice
+    of the stack, and the shared tensors it owns (stage 0 the embedding
+    and the modality adapters, the last stage the final norm and the head,
+    or the tied embedding)."""
+    k = cfg.n_periods // n_stages
+    p: dict[str, Any] = {
+        "stack": tree_map(lambda x: x[j * k:(j + 1) * k], full["stack"])}
+    if j == 0:
+        for key in ("embed", "frame_adapter", "mask_emb", "patch_adapter"):
+            if key in full:
+                p[key] = full[key]
+    if j == n_stages - 1:
+        p["final_norm"] = full["final_norm"]
+        if "head" in full:
+            p["head"] = full["head"]
+        elif cfg.tie_embeddings:
+            p["embed"] = full["embed"]
+    return p
+
+
 class _Payload:
     """Tensors handed from one stage to the next, with the event recorded
     on the producer's stream after it wrote them (None on the CPU)."""
@@ -272,24 +293,7 @@ class PipelinedModel:
 
     # ------------------------- param slicing ---------------------------
     def stage_params(self, j: int):
-        """Stage ``j``'s params: views of its period slice of the stack,
-        and the shared tensors it owns (stage 0 the embedding and the
-        modality adapters)."""
-        k, full = self.k, self.full_params
-        p: dict[str, Any] = {
-            "stack": tree_map(lambda x: x[j * k:(j + 1) * k], full["stack"])}
-        if j == 0:
-            for key in ("embed", "frame_adapter", "mask_emb",
-                        "patch_adapter"):
-                if key in full:
-                    p[key] = full[key]
-        if j == self.n_stages - 1:
-            p["final_norm"] = full["final_norm"]
-            if "head" in full:
-                p["head"] = full["head"]
-            elif self.cfg.tie_embeddings:
-                p["embed"] = full["embed"]
-        return p
+        return stage_slice(self.cfg, self.full_params, self.n_stages, j)
 
     def _stack_keys(self) -> dict:
         """Full-tree stack key -> the stage-tree key of its slices, and the

@@ -1,18 +1,22 @@
 """Plan-ahead runtime: double-buffered planning over deterministic streams.
 
-Counterpart of ``repro.train.runner`` on the threads backend. While
-iteration *k* executes, a ``PlannerPool`` already plans iteration *k+1*
-(dp_split -> adaptive schedule -> comm plan -> instruction lowering), so
-planning stays off the critical path; ``synchronous=True`` plans inline
-instead, and both execute identical plans over identical batches, so their
-trajectories are equal bit for bit.
+Counterpart of ``repro.train.runner``. While iteration *k* executes, a
+``PlannerPool`` already plans iteration *k+1* (dp_split -> adaptive
+schedule -> comm plan -> instruction lowering), so planning stays off the
+critical path; ``synchronous=True`` plans inline instead, and both execute
+identical plans over identical batches, so their trajectories are equal
+bit for bit.
 
 Per iteration, every replica's plan runs on ``RunnerConfig.device``
-through the threads backend: the threaded stage pipeline when
-``use_executor`` and the periods split over the planner's stages, else the
-sequential grad loop (attention through the CUDA kernels K1 and the fused
-backward on the card). The gradients are summed in place, scaled by
-1 / (loss weight sum) and AdamW updates the params in place. An
+through the backend ``RunnerConfig.backend`` names: ``"threads"``, the
+threaded stage pipeline when ``use_executor`` and the periods split over
+the planner's stages, else the sequential grad loop; or ``"mesh"``, the
+shift register over a stage mesh (``mesh=``, by default the backend's)
+with ZeRO-1 optimizer state (attention through the CUDA kernels K1 and
+the fused backward on the card, either way). The gradients are summed in
+place, scaled by 1 / (loss weight sum) and AdamW updates the params in
+place. A checkpoint holds each optimizer leaf whole; a restore reads it
+back into the backend's placement. An
 encoder-decoder config (``family == "encdec"``) starts from
 ``init_encdec`` and runs 2-D ``(enc, dec)`` micro-batches; its stream must
 give every sample a decoder target.
@@ -36,8 +40,6 @@ in-place optimizer update (see :meth:`PlanAheadRunner.run`).
 ``fault_domain="process"`` hands the whole run to
 :func:`repro_torch.dist.cluster.run_process_cluster`: one OS process per DP
 replica, a socket coordinator doing the planning, and real SIGKILL chaos.
-Not ported, raising ``NotImplementedError``: the mesh backend (ROADMAP
-A13).
 """
 from __future__ import annotations
 
@@ -77,7 +79,7 @@ class RunnerConfig:
     """The run configuration: the reference's fields, plus ``device``,
     without ``impl`` (the port dispatches by device)."""
     n_iters: int = 50
-    backend: str = "threads"         # "threads" ("mesh": not ported, A13)
+    backend: str = "threads"         # "threads" | "mesh"
     lookahead: int = 1               # plans kept in flight ahead of execution
     synchronous: bool = False        # plan inline (fallback / bitwise oracle)
     use_processes: bool = False      # PlannerPool backend (core/planner.py)
@@ -212,7 +214,8 @@ class PlanAheadRunner:
 
     ``params`` (optional) is the initial parameter tree on
     ``rcfg.device``, which the runner trains in place; by default it draws
-    one from a ``torch.Generator`` seeded with ``rcfg.seed``. ``monitor``
+    one from a ``torch.Generator`` seeded with ``rcfg.seed``. ``mesh`` is
+    the stage mesh of ``backend="mesh"``. ``monitor``
     (a :class:`StragglerMonitor`) receives each replica's iteration time
     and drives elastic replanning; ``chaos`` (a :class:`FaultSchedule`)
     injects faults. After :meth:`run`, ``opt_state`` holds the final
@@ -226,9 +229,6 @@ class PlanAheadRunner:
                  step_cache: Optional[CompiledStepCache] = None,
                  chaos: Optional[FaultSchedule] = None, mesh=None,
                  params=None):
-        if rcfg.backend == "mesh" or mesh is not None:
-            raise NotImplementedError(
-                "the mesh backend is not ported yet (ROADMAP A13)")
         if rcfg.fault_domain == "process" and params is not None:
             raise ValueError(
                 "params= seeds the in-process runner; the process fault "
@@ -240,6 +240,7 @@ class PlanAheadRunner:
         self.rcfg = rcfg
         self.stream = stream
         self.params = params
+        self.mesh = mesh                 # stage mesh for backend="mesh"
         self.backend: Optional[ExecutionBackend] = None  # built in run()
         self.opt_cfg = opt_cfg if opt_cfg is not None else AdamWConfig(lr=3e-4)
         self.monitor = monitor
@@ -534,7 +535,7 @@ class PlanAheadRunner:
         self.backend = make_backend(
             rcfg.backend, cfg, self.pcfg.n_stages, step_cache=self.step_cache,
             use_executor=rcfg.use_executor, exec_timeout=rcfg.exec_timeout,
-            strict=rcfg.strict_verify, device=self.device)
+            mesh=self.mesh, strict=rcfg.strict_verify, device=self.device)
         opt = self.backend.place_opt_state(opt)
 
         end = start + rcfg.n_iters

@@ -1,0 +1,63 @@
+"""The training state tree and its logical sharding trees (DP/TP/SP and
+ZeRO-1), counterpart of ``repro.train.train_state``.
+
+``state_shapes`` builds the state on the ``meta`` device in place of
+``jax.eval_shape``: shapes and dtypes, nothing allocated, so the full tree
+of the largest arch costs nothing. The spec trees read only a mesh's axis
+names and sizes, so an abstract mesh (``launch.mesh.make_production_mesh``)
+serves as well as one with devices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.sharding import (P, map_logical, spec_for,
+                                       spec_for_zero, zero1_logical)
+from repro_torch.models import model as MD
+from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+
+
+def init_state(gen: torch.Generator, cfg: ArchConfig, opt_cfg: AdamWConfig,
+               device="cuda"):
+    params = MD.init_params(gen, cfg, device=device)
+    return {"params": params, "opt": init_opt_state(params, opt_cfg)}
+
+
+def state_shapes(cfg: ArchConfig, opt_cfg: AdamWConfig):
+    """The state tree as ``meta`` tensors (the optimizer's ``step`` an
+    int), without allocating."""
+    return init_state(torch.Generator(), cfg, opt_cfg, device="meta")
+
+
+def _param_spec(cfg: ArchConfig, shape, logical, mesh):
+    """bf16 compute-param spec; the ZeRO-3 (FSDP) upgrade for
+    ``fsdp_params`` archs."""
+    if cfg.fsdp_params:
+        zlg = zero1_logical(tuple(logical), tuple(shape), mesh)
+        return spec_for_zero(tuple(shape), zlg, mesh)
+    return spec_for(tuple(shape), tuple(logical), mesh)
+
+
+def params_spec_tree(cfg: ArchConfig, params_shapes, mesh):
+    return map_logical(lambda lg, sh: _param_spec(cfg, sh.shape, lg, mesh),
+                       MD.params_logical(cfg), params_shapes)
+
+
+def state_spec_tree(cfg: ArchConfig, st_shapes, mesh):
+    """PartitionSpec tree of the whole train state, ZeRO-1 on the
+    optimizer leaves."""
+    logical = MD.params_logical(cfg)
+    params = st_shapes["params"]
+
+    def zspec(lg, sh):
+        zlg = zero1_logical(tuple(lg), tuple(sh.shape), mesh)
+        return spec_for_zero(tuple(sh.shape), zlg, mesh)
+
+    zero = map_logical(zspec, logical, params)
+    opt = {"step": P(), "master": zero, "m": zero, "v": zero}
+    if "err" in st_shapes["opt"]:
+        opt["err"] = map_logical(
+            lambda lg, sh: spec_for(tuple(sh.shape), tuple(lg), mesh),
+            logical, params)
+    return {"params": params_spec_tree(cfg, params, mesh), "opt": opt}

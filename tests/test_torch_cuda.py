@@ -707,6 +707,108 @@ def test_pipelined_runs_on_the_card_are_repeatable_bit_for_bit(cuda):
         assert torch.equal(a, b)
 
 
+def _mesh_setup(n_stages=2):
+    """The reduced gpt-paper (4 layers), its planner and stream, and a
+    stage mesh of ``n_stages`` on the one card."""
+    from repro_torch.core.cost_model import AnalyticCostModel
+    from repro_torch.core.planner import PlannerConfig
+    from repro_torch.core.shapes import ShapePalette
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    from repro_torch.launch.mesh import make_stage_mesh
+    cfg = SV.make_config("gpt-paper", "reduced", 4)
+    stream = MultiTaskStream(StreamConfig(
+        n_tasks=8, global_tokens=1024, max_len=128, vocab=cfg.vocab,
+        tail_fraction=0.1, tail_alpha=1.2, seed=0))
+    pcfg = PlannerConfig(n_stages=n_stages, d_model=cfg.d_model,
+                         palette=ShapePalette.build(min_seq=32, max_seq=128,
+                                                    seq_align=32, max_mbs=4))
+    mesh = make_stage_mesh(n_stages, devices=["cuda:0"] * n_stages)
+    return cfg, stream, AnalyticCostModel(cfg, n_stages=n_stages), pcfg, mesh
+
+
+def test_mesh_step_on_the_card_matches_the_threads_backend(cuda):
+    # one plan over a 2-stage mesh on the card, against the threads
+    # backend's sequential grad steps on the same micro-batches; 3 K1 and
+    # 1 backward launch per layer and micro-batch, as the pipeline
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.dist.backend import MeshBackend, ThreadsBackend
+    from repro_torch.tree import flatten
+    cfg, stream, cost, pcfg, mesh = _mesh_setup()
+    gb = stream.batch(0)
+    plan = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0]
+    assert len(plan.micro_batches) >= 2
+    batches = {m.mb_id: materialize_micro_batch(m, gb.tokens,
+                                                lengths=gb.lengths)
+               for m in plan.micro_batches}
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    ops.reset_launch_counts()
+    res = MeshBackend(cfg, 2, mesh=mesh).execute_plan(plan, params=params,
+                                                      batches=batches)
+    n = len(plan.micro_batches)
+    assert ops.launch_counts() == {"mha_forward": 3 * 4 * n,
+                                   "mha_backward": 4 * n, "ssd_chunked": 0}
+    sres = ThreadsBackend(cfg, 2, use_executor=False, device=cuda
+                          ).execute_plan(plan, params=params, batches=batches)
+    assert res.weight_sum == sres.weight_sum
+    np.testing.assert_allclose(res.loss_sum / res.weight_sum,
+                               sres.loss_sum / sres.weight_sum, rtol=1e-4)
+    ref = dict(flatten(sres.grads))
+    for key, g in flatten(res.grads):
+        assert g.is_cuda, key
+        _grad_close(g, ref[key])
+
+
+def test_mesh_runs_on_the_card_are_repeatable_bit_for_bit(cuda):
+    from repro_torch.dist.sharding import ZeroShards
+    from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
+    from repro_torch.tree import leaves
+    runs = []
+    for _ in range(2):
+        cfg, stream, cost, pcfg, mesh = _mesh_setup()
+        runner = PlanAheadRunner(
+            cfg, cost, pcfg, RunnerConfig(n_iters=2, log_every=0, seed=0,
+                                          backend="mesh", device="cuda"),
+            stream, mesh=mesh)
+        params, hist, stats = runner.run()
+        assert stats.faults == 0
+        assert all(isinstance(x, ZeroShards)
+                   for x in leaves(runner.opt_state["m"]))
+        runs.append((params, hist))
+    (p0, h0), (p1, h1) = runs
+    assert [(h["loss"], h["grad_norm"]) for h in h0] == \
+        [(h["loss"], h["grad_norm"]) for h in h1]
+    for a, b in zip(leaves(p0), leaves(p1)):
+        assert torch.equal(a, b)
+
+
+def test_zero1_update_on_the_card_equals_adamw_to_the_bit(cuda):
+    from repro_torch.dist.backend import MeshBackend
+    from repro_torch.train import optimizer as TO
+    from repro_torch.tree import leaves, tree_map
+    cfg, _, _, _, mesh = _mesh_setup(4)
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                           device=cuda).to(p.dtype), params)
+    ocfg = TO.AdamWConfig(lr=1e-2)
+    opt = TO.init_opt_state(params, ocfg)
+    backend = MeshBackend(cfg, 4, mesh=mesh)
+    placed = backend.place_opt_state(
+        tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, opt))
+    p_ref = tree_map(torch.clone, params)
+    for _ in range(2):
+        p_ref, opt, _ = TO.adamw_update(p_ref, grads, opt, ocfg)
+        params, placed, _ = backend.optimizer_step(params, grads, placed, ocfg)
+    for a, b in zip(leaves(p_ref), leaves(params)):
+        assert torch.equal(a, b)
+    for key in ("master", "m", "v"):
+        for a, b in zip(leaves(opt[key]), leaves(placed[key])):
+            assert torch.equal(a, b.whole(cuda)), key
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}

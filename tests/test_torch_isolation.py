@@ -98,17 +98,14 @@ def test_entry_points_raise_without_cuda_instead_of_running_on_cpu(
         "embed"].device.type == "cpu"
 
 
-# the reference's public names that come with the mesh backend (ROADMAP
-# A13), and the port's own two
-MESH_NAMES = {"MeshBackend", "make_stage_mesh"}
+# the port's own two public names beside the reference's
 PORT_NAMES = {"serve", "params_from_jax"}
 
 
 def test_public_names_are_the_references_and_resolve_in_the_port():
     import repro
     import repro_torch
-    assert repro_torch.__all__ == sorted(
-        (set(repro.__all__) - MESH_NAMES) | PORT_NAMES)
+    assert repro_torch.__all__ == sorted(set(repro.__all__) | PORT_NAMES)
     for name in repro_torch.__all__:
         obj = getattr(repro_torch, name)
         where = getattr(obj, "__module__", None) or obj.__name__
@@ -118,8 +115,13 @@ def test_public_names_are_the_references_and_resolve_in_the_port():
             ref = getattr(repro, name)
             assert isinstance(obj, type) == isinstance(ref, type), name
             assert obj.__name__ == ref.__name__, name
+    # the mesh backend's names (ROADMAP A13) resolve in the port
+    from repro_torch.dist.backend import MeshBackend
+    from repro_torch.launch.mesh import make_stage_mesh
+    assert repro_torch.MeshBackend is MeshBackend
+    assert repro_torch.make_stage_mesh is make_stage_mesh
     with pytest.raises(AttributeError):
-        repro_torch.MeshBackend  # noqa: B018
+        repro_torch.DeviceMesh  # noqa: B018
 
 
 def test_resolving_the_public_names_loads_no_jax():
@@ -138,4 +140,4 @@ def test_resolving_the_public_names_loads_no_jax():
                               "PATH": "/usr/bin:/bin",
                               "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0, out.stderr
-    assert "N 19 BAD []" in out.stdout, out.stdout
+    assert "N 21 BAD []" in out.stdout, out.stdout

@@ -336,10 +336,12 @@ def test_stage_pipeline_and_unported_features_raise():
     # periods run it
     assert isinstance(ThreadsBackend(tcfg, 2, use_executor=True,
                                      device="cpu").pm, PipelinedModel)
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_backend("mesh", tcfg, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        _port_runner(tcfg, None, backend="mesh")
+    # the mesh backend (ROADMAP A13) is ported: built and run on the CPU
+    from repro_torch.dist.backend import MeshBackend
+    assert isinstance(make_backend("mesh", tcfg, 1, device="cpu"),
+                      MeshBackend)
+    _, hist, _ = _port_runner(tcfg, None, backend="mesh").run()
+    assert len(hist) == 3 and all(np.isfinite(h["loss"]) for h in hist)
     # checkpoints (A10), fault injection (A12) and the process fault
     # domain (A14, tests/test_torch_cluster.py) are ported: the runner
     # takes them
