@@ -2,8 +2,10 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # fault, cluster, moe, frames, mixed, gemma2, mesh
+                            # fault, cluster, moe, frames, mixed, gemma2, mesh,
+                            # dryrun
     python3 chip_smoke.py --phases mesh  # the stage mesh and ZeRO-1
+    python3 chip_smoke.py --phases dryrun  # the dry run against the card
     python3 chip_smoke.py --phases kernel,gemma2  # head dim 256 and gemma2-2b
     python3 chip_smoke.py --phases kernel,train  # the kernels and training
     python3 chip_smoke.py --phases profile       # where the time goes
@@ -204,7 +206,27 @@ Phases, each printing its own lines; any failure exits non-zero:
              two 2-iteration runs at 4 layers equal to the bit; prints
              real tokens/s, the mean step, peak memory and ZeRO-1's bytes
              on each stage;
-15. profile — (not run by default; ``profile-models`` the same for the
+15. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
+             each case's step traced on the ``meta`` device
+             (``_lower_cell`` on a (1, 1) mesh: the predicted peak, FLOPs
+             and kernel launches), then the same step functions run on the
+             card with seeded weights made there (``measure_cell``): once
+             under the ``op_cost`` counter, once timed, its peak
+             ``max_memory_allocated`` above what was allocated before.
+             Cases: (a) gpt-paper at full width, 8 layers (the train
+             cell's cut), one train step at B 8 x T 2048 under the remat
+             policies "nothing" and "dots"; (b) gemma2-2b at full depth
+             (26 layers, the head-dim-256 kernels), one train step at B 4
+             x T 2048; (c) gpt-paper at full depth, a prefill of 8 x 2048
+             and one decode step against a 2064-position cache. Each must
+             have the predicted peak within DRYRUN_PEAK_TOL of the
+             measured one, the meta and CUDA FLOPs equal, the predicted
+             launches equal to the counted ones and finite outputs; "dots"
+             must peak above "nothing" with the same launches; prints the
+             step time and the TFLOP/s it implies, and the ops whose
+             kernels allocated more inside themselves than the trace
+             models;
+16. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
              step and encoder forward, llava-next's prefill and decode;
@@ -262,6 +284,10 @@ GRAD_REL_TOL = 1e-2
 # barely sees it; the limit lies between the kernel runs' readings and
 # those of that planted fault (PERF.md, section 6).
 LOGIT_REL_TOL = 1e-2
+# |predicted - measured| / measured peak memory of a dry-run case: the
+# trace misses only what a kernel allocates below the dispatcher and the
+# caching allocator's rounding (PERF.md, section 6)
+DRYRUN_PEAK_TOL = 0.05
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_HBM_BYTES = 3.35e12      # H100 SXM HBM3
 # written before each timed decode call: 20 times the 50 MB L2, about 0.3
@@ -3566,14 +3592,91 @@ def phase_profile_pipeline(torch):
     torch.cuda.empty_cache()
 
 
+# the dryrun phase's cases: (tag, arch, layers, kind, seq, batch, policy)
+DRYRUN_CASES = (
+    ("a-nothing", "gpt-paper", 8, "train", 2048, 8, "nothing"),
+    ("a-dots", "gpt-paper", 8, "train", 2048, 8, "dots"),
+    ("b", "gemma2-2b", 26, "train", 2048, 4, "nothing"),
+    ("c-prefill", "gpt-paper", 32, "prefill", 2048, 8, "nothing"),
+    ("c-decode", "gpt-paper", 32, "decode", 2064, 8, "nothing"),
+)
+
+
+def phase_dryrun(torch):
+    """The dry run's predictions against the card: per case the meta
+    trace, then the card's run of the same step (see the module
+    docstring). Returns the kernels' launch counts over the cases' counted
+    runs."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.optimizer import AdamWConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh, opt_cfg = D.parse_mesh("1x1"), AdamWConfig()
+    totals: dict = {}
+    peaks = {}
+    for tag, arch, layers, kind, seq, batch, policy in DRYRUN_CASES:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers,
+                                  remat_policy=policy)
+        shape = ShapeSpec(f"{kind}_{seq}", kind, seq, batch)
+        t0 = time.perf_counter()
+        pred = D._lower_cell(cfg, shape, mesh, opt_cfg)
+        t_trace = time.perf_counter() - t0
+        got = D.measure_cell(cfg, shape, device="cuda", seed=0,
+                             opt_cfg=opt_cfg)
+        took = time.perf_counter() - t0
+        for name, n in got["counted"].items():
+            totals[name] = totals.get(name, 0) + n
+        err = (pred.peak_bytes - got["peak_bytes"]) / got["peak_bytes"]
+        tflops = got["flops"] / (got["step_ms"] * 1e-3) / 1e12
+        peaks[tag] = got["peak_bytes"]
+        hidden = sorted(((n, op) for op, n in got["hidden"].items()
+                         if n >= 1 << 26), reverse=True)[:6]
+        print(f"[dryrun] {tag}: {arch} {layers} layers {kind} B {batch} x "
+              f"{seq}, remat {policy}: peak predicted "
+              f"{pred.peak_bytes / 2**30:.3f} GiB (arguments "
+              f"{(pred.argument_bytes + pred.unread_argument_bytes) / 2**30:.3f}"
+              f"), measured {got['peak_bytes'] / 2**30:.3f} GiB "
+              f"({100 * err:+.2f}%); FLOPs meta {pred.summary.flops:.6e}, "
+              f"card {got['flops']:.6e} (padded "
+              f"{pred.summary.padded_flops:.3e}); launches predicted "
+              f"{pred.summary.launches}, charged on the card "
+              f"{got['launches']}, counted {got['counted']}; step "
+              f"{got['step_ms']:.1f} ms, {tflops:.1f} TFLOP/s; trace "
+              f"{t_trace:.1f}s, case {took:.1f}s", flush=True)
+        print(f"[dryrun] {tag}: made and freed inside an op, 64 MiB or more "
+              f"(largest): " + (", ".join(f"{op} {n / 2**20:.0f} MiB"
+                                          for n, op in hidden) or "none"),
+              flush=True)
+        check(got["finite"], f"dryrun {tag}: outputs not finite")
+        check(abs(err) <= DRYRUN_PEAK_TOL,
+              f"dryrun {tag}: predicted peak {pred.peak_bytes} against "
+              f"{got['peak_bytes']} measured ({100 * err:+.2f}%)")
+        check(pred.summary.flops == got["flops"],
+              f"dryrun {tag}: meta FLOPs {pred.summary.flops} against "
+              f"{got['flops']} on the card")
+        check(pred.summary.launches == got["launches"] == got["counted"],
+              f"dryrun {tag}: launches predicted {pred.summary.launches}, "
+              f"charged {got['launches']}, counted {got['counted']}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(peaks["a-dots"] > peaks["a-nothing"],
+          f"dryrun: dots peaked at {peaks['a-dots']}, not above nothing's "
+          f"{peaks['a-nothing']}")
+    return {"mha_forward": totals.get("mha_forward", 0),
+            "mha_backward": totals.get("mha_backward", 0),
+            "ssd_chunked": totals.get("ssd_chunked", 0)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault,cluster,moe,frames,mixed,gemma2,mesh",
+                    "fault,cluster,moe,frames,mixed,gemma2,mesh,dryrun",
                     help="comma-separated: kernel, serve, train, pipeline, "
                     "t5, mamba, fault, cluster, moe, frames, mixed, gemma2, "
-                    "mesh, profile, "
+                    "mesh, dryrun, profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -3629,6 +3732,8 @@ def main():
                       "gemma2-train": gemma2["train"]})
     if "mesh" in phases:
         paths["mesh"] = phase_mesh(torch)
+    if "dryrun" in phases:
+        paths["dryrun"] = phase_dryrun(torch)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,

@@ -6,7 +6,11 @@ Counterpart of ``repro.kernels.flash_attention``. :func:`mha_forward` and
 tensor they launch the hand-written Hopper kernels or raise, on a CPU
 tensor they run :func:`mha_forward_plain` and :func:`mha_backward_plain`,
 which materialise the whole score matrix. There is no fallback from one to
-the other.
+the other. On a ``meta`` tensor (asked for by a dry run, ``launch/
+dryrun.py``) the kernel wrappers make the allocations the CUDA path makes
+and return empty outputs of the kernels' shapes, launching nothing. Each
+wrapper charges its kernel to the open ``launch/op_cost.py`` counters by
+formula (:func:`attention_cost`), on the card and on ``meta`` alike.
 
 - K1, the forward, is ``csrc/flash_fwd.cu``. For T ≤ ``DECODE_MAX_T`` it
   takes its decode form: one block per (cache split, KV head, batch row)
@@ -60,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch import op_cost as _op_cost
 
 NEG_INF = -1e30
 
@@ -74,6 +79,9 @@ BWD_MAX_KEYS = 512 * 128
 # Launches of each CUDA kernel, counted where the wrapper launches it
 # (``_build.count_launch``): K1, and the fused backward (K2 and K3).
 LAUNCHES = {"mha_forward": 0, "mha_backward": 0}
+# the SMs K1's decode plan assumes for ``meta`` tensors when no card is
+# present: an H100 SXM's
+META_SM_COUNT = 132
 
 
 def shrink_block(length: int, block: int) -> int:
@@ -427,8 +435,29 @@ def _ptr(x):
 
 @functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
-    """The streaming multiprocessors of a CUDA device."""
+    """The streaming multiprocessors of a CUDA device; for ``meta`` those
+    of card 0, or ``META_SM_COUNT`` without a card."""
+    if torch.device(device).type == "meta":
+        if not torch.cuda.is_available():
+            return META_SM_COUNT
+        device = 0
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# products over every (query, key) pair and head-dim column: K1's q kᵀ
+# and p v; the backward's q kᵀ again, do vᵀ, pᵀ do, dsᵀ q and ds k
+FORWARD_PRODUCTS, BACKWARD_PRODUCTS = 2, 5
+
+
+def attention_cost(q, k, d: int, products: int) -> tuple[float, float]:
+    """``(flops, padded_flops)`` charged to one launch of ``products``
+    products on operands ``q`` (B,T,H,kd) and ``k`` (B,S,KV,kd) of true
+    head dim ``d``: dense over every (query, key) pair, ``2·B·H·T·S·d``
+    each, as the reference's ``ref`` path computes them (K1 ``4·B·H·T·S·d``,
+    the backward ``10·B·H·T·S·d``); the columns past ``d`` apart."""
+    b, t, h, kd = q.shape
+    u = 2.0 * products * b * h * t * k.shape[1]
+    return u * d, u * (kd - d)
 
 
 def _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
@@ -462,6 +491,9 @@ def _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
 def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
                       q_segment_ids, kv_segment_ids, *,
                       causal, window, softcap):
+    """K1 on CUDA tensors; on ``meta`` tensors the same allocations and
+    no launch. Either way one launch is charged to the open
+    ``op_cost`` counters."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -477,11 +509,16 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
         if n_split > 1:   # one allocation and one fill: the counters zeroed
             ws = torch.zeros(decode_workspace_numel(n_split, b, t, h, kvh, kd, gh),
                              dtype=torch.float32, device=q.device)
-    _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
-                    kv_segment_ids, o, lse, ws, causal=causal, window=window,
-                    softcap=softcap, sm_scale=sm_scale, n_split=n_split,
-                    heads_per_block=gh)
-    _build.count_launch(LAUNCHES, "mha_forward")
+    if q.device.type != "meta":
+        _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
+                        kv_segment_ids, o, lse, ws, causal=causal,
+                        window=window, softcap=softcap, sm_scale=sm_scale,
+                        n_split=n_split, heads_per_block=gh)
+        _build.count_launch(LAUNCHES, "mha_forward")
+    flops, padded = attention_cost(q, k, d, FORWARD_PRODUCTS)
+    _op_cost.charge("mha_forward", flops,
+                    (q, k, v, q_positions, kv_positions, q_segment_ids,
+                     kv_segment_ids), (o, lse, ws), padded)
     return (o if kd == d else o[..., :d].contiguous()), lse
 
 
@@ -532,7 +569,8 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
     ``sm_scale`` into ``acc`` in ascending key tile,
     ordered by the zeroed counters ``sem`` (allocated here when not given),
     and writes dk and dv. The kernel refuses an ``acc`` whose third dim is
-    not T rounded up to its own query tile."""
+    not T rounded up to its own query tile. ``meta`` tensors launch
+    nothing."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -550,6 +588,8 @@ def _launch_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
         raise ValueError(f"the dq counters must be contiguous int32 "
                          f"({b}, {h}, {n_qt}) on {q.device}, got "
                          f"{sem.dtype} {tuple(sem.shape)}")
+    if q.device.type == "meta":
+        return
     _build.launch(_build.library("flash_bwd").mha_bwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse), _ptr(delta),
             _ptr(q_positions), _ptr(kv_positions), _ptr(q_segment_ids),
@@ -580,10 +620,12 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     summed over each GQA group. Arguments as :func:`mha_backward`, plus
     ``delta`` from :func:`attention_delta`. The kernel takes at most
     ``BWD_MAX_KEYS`` (65536) keys; more raise. A head dim between the
-    kernel's instantiations is zero-padded and cut back."""
-    if q.device.type != "cuda":
-        raise ValueError(f"mha_backward_cuda takes CUDA tensors, got "
-                         f"{q.device}")
+    kernel's instantiations is zero-padded and cut back. ``meta`` tensors
+    get the same allocations and no launch; either way one launch is
+    charged to the open ``op_cost`` counters."""
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"mha_backward_cuda takes CUDA tensors (or meta "
+                         f"ones, which launch nothing), got {q.device}")
     d = q.shape[-1]
     (q, k, v, o, do), sm_scale = kernel_operands(q, k, v, o, do)
     args = (q, k, v, q_positions, kv_positions, q_segment_ids,
@@ -593,6 +635,8 @@ def mha_backward_cuda(q, k, v, q_positions, kv_positions, q_segment_ids,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_backward(*args, acc, dk, dv, causal=causal, window=window,
                      softcap=softcap, sm_scale=sm_scale, sem=sem)
+    flops, padded = attention_cost(q, k, d, BACKWARD_PRODUCTS)
+    _op_cost.charge("mha_backward", flops, args, (acc, sem, dk, dv), padded)
     dq = dq_from_accumulator(acc, q.shape[1])
     if q.shape[-1] == d:
         return dq, dk, dv
@@ -612,10 +656,11 @@ def mha_forward(q, k, v, q_positions, kv_positions,
     q (B,T,H,D), k/v (B,S,KV,D) with H % KV == 0; positions and segment ids
     (B,T)/(B,S) int32, segment ids -1 on padding. CUDA tensors launch K1
     (bf16, contiguous, D at most 256: a D between the ``HEAD_DIMS`` is
-    zero-padded); CPU tensors take the plain version.
+    zero-padded); CPU tensors take the plain version; ``meta`` tensors (a
+    dry run) get K1's allocations and outputs, and no launch.
     """
     _check_softcap(softcap)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return _mha_forward_cuda(
             q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
             causal=causal, window=window, softcap=softcap)
@@ -632,14 +677,15 @@ def mha_backward(q, k, v, q_positions, kv_positions, q_segment_ids,
     """Backward from the forward's residuals: returns ``(dq, dk, dv)``.
 
     CUDA tensors launch the fused backward kernel once, after the plain
-    reduction ``delta = rowsum(do * o)``; CPU tensors take
+    reduction ``delta = rowsum(do * o)``; ``meta`` tensors make the same
+    allocations and launch nothing; CPU tensors take
     :func:`mha_backward_plain`.
     """
     _check_softcap(softcap)
     args = (q, k, v, q_positions, kv_positions, q_segment_ids,
             kv_segment_ids, o, lse, do)
     opts = dict(causal=causal, window=window, softcap=softcap)
-    if q.device.type == "cuda":
+    if q.device.type in ("cuda", "meta"):
         return mha_backward_cuda(*args, attention_delta(o, do), **opts)
     if q.device.type == "cpu":
         return mha_backward_plain(*args, **opts)

@@ -4,7 +4,9 @@ Counterpart of ``repro.kernels.ssd.ssd_chunked``. :func:`ssd_chunked` takes
 the path its tensors' device gives: on a CUDA tensor it launches K4
 (``csrc/ssd_fwd.cu``) or raises, on a CPU tensor it runs
 its plain version, ``ref.ssd_ref_chunked``. There is no fallback
-from one to the other.
+from one to the other. A ``meta`` tensor (a dry run) gets K4's allocations
+and outputs and no launch, and every launch or would-be launch is charged
+to the open ``launch/op_cost.py`` counters by :func:`ssd_cost`.
 
 K4 replaces the TPU kernel ``ssd_chunked`` (``src/repro/kernels/ssd.py``,
 ``pl.pallas_call`` at :114, body ``_ssd_kernel`` at :31). At mamba2-130m's
@@ -32,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as _ref
+from repro_torch.launch import op_cost as _op_cost
 
 # Launches of K4, counted where the wrapper launches it
 # (``_build.count_launch``).
@@ -81,10 +84,37 @@ def check_cuda_args(x, dt, A, B, C):
         raise ValueError(f"A must be contiguous; stride {A.stride()}")
 
 
+def kernel_p(p: int) -> int:
+    """K4's instantiation for head dim ``p`` (its ``kP``)."""
+    return next((k for k in (16, 32, 64, 128) if p <= k), p)
+
+
+def ssd_cost(b: int, t: int, h: int, p: int, n: int) -> tuple[float, float]:
+    """``(flops, padded_flops)`` of one K4 launch: the products its loop
+    issues (``csrc/ssd_fwd.cu``), per (head, batch row) and 64-step chunk,
+    with kP its instantiation of P. C Bᵀ for each 16-row strip up to the
+    diagonal, 10 blocks of 16 x 16 by N, made by both warps of a strip when
+    kP > 16; W x on the same 10 blocks, by kP columns, as hi and lo; the
+    start state's C Sᵀ, 64 x kP by N as hi and lo, in every chunk but the
+    first; the state's update (x ∘ u)ᵀ B, P x N by 64, as hi and lo. The
+    columns of kP past P go to ``padded_flops``."""
+    kp = kernel_p(p)
+    nc = -(-t // CHUNK)
+    blk = 2 * 16 * 16           # one 16 x 16 block, per unit of K or N
+
+    def total(cols):
+        dup = 2 if kp > 16 else 1
+        per_chunk = 10 * blk * n * dup + 2 * 10 * blk * cols + 4 * p * n * CHUNK
+        return b * h * (nc * per_chunk + (nc - 1) * 4 * CHUNK * n * cols)
+    return float(total(p)), float(total(kp) - total(p))
+
+
 def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False):
     """K4: ``(y, final_state)``, and with ``chunk_states`` also the state at
     the start of every chunk after the first, which K4 then writes as hi and
-    lo parts: hi + lo in fp32 (B, H, chunks - 1, P, N)."""
+    lo parts: hi + lo in fp32 (B, H, chunks - 1, P, N). ``meta`` tensors get
+    the same allocations and no launch; either way one launch is charged to
+    the open ``op_cost`` counters."""
     from repro_torch.kernels import _build
     if torch.is_grad_enabled() and any(
             v.requires_grad for v in (x, dt, A, B, C)):
@@ -99,14 +129,18 @@ def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False):
     starts = (torch.empty((b, h, -(-t // CHUNK) - 1, 2, p, n),
                           dtype=torch.bfloat16, device=x.device)
               if chunk_states else None)
-    _build.launch(
-        _build.library("ssd_fwd").ssd_fwd_bf16,
-        x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), state.data_ptr(),
-        starts.data_ptr() if chunk_states else None, b, t, h, g, p, n,
-        *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
-        device=x.device)
-    _build.count_launch(LAUNCHES, "ssd_chunked")
+    if x.device.type != "meta":
+        _build.launch(
+            _build.library("ssd_fwd").ssd_fwd_bf16,
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr(),
+            starts.data_ptr() if chunk_states else None, b, t, h, g, p, n,
+            *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
+            device=x.device)
+        _build.count_launch(LAUNCHES, "ssd_chunked")
+    flops, padded = ssd_cost(b, t, h, p, n)
+    _op_cost.charge("ssd_chunked", flops, (x, dt, A, B, C),
+                    (y, state, starts), padded)
     if chunk_states:
         return y, state, starts[:, :, :, 0].float() + starts[:, :, :, 1].float()
     return y, state
@@ -139,9 +173,10 @@ def ssd_chunked(x, dt, A, B, C):
     y (B,T,H,P) in x's dtype, final_state (B,H,P,N) fp32. CUDA tensors
     launch K4 (x, B, C bf16; dt, A fp32; the last axis of x, B and C
     contiguous, their rows 16-byte aligned); CPU tensors take the plain
-    version.
+    version; ``meta`` tensors (a dry run) get K4's allocations and outputs,
+    and no launch.
     """
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         return _ssd_cuda(x, dt, A, B, C)
     if x.device.type == "cpu":
         return _ref.ssd_ref_chunked(x, dt, A, B, C)

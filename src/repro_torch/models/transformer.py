@@ -7,8 +7,13 @@ layout: every leaf stacked on a leading ``n_periods`` axis, one period
 being one repetition of ``cfg.layer_pattern``. A Python loop over periods
 takes the place of ``jax.lax.scan``. In training each period runs under
 ``torch.utils.checkpoint`` (non-reentrant) in place of the reference's
-``jax.checkpoint`` with the "nothing" policy: only the period inputs are
-kept for the backward, which recomputes the rest. The MoE layers' aux
+``jax.checkpoint``, by ``cfg.remat_policy``: "nothing" keeps only the
+period inputs for the backward, which recomputes the rest; "dots" also
+keeps the outputs of the products without batch dims (``aten.mm`` and
+``aten.addmm``, which every weight product lowers to) and recomputes the
+rest, attention and the batched expert products among it, as the
+reference's ``dots_with_no_batch_dims_saveable``; "everything" runs the
+period without checkpoint. The MoE layers' aux
 terms are summed per period and over the stack, as the reference sums
 them. The encoder-decoder (:func:`init_encdec` to :func:`encdec_fwd`)
 adds a period-major stack of cross-attention blocks, one after each
@@ -22,9 +27,11 @@ mesh.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
@@ -184,16 +191,32 @@ def _periods(params, n_periods):
     return [tree_map(lambda xs, i=i: xs[i], unbound) for i in range(n_periods)]
 
 
-def _remat(cfg: ArchConfig) -> bool:
-    """Whether a training period runs under checkpoint, by
-    ``cfg.remat_policy`` (reference ``transformer.py:194-200``)."""
+# the products "dots" saves: those with no batch dims
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpoint of "dots": save what ``DOTS_SAVED`` returns,
+    recompute every other op. Nothing else is saved, an allocation least
+    of all: the kernels write into ``torch.empty`` outputs outside the
+    dispatcher, and a recomputed launch must get a buffer of its own."""
+    return (CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig):
+    """How a training period runs, by ``cfg.remat_policy`` (reference
+    ``transformer.py:194-200``): the keyword arguments of its
+    ``checkpoint``, or None where it runs without one ("everything")."""
     if cfg.remat_policy == "nothing":
-        return True
+        return {}
+    if cfg.remat_policy == "dots":
+        return {"context_fn": functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)}
     if cfg.remat_policy == "everything":
-        return False
-    raise NotImplementedError(
-        f"remat policy {cfg.remat_policy!r} is not ported (\"nothing\" and "
-        "\"everything\" are)")
+        return None
+    raise ValueError(f"unknown remat policy {cfg.remat_policy!r} "
+                     "(\"nothing\", \"dots\", \"everything\")")
 
 
 def _period_fwd(pparams, h, cfg: ArchConfig, positions, segment_ids,
@@ -220,16 +243,16 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
     (if any) are updated in place and returned, aux is the periods' MoE
     aux summed. ``remat`` recomputes each period in the backward, as
     ``cfg.remat_policy`` says."""
-    remat = remat and _remat(cfg)
+    ckpt = _remat(cfg) if remat else None
     auxs = []
     for i, pparams in enumerate(_periods(params, cfg.n_periods)):
         pparams = _pin_fsdp(pparams, cfg)
         caches = (None if cache is None else
                   [{name: c[i] for name, c in lc.items()} for lc in cache])
-        if remat:
+        if ckpt is not None:
             h, aux = checkpoint(_period_fwd, pparams, h, cfg, positions,
                                 segment_ids, caches, cache_pos, mode,
-                                use_reentrant=False)
+                                use_reentrant=False, **ckpt)
         else:
             h, aux = _period_fwd(pparams, h, cfg, positions, segment_ids,
                                  caches, cache_pos, mode)

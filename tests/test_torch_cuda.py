@@ -1133,3 +1133,65 @@ def test_tree_wire_roundtrips_on_the_card(cuda):
                        tree_map(lambda x: x.cpu(), other))
     assert torch.equal(on_host["w"].view(torch.int16),
                        on_card["w"].cpu().view(torch.int16))
+
+
+# ----------------------------------------------------------------------
+# the dry run against the card (ROADMAP A16), and the "dots" policy (A20)
+# ----------------------------------------------------------------------
+def _dryrun_cell(kind, policy="nothing", layers=2):
+    """gpt-paper at full width and 2 layers; a train step or a prefill at
+    B 2 x T 1024, a decode step against a 1040-position cache."""
+    import dataclasses
+    from repro_torch.configs.base import ShapeSpec, get_arch
+    cfg = dataclasses.replace(get_arch("gpt-paper"), n_layers=layers,
+                              remat_policy=policy)
+    seq = 1040 if kind == "decode" else 1024
+    return cfg, ShapeSpec(f"{kind}_{seq}", kind, seq, 2)
+
+
+@pytest.mark.parametrize("kind,policy", [("train", "nothing"),
+                                         ("train", "dots"),
+                                         ("prefill", "nothing"),
+                                         ("decode", "nothing")])
+def test_dry_run_predicts_the_cards_peak_flops_and_launches(cuda, kind,
+                                                            policy):
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train.optimizer import AdamWConfig
+    cfg, shape = _dryrun_cell(kind, policy)
+    pred = D._lower_cell(cfg, shape, D.parse_mesh("1x1"), AdamWConfig())
+    got = D.measure_cell(cfg, shape, device=cuda)
+    assert got["finite"]
+    assert abs(pred.peak_bytes - got["peak_bytes"]) <= 0.05 * got["peak_bytes"]
+    assert pred.summary.flops == got["flops"]
+    assert pred.summary.launches == got["launches"] == got["counted"]
+
+
+def test_dots_keeps_the_launches_and_repeats_bit_for_bit(cuda):
+    """One train step under "nothing" and two under "dots" from the same
+    seeded state: the same K1 and backward launches (K1 twice a layer, the
+    period checkpoint recomputing attention under both), the same loss,
+    and the two "dots" runs equal to the bit in every parameter."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.train import train_state as TS
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.tree import leaves
+    opt_cfg = AdamWConfig()
+    runs = []
+    for policy in ("nothing", "dots", "dots"):
+        cfg, shape = _dryrun_cell("train", policy)
+        g = torch.Generator(device=cuda).manual_seed(0)
+        state = TS.init_state(g, cfg, opt_cfg, device=cuda)
+        batch, _ = D.batch_specs(cfg, shape, device=cuda, gen=g)
+        ops.reset_launch_counts()
+        state, metrics = D.make_train_step(cfg, opt_cfg, D.parse_mesh("1x1"))(
+            state, batch)
+        torch.cuda.synchronize()
+        runs.append((dict(ops.launch_counts()), float(metrics["loss"]),
+                     [x.clone() for x in leaves(state["params"])]))
+        del state, batch
+    (c0, l0, _), (c1, l1, p1), (c2, l2, p2) = runs
+    assert c0 == c1 == c2
+    assert c0["mha_forward"] == 2 * cfg.n_layers
+    assert c0["mha_backward"] == cfg.n_layers
+    assert l0 == l1 == l2
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
