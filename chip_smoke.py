@@ -2,8 +2,9 @@
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # fault, cluster, moe, frames, mixed, gemma2, mesh,
-                            # dryrun
+                            # mamba-train, fault, cluster, moe, frames, mixed,
+                            # gemma2, mesh, dryrun
+    python3 chip_smoke.py --phases kernel,mamba-train  # Mamba2 training
     python3 chip_smoke.py --phases mesh  # the stage mesh and ZeRO-1
     python3 chip_smoke.py --phases dryrun  # the dry run against the card
     python3 chip_smoke.py --phases kernel,gemma2  # head dim 256 and gemma2-2b
@@ -14,15 +15,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. device  — the card's name and power limit, and the build of every CUDA
              kernel (K1 in ``flash_fwd.cu``, the fused backward that
-             replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``
-             and its first, serial form, the yardstick, in
-             ``ssd_fwd_serial.cu``), one nvcc per source, all started
-             together, from the sources in this checkout, with ptxas's
+             replaces K2 and K3 in ``flash_bwd.cu``, K4 in ``ssd_fwd.cu``,
+             its backward in ``ssd_bwd.cu`` and its first, serial form, the
+             yardstick, in ``ssd_fwd_serial.cu``), one nvcc per source, all
+             started together, from the sources in this checkout, with ptxas's
              register and spill lines (each kernel and head dim it is
              instantiated at, D 256 among them) and the dynamic shared
              memory of K1's prefill and decode forms and of the backward at
              every head dim (K1 takes 64-key tiles at D 256, the backward a
-             form of its own);
+             form of its own) and of K4's backward, which must equal
+             ``ssd.bwd_smem_bytes``;
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -76,7 +78,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              bit; it prints how each product rounds its operands, and its
              time beside its first, serial form's (step 0, in turns), its
              bound and the plain version's (no single PyTorch call computes
-             the SSD);
+             the SSD); then K4's backward (``ssd_backward``, from the
+             chunk-start states K4 writes) at mamba2-130m's training shape
+             (B 8 at T 2048 and 192, a decay past -60 within a chunk, G <
+             H) against the plain reverse walk ``ref.ssd_chunked_bwd``:
+             dx, ddt, dB and dC per (batch row, 64-step chunk, head or
+             group), dA and d_initial whole, within SSD_REL_TOL, which a
+             planted fault (the walk without the dS carry between chunks)
+             must fail; three calls equal to the bit; its time beside its
+             bound and the plain backward's (autograd of
+             ``ref.ssd_ref_chunked``);
 3. serve   — ``repro_torch.serve`` at full gpt-paper width, 32 layers,
              random seeded weights: the launch count of K1 must equal
              n_layers x (prefill batches x (1 + decode steps)) and every
@@ -119,7 +130,23 @@ Phases, each printing its own lines; any failure exits non-zero:
              every logit must be finite; then the same serve with 2 layers
              runs once with K4 and once with the plain SSD, and their logits
              must agree;
-8. fault   — the fault-tolerant loop: gpt-paper at full width, 2 layers
+8. mamba-train — the plan-ahead runner's sequential path trains mamba2-130m
+             at full width and depth (24 layers), random seeded weights, 4
+             iterations of the train phase's stream: K4 must launch 2 x
+             layers x micro-batches times (forward and the period
+             checkpoint's recompute), its backward layers x micro-batches
+             times, K1 never, every loss finite; prints real tokens/s, the
+             mean step, padding efficiency and peak memory; at 2 layers the
+             grad step's loss and every gradient leaf with the kernels
+             against the plain SSD (autograd of ``ref.ssd_ref_chunked``,
+             patched in for K4 and its backward) within GRAD_TOL and
+             GRAD_REL_TOL, which a backward planted to return a zero dx
+             must fail; two 2-iteration runs equal to the bit; one plan over
+             the 2-stage threaded pipeline against the sequential grad
+             steps taken in the pipeline's order of backward: the loss sum
+             and every leaf but the tied embedding equal to the bit (the
+             embedding, two stages' parts summed, within GRAD_REL_TOL);
+9. fault   — the fault-tolerant loop: gpt-paper at full width, 2 layers
              over 2 stages (threads on their own CUDA streams), strict plan
              verification, 6 iterations of the train phase's stream: run A
              fault-free, run B with checkpoints every 3 iterations under
@@ -134,7 +161,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              each save's seconds (device synchronise, device to host, CRC,
              write), each load's, recovery_s, strict verification's time
              per plan, peak memory and both runs' launches;
-9. cluster — the process fault domain (``repro_torch.dist.cluster``): two
+10. cluster — the process fault domain (``repro_torch.dist.cluster``): two
              replica processes, each with its own CUDA context, train
              gpt-paper at full width with 2 layers on the one card, one
              stage each, 3 iterations of the train phase's stream,
@@ -150,7 +177,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              tokens/s beside the in-process runner's, the time from the
              kill to the new epoch's first iteration, each worker's peak
              memory and the workers' launches;
-10. moe    — granite-moe-3b-a800m at full width (40 experts x 512, top-8):
+11. moe    — granite-moe-3b-a800m at full width (40 experts x 512, top-8):
              served at full depth (32 layers) with the serve phase's
              requests, K1 launched exactly layers x (batches + batches x
              decode steps) times; trained at 16 layers on the train phase's
@@ -164,18 +191,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              iteration's loss and gradient leaves within GRAD_TOL and
              GRAD_REL_TOL, each of which must fail a planted fault, every
              token's second expert dropped;
-11. frames — hubert-xlarge at full width and depth (48 layers, 16 heads x
+12. frames — hubert-xlarge at full width and depth (48 layers, 16 heads x
              80): 4 AdamW steps of ``build_grad_step`` on seeded (4, 4096)
              frame batches (spans of 10 masked frames from starts drawn at
              8%, the loss on the masked frames), exact launches of K1 and
              the backward at head dim 80, then the encoder forward
              (prefill) at the same shape; at 2 layers the gradient leaves
              against the plain versions, which must fail a zero dq;
-12. mixed  — llava-next-34b at full width, 16 of 60 layers: 4 rows of 2880
+13. mixed  — llava-next-34b at full width, 16 of 60 layers: 4 rows of 2880
              seeded patch embeddings and 512 text tokens prefilled, 8
              greedy decode steps, exact K1 launches, finite logits; at 2
              layers the logits against the plain attention;
-13. gemma2 — gemma2-2b at full width (26 layers, d_model 2304, 8 q and 4
+14. gemma2 — gemma2-2b at full width (26 layers, d_model 2304, 8 q and 4
              kv heads x 256, a 4096-token window on every other layer,
              softcaps 50 and 30), its attention on the head-dim-256
              kernels: served at full depth with the serve phase's requests
@@ -189,7 +216,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              the bit, and at 2 layers every gradient leaf against the
              plain versions (GRAD_TOL, GRAD_REL_TOL, which must fail a zero
              dq);
-14. mesh   — the mesh backend (``repro_torch.dist.backend.MeshBackend``):
+15. mesh   — the mesh backend (``repro_torch.dist.backend.MeshBackend``):
              the pipeline phase's configuration, gpt-paper at full width, 8
              layers over 4 stages, on a stage mesh that repeats the one
              card (``make_stage_mesh(4, devices=["cuda:0"] * 4)``), the
@@ -206,7 +233,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              two 2-iteration runs at 4 layers equal to the bit; prints
              real tokens/s, the mean step, peak memory and ZeRO-1's bytes
              on each stage;
-15. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
+16. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
              each case's step traced on the ``meta`` device
              (``_lower_cell`` on a (1, 1) mesh: the predicted peak, FLOPs
              and kernel launches), then the same step functions run on the
@@ -218,7 +245,9 @@ Phases, each printing its own lines; any failure exits non-zero:
              policies "nothing" and "dots"; (b) gemma2-2b at full depth
              (26 layers, the head-dim-256 kernels), one train step at B 4
              x T 2048; (c) gpt-paper at full depth, a prefill of 8 x 2048
-             and one decode step against a 2064-position cache. Each must
+             and one decode step against a 2064-position cache; (d)
+             mamba2-130m at full depth, one train step at B 8 x T 2048 (K4
+             and its backward). Each must
              have the predicted peak within DRYRUN_PEAK_TOL of the
              measured one, the meta and CUDA FLOPs equal, the predicted
              launches equal to the counted ones and finite outputs; "dots"
@@ -226,7 +255,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              step time and the TFLOP/s it implies, and the ops whose
              kernels allocated more inside themselves than the trace
              models;
-16. profile — (not run by default; ``profile-models`` the same for the
+17. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
              step and encoder forward, llava-next's prefill and decode;
@@ -234,10 +263,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              iteration at full depth)
              torch.profiler over one full-width prefill
              of 8 x 2048 tokens and its decode steps, of gpt-paper and of
-             mamba2-130m, over one training iteration at 8 layers, and over
-             one pipelined iteration of gpt-paper (8 layers) and of t5-paper
-             (4 + 4 layers), each over 4 stages: device time by kernel, K1,
-             the backward and K4 singled out, and the device's idle share.
+             mamba2-130m, over one training iteration of gpt-paper at 8
+             layers and of mamba2-130m at 24, and over one pipelined
+             iteration of gpt-paper (8 layers) and of t5-paper (4 + 4
+             layers), each over 4 stages: device time by kernel, K1, the
+             backward, K4 and K4's backward singled out, and the device's
+             idle share.
 
 The third line from the end is the kernels' JSON record, the second the
 card's name and power limit, the last the device record. Nothing is
@@ -422,7 +453,13 @@ KERNELS = {
            ("train", "serve", "mesh")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
-           ("mamba",)),
+           ("mamba", "mamba-train")),
+    # K4's gradient: the reference has no Pallas backward (it differentiates
+    # ref.ssd_ref_chunked, src/repro/kernels/ops.py:116-130); the row names
+    # the kernel whose gradient it is
+    "K4-bwd": ("ssd_backward", "src/repro_torch/kernels/csrc/ssd_bwd.cu",
+               "src/repro/kernels/ssd.py:114", "ssd-train",
+               {"t_192": "ssd-train-192"}, ("mamba-train",)),
 }
 
 
@@ -481,6 +518,14 @@ def phase_device(torch):
     print("[device]   flash_bwd: dynamic shared memory (D 256: "
           "mha_bwd_d256_kernel) "
           + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
+    from repro_torch.kernels import ssd as SSD
+    smem = _build.library("ssd_bwd").ssd_bwd_smem
+    shapes = ((16, 16), (64, 128), (128, 64), (128, 112), (128, 128))
+    print("[device]   ssd_bwd: dynamic shared memory (the wrapper refuses "
+          f"more than {SSD.SMEM_BYTES} B) " + ", ".join(
+              f"P {p} N {n}: {smem(p, n)} B" for p, n in shapes))
+    check(all(smem(p, n) == SSD.bwd_smem_bytes(p, n) for p, n in shapes),
+          "K4's backward's shared memory differs from ssd.bwd_smem_bytes")
     return smi_line
 
 
@@ -1307,6 +1352,161 @@ def phase_kernel_ssd(torch):
     return records, {"K4": worst}
 
 
+def _ssd_bwd_bound_ms(x, B, h):
+    """Least time of K4's backward for these inputs: the chunked
+    algorithm's FLOPs at 64-step chunks, per (batch row, head, chunk of L
+    real steps) 2 L (L (2 N + 2 P) + 4 N P) (dy xᵀ, Wᵀ dy, M B, Mᵀ C, and
+    B dS'ᵀ, dy S, x dS', dS's update) and per (batch row, group, chunk)
+    2 L² N (C Bᵀ, which the heads of a group share), over the bf16 peak,
+    against the bytes of x, dy and dx (bf16), B, C, dB and dC (bf16), dt
+    and ddt (fp32), A and dA, each once, over HBM."""
+    b, t, _, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    c = SSD_BOUND_CHUNK
+    lens = [min(c, t - t0) for t0 in range(0, t, c)]
+    flops = float(b * h * sum(2 * L * (L * (2 * n + 2 * p) + 4 * n * p)
+                              for L in lens)
+                  + b * g * sum(2 * L * L * n for L in lens))
+    nbytes = (3 * b * t * h * p * 2 + 4 * b * t * g * n * 2 + 2 * b * t * h * 4
+              + 2 * h * 4)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, nbytes)
+
+
+def _ssd_bwd_no_carry(torch, ref, args, dy, d_final, starts, chunk):
+    """The planted fault: the plain backward with dS, the gradient carried
+    back across chunk boundaries, dropped: each 64-step chunk on its own,
+    from its own start state, with a zero gradient at its end (d_final at
+    the last)."""
+    x, dt, A, B, C = args
+    b, t, h, p = x.shape
+    n = B.shape[3]
+    nc = -(-t // chunk)
+    outs = []
+    for c in range(nc):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        outs.append(ref.ssd_chunked_bwd(
+            x[:, sl], dt[:, sl], A, B[:, sl], C[:, sl], dy[:, sl],
+            starts.new_zeros((b, h, 0, p, n)),
+            d_final=d_final if c == nc - 1 else None,
+            initial_state=None if c == 0 else starts[:, :, c - 1],
+            chunk=chunk))
+    return (torch.cat([o[0] for o in outs], 1), torch.cat([o[1] for o in outs], 1),
+            sum(o[2] for o in outs), torch.cat([o[3] for o in outs], 1),
+            torch.cat([o[4] for o in outs], 1), outs[0][5])
+
+
+def _bwd_rel(torch, got, want):
+    """Worst ||out - plain|| / ||plain|| of K4's backward against the plain
+    walk: dx, ddt, dB and dC per (batch row, 64-step chunk, head or group),
+    d_initial per (batch row, head), dA whole; and the largest
+    |difference|."""
+    (dx, ddt, dA, dB, dC, d0), (wx, wdt, wA, wB, wC, w0) = got, want
+    rel = max(_tile_rel(torch, dx, wx), _tile_rel(torch, dB, wB),
+              _tile_rel(torch, dC, wC),
+              _tile_rel(torch, ddt[..., None], wdt[..., None]),
+              _rel_per_head(torch, d0, w0),
+              float((dA - wA).norm() / wA.norm()))
+    err = max(float((o.float() - w.float()).abs().max())
+              for o, w in zip(got, want))
+    return rel, err
+
+
+def phase_kernel_ssd_bwd(torch):
+    """K4's backward against its plain version, the reverse walk
+    ``ref.ssd_chunked_bwd``: dx, ddt, dB and dC per (batch row, 64-step
+    chunk, head or group), dA and d_initial whole, within SSD_REL_TOL; a
+    planted fault (the plain walk without the dS carry between chunks)
+    read on every case and required to fail that check where the carry
+    matters; three calls equal to the bit; at the timed shapes the kernel
+    against its bound and the plain backward (autograd of
+    ``ref.ssd_ref_chunked``, its graph built once and kept)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as SSD
+    t_part = time.perf_counter()
+    print("[kernel] K4's backward, products (fp32 sums throughout): "
+          + "; ".join(f"{k}: {v}" for k, v in SSD.BWD_PRECISION.items()),
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    heads = dict(h=24, p=64, g=1, n=128)          # mamba2-130m's mixer
+    # name, shape, timed, whether the planted fault must be seen
+    cases = [
+        ("ssd-train", dict(b=8, t=2048, **heads), True, True),
+        ("ssd-train-192", dict(b=8, t=192, **heads), True, True),
+        ("ssd-bwd-groups", dict(b=2, t=300, h=4, p=16, g=2, n=16), False,
+         True),
+        ("ssd-bwd-strong-decay", dict(b=2, t=300, a_scale=40.0, **heads),
+         False, False),
+    ]
+    records, worst = {}, (0.0, 0.0)
+    for name, shape, timed, fault_seen in cases:
+        args = _ssd_inputs(torch, gen, **shape)
+        x, dt, A, B, C = args
+        b, t, h, p = x.shape
+        n = B.shape[3]
+        dy = torch.randn((b, t, h, p), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+        d_final = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        _, _, raw = SSD._ssd_launch(*args, None, True)
+        got = SSD._ssd_bwd_cuda(*args, dy, raw, d_final)
+        torch.cuda.synchronize()
+        same = all(all(torch.equal(a, c) for a, c in
+                       zip(got, SSD._ssd_bwd_cuda(*args, dy, raw, d_final)))
+                   for _ in range(2))
+        starts = ref.ssd_chunk_parallel(*args)[2]
+        want = ref.ssd_chunked_bwd(*args, dy, starts, d_final=d_final)
+        check(all(bool(torch.isfinite(o).all()) for o in got),
+              f"K4's backward {name}: non-finite output")
+        rel, err = _bwd_rel(torch, got, want)
+        f_rel, _ = _bwd_rel(torch, _ssd_bwd_no_carry(
+            torch, ref, args, dy, d_final, starts, SSD.CHUNK), want)
+        worst = (max(worst[0], err), max(worst[1], rel))
+        print(f"[kernel] {name:20s} x {tuple(x.shape)} B {tuple(B.shape)} "
+              f"backward: worst ||out-plain||/||plain|| {rel:.3e} (dx, ddt, "
+              f"dB, dC per 64-step chunk; dA, d_initial whole; max |diff| "
+              f"{err:.3e}); planted fault (no dS carry between chunks) "
+              f"{f_rel:.3e} (SSD_REL_TOL {SSD_REL_TOL}); three calls equal "
+              f"to the bit: {'yes' if same else 'NO'}", flush=True)
+        check(rel <= SSD_REL_TOL, f"K4's backward {name}: relative error "
+              f"{rel:.3e} exceeds SSD_REL_TOL {SSD_REL_TOL}")
+        check(same, f"K4's backward {name}: three calls differ")
+        if fault_seen:
+            check(f_rel > SSD_REL_TOL, f"K4's backward {name}: the per-chunk "
+                  "check does not see the planted fault")
+        del want, got
+        if timed:
+            ms = _cuda_time(torch, lambda: SSD._ssd_bwd_cuda(
+                *args, dy, raw, d_final), 20)
+            ins = [v.clone().requires_grad_() for v in args]
+            y, st = ref.ssd_ref_chunked(*ins)
+            outs, cots = (y, st), (dy, d_final)
+            plain_ms = _cuda_time(torch, lambda: torch.autograd.grad(
+                outs, ins, cots, retain_graph=True), 3, warmup=1)
+            del ins, y, st, outs
+            bound_ms, bound_by, flops, nbytes = _ssd_bwd_bound_ms(x, B, h)
+            issued = SSD.ssd_bwd_cost(b, t, h, p, n)[0]
+            records[("K4-bwd", name)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None,
+                library="none: no single PyTorch call computes the SSD's "
+                        "gradient",
+                precision=SSD.BWD_PRECISION, repeatable=same,
+                issued_gflop=issued / 1e9)
+            print(f"[kernel] {name:20s} K4's backward {ms:.4f} ms "
+                  f"({flops / ms / 1e9:.1f} TFLOP/s of the algorithm's, "
+                  f"{issued / ms / 1e9:.1f} issued; {nbytes / ms / 1e6:.1f} "
+                  f"GB/s), plain backward {plain_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of "
+                  f"bound)", flush=True)
+        del args, x, dt, A, B, C, dy, d_final, raw, starts
+        torch.cuda.empty_cache()
+    print(f"[kernel] K4's backward cases took "
+          f"{time.perf_counter() - t_part:.1f}s", flush=True)
+    return records, {"K4-bwd": worst}
+
+
 # ----------------------------------------------------------------------
 # phase 3: serve at full width
 # ----------------------------------------------------------------------
@@ -1499,7 +1699,8 @@ def phase_train(torch):
     tok_s = sum(h["tokens"] for h in steady) / sum(h["time_s"] for h in steady)
     n_micro = sum(h["n_micro"] for h in hist)
     expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
-                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[train] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
           f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
@@ -1680,7 +1881,8 @@ def phase_pipeline(torch):
     # forward again, and the period checkpoint's recompute in it; one
     # backward
     expected = {"mha_forward": 3 * cfg.n_layers * n_micro,
-                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[pipeline] {cfg.name} {cfg.n_layers} layers over {PIPE_STAGES} "
           f"stages ({cfg.n_params() / 1e9:.2f} B params), {len(hist)} "
           f"iterations, {n_micro} micro-batches in {took:.1f}s incl. init; "
@@ -1814,7 +2016,8 @@ def phase_mesh(torch):
     # checkpoint's recompute in it, and one backward; the ring runs nothing
     # on its warm-up and drain ticks
     expected = {"mha_forward": 3 * cfg.n_layers * n_micro,
-                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[mesh] {cfg.name} {cfg.n_layers} layers over a {PIPE_STAGES}-"
           f"stage mesh on cuda:0 ({cfg.n_params() / 1e9:.2f} B params), "
           f"{len(hist)} iterations, {n_micro} micro-batches in {took:.1f}s "
@@ -1984,7 +2187,8 @@ def phase_t5(torch):
     # recompute): one attention per encoder layer, two per decoder layer
     attn = cfg.n_layers + 2 * cfg.n_layers
     expected = {"mha_forward": 3 * attn * n_micro,
-                "mha_backward": attn * n_micro, "ssd_chunked": 0}
+                "mha_backward": attn * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     real = sum(h["tokens"] for h in hist)
     padded = sum(h["padded_tokens"] for h in hist)
     print(f"[t5] {cfg.name} {cfg.n_layers} + {cfg.n_layers} layers d_model "
@@ -2095,8 +2299,6 @@ def phase_t5(torch):
 # ----------------------------------------------------------------------
 def phase_mamba(torch, requests, max_prompt, decode_steps):
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ref
-    from repro_torch.kernels import ssd as SSD
     import numpy as np
     from repro_torch.serve import report
 
@@ -2115,7 +2317,7 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
         print(f"[mamba] {line}")
     nb = len(res.batches)
     expected = {"mha_forward": 0, "mha_backward": 0,
-                "ssd_chunked": cfg.n_layers * nb}
+                "ssd_chunked": cfg.n_layers * nb, "ssd_backward": 0}
     print(f"[mamba] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"d_inner {cfg.d_inner} {cfg.ssm_heads} SSD heads x "
           f"{cfg.ssm_headdim}, d_state {cfg.ssm_state} "
@@ -2135,7 +2337,7 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
               decode_steps=decode_steps, seed=1, arch="mamba2-130m",
               tag="mamba")
     _, _, with_k4 = _serve(torch, 2, **kw)
-    with mock.patch.object(SSD, "_ssd_cuda", ref.ssd_ref_chunked):
+    with _plain_ssd()[0]:
         _, _, with_plain = _serve(torch, 2, **kw)
     err, compared = _compare_serves(torch, with_k4, with_plain, TOL_BF16)
     print(f"[mamba] 2 layers, K4 vs plain SSD: max |logit diff| / "
@@ -2146,7 +2348,210 @@ def phase_mamba(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 8: the fault-tolerant training loop, gpt-paper at full width
+# phase 8: train mamba2-130m at full width and depth
+# ----------------------------------------------------------------------
+def _plain_ssd():
+    """Patch the plain SSD in for K4 and its backward: autograd of
+    ``ref.ssd_ref_chunked`` (CUDA tensors only reach it here)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as SSD
+
+    def plain(x, dt, A, B, C, initial_state=None):
+        return ref.ssd_ref_chunked(x, dt, A, B, C)
+    return (mock.patch.object(SSD, "_ssd_cuda", plain),
+            mock.patch.object(SSD._SSDFunction, "apply", plain))
+
+
+def phase_mamba_train(torch):
+    """mamba2-130m at full width and depth trained by the plan-ahead
+    runner's sequential path: exact launches of K4 and its backward,
+    finite losses; at 2 layers the grad step's loss and every gradient
+    leaf against the plain SSD (and a planted fault), two trajectories
+    equal to the bit, and one plan over the 2-stage threaded pipeline
+    against the sequential steps."""
+    import numpy as np
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    from repro_torch.dist.backend import ThreadsBackend
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import model as MD
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.tree import flatten, leaves, tree_map
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cfg, stream, cost, pcfg, params, hist, stats = _train(
+        torch, MAMBA_LAYERS, TRAIN_ITERS, seed=0, arch="mamba2-130m")
+    counts = ops.launch_counts()
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del params
+    torch.cuda.empty_cache()
+    tok_s, step_s = _history_lines("mamba-train", hist, lambda it: [
+        (m.mbs, m.seq) for m in plan_iteration(
+            stream.batch(it).lengths[:, 0], cost, pcfg)
+        .replica_plans[0].micro_batches])
+    n_micro = sum(h["n_micro"] for h in hist)
+    eff = sum(h["tokens"] for h in hist) / sum(h["padded_tokens"]
+                                               for h in hist)
+    # per layer and micro-batch: K4 in the forward and in the period
+    # checkpoint's recompute, its backward once
+    expected = {"mha_forward": 0, "mha_backward": 0,
+                "ssd_chunked": 2 * cfg.n_layers * n_micro,
+                "ssd_backward": cfg.n_layers * n_micro}
+    print(f"[mamba-train] {cfg.name} {cfg.n_layers} layers d_model "
+          f"{cfg.d_model} ({cfg.n_params() / 1e6:.1f} M params), "
+          f"{len(hist)} iterations, {n_micro} micro-batches in {took:.1f}s "
+          f"incl. init; iterations after the first: {tok_s:.1f} real "
+          f"tokens/s, mean step {1e3 * step_s:.1f} ms; padding efficiency "
+          f"{eff:.3f}; peak memory {peak:.2f} GiB; planning overlap "
+          f"{stats.overlap_fraction:.3f}; launches {counts} (expected "
+          f"{expected})", flush=True)
+    check(counts == expected, f"mamba train launches {counts}, expected "
+          f"{expected}")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), "non-finite loss or grad norm in mamba training")
+
+    # 2 layers: the grad step on the plan's largest micro-batch with the
+    # kernels, with the plain SSD, and with a planted fault
+    cfg2, stream2, cost2, pcfg2 = _train_setup(torch, 2, arch="mamba2-130m")
+    gb = stream2.batch(0)
+    mbs = plan_iteration(gb.lengths[:, 0], cost2, pcfg2).replica_plans[0] \
+        .micro_batches
+    big = max(mbs, key=lambda m: m.mbs * m.seq)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in materialize_micro_batch(
+        big, gb.tokens, lengths=gb.lengths).items()}
+    params0 = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                             cfg2, device="cuda")
+    step = build_grad_step(cfg2)
+
+    def grad_step():       # the loss and the mean-loss gradient leaves
+        ls, ws, g = step(params0, batch)
+        return float(ls) / float(ws), {k: x.float() / float(ws)
+                                       for k, x in flatten(g)}
+
+    lk, gk = grad_step()
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_ssd():
+            stack.enter_context(patch)
+        lp, gp = grad_step()
+    k_abs, k_rel, k_ok = _leaf_errs(torch, gk, gp)
+    real_bwd = SSD._ssd_bwd_cuda
+
+    def zero_dx(*a, **o):
+        dx, *rest = real_bwd(*a, **o)
+        return (torch.zeros_like(dx), *rest)
+    with mock.patch.object(SSD, "_ssd_bwd_cuda", zero_dx):
+        f_abs, f_rel, f_ok = _leaf_errs(torch, grad_step()[1], gp)
+    print(f"[mamba-train] 2 layers, K4 and its backward vs the plain SSD on "
+          f"a micro-batch of {big.mbs} x {big.seq}: loss {lk:.6f} vs "
+          f"{lp:.6f}; {len(gk)} gradient leaves, max |diff| {k_abs:.3e}, "
+          f"worst ||diff|| / ||plain|| {k_rel:.3e} (GRAD_TOL {GRAD_TOL_BF16}"
+          f", GRAD_REL_TOL {GRAD_REL_TOL}); planted fault (the backward's "
+          f"dx zeroed): max |diff| {f_abs:.3e}, worst {f_rel:.3e}, "
+          f"elementwise GRAD_TOL {'passes' if f_ok else 'fails'} it",
+          flush=True)
+    check(k_ok, "2-layer mamba gradient leaves: kernels and plain disagree")
+    check(k_rel <= GRAD_REL_TOL, "2-layer mamba gradient leaves: a leaf's "
+          f"||diff|| / ||plain|| {k_rel:.3e} exceeds {GRAD_REL_TOL}")
+    check(f_rel > GRAD_REL_TOL, "the leaf check does not see a backward "
+          "whose dx is zero")
+    check(abs(lk - lp) <= GRAD_TOL_BF16 * max(1.0, abs(lp)),
+          f"2-layer mamba losses: kernels and plain disagree ({lk} vs {lp})")
+    del gk, gp
+
+    # two 2-iteration runs from one seed: equal to the bit
+    runs = [_train(torch, 2, 2, seed=1, log_every=0, arch="mamba2-130m",
+                   params=tree_map(lambda x: x.clone(), params0))[4:6]
+            for _ in range(2)]
+    same = _same_runs(torch, *runs)
+    print(f"[mamba-train] 2 layers, two 2-iteration runs from one seed: "
+          f"losses {[h['loss'] for h in runs[0][1]]} and "
+          f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and all "
+          f"{len(leaves(runs[0][0]))} parameter leaves equal to the bit: "
+          f"{'yes' if same else 'NO'}", flush=True)
+    check(same, "two 2-layer mamba runs from one seed differ")
+    del runs
+
+    # one plan over the 2-stage threaded pipeline against the sequential
+    # grad steps taken in the pipeline's order of backward (the plan's
+    # schedule, not the micro-batch ids' order, in which the sequential
+    # backend sums): the loss sum and every leaf but the tied embedding to
+    # the bit; the embedding's gradient is the sum of stage 0's part (the
+    # lookup) and stage 1's (the head), which the pipeline adds after
+    # accumulating each over the micro-batches, the sequential step per
+    # micro-batch
+    from repro_torch.core.instructions import Op
+    from repro_torch.tree import add_into
+    cfgp, streamp, costp, pcfgp = _train_setup(torch, 2, 2, "mamba2-130m")
+    gbp = streamp.batch(0)
+    plan = plan_iteration(gbp.lengths[:, 0], costp, pcfgp).replica_plans[0]
+    batches = _plan_batches(plan, gbp)
+    orders = [[int(i.micro_batch) for i in instrs if i.op == Op.BACKWARD]
+              for instrs in plan.per_stage]
+    check(all(o == orders[0] for o in orders), f"the stages take their "
+          f"backwards in different orders {orders}")
+    pipe, seq = (ThreadsBackend(cfgp, 2, use_executor=on, device="cuda")
+                 for on in (True, False))
+    ops.reset_launch_counts()
+    rp, pipe_s = _executed(torch, pipe, plan, params0, batches)
+    pipe_counts = ops.launch_counts()
+    rs, seq_s = _executed(torch, seq, plan, params0, batches)
+    s_rel = max(_leaf_errs(torch, _mean_grads(rp), _mean_grads(rs))[1], 0.0)
+    del rs
+    stepp = build_grad_step(cfgp)
+    acc, loss_sum = None, 0.0
+    for mb in orders[0]:
+        b = {k: torch.as_tensor(v).cuda() for k, v in batches[mb].items()}
+        ls, _, g = stepp(params0, b)
+        loss_sum += float(ls)
+        acc = g if acc is None else add_into(acc, g)
+    gpipe, gseq = dict(flatten(rp.grads)), dict(flatten(acc))
+    tied = ("embed",)
+    differ = [k for k in gseq if k != tied
+              and not torch.equal(gpipe[k], gseq[k])]
+    e_rel = float(torch.linalg.vector_norm(
+        gpipe[tied].float() - gseq[tied].float())
+        / torch.linalg.vector_norm(gseq[tied].float()))
+    n_mb = len(plan.micro_batches)
+    print(f"[mamba-train] one plan {[(m.mbs, m.seq) for m in plan.micro_batches]}"
+          f" over 2 stages, backward order {orders[0]}: pipelined loss sum "
+          f"{rp.loss_sum!r} vs the sequential steps in that order "
+          f"{loss_sum!r} (equal to the bit: "
+          f"{'yes' if rp.loss_sum == loss_sum else 'NO'}); {len(gseq) - 1} "
+          f"leaves but the tied embedding equal to the bit: "
+          f"{'yes' if not differ else 'NO ' + str(differ)}; the embedding's "
+          f"||diff|| / ||sequential|| {e_rel:.3e}; against the sequential "
+          f"backend (micro-batch id order) worst leaf {s_rel:.3e}; pipelined "
+          f"{1e3 * pipe_s:.1f} ms, sequential {1e3 * seq_s:.1f} ms; the "
+          f"pipeline's launches {pipe_counts} (per layer and micro-batch 3 "
+          f"K4: stage forward, the stage backward's forward again and the "
+          f"period checkpoint's recompute; 1 backward)", flush=True)
+    check(rp.loss_sum == loss_sum, "pipelined and sequential mamba loss sums "
+          f"differ: {rp.loss_sum!r} vs {loss_sum!r}")
+    check(not differ, f"pipelined mamba gradient leaves {differ} differ from "
+          "the sequential steps")
+    check(e_rel <= GRAD_REL_TOL and s_rel <= GRAD_REL_TOL,
+          f"pipelined mamba gradients off: the tied embedding {e_rel:.3e}, "
+          f"the worst leaf against the sequential backend {s_rel:.3e}")
+    check(pipe_counts["ssd_chunked"] == 3 * 2 * n_mb
+          and pipe_counts["ssd_backward"] == 2 * n_mb,
+          f"pipelined mamba launches {pipe_counts}")
+    del acc
+    del rp, gpipe, gseq, params0
+    torch.cuda.empty_cache()
+    print(f"[mamba-train] the phase took {time.perf_counter() - t_phase:.1f}s",
+          flush=True)
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase 9: the fault-tolerant training loop, gpt-paper at full width
 # ----------------------------------------------------------------------
 def _fault_run(torch, chaos=None, ckpt_dir="", ckpt_every=0):
     """The runner on the fault configuration, with a straggler monitor on
@@ -2325,7 +2730,8 @@ def phase_fault(torch, card):
         del state_a
         n_a = sum(h["n_micro"] for h in a["hist"])
         expected = {"mha_forward": 3 * cfg.n_layers * n_a,
-                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0}
+                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0,
+                    "ssd_backward": 0}
         check(a["counts"] == expected, f"A's launches {a['counts']}, "
               f"expected {expected}")
         # B launches at least A's and the replayed iteration 3's
@@ -2550,7 +2956,8 @@ def phase_cluster(torch, card):
                   and same(a["params"], oparams))
         n_a = sum(h["n_micro"] for h in _last_lines(a["hist"]).values())
         expected = {"mha_forward": 2 * cfg.n_layers * n_a,
-                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0}
+                    "mha_backward": cfg.n_layers * n_a, "ssd_chunked": 0,
+                    "ssd_backward": 0}
         print(f"[cluster] A against the in-process runner: losses, grad "
               f"norms and every parameter equal to the bit: "
               f"{'yes' if same_a else 'NO'}; workers' launches "
@@ -2766,7 +3173,8 @@ def phase_moe(torch, requests, max_prompt, decode_steps):
     counts["serve"] = ops.launch_counts()
     nb = len(res.batches)
     expected = {"mha_forward": cfg.n_layers * (nb + nb * decode_steps),
-                "mha_backward": 0, "ssd_chunked": 0}
+                "mha_backward": 0, "ssd_chunked": 0,
+                "ssd_backward": 0}
     _serve_line("moe", cfg, res, tokens, time.perf_counter() - t0,
                 counts["serve"], expected,
                 f", {cfg.n_experts} experts x {cfg.d_ff_expert} top-"
@@ -2799,7 +3207,8 @@ def phase_moe(torch, requests, max_prompt, decode_steps):
         .replica_plans[0].micro_batches])
     n_micro = sum(h["n_micro"] for h in hist)
     expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
-                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[moe] {cfg.name} trained at {cfg.n_layers} layers "
           f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
           f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
@@ -2886,7 +3295,8 @@ def phase_moe(torch, requests, max_prompt, decode_steps):
     counts["llama4-serve"] = ops.launch_counts()
     nb = len(res.batches)
     expected = {"mha_forward": cfg.n_layers * (nb + nb * LLAMA4_DECODE_STEPS),
-                "mha_backward": 0, "ssd_chunked": 0}
+                "mha_backward": 0, "ssd_chunked": 0,
+                "ssd_backward": 0}
     _serve_line("moe", cfg, res, tokens, time.perf_counter() - t0,
                 counts["llama4-serve"], expected,
                 f", {cfg.n_experts} experts x {cfg.d_ff_expert} top-"
@@ -3038,7 +3448,8 @@ def phase_frames(torch):
     step_s = sum(steady) / len(steady)
     L = cfg.n_layers
     expected = {"mha_forward": 2 * L * HUBERT_STEPS,
-                "mha_backward": L * HUBERT_STEPS, "ssd_chunked": 0}
+                "mha_backward": L * HUBERT_STEPS, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[frames] {cfg.n_params() / 1e9:.3f} B params, {HUBERT_STEPS} "
           f"steps in {time.perf_counter() - t0:.1f}s incl. init; steps after "
           f"the first: {HUBERT_BATCH * HUBERT_SEQ / step_s:.1f} frames/s, "
@@ -3180,7 +3591,8 @@ def phase_mixed(torch):
     cfg, res = _mixed_serve(torch, LLAVA_LAYERS, seed=0)
     counts = ops.launch_counts()
     expected = {"mha_forward": cfg.n_layers * (1 + LLAVA_DECODE_STEPS),
-                "mha_backward": 0, "ssd_chunked": 0}
+                "mha_backward": 0, "ssd_chunked": 0,
+                "ssd_backward": 0}
     b, p, t = LLAVA_ROWS, cfg.n_patches, LLAVA_TEXT
     print(f"[mixed] {cfg.name} {cfg.n_layers} layers d_model {cfg.d_model} "
           f"({cfg.n_params() / 1e9:.2f} B params): prefill of {b} rows of "
@@ -3261,7 +3673,8 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
     counts["serve"] = ops.launch_counts()
     nb = len(res.batches)
     expected = {"mha_forward": cfg.n_layers * (nb + nb * decode_steps),
-                "mha_backward": 0, "ssd_chunked": 0}
+                "mha_backward": 0, "ssd_chunked": 0,
+                "ssd_backward": 0}
     top = max(float(x.abs().max()) for x in res.logits)
     _serve_line("gemma2", cfg, res, tokens, time.perf_counter() - t0,
                 counts["serve"], expected, f", {decode_steps} decode steps, "
@@ -3320,7 +3733,8 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
         .replica_plans[0].micro_batches])
     n_micro = sum(h["n_micro"] for h in hist)
     expected = {"mha_forward": 2 * cfg.n_layers * n_micro,
-                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0}
+                "mha_backward": cfg.n_layers * n_micro, "ssd_chunked": 0,
+                "ssd_backward": 0}
     print(f"[gemma2] {cfg.name} trained at {cfg.n_layers} layers "
           f"({cfg.n_params() / 1e9:.2f} B params), {len(hist)} iterations, "
           f"{n_micro} micro-batches in {took:.1f}s incl. init; iterations "
@@ -3364,12 +3778,13 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
-# phase 14: profiles (not run by default)
+# phase 17: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel; the
-# backward's mha_bwd_kernel and mha_bwd_d256_kernel
+# backward's mha_bwd_kernel and mha_bwd_d256_kernel; K4's backward's
+# ssd_bwd_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_",
-                  "K4": "ssd_fwd_kernel"}
+                  "K4": "ssd_fwd_kernel", "K4's backward": "ssd_bwd_kernel"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies
 KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
@@ -3599,6 +4014,7 @@ DRYRUN_CASES = (
     ("b", "gemma2-2b", 26, "train", 2048, 4, "nothing"),
     ("c-prefill", "gpt-paper", 32, "prefill", 2048, 8, "nothing"),
     ("c-decode", "gpt-paper", 32, "decode", 2064, 8, "nothing"),
+    ("d-mamba", "mamba2-130m", 24, "train", 2048, 8, "nothing"),
 )
 
 
@@ -3666,17 +4082,19 @@ def phase_dryrun(torch):
           f"{peaks['a-nothing']}")
     return {"mha_forward": totals.get("mha_forward", 0),
             "mha_backward": totals.get("mha_backward", 0),
-            "ssd_chunked": totals.get("ssd_chunked", 0)}
+            "ssd_chunked": totals.get("ssd_chunked", 0),
+            "ssd_backward": totals.get("ssd_backward", 0)}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "fault,cluster,moe,frames,mixed,gemma2,mesh,dryrun",
+                    "mamba-train,fault,cluster,moe,frames,mixed,gemma2,mesh,"
+                    "dryrun",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, fault, cluster, moe, frames, mixed, gemma2, "
-                    "mesh, dryrun, profile, "
+                    "t5, mamba, mamba-train, fault, cluster, moe, frames, "
+                    "mixed, gemma2, mesh, dryrun, profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -3700,9 +4118,10 @@ def main():
     records, worst, paths = {}, {}, {}
     if "kernel" in phases:
         records, worst = phase_kernel(torch)
-        ssd_records, ssd_worst = phase_kernel_ssd(torch)
-        records.update(ssd_records)
-        worst.update(ssd_worst)
+        for part in (phase_kernel_ssd, phase_kernel_ssd_bwd):
+            ssd_records, ssd_worst = part(torch)
+            records.update(ssd_records)
+            worst.update(ssd_worst)
     # each path's launch counts, read right after it ran from counts of 0
     if "serve" in phases:
         paths["serve"] = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
@@ -3714,6 +4133,8 @@ def main():
         paths["t5"] = phase_t5(torch)
     if "mamba" in phases:
         paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+    if "mamba-train" in phases:
+        paths["mamba-train"] = phase_mamba_train(torch)
     if "fault" in phases:
         paths["fault"] = phase_fault(torch, smi_line)
     if "cluster" in phases:
@@ -3739,6 +4160,8 @@ def main():
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,
                             arch="mamba2-130m", n_layers=MAMBA_LAYERS)
         phase_profile_train(torch)
+        phase_profile_train(torch, arch="mamba2-130m", n_layers=MAMBA_LAYERS,
+                            adamw=False)
         phase_profile_pipeline(torch)
     if "profile-models" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS, arch=MOE_ARCH)

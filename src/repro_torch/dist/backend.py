@@ -159,8 +159,7 @@ class ThreadsBackend(ExecutionBackend):
         if pipelined and self.device.type == "cuda":
             # built here, not inside a stage thread on the executor's clock
             from repro_torch.kernels import _build
-            for name in ("flash_fwd", "flash_bwd"):
-                _build.library(name)
+            _build.preload(cfg)
 
     def _grad_fn(self, shape: tuple):
         """shape: (mbs, seq) decoder-only or (mbs, enc, dec) enc-dec."""
@@ -303,8 +302,7 @@ class MeshBackend(ExecutionBackend):
         if any(d.type == "cuda" for d in self.devices):
             # built here, not on the first iteration's clock
             from repro_torch.kernels import _build
-            for lib in ("flash_fwd", "flash_bwd"):
-                _build.library(lib)
+            _build.preload(cfg)
 
     # ------------------------- param placement -------------------------
     def _place_params(self, params) -> list:

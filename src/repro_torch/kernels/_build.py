@@ -46,7 +46,11 @@ KERNELS = {
         "mha_bwd_smem": [_I],
     }),
     "ssd_fwd": ("ssd_fwd.cu", {
-        "ssd_fwd_bf16": [_P] * 8 + [_I] * 6 + [_L] * 12 + [_P],
+        "ssd_fwd_bf16": [_P] * 9 + [_I] * 6 + [_L] * 12 + [_P],
+    }),
+    "ssd_bwd": ("ssd_bwd.cu", {
+        "ssd_bwd_bf16": [_P] * 19 + [_I] * 6 + [_L] * 15 + [_P],
+        "ssd_bwd_smem": [_I, _I],
     }),
     # K4's first, serial form: a yardstick chip_smoke.py times, on no path
     "ssd_fwd_serial": ("ssd_fwd_serial.cu", {
@@ -119,6 +123,18 @@ def library(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = ctypes.c_int
             _loaded[name] = lib
     return lib
+
+
+def preload(cfg) -> None:
+    """Build and load the libraries a model's layers launch: the attention
+    kernels always, K4 and its backward where ``cfg`` has Mamba layers; so
+    that no stage thread, and no iteration's clock, waits on nvcc."""
+    names = ["flash_fwd", "flash_bwd"]
+    if cfg.has_mamba:
+        names += ["ssd_fwd", "ssd_bwd"]
+    build(names)
+    for name in names:
+        library(name)
 
 
 def launch(fn, *args, device):

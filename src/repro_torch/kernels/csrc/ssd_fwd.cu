@@ -5,7 +5,8 @@
 // (pl.pallas_call at :114, body `_ssd_kernel` at :31).
 //
 // What it computes, for x (B,T,H,P) bf16, dt (B,T,H) fp32 (> 0), A (H,) fp32
-// (< 0), B/C (B,T,G,N) bf16 read at group h / (H / G), from a zero state:
+// (< 0), B/C (B,T,G,N) bf16 read at group h / (H / G), from a zero state or
+// from a given fp32 initial state (B,H,P,N):
 // per chunk of kL = 64 steps, with a = dt·A and cum its in-chunk prefix sum,
 //   y     = ((C Bᵀ) ∘ L ∘ dt) x + e^{max(cum, -60)} ∘ (C stateᵀ)
 //           L[i][j] = e^{clip(cum_i - cum_j, -60, 0)} for j <= i, else 0
@@ -64,8 +65,11 @@
 // Every sum is fp32, nothing is added by atomics and every sum has a fixed
 // order, so K4 is repeatable bit for bit.
 // With a chunk_state buffer the block also writes the state at each
-// chunk's start (as bf16 hi and lo), so that a check can hold the state's
-// recurrence apart from y; the serving path passes none.
+// chunk's start after the first (as bf16 hi and lo), so that a check can
+// hold the state's recurrence apart from y, and so that the backward
+// (ssd_bwd.cu) can read them; the serving path passes none. With an initial
+// state the registers start from it in place of zeros, and the first chunk
+// adds its C Sᵀ term as every later one does.
 // Rows are read by 16-byte cp.async: x, B and C need 16-byte aligned
 // pointers and batch, time and head (group) strides (the wrapper checks),
 // P a multiple of 16 up to 128, N a multiple of 16 up to 128 (the
@@ -95,6 +99,7 @@ struct Params {
   uint16_t* y;
   float* state;                 // (B, H, P, N) fp32
   uint16_t* chunk_state;        // (B, H, chunks - 1, 2, P, N) bf16 hi, lo, or null
+  const float* init;            // (B, H, P, N) fp32 initial state, or null
   long long sx_b, sx_t, sx_h;   // element strides
   long long sdt_b, sdt_t, sdt_h;
   long long sb_b, sb_t, sb_g;
@@ -232,7 +237,8 @@ ssd_fwd_kernel(const Params p) {
   };
 
   // this warp's part of the state: rows 16 pg + gr (+ 8), columns
-  // 16 (wn + kWPG i) + 8 t + 2 qc (+ 1)
+  // 16 (wn + kWPG i) + 8 t + 2 qc (+ 1); zero, or the initial state, which
+  // also goes to shared memory (hi and lo) for the first chunk's C Sᵀ
   float s[kPairs][2][4];
 #pragma unroll
   for (int i = 0; i < kPairs; ++i)
@@ -240,6 +246,29 @@ ssd_fwd_kernel(const Params p) {
     for (int t = 0; t < 2; ++t)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[i][t][e] = 0.f;
+  if (p.init != nullptr && s_warp) {
+    const float* const in = p.init + ((size_t)bi * p.H + h) * p.P * p.N;
+    const int pr = 16 * pg + gr;
+#pragma unroll
+    for (int i = 0; i < kPairs; ++i) {
+      const int pair = wn + kWPG * i;
+      if (pair >= n16) break;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = 16 * pair + 8 * t + 2 * qc;
+          const float2 v = pr + 8 * r < p.P
+              ? *reinterpret_cast<const float2*>(in + (size_t)(pr + 8 * r) * p.N + q)
+              : make_float2(0.f, 0.f);
+          s[i][t][2 * r] = v.x;
+          s[i][t][2 * r + 1] = v.y;
+          const int off = (pr + 8 * r) * sn + q;
+          split_bf16(v.x, v.y, *reinterpret_cast<uint32_t*>(sm + L.s + off),
+                     *reinterpret_cast<uint32_t*>(sm + L.s + kP * sn + off));
+        }
+    }
+  }
   const int r0 = 16 * rg + gr, r1 = r0 + 8;   // this thread's rows of y
 
   load_b(0);
@@ -270,7 +299,7 @@ ssd_fwd_kernel(const Params p) {
       for (int nt = 0; nt < kYT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-      if (c > 0) {
+      if (c > 0 || p.init != nullptr) {
         // e^{max(cum, -60)} ∘ (C Sᵀ): the start state's hi, then lo rows
         for (int kk = 0; kk < n16; ++kk) {
           uint32_t a[4];
@@ -479,11 +508,13 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
 // rows 16-byte aligned; dt (B,T,H) and A (H,) fp32; y (B,T,H,P) bf16 and
 // state (B,H,P,N) fp32 contiguous; chunk_state null, or bf16
 // (B,H,ceil(T/64) - 1,2,P,N) contiguous, filled with the state at each
-// chunk's start after the first, as hi and lo parts. Launches on `stream`
-// and returns a CUDA error code (0: launched).
+// chunk's start after the first, as hi and lo parts; init null (a zero
+// initial state), or fp32 (B,H,P,N) contiguous. Launches on `stream` and
+// returns a CUDA error code (0: launched).
 extern "C" int ssd_fwd_bf16(
     const void* x, const void* dt, const void* A, const void* b,
-    const void* c, void* y, void* state, void* chunk_state, int batch, int T,
+    const void* c, void* y, void* state, void* chunk_state, const void* init,
+    int batch, int T,
     int H, int G, int P, int N, long long sx_b, long long sx_t,
     long long sx_h, long long sdt_b, long long sdt_t, long long sdt_h,
     long long sb_b, long long sb_t, long long sb_g, long long sc_b,
@@ -501,6 +532,7 @@ extern "C" int ssd_fwd_bf16(
   p.y = static_cast<uint16_t*>(y);
   p.state = static_cast<float*>(state);
   p.chunk_state = static_cast<uint16_t*>(chunk_state);
+  p.init = static_cast<const float*>(init);
   p.sx_b = sx_b; p.sx_t = sx_t; p.sx_h = sx_h;
   p.sdt_b = sdt_b; p.sdt_t = sdt_t; p.sdt_h = sdt_h;
   p.sb_b = sb_b; p.sb_t = sb_t; p.sb_g = sb_g;

@@ -2,10 +2,12 @@
 
 Counterpart of ``repro.kernels.ops``. There is no ``impl`` switch: a CUDA
 tensor always goes through the CUDA kernels (K1 forward, one fused kernel
-for its gradient in place of the reference's K2 and K3; K4 for the SSD), a
+for its gradient in place of the reference's K2 and K3; K4 for the SSD and
+K4's backward for its gradient), a
 CPU tensor always through their plain versions. :func:`launch_counts` reads
 how often each kernel was launched (``mha_forward``, ``mha_backward``,
-``ssd_chunked``), so a run can show that it went through them.
+``ssd_chunked``, ``ssd_backward``), so a run can show that it went through
+them.
 """
 from __future__ import annotations
 
@@ -56,18 +58,12 @@ def attention(q, k, v, *, causal=True, window=0, softcap=None,
 def ssd(x, dt, A, B, C, *, initial_state=None, return_state=False):
     """Mamba2 SSD over a full sequence. Returns y or ``(y, final_state)``.
 
-    From a zero state a CUDA tensor launches K4 and a CPU tensor takes its
-    plain version. An ``initial_state`` (which no caller of the reference
-    passes) is taken on the CPU by the quadratic oracle, as the reference
-    takes it by its ``ref`` path; on the card it raises."""
-    if initial_state is not None:
-        if x.device.type != "cpu":
-            raise NotImplementedError(
-                "K4 starts from a zero state; an initial state on the card "
-                "is ROADMAP A17")
-        return _ref.ssd_ref(x, dt, A, B, C, initial_state=initial_state,
-                            return_state=return_state)
-    y, state = _ssd.ssd_chunked(x, dt, A, B, C)
+    A CUDA tensor launches K4, from a zero state or from ``initial_state``,
+    and where a gradient is needed K4's backward; a CPU tensor takes the
+    plain version (from an initial state, which no caller of the reference
+    passes, the quadratic oracle, as the reference takes its ``ref`` path
+    there)."""
+    y, state = _ssd.ssd_chunked(x, dt, A, B, C, initial_state=initial_state)
     return (y, state) if return_state else y
 
 

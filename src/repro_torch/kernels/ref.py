@@ -7,7 +7,9 @@ and ``ssd_decode_ref``. They are the ground truth the CUDA kernels are held
 against on the card, and the path every CPU tensor takes. Beside them,
 :func:`ssd_chunk_parallel` is the plain form of K4's own passes (chunk
 states, the pass over chunks, y), which lets a check on the card tell a
-fault in one pass from a fault in another.
+fault in one pass from a fault in another, and :func:`ssd_chunked_bwd` the
+plain form of K4's backward, the reverse walk over chunks that its kernel
+takes.
 """
 from __future__ import annotations
 
@@ -195,13 +197,14 @@ def ssd_chunk_states(x, dt, A, B, chunk=64):
     return torch.einsum("bclh,bclhn,bclhp->bchpn", dec_end, Bs, xs), a_tot
 
 
-def ssd_state_pass(chunk_states, a_tot):
+def ssd_state_pass(chunk_states, a_tot, initial_state=None):
     """The pass over chunks: S <- e^{max(a_tot, -60)} S + Sk from a zero
-    state. Returns ``(starts, final)``: the state at the start of every
-    chunk after the first, (B, H, nc - 1, P, N) as K4 writes them when
-    asked (there as bf16 hi and lo parts), and the final state (B, H, P, N),
-    both fp32."""
-    s = torch.zeros_like(chunk_states[:, 0])
+    state, or from ``initial_state`` (B, H, P, N). Returns ``(starts,
+    final)``: the state at the start of every chunk after the first, (B, H,
+    nc - 1, P, N) as K4 writes them when asked (there as bf16 hi and lo
+    parts), and the final state (B, H, P, N), both fp32."""
+    s = (torch.zeros_like(chunk_states[:, 0]) if initial_state is None
+         else initial_state.float())
     starts = []
     for c in range(chunk_states.shape[1]):
         if c:
@@ -213,10 +216,11 @@ def ssd_state_pass(chunk_states, a_tot):
             else s.new_zeros((b, h, 0, p, n))), s
 
 
-def ssd_chunk_y(x, dt, A, B, C, starts, chunk=64):
+def ssd_chunk_y(x, dt, A, B, C, starts, chunk=64, initial_state=None):
     """The y pass: per chunk, ``((C Bᵀ) ∘ L ∘ dt) x + e^{max(cum, -60)} ∘
     (C Sᵀ)`` with S the chunk's start state from :func:`ssd_state_pass`
-    (zero for the first chunk). Returns y (B, T, H, P) in x's dtype."""
+    (for the first chunk ``initial_state``, or zero). Returns y (B, T, H,
+    P) in x's dtype."""
     b, t, h, p = x.shape
     g = B.shape[2]
     nc = -(-t // chunk)
@@ -230,21 +234,120 @@ def ssd_chunk_y(x, dt, A, B, C, starts, chunk=64):
     w = torch.einsum("bcihn,bcjhn->bcijh", Cs, Bs) * torch.where(
         tri[None, None, :, :, None], torch.exp(seg), 0.0) * dts[:, :, None]
     y = torch.einsum("bcijh,bcjhp->bcihp", w, xs)
-    prev = torch.cat([starts.new_zeros((b, h, 1) + starts.shape[3:]),
-                      starts.float()], dim=2)              # (B,H,nc,P,N)
+    first = (starts.new_zeros((b, h) + starts.shape[3:]) if initial_state
+             is None else initial_state)
+    prev = torch.cat([first[:, :, None].float(), starts.float()],
+                     dim=2)                                # (B,H,nc,P,N)
     y = y + torch.einsum("bcihn,bhcpn,bcih->bcihp", Cs, prev,
                          torch.exp(torch.clamp(cum, min=-60.0)))
     return y.reshape(b, nc * chunk, h, p)[:, :t].to(x.dtype)
 
 
-def ssd_chunk_parallel(x, dt, A, B, C, chunk=64):
+def ssd_chunk_parallel(x, dt, A, B, C, chunk=64, initial_state=None):
     """K4's chunk-parallel form in plain PyTorch, pass by pass: the chunk
-    states, the pass over chunks, then y. Returns ``(y, final_state,
-    starts)``, starts as :func:`ssd_state_pass` gives them, so that each of
-    K4's passes can be held to its own plain version."""
+    states, the pass over chunks, then y, from a zero state or from
+    ``initial_state``. Returns ``(y, final_state, starts)``, starts as
+    :func:`ssd_state_pass` gives them, so that each of K4's passes can be
+    held to its own plain version."""
     chunk_states, a_tot = ssd_chunk_states(x, dt, A, B, chunk)
-    starts, final = ssd_state_pass(chunk_states, a_tot)
-    return ssd_chunk_y(x, dt, A, B, C, starts, chunk), final, starts
+    starts, final = ssd_state_pass(chunk_states, a_tot, initial_state)
+    return (ssd_chunk_y(x, dt, A, B, C, starts, chunk, initial_state), final,
+            starts)
+
+
+def ssd_chunked_bwd(x, dt, A, B, C, dy, starts, d_final=None,
+                    initial_state=None, chunk=64):
+    """K4's backward in plain PyTorch: the reverse walk over ``chunk``-step
+    chunks that its kernel (``csrc/ssd_bwd.cu``) takes, carrying dS, the
+    gradient of the state at a chunk's end, from ``d_final`` (B, H, P, N),
+    or zero, back to the first chunk. ``starts`` are the states at the
+    start of every chunk after the first, as :func:`ssd_chunk_parallel`
+    gives them; the first chunk starts from ``initial_state``, or zero.
+    Returns ``(dx, ddt, dA, dB, dC, d_initial)``: dx in x's dtype, dB and
+    dC in B's dtype (summed over the heads of a group), ddt, dA and
+    d_initial (the gradient of the initial state) in fp32.
+
+    Per chunk, with a = dt·A, cum its in-chunk prefix sum, a_tot its last
+    value, L_ts = e^{clip(cum_t - cum_s, -60, 0)} (s <= t), E_t =
+    e^{max(cum_t, -60)}, u_s = e^{clip(a_tot - cum_s, -60, 0)} dt_s, S the
+    chunk's start state and dS' the carried gradient:
+
+    - dS = e^{max(a_tot, -60)} dS' + Σ_t E_t dy_t C_tᵀ, carried back;
+    - dx = Wᵀ dy + u ∘ (B dS'ᵀ), W_ts = (C_t·B_s) L_ts dt_s;
+    - dC = M B + E ∘ (dy S), M_ts = (dy_t·x_s) L_ts dt_s;
+    - dB = Mᵀ C + u ∘ (x dS');
+    - ddt_s = Σ_t (C_t·B_s)(dy_t·x_s) L_ts + e^{clip(a_tot - cum_s)}
+      x_sᵀ dS' B_s, then + A da_s; dA = Σ dt da;
+    - da_r = Σ_{t >= r} dcum_t, where with G_ts = (C_t·B_s)(dy_t·x_s) L_ts
+      dt_s and V_s = u_s x_sᵀ dS' B_s: dcum_t = Σ_s G_ts - Σ_t' G_t't +
+      E_t dy_t·(S C_t) - V_t, and the last step gains Σ_s V_s +
+      e^{a_tot} <dS', S>. Each term holds only where its clip does not
+      bite (the gradient of torch.clamp and of the reference's jnp.clip
+      is zero there).
+    """
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = -(-t // chunk)
+    xs = _chunked(x.float(), nc, chunk)                   # (B,nc,L,H,P)
+    dys = _chunked(dy.float(), nc, chunk)
+    dts = _chunked(dt.float(), nc, chunk)                 # (B,nc,L,H)
+    Bs = _chunked(_repeat_groups(B, rep, 2), nc, chunk)   # (B,nc,L,H,N)
+    Cs = _chunked(_repeat_groups(C, rep, 2), nc, chunk)
+    Af = A.float()
+    cum = torch.cumsum(dts * Af, dim=2)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, :, :, None]
+    s0 = (x.new_zeros((b, h, p, n), dtype=torch.float32)
+          if initial_state is None else initial_state.float())
+    S_all = torch.cat([s0[:, :, None], starts.float()], dim=2)  # (B,H,nc,P,N)
+    dS = (x.new_zeros((b, h, p, n), dtype=torch.float32) if d_final is None
+          else d_final.float())
+    dxs, ddts, dBs, dCs = [], [], [], []
+    dA = torch.zeros_like(Af)
+    for c in reversed(range(nc)):
+        xc, dyc, dtc = xs[:, c], dys[:, c], dts[:, c]
+        Bc, Cc, cm = Bs[:, c], Cs[:, c], cum[:, c]
+        S = S_all[:, :, c]
+        a_tot = cm[:, -1]                                  # (B,H)
+        diff = cm[:, :, None] - cm[:, None, :]             # (B,t,s,H)
+        Lm = torch.where(tri, torch.exp(torch.clamp(diff, -60.0, 0.0)), 0.0)
+        live = tri & (diff >= -60.0)
+        E = torch.exp(torch.clamp(cm, min=-60.0))          # (B,L,H)
+        eu = torch.exp(torch.clamp(a_tot[:, None] - cm, -60.0, 0.0))
+        u = eu * dtc
+        decay = torch.exp(torch.clamp(a_tot, min=-60.0))
+        CB = torch.einsum("bthn,bshn->btsh", Cc, Bc)
+        DX = torch.einsum("bthp,bshp->btsh", dyc, xc)
+        W = CB * Lm * dtc[:, None]
+        M = DX * Lm * dtc[:, None]
+        q = torch.einsum("bhpn,bshn->bshp", dS, Bc)        # dS' B_s
+        dxs.append(torch.einsum("btsh,bthp->bshp", W, dyc) + u[..., None] * q)
+        SdY = torch.einsum("bthp,bhpn->bthn", dyc, S)      # Sᵀ dy_t
+        dCs.append(torch.einsum("btsh,bshn->bthn", M, Bc) + E[..., None] * SdY)
+        dBs.append(torch.einsum("btsh,bthn->bshn", M, Cc) + u[..., None]
+                   * torch.einsum("bshp,bhpn->bshn", xc, dS))
+        cbdx = CB * DX * Lm
+        G = torch.where(live, cbdx * dtc[:, None], 0.0)
+        xq = (xc * q).sum(-1)                               # x_sᵀ dS' B_s
+        V = torch.where(a_tot[:, None] - cm >= -60.0, u * xq, 0.0)
+        ecs = torch.where(cm >= -60.0, E * (Cc * SdY).sum(-1), 0.0)
+        dcum = G.sum(2) - G.sum(1) + ecs - V
+        dcum[:, -1] += V.sum(1) + torch.where(
+            a_tot >= -60.0, decay * (dS * S).sum((-2, -1)), 0.0)
+        da = torch.flip(torch.cumsum(torch.flip(dcum, [1]), 1), [1])
+        ddts.append(cbdx.sum(1) + eu * xq + Af * da)
+        dA = dA + (dtc * da).sum((0, 1))
+        dS = decay[..., None, None] * dS + torch.einsum(
+            "bth,bthp,bthn->bhpn", E, dyc, Cc)
+
+    def whole(parts):   # chunks in reverse order -> (B, T, ...)
+        return torch.cat(parts[::-1], dim=1)[:, :t]
+
+    def by_group(v):    # (B, T, H, N) -> summed over each group's heads
+        return v.reshape(b, t, g, rep, n).sum(3).to(B.dtype)
+    return (whole(dxs).to(x.dtype), whole(ddts), dA, by_group(whole(dBs)),
+            by_group(whole(dCs)), dS)
 
 
 def ssd_decode_ref(x, dt, A, B, C, state):

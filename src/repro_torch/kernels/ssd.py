@@ -1,12 +1,14 @@
-"""Mamba2 SSD forward: the CUDA kernel K4 and its plain PyTorch version.
+"""Mamba2 SSD: the CUDA kernel K4, its backward, and their plain versions.
 
 Counterpart of ``repro.kernels.ssd.ssd_chunked``. :func:`ssd_chunked` takes
 the path its tensors' device gives: on a CUDA tensor it launches K4
-(``csrc/ssd_fwd.cu``) or raises, on a CPU tensor it runs
-its plain version, ``ref.ssd_ref_chunked``. There is no fallback
-from one to the other. A ``meta`` tensor (a dry run) gets K4's allocations
-and outputs and no launch, and every launch or would-be launch is charged
-to the open ``launch/op_cost.py`` counters by :func:`ssd_cost`.
+(``csrc/ssd_fwd.cu``) or raises, and where a gradient is needed K4's
+backward (``csrc/ssd_bwd.cu``) through :class:`_SSDFunction`; on a CPU
+tensor it runs the plain version, ``ref.ssd_ref_chunked``, under ordinary
+autograd. There is no fallback from one to the other. A ``meta`` tensor (a
+dry run) gets the kernels' allocations and outputs and no launch, and every
+launch or would-be launch is charged to the open ``launch/op_cost.py``
+counters by :func:`ssd_cost` and :func:`ssd_bwd_cost`.
 
 K4 replaces the TPU kernel ``ssd_chunked`` (``src/repro/kernels/ssd.py``,
 ``pl.pallas_call`` at :114, body ``_ssd_kernel`` at :31). At mamba2-130m's
@@ -22,12 +24,19 @@ memory on the serving path; asked for, K4 also writes them (as bf16 hi and
 lo parts) so that a check can hold the recurrence and y apart, against
 ``ref.ssd_chunk_parallel``, the plain form of the same steps. Repeatable
 bit for bit. Any T works (the last chunk is zero-filled), where the
-reference asserts that T is a multiple of its 128-step chunk. The source's
-header says more.
+reference asserts that T is a multiple of its 128-step chunk. K4 also
+starts from a given fp32 state (ROADMAP A17), which no caller of the
+reference passes. The source's header says more.
 
-The reference has no gradient for its kernel, and neither has K4: a CUDA
-tensor that requires grad raises. On the CPU the plain version is ordinary
-autograd code, as the reference differentiates its ``ref`` path there.
+The reference has no gradient for its kernel: it differentiates the plain
+chunked oracle. The port's backward is a kernel of its own, designed from
+the algebra (``ref.ssd_chunked_bwd`` is its plain form): one block per
+(head, batch row) walks the chunks in reverse with dS, the gradient of
+the state, in registers, reading each chunk's start state from the
+``chunk_states`` that K4 writes when the forward needs a gradient; dB and
+dC, shared by a group's heads, and dA, shared by the batch rows, are
+summed from per-block partials in a fixed order, so the backward too is
+repeatable bit for bit.
 """
 from __future__ import annotations
 
@@ -36,9 +45,9 @@ import torch
 from repro_torch.kernels import ref as _ref
 from repro_torch.launch import op_cost as _op_cost
 
-# Launches of K4, counted where the wrapper launches it
-# (``_build.count_launch``).
-LAUNCHES = {"ssd_chunked": 0}
+# Launches of K4 and of its backward, counted where the wrappers launch
+# them (``_build.count_launch``).
+LAUNCHES = {"ssd_chunked": 0, "ssd_backward": 0}
 
 CHUNK = 64                     # K4's chunk length (kL in ssd_fwd.cu)
 # how K4 takes the operands of its products (split: hi = bf16(v) and
@@ -50,9 +59,19 @@ PRECISION = {
                                     "bf16 hi + lo",
     "C S^T, S the carried state": "S split into bf16 hi + lo",
 }
+# how the backward takes them: C Bᵀ and dy xᵀ as bf16 x bf16; every other
+# product has one fp32 operand, split into hi + lo
+BWD_PRECISION = {
+    "C B^T, dy x^T": "bf16 x bf16 (the inputs' own type)",
+    "W^T dy, M B, M^T C (W, M = (.) o L o dt)": "W, M split into bf16 hi + lo",
+    "B dS'^T, x dS', dS' the carried gradient": "dS' split into bf16 hi + lo",
+    "dy S, S the chunk's start state": "S as K4 writes it: bf16 hi + lo",
+    "(E o dy)^T C": "E o dy split into bf16 hi + lo",
+}
+SMEM_BYTES = 232448           # the dynamic shared memory a block may use
 
 
-def check_cuda_args(x, dt, A, B, C):
+def check_cuda_args(x, dt, A, B, C, initial_state=None):
     """What K4 assumes of its arguments and its launcher cannot see: device,
     dtype, shape and the strides and alignment it can read (rows of x, B
     and C by 16 bytes). Raises on the first that fails. The launcher itself
@@ -82,6 +101,18 @@ def check_cuda_args(x, dt, A, B, C):
                              f"16-byte aligned")
     if A.stride(0) != 1 and h > 1:
         raise ValueError(f"A must be contiguous; stride {A.stride()}")
+    if initial_state is not None:
+        _check_state("initial_state", initial_state, x, B)
+
+
+def _check_state(name, v, x, B):
+    """A (B, H, P, N) fp32 state beside x (an initial state, or the
+    gradient of the final one)."""
+    want = (x.shape[0], x.shape[2], x.shape[3], B.shape[3])
+    if tuple(v.shape) != want or v.dtype != torch.float32 \
+            or v.device != x.device:
+        raise ValueError(f"{name} must be fp32 {want} on {x.device}; it is "
+                         f"{v.dtype} {tuple(v.shape)} on {v.device}")
 
 
 def kernel_p(p: int) -> int:
@@ -89,41 +120,73 @@ def kernel_p(p: int) -> int:
     return next((k for k in (16, 32, 64, 128) if p <= k), p)
 
 
-def ssd_cost(b: int, t: int, h: int, p: int, n: int) -> tuple[float, float]:
+def ssd_cost(b: int, t: int, h: int, p: int, n: int,
+             initial_state: bool = False) -> tuple[float, float]:
     """``(flops, padded_flops)`` of one K4 launch: the products its loop
     issues (``csrc/ssd_fwd.cu``), per (head, batch row) and 64-step chunk,
     with kP its instantiation of P. C Bᵀ for each 16-row strip up to the
     diagonal, 10 blocks of 16 x 16 by N, made by both warps of a strip when
     kP > 16; W x on the same 10 blocks, by kP columns, as hi and lo; the
     start state's C Sᵀ, 64 x kP by N as hi and lo, in every chunk but the
-    first; the state's update (x ∘ u)ᵀ B, P x N by 64, as hi and lo. The
-    columns of kP past P go to ``padded_flops``."""
+    first (in the first too from an ``initial_state``); the state's update
+    (x ∘ u)ᵀ B, P x N by 64, as hi and lo. The columns of kP past P go to
+    ``padded_flops``."""
     kp = kernel_p(p)
     nc = -(-t // CHUNK)
     blk = 2 * 16 * 16           # one 16 x 16 block, per unit of K or N
+    starts = nc if initial_state else nc - 1
 
     def total(cols):
         dup = 2 if kp > 16 else 1
         per_chunk = 10 * blk * n * dup + 2 * 10 * blk * cols + 4 * p * n * CHUNK
-        return b * h * (nc * per_chunk + (nc - 1) * 4 * CHUNK * n * cols)
+        return b * h * (nc * per_chunk + starts * 4 * CHUNK * n * cols)
     return float(total(p)), float(total(kp) - total(p))
 
 
-def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False):
-    """K4: ``(y, final_state)``, and with ``chunk_states`` also the state at
-    the start of every chunk after the first, which K4 then writes as hi and
-    lo parts: hi + lo in fp32 (B, H, chunks - 1, P, N). ``meta`` tensors get
-    the same allocations and no launch; either way one launch is charged to
-    the open ``op_cost`` counters."""
+def ssd_bwd_cost(b: int, t: int, h: int, p: int,
+                 n: int) -> tuple[float, float]:
+    """``(flops, padded_flops)`` of one launch of K4's backward: the
+    products its loop issues (``csrc/ssd_bwd.cu``), per (head, batch row)
+    and 64-step chunk, with kP its instantiation of P. C Bᵀ (by N) and
+    dy xᵀ (by P) on the 10 blocks of 16 x 16 up to the diagonal; Wᵀ dy on
+    the 10 blocks, by kP columns, as hi and lo; B dS'ᵀ, 64 x kP by N, as
+    hi and lo; dy S and x dS', 64 x N by P, as hi and lo, each; M B and Mᵀ
+    C on the 10 blocks, by N, as hi and lo, each; dS's update (E ∘ dy)ᵀ C,
+    P x N by 64, as hi and lo. The columns of kP past P go to
+    ``padded_flops``."""
+    kp = kernel_p(p)
+    nc = -(-t // CHUNK)
+    blk = 2 * 16 * 16
+
+    def total(cols):
+        per_chunk = (10 * blk * (n + p) + 2 * 10 * blk * cols
+                     + 4 * CHUNK * cols * n + 2 * 4 * CHUNK * n * p
+                     + 2 * 2 * 10 * blk * n + 4 * CHUNK * p * n)
+        return b * h * nc * per_chunk
+    return float(total(p)), float(total(kp) - total(p))
+
+
+def bwd_smem_bytes(p: int, n: int) -> int:
+    """The dynamic shared memory of the backward's instantiation for head
+    dim ``p`` and state ``n`` (``Smem<kP>::bytes`` in ``csrc/ssd_bwd.cu``):
+    x and dy, B and C, S and dS' as hi and lo, W and M as hi and lo, in
+    bf16 with rows padded by 8, then 1228 floats."""
+    kp, chunk = kernel_p(p), CHUNK
+    elems = (2 * chunk * (kp + 8) + 2 * chunk * (n + 8) + 4 * kp * (n + 8)
+             + 4 * chunk * (chunk + 8))
+    return 2 * elems + 1228 * 4
+
+
+def _ssd_launch(x, dt, A, B, C, initial_state, chunk_states):
+    """One K4 launch (or, on ``meta``, its allocations): ``(y,
+    final_state, starts)``, starts the raw bf16 (B, H, chunks - 1, 2, P,
+    N) hi and lo parts of the chunk-start states, or None."""
     from repro_torch.kernels import _build
-    if torch.is_grad_enabled() and any(
-            v.requires_grad for v in (x, dt, A, B, C)):
-        raise NotImplementedError(
-            "K4 has no backward, as the reference's ssd_chunked has none: "
-            "Mamba training on the card is an open question (ROADMAP, D)")
-    check_cuda_args(x, dt, A, B, C)
+    check_cuda_args(x, dt, A, B, C, initial_state)
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
+    if initial_state is not None:
+        initial_state = initial_state.contiguous()
     y = torch.empty((b, t, h, p), dtype=x.dtype, device=x.device)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     starts = (torch.empty((b, h, -(-t // CHUNK) - 1, 2, p, n),
@@ -134,16 +197,125 @@ def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False):
             _build.library("ssd_fwd").ssd_fwd_bf16,
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), y.data_ptr(), state.data_ptr(),
-            starts.data_ptr() if chunk_states else None, b, t, h, g, p, n,
+            starts.data_ptr() if chunk_states else None,
+            None if initial_state is None else initial_state.data_ptr(),
+            b, t, h, g, p, n,
             *x.stride()[:3], *dt.stride(), *B.stride()[:3], *C.stride()[:3],
             device=x.device)
         _build.count_launch(LAUNCHES, "ssd_chunked")
-    flops, padded = ssd_cost(b, t, h, p, n)
-    _op_cost.charge("ssd_chunked", flops, (x, dt, A, B, C),
+    flops, padded = ssd_cost(b, t, h, p, n, initial_state is not None)
+    _op_cost.charge("ssd_chunked", flops, (x, dt, A, B, C, initial_state),
                     (y, state, starts), padded)
+    return y, state, starts
+
+
+def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False, initial_state=None):
+    """K4: ``(y, final_state)``, from a zero state or ``initial_state``
+    (B, H, P, N) fp32, and with ``chunk_states`` also the state at the
+    start of every chunk after the first, which K4 then writes as hi and
+    lo parts: hi + lo in fp32 (B, H, chunks - 1, P, N). ``meta`` tensors
+    get the same allocations and no launch; either way one launch is
+    charged to the open ``op_cost`` counters. No gradient flows through
+    it: :func:`ssd_chunked` takes :class:`_SSDFunction` for that."""
+    y, state, starts = _ssd_launch(x, dt, A, B, C, initial_state,
+                                   chunk_states)
     if chunk_states:
         return y, state, starts[:, :, :, 0].float() + starts[:, :, :, 1].float()
     return y, state
+
+
+def _ssd_bwd_cuda(x, dt, A, B, C, dy, starts, d_final=None,
+                  initial_state=None):
+    """K4's backward: ``(dx, ddt, dA, dB, dC, d_initial)`` from dy (the
+    gradient of y), ``starts`` (K4's raw chunk-start states, as
+    :func:`_ssd_launch` returns them), and ``d_final`` (the gradient of the
+    final state, or None for zero); the first chunk starts from
+    ``initial_state``, or zero. dx in x's dtype, dB and dC in B's, ddt, dA
+    and d_initial in fp32. ``meta`` tensors get every allocation of the
+    card (outputs, partials and counters) and no launch; either way one
+    launch is charged to the open ``op_cost`` counters."""
+    from repro_torch.kernels import _build
+    check_cuda_args(x, dt, A, B, C, initial_state)
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-t // CHUNK)
+    if bwd_smem_bytes(p, n) > SMEM_BYTES:
+        raise NotImplementedError(
+            f"K4's backward holds a chunk, the state and its gradient in "
+            f"shared memory: {bwd_smem_bytes(p, n)} bytes at head dim {p} "
+            f"and state {n}, past the card's {SMEM_BYTES}")
+    if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
+        raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)}; it is "
+                         f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
+    if dy.stride(-1) != 1 or dy.data_ptr() % 16 or any(
+            st % 8 for st in dy.stride()[:3]):
+        dy = dy.contiguous()
+    if starts.shape != (b, h, nc - 1, 2, p, n) or \
+            starts.dtype != torch.bfloat16 or not starts.is_contiguous():
+        raise ValueError(f"starts must be K4's contiguous bf16 "
+                         f"{(b, h, nc - 1, 2, p, n)}; they are "
+                         f"{starts.dtype} {tuple(starts.shape)}")
+    for name, v in (("d_final", d_final), ("initial_state", initial_state)):
+        if v is not None:
+            _check_state(name, v, x, B)
+    d_final = None if d_final is None else d_final.contiguous()
+    initial_state = (None if initial_state is None
+                     else initial_state.contiguous())
+    dev, f32 = x.device, torch.float32
+    dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, t, h), dtype=f32, device=dev)
+    dA = torch.empty((h,), dtype=f32, device=dev)
+    dB = torch.empty((b, t, g, n), dtype=B.dtype, device=dev)
+    dC = torch.empty((b, t, g, n), dtype=B.dtype, device=dev)
+    d_init = torch.empty((b, h, p, n), dtype=f32, device=dev)
+    # per-head partials of dB and dC, per-row ones of dA, and the zeroed
+    # counters behind which the last block of each sum reads them
+    parts = torch.empty((2, b, h, nc * CHUNK, n), dtype=f32, device=dev)
+    part_a = torch.empty((b, h), dtype=f32, device=dev)
+    count = torch.zeros((b * g * nc + h,), dtype=torch.int32, device=dev)
+    if dev.type != "meta":
+        _build.launch(
+            _build.library("ssd_bwd").ssd_bwd_bf16,
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), dy.data_ptr(), starts.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
+            None if d_final is None else d_final.data_ptr(),
+            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), d_init.data_ptr(), parts[0].data_ptr(),
+            parts[1].data_ptr(), part_a.data_ptr(), count.data_ptr(),
+            b, t, h, g, p, n, *x.stride()[:3], *dt.stride(),
+            *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
+            device=dev)
+        _build.count_launch(LAUNCHES, "ssd_backward")
+    flops, padded = ssd_bwd_cost(b, t, h, p, n)
+    _op_cost.charge("ssd_backward", flops,
+                    (x, dt, A, B, C, dy, starts, d_final, initial_state),
+                    (dx, ddt, dA, dB, dC, d_init), padded)
+    return dx, ddt, dA, dB, dC, d_init
+
+
+class _SSDFunction(torch.autograd.Function):
+    """K4 under autograd: the forward launches K4 and keeps its chunk-start
+    states for the backward, which launches K4's backward. The gradient of
+    the final state, where it is used, flows back through ``d_final``;
+    where it is not, autograd passes None and the walk starts from zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, initial_state):
+        y, state, starts = _ssd_launch(x, dt, A, B, C, initial_state, True)
+        ctx.save_for_backward(x, dt, A, B, C, initial_state, starts)
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, d_final):
+        x, dt, A, B, C, initial_state, starts = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = _ssd_bwd_cuda(x, dt, A, B, C, dy, starts, d_final,
+                              initial_state)
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad))
 
 
 def ssd_serial_cuda(x, dt, A, B, C):
@@ -166,18 +338,28 @@ def ssd_serial_cuda(x, dt, A, B, C):
     return y, state
 
 
-def ssd_chunked(x, dt, A, B, C):
-    """Mamba2 SSD over full sequences from a zero state: ``(y, final_state)``.
+def ssd_chunked(x, dt, A, B, C, initial_state=None):
+    """Mamba2 SSD over full sequences from a zero state, or from
+    ``initial_state`` (B,H,P,N) fp32: ``(y, final_state)``.
 
     x (B,T,H,P), dt (B,T,H) > 0, A (H,) < 0, B/C (B,T,G,N) with H % G == 0;
     y (B,T,H,P) in x's dtype, final_state (B,H,P,N) fp32. CUDA tensors
     launch K4 (x, B, C bf16; dt, A fp32; the last axis of x, B and C
-    contiguous, their rows 16-byte aligned); CPU tensors take the plain
-    version; ``meta`` tensors (a dry run) get K4's allocations and outputs,
-    and no launch.
+    contiguous, their rows 16-byte aligned), and where a gradient is needed
+    K4's backward; CPU tensors take the plain version (the quadratic oracle
+    from an initial state, as the reference's ``ops.ssd`` does); ``meta``
+    tensors (a dry run) get the kernels' allocations and outputs, and no
+    launch.
     """
     if x.device.type in ("cuda", "meta"):
-        return _ssd_cuda(x, dt, A, B, C)
+        if torch.is_grad_enabled() and any(
+                v is not None and v.requires_grad
+                for v in (x, dt, A, B, C, initial_state)):
+            return _SSDFunction.apply(x, dt, A, B, C, initial_state)
+        return _ssd_cuda(x, dt, A, B, C, initial_state=initial_state)
     if x.device.type == "cpu":
-        return _ref.ssd_ref_chunked(x, dt, A, B, C)
+        if initial_state is None:
+            return _ref.ssd_ref_chunked(x, dt, A, B, C)
+        return _ref.ssd_ref(x, dt, A, B, C, initial_state=initial_state,
+                            return_state=True)
     raise ValueError(f"no SSD path for device {x.device}")

@@ -13,7 +13,8 @@ the ``meta`` device, where nothing is allocated or computed, under
   temporaries above the arguments (``temp_bytes``);
 - the products and bytes of every aten op, the hand-written kernels
   charged by formula beside their wrappers (K1 ``4·B·H·T·S·D``, the fused
-  backward ``10·B·H·T·S·D``, K4 its loop's products), and their launches;
+  backward ``10·B·H·T·S·D``, K4 and its backward their loops' products),
+  and their launches;
 - the collectives a mesh of ``dp`` replicas adds, from the spec trees: the
   gradients' all-reduce over the batch axes and the ZeRO-1 all-gather of
   each updated master chunk over its zero axes, with the reference's ring
@@ -25,9 +26,8 @@ spec-tree shapes (the device's own chunk updated, the rest of the leaf
 gathered by the all-gather counted above). That is exact where the mesh
 gives the model axis to no tensor of the step: ``(1, 1)``, ``(n, 1)`` and
 ``pure_dp``. Where the model axis would split a tensor (sharding inside a
-stage, ROADMAP A23), or for a Mamba training step (K4 has no backward,
-ROADMAP D), a cell records its argument bytes and ``"cost": null`` with
-``"not_ported"`` naming the item.
+stage, ROADMAP A23), a cell records its argument bytes and ``"cost": null``
+with ``"not_ported"`` naming the item.
 
 The reference's ``bf16_upcast_correction`` and ``temp_tpu_est_bytes`` are
 artefacts of XLA's CPU backend (f32 copies of bf16 weights that no TPU
@@ -335,9 +335,7 @@ def train_collectives(cfg: ArchConfig, shape: ShapeSpec, mesh,
 def not_ported(cfg: ArchConfig, shape: ShapeSpec, mesh) -> str:
     """The ROADMAP item a cell's trace waits for, or ``""``: A23 where the
     mesh's model axis would split a tensor of the step (or ZeRO-3 weights
-    would be gathered), D for a Mamba training step."""
-    if shape.kind == "train" and cfg.has_mamba:
-        return "ROADMAP D"
+    would be gathered)."""
     with pure_dp(cfg.pure_dp):
         if axis_size("tp", mesh) > 1 or (
                 cfg.fsdp_params and axis_size("zero", mesh) > 1):

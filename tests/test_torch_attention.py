@@ -193,7 +193,7 @@ def test_ops_attention_on_cpu_takes_plain_version_and_fills_one_side():
     out2 = tops.attention(q, k2, v2, causal=False, kv_segment_ids=kv_seg)
     torch.testing.assert_close(out2, out, atol=0, rtol=0)
     assert tops.launch_counts() == {"mha_forward": 0, "mha_backward": 0,
-                                    "ssd_chunked": 0}
+                                    "ssd_chunked": 0, "ssd_backward": 0}
     assert _build._loaded == {}        # the CPU path never builds the kernel
 
 

@@ -28,6 +28,9 @@ pytestmark = pytest.mark.cuda
 TOL = 2e-2
 GRAD_TOL = 4e-2
 SSD_TOL = 5e-2
+# ||grad card - grad CPU|| / ||grad CPU|| per leaf of a reduced jamba period
+# (test_jamba_period_gradients_on_the_card_match_the_cpu says why)
+JAMBA_GRAD_TOL = 1e-1
 
 # Where a CPU reference runs: one intra-op thread, so that pytest-xdist's
 # workers do not oversubscribe the CPU (idle OpenMP threads spin) and slow
@@ -261,7 +264,7 @@ def test_backward_kernels_match_plain_version(cuda, d, t, s, h, kv, opts):
     ops.reset_launch_counts()
     out = fa.mha_backward(q, k, v, qp, kp, None, None, o, lse, do, **opts)
     assert ops.launch_counts() == {"mha_forward": 0, "mha_backward": 1,
-                                   "ssd_chunked": 0}
+                                   "ssd_chunked": 0, "ssd_backward": 0}
     ref = fa.mha_backward_plain(q, k, v, qp, kp, None, None, o, lse, do,
                                 **opts)
     for a, r in zip(out, ref):
@@ -512,7 +515,7 @@ def test_autograd_through_the_kernels_matches_the_cpu(cuda):
         (out.float() * ct.to(dev)).sum().backward()
         n = 1 if dev.type == "cuda" else 0
         assert ops.launch_counts() == {"mha_forward": n, "mha_backward": n,
-                                       "ssd_chunked": 0}
+                                       "ssd_chunked": 0, "ssd_backward": 0}
         grads.append([x.grad.cpu() for x in leaves])
     for a, r in zip(*grads):
         _grad_close(a, r)
@@ -539,7 +542,7 @@ def test_grad_step_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     # forward, the recompute of each period, and one backward per layer
     assert ops.launch_counts() == {"mha_forward": 2 * cfg.n_layers,
                                    "mha_backward": cfg.n_layers,
-                                   "ssd_chunked": 0}
+                                   "ssd_chunked": 0, "ssd_backward": 0}
     assert float(w_gpu) == float(w_cpu)
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=GRAD_TOL, rtol=GRAD_TOL)
 
@@ -654,7 +657,7 @@ def _pipeline_runs(cuda, n_runs, n_stages=2):
         n_micro = sum(h["n_micro"] for h in hist)
         assert ops.launch_counts() == {"mha_forward": 3 * 4 * n_micro,
                                        "mha_backward": 4 * n_micro,
-                                       "ssd_chunked": 0}
+                                       "ssd_chunked": 0, "ssd_backward": 0}
         runs.append((params, hist))
     return runs
 
@@ -748,7 +751,8 @@ def test_mesh_step_on_the_card_matches_the_threads_backend(cuda):
                                                       batches=batches)
     n = len(plan.micro_batches)
     assert ops.launch_counts() == {"mha_forward": 3 * 4 * n,
-                                   "mha_backward": 4 * n, "ssd_chunked": 0}
+                                   "mha_backward": 4 * n, "ssd_chunked": 0,
+                                   "ssd_backward": 0}
     sres = ThreadsBackend(cfg, 2, use_executor=False, device=cuda
                           ).execute_plan(plan, params=params, batches=batches)
     assert res.weight_sum == sres.weight_sum
@@ -891,15 +895,245 @@ def test_ssd_kernel_is_repeatable_bit_for_bit(cuda, b, t, h, p, g, n,
         assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
-def test_ssd_kernel_refuses_a_gradient_and_an_initial_state(cuda):
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
     x, dt, A, B, C = _ssd_inputs(cuda, 1, 8, 2, 16, 1, 16)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        ops.ssd(x, dt, A.clone().requires_grad_(), B, C)
-    with pytest.raises(NotImplementedError, match="initial state"):
-        ops.ssd(x, dt, A, B, C,
-                initial_state=torch.zeros((1, 2, 16, 16), device=cuda))
     with pytest.raises(TypeError, match="bfloat16"):
         ops.ssd(x.float(), dt, A, B, C)
+    with pytest.raises(ValueError, match="initial_state"):
+        ops.ssd(x, dt, A, B, C, initial_state=torch.zeros((1, 2, 16, 16)))
+    # the backward's shared memory: head dim 128 takes N up to 112
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 8, 1, 128, 1, 128)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        ops.ssd(x, dt, A.clone().requires_grad_(), B, C).float().sum() \
+            .backward()
+
+
+SSD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "d_initial")
+
+
+def _per_chunk_rel(out, ref, chunk=64):
+    """Worst ||out - ref|| / ||ref|| over (batch row, 64-step chunk, head
+    or group) of a (B, T, H) or (B, T, H, X) gradient."""
+    o, r = out.float(), ref.float()
+    b, t = o.shape[:2]
+    nc = -(-t // chunk)
+    pad = (0, 0) * (o.dim() - 2) + (0, nc * chunk - t)
+    o = torch.nn.functional.pad(o, pad).reshape(b, nc, chunk, *o.shape[2:])
+    r = torch.nn.functional.pad(r, pad).reshape(b, nc, chunk, *r.shape[2:])
+    dims = (2,) if o.dim() == 4 else (2, 4)
+    d = (o - r).norm(dim=dims)
+    rn = r.norm(dim=dims)
+    return float(torch.where(rn > 0, d / rn.clamp_min(1e-30),
+                             torch.where(d > 0, float("inf"), 0.0)).max())
+
+
+def _whole_rel(out, ref):
+    out, ref = out.detach().float(), ref.detach().float()
+    return float((out - ref).norm() / ref.norm().clamp_min(1e-30))
+
+
+def _ssd_bwd_both(args, dy, d_final=None, init=None):
+    """K4's backward on K4's own chunk-start states, and the plain walk on
+    the plain pass's, from the same dy, d_final and initial state."""
+    x, dt, A, B, C = args
+    _, _, raw = SSD._ssd_launch(x, dt, A, B, C, init, True)
+    got = SSD._ssd_bwd_cuda(x, dt, A, B, C, dy, raw, d_final, init)
+    starts = tref.ssd_chunk_parallel(x, dt, A, B, C, initial_state=init)[2]
+    want = tref.ssd_chunked_bwd(x, dt, A, B, C, dy, starts, d_final=d_final,
+                                initial_state=init)
+    return got, want
+
+
+SSD_BWD_CASES = [   # b, t, h, p, g, n, a_scale
+    (2, 192, 24, 64, 1, 128, 1.0),    # mamba2-130m's heads, three chunks
+    (2, 300, 4, 16, 2, 16, 1.0),      # G < H, ragged
+    (1, 300, 8, 32, 4, 32, 1.0),      # four groups
+    (2, 300, 4, 64, 2, 128, 40.0),    # a decay past -60 within a chunk
+    (2, 1, 4, 16, 2, 16, 1.0),        # one step
+    (1, 130, 4, 128, 1, 64, 1.0),     # the widest head, at N 64
+]
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,a_scale", SSD_BWD_CASES)
+def test_ssd_backward_matches_the_plain_walk_per_chunk(cuda, b, t, h, p, g,
+                                                       n, a_scale):
+    # per 64-step chunk for dx, ddt, dB and dC, whole for dA and d_initial:
+    # within 1e-2 by norm (the outputs are rounded to bf16, and every fp32
+    # operand of a product keeps about 16 bits as hi and lo)
+    args = _ssd_inputs(cuda, b, t, h, p, g, n, a_scale=a_scale)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((b, t, h, p), generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    d_final = torch.randn((b, h, p, n), generator=gen, device=cuda)
+    ops.reset_launch_counts()
+    got, want = _ssd_bwd_both(args, dy, d_final)
+    assert ops.launch_counts()["ssd_backward"] == 1
+    torch.cuda.synchronize()
+    for name, o, w in zip(SSD_NAMES, got, want):
+        assert o.shape == w.shape and o.dtype == w.dtype, name
+        assert bool(torch.isfinite(o).all()), name
+        rel = (_whole_rel(o, w) if name in ("dA", "d_initial")
+               else _per_chunk_rel(o, w))
+        assert rel <= 1e-2, (name, rel)
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,a_scale", SSD_BWD_CASES[:2])
+def test_ssd_backward_is_repeatable_bit_for_bit(cuda, b, t, h, p, g, n,
+                                                a_scale):
+    args = _ssd_inputs(cuda, b, t, h, p, g, n, a_scale=a_scale)
+    dy = torch.randn((b, t, h, p), device=cuda).to(torch.bfloat16)
+    _, _, raw = SSD._ssd_launch(*args, None, True)
+    first = SSD._ssd_bwd_cuda(*args, dy, raw)
+    for _ in range(2):
+        again = SSD._ssd_bwd_cuda(*args, dy, raw)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n", [(2, 192, 24, 64, 1, 128),
+                                         (2, 100, 4, 16, 2, 16)])
+def test_ssd_from_an_initial_state_matches_the_oracle(cuda, b, t, h, p, g, n):
+    # K4 from a given state (ROADMAP A17), values and gradients, against
+    # autograd of the quadratic oracle ref.ssd_ref; the backward's
+    # d_initial also against the plain walk
+    x, dt, A, B, C = _ssd_inputs(cuda, b, t, h, p, g, n)
+    s0 = torch.randn((b, h, p, n), device=cuda)
+    dy = torch.randn((b, t, h, p), device=cuda).to(torch.bfloat16)
+    d_final = torch.randn((b, h, p, n), device=cuda)
+    ops.reset_launch_counts()
+    y, st = ops.ssd(x, dt, A, B, C, initial_state=s0, return_state=True)
+    assert ops.launch_counts()["ssd_chunked"] == 1
+    y_ref, st_ref = tref.ssd_ref(x, dt, A, B, C, initial_state=s0,
+                                 return_state=True)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    torch.testing.assert_close(st, st_ref, atol=SSD_TOL, rtol=SSD_TOL)
+    y_cp, _, starts = tref.ssd_chunk_parallel(x, dt, A, B, C,
+                                              initial_state=s0)
+    _, _, starts_k4 = SSD._ssd_cuda(x, dt, A, B, C, chunk_states=True,
+                                    initial_state=s0)
+    torch.testing.assert_close(starts_k4, starts, atol=SSD_TOL, rtol=SSD_TOL)
+    got, want = _ssd_bwd_both((x, dt, A, B, C), dy, d_final, s0)
+    assert _whole_rel(got[5], want[5]) <= 1e-2
+    # gradients through autograd on the card against the oracle's
+    ins = [v.clone().requires_grad_() for v in (x, dt, A, B, C, s0)]
+    ref_ins = [v.detach().clone().requires_grad_() for v in ins]
+    y, st = ops.ssd(*ins[:5], initial_state=ins[5], return_state=True)
+    g_card = torch.autograd.grad(
+        (y.float() * dy.float()).sum() + (st * d_final).sum(), ins)
+    y, st = tref.ssd_ref(*ref_ins[:5], initial_state=ref_ins[5],
+                         return_state=True)
+    g_ref = torch.autograd.grad(
+        (y.float() * dy.float()).sum() + (st * d_final).sum(), ref_ins)
+    for name, a, r in zip(SSD_NAMES, g_card, g_ref):
+        assert _whole_rel(a, r) <= 1e-2, (name, _whole_rel(a, r))
+
+
+def test_mamba_mixer_gradients_on_the_card_match_the_cpu(cuda):
+    # one mixer's mamba_fwd in train mode, bf16, its input and every
+    # parameter's gradient from the same cotangent: K4 and its backward on
+    # the card, autograd of the plain SSD on the CPU; within 2e-2 by norm
+    # per leaf (the matmuls and the SSD round to bf16 at other points)
+    import dataclasses
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import mamba as TMB
+    cfg = dataclasses.replace(reduced(get_arch("mamba2-130m")),
+                              dtype="bfloat16")
+    params = TMB.init_mamba(torch.Generator().manual_seed(0), cfg, "cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 200, cfg.d_model), generator=g).to(torch.bfloat16)
+    ct = torch.randn(x.shape, generator=g)
+
+    def run(dev):
+        p = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+        xd = x.to(dev).requires_grad_()
+        y, _ = TMB.mamba_fwd(p, xd, cfg)
+        (y.float() * ct.to(dev)).sum().backward()
+        return y, {"x": xd.grad, **{k: v.grad for k, v in p.items()}}
+    ops.reset_launch_counts()
+    y, grads = run(cuda)
+    assert ops.launch_counts()["ssd_chunked"] == 1
+    assert ops.launch_counts()["ssd_backward"] == 1
+    yc, grads_c = run(torch.device("cpu"))
+    assert _whole_rel(y.cpu(), yc) <= 2e-2
+    for k, gc in grads_c.items():
+        assert _whole_rel(grads[k].cpu(), gc) <= 2e-2, (k, _whole_rel(
+            grads[k].cpu(), gc))
+
+
+def test_jamba_period_gradients_on_the_card_match_the_cpu(cuda):
+    # one reduced jamba period (mamba and attention mixers, MoE on odd
+    # layers) through the grad step, the period checkpoint's recompute
+    # included: K1, the attention backward, K4 twice and K4's backward per
+    # mamba layer on the card; the CPU replays the card's expert routes
+    # (a route may flip between devices where two probabilities tie).
+    # Every gradient leaf within JAMBA_GRAD_TOL by norm, which a backward
+    # planted to return a zero dx must exceed. This bf16 model's leaves
+    # move far under rounding: one bf16 ulp on a tenth of the SSD's output
+    # moves its D, A_log and dt_bias gradients (sums whose terms cancel) by
+    # up to 7.4e-2 on the CPU; on an H100 80GB HBM3 (700 W) the plain SSD
+    # read up to 2.8e-2 against the CPU, the kernels 4.1e-2
+    import dataclasses
+    from unittest import mock
+    from repro_torch.configs.base import get_arch, reduced
+    from repro_torch.models import layers as TL
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.tree import flatten
+    cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
+                              capacity_factor=16.0)
+    params = MD.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    r = np.random.default_rng(0)
+    b, s = 2, 64
+    tok = r.integers(0, cfg.vocab, (b, s + 1), dtype=np.int32)
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:]),
+             "loss_weights": torch.ones((b, s)),
+             "positions": torch.arange(s, dtype=torch.int32)[None]
+             .expand(b, s).contiguous(),
+             "segment_ids": torch.zeros((b, s), dtype=torch.int32)}
+    step = build_grad_step(cfg)
+    routes, real = [], TL.moe_route
+
+    def record(xf, router, c):
+        out = real(xf, router, c)
+        routes.append(out[2].cpu())
+        return out
+
+    def replay(xf, router, c):
+        probs, _, _ = real(xf, router, c)
+        top_i = routes.pop(0).to(xf.device)
+        top_p = probs.gather(1, top_i)
+        return probs, top_p / top_p.sum(-1, keepdim=True), top_i
+    ops.reset_launch_counts()
+    with mock.patch.object(TL, "moe_route", record):
+        loss, w, grads = step(_to(params, cuda), _to(batch, cuda))
+    recorded = list(routes)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_pattern) \
+        * cfg.n_periods
+    assert ops.launch_counts() == {
+        "mha_forward": 2 * (cfg.n_layers - n_mamba),
+        "mha_backward": cfg.n_layers - n_mamba,
+        "ssd_chunked": 2 * n_mamba, "ssd_backward": n_mamba}
+    with mock.patch.object(TL, "moe_route", replay):
+        loss_c, _, grads_c = step(params, batch)
+    assert not routes
+    assert abs(float(loss) - float(loss_c)) <= TOL * abs(float(loss_c))
+    gc = dict(flatten(grads_c))
+    for k, v in flatten(grads):
+        assert bool(torch.isfinite(v).all()), k
+        assert _whole_rel(v.cpu(), gc[k]) <= JAMBA_GRAD_TOL, (
+            k, _whole_rel(v.cpu(), gc[k]))
+    real_bwd = SSD._ssd_bwd_cuda
+
+    def zero_dx(*a, **o):
+        dx, *rest = real_bwd(*a, **o)
+        return (torch.zeros_like(dx), *rest)
+    routes[:] = recorded
+    with mock.patch.object(TL, "moe_route", replay), \
+            mock.patch.object(SSD, "_ssd_bwd_cuda", zero_dx):
+        _, _, grads_f = step(_to(params, cuda), _to(batch, cuda))
+    assert max(_whole_rel(v.cpu(), gc[k]) for k, v in flatten(grads_f)) \
+        > JAMBA_GRAD_TOL
 
 
 def test_mamba_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
@@ -914,7 +1148,8 @@ def test_mamba_serve_on_the_card_matches_the_cpu_and_counts_launches(cuda):
                       decode_steps=3)
     nb = len(on_gpu.batches)
     assert ops.launch_counts() == {"mha_forward": 0, "mha_backward": 0,
-                                   "ssd_chunked": cfg.n_layers * nb}
+                                   "ssd_chunked": cfg.n_layers * nb,
+                                   "ssd_backward": 0}
     for a, b in zip(on_gpu.logits, on_cpu.logits):
         a, b = a.cpu().float()[0], b.float()[0]     # prefill logits
         err = float((a - b).abs().max()) / (1 + float(b.abs().max()))
@@ -1054,7 +1289,7 @@ def test_moe_layer_on_the_card_matches_the_cpu_and_repeats_bit_for_bit(cuda):
 def test_jamba_period_on_the_card_matches_the_cpu(cuda):
     # one reduced jamba period (mamba and attention mixers, MoE on odd
     # layers) through K1, K4 and the MoE layer: forward, prefill and
-    # decode only, since K4 has no backward on the card (ROADMAP D)
+    # decode (the gradients: the test below)
     import dataclasses
     from repro_torch.configs.base import get_arch, reduced
     cfg = dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")),
@@ -1086,7 +1321,8 @@ def test_jamba_period_on_the_card_matches_the_cpu(cuda):
         # attention: forward, prefill, decode; mamba: forward and prefill
         assert ops.launch_counts() == {"mha_forward": 3 * n,
                                        "mha_backward": 0,
-                                       "ssd_chunked": 2 * 7 * n}
+                                       "ssd_chunked": 2 * 7 * n,
+                                       "ssd_backward": 0}
     for a, c in zip(out["cuda"], out["cpu"]):
         a, c = a.float().cpu(), c.float()
         err = float((a - c).abs().max()) / (1 + float(c.abs().max()))

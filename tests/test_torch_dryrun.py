@@ -19,8 +19,9 @@ CPU, for reduced configs at seq 128 and batch 8 (U = B·H·T·S·D):
   checkpoint 4, the fused backward's five products 10); mamba2's prefill
   in closed form, K4's charge in place of the reference oracle's products
   and the oracle's depthwise convolution, which the port computes as
-  shifted multiply-adds; mamba2's train cell recorded as not ported
-  (ROADMAP D, K4 has no backward) with the reference's argument bytes;
+  shifted multiply-adds; mamba2's train cell in closed form too, K4
+  twice and its backward's charge in place of the reference's oracle and
+  convolution under ``jax.grad`` and its checkpoint;
 - in one 4-device reference subprocess, gpt-paper on a (4, 1) mesh
   (argument bytes equal, FLOPs exactly a quarter of (1, 1)'s, the
   gradients' all-reduce and the ZeRO-1 all-gather within 1% of the
@@ -46,7 +47,7 @@ from repro.launch import hlo_cost as JH
 from repro.launch.mesh import make_mesh as j_make_mesh
 from repro.train.optimizer import AdamWConfig as JAdamWConfig
 from repro_torch.configs.base import ShapeSpec, cell_supported, get_arch, reduced
-from repro_torch.kernels.ssd import ssd_cost
+from repro_torch.kernels.ssd import ssd_bwd_cost, ssd_cost
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_cost as OC
 from repro_torch.train.optimizer import AdamWConfig
@@ -149,21 +150,17 @@ def test_cell_matches_reference(arch, kind):
     ref_args, ref_flops = _reference(arch, kind)
     rec = _port_record(arch, kind)
     assert rec["memory"]["argument_bytes"] == ref_args
-    if kind == "train" and cfg.has_mamba:
-        assert rec["cost"] is None and rec["not_ported"] == "ROADMAP D"
-        return
     flops = rec["cost"]["flops_per_device"]
     n_attn = _attn_layers(cfg)
     if cfg.has_mamba:
-        # prefill: K4's charge in place of the reference oracle's products
-        # (ssd_ref below 512 steps: C Bᵀ, then y, then the final state)
+        # K4's charge in place of the reference oracle's products (ssd_ref
+        # below 512 steps: C Bᵀ, then y, and in prefill the final state)
         # and of its depthwise convolution over [x | B | C]
         b, t, h = BATCH, SEQ, cfg.ssm_heads
         p, n = cfg.ssm_headdim, cfg.ssm_state
         conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * n
         layers = cfg.n_layers
-        oracle = 2 * b * t * t * h * n + 2 * b * t * t * h * p \
-            + 2 * b * h * p * n * t
+        oracle = 2 * b * t * t * h * n + 2 * b * t * t * h * p
         conv = 2 * b * t * conv_ch * cfg.ssm_conv
         # K4's loop (csrc/ssd_fwd.cu) at P = 16, its own instantiation, per
         # (batch row, head) and 64-step chunk: C Bᵀ on the 10 16 x 16
@@ -177,8 +174,41 @@ def test_cell_matches_reference(arch, kind):
                       + (chunks - 1) * 4 * 64 * n * p)
         assert ssd_cost(b, t, h, p, n) == (k4, 0.0)
         if kind == "prefill":
-            want = ref_flops + layers * (k4 - oracle - conv)
+            # the final state's product beside them
+            want = ref_flops + layers * (k4 - oracle - 2 * b * h * p * n * t
+                                         - conv)
             assert rec["cost"]["launches"] == {"ssd_chunked": layers}
+        elif kind == "train":
+            # train: K4 twice (the forward, and the period checkpoint's
+            # recompute) and the backward's charge, in place of the
+            # reference's under jax.grad and its checkpoint: the oracle's
+            # two products (no final state) twice and their four
+            # gradients, the depthwise convolution twice and its two
+            # gradients, which the reference's hlo_cost counts as dense
+            # C x C convolutions (2·B·T·K·C² each); and the port runs the
+            # one-chunk loss's logits product twice (the forward and the
+            # chunk checkpoint's recompute), where the reference's XLA
+            # shares it between the two
+            # K4's backward (csrc/ssd_bwd.cu) at P = 16, per (batch row,
+            # head) and 64-step chunk: C Bᵀ (by N) and dy xᵀ (by P) on the
+            # 10 blocks up to the diagonal; Wᵀ dy on them by P, as hi and
+            # lo; B dS'ᵀ, dy S, x dS' and dS's update, 64 x P x N each, as
+            # hi and lo; M B and Mᵀ C on the 10 blocks by N, as hi and lo
+            bwd = b * h * (t // 64) * (
+                10 * 512 * (n + p) + 2 * 10 * 512 * p
+                + 4 * (4 * 64 * p * n) + 2 * (2 * 10 * 512 * n))
+            assert ssd_bwd_cost(b, t, h, p, n) == (bwd, 0.0)
+            oracle_train = 4 * oracle    # forward, recompute, 4 gradients
+            conv_train = 2 * conv + 2 * (2 * b * t * cfg.ssm_conv * conv_ch ** 2)
+            logits = 2 * b * t * cfg.vocab * cfg.d_model
+            want = ref_flops + layers * (2 * k4 + bwd - oracle_train
+                                         - conv_train) + logits
+            assert rec["cost"]["launches"] == {"ssd_chunked": 2 * layers,
+                                               "ssd_backward": layers}
+            assert rec["cost"]["padded_flops_per_device"] == 0
+            assert rec["memory"]["peak_bytes"] >= (
+                rec["memory"]["argument_bytes"]
+                + rec["memory"]["unread_argument_bytes"])
         else:
             want = ref_flops       # decode: no K4, the recurrence in both
         assert math.isclose(flops, want, rel_tol=1e-6)

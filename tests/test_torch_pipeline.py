@@ -207,6 +207,7 @@ def test_launch_counters_are_exact_under_threads():
                 _build.count_launch(tfa.LAUNCHES, "mha_forward")
                 _build.count_launch(tfa.LAUNCHES, "mha_backward")
                 _build.count_launch(tssd.LAUNCHES, "ssd_chunked")
+                _build.count_launch(tssd.LAUNCHES, "ssd_backward")
         threads = [threading.Thread(target=bump) for _ in range(n_threads)]
         for t in threads:
             t.start()
@@ -217,7 +218,7 @@ def test_launch_counters_are_exact_under_threads():
         sys.setswitchinterval(old)
     n = n_threads * per_thread
     assert ops.launch_counts() == {"mha_forward": n, "mha_backward": n,
-                                   "ssd_chunked": n}
+                                   "ssd_chunked": n, "ssd_backward": n}
     ops.reset_launch_counts()
 
 
