@@ -23,8 +23,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              instantiated at, D 256 among them) and the dynamic shared
              memory of K1's prefill and decode forms and of the backward at
              every head dim (K1 takes 64-key tiles at D 256, the backward a
-             form of its own) and of K4's backward, which must equal
-             ``ssd.bwd_smem_bytes``;
+             form of its own) and of K4's backward's dS' walk and chunk
+             pass, which must equal ``ssd.bwd_smem_bytes``;
 2. kernel  — K1 (``mha_forward``) and the fused backward
              (``mha_backward``: dq, dk and dv in one launch, the work of the
              reference's K2 and K3) against their plain PyTorch versions on
@@ -81,12 +81,16 @@ Phases, each printing its own lines; any failure exits non-zero:
              the SSD); then K4's backward (``ssd_backward``, from the
              chunk-start states K4 writes) at mamba2-130m's training shape
              (B 8 at T 2048 and 192, a decay past -60 within a chunk, G <
-             H) against the plain reverse walk ``ref.ssd_chunked_bwd``:
-             dx, ddt, dB and dC per (batch row, 64-step chunk, head or
-             group), dA and d_initial whole, within SSD_REL_TOL, which a
+             H) and at jamba's head shape (``ssd-bwd-p128``: B 2, T 2048,
+             8 heads x 128, state 128) against the plain reverse walk
+             ``ref.ssd_chunked_bwd``: dx, ddt, dB and dC per (batch row,
+             64-step chunk, head or group), dA and d_initial whole, and
+             its first pass's dS' per chunk against
+             ``ref.ssd_bwd_dstates``, within SSD_REL_TOL, which a
              planted fault (the walk without the dS carry between chunks)
-             must fail; three calls equal to the bit; its time beside its
-             bound and the plain backward's (autograd of
+             must fail; three calls equal to the bit; its workspace; its
+             time, and each pass's by CUDA events, beside its bound and
+             the plain backward's (autograd of
              ``ref.ssd_ref_chunked``);
 3. serve   — ``repro_torch.serve`` at full gpt-paper width, 32 layers,
              random seeded weights: the launch count of K1 must equal
@@ -459,7 +463,8 @@ KERNELS = {
     # the kernel whose gradient it is
     "K4-bwd": ("ssd_backward", "src/repro_torch/kernels/csrc/ssd_bwd.cu",
                "src/repro/kernels/ssd.py:114", "ssd-train",
-               {"t_192": "ssd-train-192"}, ("mamba-train",)),
+               {"t_192": "ssd-train-192", "p128": "ssd-bwd-p128"},
+               ("mamba-train",)),
 }
 
 
@@ -520,11 +525,14 @@ def phase_device(torch):
           + ", ".join(f"D {d}: {smem(d)} B" for d in fa.HEAD_DIMS))
     from repro_torch.kernels import ssd as SSD
     smem = _build.library("ssd_bwd").ssd_bwd_smem
-    shapes = ((16, 16), (64, 128), (128, 64), (128, 112), (128, 128))
-    print("[device]   ssd_bwd: dynamic shared memory (the wrapper refuses "
-          f"more than {SSD.SMEM_BYTES} B) " + ", ".join(
-              f"P {p} N {n}: {smem(p, n)} B" for p, n in shapes))
-    check(all(smem(p, n) == SSD.bwd_smem_bytes(p, n) for p, n in shapes),
+    shapes = ((16, 16), (32, 48), (64, 128), (48, 80), (128, 64), (128, 112),
+              (128, 128))
+    print("[device]   ssd_bwd: dynamic shared memory of the dS' walk and of "
+          "the chunk pass " + ", ".join(
+              f"P {p} N {n}: {smem(1, p, n)} B, {smem(2, p, n)} B"
+              for p, n in shapes))
+    check(all((smem(1, p, n), smem(2, p, n)) == SSD.bwd_smem_bytes(p, n)
+              for p, n in shapes),
           "K4's backward's shared memory differs from ssd.bwd_smem_bytes")
     return smi_line
 
@@ -1419,11 +1427,14 @@ def phase_kernel_ssd_bwd(torch):
     chunk, head or group), dA and d_initial whole, within SSD_REL_TOL; a
     planted fault (the plain walk without the dS carry between chunks)
     read on every case and required to fail that check where the carry
-    matters; three calls equal to the bit; at the timed shapes the kernel
-    against its bound and the plain backward (autograd of
-    ``ref.ssd_ref_chunked``, its graph built once and kept)."""
+    matters; the first pass's dS' per chunk against ``ref.ssd_bwd_dstates``;
+    three calls equal to the bit; at the timed shapes the kernel against
+    its bound and the plain backward (autograd of ``ref.ssd_ref_chunked``,
+    its graph built once and kept), and each pass by CUDA events."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as SSD
+    from repro_torch.kernels.breakdown import ssd_bwd_pass_ms
+    from repro_torch.kernels.flash_attention import sm_count
     t_part = time.perf_counter()
     print("[kernel] K4's backward, products (fp32 sums throughout): "
           + "; ".join(f"{k}: {v}" for k, v in SSD.BWD_PRECISION.items()),
@@ -1434,6 +1445,10 @@ def phase_kernel_ssd_bwd(torch):
     cases = [
         ("ssd-train", dict(b=8, t=2048, **heads), True, True),
         ("ssd-train-192", dict(b=8, t=192, **heads), True, True),
+        # jamba-1.5-large's head shape (configs/jamba_1_5_large_398b.py:
+        # head dim 128, state 128, one group) at 8 heads, 2 rows of 2048
+        ("ssd-bwd-p128", dict(b=2, t=2048, h=8, p=128, g=1, n=128), True,
+         True),
         ("ssd-bwd-groups", dict(b=2, t=300, h=4, p=16, g=2, n=16), False,
          True),
         ("ssd-bwd-strong-decay", dict(b=2, t=300, a_scale=40.0, **heads),
@@ -1444,12 +1459,13 @@ def phase_kernel_ssd_bwd(torch):
         args = _ssd_inputs(torch, gen, **shape)
         x, dt, A, B, C = args
         b, t, h, p = x.shape
-        n = B.shape[3]
+        g, n = B.shape[2], B.shape[3]
         dy = torch.randn((b, t, h, p), generator=gen, device="cuda"
                          ).to(torch.bfloat16)
         d_final = torch.randn((b, h, p, n), generator=gen, device="cuda")
         _, _, raw = SSD._ssd_launch(*args, None, True)
-        got = SSD._ssd_bwd_cuda(*args, dy, raw, d_final)
+        got, dstates = SSD._ssd_bwd_cuda(*args, dy, raw, d_final,
+                                         return_dstates=True)
         torch.cuda.synchronize()
         same = all(all(torch.equal(a, c) for a, c in
                        zip(got, SSD._ssd_bwd_cuda(*args, dy, raw, d_final)))
@@ -1459,17 +1475,33 @@ def phase_kernel_ssd_bwd(torch):
         check(all(bool(torch.isfinite(o).all()) for o in got),
               f"K4's backward {name}: non-finite output")
         rel, err = _bwd_rel(torch, got, want)
+        # the first pass alone: dS' of every chunk but the last
+        ds_rel = _rel_per_chunk_state(torch, dstates, ref.ssd_bwd_dstates(
+            dt, A, C, dy, d_final)[0])
+        del dstates
         f_rel, _ = _bwd_rel(torch, _ssd_bwd_no_carry(
             torch, ref, args, dy, d_final, starts, SSD.CHUNK), want)
-        worst = (max(worst[0], err), max(worst[1], rel))
+        worst = (max(worst[0], err), max(worst[1], rel, ds_rel))
+        ht, nt = SSD.bwd_plan(b, t, h, g, sm_count(x.device))
+        nc = -(-t // SSD.CHUNK)
+        # dS', dB and dC tile sums, dA shares, the merges' counters
+        work = (2 * b * h * (nc - 1) * p * n * 2,
+                (nt > 1) * nt * 2 * b * t * g * n * 4, b * nc * h * 4,
+                (g * nt + b * nc * g) * 4)
         print(f"[kernel] {name:20s} x {tuple(x.shape)} B {tuple(B.shape)} "
               f"backward: worst ||out-plain||/||plain|| {rel:.3e} (dx, ddt, "
               f"dB, dC per 64-step chunk; dA, d_initial whole; max |diff| "
-              f"{err:.3e}); planted fault (no dS carry between chunks) "
+              f"{err:.3e}); dS' of the first pass per chunk {ds_rel:.3e}; "
+              f"planted fault (no dS carry between chunks) "
               f"{f_rel:.3e} (SSD_REL_TOL {SSD_REL_TOL}); three calls equal "
-              f"to the bit: {'yes' if same else 'NO'}", flush=True)
+              f"to the bit: {'yes' if same else 'NO'}; {ht} heads a tile, "
+              f"{nt} tiles a group; workspace: dS' {work[0] / 1e6:.1f} MB, "
+              f"dB and dC tile sums {work[1] / 1e6:.1f} MB, dA shares "
+              f"{work[2] / 1e3:.1f} kB, counters {work[3]} B", flush=True)
         check(rel <= SSD_REL_TOL, f"K4's backward {name}: relative error "
               f"{rel:.3e} exceeds SSD_REL_TOL {SSD_REL_TOL}")
+        check(ds_rel <= SSD_REL_TOL, f"K4's backward {name}: the first "
+              f"pass's dS' has relative error {ds_rel:.3e}")
         check(same, f"K4's backward {name}: three calls differ")
         if fault_seen:
             check(f_rel > SSD_REL_TOL, f"K4's backward {name}: the per-chunk "
@@ -1478,6 +1510,7 @@ def phase_kernel_ssd_bwd(torch):
         if timed:
             ms = _cuda_time(torch, lambda: SSD._ssd_bwd_cuda(
                 *args, dy, raw, d_final), 20)
+            walk_ms, chunk_ms = ssd_bwd_pass_ms(args, dy, raw, d_final, 20)
             ins = [v.clone().requires_grad_() for v in args]
             y, st = ref.ssd_ref_chunked(*ins)
             outs, cots = (y, st), (dy, d_final)
@@ -1485,21 +1518,23 @@ def phase_kernel_ssd_bwd(torch):
                 outs, ins, cots, retain_graph=True), 3, warmup=1)
             del ins, y, st, outs
             bound_ms, bound_by, flops, nbytes = _ssd_bwd_bound_ms(x, B, h)
-            issued = SSD.ssd_bwd_cost(b, t, h, p, n)[0]
+            issued = SSD.ssd_bwd_cost(b, t, h, p, n, g, nt)[0]
             records[("K4-bwd", name)] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None,
                 library="none: no single PyTorch call computes the SSD's "
                         "gradient",
                 precision=SSD.BWD_PRECISION, repeatable=same,
-                issued_gflop=issued / 1e9)
+                issued_gflop=issued / 1e9, workspace_bytes=sum(work),
+                head_tiles=nt, dstate_walk_ms=walk_ms, chunk_pass_ms=chunk_ms)
             print(f"[kernel] {name:20s} K4's backward {ms:.4f} ms "
                   f"({flops / ms / 1e9:.1f} TFLOP/s of the algorithm's, "
                   f"{issued / ms / 1e9:.1f} issued; {nbytes / ms / 1e6:.1f} "
-                  f"GB/s), plain backward {plain_ms:.4f} ms, bound "
-                  f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.2f} GFLOP, "
-                  f"{nbytes / 1e6:.1f} MB; {100 * bound_ms / ms:.1f}% of "
-                  f"bound)", flush=True)
+                  f"GB/s); by CUDA events, the dS' walk {walk_ms:.4f} ms and "
+                  f"the chunk pass {chunk_ms:.4f} ms; plain backward "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+                  f"({flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                  f"{100 * bound_ms / ms:.1f}% of bound)", flush=True)
         del args, x, dt, A, B, C, dy, d_final, raw, starts
         torch.cuda.empty_cache()
     print(f"[kernel] K4's backward cases took "
@@ -3782,9 +3817,9 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # K1's forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel; the
 # backward's mha_bwd_kernel and mha_bwd_d256_kernel; K4's backward's
-# ssd_bwd_kernel
+# the passes ssd_bwd_dstate_kernel and ssd_bwd_chunk_kernel
 KERNEL_SYMBOLS = {"K1": "mha_fwd_", "K2/K3": "mha_bwd_",
-                  "K4": "ssd_fwd_kernel", "K4's backward": "ssd_bwd_kernel"}
+                  "K4": "ssd_fwd_kernel", "K4's backward": "ssd_bwd_"}
 # device kernels by kind, first match wins: cuBLAS GEMMs (nvjet, cutlass),
 # the port's own, elementwise, reductions, copies
 KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),

@@ -49,8 +49,8 @@ KERNELS = {
         "ssd_fwd_bf16": [_P] * 9 + [_I] * 6 + [_L] * 12 + [_P],
     }),
     "ssd_bwd": ("ssd_bwd.cu", {
-        "ssd_bwd_bf16": [_P] * 19 + [_I] * 6 + [_L] * 15 + [_P],
-        "ssd_bwd_smem": [_I, _I],
+        "ssd_bwd_bf16": [_P] * 19 + [_I] * 8 + [_L] * 15 + [_P],
+        "ssd_bwd_smem": [_I, _I, _I],
     }),
     # K4's first, serial form: a yardstick chip_smoke.py times, on no path
     "ssd_fwd_serial": ("ssd_fwd_serial.cu", {

@@ -1,8 +1,8 @@
-"""Where an attention kernel's time goes, on the card.
+"""Where a kernel's time goes, on the card.
 
 Builds variants of a copy of a kernel source (given by path: this tree's
 or an older checkout's) in ``build/breakdown/``, and times each with CUDA
-events beside the unchanged source. Two kernels, each in the forms its
+events beside the unchanged source. Three kernels, each in the forms its
 sources have had:
 
 - the head-dim-256 backward (``flash_bwd.cu``; ``--form mma`` for its
@@ -24,7 +24,18 @@ sources have had:
   timed on the stream after 1 GiB is written to flush L2, as the serve
   path finds each layer's cache cold; torch.profiler gives its device
   time by kernel too. ``--split-scales`` also times this tree's form at
-  other multiples of the plan's splits.
+  other multiples of the plan's splits;
+- K4's backward (``ssd_bwd.cu``, ``--form ssd-bwd``: the dS' walk, then the
+  chunk pass), at mamba2-130m's training shapes, ``ssd-train`` (B 8, T
+  2048, 24 heads x 64, N 128) and ``ssd-train-192`` (T 192), and at
+  jamba's head shape, ``ssd-bwd-p128`` (B 2, T 2048, 8 heads x 128, N
+  128), from K4's chunk-start states and a random d_final, each pass
+  timed by CUDA events too. Variants: ``generic-bounds`` (the launchers
+  never take the instantiations for whole shapes, whose loop bounds are
+  constants) and ``one-staging-tile`` (the walk waits for its last store
+  before it writes the next, as with one staging tile a warp), both with
+  the same outputs; ``no-walk-store`` and ``no-state-products`` (the chunk
+  pass without B dS'ᵀ, dy S and x dS') time the parts they leave out.
 
 Every form also has ``stamps``: ``clock64()`` stamps between the phases of
 its loop, summed per warp, so each phase's share of the warps' cycles.
@@ -36,7 +47,7 @@ sources of the package are not changed. Run on a machine with a card and
 nvcc:
 
     python -m repro_torch.kernels.breakdown --source PATH/flash_bwd.cu \\
-        --form mma|wgmma|decode-mma|decode --out breakdown.json
+        --form mma|wgmma|decode-mma|decode|ssd-bwd --out breakdown.json
 """
 from __future__ import annotations
 
@@ -242,9 +253,33 @@ FORMS = {
                  "      if (tid == 0) *count = 0;   // for the workspace's next use\n    }\n  }\n@7@FLUSH}\n")],
         },
     },
+    # this tree's K4 backward: its two passes; variants of its design
+    # choices (the same outputs) and two that leave a part out
+    "ssd-bwd": {
+        "file": "ssd_bwd.cu",
+        "warp": "(threadIdx.x / 32)",
+        "phases": [],
+        "variants": {
+            "generic-bounds": [
+                ("  if (p.N % kCols1 == 0 && p.P == kP) {", "  if (false) {"),
+                ("  if (p.N == 128 && p.P == kP) {", "  if (false) {")],
+            "one-staging-tile": [
+                ('  asm volatile("cp.async.bulk.wait_group.read 1;\\n" ::: "memory");',
+                 '  asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");')],
+            "no-walk-store": [
+                ("    {\n      unsigned char* const stg = stg0 + warp * Ly::kStg",
+                 "    if (false) {\n      unsigned char* const stg = stg0 + warp * Ly::kStg")],
+            "no-state-products": [
+                ("      if (y_warp) {\n        for (int kk = 0; kk < n16; ++kk) {",
+                 "      if (false) {\n        for (int kk = 0; kk < n16; ++kk) {"),
+                ("      {\n        const int kmax = kWhole",
+                 "      if (false) {\n        const int kmax = kWhole")],
+        },
+    },
 }
 # the C entry of each source file, and its argument types
-ENTRY = {"flash_bwd.cu": "mha_bwd_bf16", "flash_fwd.cu": "mha_fwd_bf16"}
+ENTRY = {"flash_bwd.cu": "mha_bwd_bf16", "flash_fwd.cu": "mha_fwd_bf16",
+         "ssd_bwd.cu": "ssd_bwd_bf16"}
 ARGTYPES = {
     "mma": _build.KERNELS["flash_bwd"][1]["mha_bwd_bf16"],
     "wgmma": _build.KERNELS["flash_bwd"][1]["mha_bwd_bf16"],
@@ -253,7 +288,12 @@ ARGTYPES = {
     "decode-mma": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                   + [ctypes.c_float] * 2 + [ctypes.c_void_p],
     "decode": _build.KERNELS["flash_fwd"][1]["mha_fwd_bf16"],
+    "ssd-bwd": _build.KERNELS["ssd_bwd"][1]["ssd_bwd_bf16"],
 }
+# K4's backward: name -> (B, T, H, P, N), one group
+SSD_BWD_CASES = {"ssd-train": (8, 2048, 24, 64, 128),
+                 "ssd-train-192": (8, 192, 24, 64, 128),
+                 "ssd-bwd-p128": (2, 2048, 8, 128, 128)}
 DECODE_CASES = ("decode", "gemma2-decode", "gemma2-serve-decode",
                 "granite-decode", "llava-decode")
 
@@ -507,6 +547,85 @@ def decode_main(args, libs) -> dict:
     return cases
 
 
+def ssd_bwd_pass_ms(args, dy, starts, d_final, iters):
+    """Each pass of K4's backward, by CUDA events recorded before, between
+    and after its two passes, averaged over ``iters`` calls after two to
+    warm up: ``(the walk's ms, the chunk pass's ms)``."""
+    from repro_torch.kernels import ssd as SSD
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+          for _ in range(iters + 2)]
+    for e in ev:
+        SSD._ssd_bwd_cuda(*args, dy, starts, d_final, pass_events=e)
+    torch.cuda.synchronize()
+    return (sum(e[0].elapsed_time(e[1]) for e in ev[2:]) / iters,
+            sum(e[1].elapsed_time(e[2]) for e in ev[2:]) / iters)
+
+
+def ssd_bwd_main(libs) -> dict:
+    """K4's backward: each variant's time per case through the wrapper
+    (``ssd._ssd_bwd_cuda``, the variant's library in place of the built
+    one), each pass's by CUDA events, and the worst error against the plain
+    walk per 64-step chunk (as ``chip_smoke.py`` reads it)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as SSD
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    built = _build.library
+    cases = {}
+    for case, (b, t, h, p, n) in SSD_BWD_CASES.items():
+        u = torch.randn((b, t, h * p + 2 * n), generator=gen, device="cuda"
+                        ).to(torch.bfloat16)
+        x = u[..., :h * p].reshape(b, t, h, p)
+        B = u[..., h * p:h * p + n].reshape(b, t, 1, n)
+        C = u[..., h * p + n:].reshape(b, t, 1, n)
+        dt = torch.nn.functional.softplus(
+            torch.randn((b, t, h), generator=gen, device="cuda"))
+        A = -torch.exp(torch.randn((h,), generator=gen, device="cuda"))
+        dy = torch.randn((b, t, h, p), generator=gen, device="cuda"
+                         ).to(torch.bfloat16)
+        d_final = torch.randn((b, h, p, n), generator=gen, device="cuda")
+        args = (x, dt, A, B, C)
+        _, _, raw = SSD._ssd_launch(*args, None, True)
+        want = ref.ssd_chunked_bwd(*args, dy, ref.ssd_chunk_parallel(*args)[2],
+                                   d_final=d_final)
+        rec = {}
+        for name, lib in libs.items():
+            _build.library = lambda kernel, lib=lib: (
+                lib if kernel == "ssd_bwd" else built(kernel))
+            try:
+                got = SSD._ssd_bwd_cuda(*args, dy, raw, d_final)
+                err = max(_chunk_rel(o, w) for o, w in zip(got, want)
+                          if o.dim() > 1 and o.shape[1] == t)
+                del got
+                ms = _time(lambda: SSD._ssd_bwd_cuda(*args, dy, raw, d_final),
+                           ITERS)
+                walk, chunk = ssd_bwd_pass_ms(args, dy, raw, d_final, ITERS)
+            finally:
+                _build.library = built
+            rec[name] = {"ms": ms, "walk_ms": walk, "chunk_pass_ms": chunk,
+                         "worst_chunk_rel": err}
+            print(f"[breakdown] ssd-bwd {case}: {name} {ms:.4f} ms (by CUDA "
+                  f"events, the walk {walk:.4f}, the chunk pass {chunk:.4f}); "
+                  f"worst relative error per 64-step chunk {err:.3e}",
+                  flush=True)
+        cases[case] = rec
+        del u, x, dt, A, B, C, dy, d_final, raw, want, args
+        torch.cuda.empty_cache()
+    return cases
+
+
+def _chunk_rel(out, ref, chunk=64):
+    """Worst ||out - ref|| / ||ref|| over (batch row, 64-step chunk) of a
+    (B, T, ...) gradient."""
+    o, r = out.float(), ref.float()
+    b, t = o.shape[:2]
+    nc = -(-t // chunk)
+    pad = (0, 0) * (o.dim() - 2) + (0, nc * chunk - t)
+    o = torch.nn.functional.pad(o, pad).reshape(b, nc, -1)
+    r = torch.nn.functional.pad(r, pad).reshape(b, nc, -1)
+    rn = r.norm(dim=2)
+    return float(((o - r).norm(dim=2) / rn.clamp_min(1e-30)).max())
+
+
 def _time(fn, iters):
     for _ in range(2):
         fn()
@@ -543,8 +662,10 @@ def main(argv=None) -> int:
     libs = build_variants(args.source, args.form, names, args.tag or args.form)
     result = {"device": torch.cuda.get_device_name(0), "form": args.form,
               "source": str(args.source), "cases": {}}
-    if FORMS[args.form]["file"] == "flash_fwd.cu":
-        result["cases"] = decode_main(args, libs)
+    if FORMS[args.form]["file"] in ("flash_fwd.cu", "ssd_bwd.cu"):
+        result["cases"] = (decode_main(args, libs)
+                           if args.form.startswith("decode")
+                           else ssd_bwd_main(libs))
         if args.out is not None:
             args.out.parent.mkdir(parents=True, exist_ok=True)
             args.out.write_text(json.dumps(result, indent=1))

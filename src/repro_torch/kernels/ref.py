@@ -7,9 +7,10 @@ and ``ssd_decode_ref``. They are the ground truth the CUDA kernels are held
 against on the card, and the path every CPU tensor takes. Beside them,
 :func:`ssd_chunk_parallel` is the plain form of K4's own passes (chunk
 states, the pass over chunks, y), which lets a check on the card tell a
-fault in one pass from a fault in another, and :func:`ssd_chunked_bwd` the
-plain form of K4's backward, the reverse walk over chunks that its kernel
-takes.
+fault in one pass from a fault in another; :func:`ssd_chunked_bwd` is
+K4's gradient as one plain reverse walk over chunks, and
+:func:`ssd_chunked_bwd_parallel` the same function in the two passes that
+K4's backward takes (:func:`ssd_bwd_dstates`, then :func:`ssd_bwd_chunks`).
 """
 from __future__ import annotations
 
@@ -348,6 +349,119 @@ def ssd_chunked_bwd(x, dt, A, B, C, dy, starts, d_final=None,
         return v.reshape(b, t, g, rep, n).sum(3).to(B.dtype)
     return (whole(dxs).to(x.dtype), whole(ddts), dA, by_group(whole(dBs)),
             by_group(whole(dCs)), dS)
+
+
+def _chunk_decays(dt, A, nc, chunk):
+    """Per chunk of ``chunk`` steps (dt zero-filled past T): dt (B, nc, L,
+    H), cum its in-chunk prefix sum of dt·A, and a_tot its last value."""
+    dts = _chunked(dt.float(), nc, chunk)
+    cum = torch.cumsum(dts * A.float(), dim=2)
+    return dts, cum, cum[:, :, -1]
+
+
+def ssd_bwd_dstates(dt, A, C, dy, d_final=None, chunk=64):
+    """The first pass of K4's backward: the gradient of every chunk's end
+    state, carried back over the chunks, dS'_{c-1} = e^{max(a_tot_c, -60)}
+    dS'_c + (E_c ∘ dy_c)ᵀ C_c with E_t = e^{max(cum_t, -60)}, from
+    ``d_final`` (B, H, P, N), or zero, at the last chunk. Returns
+    ``(dstates, d_initial)``: dS' of every chunk (B, H, nc, P, N), as the
+    kernel writes them (there as bf16 hi and lo parts), and the gradient of
+    the first chunk's start state (B, H, P, N), both fp32."""
+    b, t, h, p = dy.shape
+    g, n = C.shape[2], C.shape[3]
+    nc = -(-t // chunk)
+    _, cum, a_tot = _chunk_decays(dt, A, nc, chunk)
+    dys = _chunked(dy.float(), nc, chunk)                 # (B,nc,L,H,P)
+    Cs = _chunked(_repeat_groups(C, h // g, 2), nc, chunk)
+    E = torch.exp(torch.clamp(cum, min=-60.0))
+    local = torch.einsum("bclh,bclhp,bclhn->bchpn", E, dys, Cs)
+    decay = torch.exp(torch.clamp(a_tot, min=-60.0))      # (B,nc,H)
+    ds = (dy.new_zeros((b, h, p, n), dtype=torch.float32) if d_final is None
+          else d_final.float())
+    out = []
+    for c in reversed(range(nc)):
+        out.append(ds)
+        ds = decay[:, c, :, None, None] * ds + local[:, c]
+    return torch.stack(out[::-1], dim=2), ds
+
+
+def ssd_bwd_chunks(x, dt, A, B, C, dy, starts, dstates, initial_state=None,
+                   chunk=64):
+    """The second pass of K4's backward, every chunk at once: from each
+    chunk's start state S (``starts`` as :func:`ssd_chunk_parallel` gives
+    them, the first chunk from ``initial_state`` or zero) and the gradient
+    of its end state dS' (``dstates`` from :func:`ssd_bwd_dstates`), the
+    gradients ``(dx, ddt, dA, dB, dC)``, the terms of :func:`ssd_chunked_bwd` computed chunk-parallel:
+    dx in x's dtype, dB and dC in B's (summed over a group's heads), ddt
+    and dA (summed over batch rows and chunks) in fp32."""
+    b, t, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    nc = -(-t // chunk)
+    xs = _chunked(x.float(), nc, chunk)                   # (B,nc,L,H,P)
+    dys = _chunked(dy.float(), nc, chunk)
+    Bs = _chunked(_repeat_groups(B, rep, 2), nc, chunk)   # (B,nc,L,H,N)
+    Cs = _chunked(_repeat_groups(C, rep, 2), nc, chunk)
+    dts, cum, a_tot = _chunk_decays(dt, A, nc, chunk)     # (B,nc,L,H)
+    zeros = x.new_zeros((b, h, 1, p, n), dtype=torch.float32)
+    S = torch.cat([zeros if initial_state is None
+                   else initial_state.float()[:, :, None], starts.float()],
+                  dim=2).transpose(1, 2)                  # (B,nc,H,P,N)
+    dS = dstates.float().transpose(1, 2)                  # (B,nc,H,P,N)
+    tri = torch.ones((chunk, chunk), dtype=torch.bool,
+                     device=x.device).tril()[None, None, :, :, None]
+    diff = cum[:, :, :, None] - cum[:, :, None]           # (B,nc,t,s,H)
+    Lm = torch.where(tri, torch.exp(torch.clamp(diff, -60.0, 0.0)), 0.0)
+    live = tri & (diff >= -60.0)
+    E = torch.exp(torch.clamp(cum, min=-60.0))
+    eu = torch.exp(torch.clamp(a_tot[:, :, None] - cum, -60.0, 0.0))
+    u = eu * dts
+    decay = torch.exp(torch.clamp(a_tot, min=-60.0))      # (B,nc,H)
+    CB = torch.einsum("bcthn,bcshn->bctsh", Cs, Bs)
+    DX = torch.einsum("bcthp,bcshp->bctsh", dys, xs)
+    W = CB * Lm * dts[:, :, None]
+    M = DX * Lm * dts[:, :, None]
+    q = torch.einsum("bchpn,bcshn->bcshp", dS, Bs)         # dS' B_s
+    dx = torch.einsum("bctsh,bcthp->bcshp", W, dys) + u[..., None] * q
+    SdY = torch.einsum("bcthp,bchpn->bcthn", dys, S)      # Sᵀ dy_t
+    dC = torch.einsum("bctsh,bcshn->bcthn", M, Bs) + E[..., None] * SdY
+    dB = torch.einsum("bctsh,bcthn->bcshn", M, Cs) + u[..., None] \
+        * torch.einsum("bcshp,bchpn->bcshn", xs, dS)
+    cbdx = CB * DX * Lm
+    G = torch.where(live, cbdx * dts[:, :, None], 0.0)
+    xq = (xs * q).sum(-1)                                  # x_sᵀ dS' B_s
+    V = torch.where(a_tot[:, :, None] - cum >= -60.0, u * xq, 0.0)
+    ecs = torch.where(cum >= -60.0, E * (Cs * SdY).sum(-1), 0.0)
+    dcum = G.sum(3) - G.sum(2) + ecs - V
+    dcum[:, :, -1] += V.sum(2) + torch.where(
+        a_tot >= -60.0, decay * (dS * S).sum((-2, -1)), 0.0)
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = cbdx.sum(2) + eu * xq + A.float() * da
+    dA = (dts * da).sum((0, 1, 2))
+
+    def whole(v):       # (B, nc, L, ...) -> (B, T, ...)
+        return v.reshape(b, nc * chunk, *v.shape[3:])[:, :t]
+
+    def by_group(v):    # (B, T, H, N) -> each group's heads summed in
+        v = v.reshape(b, t, g, rep, n)     # ascending order, as the kernel
+        acc = v[:, :, :, 0]
+        for r in range(1, rep):
+            acc = acc + v[:, :, :, r]
+        return acc.to(B.dtype)
+    return (whole(dx).to(x.dtype), whole(ddt), dA, by_group(whole(dB)),
+            by_group(whole(dC)))
+
+
+def ssd_chunked_bwd_parallel(x, dt, A, B, C, dy, starts, d_final=None,
+                             initial_state=None, chunk=64):
+    """K4's backward in plain PyTorch as its kernel decomposes it: the same
+    arguments and outputs as :func:`ssd_chunked_bwd`. First the pass over
+    chunks that carries only dS' (:func:`ssd_bwd_dstates`), then every
+    chunk at once from its start state and its dS', a group's heads summed
+    in ascending order (:func:`ssd_bwd_chunks`)."""
+    dstates, d_initial = ssd_bwd_dstates(dt, A, C, dy, d_final, chunk)
+    return ssd_bwd_chunks(x, dt, A, B, C, dy, starts, dstates,
+                          initial_state, chunk) + (d_initial,)
 
 
 def ssd_decode_ref(x, dt, A, B, C, state):

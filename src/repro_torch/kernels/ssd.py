@@ -30,15 +30,22 @@ reference passes. The source's header says more.
 
 The reference has no gradient for its kernel: it differentiates the plain
 chunked oracle. The port's backward is a kernel of its own, designed from
-the algebra (``ref.ssd_chunked_bwd`` is its plain form): one block per
-(head, batch row) walks the chunks in reverse with dS, the gradient of
-the state, in registers, reading each chunk's start state from the
-``chunk_states`` that K4 writes when the forward needs a gradient; dB and
-dC, shared by a group's heads, and dA, shared by the batch rows, are
-summed from per-block partials in a fixed order, so the backward too is
+the algebra, in two passes: a reverse walk per (batch row, head, 64
+columns of the state) that carries only dS', the gradient of each chunk's
+end state, and writes it for every chunk; then every chunk at once, one
+block per (batch row, chunk, tile of a group's heads), from each chunk's
+start state (the ``chunk_states`` that K4 writes when the forward needs a
+gradient) and its dS', with C Bᵀ once for the tile's heads and dB and dC
+summed over them in registers. dA, and dB and dC where a group's heads are
+split over tiles, are merged in a fixed order by the last block to count
+itself on a counter (zeroed by the walk), so the backward too is
 repeatable bit for bit.
+``ref.ssd_chunked_bwd_parallel`` is the same two passes in plain PyTorch,
+``ref.ssd_chunked_bwd`` the same function as one plain reverse walk.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -68,7 +75,6 @@ BWD_PRECISION = {
     "dy S, S the chunk's start state": "S as K4 writes it: bf16 hi + lo",
     "(E o dy)^T C": "E o dy split into bf16 hi + lo",
 }
-SMEM_BYTES = 232448           # the dynamic shared memory a block may use
 
 
 def check_cuda_args(x, dt, A, B, C, initial_state=None):
@@ -143,38 +149,91 @@ def ssd_cost(b: int, t: int, h: int, p: int, n: int,
     return float(total(p)), float(total(kp) - total(p))
 
 
-def ssd_bwd_cost(b: int, t: int, h: int, p: int,
-                 n: int) -> tuple[float, float]:
+@functools.lru_cache(maxsize=256)
+def bwd_plan(b: int, t: int, h: int, g: int, sms: int) -> tuple[int, int]:
+    """``(heads a tile, tiles a group)`` of the backward's chunk pass, one
+    block of which takes (batch row, chunk, tile) and walks the tile's
+    heads: the fewest tiles whose waves of blocks (one an SM, ``sms`` of
+    them) times the heads a block walks (and one for its own loads) are
+    least. One tile needs no partial sums of dB and dC."""
+    rep = h // g
+    base = b * -(-t // CHUNK) * g
+    best = None
+    for nt in range(1, rep + 1):
+        ht = -(-rep // nt)
+        if -(-rep // ht) != nt:     # the same tiles as fewer of them
+            continue
+        cost = -(-base * nt // sms) * (ht + 1)
+        if best is None or cost < best[0]:
+            best = (cost, ht, nt)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_workspace(b: int, t: int, h: int, p: int, n: int, g: int,
+                  nt: int) -> tuple[tuple[int, int, int, int], int]:
+    """The byte offsets and total size of the backward's workspace, one
+    allocation: dS' of every chunk, bf16 hi and lo (B, H, chunks, 2, P, N);
+    dA's shares, fp32 (B, chunks, H); where ``nt`` tiles split a group's
+    heads, their fp32 dB and dC (nt, 2, B, T, G, N); the merges' int32
+    counters (G nt + B chunks G). Each part starts on 256 bytes."""
+    nc = -(-t // CHUNK)
+    sizes = (b * h * nc * 2 * p * n * 2, b * nc * h * 4,
+             (nt > 1) * nt * 2 * b * t * g * n * 4, (g * nt + b * nc * g) * 4)
+    offs, at = [], 0
+    for size in sizes:
+        offs.append(at)
+        at += -(-size // 256) * 256
+    return tuple(offs), at
+
+
+@functools.lru_cache(maxsize=256)
+def ssd_bwd_cost(b: int, t: int, h: int, p: int, n: int, g: int = 1,
+                 tiles: int = 1) -> tuple[float, float]:
     """``(flops, padded_flops)`` of one launch of K4's backward: the
-    products its loop issues (``csrc/ssd_bwd.cu``), per (head, batch row)
-    and 64-step chunk, with kP its instantiation of P. C Bᵀ (by N) and
-    dy xᵀ (by P) on the 10 blocks of 16 x 16 up to the diagonal; Wᵀ dy on
-    the 10 blocks, by kP columns, as hi and lo; B dS'ᵀ, 64 x kP by N, as
-    hi and lo; dy S and x dS', 64 x N by P, as hi and lo, each; M B and Mᵀ
-    C on the 10 blocks, by N, as hi and lo, each; dS's update (E ∘ dy)ᵀ C,
-    P x N by 64, as hi and lo. The columns of kP past P go to
-    ``padded_flops``."""
+    products its passes issue (``csrc/ssd_bwd.cu``), with kP its
+    instantiation of P and ``tiles`` the chunk pass's head tiles a group.
+    Per (head, batch row) and 64-step chunk: the dS' walk's (E ∘ dy)ᵀ C, P
+    x N by 64, as hi and lo; in the chunk pass B dS'ᵀ, 64 x (P rounded up
+    to its slices of 32 rows, 16 at kP 16) by N, as hi and lo; dy S and x
+    dS', 64 x N by P, as hi and lo, each; dy xᵀ on the 10 blocks of 16 x 16
+    up to the diagonal, by P; Wᵀ dy on them, by kP columns, as hi and lo; M
+    B and Mᵀ C on them, by N, as hi and lo, each. Per (batch row, chunk,
+    group and head tile): C Bᵀ on the 10 blocks, by N, shared by the tile's
+    heads. The columns past P go to ``padded_flops``."""
     kp = kernel_p(p)
+    slice_rows = min(kp, 32)
     nc = -(-t // CHUNK)
     blk = 2 * 16 * 16
 
-    def total(cols):
-        per_chunk = (10 * blk * (n + p) + 2 * 10 * blk * cols
-                     + 4 * CHUNK * cols * n + 2 * 4 * CHUNK * n * p
-                     + 2 * 2 * 10 * blk * n + 4 * CHUNK * p * n)
-        return b * h * nc * per_chunk
-    return float(total(p)), float(total(kp) - total(p))
+    def total(q_cols, w_cols):
+        per_chunk = (4 * CHUNK * p * n + 4 * CHUNK * q_cols * n
+                     + 2 * 4 * CHUNK * p * n + 10 * blk * p
+                     + 2 * 10 * blk * w_cols + 2 * 2 * 10 * blk * n)
+        return b * h * nc * per_chunk + b * nc * g * tiles * 10 * blk * n
+    return float(total(p, p)), float(
+        total(-(-p // slice_rows) * slice_rows, kp) - total(p, p))
 
 
-def bwd_smem_bytes(p: int, n: int) -> int:
-    """The dynamic shared memory of the backward's instantiation for head
-    dim ``p`` and state ``n`` (``Smem<kP>::bytes`` in ``csrc/ssd_bwd.cu``):
-    x and dy, B and C, S and dS' as hi and lo, W and M as hi and lo, in
-    bf16 with rows padded by 8, then 1228 floats."""
+def bwd_smem_bytes(p: int, n: int) -> tuple[int, int]:
+    """The dynamic shared memory of the backward's two passes at head dim
+    ``p`` and state ``n`` (``Smem1`` and ``Smem2`` in ``csrc/ssd_bwd.cu``):
+    the dS' walk's staging tiles (two a warp, each its 16 rows of dS' by
+    the block's 64 columns, hi and lo), two stages of dy and 64 columns of
+    C in bf16 (rows padded by 8) and dt, each warp's E, and 1024 bytes of
+    slack; the chunk pass's two slots of S and dS' slices (32 rows of P, hi
+    and lo, as TMA boxes of 64 columns), B and C, two slots of x and dy, W
+    and M as hi and lo, in bf16 (rows other than the boxes' padded by 8),
+    then 3240 floats, two mbarriers, two flags and 1024 bytes of slack for
+    the boxes' alignment."""
     kp, chunk = kernel_p(p), CHUNK
-    elems = (2 * chunk * (kp + 8) + 2 * chunk * (n + 8) + 4 * kp * (n + 8)
-             + 4 * chunk * (chunk + 8))
-    return 2 * elems + 1228 * 4
+    warps = kp // 16
+    walk = (warps * 2 * (2 * 16 * 64 * 2)
+            + 2 * (2 * chunk * (kp + 8 + 64 + 8) + 4 * chunk)
+            + warps * 4 * chunk + 1024)
+    elems = (2 * 8 * min(kp, 32) * 64 + 4 * chunk * (kp + 8)
+             + 2 * chunk * (n + 8) + 4 * chunk * (chunk + 8))
+    return walk, 2 * elems + 3240 * 4 + 24 + 1024
 
 
 def _ssd_launch(x, dt, A, B, C, initial_state, chunk_states):
@@ -225,25 +284,32 @@ def _ssd_cuda(x, dt, A, B, C, *, chunk_states=False, initial_state=None):
 
 
 def _ssd_bwd_cuda(x, dt, A, B, C, dy, starts, d_final=None,
-                  initial_state=None):
+                  initial_state=None, return_dstates=False, pass_events=None):
     """K4's backward: ``(dx, ddt, dA, dB, dC, d_initial)`` from dy (the
     gradient of y), ``starts`` (K4's raw chunk-start states, as
     :func:`_ssd_launch` returns them), and ``d_final`` (the gradient of the
     final state, or None for zero); the first chunk starts from
     ``initial_state``, or zero. dx in x's dtype, dB and dC in B's, ddt, dA
-    and d_initial in fp32. ``meta`` tensors get every allocation of the
-    card (outputs, partials and counters) and no launch; either way one
-    launch is charged to the open ``op_cost`` counters."""
+    and d_initial in fp32. Its workspace, one allocation
+    (:func:`bwd_workspace`): dS' of every chunk (of the last, d_final or
+    zero), bf16 hi and lo in the layout of ``starts``; dA's shares per
+    (batch row, chunk, head); where :func:`bwd_plan` splits a group's
+    heads, each tile's fp32 dB and dC; the counters of the merges, which
+    the first pass zeroes. ``meta`` tensors get every allocation of the
+    card and no launch; either way the two passes count as one launch,
+    charged to the open ``op_cost`` counters. For a check or
+    a timing, ``return_dstates`` also returns the first pass's dS' as hi +
+    lo in fp32 (B, H, chunks, P, N), and ``pass_events`` (three CUDA
+    events) are recorded before, between and after the two passes."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import sm_count
     check_cuda_args(x, dt, A, B, C, initial_state)
     b, t, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     nc = -(-t // CHUNK)
-    if bwd_smem_bytes(p, n) > SMEM_BYTES:
-        raise NotImplementedError(
-            f"K4's backward holds a chunk, the state and its gradient in "
-            f"shared memory: {bwd_smem_bytes(p, n)} bytes at head dim {p} "
-            f"and state {n}, past the card's {SMEM_BYTES}")
+    if p % 16 or p > 128 or n % 16 or n > 128:
+        raise ValueError(f"K4's backward takes head dims and states that are "
+                         f"multiples of 16 up to 128; they are {p} and {n}")
     if dy.dtype != x.dtype or dy.shape != x.shape or dy.device != x.device:
         raise ValueError(f"dy must be {x.dtype} {tuple(x.shape)}; it is "
                          f"{dy.dtype} {tuple(dy.shape)} on {dy.device}")
@@ -262,36 +328,48 @@ def _ssd_bwd_cuda(x, dt, A, B, C, dy, starts, d_final=None,
     initial_state = (None if initial_state is None
                      else initial_state.contiguous())
     dev, f32 = x.device, torch.float32
+    ht, nt = bwd_plan(b, t, h, g, sm_count(dev))
     dx = torch.empty((b, t, h, p), dtype=x.dtype, device=dev)
     ddt = torch.empty((b, t, h), dtype=f32, device=dev)
     dA = torch.empty((h,), dtype=f32, device=dev)
     dB = torch.empty((b, t, g, n), dtype=B.dtype, device=dev)
     dC = torch.empty((b, t, g, n), dtype=B.dtype, device=dev)
     d_init = torch.empty((b, h, p, n), dtype=f32, device=dev)
-    # per-head partials of dB and dC, per-row ones of dA, and the zeroed
-    # counters behind which the last block of each sum reads them
-    parts = torch.empty((2, b, h, nc * CHUNK, n), dtype=f32, device=dev)
-    part_a = torch.empty((b, h), dtype=f32, device=dev)
-    count = torch.zeros((b * g * nc + h,), dtype=torch.int32, device=dev)
+    offs, nbytes = bwd_workspace(b, t, h, p, n, g, nt)
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     if dev.type != "meta":
-        _build.launch(
-            _build.library("ssd_bwd").ssd_bwd_bf16,
-            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), dy.data_ptr(), starts.data_ptr(),
-            None if initial_state is None else initial_state.data_ptr(),
-            None if d_final is None else d_final.data_ptr(),
-            dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-            dC.data_ptr(), d_init.data_ptr(), parts[0].data_ptr(),
-            parts[1].data_ptr(), part_a.data_ptr(), count.data_ptr(),
-            b, t, h, g, p, n, *x.stride()[:3], *dt.stride(),
-            *B.stride()[:3], *C.stride()[:3], *dy.stride()[:3],
-            device=dev)
+        dstates, part_a, part_bc, count = (ws.data_ptr() + o for o in offs)
+
+        def run(passes):
+            _build.launch(
+                _build.library("ssd_bwd").ssd_bwd_bf16,
+                x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+                C.data_ptr(), dy.data_ptr(), starts.data_ptr(),
+                None if initial_state is None else initial_state.data_ptr(),
+                None if d_final is None else d_final.data_ptr(),
+                dstates, dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                dB.data_ptr(), dC.data_ptr(), d_init.data_ptr(),
+                part_bc if nt > 1 else None, part_a, count, b, t, h, g, p,
+                n, ht, passes, *x.stride()[:3], *dt.stride(), *B.stride()[:3],
+                *C.stride()[:3], *dy.stride()[:3], device=dev)
+        if pass_events is None:
+            run(3)
+        else:
+            for i, passes in enumerate((1, 2)):
+                pass_events[i].record()
+                run(passes)
+            pass_events[2].record()
         _build.count_launch(LAUNCHES, "ssd_backward")
-    flops, padded = ssd_bwd_cost(b, t, h, p, n)
+    flops, padded = ssd_bwd_cost(b, t, h, p, n, g, nt)
     _op_cost.charge("ssd_backward", flops,
                     (x, dt, A, B, C, dy, starts, d_final, initial_state),
                     (dx, ddt, dA, dB, dC, d_init), padded)
-    return dx, ddt, dA, dB, dC, d_init
+    grads = dx, ddt, dA, dB, dC, d_init
+    if return_dstates:
+        ds = ws[:offs[1]].view(torch.bfloat16)[:b * h * nc * 2 * p * n].view(
+            b, h, nc, 2, p, n)
+        return grads, ds[:, :, :, 0].float() + ds[:, :, :, 1].float()
+    return grads
 
 
 class _SSDFunction(torch.autograd.Function):

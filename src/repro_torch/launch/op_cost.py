@@ -159,7 +159,9 @@ def charge(name: str, flops: float, reads, writes,
     """Charge one launch of hand-written kernel ``name`` to every open
     :class:`OpCounter`: its products by the wrapper's formula, and the
     bytes of the tensors it ``reads`` and ``writes`` (None entries
-    skipped), each once."""
+    skipped), each once. Nothing to do while no counter is open."""
+    if not _active:
+        return
     reads = [x for x in reads if x is not None]
     moved = sum(_nbytes(x) for x in reads) + sum(
         _nbytes(x) for x in writes if x is not None)

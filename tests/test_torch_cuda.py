@@ -901,11 +901,19 @@ def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
         ops.ssd(x.float(), dt, A, B, C)
     with pytest.raises(ValueError, match="initial_state"):
         ops.ssd(x, dt, A, B, C, initial_state=torch.zeros((1, 2, 16, 16)))
-    # the backward's shared memory: head dim 128 takes N up to 112
+    # the backward takes head dim 128 with state 128 (jamba's mixer), and
+    # refuses with a message a head dim past the card's limits
     x, dt, A, B, C = _ssd_inputs(cuda, 1, 8, 1, 128, 1, 128)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        ops.ssd(x, dt, A.clone().requires_grad_(), B, C).float().sum() \
-            .backward()
+    A = A.clone().requires_grad_()
+    ops.reset_launch_counts()
+    ops.ssd(x, dt, A, B, C).float().sum().backward()
+    assert ops.launch_counts()["ssd_backward"] == 1
+    assert bool(torch.isfinite(A.grad).all())
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 8, 1, 144, 1, 128)
+    starts = torch.empty((1, 1, 0, 2, 144, 128), dtype=torch.bfloat16,
+                         device=cuda)
+    with pytest.raises(ValueError, match="multiples of 16 up to 128"):
+        SSD._ssd_bwd_cuda(x, dt, A, B, C, torch.zeros_like(x), starts)
 
 
 SSD_NAMES = ("dx", "ddt", "dA", "dB", "dC", "d_initial")
@@ -951,6 +959,7 @@ SSD_BWD_CASES = [   # b, t, h, p, g, n, a_scale
     (2, 300, 4, 64, 2, 128, 40.0),    # a decay past -60 within a chunk
     (2, 1, 4, 16, 2, 16, 1.0),        # one step
     (1, 130, 4, 128, 1, 64, 1.0),     # the widest head, at N 64
+    (2, 300, 4, 128, 1, 128, 1.0),    # jamba's head and state: P 128, N 128
 ]
 
 
@@ -977,7 +986,8 @@ def test_ssd_backward_matches_the_plain_walk_per_chunk(cuda, b, t, h, p, g,
         assert rel <= 1e-2, (name, rel)
 
 
-@pytest.mark.parametrize("b,t,h,p,g,n,a_scale", SSD_BWD_CASES[:2])
+@pytest.mark.parametrize("b,t,h,p,g,n,a_scale",
+                         SSD_BWD_CASES[:2] + SSD_BWD_CASES[-1:])
 def test_ssd_backward_is_repeatable_bit_for_bit(cuda, b, t, h, p, g, n,
                                                 a_scale):
     args = _ssd_inputs(cuda, b, t, h, p, g, n, a_scale=a_scale)

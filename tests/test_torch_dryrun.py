@@ -47,7 +47,8 @@ from repro.launch import hlo_cost as JH
 from repro.launch.mesh import make_mesh as j_make_mesh
 from repro.train.optimizer import AdamWConfig as JAdamWConfig
 from repro_torch.configs.base import ShapeSpec, cell_supported, get_arch, reduced
-from repro_torch.kernels.ssd import ssd_bwd_cost, ssd_cost
+from repro_torch.kernels.flash_attention import sm_count
+from repro_torch.kernels.ssd import bwd_plan, ssd_bwd_cost, ssd_cost
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_cost as OC
 from repro_torch.train.optimizer import AdamWConfig
@@ -190,14 +191,19 @@ def test_cell_matches_reference(arch, kind):
             # chunk checkpoint's recompute), where the reference's XLA
             # shares it between the two
             # K4's backward (csrc/ssd_bwd.cu) at P = 16, per (batch row,
-            # head) and 64-step chunk: C Bᵀ (by N) and dy xᵀ (by P) on the
-            # 10 blocks up to the diagonal; Wᵀ dy on them by P, as hi and
-            # lo; B dS'ᵀ, dy S, x dS' and dS's update, 64 x P x N each, as
-            # hi and lo; M B and Mᵀ C on the 10 blocks by N, as hi and lo
+            # head) and 64-step chunk: dy xᵀ (by P) on the 10 blocks up to
+            # the diagonal; Wᵀ dy on them by P, as hi and lo; the dS'
+            # walk's update, B dS'ᵀ, dy S and x dS', 64 x P x N each, as hi
+            # and lo; M B and Mᵀ C on the 10 blocks by N, as hi and lo; and
+            # per (batch row, chunk, group and head tile) C Bᵀ on the 10
+            # blocks by N, shared by the tile's heads
+            g = cfg.ssm_groups
+            _, tiles = bwd_plan(b, t, h, g, sm_count("meta"))
             bwd = b * h * (t // 64) * (
-                10 * 512 * (n + p) + 2 * 10 * 512 * p
-                + 4 * (4 * 64 * p * n) + 2 * (2 * 10 * 512 * n))
-            assert ssd_bwd_cost(b, t, h, p, n) == (bwd, 0.0)
+                10 * 512 * p + 2 * 10 * 512 * p
+                + 4 * (4 * 64 * p * n) + 2 * (2 * 10 * 512 * n)) \
+                + b * (t // 64) * g * tiles * 10 * 512 * n
+            assert ssd_bwd_cost(b, t, h, p, n, g, tiles) == (bwd, 0.0)
             oracle_train = 4 * oracle    # forward, recompute, 4 gradients
             conv_train = 2 * conv + 2 * (2 * b * t * cfg.ssm_conv * conv_ch ** 2)
             logits = 2 * b * t * cfg.vocab * cfg.d_model

@@ -14,6 +14,12 @@ seed:
 - it equals ``jax.grad`` of the reference's oracles at the reference's
   f32 ``GRAD_TOL`` (tests/test_kernel_grads.py:21): ``ssd_ref_chunked``,
   and ``ssd_ref`` from an initial state for ``d_initial`` (ROADMAP A17);
+- ``ref.ssd_chunked_bwd_parallel``, the two passes the CUDA backward
+  takes (the walk that carries only dS', then every chunk at once), equals
+  the walk to ``PLAIN_TOL`` and ``jax.grad`` of the reference's oracles to
+  ``GRAD_TOL``: G 1 and 2, T not a multiple of 64, with and without
+  ``d_final`` and an initial state, and jamba's head and state (P 128, N
+  128);
 - the port's sequential runner trains reduced mamba2-130m for 2
   iterations with the reference runner's losses and gradient norms on the
   same plans (rtol 2e-4, as ``tests/test_torch_train.py`` holds gpt-paper).
@@ -144,6 +150,57 @@ def test_plain_backward_matches_jax_grad_of_the_reference_oracles():
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(st.numpy(), np.asarray(jst), rtol=1e-4,
                                atol=1e-4)
+
+
+def _jax_grads(arrays, use_final, use_init):
+    """jax.grad of the reference's oracles: ``ssd_ref`` from the initial
+    state where one is used, else ``ssd_ref_chunked`` on inputs zero-filled
+    to its 128-step chunks (the padded steps add no decay and nothing to
+    the state, and their gradients are cut off)."""
+    x, dt, A, B, C, dy, d_final, s0 = (jnp.asarray(v) for v in arrays)
+    t = x.shape[1]
+    pad = -t % 128
+
+    def cot(y, st):
+        return jnp.sum(y * dy) + (jnp.sum(st * d_final) if use_final else 0.0)
+    if use_init:
+        def j_loss(x, dt, A, B, C, s0):
+            return cot(*jref.ssd_ref(x, dt, A, B, C, initial_state=s0,
+                                     return_state=True))
+        return jax.grad(j_loss, argnums=(0, 1, 2, 3, 4, 5))(x, dt, A, B, C, s0)
+
+    def j_loss(x, dt, A, B, C):
+        def fill(v):
+            return jnp.pad(v, [(0, 0), (0, pad)] + [(0, 0)] * (v.ndim - 2))
+        y, st = jref.ssd_ref_chunked(fill(x), fill(dt), A, fill(B), fill(C),
+                                     return_state=True)
+        return cot(y[:, :t], st)
+    return jax.grad(j_loss, argnums=(0, 1, 2, 3, 4))(x, dt, A, B, C)
+
+
+@pytest.mark.parametrize("b,t,h,p,g,n,use_final,use_init", [
+    (2, 150, 4, 8, 2, 8, True, True),       # G 2, ragged T, both states
+    (2, 192, 4, 16, 1, 16, False, False),   # G 1, neither
+    (1, 130, 2, 128, 1, 128, True, False),  # jamba's P 128, N 128, ragged
+])
+def test_chunk_parallel_backward_matches_the_walk_and_jax_grad(
+        b, t, h, p, g, n, use_final, use_init):
+    arrays = _inputs(b, t, h, p, g, n, seed=4)
+    x, dt, A, B, C, dy, d_final, s0 = (torch.from_numpy(v) for v in arrays)
+    d_final = d_final if use_final else None
+    init = s0 if use_init else None
+    starts = tref.ssd_chunk_parallel(x, dt, A, B, C, initial_state=init)[2]
+    got = tref.ssd_chunked_bwd_parallel(x, dt, A, B, C, dy, starts,
+                                        d_final=d_final, initial_state=init)
+    walk = tref.ssd_chunked_bwd(x, dt, A, B, C, dy, starts, d_final=d_final,
+                                initial_state=init)
+    for name, o, w in zip(NAMES, got, walk):
+        assert o.shape == w.shape and o.dtype == w.dtype, name
+        assert _rel(o, w) <= PLAIN_TOL, (name, _rel(o, w))
+    for name, o, w in zip(NAMES, got, _jax_grads(arrays, use_final,
+                                                 use_init)):
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=name)
 
 
 def _stream_args():
