@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
                             # mamba-train, fault, cluster, moe, frames, mixed,
-                            # gemma2, mesh, dryrun
+                            # gemma2, mesh, spmd, dryrun
+    python3 chip_smoke.py --phases spmd  # sharding inside a stage
     python3 chip_smoke.py --phases kernel,mamba-train  # Mamba2 training
     python3 chip_smoke.py --phases mesh  # the stage mesh and ZeRO-1
     python3 chip_smoke.py --phases dryrun  # the dry run against the card
@@ -237,7 +238,29 @@ Phases, each printing its own lines; any failure exits non-zero:
              two 2-iteration runs at 4 layers equal to the bit; prints
              real tokens/s, the mean step, peak memory and ZeRO-1's bytes
              on each stage;
-16. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
+16. spmd   — sharding inside a stage (``repro_torch.dist.spmd``): the
+             training step (``build_grad_step``) under a (data, model)
+             mesh that repeats the card (``make_mesh(shape, ("data",
+             "model"), devices=["cuda:0"] * 4)``), one shard group driving
+             each shard's own program in lockstep: gpt-paper at full width,
+             2 layers, the train phase's largest micro-batch with an even
+             row count (segment ids, -1 padding) on a (2, 2) mesh
+             (head-parallel attention, 16 heads a shard) against the same
+             step with no mesh: the loss and every gradient leaf within
+             GRAD_TOL and GRAD_REL_TOL, which a reduce that leaves out one
+             shard's partial must fail, two runs equal to the bit, K1 and
+             its backward launched exactly 4 shards x (2 x layers) and 4 x
+             layers times; the same model with ``attn_tp=False`` on a (1,
+             4) mesh (sequence-parallel attention: each shard's queries at
+             their own offset positions against every key) held the same
+             way; granite-moe-3b-a800m at full width, 2 layers, on a (1, 4)
+             mesh (10 experts a shard) against a (1, 1) mesh on the routes
+             of the (1, 4) run; prints each shard's parameter bytes, the
+             peak memory, the collectives' counts and link bytes by
+             formula, and each sharded step's time beside the unsharded
+             one (no claim goes with the times: on one card the shards
+             run one after another and no link is crossed);
+17. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
              each case's step traced on the ``meta`` device
              (``_lower_cell`` on a (1, 1) mesh: the predicted peak, FLOPs
              and kernel launches), then the same step functions run on the
@@ -259,7 +282,7 @@ Phases, each printing its own lines; any failure exits non-zero:
              step time and the TFLOP/s it implies, and the ops whose
              kernels allocated more inside themselves than the trace
              models;
-17. profile — (not run by default; ``profile-models`` the same for the
+18. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
              step and encoder forward, llava-next's prefill and decode;
@@ -417,6 +440,13 @@ LLAVA_LAYERS, LLAVA_ROWS, LLAVA_TEXT, LLAVA_DECODE_STEPS = 16, 4, 512, 8
 # take its attention's shapes
 GEMMA2_ARCH = "gemma2-2b"
 GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_WINDOW, GEMMA2_SOFTCAP = 8, 4, 4096, 50.0
+# the spmd phase: gpt-paper at full width with depth cut to 2 layers (the
+# fault phase's cut), on a (2, 2) data x model mesh of the one card and,
+# with attn_tp=False, a (1, 4) one; granite-moe at full width, 2 layers, on
+# a (1, 4) mesh against (1, 1)
+SPMD_LAYERS = 2
+SPMD_MESHES = {"gpt-paper": (2, 2), "gpt-paper attn_tp=False": (1, 4),
+               MOE_ARCH: (1, 4)}
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -3813,6 +3843,211 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 
 
 # ----------------------------------------------------------------------
+# phase: sharding inside a stage on a mesh that repeats the card
+# ----------------------------------------------------------------------
+def _spmd_batch(torch, arch):
+    """``arch`` at full width and SPMD_LAYERS, and the largest micro-batch
+    with an even row count of the train phase's first plan (the rows then
+    split over a data axis of 2)."""
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.data.dataset import materialize_micro_batch
+    cfg, stream, cost, pcfg = _train_setup(torch, SPMD_LAYERS, arch=arch)
+    gb = stream.batch(0)
+    mbs = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0] \
+        .micro_batches
+    big = max([m for m in mbs if m.mbs % 2 == 0] or mbs,
+              key=lambda m: m.mbs * m.seq)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in materialize_micro_batch(
+        big, gb.tokens, lengths=gb.lengths).items()}
+    return cfg, big, batch
+
+
+def _spmd_mesh(shape):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, ("data", "model"),
+                     devices=["cuda:0"] * (shape[0] * shape[1]))
+
+
+def _spmd_step(torch, cfg, params, batch, mesh=None):
+    """One ``build_grad_step`` call, under ``mesh`` when given: the mean
+    loss, the mean-loss gradient leaves by path (joined whole), the
+    launches, the collectives and their link bytes, and the seconds."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.train.train_state import join_params
+    from repro_torch.tree import flatten
+    step = build_grad_step(cfg)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    spmd.reset_collective_counts()
+    t0 = time.perf_counter()
+    with (set_mesh(mesh) if mesh is not None else contextlib.nullcontext()):
+        ls, ws, g = step(params, batch)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    whole = g if mesh is None else join_params(g)
+    w = float(ws)
+    return {"loss": float(ls) / w, "loss_sum": ls,
+            "grads": {p: x.float() / w for p, x in flatten(whole)},
+            "raw": [x for _, x in flatten(whole)],
+            "counts": ops.launch_counts(),
+            "coll": spmd.collective_counts(),
+            "link": spmd.collective_link_bytes(), "s": took}
+
+
+def _shard_bytes(sparams):
+    from repro_torch.tree import leaves
+    n = len(leaves(sparams)[0].locals)
+    return [sum(x.locals[r].numel() * x.locals[r].element_size()
+                for x in leaves(sparams)) for r in range(n)]
+
+
+def _spmd_expected(cfg, n_shards):
+    """K1 forward and the period recompute, and one backward, per layer
+    and shard."""
+    return {"mha_forward": 2 * cfg.n_layers * n_shards,
+            "mha_backward": cfg.n_layers * n_shards, "ssd_chunked": 0,
+            "ssd_backward": 0}
+
+
+def _spmd_line(torch, tag, cfg, shape, big, run, ref, shard_bytes, peak):
+    """Print a sharded step beside the step it is held to: ``(worst
+    ||diff|| / ||ref|| over the leaves, every element within
+    GRAD_TOL)``."""
+    worst_abs, worst_rel, ok = _leaf_errs(torch, run["grads"], ref["grads"])
+    print(f"[spmd] {tag} {cfg.n_layers} layers d_model {cfg.d_model} on a "
+          f"{shape} data x model mesh of cuda:0, micro-batch {big.mbs} x "
+          f"{big.seq}: loss {run['loss']:.6f} vs {ref['loss']:.6f} with no "
+          f"mesh; {len(ref['grads'])} gradient leaves, max |diff| "
+          f"{worst_abs:.3e}, worst ||diff|| / ||no mesh|| {worst_rel:.3e} "
+          f"(GRAD_TOL {GRAD_TOL_BF16}, GRAD_REL_TOL {GRAD_REL_TOL}); "
+          f"launches {run['counts']}; collectives {run['coll']}, link bytes "
+          f"by formula {({k: int(v) for k, v in run['link'].items()})}; "
+          f"parameter bytes by shard {shard_bytes}; peak memory "
+          f"{peak:.2f} GiB; step {run['s'] * 1e3:.1f} ms sharded, "
+          f"{ref['s'] * 1e3:.1f} ms with no mesh", flush=True)
+    return worst_rel, ok
+
+
+def phase_spmd(torch):
+    """Sharding inside a stage on meshes of ``cuda:0``: gpt-paper (2, 2)
+    head-parallel and (1, 4) sequence-parallel against the step with no
+    mesh, granite-moe (1, 4) against (1, 1); returns the (2, 2) step's
+    launch counts."""
+    import dataclasses
+    from repro_torch.dist import spmd
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    cfg, big, batch = _spmd_batch(torch, "gpt-paper")
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, device="cuda")
+    _spmd_step(torch, cfg, params, batch)                     # warm-up
+    ref = _spmd_step(torch, cfg, params, batch)
+    shape = SPMD_MESHES["gpt-paper"]
+    mesh = _spmd_mesh(shape)
+    sp = shard_params(params, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_spmd_step(torch, cfg, sp, batch, mesh) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run = runs[0]
+    counts = run["counts"]
+    expected = _spmd_expected(cfg, shape[0] * shape[1])
+    worst_rel, ok = _spmd_line(torch, "gpt-paper", cfg, shape, big, runs[1],
+                               ref, _shard_bytes(sp), peak)
+    same = (torch.equal(runs[0]["loss_sum"], runs[1]["loss_sum"])
+            and all(torch.equal(a, b) for a, b in
+                    zip(runs[0]["raw"], runs[1]["raw"])))
+    # planted fault: every reduce leaves out its last shard's addend
+    real_sum = spmd._sum
+    with mock.patch.object(spmd, "_sum", lambda xs, dev: real_sum(
+            xs[:-1] if len(xs) > 1 else xs, dev)):
+        fault = _spmd_step(torch, cfg, sp, batch, mesh)
+    f_abs, f_rel, f_ok = _leaf_errs(torch, fault["grads"], ref["grads"])
+    print(f"[spmd] gpt-paper: two sharded runs equal to the bit (loss sum "
+          f"and all {len(run['raw'])} gradient leaves): "
+          f"{'yes' if same else 'NO'}; launches {counts} (expected "
+          f"{expected}); planted fault (each reduce without its last "
+          f"shard's partial): loss {fault['loss']:.6f}, worst ||diff|| / "
+          f"||no mesh|| {f_rel:.3e}, elementwise GRAD_TOL "
+          f"{'passes' if f_ok else 'fails'} it", flush=True)
+    check(counts == expected, f"spmd launches {counts}, expected {expected}")
+    check(ok and worst_rel <= GRAD_REL_TOL, "gpt-paper on a (2, 2) mesh: a "
+          f"gradient leaf disagrees with the step with no mesh "
+          f"({worst_rel:.3e})")
+    check(abs(run["loss"] - ref["loss"]) <= GRAD_TOL_BF16 * abs(ref["loss"]),
+          "gpt-paper on a (2, 2) mesh: the loss disagrees")
+    check(same, "two sharded gpt-paper runs differ")
+    check(f_rel > GRAD_REL_TOL, "the leaf check does not see a reduce that "
+          "leaves out one shard's partial")
+    del sp, runs, fault
+
+    # sequence-parallel attention: the weights replicated, each shard's
+    # queries at their own positions against every key
+    cfg_s = dataclasses.replace(cfg, attn_tp=False)
+    shape = SPMD_MESHES["gpt-paper attn_tp=False"]
+    mesh = _spmd_mesh(shape)
+    torch.cuda.reset_peak_memory_stats()
+    seq = _spmd_step(torch, cfg_s, params, batch, mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bytes_s = _shard_bytes(shard_params(params, cfg_s, mesh))
+    worst_rel, ok = _spmd_line(torch, "gpt-paper attn_tp=False", cfg_s,
+                               shape, big, seq, ref, bytes_s, peak)
+    exp_s = _spmd_expected(cfg_s, shape[0] * shape[1])
+    check(seq["counts"] == exp_s, f"sequence-parallel launches "
+          f"{seq['counts']}, expected {exp_s}")
+    check(ok and worst_rel <= GRAD_REL_TOL, "gpt-paper attn_tp=False on a "
+          f"(1, 4) mesh: a gradient leaf disagrees ({worst_rel:.3e})")
+    del params, seq, ref
+    torch.cuda.empty_cache()
+
+    # granite-moe: (1, 4), 10 experts a shard, against (1, 1), on the
+    # (1, 4) run's routes (each of the 4 shards routes the same tokens)
+    cfg_m, big_m, batch_m = _spmd_batch(torch, MOE_ARCH)
+    params_m = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                              cfg_m, device="cuda")
+    shape = SPMD_MESHES[MOE_ARCH]
+    n = shape[0] * shape[1]
+    routes, record = _route_recorder()
+    torch.cuda.reset_peak_memory_stats()
+    with record:
+        moe = _spmd_step(torch, cfg_m, params_m, batch_m, _spmd_mesh(shape))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    agree = all(torch.equal(routes[i], routes[i + j])
+                for i in range(0, len(routes), n) for j in range(1, n))
+    flips, replay = _route_replayer(torch, routes[::n])
+    with replay:
+        one = _spmd_step(torch, cfg_m, params_m, batch_m,
+                         _spmd_mesh((1, 1)))
+    bytes_m = _shard_bytes(shard_params(params_m, cfg_m, _spmd_mesh(shape)))
+    worst_rel, ok = _spmd_line(torch, MOE_ARCH, cfg_m, shape, big_m, moe,
+                               one, bytes_m, peak)
+    exp_m = _spmd_expected(cfg_m, n)
+    print(f"[spmd] {MOE_ARCH}: against a (1, 1) mesh on the (1, 4) run's "
+          f"routes ({len(routes)} router calls, the shards' routes equal: "
+          f"{'yes' if agree else 'NO'}; {flips['flipped']} of "
+          f"{flips['tokens']} tokens' own top-{cfg_m.top_k} differ); "
+          f"launches {moe['counts']} (expected {exp_m}); (1, 1) step "
+          f"{one['s'] * 1e3:.1f} ms", flush=True)
+    check(agree, "the shards of one data shard routed its tokens apart")
+    check(moe["counts"] == exp_m, f"granite spmd launches {moe['counts']}, "
+          f"expected {exp_m}")
+    check(ok and worst_rel <= GRAD_REL_TOL, f"{MOE_ARCH} on a (1, 4) mesh: "
+          f"a gradient leaf disagrees with (1, 1) ({worst_rel:.3e})")
+    check(all(bool(torch.isfinite(x).all()) for x in leaves(moe["grads"])),
+          "non-finite MoE gradients")
+    del params_m, moe, one
+    torch.cuda.empty_cache()
+    print(f"[spmd] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
+# ----------------------------------------------------------------------
 # phase 17: profiles (not run by default)
 # ----------------------------------------------------------------------
 # K1's forms are mha_fwd_prefill_kernel and mha_fwd_decode_kernel; the
@@ -4126,10 +4361,10 @@ def main():
     ap.add_argument("--phases",
                     default="device,kernel,serve,train,pipeline,t5,mamba,"
                     "mamba-train,fault,cluster,moe,frames,mixed,gemma2,mesh,"
-                    "dryrun",
+                    "spmd,dryrun",
                     help="comma-separated: kernel, serve, train, pipeline, "
                     "t5, mamba, mamba-train, fault, cluster, moe, frames, "
-                    "mixed, gemma2, mesh, dryrun, profile, "
+                    "mixed, gemma2, mesh, spmd, dryrun, profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -4188,6 +4423,8 @@ def main():
                       "gemma2-train": gemma2["train"]})
     if "mesh" in phases:
         paths["mesh"] = phase_mesh(torch)
+    if "spmd" in phases:
+        paths["spmd"] = phase_spmd(torch)
     if "dryrun" in phases:
         paths["dryrun"] = phase_dryrun(torch)
     if "profile" in phases:

@@ -5,6 +5,9 @@ a checkpoint) as numpy arrays, e.g. ``jax.tree.map(np.asarray, params)``,
 and returns the same nested dict of torch tensors on ``device``. bf16 arrays
 arrive as ``ml_dtypes.bfloat16``; their bits are reinterpreted, so no
 ``ml_dtypes`` import is needed and no value changes.
+:func:`sharded_params_from_jax` splits the result over a mesh's devices
+as ``train_state.shard_params`` does, so that the reference's tree feeds a
+shard group.
 """
 from __future__ import annotations
 
@@ -36,3 +39,10 @@ def params_from_jax(tree, device="cuda"):
         return _tensor(x, device)
 
     return go(tree)
+
+
+def sharded_params_from_jax(tree, cfg, mesh):
+    """:func:`params_from_jax` onto the CPU, then split over ``mesh``'s
+    devices by the params' spec tree: a tree of ``spmd.Sharded``."""
+    from repro_torch.train.train_state import shard_params
+    return shard_params(params_from_jax(tree, device="cpu"), cfg, mesh)

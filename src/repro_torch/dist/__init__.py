@@ -13,7 +13,12 @@ is devices, threads and processes. Its modules:
   and the plan's injection order.
 - :mod:`repro_torch.dist.sharding` — logical-axis resolution
   (``spec_for``, ZeRO-1's ``zero1_logical``), the port's ``Mesh`` and the
-  ambient mesh; sharding inside a stage raises (ROADMAP A23).
+  ambient mesh, and ``shard``, the layout change inside a shard group.
+- :mod:`repro_torch.dist.spmd` — the shard group: sharding inside a stage
+  over a (data, model) mesh from one controller in lockstep
+  (``Sharded`` values, ordered collectives, ``value_and_grad``); the
+  model's loss, its gradients and the MoE layer run there. The paths it
+  does not take yet raise (ROADMAP A23).
 - :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
   elastic re-planning over the surviving replica set.
 - :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,

@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.executor import PipelineExecutor, StageCallbacks
 from repro_torch.core.instructions import ExecutionPlan, Op
-from repro_torch.dist.sharding import Mesh
+from repro_torch.dist.sharding import IN_STAGE_SHARDING, Mesh
 from repro_torch.tree import add_into, leaves, tree_map
 
 
@@ -69,7 +69,9 @@ def stage_devices(mesh: Mesh, n_stages: int) -> list[torch.device]:
             f"stage axis {axis!r} has size {mesh.shape[axis]}, expected "
             f"n_stages={n_stages}")
     if mesh.devices.ndim != 1:
-        raise ValueError(f"{mesh}: a stage mesh has one axis")
+        raise NotImplementedError(
+            f"{IN_STAGE_SHARDING}: a stage mesh has one axis; {mesh} would "
+            "shard inside the stages")
     return list(mesh.devices)
 
 

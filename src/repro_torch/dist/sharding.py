@@ -32,9 +32,14 @@ functions and a dry run need and which holds no device). The stage mesh
 of the mesh backend (``repro_torch.dist.backend.MeshBackend``) is one
 process driving a list of devices, which may repeat one card. Sharding a
 tensor *inside* a stage (the ``data`` and ``model`` axes through GSPMD in
-the reference) is not ported (ROADMAP A23): :func:`shard` returns its
-input wherever the resolved spec is empty, and raises
-``NotImplementedError`` where it is not.
+the reference) runs in a shard group (``repro_torch.dist.spmd``): there a
+value is a ``spmd.Sharded`` and :func:`shard` is the layout change its
+spec names (gathers, reduce-scatters, slices). Outside a running group
+:func:`shard` returns its input wherever the resolved spec is empty, and
+raises ``NotImplementedError`` naming ROADMAP A23 where it is not: the
+paths that have no group yet (serving with sharded caches, Mamba's
+tensor parallelism, ZeRO-3 weights, the T5, frames and mixed inputs
+under a model axis).
 
 :class:`ZeroShards` is one optimizer-state leaf placed by ZeRO-1: its
 chunks along one dim, chunk ``s`` on the stage mesh's device ``s``.
@@ -56,8 +61,9 @@ _BATCH_AXES = ("pod", "data", "dp", "batch", "replica")
 _MODEL_AXES = ("model", "tp", "mdl", "tensor")
 _STAGE_AXES = ("stage", "pipe", "stages")
 
-IN_STAGE_SHARDING = ("sharding a tensor inside a pipeline stage (the data/"
-                     "model axes: dp, tp, sp, ep) is not ported (ROADMAP A23)")
+IN_STAGE_SHARDING = ("this part of sharding inside a pipeline stage (the "
+                     "data/model axes: dp, tp, sp, ep) is not ported "
+                     "(ROADMAP A23)")
 
 _tls = threading.local()
 
@@ -228,12 +234,16 @@ def spec_for(shape: Sequence[int], logical: Sequence[LogicalDim],
     return P(*entries)
 
 
-def shard(x: torch.Tensor, *logical: LogicalDim,
-          mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Annotate an activation with its logical placement. Without a mesh,
-    or where the mesh gives the tensor no axis (a stage-only mesh, dims
-    that fail divisibility), this is the identity; a placement that would
-    split the tensor over devices raises (ROADMAP A23)."""
+def shard(x, *logical: LogicalDim, mesh: Optional[Mesh] = None):
+    """Annotate an activation with its logical placement. A
+    ``spmd.Sharded`` value (inside a shard group) comes back in the layout
+    the spec names. For a tensor: without a mesh, or where the mesh gives
+    it no axis (a stage-only mesh, dims that fail divisibility), the
+    identity; a placement that would split it raises (ROADMAP A23)."""
+    from repro_torch.dist import spmd
+    if isinstance(x, spmd.Sharded):
+        mesh = mesh if mesh is not None else x.group.mesh
+        return spmd.redistribute(x, spec_for(x.shape, logical, mesh))
     mesh = mesh if mesh is not None else ambient_mesh()
     if mesh is None:
         return x
@@ -241,7 +251,7 @@ def shard(x: torch.Tensor, *logical: LogicalDim,
     if not len(spec):
         return x
     raise NotImplementedError(f"{IN_STAGE_SHARDING}: {tuple(x.shape)} -> "
-                              f"{spec} on {mesh}")
+                              f"{spec} on {mesh} outside a shard group")
 
 
 def is_logical(x) -> bool:

@@ -1,0 +1,573 @@
+"""The shard group: sharding inside a stage, one controller in lockstep.
+
+Counterpart of what GSPMD does for the reference under a (data, model)
+mesh (``repro.dist.sharding.shard`` as ``with_sharding_constraint``, and
+``jax.shard_map`` for the MoE layer). One process drives every device of
+a :class:`~repro_torch.dist.sharding.Mesh` that has devices; the list may
+repeat one card (``["cuda:0"] * 4``) or the CPU (``["cpu"] * 8``, the
+tests' mesh). Each shard's program is its own: its slices of the weights
+and activations, its own products and kernel launches at its own shapes.
+
+A distributed value is a :class:`Sharded`: one local tensor per rank (flat
+rank, row-major over the mesh's axes), its layout as a ``PartitionSpec``
+(a tuple of mesh axes per dim) and the mesh axes over which its locals
+are still addends of one sum (``partial``, the row-parallel products'
+outputs). :meth:`ShardGroup.map` runs a local function on every rank in
+ascending order; the collectives combine the locals:
+
+- :func:`all_reduce` over the mesh axes named, each group summed in
+  ascending rank (in fp32 for floating dtypes, then cast back), every
+  member given its copy;
+- :func:`all_gather` along a dim, the chunks in the order of their index;
+- :func:`reduce_scatter` along a dim, summed in ascending rank, chunk
+  ``i`` to the member whose chunk index is ``i``.
+
+Each is an autograd function whose backward is its transpose (all-reduce,
+reduce-scatter, all-gather), so one graph holds every shard's program and
+``torch.autograd.grad`` walks it once, in reverse, on one thread: no
+shard waits on another, and a collective's backward sums in the same
+fixed order as its forward, so a step repeats bit for bit. A period's
+recompute is the stack's own checkpoint, which runs the collectives again.
+Every collective adds one to :func:`collective_counts` and charges its
+link bytes by formula to the open ``launch.op_cost`` counters.
+
+:func:`redistribute` is the layout change that ``shard(x, *logical)``
+names inside a running group (:func:`running`): partial sums reduced (by
+a reduce-scatter where the target splits a dim over the same axes),
+split dims gathered, then dims split by slicing the local copy.
+:func:`value_and_grad` takes the gradient of a function of a tree of
+:class:`Sharded` parameters and sums each leaf's gradient over the mesh
+axes that hold copies of its slice, in ascending rank.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.dist.sharding import (IN_STAGE_SHARDING, Mesh, P,
+                                       ambient_mesh, axis_map)
+
+_COUNTS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
+_LINK_BYTES = {"all_reduce": 0.0, "all_gather": 0.0, "reduce_scatter": 0.0}
+_lock = threading.Lock()
+_tls = threading.local()
+
+
+def collective_counts() -> dict[str, int]:
+    """Collectives run since the last reset, by kind (forward and backward,
+    a recompute included)."""
+    with _lock:
+        return dict(_COUNTS)
+
+
+def collective_link_bytes() -> dict[str, float]:
+    """Per-device link bytes of those collectives by the ring formulas of
+    ``launch.op_cost.link_bytes``."""
+    with _lock:
+        return dict(_LINK_BYTES)
+
+
+def reset_collective_counts() -> None:
+    with _lock:
+        for k in _COUNTS:
+            _COUNTS[k] = 0
+            _LINK_BYTES[k] = 0.0
+
+
+def _count(kind: str, out_bytes: int, g: int) -> None:
+    from repro_torch.launch import op_cost
+    link = op_cost.link_bytes(kind.replace("_", "-"), out_bytes, g)
+    with _lock:
+        _COUNTS[kind] += 1
+        _LINK_BYTES[kind] += link
+    op_cost.charge_collective(kind.replace("_", "-"), out_bytes, g)
+
+
+# ----------------------------------------------------------------------
+# the group
+# ----------------------------------------------------------------------
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def norm_spec(spec, ndim: int) -> tuple:
+    """A spec as one tuple of mesh axes per dim, ``ndim`` long."""
+    entries = [_axes(e) for e in tuple(spec)]
+    if len(entries) > ndim:
+        raise ValueError(f"spec {spec} for a {ndim}-dim tensor")
+    return tuple(entries) + ((),) * (ndim - len(entries))
+
+
+def to_pspec(spec: tuple) -> P:
+    entries = [None if not a else (a[0] if len(a) == 1 else a) for a in spec]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+class ShardGroup:
+    """The ranks of a mesh with devices: rank ``r`` is the ``r``-th device
+    of ``mesh.devices`` in row-major order."""
+
+    def __init__(self, mesh: Mesh):
+        if mesh.devices is None:
+            raise ValueError(f"{mesh} is abstract: a shard group needs "
+                             "devices")
+        self.mesh = mesh
+        self.axis_names = tuple(mesh.axis_names)
+        self.sizes = tuple(mesh.devices.shape)
+        self.devices = list(mesh.devices.flat)
+        self.n = len(self.devices)
+        self._coords = [dict(zip(self.axis_names,
+                                 np.unravel_index(r, self.sizes)))
+                        for r in range(self.n)]
+
+    def __repr__(self) -> str:
+        return f"ShardGroup({self.mesh})"
+
+    def coord(self, r: int, axis: str) -> int:
+        return int(self._coords[r][axis])
+
+    def chunk(self, r: int, axes: tuple) -> tuple[int, int]:
+        """``(index, count)`` of rank ``r``'s chunk of a dim split over
+        ``axes``, the first axis major."""
+        i, n = 0, 1
+        for a in axes:
+            s = self.mesh.shape[a]
+            i, n = i * s + self.coord(r, a), n * s
+        return i, n
+
+    def groups(self, axes: tuple) -> list[list[int]]:
+        """The ranks that differ only along ``axes``, each group in
+        ascending rank."""
+        others = [a for a in self.axis_names if a not in axes]
+        out: dict = {}
+        for r in range(self.n):
+            out.setdefault(tuple(self.coord(r, a) for a in others),
+                           []).append(r)
+        return list(out.values())
+
+    def map(self, fn: Callable, *args, **kwargs) -> list:
+        """``fn`` on every rank in ascending order, each :class:`Sharded`
+        in ``args``/``kwargs`` (nested in dicts, lists and tuples too)
+        replaced by its local tensor: the list of results."""
+        return [fn(*local(args, r), **local(kwargs, r))
+                for r in range(self.n)]
+
+
+@contextlib.contextmanager
+def running(group: ShardGroup):
+    """Make ``group`` the running shard group of this thread."""
+    prev = getattr(_tls, "group", None)
+    _tls.group = group
+    try:
+        yield group
+    finally:
+        _tls.group = prev
+
+
+def current_group() -> Optional[ShardGroup]:
+    return getattr(_tls, "group", None)
+
+
+def in_stage_mesh(mesh: Optional[Mesh] = None) -> bool:
+    """Whether ``mesh`` (else the ambient one) shards inside a stage: it
+    has devices and a data or model axis (size 1 included, as the
+    reference's MoE takes its shard_map on a (1, 1) mesh)."""
+    mesh = mesh if mesh is not None else ambient_mesh()
+    if mesh is None or mesh.devices is None:
+        return False
+    amap = axis_map(mesh)
+    return bool(amap.get("dp") or amap.get("tp"))
+
+
+# ----------------------------------------------------------------------
+# distributed values
+# ----------------------------------------------------------------------
+class Sharded:
+    """A tensor over a shard group: ``locals[r]`` on rank ``r``'s device,
+    ``spec`` one tuple of mesh axes per dim, ``partial`` the mesh axes
+    whose members hold addends of the value."""
+
+    __slots__ = ("group", "locals", "spec", "partial")
+
+    def __init__(self, group: ShardGroup, locals_: Sequence[torch.Tensor],
+                 spec=(), partial: tuple = ()):
+        if len(locals_) != group.n:
+            raise ValueError(f"{len(locals_)} locals for {group.n} ranks")
+        self.group = group
+        self.locals = list(locals_)
+        self.spec = norm_spec(spec, self.locals[0].dim())
+        self.partial = tuple(partial)
+
+    @property
+    def shape(self) -> torch.Size:
+        """The whole tensor's shape."""
+        s = list(self.locals[0].shape)
+        for d, axes in enumerate(self.spec):
+            for a in axes:
+                s[d] *= self.group.mesh.shape[a]
+        return torch.Size(s)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.locals[0].dtype
+
+    @property
+    def pspec(self) -> P:
+        return to_pspec(self.spec)
+
+    def dim(self) -> int:
+        return self.locals[0].dim()
+
+    def with_locals(self, locals_, spec=None, partial=None) -> "Sharded":
+        return Sharded(self.group, locals_,
+                       self.spec if spec is None else spec,
+                       self.partial if partial is None else partial)
+
+    def map(self, fn, *others) -> "Sharded":
+        """``fn`` elementwise over the locals of ``self`` and ``others``
+        (same layout), keeping the layout."""
+        return self.with_locals(self.group.map(fn, self, *others))
+
+    def __repr__(self) -> str:
+        return (f"Sharded({list(self.shape)}, {self.dtype}, {self.pspec}"
+                f"{', partial ' + str(self.partial) if self.partial else ''}"
+                f", {self.group.n} ranks)")
+
+
+def local(tree, r: int):
+    """``tree`` with each :class:`Sharded` replaced by its rank-``r``
+    local."""
+    if isinstance(tree, Sharded):
+        return tree.locals[r]
+    if isinstance(tree, dict):
+        return {k: local(v, r) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(local(v, r) for v in tree)
+    return tree
+
+
+def _chunk_slices(group: ShardGroup, r: int, spec: tuple, shape) -> list:
+    out = []
+    for d, axes in enumerate(spec):
+        i, n = group.chunk(r, axes)
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split "
+                             f"over {axes}")
+        size = shape[d] // n
+        out.append((d, i * size, size))
+    return out
+
+
+def split(x: torch.Tensor, spec, group: ShardGroup) -> Sharded:
+    """``x`` split by ``spec``: each rank a copy of its chunk on its
+    device. Differentiable."""
+    spec = norm_spec(spec, x.dim())
+    locals_ = []
+    for r, dev in enumerate(group.devices):
+        y = x
+        for d, start, size in _chunk_slices(group, r, spec, x.shape):
+            if size != x.shape[d]:
+                y = y.narrow(d, start, size)
+        locals_.append(y.to(dev, copy=True).contiguous())
+    return Sharded(group, locals_, spec)
+
+
+def join(s: Sharded, device=None) -> torch.Tensor:
+    """The whole tensor of ``s`` on ``device`` (rank 0's by default):
+    partial sums reduced, chunks put in place."""
+    if s.partial:
+        s = s.with_locals(all_reduce(s.locals, s.group, s.partial),
+                          partial=())
+    device = s.group.devices[0] if device is None else torch.device(device)
+    shape = s.shape
+    out = torch.empty(shape, dtype=s.dtype, device=device)
+    seen = set()
+    for r in range(s.group.n):
+        sl = _chunk_slices(s.group, r, s.spec, shape)
+        key = tuple(start for _, start, _ in sl)
+        if key in seen:
+            continue
+        seen.add(key)
+        idx = tuple(slice(start, start + size) for _, start, size in sl)
+        out[idx] = s.locals[r].to(device)
+    return out
+
+
+# ----------------------------------------------------------------------
+# collectives
+# ----------------------------------------------------------------------
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.float32 if dtype.is_floating_point else dtype
+
+
+def _sum(xs: list, dev) -> torch.Tensor:
+    """``xs`` summed in list order on ``dev``, in fp32 for floats."""
+    dt = _acc_dtype(xs[0].dtype)
+    acc = xs[0].to(dev, dt, copy=True)
+    for x in xs[1:]:
+        acc.add_(x.to(dev, dt))
+    return acc
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _size(group: ShardGroup, axes: tuple) -> int:
+    n = 1
+    for a in axes:
+        n *= group.mesh.shape[a]
+    return n
+
+
+def _all_reduce_raw(xs, group: ShardGroup, axes: tuple) -> list:
+    out = [None] * group.n
+    for members in group.groups(axes):
+        dt = xs[members[0]].dtype
+        acc = _sum([xs[m] for m in members], group.devices[members[0]])
+        for m in members:
+            out[m] = acc.to(group.devices[m], dt, copy=True)
+    _count("all_reduce", _nbytes(out[0]), _size(group, axes))
+    return out
+
+
+def _ordered(group: ShardGroup, members: list, axes: tuple) -> list:
+    return sorted(members, key=lambda m: group.chunk(m, axes)[0])
+
+
+def _all_gather_raw(xs, group: ShardGroup, axes: tuple, dim: int) -> list:
+    out = [None] * group.n
+    for members in group.groups(axes):
+        dev = group.devices[members[0]]
+        whole = torch.cat([xs[m].to(dev) for m in
+                           _ordered(group, members, axes)], dim)
+        for m in members:
+            out[m] = whole.to(group.devices[m], copy=True)
+    _count("all_gather", _nbytes(out[0]), _size(group, axes))
+    return out
+
+
+def _reduce_scatter_raw(xs, group: ShardGroup, axes: tuple, dim: int) -> list:
+    out = [None] * group.n
+    for members in group.groups(axes):
+        dt = xs[members[0]].dtype
+        acc = _sum([xs[m] for m in members], group.devices[members[0]])
+        parts = acc.chunk(len(members), dim)
+        for m in members:
+            i = group.chunk(m, axes)[0]
+            out[m] = parts[i].to(group.devices[m], dt,
+                                 copy=True).contiguous()
+    _count("reduce_scatter", _nbytes(out[0]), _size(group, axes))
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axes, *xs):
+        ctx.meta = (group, axes)
+        return tuple(_all_reduce_raw(xs, group, axes))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, *_all_reduce_raw(gs, *ctx.meta))
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axes, dim, *xs):
+        ctx.meta = (group, axes, dim)
+        return tuple(_all_gather_raw(xs, group, axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_reduce_scatter_raw(gs, *ctx.meta))
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axes, dim, *xs):
+        ctx.meta = (group, axes, dim)
+        return tuple(_reduce_scatter_raw(xs, group, axes, dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return (None, None, None, *_all_gather_raw(gs, *ctx.meta))
+
+
+def _trivial(group: ShardGroup, axes: tuple) -> bool:
+    return all(group.mesh.shape[a] == 1 for a in axes)
+
+
+def all_reduce(xs: list, group: ShardGroup, axes: tuple) -> list:
+    """Sum over each group of ranks that differ along ``axes``."""
+    if _trivial(group, axes):
+        return list(xs)
+    return list(_AllReduce.apply(group, tuple(axes), *xs))
+
+
+def all_gather(xs: list, group: ShardGroup, axes: tuple, dim: int) -> list:
+    """Concatenate along ``dim`` the chunks of each group over ``axes``."""
+    if _trivial(group, axes):
+        return list(xs)
+    return list(_AllGather.apply(group, tuple(axes), dim, *xs))
+
+
+def reduce_scatter(xs: list, group: ShardGroup, axes: tuple,
+                   dim: int) -> list:
+    """Sum over each group along ``axes``, each member keeping its chunk
+    of ``dim``."""
+    if _trivial(group, axes):
+        return list(xs)
+    return list(_ReduceScatter.apply(group, tuple(axes), dim, *xs))
+
+
+# ----------------------------------------------------------------------
+# layout changes
+# ----------------------------------------------------------------------
+def redistribute(s: Sharded, spec) -> Sharded:
+    """``s`` in the layout ``spec``: its partial sums reduced (a
+    reduce-scatter onto the one dim that ``spec`` splits over exactly
+    those axes and ``s`` does not, else an all-reduce), then each dim
+    whose axes change gathered whole and split again by slicing."""
+    g = s.group
+    target = norm_spec(spec, s.dim())
+    locals_, cur = s.locals, list(s.spec)
+    if s.partial:
+        dims = [d for d, axes in enumerate(target)
+                if axes == s.partial and not cur[d]]
+        if dims:
+            locals_ = reduce_scatter(locals_, g, s.partial, dims[0])
+            cur[dims[0]] = s.partial
+        else:
+            locals_ = all_reduce(locals_, g, s.partial)
+    for d, axes in enumerate(cur):
+        if axes and axes != target[d]:
+            locals_ = all_gather(locals_, g, axes, d)
+            cur[d] = ()
+    for d, axes in enumerate(target):
+        if axes and cur[d] != axes:
+            sliced = []
+            for r, x in enumerate(locals_):
+                i, n = g.chunk(r, axes)
+                size = x.shape[d] // n
+                sliced.append(x.narrow(d, i * size, size))
+            locals_ = sliced
+            cur[d] = axes
+    return Sharded(g, locals_, tuple(cur))
+
+
+def gather_whole(s: Sharded) -> Sharded:
+    """``s`` replicated: every rank the whole tensor."""
+    return redistribute(s, ())
+
+
+def reduce_over(s: Sharded, axes: tuple, *, mean: bool = False) -> Sharded:
+    """Sum (or mean) of a replicated value's locals over ``axes``, each
+    rank's local an addend (a per-shard loss or aux)."""
+    if not axes:
+        return s
+    out = all_reduce(s.locals, s.group, axes)
+    if mean:
+        n = _size(s.group, axes)
+        out = [x / n for x in out]
+    return s.with_locals(out)
+
+
+# ----------------------------------------------------------------------
+# trees
+# ----------------------------------------------------------------------
+def split_tree(tree, specs, group: ShardGroup):
+    """Each tensor of ``tree`` split by the spec at the same place in
+    ``specs`` (a tree of ``PartitionSpec`` of the same structure)."""
+    if isinstance(tree, dict):
+        return {k: split_tree(v, specs[k], group) for k, v in tree.items()}
+    if isinstance(tree, Sharded):
+        return tree
+    return split(tree, specs, group)
+
+
+def join_tree(tree, device=None):
+    """The whole tensors of a tree of :class:`Sharded`."""
+    if isinstance(tree, dict):
+        return {k: join_tree(v, device) for k, v in tree.items()}
+    return join(tree, device)
+
+
+def unbind0(s: Sharded) -> list:
+    """The slices of ``s`` along its first dim, which no axis splits."""
+    if s.spec[0]:
+        raise ValueError(f"{s}: dim 0 is split")
+    parts = [x.unbind(0) for x in s.locals]
+    return [Sharded(s.group, [p[i] for p in parts], s.spec[1:])
+            for i in range(len(parts[0]))]
+
+
+def tree_is_sharded(tree) -> bool:
+    if isinstance(tree, dict):
+        return any(tree_is_sharded(v) for v in tree.values())
+    return isinstance(tree, Sharded)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, in sorted key order."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def _sharded_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _sharded_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def replica_axes(s: Sharded) -> tuple:
+    """The mesh axes along which ranks hold copies of the same chunk."""
+    used = {a for axes in s.spec for a in axes}
+    return tuple(a for a in s.group.axis_names if a not in used)
+
+
+def value_and_grad(fn: Callable, sparams, *args, **kwargs):
+    """``(out, grads)`` of ``fn(sparams, *args, **kwargs)``, whose first
+    output (or only one) is a scalar tensor: the gradient of every local
+    of every :class:`Sharded` leaf, summed over the ranks holding a copy of
+    its chunk (:func:`replica_axes`: the data axis, and the model axis for
+    a leaf the model axis does not split) in ascending rank. ``grads`` has
+    the structure of ``sparams`` and its leaves' layouts; ``out`` is
+    detached."""
+    with torch.enable_grad():
+        fresh = _tree_map(lambda s: s.with_locals(
+            [x.detach().requires_grad_() for x in s.locals]), sparams)
+        out = fn(fresh, *args, **kwargs)
+        loss = out[0] if isinstance(out, (tuple, list)) else out
+        flat = [s for _, s in _sharded_leaves(fresh)]
+        gs = iter(torch.autograd.grad(
+            loss, [x for s in flat for x in s.locals],
+            materialize_grads=True))
+
+    def reduce(s):
+        g_loc = [next(gs) for _ in range(s.group.n)]
+        axes = replica_axes(s)
+        if not _trivial(s.group, axes):
+            g_loc = _all_reduce_raw(g_loc, s.group, axes)
+        return s.with_locals(g_loc)
+    grads = _tree_map(reduce, fresh)
+    detached = (tuple(o.detach() if isinstance(o, torch.Tensor) else o
+                      for o in out) if isinstance(out, (tuple, list))
+                else out.detach())
+    return detached, grads
+
+
+def not_ported(what: str, mesh: Optional[Mesh] = None) -> NotImplementedError:
+    mesh = mesh if mesh is not None else ambient_mesh()
+    return NotImplementedError(f"{IN_STAGE_SHARDING}: {what} on {mesh}")

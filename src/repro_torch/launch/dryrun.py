@@ -274,27 +274,13 @@ def make_decode_step(cfg: ArchConfig):
 # ----------------------------------------------------------------------
 def collective_link_bytes(ops) -> dict:
     """Per-device link bytes per collective kind, from ``ops``: ``(kind,
-    out_bytes, group)`` triples (ring-algorithm estimates, the
-    reference's):
-
-      all-gather:        out·(g-1)/g     all-reduce:  2·out·(g-1)/g
-      reduce-scatter:    out·(g-1)      all-to-all:  out·(g-1)/g
-      collective-permute: out
-    """
+    out_bytes, group)`` triples, each by ``op_cost.link_bytes`` (the
+    reference's ring-algorithm estimates)."""
     per_kind: dict[str, float] = {}
     counts: dict[str, int] = {}
     for kind, out_bytes, g in ops:
-        if kind == "all-gather":
-            link = out_bytes * (g - 1) / g
-        elif kind == "all-reduce":
-            link = 2 * out_bytes * (g - 1) / g
-        elif kind == "reduce-scatter":
-            link = out_bytes * (g - 1)
-        elif kind == "all-to-all":
-            link = out_bytes * (g - 1) / g
-        else:
-            link = out_bytes
-        per_kind[kind] = per_kind.get(kind, 0.0) + link
+        per_kind[kind] = per_kind.get(kind, 0.0) + op_cost.link_bytes(
+            kind, out_bytes, g)
         counts[kind] = counts.get(kind, 0) + 1
     return {"link_bytes": per_kind, "counts": counts,
             "total_link_bytes": sum(per_kind.values())}

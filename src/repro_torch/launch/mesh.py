@@ -29,18 +29,33 @@ def _cuda_devices() -> list:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
-def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...]) -> Mesh:
-    """A mesh of ``shape`` over the first CUDA devices, in order; raises
-    when there are fewer than it needs."""
+def _mesh_devices(n: int, devices: Optional[Sequence], what: str) -> list:
+    """``devices`` (``n`` of them) or the first ``n`` CUDA devices; never
+    a repeated device or the CPU unasked."""
+    if devices is None:
+        devs = _cuda_devices()
+        if n > len(devs):
+            raise ValueError(
+                f"need {n} devices for {what}, have {len(devs)} CUDA devices "
+                f"(pass devices=, e.g. ['cuda:0'] * {n} or ['cpu'] * {n})")
+        return devs[:n]
+    if len(devices) != n:
+        raise ValueError(f"{len(devices)} devices for {what}")
+    return [torch.device(d) for d in devices]
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A mesh of ``shape`` over ``devices`` in row-major order, by default
+    the first CUDA devices (raising when there are fewer). A caller that
+    wants a device repeated names it: ``["cpu"] * 8`` (the tests' (2, 4)
+    mesh in one CPU process) or ``["cuda:0"] * 4`` (a (2, 2) mesh on one
+    card, each shard running its own program there)."""
     n = 1
     for s in shape:
         n *= int(s)
-    devs = _cuda_devices()
-    if n > len(devs):
-        raise ValueError(f"need {n} devices for a {shape} mesh, have "
-                         f"{len(devs)} CUDA devices")
     arr = np.empty(n, dtype=object)
-    arr[:] = devs[:n]
+    arr[:] = _mesh_devices(n, devices, f"a {tuple(shape)} mesh")
     return Mesh(arr.reshape(shape), axes)
 
 
@@ -55,23 +70,19 @@ def make_stage_mesh(n_stages: int, *, axis: str = "stage",
     ``["cuda:0"] * 4`` (a 4-stage ring on one card). The axis name must be
     one of ``repro_torch.dist.sharding._STAGE_AXES`` for the ZeRO-1
     ``"zero"`` dim to resolve onto it."""
+    devices = _mesh_devices(n_stages, devices,
+                            f"{n_stages} pipeline stages")
+    return Mesh(devices, (axis,))
+
+
+def make_host_mesh(data: int = 1, model: int = 1, *,
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """Small data x model mesh, as the reference's over its host devices
+    (tests and examples). Over ``devices`` when given (``data * model`` of
+    them); otherwise over however many CUDA devices exist, the sizes cut
+    to fit them."""
     if devices is None:
-        devs = _cuda_devices()
-        if n_stages > len(devs):
-            raise ValueError(
-                f"need {n_stages} devices for {n_stages} pipeline stages, "
-                f"have {len(devs)} CUDA devices (pass devices=, e.g. "
-                f"['cuda:0'] * {n_stages} or ['cpu'] * {n_stages})")
-        devices = devs[:n_stages]
-    if len(devices) != n_stages:
-        raise ValueError(f"{len(devices)} devices for {n_stages} stages")
-    return Mesh([torch.device(d) for d in devices], (axis,))
-
-
-def make_host_mesh(data: int = 1, model: int = 1) -> Mesh:
-    """Small data x model mesh over however many CUDA devices exist, as the
-    reference's over its host devices (tests and examples)."""
-    n = max(1, len(_cuda_devices()))
-    data = min(data, n)
-    model = min(model, max(1, n // data))
-    return make_mesh((data, model), ("data", "model"))
+        n = max(1, len(_cuda_devices()))
+        data = min(data, n)
+        model = min(model, max(1, n // data))
+    return make_mesh((data, model), ("data", "model"), devices=devices)

@@ -38,8 +38,11 @@ can tell the arguments a step reads from those it holds unread, as a
 compiled step drops an input it never reads.
 
 The collective fields are filled by the dry run from the spec trees
-(``launch/dryrun.py``): one eager process issues no collective. A loop
-needs no trip count: every iteration's ops are seen.
+(``launch/dryrun.py``) where the step runs on one device, and by the
+shard group's collectives (``dist/spmd.py``) through
+:func:`charge_collective` where it runs over a (data, model) mesh: one
+kind's link bytes by :func:`link_bytes`, per device. A loop needs no trip
+count: every iteration's ops are seen.
 """
 from __future__ import annotations
 
@@ -170,6 +173,41 @@ def charge(name: str, flops: float, reads, writes,
     for c in counters:
         c._charge(name, flops, moved, padded_flops)
         c._read(reads)
+
+
+def link_bytes(kind: str, out_bytes: float, g: int) -> float:
+    """Per-device link bytes of one collective over a group of ``g``
+    whose per-device output is ``out_bytes`` (ring-algorithm estimates,
+    the reference's):
+
+      all-gather:        out·(g-1)/g     all-reduce:  2·out·(g-1)/g
+      reduce-scatter:    out·(g-1)      all-to-all:  out·(g-1)/g
+      collective-permute: out
+    """
+    if kind == "all-gather":
+        return out_bytes * (g - 1) / g
+    if kind == "all-reduce":
+        return 2 * out_bytes * (g - 1) / g
+    if kind == "reduce-scatter":
+        return out_bytes * (g - 1)
+    if kind == "all-to-all":
+        return out_bytes * (g - 1) / g
+    return out_bytes
+
+
+def charge_collective(kind: str, out_bytes: float, g: int) -> None:
+    """Charge one collective to every open :class:`OpCounter`'s
+    ``coll_link_bytes`` and ``coll_counts``."""
+    if not _active:
+        return
+    link = link_bytes(kind, out_bytes, g)
+    with _active_lock:
+        counters = list(_active)
+    for c in counters:
+        with c._lock:
+            s = c.summary
+            s.coll_link_bytes[kind] = s.coll_link_bytes.get(kind, 0.0) + link
+            s.coll_counts[kind] = s.coll_counts.get(kind, 0) + 1
 
 
 class OpCounter(TorchDispatchMode):

@@ -3,11 +3,19 @@
 Counterpart of ``repro.models.layers`` over the same nested parameter
 dicts (same keys, shapes and dtypes), with the reference's ``*_logical``
 trees of logical sharding dims (resolved by ``repro_torch.dist.sharding``)
-and ``heads_even``. A layer runs on one device: the reference's in-layer
-``shard(...)`` annotations are left out, and MoE takes the reference's
-unsharded path. Under an ambient mesh with a model axis, where the
-reference takes ``_moe_fwd_shardmap``, :func:`moe_fwd` raises (sharding
-inside a stage, ROADMAP A23).
+and ``heads_even``. Given tensors, a layer runs on one device and takes
+the reference's unsharded path. Given ``spmd.Sharded`` values (inside a
+shard group over a (data, model) mesh) it runs each shard's program, as
+GSPMD partitions the reference's: attention head-parallel where the heads
+divide the model axis (``pad_heads`` pads them there in training), else
+sequence-parallel with the weights gathered where they are used; the MLP
+column- then row-parallel; the MoE layer as ``_moe_fwd_shardmap``
+(dispatch local to each data shard, capacity from its own tokens,
+experts split over the model axis or, where they do not divide it, their
+``d_ff``, the partial outputs summed over it). :func:`moe_fwd` given
+tensors under an ambient mesh with devices and a model axis splits them,
+runs that program and joins its output; under an abstract mesh it raises
+(ROADMAP A23).
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.
@@ -21,8 +29,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
-                                       axis_map, axis_size)
+                                       axis_map, axis_size, map_logical,
+                                       shard, spec_for)
+from repro_torch.dist.spmd import Sharded
 from repro_torch.kernels import ops
 
 
@@ -143,7 +154,13 @@ def attention_fwd(
 ):
     """Returns ``(y, new_cache)``. In prefill and decode the cache tensors
     are written in place (the reference returns new arrays); ``new_cache``
-    holds the same tensors."""
+    holds the same tensors. Given a :class:`Sharded` ``x`` (training only),
+    :func:`_attention_spmd`."""
+    if isinstance(x, Sharded):
+        if mode != "train":
+            raise spmd.not_ported(f"{mode} with sharded caches")
+        return _attention_spmd(p, x, cfg, local=local, positions=positions,
+                               segment_ids=segment_ids), None
     window = cfg.window if local else 0
     b, t, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -209,6 +226,8 @@ def mlp_logical(cfg: ArchConfig):
 
 
 def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if isinstance(x, Sharded):
+        return _mlp_spmd(p, x, cfg)
     act = act_fn(cfg.act)
     h = x @ p["w_in"]
     if cfg.mlp_gated:
@@ -286,48 +305,313 @@ def moe_slots(top_i: torch.Tensor, cfg: ArchConfig, cap: int):
     return dest.view(cfg.top_k, -1), keep.view(cfg.top_k, -1)
 
 
-def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
-    """Returns ``(y, aux)``, aux the Switch load-balance term
-    E x sum(frac_tokens x frac_probs). Static shapes throughout: no
-    ``nonzero``, boolean indexing or host read, so a decode step adds no
-    device synchronisation. The dispatch copies each kept choice into its
-    own slot, so the forward sums nothing into a slot. The gather reads
-    each kept slot for its one choice; a dropped choice reads slot
-    E x cap - 1 at weight 0, so in the backward it adds only a +-0 into
-    that slot's gradient, which leaves the sum the same in any order: the
-    layer repeats bit for bit."""
-    mesh = ambient_mesh()
-    if mesh is not None and axis_map(mesh).get("tp"):
-        raise NotImplementedError(
-            f"{IN_STAGE_SHARDING}: the expert-parallel MoE "
-            f"(_moe_fwd_shardmap) on {mesh}")
+def _moe_local(x, router, w_in, w_gate, w_out, cfg: ArchConfig, e0: int,
+               e_local: int):
+    """Dispatch and the expert products over one shard's tokens ``x`` (B,
+    T, D) and its experts ``[e0, e0 + e_local)`` (all of them, each its
+    slice of d_ff, under expert-internal TP), the reference's
+    ``_moe_local_compute``: ``(y (N, D) fp32, aux)``, y this shard's part
+    of the output. Capacity comes from these tokens; slots fill as
+    :func:`moe_slots` fills them over every expert, and this shard takes
+    the kept choices of its own. Static shapes throughout: no ``nonzero``,
+    boolean indexing or host read, so a decode step adds no device
+    synchronisation. The dispatch copies each kept choice into its own
+    slot, so the forward sums nothing into a slot. The gather reads each
+    kept slot for its one choice; any other choice reads slot
+    e_local x cap - 1 at weight 0, so in the backward it adds only a +-0
+    into that slot's gradient, which leaves the sum the same in any order:
+    the layer repeats bit for bit."""
     b, t, d = x.shape
     n = b * t
-    e, k = cfg.n_experts, cfg.top_k
+    k = cfg.top_k
     act = act_fn(cfg.act)
     xf = x.reshape(n, d)
-    probs, top_p, top_i = moe_route(xf, p["router"], cfg)
+    probs, top_p, top_i = moe_route(xf, router, cfg)
     cap = moe_capacity(n, cfg)
     dests, keeps = moe_slots(top_i, cfg, cap)
+    ex = top_i.t()
+    mine = keeps & (ex >= e0) & (ex < e0 + e_local)
+    slot = torch.where(mine, dests - e0 * cap, e_local * cap)
 
-    buf = xf.new_zeros((e * cap + 1, d))
-    # dropped choices all land on the last row, which is cut off
-    buf.index_copy_(0, dests.reshape(-1), xf.repeat(k, 1))
-    buf = buf[:e * cap].view(e, cap, d)
-    h = torch.bmm(buf, p["w_in"])
+    buf = xf.new_zeros((e_local * cap + 1, d))
+    # the choices not kept here all land on the last row, which is cut off
+    buf.index_copy_(0, slot.reshape(-1), xf.repeat(k, 1))
+    buf = buf[:e_local * cap].view(e_local, cap, d)
+    h = torch.bmm(buf, w_in)
     if cfg.mlp_gated:
-        h = act(torch.bmm(buf, p["w_gate"])) * h
+        h = act(torch.bmm(buf, w_gate)) * h
     else:
         h = act(h)
-    out = torch.bmm(h, p["w_out"]).view(e * cap, d)
+    out = torch.bmm(h, w_out).view(e_local * cap, d)
 
-    got = out.index_select(0, dests.clamp(max=e * cap - 1).reshape(-1))
-    w = (top_p.t() * keeps).float()                            # (k, N)
+    got = out.index_select(0, slot.clamp(max=e_local * cap - 1).reshape(-1))
+    w = (top_p.t() * mine).float()                             # (k, N)
     y = (got.view(k, n, d).float() * w[..., None]).sum(dim=0)
+
+    frac_tokens = F.one_hot(top_i[:, 0], cfg.n_experts).float().mean(dim=0)
+    frac_probs = probs.mean(dim=0)
+    aux = cfg.n_experts * torch.sum(frac_tokens * frac_probs)
+    return y, aux
+
+
+def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
+    """Returns ``(y, aux)``, aux the Switch load-balance term
+    E x sum(frac_tokens x frac_probs). Given a :class:`Sharded` ``x``,
+    :func:`_moe_spmd`; given tensors under an ambient mesh with a model
+    axis, the same through a shard group of that mesh (the reference's
+    ``_moe_fwd_shardmap``), which needs the mesh's devices."""
+    if isinstance(x, Sharded):
+        return _moe_spmd(p, x, cfg)
+    mesh = ambient_mesh()
+    if mesh is not None and axis_map(mesh).get("tp"):
+        if mesh.devices is None:
+            raise NotImplementedError(
+                f"{IN_STAGE_SHARDING}: the expert-parallel MoE "
+                f"(_moe_fwd_shardmap) on the abstract {mesh}")
+        return _moe_fwd_group(p, x, cfg, mesh)
+    b, t, d = x.shape
+    n = b * t
+    y, aux = _moe_local(x, p["router"], p["w_in"], p.get("w_gate"),
+                        p["w_out"], cfg, 0, cfg.n_experts)
     if cfg.n_shared_experts:
         y = y + mlp_fwd(p["shared"], x, cfg).reshape(n, d).float()
-
-    frac_tokens = F.one_hot(top_i[:, 0], e).float().mean(dim=0)
-    frac_probs = probs.mean(dim=0)
-    aux = e * torch.sum(frac_tokens * frac_probs)
     return y.reshape(b, t, d).to(x.dtype), aux
+
+
+# ----------------------------------------------------------------------
+# inside a shard group: each shard's program
+# ----------------------------------------------------------------------
+def _col(x: Sharded, w: Sharded, bias: Optional[Sharded] = None) -> Sharded:
+    """Column-parallel product: x (B, T, D) with D whole, by w (D, F)'s
+    local columns: (B, T, F) split as w's columns."""
+    out = x.group.map(lambda x, w: x @ w, x, w)
+    if bias is not None:
+        out = [o + c for o, c in zip(out, bias.locals)]
+    return Sharded(x.group, out, (x.spec[0], x.spec[1], w.spec[1]))
+
+
+def _row(x: Sharded, w: Sharded) -> Sharded:
+    """Row-parallel product: x (B, T, F) split on F as w (F, D)'s rows:
+    (B, T, D), partial over those axes."""
+    if x.spec[2] != w.spec[0]:
+        x = spmd.redistribute(x, (x.spec[0], x.spec[1], w.spec[0]))
+    out = x.group.map(lambda x, w: x @ w, x, w)
+    return Sharded(x.group, out, (x.spec[0], x.spec[1], ()),
+                   partial=w.spec[0])
+
+
+def _heads(x: Sharded, n: int, dh: int) -> Sharded:
+    """(B, T, n x dh) -> (B, T, n, dh): the fused dim's split kept where
+    it falls on head boundaries, else the dim gathered first."""
+    axes = x.spec[2]
+    if axes and n % x.group.chunk(0, axes)[1]:
+        x = spmd.redistribute(x, (x.spec[0], x.spec[1], ()))
+        axes = ()
+    locs = [y.reshape(y.shape[0], y.shape[1], -1, dh) for y in x.locals]
+    return Sharded(x.group, locs, (x.spec[0], x.spec[1], axes, ()))
+
+
+def _kv_for(k: torch.Tensor, h: int, q0: int, hl: int) -> torch.Tensor:
+    """The KV heads of whole ``k`` (B, S, KV, D) that q heads ``[q0, q0 +
+    hl)`` read, as a GQA operand of their own: a contiguous slice where
+    the group aligns with them, else one KV head per q head."""
+    kv = k.shape[2]
+    group = h // kv
+    if hl % group == 0:
+        return k[:, :, q0 // group:q0 // group + hl // group]
+    if group % hl == 0:
+        return k[:, :, q0 // group:q0 // group + 1]
+    idx = torch.tensor([(q0 + i) // group for i in range(hl)],
+                       device=k.device)
+    return k.index_select(2, idx)
+
+
+def _pad_heads_local(q, k, v, cfg: ArchConfig, tp: int):
+    """The reference's ``_pad_heads``: q zero-padded to a multiple of
+    ``tp`` heads, k and v expanded to one head per q head by the real GQA
+    map, the pad heads' k and v zero. Returns ``(q, k, v, hp)``."""
+    b, t, h, dh = q.shape
+    kv = k.shape[2]
+    hp = -(-h // tp) * tp
+    group = h // kv
+    qmap = torch.tensor([min(i // group, kv - 1) for i in range(h)]
+                        + [0] * (hp - h), device=q.device)
+    q = F.pad(q, (0, 0, 0, hp - h))
+    k = k.index_select(2, qmap)
+    v = v.index_select(2, qmap)
+    if hp > h:
+        mask = (torch.arange(hp, device=q.device) < h).to(k.dtype)
+        k = k * mask[None, None, :, None]
+        v = v * mask[None, None, :, None]
+    return q, k, v, hp
+
+
+def _rope(x: Sharded, positions: Sharded, cfg: ArchConfig) -> Sharded:
+    if not cfg.use_rope:
+        return x
+    return x.map(lambda x, pos: apply_rope(x, pos, cfg.rope_theta),
+                 positions)
+
+
+def _attention_spmd(p, x: Sharded, cfg: ArchConfig, *, local: bool,
+                    positions: Sharded, segment_ids) -> Sharded:
+    """Training attention inside a shard group. ``x`` (B, T, D) in the
+    residual's layout (rows over dp, sequence over sp); ``positions`` and
+    ``segment_ids`` (B, T) rows over dp. Returns y in the residual's
+    layout."""
+    if heads_even(cfg):
+        y = _attention_heads(p, x, cfg, local, positions, segment_ids)
+    else:
+        y = _attention_seq(p, x, cfg, local, positions, segment_ids)
+    return shard(y, "dp", "sp", None)
+
+
+def _attention_heads(p, x, cfg, local, positions, segment_ids) -> Sharded:
+    """Head-parallel (Megatron) attention: the sequence gathered, wq, wk
+    and wv column-parallel, each shard its q heads; KV heads fewer than
+    the model axis gathered whole, each shard taking those its q heads
+    read; ``pad_heads`` pads the heads to the axis as the reference's
+    ``_pad_heads``; wo row-parallel, its output partial."""
+    g = x.group
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    xg = shard(x, "dp", None, None)
+    q = _heads(_col(xg, p["wq"], p.get("bq")), h, dh)
+    k = _heads(_col(xg, p["wk"], p.get("bk")), kv, dh)
+    v = _heads(_col(xg, p["wv"], p.get("bv")), kv, dh)
+    q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
+    tp = axis_size("tp")
+    n_heads = h
+    if cfg.pad_heads and h % tp:
+        rows = (q.spec[0], (), (), ())
+        q, k, v = (spmd.redistribute(z, rows) for z in (q, k, v))
+        padded = g.map(lambda q, k, v: _pad_heads_local(q, k, v, cfg, tp),
+                       q, k, v)
+        n_heads = padded[0][3]
+        lay = spec_for((q.shape[0], q.shape[1], n_heads, dh),
+                       ("dp", None, "tp", None))
+        q, k, v = (spmd.redistribute(Sharded(g, [o[i] for o in padded],
+                                             rows), lay)
+                   for i in range(3))
+    hl = q.locals[0].shape[2]
+    aligned = k.spec[2] == q.spec[2]
+    seg = segment_ids
+    window = cfg.window if local else 0
+
+    def attend(r):
+        qr, kr, vr = q.locals[r], k.locals[r], v.locals[r]
+        if not aligned:
+            q0 = g.chunk(r, q.spec[2])[0] * hl
+            kr, vr = (_kv_for(z, n_heads, q0, hl) for z in (kr, vr))
+        pos = positions.locals[r]
+        sr = None if seg is None else seg.locals[r]
+        return ops.attention(
+            qr, kr, vr, causal=cfg.causal, window=window,
+            softcap=cfg.attn_softcap, q_positions=pos, kv_positions=pos,
+            q_segment_ids=sr, kv_segment_ids=sr)
+
+    out = Sharded(g, [attend(r) for r in range(g.n)], q.spec)
+    if n_heads != h:                                 # drop the pad heads
+        out = spmd.redistribute(out, (out.spec[0], (), (), ()))
+        out = out.with_locals([o[:, :, :h] for o in out.locals])
+    flat = Sharded(g, [o.reshape(o.shape[0], o.shape[1], -1)
+                       for o in out.locals],
+                   (out.spec[0], out.spec[1], out.spec[2]))
+    return _row(flat, p["wo"])
+
+
+def _attention_seq(p, x, cfg, local, positions, segment_ids) -> Sharded:
+    """Sequence-parallel attention (heads that do not divide the model
+    axis, or ``attn_tp=False``): every weight gathered whole where it is
+    used; each shard's q the rows of its sequence chunk at their own
+    positions, k and v gathered along the sequence, causal by position;
+    the output in the residual's layout, no sum."""
+    g = x.group
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    w = {name: spmd.gather_whole(t) for name, t in p.items()}
+    q_pos = shard(positions, "dp", "sp")
+    q = _heads(_col(x, w["wq"], w.get("bq")), h, dh)
+    k = _heads(_col(x, w["wk"], w.get("bk")), kv, dh)
+    v = _heads(_col(x, w["wv"], w.get("bv")), kv, dh)
+    q, k = _rope(q, q_pos, cfg), _rope(k, q_pos, cfg)
+    whole = (x.spec[0], (), (), ())
+    k, v = spmd.redistribute(k, whole), spmd.redistribute(v, whole)
+    q_seg = None if segment_ids is None else shard(segment_ids, "dp", "sp")
+    window = cfg.window if local else 0
+
+    def attend(r):
+        return ops.attention(
+            q.locals[r], k.locals[r], v.locals[r], causal=cfg.causal,
+            window=window, softcap=cfg.attn_softcap,
+            q_positions=q_pos.locals[r], kv_positions=positions.locals[r],
+            q_segment_ids=None if q_seg is None else q_seg.locals[r],
+            kv_segment_ids=(None if segment_ids is None
+                            else segment_ids.locals[r]))
+
+    out = [attend(r).reshape(q.locals[r].shape[0], q.locals[r].shape[1], -1)
+           for r in range(g.n)]
+    flat = Sharded(g, out, (x.spec[0], x.spec[1], ()))
+    return _row(flat, w["wo"])
+
+
+def _mlp_spmd(p, x: Sharded, cfg: ArchConfig) -> Sharded:
+    """The sequence gathered, w_in and w_gate column-parallel, w_out
+    row-parallel; the output reduce-scattered onto the residual's
+    layout."""
+    act = act_fn(cfg.act)
+    xg = shard(x, "dp", None, None)
+    h = _col(xg, p["w_in"])
+    if cfg.mlp_gated:
+        h = h.map(lambda h, gt: act(gt) * h, _col(xg, p["w_gate"]))
+    else:
+        h = h.map(act)
+    return shard(_row(h, p["w_out"]), "dp", "sp", None)
+
+
+def _moe_spmd(p, x: Sharded, cfg: ArchConfig):
+    """The reference's ``_moe_fwd_shardmap`` on a shard group: each
+    shard's :func:`_moe_local` over its data shard's tokens (the sequence
+    gathered) and its slice of the experts (EP, where E divides the model
+    axis) or of their d_ff (expert-internal TP); the fp32 partial outputs
+    reduce-scattered onto the residual's layout and cast; aux averaged
+    over the model axis, then over the data axes that split the rows; the
+    shared expert, the dense MLP's program, added after."""
+    g = x.group
+    xg = shard(x, "dp", None, None)
+    w_in = p["w_in"]
+    ep_axes, f_axes = w_in.spec[0], w_in.spec[2]
+    e_local = w_in.locals[0].shape[0]
+    gate = p.get("w_gate")
+
+    def part(r):
+        e0 = g.chunk(r, ep_axes)[0] * e_local if ep_axes else 0
+        return _moe_local(xg.locals[r], p["router"].locals[r],
+                          w_in.locals[r],
+                          None if gate is None else gate.locals[r],
+                          p["w_out"].locals[r], cfg, e0, e_local)
+
+    ys, auxs = zip(*[part(r) for r in range(g.n)])
+    b, t, d = xg.locals[0].shape
+    y = Sharded(g, [v.view(b, t, d) for v in ys], (xg.spec[0], (), ()),
+                partial=ep_axes or f_axes)
+    y = shard(y, "dp", "sp", None).map(lambda v: v.to(x.dtype))
+    aux = Sharded(g, list(auxs))
+    aux = spmd.reduce_over(aux, tuple(axis_map().get("tp", ())), mean=True)
+    aux = spmd.reduce_over(aux, xg.spec[0], mean=True)
+    if cfg.n_shared_experts:
+        y = y.map(torch.add, _mlp_spmd(p["shared"], x, cfg))
+    return y, aux
+
+
+def _moe_fwd_group(p, x: torch.Tensor, cfg: ArchConfig, mesh):
+    """:func:`_moe_spmd` on tensors: ``p`` split by :func:`moe_logical`,
+    ``x`` by rows over dp, run on a shard group of ``mesh``, y joined
+    whole onto ``x``'s device."""
+    g = spmd.ShardGroup(mesh)
+    specs = map_logical(lambda lg, w: spec_for(tuple(w.shape), lg, mesh),
+                        moe_logical(cfg), p)
+    with spmd.running(g):
+        sp = spmd.split_tree(p, specs, g)
+        sx = spmd.split(x, spec_for(tuple(x.shape), ("dp", "sp", None),
+                                    mesh), g)
+        y, aux = _moe_spmd(sp, sx, cfg)
+    return spmd.join(y, x.device), aux.locals[0].to(x.device)

@@ -20,6 +20,21 @@ Batch schemas, as in the reference:
 Entry points run on the card by default. They run on the CPU only when
 the caller passes ``device="cpu"``, and raise if CUDA is asked for and is
 absent. ``prefill``/``decode`` run where their params and batch lie.
+
+Under an ambient mesh with devices and a data or model axis
+(``spmd.in_stage_mesh``), :func:`loss_fn` runs a shard group of it
+(``dist/spmd.py``): the params split by ``train_state.params_spec_tree``
+unless they come split, the batch by rows over dp, every shard's program
+in lockstep. The embedding is looked up by each shard in its slice of the
+table (tied: the vocabulary, the partial rows reduce-scattered onto the
+residual's layout; untied: d_model, gathered); the loss gathers the
+sequence and takes each shard's logits over its slice of the vocabulary,
+still in chunks of at most LOSS_TOKENS tokens, the per-shard log-sum-exps
+combined by a log-sum-exp over the shards and the label's logit summed
+from the shard that holds it; the sums are then summed over the data axes
+that split the rows. Under ``pure_dp`` every axis is a data axis. The
+token inputs only: frames and mixed inputs in a shard group raise
+(ROADMAP A23).
 """
 from __future__ import annotations
 
@@ -28,7 +43,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import shard
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import ambient_mesh, shard, spec_for
+from repro_torch.dist.spmd import Sharded
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
@@ -101,7 +118,10 @@ def embed_inputs(params, batch, cfg: ArchConfig, *, mode="train"):
     """Returns h (B, S, D): frames through the frame adapter, masked frames
     replaced by ``mask_emb``; or patches through the patch adapter ahead of
     the token embeddings (not in decode, whose one token follows the
-    cached patches); or the token embeddings."""
+    cached patches); or the token embeddings. Split params: the token
+    embeddings of :func:`_embed_spmd`."""
+    if isinstance(params["embed"], Sharded):
+        return _embed_spmd(params["embed"], batch, cfg)
     dt = L._dtype(cfg)
     if cfg.input_mode == "frames":
         h = batch["frames"].to(dt) @ params["frame_adapter"]
@@ -129,7 +149,7 @@ def forward(params, batch, cfg: ArchConfig, *, mode="train",
         segment_ids=batch.get("segment_ids"),
         cache=cache, cache_pos=cache_pos, mode=mode, remat=remat,
     )
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    h = T.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, new_cache, aux
 
 
@@ -155,6 +175,97 @@ def _xent_chunk(head_w, h_c, labels_c, w_c, cfg: ArchConfig):
     return torch.sum((lse - ll) * w), torch.sum(w)
 
 
+def _embed_spmd(emb: Sharded, batch, cfg: ArchConfig) -> Sharded:
+    """Each shard's lookup in its slice of the table: a vocabulary slice
+    gives the rows of the tokens it holds and zeros for the rest, summed
+    by a reduce-scatter onto the residual's layout; a d_model slice is
+    gathered."""
+    if cfg.input_mode != "tokens":
+        raise spmd.not_ported(f"the {cfg.input_mode} inputs in a shard "
+                              "group")
+    g, tok = emb.group, batch["tokens"]
+    vax, n_v = emb.spec[0], emb.locals[0].shape[0]
+
+    def look(r):
+        e, t = emb.locals[r], tok.locals[r]
+        if not vax:
+            return e[t]
+        i = t.long() - g.chunk(r, vax)[0] * n_v
+        mine = (i >= 0) & (i < n_v)
+        return torch.where(mine[..., None], e[i.clamp(0, n_v - 1)],
+                           e.new_zeros(()))
+
+    h = Sharded(g, [look(r) for r in range(g.n)],
+                (tok.spec[0], (), emb.spec[1]), partial=vax)
+    if cfg.scale_embed:
+        h = h.map(lambda x: x * torch.tensor(cfg.d_model ** 0.5,
+                                             dtype=x.dtype))
+    return shard(h, "dp", "sp", None)
+
+
+def _xent_chunk_spmd(head_w: Sharded, h_c: Sharded, labels_c: Sharded,
+                     w_c: Sharded, cfg: ArchConfig):
+    """One chunk's ``(loss sum, weight sum)`` on each shard, over its
+    data shard's rows, from its slice of the vocabulary: the
+    log-sum-exps of the slices combined by a log-sum-exp over the
+    shards (an all-gather), the label's logit taken from the slice that
+    holds it (an all-reduce of it and zeros)."""
+    g = h_c.group
+    vax, n_v = head_w.spec[0], head_w.locals[0].shape[0]
+    lses, lls = [], []
+    for r in range(g.n):
+        v0 = g.chunk(r, vax)[0] * n_v
+        logits = (h_c.locals[r] @ head_w.locals[r].T).float()
+        if cfg.final_softcap:
+            logits = cfg.final_softcap * torch.tanh(
+                logits / cfg.final_softcap)
+        logits = logits.masked_fill_(
+            torch.arange(v0, v0 + n_v, device=logits.device) >= cfg.vocab,
+            -1e30)
+        lses.append(torch.logsumexp(logits, dim=-1))
+        i = labels_c.locals[r].long() - v0
+        mine = (i >= 0) & (i < n_v)
+        ll = logits.gather(-1, i.clamp(0, n_v - 1)[..., None])[..., 0]
+        lls.append(torch.where(mine, ll, 0.0))
+    if vax:
+        lses = [torch.logsumexp(x, dim=0) for x in
+                spmd.all_gather([x[None] for x in lses], g, vax, 0)]
+        lls = spmd.all_reduce(lls, g, vax)
+    ls, ws = [], []
+    for r in range(g.n):
+        w = w_c.locals[r].float()
+        ls.append(torch.sum((lses[r] - lls[r]) * w))
+        ws.append(torch.sum(w))
+    return Sharded(g, ls), Sharded(g, ws)
+
+
+def _xent_sums_spmd(head_w: Sharded, h: Sharded, labels: Sharded,
+                    weights: Sharded, cfg: ArchConfig):
+    """:func:`xent_sums` in a shard group: the sequence gathered, chunks
+    of at most LOSS_CHUNK positions and LOSS_TOKENS of a shard's tokens,
+    each recomputed in the backward; the sums over the data axes that
+    split the rows. Returns replicated scalars."""
+    hg = shard(h, "dp", None, None)
+    b, t = labels.locals[0].shape
+    cap = 1 << max(0, (LOSS_TOKENS // b).bit_length() - 1)
+    chunk = min(LOSS_CHUNK, t, cap)
+    while t % chunk:
+        chunk //= 2
+
+    def cut(s, c0):
+        return s.with_locals([x[:, c0:c0 + chunk] for x in s.locals])
+
+    loss_sum = w_sum = None
+    for c0 in range(0, t, chunk):
+        ls, ws = checkpoint(_xent_chunk_spmd, head_w, cut(hg, c0),
+                            cut(labels, c0), cut(weights, c0), cfg,
+                            use_reentrant=False)
+        loss_sum = ls if loss_sum is None else loss_sum.map(torch.add, ls)
+        w_sum = ws if w_sum is None else w_sum.map(torch.add, ws)
+    rows = labels.spec[0]
+    return spmd.reduce_over(loss_sum, rows), spmd.reduce_over(w_sum, rows)
+
+
 def xent_sums(head_w, h, labels, weights, cfg: ArchConfig):
     """``(loss sum, weight sum)`` of the softmax-xent. h (B,T,D);
     labels/weights (B,T). Chunked along T, at most LOSS_CHUNK positions and
@@ -164,6 +275,8 @@ def xent_sums(head_w, h, labels, weights, cfg: ArchConfig):
     ``_xent_sum`` takes the micro-batch's logits at once: at gemma2-2b's
     vocabulary those are 1 GiB of fp32 per 1024 tokens, more than one card
     holds beside the model and its optimizer state."""
+    if isinstance(h, Sharded):
+        return _xent_sums_spmd(head_w, h, labels, weights, cfg)
     b, t = h.shape[:2]
     # the token cap rounded down to a power of two, so that halving it
     # finds a divisor of t (a multiple of 64) at once
@@ -187,10 +300,39 @@ def lm_loss(params, h, labels, weights, cfg: ArchConfig):
     return loss_sum / torch.clamp(w_sum, min=1.0)
 
 
+def split_batch(batch, group: "spmd.ShardGroup"):
+    """Each (B, ...) entry of a batch split by rows over dp."""
+    return {k: spmd.split(v, spec_for(tuple(v.shape), ("dp",), group.mesh),
+                          group) for k, v in batch.items()}
+
+
+def shard_step_inputs(params, batch, cfg: ArchConfig, group):
+    """``(params, batch)`` for a shard group: the params split by
+    ``train_state.params_spec_tree`` unless they come split, the batch
+    by rows."""
+    from repro_torch.train import train_state as TS
+    if not spmd.tree_is_sharded(params):
+        params = TS.shard_params(params, cfg, group.mesh)
+    return params, split_batch(batch, group)
+
+
 def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
     """Scalar training loss and its parts: the xent, plus ``MOE_AUX_WEIGHT``
     x the MoE load-balance aux / n_layers for an MoE config. As in the
-    reference, the ``"xent"`` entry holds that sum."""
+    reference, the ``"xent"`` entry holds that sum. Under a mesh that
+    shards inside the stage, each shard's program in a shard group; the
+    values returned are rank 0's."""
+    if spmd.in_stage_mesh():
+        with spmd.running(spmd.ShardGroup(ambient_mesh())) as g:
+            params, sb = shard_step_inputs(params, batch, cfg, g)
+            h, _, aux = forward(params, sb, cfg, mode="train", remat=remat)
+            ls, ws = xent_sums(_head_weight(params), h, sb["labels"],
+                               sb["loss_weights"], cfg)
+            loss = ls.locals[0] / torch.clamp(ws.locals[0], min=1.0)
+            aux = aux.locals[0]
+            if cfg.has_moe:
+                loss = loss + MOE_AUX_WEIGHT * aux / cfg.n_layers
+            return loss, {"xent": loss, "moe_aux": aux}
     h, _, aux = forward(params, batch, cfg, mode="train", remat=remat)
     loss = lm_loss(params, h, batch["labels"], batch["loss_weights"], cfg)
     if cfg.has_moe:

@@ -19,10 +19,16 @@ them. The encoder-decoder (:func:`init_encdec` to :func:`encdec_fwd`)
 adds a period-major stack of cross-attention blocks, one after each
 decoder period. ``block_logical``, ``cache_logical`` and ``stack_logical``
 are the reference's logical sharding trees; each block's output passes
-``shard(h, "dp", "sp", None)``, the identity unless an ambient mesh
-would split it (then it raises: sharding inside a stage is ROADMAP A23),
-and so does ``_pin_fsdp`` for ``fsdp_params`` archs under an ambient
-mesh.
+``shard(h, "dp", "sp", None)``. On tensors that is the identity unless an
+ambient mesh would split it, where it raises (ROADMAP A23). Inside a
+shard group (``dist/spmd.py``) the stack runs on ``spmd.Sharded`` values:
+the residual split by rows over the data axes and by sequence over the
+model axis between blocks (a dim the axis does not divide stays whole),
+gathered along the sequence before the column products and
+reduce-scattered after the row products. Still raising there (ROADMAP
+A23): Mamba mixers under a model axis (the reference's ``_tp_ok`` path),
+prefill and decode, and ``_pin_fsdp`` for ``fsdp_params`` archs under any
+ambient mesh.
 """
 from __future__ import annotations
 
@@ -35,8 +41,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
-                                       map_logical, shard)
+                                       axis_size, map_logical, shard)
+from repro_torch.dist.spmd import Sharded
 from repro_torch.models import layers as L
 from repro_torch.kernels import ops
 from repro_torch.models import mamba as M
@@ -80,6 +88,9 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
               mode="train"):
     """Returns ``(h, new_cache, aux)``; aux is the MoE layer's load-balance
     term, None for a dense layer (the reference's 0, with no launch)."""
+    if isinstance(h, Sharded):
+        return _block_fwd_spmd(p, h, cfg, spec, positions=positions,
+                               segment_ids=segment_ids, mode=mode)
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":    # positions, segment ids, cache_pos unused
         y, new_cache = M.mamba_fwd(p["mixer"], x, cfg, cache=cache, mode=mode)
@@ -99,6 +110,43 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
             y = L.mlp_fwd(p["ffn"], x, cfg)
         h = h + y
     return shard(h, "dp", "sp", None), new_cache, aux
+
+
+def rms_norm(h, w, eps: float):
+    """:func:`layers.rms_norm` on a tensor or on each shard's rows."""
+    if isinstance(h, Sharded):
+        return h.map(lambda h, w: L.rms_norm(h, w, eps), w)
+    return L.rms_norm(h, w, eps)
+
+
+def _block_fwd_spmd(p, h: Sharded, cfg: ArchConfig, spec: LayerSpec, *,
+                    positions, segment_ids, mode):
+    """One block inside a shard group, ``h`` in the residual's layout:
+    each norm on the shard's own rows, the mixer and the MLP or MoE as
+    ``layers`` runs them there."""
+    if mode != "train":
+        raise spmd.not_ported(f"{mode} with sharded caches")
+    x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    if spec.mixer == "mamba":
+        if axis_size("tp") > 1:
+            raise spmd.not_ported("Mamba's tensor parallelism (the "
+                                  "reference's _tp_ok path)")
+        y = x.map(lambda x, mp: M.mamba_fwd(mp, x, cfg, mode=mode)[0],
+                  p["mixer"])
+    else:
+        y, _ = L.attention_fwd(p["mixer"], x, cfg,
+                               local=(spec.mixer == "attn_local"),
+                               positions=positions, segment_ids=segment_ids)
+    h = h.map(torch.add, y)
+    aux = None
+    if "ffn" in p:
+        x = rms_norm(h, p["ln2"], cfg.norm_eps)
+        if spec.moe:
+            y, aux = L.moe_fwd(p["ffn"], x, cfg)
+        else:
+            y = L.mlp_fwd(p["ffn"], x, cfg)
+        h = h.map(torch.add, y)
+    return shard(h, "dp", "sp", None), None, aux
 
 
 # ----------------------------------------------------------------------
@@ -187,7 +235,8 @@ def _periods(params, n_periods):
     so under autograd the backward stacks its period gradients a single
     time (``x[i]`` per period would scatter each into a zero-filled
     gradient of the whole stack)."""
-    unbound = tree_map(lambda x: x.unbind(0), params)
+    unbound = tree_map(spmd.unbind0 if spmd.tree_is_sharded(params)
+                       else (lambda x: x.unbind(0)), params)
     return [tree_map(lambda xs, i=i: xs[i], unbound) for i in range(n_periods)]
 
 
@@ -258,6 +307,13 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
                                  caches, cache_pos, mode)
         if aux is not None:
             auxs.append(aux)
+    if isinstance(h, Sharded):
+        zero = h.with_locals([torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
+                              for x in h.locals], spec=())
+        aux = (zero if not auxs else zero.with_locals(
+            [torch.stack(a).sum() for a in zip(*(x.locals for x in auxs))]))
+        return h, cache, aux
     aux = (torch.stack(auxs).sum() if auxs else
            torch.zeros((), dtype=torch.float32, device=h.device))
     return h, cache, aux

@@ -73,14 +73,38 @@ def _value_and_grad(loss_fn, params):
     return loss_sum.detach(), w_sum, unflatten(zip(paths, grads))
 
 
+def _grad_mb_spmd(cfg: ArchConfig, params, batch):
+    """:func:`build_grad_step`'s step in a shard group of the ambient mesh:
+    each shard's gradient leaves (a tree of ``spmd.Sharded`` in the
+    params' layouts), each summed over the ranks that hold copies of its
+    slice in ascending rank; the sums are rank 0's."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import ambient_mesh
+    with spmd.running(spmd.ShardGroup(ambient_mesh())) as g:
+        sparams, sb = MD.shard_step_inputs(params, batch, cfg, g)
+
+        def f(p):
+            h, _, _ = MD.forward(p, sb, cfg, mode="train")
+            ls, ws = MD.xent_sums(MD._head_weight(p), h, sb["labels"],
+                                  sb["loss_weights"], cfg)
+            return ls.locals[0], ws.locals[0]
+        (loss_sum, w_sum), grads = spmd.value_and_grad(f, sparams)
+    return loss_sum, w_sum, grads
+
+
 def build_grad_step(cfg: ArchConfig):
     """The sequential-path training step: ``grad_mb(params, batch) ->
     (loss_sum, w_sum, grads)``, the value and gradient of the summed xent
     over one micro-batch. Attention runs where the params lie (K1 and the
     fused backward on the card). Like the reference, the step trains on
-    the xent alone: an MoE layer's aux term is dropped here."""
+    the xent alone: an MoE layer's aux term is dropped here. Under a mesh
+    that shards inside the stage, :func:`_grad_mb_spmd`."""
+    from repro_torch.dist import spmd
 
     def grad_mb(params, batch):
+        if spmd.in_stage_mesh():
+            return _grad_mb_spmd(cfg, params, batch)
+
         def f(p):
             h, _, _ = MD.forward(p, batch, cfg, mode="train")
             return MD.xent_sums(MD._head_weight(p), h, batch["labels"],

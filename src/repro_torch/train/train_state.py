@@ -1,6 +1,12 @@
 """The training state tree and its logical sharding trees (DP/TP/SP and
 ZeRO-1), counterpart of ``repro.train.train_state``.
 
+:func:`shard_params` splits a parameter tree by :func:`params_spec_tree`
+over a mesh with devices into a tree of ``spmd.Sharded`` leaves, each
+rank holding only its slice (the shapes of the reference's
+``addressable_shards`` under the same mesh), and :func:`join_params`
+joins it back.
+
 ``state_shapes`` builds the state on the ``meta`` device in place of
 ``jax.eval_shape``: shapes and dtypes, nothing allocated, so the full tree
 of the largest arch costs nothing. The spec trees read only a mesh's axis
@@ -12,7 +18,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.dist.sharding import (P, map_logical, spec_for,
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import (P, Mesh, map_logical, spec_for,
                                        spec_for_zero, zero1_logical)
 from repro_torch.models import model as MD
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -42,6 +49,22 @@ def _param_spec(cfg: ArchConfig, shape, logical, mesh):
 def params_spec_tree(cfg: ArchConfig, params_shapes, mesh):
     return map_logical(lambda lg, sh: _param_spec(cfg, sh.shape, lg, mesh),
                        MD.params_logical(cfg), params_shapes)
+
+
+def shard_params(params, cfg: ArchConfig, mesh: Mesh):
+    """``params`` split over ``mesh``'s devices by
+    :func:`params_spec_tree`: a tree of ``spmd.Sharded``. ZeRO-3 weights
+    (``fsdp_params``) are not ported (ROADMAP A23)."""
+    if cfg.fsdp_params:
+        raise spmd.not_ported(f"the fsdp_params weights of {cfg.name}", mesh)
+    return spmd.split_tree(params, params_spec_tree(cfg, params, mesh),
+                           spmd.ShardGroup(mesh))
+
+
+def join_params(sparams, device=None):
+    """The whole tree of a :func:`shard_params` tree (or of its
+    gradients), on ``device`` (rank 0's by default)."""
+    return spmd.join_tree(sparams, device)
 
 
 def state_spec_tree(cfg: ArchConfig, st_shapes, mesh):

@@ -1441,3 +1441,90 @@ def test_dots_keeps_the_launches_and_repeats_bit_for_bit(cuda):
     assert c0["mha_backward"] == cfg.n_layers
     assert l0 == l1 == l2
     assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+# ----------------------------------------------------------------------
+# sharding inside a stage: sequence-parallel attention's offset queries
+# and the shard group's step on a mesh that repeats the card
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("chunk,n_chunks,segmented", [
+    (0, 4, False), (1, 4, False), (3, 4, False), (2, 4, True), (1, 2, True)])
+def test_causal_backward_with_queries_at_an_offset(cuda, d, chunk, n_chunks,
+                                                   segmented):
+    """Sequence-parallel attention hands K1 and the backward one shard's
+    query rows at their own positions with every key: Tq = T / tp < Tk,
+    causal by position. Both against their plain versions."""
+    b, s, h, kv = 2, 256, 4, 2
+    t = s // n_chunks
+    q, k, v, _, kp = _inputs(cuda, b, s, s, h, kv, d)
+    q = q[:, chunk * t:(chunk + 1) * t].contiguous()
+    qp = kp[:, chunk * t:(chunk + 1) * t].contiguous()
+    qs = ks = None
+    if segmented:       # packed rows: a second segment, a padded tail
+        ks = torch.zeros((b, s), dtype=torch.int32, device=cuda)
+        ks[0, 100:] = 1
+        ks[1, 200:] = -1
+        kp = torch.where(ks[:, :, None] == 1, kp[:, :, None] - 100,
+                         kp[:, :, None])[..., 0].contiguous()
+        qs = ks[:, chunk * t:(chunk + 1) * t].contiguous()
+        qp = kp[:, chunk * t:(chunk + 1) * t].contiguous()
+    o, lse = fa.mha_forward(q, k, v, qp, kp, qs, ks, causal=True)
+    o_ref, _ = fa.mha_forward_plain(q, k, v, qp, kp, qs, ks, causal=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), atol=TOL, rtol=TOL)
+    do = torch.randn_like(o)
+    out = fa.mha_backward(q, k, v, qp, kp, qs, ks, o, lse, do, causal=True)
+    ref = fa.mha_backward_plain(q, k, v, qp, kp, qs, ks, o, lse, do,
+                                causal=True)
+    for a, r in zip(out, ref):
+        _grad_close(a, r)
+
+
+@pytest.mark.parametrize("shape,attn_tp", [((2, 2), True), ((1, 4), False)])
+def test_spmd_step_on_a_mesh_of_the_card_matches_the_meshfree_step(
+        cuda, shape, attn_tp):
+    """The reduced gpt-paper step on a (2, 2) mesh (head-parallel) and a
+    (1, 4) mesh with ``attn_tp=False`` (sequence-parallel) of ``cuda:0``
+    against the same step with no mesh: every shard launches K1 and the
+    backward (forward, the period recompute, one backward a layer), and
+    the gradients agree leaf by leaf."""
+    import dataclasses
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.train.train_state import join_params
+    from repro_torch.tree import flatten
+    cfg = dataclasses.replace(SV.make_config("gpt-paper", "reduced", 2),
+                              attn_tp=attn_tp)
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    r = np.random.default_rng(0)
+    seg = np.zeros((2, 128), np.int32)
+    seg[0, 70:] = 1
+    seg[1, 90:] = -1
+    pos = np.where(seg == 1, np.arange(128) - 70,
+                   np.where(seg >= 0, np.arange(128), 0)).astype(np.int32)
+    batch = _to({k: torch.from_numpy(v) for k, v in {
+        "tokens": r.integers(0, cfg.vocab, (2, 128)).astype(np.int32),
+        "labels": r.integers(0, cfg.vocab, (2, 128)).astype(np.int32),
+        "loss_weights": (seg >= 0).astype(np.float32),
+        "positions": pos, "segment_ids": seg}.items()}, cuda)
+    step = build_grad_step(cfg)
+    l0, w0, g0 = step(params, batch)
+    mesh = make_mesh(shape, ("data", "model"), devices=["cuda:0"] * 4)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        with set_mesh(mesh):
+            ls, ws, g = step(params, batch)
+        runs.append((ls, ws, join_params(g), dict(ops.launch_counts())))
+    (l1, w1, g1, c1), (l2, _, g2, _) = runs
+    assert c1["mha_forward"] == 4 * 2 * cfg.n_layers
+    assert c1["mha_backward"] == 4 * cfg.n_layers
+    assert float(w1) == float(w0)
+    torch.testing.assert_close(l1, l0, atol=GRAD_TOL, rtol=GRAD_TOL)
+    for (_, a), (_, b) in zip(flatten(g1), flatten(g0)):
+        _grad_close(a, b)
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(flatten(g1), flatten(g2)))

@@ -10,9 +10,11 @@ logical tuples at sizes that do and do not divide. The reference reads a
 / ``params_spec_tree`` at both production meshes for every arch at full
 size, the port's shapes from the ``meta`` device against
 ``jax.eval_shape``'s. Every comparison is exact. Then sharding inside a
-stage: a (2, 2) data x model mesh makes ``shard``, ``moe_fwd`` and
-``_pin_fsdp`` raise, naming ROADMAP A23, and a stage-only mesh leaves the
-forward as it is.
+stage: on a (2, 2) data x model mesh ``shard`` inside a shard group
+changes the layout and ``moe_fwd`` computes, while ``shard`` on a tensor
+outside a group, ``moe_fwd`` on an abstract mesh and ``_pin_fsdp`` raise,
+naming ROADMAP A23; a stage-only mesh leaves the forward as it is. The
+shard group's parity with the reference is ``tests/test_torch_spmd.py``.
 """
 import functools
 
@@ -184,32 +186,71 @@ def test_spec_trees_match_reference_for_every_arch(multi_pod):
             _specs(JTS.params_spec_tree(jcfg, jst["params"], jmesh)), arch
 
 
-def test_sharding_inside_a_stage_raises_a23():
+@pytest.mark.parametrize("part", ["shard-outside-a-group",
+                                  "shard-inside-a-group",
+                                  "moe-under-a-model-axis",
+                                  "moe-on-an-abstract-mesh",
+                                  "pin-fsdp"])
+def test_sharding_inside_a_stage_raises_a23(part):
+    """What sharding inside a stage computes and what still raises
+    (ROADMAP A23): ``shard`` on a tensor outside a shard group and
+    ``_pin_fsdp`` raise; ``shard`` inside a group changes the layout, and
+    ``moe_fwd`` under a model axis with devices computes."""
     dm = TS.Mesh(None, ("data", "model"), axis_sizes=(2, 2))
     x = torch.zeros(4, 8, 16)
-    assert TS.shard(x, "dp", "sp", None) is x               # no mesh
-    with TS.set_mesh(dm):
+    if part == "shard-outside-a-group":
+        assert TS.shard(x, "dp", "sp", None) is x               # no mesh
+        with TS.set_mesh(dm):
+            with pytest.raises(NotImplementedError, match="A23"):
+                TS.shard(x, "dp", "sp", None)
+            # a dim that no axis divides is replicated: nothing to split
+            assert TS.shard(torch.zeros(3, 5), "dp", "sp") is not None
         with pytest.raises(NotImplementedError, match="A23"):
-            TS.shard(x, "dp", "sp", None)
-        # a dim that no axis divides is replicated: nothing to split
-        assert TS.shard(torch.zeros(3, 5), "dp", "sp") is not None
-    with pytest.raises(NotImplementedError, match="A23"):
-        TS.shard(x, "dp", None, None, mesh=dm)
-
-    gen = torch.Generator().manual_seed(0)
-    moe = reduced(get_arch("granite-moe-3b-a800m"))
-    p = TL.init_moe(gen, moe, "cpu")
-    h = torch.randn(2, 8, moe.d_model, generator=gen).to(torch.bfloat16)
-    y, _ = TL.moe_fwd(p, h, moe)                              # no mesh
-    with TS.set_mesh(dm), pytest.raises(NotImplementedError, match="A23"):
-        TL.moe_fwd(p, h, moe)
-
-    fsdp = reduced(get_arch("qwen1.5-110b"))
-    assert fsdp.fsdp_params
-    w = {"w": torch.zeros(2)}
-    assert TT._pin_fsdp(w, fsdp) is w                         # no mesh
-    with TS.set_mesh(dm), pytest.raises(NotImplementedError, match="A23"):
-        TT._pin_fsdp(w, fsdp)
+            TS.shard(x, "dp", None, None, mesh=dm)
+    elif part == "shard-inside-a-group":
+        from repro_torch.dist import spmd
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+        g = spmd.ShardGroup(mesh)
+        y = torch.arange(4 * 8 * 16, dtype=torch.float32).reshape(4, 8, 16)
+        with spmd.running(g), TS.set_mesh(mesh):
+            s = TS.shard(spmd.split(y, (), g), "dp", "sp", None)
+            assert s.pspec == TS.P("data", "model")
+            assert [tuple(v.shape) for v in s.locals] == [(2, 4, 16)] * 4
+            assert torch.equal(s.locals[3], y[2:, 4:])
+            assert torch.equal(spmd.join(s), y)
+    elif part == "moe-under-a-model-axis":
+        from repro_torch.launch.mesh import make_mesh
+        gen = torch.Generator().manual_seed(0)
+        moe = reduced(get_arch("granite-moe-3b-a800m"))
+        p = TL.init_moe(gen, moe, "cpu")
+        h = torch.randn(2, 8, moe.d_model, generator=gen).to(torch.bfloat16)
+        y, _ = TL.moe_fwd(p, h, moe)                              # no mesh
+        mesh = make_mesh((1, 2), ("data", "model"), devices=["cpu"] * 2)
+        with TS.set_mesh(mesh):
+            ys, aux = TL.moe_fwd(p, h, moe)
+        # one data shard: the same tokens and capacity, experts split in
+        # two; the partial outputs are summed, then the sum is rounded
+        assert ys.shape == y.shape and ys.dtype == y.dtype
+        assert torch.isfinite(aux)
+        torch.testing.assert_close(ys.float(), y.float(), atol=2e-2,
+                                   rtol=2e-2)
+    elif part == "moe-on-an-abstract-mesh":
+        gen = torch.Generator().manual_seed(0)
+        moe = reduced(get_arch("granite-moe-3b-a800m"))
+        p = TL.init_moe(gen, moe, "cpu")
+        h = torch.randn(2, 8, moe.d_model, generator=gen).to(torch.bfloat16)
+        with TS.set_mesh(dm), pytest.raises(NotImplementedError,
+                                            match="A23"):
+            TL.moe_fwd(p, h, moe)
+    else:
+        fsdp = reduced(get_arch("qwen1.5-110b"))
+        assert fsdp.fsdp_params
+        w = {"w": torch.zeros(2)}
+        assert TT._pin_fsdp(w, fsdp) is w                     # no mesh
+        with TS.set_mesh(dm), pytest.raises(NotImplementedError,
+                                            match="A23"):
+            TT._pin_fsdp(w, fsdp)
 
 
 def test_a_stage_only_mesh_leaves_the_forward_as_it_is():
