@@ -255,11 +255,24 @@ Phases, each printing its own lines; any failure exits non-zero:
              their own offset positions against every key) held the same
              way; granite-moe-3b-a800m at full width, 2 layers, on a (1, 4)
              mesh (10 experts a shard) against a (1, 1) mesh on the routes
-             of the (1, 4) run; prints each shard's parameter bytes, the
-             peak memory, the collectives' counts and link bytes by
-             formula, and each sharded step's time beside the unsharded
-             one (no claim goes with the times: on one card the shards
-             run one after another and no link is crossed);
+             of the (1, 4) run; mamba2-130m at full width and depth on a
+             (1, 4) mesh (Mamba's tensor parallelism: K4 and its backward
+             on 6 of the 24 heads a shard, launched 4 x the mesh-free
+             step's), every gradient leaf's distance from an fp32 step
+             (the plain SSD) within SPMD_NOISE_FACTOR of the mesh-free
+             bf16 step's, which a planted fault (the last shard's dB and
+             dC kept out of their sum) must fail, two runs equal to the
+             bit; jamba-1.5-large's mixer alone at full width on (1, 4)
+             (32 heads of P 128, N 128 a shard), y and the gradients held
+             the same way; qwen1.5-110b at full width, 2 layers, with
+             ZeRO-3 weights on (2, 2) (each shard a quarter of the
+             parameter bytes, gathered a period at a time), on 2 rows of
+             the micro-batch, every leaf within GRAD_TOL and
+             GRAD_REL_TOL, exact launches; prints each shard's parameter
+             bytes, the peak memory, the collectives' counts and link
+             bytes by formula, and each sharded step's time beside the
+             unsharded one (no claim goes with the times: on one card the
+             shards run one after another and no link is crossed);
 17. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
              each case's step traced on the ``meta`` device
              (``_lower_cell`` on a (1, 1) mesh: the predicted peak, FLOPs
@@ -281,7 +294,14 @@ Phases, each printing its own lines; any failure exits non-zero:
              must peak above "nothing" with the same launches; prints the
              step time and the TFLOP/s it implies, and the ops whose
              kernels allocated more inside themselves than the trace
-             models;
+             models. On meshes that repeat the card (DRYRUN_MESH_CASES:
+             (e) gpt-paper, 8 layers, on (2, 2); (f) mamba2-130m, 8
+             layers, on (1, 4); B 8 x T 2048) the trace is rank 0 of a
+             shard group on meta, the card runs every shard in turn: the
+             trace's FLOPs and launches times the ranks must equal the
+             card's, its collectives and link bytes the card's (the
+             card's peak holds every shard and is printed, not
+             compared);
 18. profile — (not run by default; ``profile-models`` the same for the
              moe, frames and mixed configurations: granite-moe's serve
              windows and a 16-layer training iteration, a hubert-xlarge
@@ -446,7 +466,25 @@ GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_WINDOW, GEMMA2_SOFTCAP = 8, 4, 4096, 50.0
 # a (1, 4) mesh against (1, 1)
 SPMD_LAYERS = 2
 SPMD_MESHES = {"gpt-paper": (2, 2), "gpt-paper attn_tp=False": (1, 4),
-               MOE_ARCH: (1, 4)}
+               MOE_ARCH: (1, 4), "mamba2-130m": (1, 4),
+               "jamba-1.5-large-398b mixer": (1, 4), "qwen1.5-110b": (2, 2)}
+# Mamba's tensor parallelism: mamba2-130m at full width and depth (6 of
+# its 24 heads a shard); jamba's mixer alone at full width (32 of 128
+# heads of P 128, N 128 a shard; a whole jamba period, about 88 GB in
+# bf16, does not fit the card) on B 1 x T 2048; ZeRO-3 weights: qwen1.5-
+# 110b at full width, 80 layers cut to 2, on 2 rows of the train phase's
+# largest micro-batch (its 10.4 GB of bf16 weights are held whole for the
+# step with no mesh and split for the sharded one, each step's gradients
+# beside them)
+JAMBA_MIXER_BT = (1, 2048)
+QWEN_SPMD_ROWS = 2
+# Mamba's sharded gradients are held to an fp32 step with no mesh (the
+# plain SSD, which takes fp32): each leaf's ||diff|| / ||fp32|| at most
+# SPMD_NOISE_FACTOR times the bf16 step's with no mesh (its own bf16
+# noise), or GRAD_REL_TOL where that is larger. Over mamba2-130m's 24
+# layers bf16 rounding grows past GRAD_REL_TOL, so no fixed tolerance
+# between the two bf16 steps holds at full depth.
+SPMD_NOISE_FACTOR = 2.0
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
 # launch counts it reports, the first that ran giving `launches`)
@@ -3845,13 +3883,13 @@ def phase_gemma2(torch, requests, max_prompt, decode_steps):
 # ----------------------------------------------------------------------
 # phase: sharding inside a stage on a mesh that repeats the card
 # ----------------------------------------------------------------------
-def _spmd_batch(torch, arch):
-    """``arch`` at full width and SPMD_LAYERS, and the largest micro-batch
+def _spmd_batch(torch, arch, n_layers=SPMD_LAYERS):
+    """``arch`` at full width and ``n_layers``, and the largest micro-batch
     with an even row count of the train phase's first plan (the rows then
     split over a data axis of 2)."""
     from repro_torch.core.planner import plan_iteration
     from repro_torch.data.dataset import materialize_micro_batch
-    cfg, stream, cost, pcfg = _train_setup(torch, SPMD_LAYERS, arch=arch)
+    cfg, stream, cost, pcfg = _train_setup(torch, n_layers, arch=arch)
     gb = stream.batch(0)
     mbs = plan_iteration(gb.lengths[:, 0], cost, pcfg).replica_plans[0] \
         .micro_batches
@@ -3905,11 +3943,15 @@ def _shard_bytes(sparams):
 
 
 def _spmd_expected(cfg, n_shards):
-    """K1 forward and the period recompute, and one backward, per layer
-    and shard."""
-    return {"mha_forward": 2 * cfg.n_layers * n_shards,
-            "mha_backward": cfg.n_layers * n_shards, "ssd_chunked": 0,
-            "ssd_backward": 0}
+    """K1 (or K4) forward and the period recompute, and one backward, per
+    attention (Mamba) layer and shard."""
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.layer_pattern) \
+        * cfg.n_periods
+    n_attn = cfg.n_layers - n_mamba
+    return {"mha_forward": 2 * n_attn * n_shards,
+            "mha_backward": n_attn * n_shards,
+            "ssd_chunked": 2 * n_mamba * n_shards,
+            "ssd_backward": n_mamba * n_shards}
 
 
 def _spmd_line(torch, tag, cfg, shape, big, run, ref, shard_bytes, peak):
@@ -4043,7 +4085,295 @@ def phase_spmd(torch):
           "non-finite MoE gradients")
     del params_m, moe, one
     torch.cuda.empty_cache()
+    counts = _add_counts(counts, _spmd_mamba(torch))
+    counts = _add_counts(counts, _spmd_jamba_mixer(torch))
+    counts = _add_counts(counts, _spmd_fsdp(torch))
     print(f"[spmd] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return counts
+
+
+def _add_counts(a, b):
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+class _DropGrad:
+    """The identity whose backward gives zeros: a planted fault that keeps
+    one shard's dB and dC out of their sum."""
+
+    def __init__(self, torch):
+        class Drop(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x):
+                return x.view_as(x)
+
+            @staticmethod
+            def backward(ctx, g):
+                return torch.zeros_like(g)
+        self.apply = Drop.apply
+
+
+def _without_one_shards_dbdc(torch, n_model):
+    """Patch the mixer's K4 so that every ``n_model``-th call (the last
+    model shard's, forward and recompute alike) gives no dB or dC."""
+    from repro_torch.models import mamba as M
+    real, calls, drop = M.ops.ssd, [], _DropGrad(torch)
+
+    def ssd(x, dt, A, B, C, **kw):
+        calls.append(1)
+        if len(calls) % n_model == 0:
+            B, C = drop.apply(B), drop.apply(C)
+        return real(x, dt, A, B, C, **kw)
+    return mock.patch.object(M.ops, "ssd", ssd)
+
+
+def _bc_rel(torch, run, ref, cfg):
+    """||diff|| / ||ref|| of in_proj's B and C columns over the stack."""
+    key = ("stack", "l0", "mixer", "in_proj")
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    a = run["grads"][key][..., 2 * di:2 * di + 2 * gn]
+    b = ref["grads"][key][..., 2 * di:2 * di + 2 * gn]
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _rel(torch, a, b):
+    a, b = a.detach().float(), b.detach().float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _noise_check(torch, got, free, truth):
+    """Each leaf of ``got`` (sharded, bf16) and ``free`` (no mesh, bf16)
+    against ``truth`` (fp32, no mesh): ``(worst ratio of got's error to
+    free's, worst error of got, whether every leaf is within
+    SPMD_NOISE_FACTOR x free's error or GRAD_REL_TOL)``."""
+    ratio, worst, ok = 0.0, 0.0, True
+    for k, t in truth.items():
+        e_got, e_free = _rel(torch, got[k], t), _rel(torch, free[k], t)
+        ok &= e_got <= max(SPMD_NOISE_FACTOR * e_free, GRAD_REL_TOL)
+        ratio = max(ratio, e_got / max(e_free, 1e-30))
+        worst = max(worst, e_got)
+    return ratio, worst, ok
+
+
+def _spmd_mamba(torch):
+    """mamba2-130m at full width and depth on (1, 4): each shard K4 and
+    its backward on 6 of the 24 heads, against the step with no mesh (the
+    gradients by their distance from an fp32 step, see
+    SPMD_NOISE_FACTOR)."""
+    import dataclasses
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    cfg, big, batch = _spmd_batch(torch, "mamba2-130m", MAMBA_LAYERS)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, device="cuda")
+    ref = _spmd_step(torch, cfg, params, batch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_ssd():
+            stack.enter_context(patch)
+        truth = _spmd_step(torch, cfg32, tree_map(lambda x: x.float(),
+                                                  params), batch)["grads"]
+    shape = SPMD_MESHES["mamba2-130m"]
+    n = shape[0] * shape[1]
+    mesh = _spmd_mesh(shape)
+    sp = shard_params(params, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_spmd_step(torch, cfg, sp, batch, mesh) for _ in range(2)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _spmd_line(torch, "mamba2-130m", cfg, shape, big, runs[0], ref,
+               _shard_bytes(sp), peak)
+    ratio, worst, ok = _noise_check(torch, runs[0]["grads"], ref["grads"],
+                                    truth)
+    same = (torch.equal(runs[0]["loss_sum"], runs[1]["loss_sum"])
+            and all(torch.equal(a, b) for a, b in
+                    zip(runs[0]["raw"], runs[1]["raw"])))
+    want = {k: n * v for k, v in ref["counts"].items()}
+    with _without_one_shards_dbdc(torch, shape[1]):
+        fault = _spmd_step(torch, cfg, sp, batch, mesh)
+    f_ratio, f_worst, f_ok = _noise_check(torch, fault["grads"],
+                                          ref["grads"], truth)
+    free_err = max(_rel(torch, ref["grads"][k], t) for k, t in truth.items())
+    truth_bc = {"grads": truth}
+    bc = [_bc_rel(torch, r, truth_bc, cfg) for r in (ref, runs[0], fault)]
+    print(f"[spmd] mamba2-130m against an fp32 step with no mesh (the "
+          f"plain SSD): worst leaf ||diff|| / ||fp32|| {worst:.3e} sharded, "
+          f"{free_err:.3e} with no mesh in bf16, worst ratio of the two "
+          f"{ratio:.3f} (SPMD_NOISE_FACTOR {SPMD_NOISE_FACTOR}, floor "
+          f"GRAD_REL_TOL {GRAD_REL_TOL}); in_proj's B and C columns "
+          f"{bc[1]:.3e} sharded, {bc[0]:.3e} with no mesh; two sharded "
+          f"runs equal to the bit: {'yes' if same else 'NO'}; launches "
+          f"{runs[0]['counts']} ({n} x the step with no mesh: {want}); "
+          f"planted fault (the last model shard's dB and dC left out of "
+          f"their sum): loss {fault['loss']:.6f}, B and C columns "
+          f"{bc[2]:.3e}, worst leaf {f_worst:.3e}, ratio {f_ratio:.3f}; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check(runs[0]["counts"] == want, f"mamba2-130m spmd launches "
+          f"{runs[0]['counts']}, expected {want}")
+    check(ok, "mamba2-130m on a (1, 4) mesh: a gradient leaf is further "
+          f"from fp32 than the bf16 noise allows (ratio {ratio:.3f})")
+    check(abs(runs[0]["loss"] - ref["loss"])
+          <= GRAD_TOL_BF16 * abs(ref["loss"]),
+          "mamba2-130m on a (1, 4) mesh: the loss disagrees")
+    check(same, "two sharded mamba2-130m runs differ")
+    check(not f_ok, "the noise check does not see one shard's dB and dC "
+          "left out")
+    counts = runs[0]["counts"]
+    del params, sp, runs, fault, ref, truth
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _spmd_jamba_mixer(torch):
+    """jamba-1.5-large's Mamba mixer alone at full width on (1, 4), each
+    shard K4 and its backward on 32 of the 128 heads (P 128, N 128):
+    forward and gradients against the mixer with no mesh (by their
+    distance from an fp32 mixer, see SPMD_NOISE_FACTOR)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import set_mesh, spec_for
+    from repro_torch.kernels import ops
+    from repro_torch.models import mamba as M
+    from repro_torch.tree import flatten
+    t0 = time.perf_counter()
+    cfg = get_arch("jamba-1.5-large-398b")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p = M.init_mamba(gen, cfg, device="cuda")
+    b, t = JAMBA_MIXER_BT
+    x = torch.randn((b, t, cfg.d_model), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    dy = torch.randn((b, t, cfg.d_model), generator=gen, device="cuda"
+                     ).to(torch.bfloat16)
+    def free_run(cfg_, p_, x_):
+        with torch.enable_grad():
+            leaves_ = {k: v.detach().requires_grad_() for k, v in p_.items()}
+            xr = x_.detach().requires_grad_()
+            y, _ = M.mamba_fwd(leaves_, xr, cfg_)
+            names = sorted(leaves_)
+            gs = torch.autograd.grad((y.float() * dy.float()).sum(),
+                                     [leaves_[k] for k in names] + [xr])
+        return y.detach(), dict(zip(names + ["x"], gs))
+    ops.reset_launch_counts()
+    y0, ref = free_run(cfg, p, x)
+    free = dict(ops.launch_counts())
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_ssd():
+            stack.enter_context(patch)
+        y32, truth = free_run(dataclasses.replace(cfg, dtype="float32"),
+                              {k: v.float() for k, v in p.items()},
+                              x.float())
+    shape = SPMD_MESHES["jamba-1.5-large-398b mixer"]
+    mesh = _spmd_mesh(shape)
+    g = spmd.ShardGroup(mesh)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with set_mesh(mesh), spmd.running(g):
+        specs = {k: spec_for(tuple(v.shape), M.mamba_logical(cfg)[k])
+                 for k, v in p.items()}
+        lay = spec_for((b, t, cfg.d_model), ("dp", "sp", None))
+        tree = {"p": spmd.split_tree(p, specs, g),
+                "x": spmd.split(x, lay, g)}
+        sdy = spmd.split(dy, lay, g)
+        box = {}
+
+        def f(tr):
+            y = M.mamba_fwd_spmd(tr["p"], tr["x"], cfg)
+            box["y"] = y
+            part = spmd.Sharded(g, g.map(
+                lambda y, d: (y.float() * d.float()).sum(), y, sdy))
+            return spmd.reduce_over(part, g.axis_names).locals[0]
+        _, grads = spmd.value_and_grad(f, tree)
+        y1 = spmd.join(spmd.redistribute(box["y"], ()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts = dict(ops.launch_counts())
+    got = {k: spmd.join(v) for k, v in grads["p"].items()}
+    got["x"] = spmd.join(grads["x"])
+    rel_y = _rel(torch, y1, y0)
+    rels = {k: _rel(torch, got[k], r) for k, r in ref.items()}
+    ey1, ey0 = _rel(torch, y1, y32), _rel(torch, y0, y32)
+    ratio, worst, ok = _noise_check(torch, got, ref, truth)
+    want = {k: shape[0] * shape[1] * v for k, v in free.items()}
+    print(f"[spmd] jamba-1.5-large-398b mixer at full width (d_model "
+          f"{cfg.d_model}, {cfg.ssm_heads} heads x P {cfg.ssm_headdim}, N "
+          f"{cfg.ssm_state}) on {shape}, B {b} x T {t}: y ||diff|| / ||no "
+          f"mesh|| {rel_y:.3e} (from fp32: {ey1:.3e} sharded, {ey0:.3e} "
+          f"with no mesh); gradients against no mesh "
+          + ", ".join(f"{k} {v:.3e}" for k, v in sorted(rels.items()))
+          + f"; from fp32 worst {worst:.3e}, worst ratio to no mesh's "
+          f"{ratio:.3f}; launches {counts} ({shape[0] * shape[1]} x no "
+          f"mesh's {free}); peak {peak:.2f} GiB; "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check(ey1 <= max(SPMD_NOISE_FACTOR * ey0, GRAD_REL_TOL),
+          f"jamba mixer on {shape}: y disagrees ({rel_y:.3e})")
+    check(ok, f"jamba mixer on {shape}: a gradient is further from fp32 "
+          f"than the bf16 noise allows (ratio {ratio:.3f})")
+    check(counts == want, f"jamba mixer launches {counts}, expected {want}")
+    del p, tree, grads, got, ref, y0, y1, truth, y32
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _spmd_fsdp(torch):
+    """qwen1.5-110b at full width, 2 layers, with ZeRO-3 weights on (2,
+    2): each shard's parameter bytes, the gradients and launches against
+    the step with no mesh, and the peak."""
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    from repro_torch.tree import leaves
+    t0 = time.perf_counter()
+    cfg, big, batch = _spmd_batch(torch, "qwen1.5-110b")
+    batch = {k: v[:QWEN_SPMD_ROWS] for k, v in batch.items()}
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, device="cuda")
+    whole = sum(x.numel() * x.element_size() for x in leaves(params))
+    torch.cuda.reset_peak_memory_stats()
+    ref = _spmd_step(torch, cfg, params, batch)
+    peak_ref = torch.cuda.max_memory_allocated() / 2**30
+    ref_grads = {k: v.cpu() for k, v in ref["grads"].items()}
+    del ref["grads"], ref["raw"]
+    shape = SPMD_MESHES["qwen1.5-110b"]
+    n = shape[0] * shape[1]
+    mesh = _spmd_mesh(shape)
+    sp = shard_params(params, cfg, mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = _spmd_step(torch, cfg, sp, batch, mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    by_shard = _shard_bytes(sp)
+    worst_abs, worst_rel, ok = 0.0, 0.0, True
+    for k, b in ref_grads.items():
+        a, b = run["grads"][k], b.cuda()
+        d = (a - b).abs()
+        ok &= bool((d <= GRAD_TOL_BF16 + GRAD_TOL_BF16 * b.abs()).all())
+        worst_abs = max(worst_abs, float(d.max()))
+        worst_rel = max(worst_rel, float(torch.linalg.vector_norm(a - b)
+                                         / torch.linalg.vector_norm(b)))
+        del a, b, d
+    want = {k: n * v for k, v in ref["counts"].items()}
+    print(f"[spmd] qwen1.5-110b ZeRO-3 (fsdp_params) {cfg.n_layers} layers "
+          f"d_model {cfg.d_model} on a {shape} data x model mesh of cuda:0, "
+          f"{batch['tokens'].shape[0]} x {batch['tokens'].shape[1]} tokens: "
+          f"loss {run['loss']:.6f} vs {ref['loss']:.6f} with no mesh; "
+          f"parameter bytes by shard {by_shard} of {whole} whole (each "
+          f"{max(by_shard) / whole:.4f} of it); {len(ref_grads)} gradient "
+          f"leaves, max |diff| {worst_abs:.3e}, worst ||diff|| / ||no "
+          f"mesh|| {worst_rel:.3e}; launches {run['counts']} ({n} x no "
+          f"mesh's {ref['counts']}); collectives {run['coll']}; peak "
+          f"{peak:.2f} GiB sharded, {peak_ref:.2f} GiB with no mesh; step "
+          f"{run['s'] * 1e3:.1f} ms sharded, {ref['s'] * 1e3:.1f} ms with "
+          f"no mesh; {time.perf_counter() - t0:.1f}s", flush=True)
+    check(max(by_shard) <= 0.26 * whole, f"qwen1.5-110b ZeRO-3: a shard "
+          f"holds {max(by_shard)} of {whole} parameter bytes")
+    check(ok and worst_rel <= GRAD_REL_TOL, "qwen1.5-110b on a (2, 2) mesh: "
+          f"a gradient leaf disagrees ({worst_rel:.3e})")
+    check(run["counts"] == want, f"qwen1.5-110b spmd launches "
+          f"{run['counts']}, expected {want}")
+    counts = run["counts"]
+    del sp, run, ref, ref_grads
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -4288,6 +4618,16 @@ DRYRUN_CASES = (
 )
 
 
+# the dryrun phase's cases on a mesh that repeats the card: (tag, arch,
+# layers, seq, batch, (data, model)); mamba2-130m cut 24 -> 8 layers for
+# the run's time (the card's counting run, every shard in turn, took 33 s
+# at 24), case d holding its 24 on one device
+DRYRUN_MESH_CASES = (
+    ("e-gpt-2x2", "gpt-paper", 8, 2048, 8, (2, 2)),
+    ("f-mamba-1x4", "mamba2-130m", 8, 2048, 8, (1, 4)),
+)
+
+
 def phase_dryrun(torch):
     """The dry run's predictions against the card: per case the meta
     trace, then the card's run of the same step (see the module
@@ -4350,6 +4690,50 @@ def phase_dryrun(torch):
     check(peaks["a-dots"] > peaks["a-nothing"],
           f"dryrun: dots peaked at {peaks['a-dots']}, not above nothing's "
           f"{peaks['a-nothing']}")
+    for tag, arch, layers, seq, batch, mesh_shape in DRYRUN_MESH_CASES:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
+        shape = ShapeSpec(f"train_{seq}", "train", seq, batch)
+        n = mesh_shape[0] * mesh_shape[1]
+        t0 = time.perf_counter()
+        pred = D._lower_cell(cfg, shape, D.parse_mesh("%dx%d" % mesh_shape),
+                             opt_cfg)
+        t_trace = time.perf_counter() - t0
+        got = D.measure_cell(cfg, shape, device="cuda", seed=0,
+                             opt_cfg=opt_cfg, mesh_shape=mesh_shape)
+        took = time.perf_counter() - t0
+        for name, k in got["counted"].items():
+            totals[name] = totals.get(name, 0) + k
+        s = pred.summary
+        flops = n * s.flops
+        launches = {k: n * v for k, v in s.launches.items()}
+        link = {k: float(v) for k, v in s.coll_link_bytes.items()}
+        print(f"[dryrun] {tag}: {arch} {layers} layers train B {batch} x "
+              f"{seq} on a {mesh_shape} data x model mesh (the trace: "
+              f"rank 0 of a shard group on meta; the card: every shard in "
+              f"turn on cuda:0): FLOPs predicted {n} x {s.flops:.6e} = "
+              f"{flops:.6e}, card {got['flops']:.6e}; launches predicted "
+              f"{launches}, charged on the card {got['launches']}, counted "
+              f"{got['counted']}; collectives predicted {s.coll_counts}, "
+              f"card {got['collectives']}; link bytes a device predicted "
+              f"{({k: int(v) for k, v in link.items()})}, card "
+              f"{({k: int(v) for k, v in got['link_bytes'].items()})}; peak "
+              f"a device predicted {pred.peak_bytes / 2**30:.3f} GiB "
+              f"(the card holds all {n} shards and measured "
+              f"{got['peak_bytes'] / 2**30:.3f} GiB: no one device's peak "
+              f"to compare); step {got['step_ms']:.1f} ms; trace "
+              f"{t_trace:.1f}s, case {took:.1f}s", flush=True)
+        check(got["finite"], f"dryrun {tag}: outputs not finite")
+        check(flops == got["flops"], f"dryrun {tag}: {n} x meta FLOPs "
+              f"{flops} against {got['flops']} on the card")
+        check(launches == got["launches"] == got["counted"],
+              f"dryrun {tag}: launches predicted {launches}, charged "
+              f"{got['launches']}, counted {got['counted']}")
+        check(dict(s.coll_counts) == got["collectives"]
+              and link == got["link_bytes"],
+              f"dryrun {tag}: collectives predicted {s.coll_counts} {link}, "
+              f"card {got['collectives']} {got['link_bytes']}")
+        gc.collect()
+        torch.cuda.empty_cache()
     return {"mha_forward": totals.get("mha_forward", 0),
             "mha_backward": totals.get("mha_backward", 0),
             "ssd_chunked": totals.get("ssd_chunked", 0),
@@ -4384,49 +4768,60 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
-    smi_line = phase_device(torch)
+
+    def timed(name, fn, *args):
+        """``fn(*args)``, its seconds printed after it."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {name} {time.perf_counter() - t0:.1f}s", flush=True)
+        return out
+    smi_line = timed("device", phase_device, torch)
     records, worst, paths = {}, {}, {}
     if "kernel" in phases:
-        records, worst = phase_kernel(torch)
+        records, worst = timed("kernel", phase_kernel, torch)
         for part in (phase_kernel_ssd, phase_kernel_ssd_bwd):
-            ssd_records, ssd_worst = part(torch)
+            ssd_records, ssd_worst = timed(part.__name__[6:], part, torch)
             records.update(ssd_records)
             worst.update(ssd_worst)
     # each path's launch counts, read right after it ran from counts of 0
     if "serve" in phases:
-        paths["serve"] = phase_serve(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        paths["serve"] = timed("serve", phase_serve, torch, REQUESTS,
+                               MAX_PROMPT, DECODE_STEPS)
     if "train" in phases:
-        paths["train"] = phase_train(torch)
+        paths["train"] = timed("train", phase_train, torch)
     if "pipeline" in phases:
-        paths["pipeline"] = phase_pipeline(torch)
+        paths["pipeline"] = timed("pipeline", phase_pipeline, torch)
     if "t5" in phases:
-        paths["t5"] = phase_t5(torch)
+        paths["t5"] = timed("t5", phase_t5, torch)
     if "mamba" in phases:
-        paths["mamba"] = phase_mamba(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        paths["mamba"] = timed("mamba", phase_mamba, torch, REQUESTS,
+                               MAX_PROMPT, DECODE_STEPS)
     if "mamba-train" in phases:
-        paths["mamba-train"] = phase_mamba_train(torch)
+        paths["mamba-train"] = timed("mamba-train", phase_mamba_train, torch)
     if "fault" in phases:
-        paths["fault"] = phase_fault(torch, smi_line)
+        paths["fault"] = timed("fault", phase_fault, torch, smi_line)
     if "cluster" in phases:
-        paths["cluster"] = phase_cluster(torch, smi_line)
+        paths["cluster"] = timed("cluster", phase_cluster, torch, smi_line)
     if "moe" in phases:
-        moe = phase_moe(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        moe = timed("moe", phase_moe, torch, REQUESTS, MAX_PROMPT,
+                    DECODE_STEPS)
         paths.update({"moe-serve": moe["serve"], "moe-train": moe["moe-train"],
                       "llama4-serve": moe["llama4-serve"]})
     if "frames" in phases:
-        paths["frames"] = phase_frames(torch)
+        paths["frames"] = timed("frames", phase_frames, torch)
     if "mixed" in phases:
-        paths["mixed"] = phase_mixed(torch)
+        paths["mixed"] = timed("mixed", phase_mixed, torch)
     if "gemma2" in phases:
-        gemma2 = phase_gemma2(torch, REQUESTS, MAX_PROMPT, DECODE_STEPS)
+        gemma2 = timed("gemma2", phase_gemma2, torch, REQUESTS, MAX_PROMPT,
+                       DECODE_STEPS)
         paths.update({"gemma2-serve": gemma2["serve"],
                       "gemma2-train": gemma2["train"]})
     if "mesh" in phases:
-        paths["mesh"] = phase_mesh(torch)
+        paths["mesh"] = timed("mesh", phase_mesh, torch)
     if "spmd" in phases:
-        paths["spmd"] = phase_spmd(torch)
+        paths["spmd"] = timed("spmd", phase_spmd, torch)
     if "dryrun" in phases:
-        paths["dryrun"] = phase_dryrun(torch)
+        paths["dryrun"] = timed("dryrun", phase_dryrun, torch)
     if "profile" in phases:
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS)
         phase_profile_serve(torch, MAX_PROMPT, DECODE_STEPS,

@@ -17,8 +17,10 @@ is devices, threads and processes. Its modules:
 - :mod:`repro_torch.dist.spmd` — the shard group: sharding inside a stage
   over a (data, model) mesh from one controller in lockstep
   (``Sharded`` values, ordered collectives, ``value_and_grad``); the
-  model's loss, its gradients and the MoE layer run there. The paths it
-  does not take yet raise (ROADMAP A23).
+  training step of token inputs runs there, Mamba's tensor parallelism
+  and ZeRO-3 weights included, on devices or, for a dry run, on ``meta``.
+  Prefill and decode with sharded caches, and the T5, frames and mixed
+  inputs there, still raise (ROADMAP A23).
 - :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
   elastic re-planning over the surviving replica set.
 - :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,

@@ -37,9 +37,8 @@ value is a ``spmd.Sharded`` and :func:`shard` is the layout change its
 spec names (gathers, reduce-scatters, slices). Outside a running group
 :func:`shard` returns its input wherever the resolved spec is empty, and
 raises ``NotImplementedError`` naming ROADMAP A23 where it is not: the
-paths that have no group yet (serving with sharded caches, Mamba's
-tensor parallelism, ZeRO-3 weights, the T5, frames and mixed inputs
-under a model axis).
+paths that have no group yet (serving with sharded caches, the T5,
+frames and mixed inputs under a model axis).
 
 :class:`ZeroShards` is one optimizer-state leaf placed by ZeRO-1: its
 chunks along one dim, chunk ``s`` on the stage mesh's device ``s``.

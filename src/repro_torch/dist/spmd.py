@@ -38,6 +38,16 @@ split dims gathered, then dims split by slicing the local copy.
 :func:`value_and_grad` takes the gradient of a function of a tree of
 :class:`Sharded` parameters and sums each leaf's gradient over the mesh
 axes that hold copies of its slice, in ascending rank.
+
+A mesh of ``["meta"] * n`` runs the group's programs on ``meta`` (a dry
+run): every op by shape, and each collective's outputs made by shape
+alone and charged by formula. Each rank's code runs inside
+``op_cost.rank_scope`` so that ``OpCounter(rank=r)`` counts one device's
+share. A group made with ``representative=True`` (on ``meta`` only, where
+every rank's inputs have rank 0's shapes) traces rank 0 alone: its locals
+stand in for every other rank's (:meth:`ShardGroup.per_rank`), and a
+collective makes rank 0's output only. ``tests/test_torch_dryrun.py``
+holds such a trace equal to one of every rank.
 """
 from __future__ import annotations
 
@@ -47,9 +57,13 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch.dist.sharding import (IN_STAGE_SHARDING, Mesh, P,
-                                       ambient_mesh, axis_map)
+                                       ambient_mesh, axis_map, is_pure_dp,
+                                       pure_dp, set_mesh)
+from repro_torch.launch import op_cost
+from repro_torch.launch.op_cost import rank_scope
 
 _COUNTS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
 _LINK_BYTES = {"all_reduce": 0.0, "all_gather": 0.0, "reduce_scatter": 0.0}
@@ -79,7 +93,6 @@ def reset_collective_counts() -> None:
 
 
 def _count(kind: str, out_bytes: int, g: int) -> None:
-    from repro_torch.launch import op_cost
     link = op_cost.link_bytes(kind.replace("_", "-"), out_bytes, g)
     with _lock:
         _COUNTS[kind] += 1
@@ -113,9 +126,10 @@ def to_pspec(spec: tuple) -> P:
 
 class ShardGroup:
     """The ranks of a mesh with devices: rank ``r`` is the ``r``-th device
-    of ``mesh.devices`` in row-major order."""
+    of ``mesh.devices`` in row-major order. ``representative``: trace rank
+    0 alone, its values standing in for the rest (``meta`` meshes only)."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, *, representative: bool = False):
         if mesh.devices is None:
             raise ValueError(f"{mesh} is abstract: a shard group needs "
                              "devices")
@@ -124,12 +138,31 @@ class ShardGroup:
         self.sizes = tuple(mesh.devices.shape)
         self.devices = list(mesh.devices.flat)
         self.n = len(self.devices)
+        self.meta = all(d.type == "meta" for d in self.devices)
+        if representative and not self.meta:
+            raise ValueError("a representative rank is traced on meta only")
+        self.traced = [0] if representative else list(range(self.n))
         self._coords = [dict(zip(self.axis_names,
                                  np.unravel_index(r, self.sizes)))
                         for r in range(self.n)]
 
     def __repr__(self) -> str:
-        return f"ShardGroup({self.mesh})"
+        rep = ", rank 0 for all" if len(self.traced) < self.n else ""
+        return f"ShardGroup({self.mesh}{rep})"
+
+    def fill(self, got: dict) -> list:
+        """The list of every rank's value from ``{rank: value}`` of the
+        traced ranks, rank 0's standing in for the rest."""
+        return [got[r] if r in got else got[0] for r in range(self.n)]
+
+    def per_rank(self, fn: Callable) -> list:
+        """``[fn(r) for each rank]``, each call inside its rank's
+        ``op_cost.rank_scope``; only the traced ranks are called."""
+        got = {}
+        for r in self.traced:
+            with rank_scope(r):
+                got[r] = fn(r)
+        return self.fill(got)
 
     def coord(self, r: int, axis: str) -> int:
         return int(self._coords[r][axis])
@@ -154,11 +187,11 @@ class ShardGroup:
         return list(out.values())
 
     def map(self, fn: Callable, *args, **kwargs) -> list:
-        """``fn`` on every rank in ascending order, each :class:`Sharded`
+        """``fn`` on every traced rank in ascending order, each :class:`Sharded`
         in ``args``/``kwargs`` (nested in dicts, lists and tuples too)
         replaced by its local tensor: the list of results."""
-        return [fn(*local(args, r), **local(kwargs, r))
-                for r in range(self.n)]
+        return self.per_rank(lambda r: fn(*local(args, r),
+                                          **local(kwargs, r)))
 
 
 @contextlib.contextmanager
@@ -170,6 +203,42 @@ def running(group: ShardGroup):
         yield group
     finally:
         _tls.group = prev
+
+
+def whole_recompute(x):
+    """Around a checkpoint of a value ``x``: where ``x`` is a
+    :class:`Sharded`, its recompute runs every op of the function, not
+    stopping early once the saved tensors are rebuilt. Where an early stop
+    falls depends on which ranks run (a representative rank's recompute
+    would stop before the whole group's), so without this a dry run could
+    not let one rank stand for all. Elsewhere nothing changes."""
+    if isinstance(x, Sharded):
+        return set_checkpoint_early_stop(False)
+    return contextlib.nullcontext()
+
+
+def group_checkpoint(x, kwargs: dict) -> dict:
+    """``torch.utils.checkpoint`` keyword arguments for a function of a
+    value ``x``: where ``x`` is a :class:`Sharded`, the recompute re-enters
+    this thread's ambient mesh, ``pure_dp`` flag and running group, which
+    live in thread-local state and which the thread autograd runs a CUDA
+    backward in does not have (``kwargs``' own ``context_fn`` kept inside).
+    Elsewhere ``kwargs`` as they are."""
+    if not isinstance(x, Sharded):
+        return kwargs
+    mesh, flag, group = ambient_mesh(), is_pure_dp(), current_group()
+    inner = kwargs.get("context_fn")
+
+    @contextlib.contextmanager
+    def restored(ctx):
+        with set_mesh(mesh), pure_dp(flag), running(group), ctx:
+            yield
+
+    def context_fn():
+        fwd, rec = (inner() if inner is not None
+                    else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return fwd, restored(rec)
+    return {**kwargs, "context_fn": context_fn}
 
 
 def current_group() -> Optional[ShardGroup]:
@@ -270,14 +339,14 @@ def split(x: torch.Tensor, spec, group: ShardGroup) -> Sharded:
     """``x`` split by ``spec``: each rank a copy of its chunk on its
     device. Differentiable."""
     spec = norm_spec(spec, x.dim())
-    locals_ = []
-    for r, dev in enumerate(group.devices):
+
+    def part(r):
         y = x
         for d, start, size in _chunk_slices(group, r, spec, x.shape):
             if size != x.shape[d]:
                 y = y.narrow(d, start, size)
-        locals_.append(y.to(dev, copy=True).contiguous())
-    return Sharded(group, locals_, spec)
+        return y.to(group.devices[r], copy=True).contiguous()
+    return Sharded(group, group.per_rank(part), spec)
 
 
 def join(s: Sharded, device=None) -> torch.Tensor:
@@ -328,15 +397,46 @@ def _size(group: ShardGroup, axes: tuple) -> int:
     return n
 
 
-def _all_reduce_raw(xs, group: ShardGroup, axes: tuple) -> list:
-    out = [None] * group.n
+def _by_shape(xs, group: ShardGroup, members: list, shape_of) -> dict:
+    """On ``meta``: each traced member's output made by shape alone, in
+    its rank's scope."""
+    out = {}
+    for m in members:
+        with rank_scope(m):
+            out[m] = torch.empty(shape_of(xs[m]), dtype=xs[m].dtype,
+                                 device=group.devices[m])
+    return out
+
+
+def _collective(kind, xs, group: ShardGroup, axes: tuple, combine,
+                shape_of) -> list:
+    """One collective over each group of ranks along ``axes``:
+    ``combine(members, traced)`` gives the traced members' outputs from
+    every member's input (on ``meta``, ``shape_of`` gives their shapes);
+    counted once."""
+    out = {}
+    traced = set(group.traced)
     for members in group.groups(axes):
+        want = [m for m in members if m in traced]
+        if not want:
+            continue
+        if group.meta:
+            out.update(_by_shape(xs, group, want, shape_of))
+        else:
+            out.update(combine(members, want))
+    full = group.fill(out)
+    r0 = group.traced[0]
+    _count(kind, _nbytes(full[r0]), _size(group, axes))
+    return full
+
+
+def _all_reduce_raw(xs, group: ShardGroup, axes: tuple) -> list:
+    def combine(members, want):
         dt = xs[members[0]].dtype
         acc = _sum([xs[m] for m in members], group.devices[members[0]])
-        for m in members:
-            out[m] = acc.to(group.devices[m], dt, copy=True)
-    _count("all_reduce", _nbytes(out[0]), _size(group, axes))
-    return out
+        return {m: acc.to(group.devices[m], dt, copy=True) for m in want}
+    return _collective("all_reduce", xs, group, axes, combine,
+                       lambda x: x.shape)
 
 
 def _ordered(group: ShardGroup, members: list, axes: tuple) -> list:
@@ -344,62 +444,75 @@ def _ordered(group: ShardGroup, members: list, axes: tuple) -> list:
 
 
 def _all_gather_raw(xs, group: ShardGroup, axes: tuple, dim: int) -> list:
-    out = [None] * group.n
-    for members in group.groups(axes):
+    n = _size(group, axes)
+
+    def combine(members, want):
         dev = group.devices[members[0]]
         whole = torch.cat([xs[m].to(dev) for m in
                            _ordered(group, members, axes)], dim)
-        for m in members:
-            out[m] = whole.to(group.devices[m], copy=True)
-    _count("all_gather", _nbytes(out[0]), _size(group, axes))
-    return out
+        return {m: whole.to(group.devices[m], copy=True) for m in want}
+
+    def shape_of(x):
+        s = list(x.shape)
+        s[dim] *= n
+        return s
+    return _collective("all_gather", xs, group, axes, combine, shape_of)
 
 
 def _reduce_scatter_raw(xs, group: ShardGroup, axes: tuple, dim: int) -> list:
-    out = [None] * group.n
-    for members in group.groups(axes):
+    n = _size(group, axes)
+
+    def combine(members, want):
         dt = xs[members[0]].dtype
         acc = _sum([xs[m] for m in members], group.devices[members[0]])
         parts = acc.chunk(len(members), dim)
-        for m in members:
-            i = group.chunk(m, axes)[0]
-            out[m] = parts[i].to(group.devices[m], dt,
-                                 copy=True).contiguous()
-    _count("reduce_scatter", _nbytes(out[0]), _size(group, axes))
-    return out
+        return {m: parts[group.chunk(m, axes)[0]].to(
+            group.devices[m], dt, copy=True).contiguous() for m in want}
+
+    def shape_of(x):
+        s = list(x.shape)
+        s[dim] //= n
+        return s
+    return _collective("reduce_scatter", xs, group, axes, combine, shape_of)
 
 
-class _AllReduce(torch.autograd.Function):
+def _zeros_like_out(ctx, r):
+    """The gradient of rank ``r``'s output that no op used: zeros, or on
+    ``meta`` its shape alone."""
+    group = ctx.meta[0]
+    shape, dtype = ctx.like
+    with rank_scope(r):
+        if group.meta:
+            return torch.empty(shape, dtype=dtype, device="meta")
+        return torch.zeros(shape, dtype=dtype, device=group.devices[r])
+
+
+class _Collective(torch.autograd.Function):
+    """A collective whose backward is its transpose. It takes and gives
+    the traced ranks' locals only (a representative group passes rank 0's
+    alone)."""
+
     @staticmethod
-    def forward(ctx, group, axes, *xs):
-        ctx.meta = (group, axes)
-        return tuple(_all_reduce_raw(xs, group, axes))
-
-    @staticmethod
-    def backward(ctx, *gs):
-        return (None, None, *_all_reduce_raw(gs, *ctx.meta))
-
-
-class _AllGather(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, group, axes, dim, *xs):
-        ctx.meta = (group, axes, dim)
-        return tuple(_all_gather_raw(xs, group, axes, dim))
-
-    @staticmethod
-    def backward(ctx, *gs):
-        return (None, None, None, *_reduce_scatter_raw(gs, *ctx.meta))
-
-
-class _ReduceScatter(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, group, axes, dim, *xs):
-        ctx.meta = (group, axes, dim)
-        return tuple(_reduce_scatter_raw(xs, group, axes, dim))
+    def forward(ctx, fwd, bwd, group, args, *xs):
+        ctx.meta = (group, bwd, args)
+        ctx.set_materialize_grads(False)
+        full = fwd(group.fill(dict(zip(group.traced, xs))), group, *args)
+        ctx.like = (full[group.traced[0]].shape, full[group.traced[0]].dtype)
+        return tuple(full[r] for r in group.traced)
 
     @staticmethod
     def backward(ctx, *gs):
-        return (None, None, None, *_all_gather_raw(gs, *ctx.meta))
+        group, bwd, args = ctx.meta
+        full = [g if g is not None else _zeros_like_out(ctx, r)
+                for r, g in zip(group.traced, gs)]
+        out = bwd(group.fill(dict(zip(group.traced, full))), group, *args)
+        return (None, None, None, None, *(out[r] for r in group.traced))
+
+
+def _apply(fwd, bwd, xs, group: ShardGroup, *args) -> list:
+    outs = _Collective.apply(fwd, bwd, group, args,
+                             *(xs[r] for r in group.traced))
+    return group.fill(dict(zip(group.traced, outs)))
 
 
 def _trivial(group: ShardGroup, axes: tuple) -> bool:
@@ -410,14 +523,15 @@ def all_reduce(xs: list, group: ShardGroup, axes: tuple) -> list:
     """Sum over each group of ranks that differ along ``axes``."""
     if _trivial(group, axes):
         return list(xs)
-    return list(_AllReduce.apply(group, tuple(axes), *xs))
+    return _apply(_all_reduce_raw, _all_reduce_raw, xs, group, tuple(axes))
 
 
 def all_gather(xs: list, group: ShardGroup, axes: tuple, dim: int) -> list:
     """Concatenate along ``dim`` the chunks of each group over ``axes``."""
     if _trivial(group, axes):
         return list(xs)
-    return list(_AllGather.apply(group, tuple(axes), dim, *xs))
+    return _apply(_all_gather_raw, _reduce_scatter_raw, xs, group,
+                  tuple(axes), dim)
 
 
 def reduce_scatter(xs: list, group: ShardGroup, axes: tuple,
@@ -426,7 +540,8 @@ def reduce_scatter(xs: list, group: ShardGroup, axes: tuple,
     of ``dim``."""
     if _trivial(group, axes):
         return list(xs)
-    return list(_ReduceScatter.apply(group, tuple(axes), dim, *xs))
+    return _apply(_reduce_scatter_raw, _all_gather_raw, xs, group,
+                  tuple(axes), dim)
 
 
 # ----------------------------------------------------------------------
@@ -454,12 +569,11 @@ def redistribute(s: Sharded, spec) -> Sharded:
             cur[d] = ()
     for d, axes in enumerate(target):
         if axes and cur[d] != axes:
-            sliced = []
-            for r, x in enumerate(locals_):
+            def cut(r, xs=locals_, d=d, axes=axes):
                 i, n = g.chunk(r, axes)
-                size = x.shape[d] // n
-                sliced.append(x.narrow(d, i * size, size))
-            locals_ = sliced
+                size = xs[r].shape[d] // n
+                return xs[r].narrow(d, i * size, size)
+            locals_ = g.per_rank(cut)
             cur[d] = axes
     return Sharded(g, locals_, tuple(cur))
 
@@ -474,11 +588,11 @@ def reduce_over(s: Sharded, axes: tuple, *, mean: bool = False) -> Sharded:
     rank's local an addend (a per-shard loss or aux)."""
     if not axes:
         return s
-    out = all_reduce(s.locals, s.group, axes)
+    out = s.with_locals(all_reduce(s.locals, s.group, axes))
     if mean:
         n = _size(s.group, axes)
-        out = [x / n for x in out]
-    return s.with_locals(out)
+        out = out.map(lambda x: x / n)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -505,15 +619,55 @@ def unbind0(s: Sharded) -> list:
     """The slices of ``s`` along its first dim, which no axis splits."""
     if s.spec[0]:
         raise ValueError(f"{s}: dim 0 is split")
-    parts = [x.unbind(0) for x in s.locals]
+    parts = s.group.map(lambda x: x.unbind(0), s)
     return [Sharded(s.group, [p[i] for p in parts], s.spec[1:])
             for i in range(len(parts[0]))]
+
+
+class PeriodSlice:
+    """Slice ``i`` along the first dim of a :class:`Sharded` whose first
+    dim is split: only the ranks whose chunk holds ``i`` have it.
+    :meth:`take` makes it on every rank (inside a period's checkpoint, so
+    the stack is never gathered)."""
+
+    __slots__ = ("s", "i")
+
+    def __init__(self, s: Sharded, i: int):
+        self.s, self.i = s, i
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.s.shape[1:]
+
+    def take(self) -> Sharded:
+        """The owner's slice summed with the other ranks' zeros over the
+        axes that split the first dim (a broadcast from the owner, whose
+        transpose returns the summed gradient to the owner's slice)."""
+        s, g = self.s, self.s.group
+        axes = s.spec[0]
+
+        def mine(r):
+            x = s.locals[r]
+            j = self.i - g.chunk(r, axes)[0] * x.shape[0]
+            # a non-owner's zeros from its own chunk, so that its trace
+            # has the owner's ops and a representative rank's gradient
+            # path
+            return x[j] if 0 <= j < x.shape[0] else x[0] * 0
+        return Sharded(g, all_reduce(g.per_rank(mine), g, axes), s.spec[1:])
+
+
+def periods(s: Sharded) -> list:
+    """The slices of ``s`` along its first dim: views where no axis
+    splits it (:func:`unbind0`), else :class:`PeriodSlice` handles."""
+    if s.spec[0]:
+        return [PeriodSlice(s, i) for i in range(s.shape[0])]
+    return unbind0(s)
 
 
 def tree_is_sharded(tree) -> bool:
     if isinstance(tree, dict):
         return any(tree_is_sharded(v) for v in tree.values())
-    return isinstance(tree, Sharded)
+    return isinstance(tree, (Sharded, PeriodSlice))
 
 
 def _tree_map(fn, tree):
@@ -546,20 +700,21 @@ def value_and_grad(fn: Callable, sparams, *args, **kwargs):
     the structure of ``sparams`` and its leaves' layouts; ``out`` is
     detached."""
     with torch.enable_grad():
-        fresh = _tree_map(lambda s: s.with_locals(
-            [x.detach().requires_grad_() for x in s.locals]), sparams)
+        fresh = _tree_map(lambda s: s.with_locals(s.group.map(
+            lambda x: x.detach().requires_grad_(), s)), sparams)
         out = fn(fresh, *args, **kwargs)
         loss = out[0] if isinstance(out, (tuple, list)) else out
         flat = [s for _, s in _sharded_leaves(fresh)]
         gs = iter(torch.autograd.grad(
-            loss, [x for s in flat for x in s.locals],
+            loss, [s.locals[r] for s in flat for r in s.group.traced],
             materialize_grads=True))
 
     def reduce(s):
-        g_loc = [next(gs) for _ in range(s.group.n)]
+        g = s.group
+        g_loc = g.fill({r: next(gs) for r in g.traced})
         axes = replica_axes(s)
-        if not _trivial(s.group, axes):
-            g_loc = _all_reduce_raw(g_loc, s.group, axes)
+        if not _trivial(g, axes):
+            g_loc = _all_reduce_raw(g_loc, g, axes)
         return s.with_locals(g_loc)
     grads = _tree_map(reduce, fresh)
     detached = (tuple(o.detach() if isinstance(o, torch.Tensor) else o

@@ -20,14 +20,23 @@ the ``meta`` device, where nothing is allocated or computed, under
   each updated master chunk over its zero axes, with the reference's ring
   formulas (:func:`collective_link_bytes`, :func:`train_collectives`).
 
-The step is traced at one device's share, with no ambient mesh: the batch
-split over ``dp``, the ZeRO-1 chunks of the optimizer leaves at their
-spec-tree shapes (the device's own chunk updated, the rest of the leaf
-gathered by the all-gather counted above). That is exact where the mesh
-gives the model axis to no tensor of the step: ``(1, 1)``, ``(n, 1)`` and
-``pure_dp``. Where the model axis would split a tensor (sharding inside a
-stage, ROADMAP A23), a cell records its argument bytes and ``"cost": null``
-with ``"not_ported"`` naming the item.
+Where the mesh gives the model axis to no tensor of the step (``(1,
+1)``, ``(n, 1)`` and ``pure_dp``) and splits no ZeRO-3 weight, the step
+is traced at one device's share, with no ambient mesh: the batch split
+over ``dp``, the ZeRO-1 chunks of the optimizer leaves at their spec-tree
+shapes (the device's own chunk updated, the rest of the leaf gathered by
+the all-gather counted above). Elsewhere a train step of token inputs
+runs in a shard group over the mesh's axes on ``meta`` devices
+(``dist/spmd.py``; ``launch.mesh.meta_mesh``), every rank's program at
+its own shares, one representative rank traced where every rank's
+inputs have rank 0's shapes (:func:`_lower_cell_group`): the counter
+counts rank 0's share (``op_cost.OpCounter(rank=0)``) and the group's own
+collectives, each charged by formula. Prefill and decode there (sharded
+caches), frames, mixed inputs and T5 record their argument bytes and
+``"cost": null`` with ``"not_ported"`` naming ROADMAP A23.
+:func:`measure_cell` runs a train cell on a mesh that repeats one card,
+every shard in turn: the sums over ranks of its FLOPs and launches, and
+its collectives, are what the trace predicts.
 
 The reference's ``bf16_upcast_correction`` and ``temp_tpu_est_bytes`` are
 artefacts of XLA's CPU backend (f32 copies of bf16 weights that no TPU
@@ -54,10 +63,12 @@ import torch
 
 from repro_torch.configs.base import (ARCH_IDS, SHAPES, ArchConfig, ShapeSpec,
                                       cell_supported, get_arch)
+from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (Mesh, P, axis_size, map_logical,
-                                       pure_dp, spec_for)
+                                       pure_dp, set_mesh, spec_for)
+from repro_torch.dist.spmd import Sharded
 from repro_torch.launch import op_cost
-from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.launch.mesh import make_mesh, make_production_mesh, meta_mesh
 from repro_torch.models import model as MD
 from repro_torch.models import transformer as T
 from repro_torch.train import optimizer as TO
@@ -255,6 +266,26 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh):
     return train_step
 
 
+def make_group_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                          group: "spmd.ShardGroup"):
+    """``train_step(state, batch) -> (state, metrics)`` in a shard group:
+    the state's params and ``master``, ``m`` and ``v`` and the batch as
+    trees of ``spmd.Sharded`` (``train_state.shard_state``,
+    ``model.split_batch``); the loss and every shard's gradients
+    (``spmd.value_and_grad`` of ``MD.loss_fn``), then AdamW on each
+    rank's chunk (``optimizer.sharded_adamw_update``)."""
+    def train_step(state, batch):
+        with spmd.running(group), set_mesh(group.mesh), \
+                pure_dp(cfg.pure_dp):
+            loss, grads = spmd.value_and_grad(
+                lambda p: MD.loss_fn(p, batch, cfg, remat=True)[0],
+                state["params"])
+            _, _, metrics = TO.sharded_adamw_update(
+                state["params"], grads, state["opt"], opt_cfg)
+        return state, {"loss": loss, "grad_norm": metrics["grad_norm"]}
+    return train_step
+
+
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -318,14 +349,23 @@ def train_collectives(cfg: ArchConfig, shape: ShapeSpec, mesh,
 # ----------------------------------------------------------------------
 # one cell
 # ----------------------------------------------------------------------
+def needs_group(cfg: ArchConfig, mesh) -> bool:
+    """Whether a cell's step shards inside a stage on ``mesh``: its model
+    axis would split a tensor, or its zero axes ZeRO-3 weights."""
+    with pure_dp(cfg.pure_dp):
+        return axis_size("tp", mesh) > 1 or (
+            cfg.fsdp_params and axis_size("zero", mesh) > 1)
+
+
 def not_ported(cfg: ArchConfig, shape: ShapeSpec, mesh) -> str:
     """The ROADMAP item a cell's trace waits for, or ``""``: A23 where the
-    mesh's model axis would split a tensor of the step (or ZeRO-3 weights
-    would be gathered)."""
-    with pure_dp(cfg.pure_dp):
-        if axis_size("tp", mesh) > 1 or (
-                cfg.fsdp_params and axis_size("zero", mesh) > 1):
-            return "ROADMAP A23"
+    step would shard inside a stage (:func:`needs_group`) and is not a
+    train step of token inputs: prefill and decode with sharded caches,
+    the frames and mixed inputs and T5 in a shard group."""
+    if needs_group(cfg, mesh) and (shape.kind != "train"
+                                   or cfg.input_mode != "tokens"
+                                   or cfg.family == "encdec"):
+        return "ROADMAP A23"
     return ""
 
 
@@ -415,6 +455,77 @@ def _storages(tree) -> set:
             if isinstance(x, torch.Tensor)}
 
 
+def group_arguments(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                    opt_cfg: AdamWConfig, group: "spmd.ShardGroup") -> tuple:
+    """A train cell's ``(state, batch)`` as trees of ``spmd.Sharded`` over
+    ``group``'s ``meta`` devices, each rank's local at its spec tree's
+    share (the step count an int)."""
+    with pure_dp(cfg.pure_dp):
+        batch, blogical = batch_specs(cfg, shape)
+        bspecs = spec_tree(batch, blogical, mesh)
+        st = TS.state_shapes(cfg, opt_cfg)
+        sspecs = TS.state_spec_tree(cfg, st, mesh)
+
+    def make(x, spec):
+        if not isinstance(x, torch.Tensor):
+            return x
+        loc = local_shape(x.shape, spec, mesh)
+        return Sharded(group, group.per_rank(lambda r: torch.empty(
+            loc, dtype=x.dtype, device="meta")), spec)
+    return _map(make, st, sspecs), _map(make, batch, bspecs)
+
+
+def uniform_shares(tree) -> bool:
+    """Whether every rank's local of every leaf has rank 0's shape (a
+    representative rank then stands for all)."""
+    for _, s in spmd._sharded_leaves(tree):
+        if isinstance(s, Sharded):
+            g = s.group
+            sizes = {tuple(n for _, _, n in spmd._chunk_slices(
+                g, r, s.spec, s.shape)) for r in range(g.n)}
+            if len(sizes) > 1:
+                return False
+    return True
+
+
+def _lower_cell_group(cfg: ArchConfig, shape: ShapeSpec, mesh,
+                      opt_cfg: AdamWConfig, *,
+                      representative: bool = None) -> Traced:
+    """A train cell traced in a shard group over ``mesh``'s axes on
+    ``meta`` (see the module docstring): one representative rank where
+    :func:`uniform_shares` holds (``representative`` forces the choice),
+    else every rank; the counts are rank 0's."""
+    t0 = time.perf_counter()
+    args = cell_arguments(cfg, shape, mesh, opt_cfg)
+    all_bytes = tree_bytes(args)
+    read_bytes = tree_bytes(args, read_paths(cfg, shape, opt_cfg))
+    ints = sum(INT_BYTES for _, x in _paths(args)
+               if not isinstance(x, torch.Tensor))
+    mm = meta_mesh(mesh)
+    if representative is None:
+        probe = spmd.ShardGroup(mm, representative=True)
+        representative = uniform_shares(dict(zip(
+            "sb", group_arguments(cfg, shape, mesh, opt_cfg, probe))))
+    group = spmd.ShardGroup(mm, representative=representative)
+    state, batch = group_arguments(cfg, shape, mesh, opt_cfg, group)
+    fn = make_group_train_step(cfg, opt_cfg, group)
+    counter = op_cost.OpCounter(rank=0)
+    for r in group.traced:
+        counter.register(spmd.local((state, batch), r), rank=r)
+    held = _storages(spmd.local(state, 0))
+    with counter:
+        out = fn(state, batch)
+    counter.close()
+    mine = spmd.local(out, 0)
+    alias = sum(_leaf_bytes(x) for _, x in _paths(mine)
+                if isinstance(x, torch.Tensor)
+                and id(x.untyped_storage()) in held)
+    return Traced(counter.summary, read_bytes, all_bytes - read_bytes,
+                  tree_bytes(mine), alias,
+                  counter.summary.peak_live_bytes + ints,
+                  time.perf_counter() - t0)
+
+
 def _lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
                 opt_cfg: AdamWConfig) -> Traced:
     """Trace one cell's step on ``meta`` at one device's share of ``mesh``
@@ -423,6 +534,8 @@ def _lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
     why = not_ported(cfg, shape, mesh)
     if why:
         raise NotImplementedError(f"{cfg.name} {shape.name} on {mesh}: {why}")
+    if needs_group(cfg, mesh):
+        return _lower_cell_group(cfg, shape, mesh, opt_cfg)
     t0 = time.perf_counter()
     args = cell_arguments(cfg, shape, mesh, opt_cfg)
     all_bytes = tree_bytes(args)
@@ -462,15 +575,24 @@ def argument_bytes(cfg: ArchConfig, shape: ShapeSpec, mesh,
 
 
 def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
-                 seed: int = 0, opt_cfg: AdamWConfig = None) -> dict:
+                 seed: int = 0, opt_cfg: AdamWConfig = None,
+                 mesh_shape: tuple = None) -> dict:
     """Run a cell's step on one card, as the dry run traces it on a (1, 1)
     mesh, with weights and a batch drawn there from ``seed``: once under
     the ``op_cost`` counter (FLOPs, the kernels' charged launches, and the
     allocator's peak inside each op), then once more, timed by CUDA events,
     with the peak of ``torch.cuda.max_memory_allocated`` above what was
     allocated before the arguments were made. Returns ``{"flops",
-    "launches", "counted", "hidden", "peak_bytes", "step_ms", "finite"}``:
-    ``counted`` the kernels' own launch counts in the first run."""
+    "launches", "counted", "hidden", "peak_bytes", "step_ms", "finite",
+    "collectives", "link_bytes"}``: ``counted`` the kernels' own launch
+    counts in the first run, the collectives the shard group's
+    (``spmd.collective_counts`` and ``collective_link_bytes``).
+
+    With ``mesh_shape`` (a train cell) the step runs in a shard group over
+    a (data, model) mesh of that shape that repeats ``device``
+    (:func:`make_group_train_step`): every shard in turn, so the counts
+    are sums over the ranks, and the peak is the card's, which holds
+    every shard (no one device's)."""
     from repro_torch.kernels import ops
     opt_cfg = opt_cfg or AdamWConfig()
     device = torch.device(device)
@@ -482,13 +604,30 @@ def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
     else:
         first = MD.init_params(gen, cfg, device=device)
     batch, _ = batch_specs(cfg, shape, device=device, gen=gen)
-    fn = step_fn(cfg, shape, parse_mesh("1x1"), opt_cfg)
+    if mesh_shape is None:
+        fn = step_fn(cfg, shape, parse_mesh("1x1"), opt_cfg)
+    else:
+        n = 1
+        for k in mesh_shape:
+            n *= k
+        mesh = make_mesh(tuple(mesh_shape), ("data", "model"),
+                         devices=[device] * n)
+        group = spmd.ShardGroup(mesh)
+        with pure_dp(cfg.pure_dp):
+            first = TS.shard_state(first, cfg, mesh)
+            batch = MD.split_batch(batch, group)
+        fn = make_group_train_step(cfg, opt_cfg, group)
     ops.reset_launch_counts()
+    spmd.reset_collective_counts()
     counter = op_cost.OpCounter(watch=device)
     with counter:
         out = fn(first, batch)
     counter.close()
     counted = {k: n for k, n in ops.launch_counts().items() if n}
+    coll = {k.replace("_", "-"): n
+            for k, n in spmd.collective_counts().items() if n}
+    link = {k.replace("_", "-"): v
+            for k, v in spmd.collective_link_bytes().items() if v}
     del out
     torch.cuda.synchronize(device)
     torch.cuda.reset_peak_memory_stats(device)
@@ -505,7 +644,8 @@ def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
     return {"flops": counter.summary.flops,
             "launches": dict(counter.summary.launches), "counted": counted,
             "hidden": counter.hidden, "peak_bytes": peak,
-            "step_ms": start.elapsed_time(end), "finite": finite}
+            "step_ms": start.elapsed_time(end), "finite": finite,
+            "collectives": coll, "link_bytes": link}
 
 
 def mesh_tag(mesh) -> str:

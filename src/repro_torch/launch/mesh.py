@@ -86,3 +86,14 @@ def make_host_mesh(data: int = 1, model: int = 1, *,
         data = min(data, n)
         model = min(model, max(1, n // data))
     return make_mesh((data, model), ("data", "model"), devices=devices)
+
+
+def meta_mesh(mesh: Mesh) -> Mesh:
+    """``mesh``'s axes over ``meta`` devices: a shard group on it runs
+    every rank's program by shape alone (a dry run)."""
+    n = 1
+    for s in mesh.shape.values():
+        n *= s
+    arr = np.empty(n, dtype=object)
+    arr[:] = [torch.device("meta")] * n
+    return Mesh(arr.reshape(tuple(mesh.shape.values())), mesh.axis_names)

@@ -43,9 +43,19 @@ shard group's collectives (``dist/spmd.py``) through
 :func:`charge_collective` where it runs over a (data, model) mesh: one
 kind's link bytes by :func:`link_bytes`, per device. A loop needs no trip
 count: every iteration's ops are seen.
+
+A shard group runs every rank's program in one process. ``OpCounter(rank=
+r)`` then counts one device's share: each storage carries the rank that
+made it (an op's output takes the rank of its first input that has one,
+else the rank of the enclosing :func:`rank_scope`, which the group opens
+around each rank's code), and only rank ``r``'s ops, kernel charges and
+live storages are counted. An op with no rank (an allocation in a
+backward, which no scope encloses) waits in its thread and takes the rank
+of the next op there that has one: a backward node's ops run together.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from dataclasses import dataclass, field
@@ -155,6 +165,23 @@ def product_flops(func, args, out) -> float:
 
 _active: list = []             # the counters open now, in any thread
 _active_lock = threading.Lock()
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def rank_scope(rank):
+    """Ops and allocations made inside belong to shard ``rank`` (see the
+    module docstring)."""
+    prev = getattr(_tls, "rank", None)
+    _tls.rank = rank
+    try:
+        yield
+    finally:
+        _tls.rank = prev
+
+
+def current_rank():
+    return getattr(_tls, "rank", None)
 
 
 def charge(name: str, flops: float, reads, writes,
@@ -171,7 +198,7 @@ def charge(name: str, flops: float, reads, writes,
     with _active_lock:
         counters = list(_active)
     for c in counters:
-        c._charge(name, flops, moved, padded_flops)
+        c._charge(name, flops, moved, padded_flops, reads, writes)
         c._read(reads)
 
 
@@ -213,67 +240,133 @@ def charge_collective(kind: str, out_bytes: float, g: int) -> None:
 class OpCounter(TorchDispatchMode):
     """Count the aten ops run while the mode is open into :attr:`summary`
     (see the module docstring). ``register`` the storages that live before
-    the step (its arguments) so that the peak includes them."""
+    the step (its arguments) so that the peak includes them. With
+    ``rank``, only that shard's ops and storages count (a shard group's
+    trace, one device's share)."""
 
-    def __init__(self, watch=None):
+    def __init__(self, watch=None, rank=None):
         super().__init__()
         self.summary = CostSummary()
         self.watch = None if watch is None else torch.device(watch)
+        self.rank = rank
         self.hidden: dict[str, int] = {}    # op -> bytes made and freed inside
         # reentrant: a storage may die, and its finalizer run, in any
         # allocation made while the lock is held
         self._lock = threading.RLock()
-        self._live: dict[int, tuple] = {}   # id(storage) -> (bytes, finalizer)
-        self._live_bytes = 0
+        # id(storage) -> (bytes, finalizer, rank or None)
+        self._live: dict[int, tuple] = {}
+        self._live_bytes: dict = {}         # rank (None: unranked) -> bytes
+        self._waiting: dict = {}            # thread -> ([keys], [costs])
         self.read: set[int] = set()         # id(storage) of what was read
 
     # ---------------------------------------------------------------
-    def register(self, tree) -> None:
-        """Count the storages of ``tree``'s tensors as live."""
+    def register(self, tree, rank=None) -> None:
+        """Count the storages of ``tree``'s tensors as live (shard
+        ``rank``'s)."""
         for t in _tensors(tree):
-            self._track(t)
+            self._track(t, rank)
         self._peak()
 
-    def _track(self, t: torch.Tensor) -> None:
+    def _track(self, t: torch.Tensor, rank=None) -> None:
         st = t.untyped_storage()
         key = id(st)
         with self._lock:
             if key in self._live:
                 return
             n = st.nbytes()
-            self._live[key] = (n, weakref.finalize(st, self._drop, key))
-            self._live_bytes += n
+            self._live[key] = (n, weakref.finalize(st, self._drop, key), rank)
+            self._live_bytes[rank] = self._live_bytes.get(rank, 0) + n
+            if rank is None and self.rank is not None:
+                self._pending()[0].append(key)
 
     def _drop(self, key: int) -> None:
         with self._lock:
-            n, _ = self._live.pop(key, (0, None))
-            self._live_bytes -= n
+            n, _, rank = self._live.pop(key, (0, None, None))
+            self._live_bytes[rank] = self._live_bytes.get(rank, 0) - n
 
     def close(self) -> None:
         """Stop following the storages still live (their finalizers would
         keep this counter alive as long as they are)."""
         with self._lock:
-            for _, fin in self._live.values():
+            for _, fin, _ in self._live.values():
                 fin.detach()
             self._live.clear()
 
-    def _peak(self, extra: int = 0) -> None:
+    def _counted(self, rank) -> bool:
+        return self.rank is None or rank == self.rank
+
+    def _peak(self, extra: int = 0, rank=None) -> None:
         with self._lock:
-            if self._live_bytes + extra > self.summary.peak_live_bytes:
-                self.summary.peak_live_bytes = self._live_bytes + extra
+            if self.rank is None:
+                live = sum(self._live_bytes.values())
+            else:
+                live = self._live_bytes.get(self.rank, 0)
+                extra = extra if rank == self.rank else 0
+            if live + extra > self.summary.peak_live_bytes:
+                self.summary.peak_live_bytes = live + extra
 
     def _read(self, tree) -> None:
         ids = {id(t.untyped_storage()) for t in _tensors(tree)}
         with self._lock:
             self.read |= ids
 
-    def _charge(self, name, flops, hbm_bytes, padded_flops):
+    # ---------------------------------------------------------------
+    # ranks (``rank`` given)
+    def _pending(self) -> tuple:
+        return self._waiting.setdefault(threading.get_ident(), ([], []))
+
+    def _rank_of(self, tree):
+        """The rank of the first tensor of ``tree`` whose storage has one,
+        else the enclosing :func:`rank_scope`'s."""
+        with self._lock:
+            for t in _tensors(tree):
+                e = self._live.get(id(t.untyped_storage()))
+                if e is not None and e[2] is not None:
+                    return e[2]
+        return current_rank()
+
+    def _adopt(self, rank, tree=()) -> None:
+        """This thread's waiting storages and costs, and the unranked
+        storages of ``tree``, become ``rank``'s."""
+        keys, costs = self._pending()
+        keys = keys + [id(t.untyped_storage()) for t in _tensors(tree)]
+        with self._lock:
+            for key in keys:
+                e = self._live.get(key)
+                if e is None or e[2] is not None:
+                    continue
+                self._live[key] = (e[0], e[1], rank)
+                self._live_bytes[None] -= e[0]
+                self._live_bytes[rank] = self._live_bytes.get(rank, 0) + e[0]
+            waiting = list(costs)
+            self._pending()[0].clear()
+            costs.clear()
+        for args in waiting:
+            self._add(rank, *args)
+
+    def _add(self, rank, flops, hbm_bytes, padded_flops=0.0, name=None):
+        if not self._counted(rank):
+            return
         with self._lock:
             s = self.summary
             s.flops += flops
             s.hbm_bytes += hbm_bytes
             s.padded_flops += padded_flops
-            s.launches[name] = s.launches.get(name, 0) + 1
+            if name is not None:
+                s.launches[name] = s.launches.get(name, 0) + 1
+
+    def _charge(self, name, flops, hbm_bytes, padded_flops, reads=(),
+                writes=()):
+        if self.rank is None:
+            self._add(None, flops, hbm_bytes, padded_flops, name)
+            return
+        rank = self._rank_of(reads)
+        if rank is None:
+            self._pending()[1].append((flops, hbm_bytes, padded_flops, name))
+            return
+        self._adopt(rank, [w for w in writes if w is not None])
+        self._add(rank, flops, hbm_bytes, padded_flops, name)
+        self._peak()
 
     # ---------------------------------------------------------------
     def __enter__(self):
@@ -303,13 +396,19 @@ class OpCounter(TorchDispatchMode):
                      + sum(_nbytes(t) for t in _tensors(out)))
             kw = {k: v for k, v in (kwargs or {}).items() if k != "out"}
             self._read((args[1:] if func in OVERWRITES else args, kw))
-        with self._lock:
-            self.summary.flops += flops
-            self.summary.hbm_bytes += moved
+        rank = None
+        if self.rank is not None:
+            rank = self._rank_of((args, kwargs))
+            if rank is None:
+                self._pending()[1].append((flops, moved))
+            else:
+                self._adopt(rank)
+        if rank is not None or self.rank is None:
+            self._add(rank, flops, moved)
         for t in _tensors(out):
-            self._track(t)
+            self._track(t, rank)
         transient = TRANSIENT.get(func)
-        self._peak(transient(args, out) if transient else 0)
+        self._peak(transient(args, out) if transient else 0, rank)
         return out
 
 

@@ -14,8 +14,9 @@ column- then row-parallel; the MoE layer as ``_moe_fwd_shardmap``
 experts split over the model axis or, where they do not divide it, their
 ``d_ff``, the partial outputs summed over it). :func:`moe_fwd` given
 tensors under an ambient mesh with devices and a model axis splits them,
-runs that program and joins its output; under an abstract mesh it raises
-(ROADMAP A23).
+runs that program and joins its output; under an abstract mesh, which
+holds no device, it raises (ROADMAP A23: a dry run traces the MoE layer
+in a shard group on ``meta`` devices, ``launch.mesh.meta_mesh``).
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.
@@ -384,9 +385,10 @@ def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
 def _col(x: Sharded, w: Sharded, bias: Optional[Sharded] = None) -> Sharded:
     """Column-parallel product: x (B, T, D) with D whole, by w (D, F)'s
     local columns: (B, T, F) split as w's columns."""
-    out = x.group.map(lambda x, w: x @ w, x, w)
-    if bias is not None:
-        out = [o + c for o, c in zip(out, bias.locals)]
+    if bias is None:
+        out = x.group.map(lambda x, w: x @ w, x, w)
+    else:
+        out = x.group.map(lambda x, w, c: x @ w + c, x, w, bias)
     return Sharded(x.group, out, (x.spec[0], x.spec[1], w.spec[1]))
 
 
@@ -407,7 +409,8 @@ def _heads(x: Sharded, n: int, dh: int) -> Sharded:
     if axes and n % x.group.chunk(0, axes)[1]:
         x = spmd.redistribute(x, (x.spec[0], x.spec[1], ()))
         axes = ()
-    locs = [y.reshape(y.shape[0], y.shape[1], -1, dh) for y in x.locals]
+    locs = x.group.map(lambda y: y.reshape(y.shape[0], y.shape[1], -1, dh),
+                       x)
     return Sharded(x.group, locs, (x.spec[0], x.spec[1], axes, ()))
 
 
@@ -509,12 +512,12 @@ def _attention_heads(p, x, cfg, local, positions, segment_ids) -> Sharded:
             softcap=cfg.attn_softcap, q_positions=pos, kv_positions=pos,
             q_segment_ids=sr, kv_segment_ids=sr)
 
-    out = Sharded(g, [attend(r) for r in range(g.n)], q.spec)
+    out = Sharded(g, g.per_rank(attend), q.spec)
     if n_heads != h:                                 # drop the pad heads
         out = spmd.redistribute(out, (out.spec[0], (), (), ()))
-        out = out.with_locals([o[:, :, :h] for o in out.locals])
-    flat = Sharded(g, [o.reshape(o.shape[0], o.shape[1], -1)
-                       for o in out.locals],
+        out = out.map(lambda o: o[:, :, :h])
+    flat = Sharded(g, g.map(lambda o: o.reshape(o.shape[0], o.shape[1], -1),
+                            out),
                    (out.spec[0], out.spec[1], out.spec[2]))
     return _row(flat, p["wo"])
 
@@ -547,8 +550,8 @@ def _attention_seq(p, x, cfg, local, positions, segment_ids) -> Sharded:
             kv_segment_ids=(None if segment_ids is None
                             else segment_ids.locals[r]))
 
-    out = [attend(r).reshape(q.locals[r].shape[0], q.locals[r].shape[1], -1)
-           for r in range(g.n)]
+    out = g.per_rank(lambda r: attend(r).reshape(
+        q.locals[r].shape[0], q.locals[r].shape[1], -1))
     flat = Sharded(g, out, (x.spec[0], x.spec[1], ()))
     return _row(flat, w["wo"])
 
@@ -589,10 +592,11 @@ def _moe_spmd(p, x: Sharded, cfg: ArchConfig):
                           None if gate is None else gate.locals[r],
                           p["w_out"].locals[r], cfg, e0, e_local)
 
-    ys, auxs = zip(*[part(r) for r in range(g.n)])
+    parts = g.per_rank(part)
     b, t, d = xg.locals[0].shape
-    y = Sharded(g, [v.view(b, t, d) for v in ys], (xg.spec[0], (), ()),
-                partial=ep_axes or f_axes)
+    y = Sharded(g, g.per_rank(lambda r: parts[r][0].view(b, t, d)),
+                (xg.spec[0], (), ()), partial=ep_axes or f_axes)
+    auxs = [a for _, a in parts]
     y = shard(y, "dp", "sp", None).map(lambda v: v.to(x.dtype))
     aux = Sharded(g, list(auxs))
     aux = spmd.reduce_over(aux, tuple(axis_map().get("tp", ())), mean=True)

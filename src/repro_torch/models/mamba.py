@@ -6,10 +6,14 @@ causal depthwise conv over [x | B | C], softplus(dt + bias), the SSD core
 (K4 on the card through ``kernels.ops.ssd``), per-head D skip, gated
 RMSNorm, out_proj. Decode keeps (conv_state, ssm_state) and costs O(1) per
 token; the SSD step of decode is plain PyTorch, as the reference's is jnp.
-The reference's in-block ``shard(...)`` calls are left out: a block runs
-on one device (sharding inside a stage is ROADMAP A23); ``_tp_ok`` and
-``mamba_logical`` are the reference's. Caches are written in place, as
-the KV cache is.
+On tensors a block runs on one device. Inside a shard group
+(``dist/spmd.py``) :func:`mamba_fwd_spmd` runs each shard's program, as
+GSPMD partitions the reference's: where the SSD heads divide the model
+axis (``_tp_ok``), each shard runs K4 and its backward on its own heads;
+where they do not, every model shard runs the whole mixer on its data
+shard's rows with the weights gathered. Prefill and decode with sharded
+caches still raise there (ROADMAP A23). ``mamba_logical`` is the
+reference's. Caches are written in place, as the KV cache is.
 """
 from __future__ import annotations
 
@@ -20,9 +24,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import axis_size
+from repro_torch.dist import spmd
+from repro_torch.dist.sharding import axis_map, axis_size, shard
+from repro_torch.dist.spmd import Sharded
 from repro_torch.kernels import ops
-from repro_torch.models.layers import _dtype, _init, rms_norm
+from repro_torch.models.layers import _col, _dtype, _init, _row, rms_norm
 
 
 def _tp_ok(cfg: ArchConfig) -> bool:
@@ -158,3 +164,85 @@ def mamba_fwd(
     y = y.float() * F.silu(z.float())
     y = rms_norm(y.to(x.dtype), p["norm_w"], cfg.norm_eps)
     return y @ p["out_proj"], cache
+
+
+# ----------------------------------------------------------------------
+# inside a shard group: each shard's program
+# ----------------------------------------------------------------------
+def mamba_fwd_spmd(p, x: Sharded, cfg: ArchConfig) -> Sharded:
+    """The training mixer inside a shard group, ``x`` (B, T, D) and the
+    output in the residual's layout.
+
+    Where the model axis (n ranks) divides the SSD heads, shard m takes
+    heads [m·H/n, (m + 1)·H/n): in_proj column-parallel over its local
+    columns, the projection then gathered whole (its columns are split
+    where they fall, not at the z | x | B | C | dt boundaries) and each
+    shard cutting its z, x and dt and the whole B and C; the conv over
+    its x channels and B | C, with conv_w and conv_b gathered; K4 on its
+    heads; the gated RMSNorm's sum of squares over d_inner summed over
+    the model axis (fp32, ascending rank); out_proj row-parallel, its
+    partial output reduce-scattered onto the residual's layout. B and C
+    feed every shard's K4, so each shard's backward gives a partial dB
+    and dC, summed by the gather's transpose (a reduce-scatter in
+    ascending rank). Where the axis does not divide the heads, or there
+    is none, every shard runs :func:`mamba_fwd` on the sequence and the
+    weights gathered: its output is a copy on every model shard, cut to
+    the residual's layout, in no sum over that axis."""
+    g = x.group
+    tp_axes = tuple(axis_map().get("tp", ()))
+    n = axis_size("tp")
+    xg = shard(x, "dp", None, None)
+    if n == 1 or not _tp_ok(cfg):
+        w = {k: spmd.gather_whole(v) for k, v in p.items()}
+        y = Sharded(g, g.map(lambda x, mp: mamba_fwd(mp, x, cfg)[0], xg, w),
+                    (xg.spec[0], (), ()))
+        return shard(y, "dp", "sp", None)
+    di, ng, ns, hh, _ = _dims(cfg)
+    hd = cfg.ssm_headdim
+    hl, dl = hh // n, di // n
+    gn = ng * ns
+    proj = _col(xg, p["in_proj"])
+    proj = spmd.redistribute(proj, (proj.spec[0], (), ()))
+    conv_w, conv_b = (spmd.gather_whole(p[k]) for k in ("conv_w", "conv_b"))
+
+    def mixer(r):
+        m = g.chunk(r, tp_axes)[0]
+        zx = proj.locals[r]
+        b, t, _ = zx.shape
+        z = zx[..., m * dl:(m + 1) * dl]
+        xin = zx[..., di + m * dl:di + (m + 1) * dl]
+        bc = zx[..., 2 * di:2 * di + 2 * gn]
+        d0 = 2 * di + 2 * gn + m * hl
+        dtp = zx[..., d0:d0 + hl]
+        cw, cb = conv_w.locals[r], conv_b.locals[r]
+        conv = _causal_conv(
+            torch.cat([xin, bc], dim=-1),
+            torch.cat([cw[:, m * dl:(m + 1) * dl], cw[:, di:]], dim=-1),
+            torch.cat([cb[m * dl:(m + 1) * dl], cb[di:]]))
+        conv = F.silu(conv.float()).to(zx.dtype)
+        xc = conv[..., :dl]
+        Bc = conv[..., dl:dl + gn].reshape(b, t, ng, ns)
+        Cc = conv[..., dl + gn:].reshape(b, t, ng, ns)
+        heads = slice(m * hl, (m + 1) * hl)
+        # dt_bias, A_log and D are whole on every shard (mamba_logical)
+        dt = F.softplus(dtp.float() + p["dt_bias"].locals[r][heads])
+        A = -torch.exp(p["A_log"].locals[r][heads])
+        xh = xc.reshape(b, t, hl, hd)
+        y = ops.ssd(xh, dt, A, Bc, Cc)
+        D = p["D"].locals[r][heads]
+        y = y + (D[None, None, :, None] * xh.float()).to(y.dtype)
+        y = (y.reshape(b, t, dl).float() * F.silu(z.float())).to(zx.dtype)
+        yf = y.float()
+        return y, torch.sum(yf * yf, dim=-1, keepdim=True)
+
+    parts = g.per_rank(mixer)
+    ssq = spmd.all_reduce([q[1] for q in parts], g, tp_axes)
+    norm_w = spmd.redistribute(p["norm_w"], (tp_axes,))
+
+    def norm(r):
+        y = parts[r][0]
+        out = y.float() * torch.rsqrt(ssq[r] / di + cfg.norm_eps)
+        return (out * (1.0 + norm_w.locals[r].float())).to(y.dtype)
+
+    y = Sharded(g, g.per_rank(norm), (xg.spec[0], (), tp_axes))
+    return shard(_row(y, p["out_proj"]), "dp", "sp", None)

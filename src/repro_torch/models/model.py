@@ -195,7 +195,7 @@ def _embed_spmd(emb: Sharded, batch, cfg: ArchConfig) -> Sharded:
         return torch.where(mine[..., None], e[i.clamp(0, n_v - 1)],
                            e.new_zeros(()))
 
-    h = Sharded(g, [look(r) for r in range(g.n)],
+    h = Sharded(g, g.per_rank(look),
                 (tok.spec[0], (), emb.spec[1]), partial=vax)
     if cfg.scale_embed:
         h = h.map(lambda x: x * torch.tensor(cfg.d_model ** 0.5,
@@ -212,8 +212,8 @@ def _xent_chunk_spmd(head_w: Sharded, h_c: Sharded, labels_c: Sharded,
     holds it (an all-reduce of it and zeros)."""
     g = h_c.group
     vax, n_v = head_w.spec[0], head_w.locals[0].shape[0]
-    lses, lls = [], []
-    for r in range(g.n):
+
+    def part(r):
         v0 = g.chunk(r, vax)[0] * n_v
         logits = (h_c.locals[r] @ head_w.locals[r].T).float()
         if cfg.final_softcap:
@@ -222,21 +222,25 @@ def _xent_chunk_spmd(head_w: Sharded, h_c: Sharded, labels_c: Sharded,
         logits = logits.masked_fill_(
             torch.arange(v0, v0 + n_v, device=logits.device) >= cfg.vocab,
             -1e30)
-        lses.append(torch.logsumexp(logits, dim=-1))
+        lse = torch.logsumexp(logits, dim=-1)
         i = labels_c.locals[r].long() - v0
         mine = (i >= 0) & (i < n_v)
         ll = logits.gather(-1, i.clamp(0, n_v - 1)[..., None])[..., 0]
-        lls.append(torch.where(mine, ll, 0.0))
+        return lse, torch.where(mine, ll, 0.0)
+    parts = g.per_rank(part)
+    lses = [p[0] for p in parts]
+    lls = [p[1] for p in parts]
     if vax:
-        lses = [torch.logsumexp(x, dim=0) for x in
-                spmd.all_gather([x[None] for x in lses], g, vax, 0)]
+        lses = spmd.all_gather(g.per_rank(lambda r: lses[r][None]), g, vax,
+                               0)
+        lses = g.per_rank(lambda r: torch.logsumexp(lses[r], dim=0))
         lls = spmd.all_reduce(lls, g, vax)
-    ls, ws = [], []
-    for r in range(g.n):
+
+    def sums(r):
         w = w_c.locals[r].float()
-        ls.append(torch.sum((lses[r] - lls[r]) * w))
-        ws.append(torch.sum(w))
-    return Sharded(g, ls), Sharded(g, ws)
+        return torch.sum((lses[r] - lls[r]) * w), torch.sum(w)
+    parts = g.per_rank(sums)
+    return Sharded(g, [p[0] for p in parts]), Sharded(g, [p[1] for p in parts])
 
 
 def _xent_sums_spmd(head_w: Sharded, h: Sharded, labels: Sharded,
@@ -253,13 +257,15 @@ def _xent_sums_spmd(head_w: Sharded, h: Sharded, labels: Sharded,
         chunk //= 2
 
     def cut(s, c0):
-        return s.with_locals([x[:, c0:c0 + chunk] for x in s.locals])
+        return s.map(lambda x: x[:, c0:c0 + chunk])
 
     loss_sum = w_sum = None
     for c0 in range(0, t, chunk):
-        ls, ws = checkpoint(_xent_chunk_spmd, head_w, cut(hg, c0),
-                            cut(labels, c0), cut(weights, c0), cfg,
-                            use_reentrant=False)
+        with spmd.whole_recompute(hg):
+            ls, ws = checkpoint(_xent_chunk_spmd, head_w, cut(hg, c0),
+                                cut(labels, c0), cut(weights, c0), cfg,
+                                use_reentrant=False,
+                                **spmd.group_checkpoint(hg, {}))
         loss_sum = ls if loss_sum is None else loss_sum.map(torch.add, ls)
         w_sum = ws if w_sum is None else w_sum.map(torch.add, ws)
     rows = labels.spec[0]
@@ -301,9 +307,11 @@ def lm_loss(params, h, labels, weights, cfg: ArchConfig):
 
 
 def split_batch(batch, group: "spmd.ShardGroup"):
-    """Each (B, ...) entry of a batch split by rows over dp."""
-    return {k: spmd.split(v, spec_for(tuple(v.shape), ("dp",), group.mesh),
-                          group) for k, v in batch.items()}
+    """Each (B, ...) entry of a batch split by rows over dp (an entry
+    that comes split as it is)."""
+    return {k: v if isinstance(v, Sharded) else spmd.split(
+        v, spec_for(tuple(v.shape), ("dp",), group.mesh), group)
+        for k, v in batch.items()}
 
 
 def shard_step_inputs(params, batch, cfg: ArchConfig, group):
@@ -316,6 +324,28 @@ def shard_step_inputs(params, batch, cfg: ArchConfig, group):
     return params, split_batch(batch, group)
 
 
+def pin_fsdp_top(params, cfg: ArchConfig):
+    """The ZeRO-3 leaves outside the stack (``fsdp_params``: the
+    embedding, the head, the final norm) gathered over the zero axes to
+    their plain-TP layout, as the stack's periods are
+    (``transformer._pin_fsdp``); the stack as it is."""
+    if not cfg.fsdp_params:
+        return params
+    mesh, logical = ambient_mesh(), params_logical(cfg)
+    return {k: v if k == "stack" else spmd.redistribute(
+        v, spec_for(tuple(v.shape), logical[k], mesh))
+        for k, v in params.items()}
+
+
+def step_group() -> "spmd.ShardGroup":
+    """The running shard group where its mesh is the ambient one (a dry
+    run opens a representative group), else a new group of the ambient
+    mesh."""
+    g = spmd.current_group()
+    mesh = ambient_mesh()
+    return g if g is not None and g.mesh is mesh else spmd.ShardGroup(mesh)
+
+
 def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
     """Scalar training loss and its parts: the xent, plus ``MOE_AUX_WEIGHT``
     x the MoE load-balance aux / n_layers for an MoE config. As in the
@@ -323,8 +353,9 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
     shards inside the stage, each shard's program in a shard group; the
     values returned are rank 0's."""
     if spmd.in_stage_mesh():
-        with spmd.running(spmd.ShardGroup(ambient_mesh())) as g:
+        with spmd.running(step_group()) as g:
             params, sb = shard_step_inputs(params, batch, cfg, g)
+            params = pin_fsdp_top(params, cfg)
             h, _, aux = forward(params, sb, cfg, mode="train", remat=remat)
             ls, ws = xent_sums(_head_weight(params), h, sb["labels"],
                                sb["loss_weights"], cfg)

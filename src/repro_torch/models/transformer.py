@@ -25,10 +25,11 @@ shard group (``dist/spmd.py``) the stack runs on ``spmd.Sharded`` values:
 the residual split by rows over the data axes and by sequence over the
 model axis between blocks (a dim the axis does not divide stays whole),
 gathered along the sequence before the column products and
-reduce-scattered after the row products. Still raising there (ROADMAP
-A23): Mamba mixers under a model axis (the reference's ``_tp_ok`` path),
-prefill and decode, and ``_pin_fsdp`` for ``fsdp_params`` archs under any
-ambient mesh.
+reduce-scattered after the row products; a Mamba mixer runs
+``mamba.mamba_fwd_spmd``; ZeRO-3 weights (``fsdp_params``) are gathered a
+period at a time inside the period's checkpoint (:func:`_pin_fsdp`).
+Still raising there (ROADMAP A23): prefill and decode with sharded
+caches, and ZeRO-3 weights as tensors outside a shard group.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import resolve_device
 from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
-                                       axis_size, map_logical, shard)
+                                       axis_size, map_logical, shard,
+                                       spec_for)
 from repro_torch.dist.spmd import Sharded
 from repro_torch.models import layers as L
 from repro_torch.kernels import ops
@@ -128,11 +130,7 @@ def _block_fwd_spmd(p, h: Sharded, cfg: ArchConfig, spec: LayerSpec, *,
         raise spmd.not_ported(f"{mode} with sharded caches")
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
-        if axis_size("tp") > 1:
-            raise spmd.not_ported("Mamba's tensor parallelism (the "
-                                  "reference's _tp_ok path)")
-        y = x.map(lambda x, mp: M.mamba_fwd(mp, x, cfg, mode=mode)[0],
-                  p["mixer"])
+        y = M.mamba_fwd_spmd(p["mixer"], x, cfg)
     else:
         y, _ = L.attention_fwd(p["mixer"], x, cfg,
                                local=(spec.mixer == "attn_local"),
@@ -220,14 +218,35 @@ def stack_logical(cfg: ArchConfig):
 
 
 def _pin_fsdp(pparams, cfg: ArchConfig):
-    """The reference re-asserts ZeRO-3 sharding on each period's weights
-    under an ambient mesh for ``fsdp_params`` archs; the port raises there
-    (ROADMAP A23) and otherwise returns the weights."""
+    """One period's ZeRO-3 weights (``fsdp_params``) in a shard group,
+    gathered over the zero axes to the plain-TP layout (the reference's
+    pin, ``transformer.py:141-172``): called inside the period's
+    checkpoint, so each period's weights are gathered where the period
+    runs, freed after it, and gathered again by its recompute; the whole
+    stack is never gathered. A leaf whose stack is split along the periods
+    (a bias whose only free dim is theirs) arrives as
+    ``spmd.PeriodSlice`` and is taken from its owner first. The
+    gathers' transposes reduce-scatter the gradients into each rank's
+    own chunk. Tensors under an ambient mesh whose zero axes would split
+    them still raise (ROADMAP A23: in-stage axes inside ``MeshBackend``
+    stages)."""
     mesh = ambient_mesh()
     if mesh is None or not cfg.fsdp_params:
         return pparams
-    raise NotImplementedError(
-        f"{IN_STAGE_SHARDING}: fsdp_params weights of {cfg.name} on {mesh}")
+    logical = {f"l{i}": block_logical(cfg, spec)
+               for i, spec in enumerate(cfg.layer_pattern)}
+    if not spmd.tree_is_sharded(pparams):
+        if axis_size("zero", mesh) == 1:
+            return pparams
+        raise NotImplementedError(
+            f"{IN_STAGE_SHARDING}: fsdp_params weights of {cfg.name} on "
+            f"{mesh} outside a shard group")
+
+    def pin(lg, w):
+        if isinstance(w, spmd.PeriodSlice):
+            w = w.take()
+        return spmd.redistribute(w, spec_for(tuple(w.shape), lg, mesh))
+    return map_logical(pin, logical, pparams)
 
 
 def _periods(params, n_periods):
@@ -235,7 +254,7 @@ def _periods(params, n_periods):
     so under autograd the backward stacks its period gradients a single
     time (``x[i]`` per period would scatter each into a zero-filled
     gradient of the whole stack)."""
-    unbound = tree_map(spmd.unbind0 if spmd.tree_is_sharded(params)
+    unbound = tree_map(spmd.periods if spmd.tree_is_sharded(params)
                        else (lambda x: x.unbind(0)), params)
     return [tree_map(lambda xs, i=i: xs[i], unbound) for i in range(n_periods)]
 
@@ -272,6 +291,7 @@ def _period_fwd(pparams, h, cfg: ArchConfig, positions, segment_ids,
                 caches, cache_pos, mode):
     """One period's blocks: ``(h, aux)``, aux summed over its MoE layers
     (None where it has none)."""
+    pparams = _pin_fsdp(pparams, cfg)
     aux = None
     for j, spec in enumerate(cfg.layer_pattern):
         h, _, a = block_fwd(
@@ -281,7 +301,8 @@ def _period_fwd(pparams, h, cfg: ArchConfig, positions, segment_ids,
             cache_pos=cache_pos, mode=mode,
         )
         if a is not None:
-            aux = a if aux is None else aux + a
+            aux = (a if aux is None else aux.map(torch.add, a)
+                   if isinstance(a, Sharded) else aux + a)
     return h, aux
 
 
@@ -295,24 +316,25 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
     ckpt = _remat(cfg) if remat else None
     auxs = []
     for i, pparams in enumerate(_periods(params, cfg.n_periods)):
-        pparams = _pin_fsdp(pparams, cfg)
         caches = (None if cache is None else
                   [{name: c[i] for name, c in lc.items()} for lc in cache])
         if ckpt is not None:
-            h, aux = checkpoint(_period_fwd, pparams, h, cfg, positions,
-                                segment_ids, caches, cache_pos, mode,
-                                use_reentrant=False, **ckpt)
+            with spmd.whole_recompute(h):
+                h, aux = checkpoint(_period_fwd, pparams, h, cfg, positions,
+                                    segment_ids, caches, cache_pos, mode,
+                                    use_reentrant=False,
+                                    **spmd.group_checkpoint(h, ckpt))
         else:
             h, aux = _period_fwd(pparams, h, cfg, positions, segment_ids,
                                  caches, cache_pos, mode)
         if aux is not None:
             auxs.append(aux)
     if isinstance(h, Sharded):
-        zero = h.with_locals([torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
-                              for x in h.locals], spec=())
-        aux = (zero if not auxs else zero.with_locals(
-            [torch.stack(a).sum() for a in zip(*(x.locals for x in auxs))]))
+        g = h.group
+        aux = Sharded(g, g.map(lambda x: torch.zeros(
+            (), dtype=torch.float32, device=x.device), h) if not auxs else
+            g.per_rank(lambda r: torch.stack([a.locals[r] for a in auxs])
+                       .sum()))
         return h, cache, aux
     aux = (torch.stack(auxs).sum() if auxs else
            torch.zeros((), dtype=torch.float32, device=h.device))

@@ -107,3 +107,62 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
         _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg)
     state["step"] = step
     return params, state, {"grad_norm": gnorm}
+
+
+def sharded_adamw_update(sparams, grads, state, cfg: AdamWConfig):
+    """:func:`adamw_update` in a shard group: ``sparams`` and ``grads``
+    trees of ``spmd.Sharded`` in the params' layouts, ``state``'s
+    ``master``, ``m`` and ``v`` in their ZeRO-1 layouts (ZeRO-3 params
+    share them). Each rank updates its own chunk of each leaf, in place;
+    where the params' layout holds more than that chunk, the updated
+    chunks are gathered over the zero axes into it (cast to the params'
+    dtype), as ZeRO-1's all-gather does. The global norm sums each
+    chunk's squares once (divided by its copies), then over every rank
+    (one all-reduce). Returns ``(sparams, state, metrics)``."""
+    from repro_torch.dist import spmd
+
+    p_l, g_l = leaves(sparams), leaves(grads)
+    ma_l, m_l, v_l = (leaves(state[k]) for k in ("master", "m", "v"))
+    group = p_l[0].group
+
+    def own(r, p, g, z):
+        """Rank r's zero chunk of g, a view of its local."""
+        x = g.locals[r]
+        shape = p.shape
+        for (d, ps, _), (_, zs, zn) in zip(
+                spmd._chunk_slices(group, r, p.spec, shape),
+                spmd._chunk_slices(group, r, z.spec, shape)):
+            if zn != x.shape[d]:
+                x = x.narrow(d, zs - ps, zn)
+        return x
+
+    def sumsq(r):
+        tot = None
+        for p, g, z in zip(p_l, g_l, m_l):
+            copies = spmd._size(group, spmd.replica_axes(z))
+            sq = torch.linalg.vector_norm(own(r, p, g, z),
+                                          dtype=torch.float32) ** 2 / copies
+            tot = sq if tot is None else tot + sq
+        return tot
+    total = spmd.all_reduce(group.per_rank(sumsq), group, group.axis_names)
+    gnorm = torch.sqrt(total[0])
+    scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                        max=1.0)
+    step = state["step"] + 1
+    b1c, b2c = 1.0 - cfg.b1 ** step, 1.0 - cfg.b2 ** step
+    for p, g, ma, m, v in zip(p_l, g_l, ma_l, m_l, v_l):
+        same = p.spec == ma.spec
+
+        def upd(r, p=p, g=g, ma=ma, m=m, v=v, same=same):
+            sc = scale.to(g.locals[r].device)
+            _update_leaf(p.locals[r] if same else None, own(r, p, g, ma),
+                         m.locals[r], v.locals[r], ma.locals[r], sc, b1c,
+                         b2c, cfg)
+        group.per_rank(upd)
+        if not same:
+            cast = ma.map(lambda x, dt=p.dtype: x.to(dt))
+            new = spmd.redistribute(cast, p.spec)
+            group.per_rank(lambda r, p=p, new=new:
+                           p.locals[r].copy_(new.locals[r]))
+    state["step"] = step
+    return sparams, state, {"grad_norm": gnorm}

@@ -79,11 +79,11 @@ def _grad_mb_spmd(cfg: ArchConfig, params, batch):
     params' layouts), each summed over the ranks that hold copies of its
     slice in ascending rank; the sums are rank 0's."""
     from repro_torch.dist import spmd
-    from repro_torch.dist.sharding import ambient_mesh
-    with spmd.running(spmd.ShardGroup(ambient_mesh())) as g:
+    with spmd.running(MD.step_group()) as g:
         sparams, sb = MD.shard_step_inputs(params, batch, cfg, g)
 
         def f(p):
+            p = MD.pin_fsdp_top(p, cfg)
             h, _, _ = MD.forward(p, sb, cfg, mode="train")
             ls, ws = MD.xent_sums(MD._head_weight(p), h, sb["labels"],
                                   sb["loss_weights"], cfg)

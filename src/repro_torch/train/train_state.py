@@ -54,9 +54,9 @@ def params_spec_tree(cfg: ArchConfig, params_shapes, mesh):
 def shard_params(params, cfg: ArchConfig, mesh: Mesh):
     """``params`` split over ``mesh``'s devices by
     :func:`params_spec_tree`: a tree of ``spmd.Sharded``. ZeRO-3 weights
-    (``fsdp_params``) are not ported (ROADMAP A23)."""
-    if cfg.fsdp_params:
-        raise spmd.not_ported(f"the fsdp_params weights of {cfg.name}", mesh)
+    (``fsdp_params``) are stored by their ZeRO spec, as the reference's
+    ``_param_spec`` places them; the stack gathers each period's to the
+    plain-TP layout where it runs (``transformer._pin_fsdp``)."""
     return spmd.split_tree(params, params_spec_tree(cfg, params, mesh),
                            spmd.ShardGroup(mesh))
 
@@ -84,3 +84,17 @@ def state_spec_tree(cfg: ArchConfig, st_shapes, mesh):
             lambda lg, sh: spec_for(tuple(sh.shape), tuple(lg), mesh),
             logical, params)
     return {"params": params_spec_tree(cfg, params, mesh), "opt": opt}
+
+
+def shard_state(state, cfg: ArchConfig, mesh: Mesh):
+    """A whole train state split over ``mesh``'s devices by
+    :func:`state_spec_tree`: the params as :func:`shard_params` splits
+    them, ``master``, ``m`` and ``v`` by their ZeRO-1 specs, the step
+    as it is (``optimizer.sharded_adamw_update`` takes it)."""
+    group = spmd.ShardGroup(mesh)
+    specs = state_spec_tree(cfg, state, mesh)
+    opt = {"step": state["opt"]["step"]}
+    for k in ("master", "m", "v"):
+        opt[k] = spmd.split_tree(state["opt"][k], specs["opt"][k], group)
+    return {"params": spmd.split_tree(state["params"], specs["params"],
+                                      group), "opt": opt}

@@ -1528,3 +1528,79 @@ def test_spmd_step_on_a_mesh_of_the_card_matches_the_meshfree_step(
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for (_, a), (_, b) in
                zip(flatten(g1), flatten(g2)))
+
+
+# ----------------------------------------------------------------------
+# Mamba's tensor parallelism: K4 and its backward on each shard's heads
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("b,t,h,p,g,n", [
+    (1, 2048, 6, 64, 1, 128),      # mamba2-130m's 24 heads over 4 shards
+    (1, 2048, 32, 128, 1, 128),    # jamba's 128 heads over 4 shards
+])
+def test_ssd_kernels_at_the_shard_shapes_match_plain_versions(cuda, b, t, h,
+                                                              p, g, n):
+    args = _ssd_inputs(cuda, b, t, h, p, g, n)
+    ops.reset_launch_counts()
+    y, st, _ = SSD._ssd_cuda(*args, chunk_states=True)
+    y_ref, st_ref = tref.ssd_ref_chunked(*args)
+    torch.testing.assert_close(y.float(), y_ref.float(), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+    torch.testing.assert_close(st, st_ref, atol=SSD_TOL, rtol=SSD_TOL)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    dy = torch.randn((b, t, h, p), generator=gen, device=cuda
+                     ).to(torch.bfloat16)
+    got, want = _ssd_bwd_both(args, dy)
+    assert ops.launch_counts()["ssd_backward"] == 1
+    for name, o, w in zip(SSD_NAMES, got, want):
+        if name == "d_initial":
+            continue
+        rel = (_whole_rel(o, w) if name == "dA" else _per_chunk_rel(o, w))
+        assert rel <= 1e-2, (name, rel)
+
+
+def test_mamba_tp_step_on_a_mesh_of_the_card_matches_the_meshfree_step(
+        cuda):
+    """The reduced mamba2-130m step on a (1, 2) mesh of ``cuda:0`` (each
+    shard K4 and its backward on 4 of the 8 heads) against the step with
+    no mesh: twice the launches, the gradients leaf by leaf, and two runs
+    equal to the bit."""
+    import dataclasses
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.pipeline_adapter import build_grad_step
+    from repro_torch.train.train_state import join_params
+    from repro_torch.tree import flatten
+    cfg = SV.make_config("mamba2-130m", "reduced", 2)
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    r = np.random.default_rng(0)
+    batch = _to({k: torch.from_numpy(v) for k, v in {
+        "tokens": r.integers(0, cfg.vocab, (2, 128)).astype(np.int32),
+        "labels": r.integers(0, cfg.vocab, (2, 128)).astype(np.int32),
+        "loss_weights": np.ones((2, 128), np.float32),
+        "positions": np.tile(np.arange(128, dtype=np.int32), (2, 1)),
+        "segment_ids": np.zeros((2, 128), np.int32)}.items()}, cuda)
+    step = build_grad_step(cfg)
+    ops.reset_launch_counts()
+    l0, w0, g0 = step(params, batch)
+    free = dict(ops.launch_counts())
+    mesh = make_mesh((1, 2), ("data", "model"), devices=["cuda:0"] * 2)
+    runs = []
+    for _ in range(2):
+        ops.reset_launch_counts()
+        with set_mesh(mesh):
+            ls, ws, g = step(params, batch)
+        runs.append((ls, ws, join_params(g), dict(ops.launch_counts())))
+    (l1, w1, g1, c1), (l2, _, g2, _) = runs
+    assert free["ssd_chunked"] == 2 * cfg.n_layers
+    assert c1 == {k: 2 * v for k, v in free.items()}
+    assert float(w1) == float(w0)
+    torch.testing.assert_close(l1, l0, atol=GRAD_TOL, rtol=GRAD_TOL)
+    # by norm per leaf within SSD_TOL: the row-parallel out_proj rounds
+    # each shard's partial to bf16 before the sum (about 2e-2 at this
+    # width on the CPU)
+    for (_, a), (_, b) in zip(flatten(g1), flatten(g0)):
+        assert _whole_rel(a, b) <= SSD_TOL
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(flatten(g1), flatten(g2)))

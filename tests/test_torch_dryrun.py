@@ -25,8 +25,14 @@ CPU, for reduced configs at seq 128 and batch 8 (U = B·H·T·S·D):
 - in one 4-device reference subprocess, gpt-paper on a (4, 1) mesh
   (argument bytes equal, FLOPs exactly a quarter of (1, 1)'s, the
   gradients' all-reduce and the ZeRO-1 all-gather within 1% of the
-  reference's link bytes) and on a (2, 2) mesh, which the port records as
-  not ported (ROADMAP A23) with the reference's argument bytes;
+  reference's link bytes); gpt-paper and mamba2-130m train cells on (2, 2)
+  and (1, 4), traced in a shard group on ``meta`` (argument bytes equal
+  to the byte, FLOPs per device the reference's related as on (1, 1) at
+  the shard's share, within 1%, each term where the two programs do
+  different work named; link bytes printed beside the reference's); and
+  gpt-paper's prefill on (2, 2), which the port records as not ported
+  (ROADMAP A23) with the reference's argument bytes;
+- a representative rank's trace against a trace of every rank on (2, 2);
 - the CLI once, into a temporary directory.
 """
 import functools
@@ -263,17 +269,22 @@ from repro.configs.base import get_arch, reduced, ShapeSpec
 from repro.launch import dryrun as JD, hlo_cost as JH
 from repro.launch.mesh import make_mesh
 from repro.train.optimizer import AdamWConfig
-cfg = reduced(get_arch("gpt-paper"))
 out = {}
-for mesh_shape, kinds in (((4, 1), ("train", "prefill", "decode")),
-                          ((2, 2), ("train",))):
+for arch, mesh_shape, kinds in (
+        ("gpt-paper", (4, 1), ("train", "prefill", "decode")),
+        ("gpt-paper", (2, 2), ("train", "prefill")),
+        ("gpt-paper", (1, 4), ("train",)),
+        ("mamba2-130m", (2, 2), ("train",)),
+        ("mamba2-130m", (1, 4), ("train",))):
+    cfg = reduced(get_arch(arch))
     mesh = make_mesh(mesh_shape, ("data", "model"))
     for kind in kinds:
         with jax.set_mesh(mesh):
             c = JD._lower_cell(cfg, ShapeSpec(kind + "_t", kind, 128, 8),
                                mesh, AdamWConfig()).compile()
         hc = JH.analyze(c.as_text())
-        out["%dx%d-%s" % (*mesh_shape, kind)] = {
+        key = "%dx%d-%s" % (*mesh_shape, kind)
+        out[key if arch == "gpt-paper" else arch + "-" + key] = {
             "args": c.memory_analysis().argument_size_in_bytes,
             "flops": hc.flops, "link": hc.coll_link_bytes}
 print("RESULT", json.dumps(out))
@@ -308,13 +319,114 @@ def test_gpt_paper_on_four_data_devices(reference_meshes, kind):
     assert rec["collectives_trip_aware"] == rec["collectives"]
 
 
+def _mamba_train_terms(cfg):
+    """The terms of mamba2's train FLOPs at (1, 1) where the port and the
+    reference differ (see test_cell_matches_reference): K4 twice and its
+    backward against the oracle's products; the depthwise convolution,
+    whose two gradients the reference's hlo_cost counts as dense C x C
+    convolutions; the loss's logits product, which the port runs twice."""
+    b, t, h = BATCH, SEQ, cfg.ssm_heads
+    p, n = cfg.ssm_headdim, cfg.ssm_state
+    conv_ch = cfg.d_inner + 2 * cfg.ssm_groups * n
+    oracle = 2 * b * t * t * h * n + 2 * b * t * t * h * p
+    conv = 2 * b * t * conv_ch * cfg.ssm_conv
+    conv_grads = 2 * (2 * b * t * cfg.ssm_conv * conv_ch ** 2)
+    return oracle, conv, conv_grads
+
+
+@pytest.mark.parametrize("arch,mesh", [("gpt-paper", "2x2"),
+                                       ("gpt-paper", "1x4"),
+                                       ("mamba2-130m", "2x2"),
+                                       ("mamba2-130m", "1x4")])
+def test_train_cell_on_a_model_axis_matches_reference(reference_meshes,
+                                                      arch, mesh, capsys):
+    """A train cell on a mesh with a model axis, traced in a shard group
+    on ``meta`` at one device's share, against the reference's compiled
+    GSPMD program on the same mesh. FLOPs per device: the (1, 1)
+    relation at the shard's share (1/4 on these 4-device meshes), with
+    two terms where the programs do different work: the port's period
+    checkpoint recomputes each period's last product (the recompute runs
+    the whole period in a shard group: ``spmd.whole_recompute``), and the
+    reference's partitioned loss computes its vocabulary-sharded logits
+    product once more than its (1, 1) program does."""
+    cfg = reduced(get_arch(arch))
+    key = (f"{mesh}-train" if arch == "gpt-paper"
+           else f"{arch}-{mesh}-train")
+    ref = reference_meshes[key]
+    d, m = (int(x) for x in mesh.split("x"))
+    n_dev = d * m
+    rec = _port_record(arch, "train", mesh)
+    _, ref11 = _reference(arch, "train")
+    assert rec["n_chips"] == n_dev and "not_ported" not in rec
+    assert rec["memory"]["argument_bytes"] == ref["args"]
+    tokens = BATCH * SEQ
+    logits = 2 * tokens * cfg.vocab * cfg.d_model
+    if cfg.has_mamba:
+        # the period's last product: out_proj
+        last = 2 * tokens * cfg.d_inner * cfg.d_model
+        oracle, conv, conv_grads = _mamba_train_terms(cfg)
+        g = cfg.ssm_groups
+        _, tiles = bwd_plan(BATCH, SEQ, cfg.ssm_heads, g, sm_count("meta"))
+        k4, _ = ssd_cost(BATCH, SEQ, cfg.ssm_heads, cfg.ssm_headdim,
+                         cfg.ssm_state)
+        bwd, _ = ssd_bwd_cost(BATCH, SEQ, cfg.ssm_heads, cfg.ssm_headdim,
+                              cfg.ssm_state, g, tiles)
+        layers = cfg.n_layers
+        port11 = ref11 + layers * (2 * k4 + bwd - 4 * oracle - 2 * conv
+                                   - conv_grads) + logits
+        # the reference's dense convolution gradients split over the
+        # channels on both sides: (C/m)² a device, not C²/m
+        ref_dev = (ref11 - layers * conv_grads) / n_dev \
+            + layers * conv_grads / (d * m * m) + logits / n_dev
+        assert math.isclose(ref["flops"], ref_dev, rel_tol=0.01)
+        want = port11 / n_dev + layers * last / n_dev
+        assert rec["cost"]["launches"] == {"ssd_chunked": 2 * layers,
+                                           "ssd_backward": layers}
+    else:
+        last = 2 * tokens * cfg.d_ff * cfg.d_model       # the MLP's w_out
+        n_attn = _attn_layers(cfg)
+        ref_dev = ref["flops"] - logits / n_dev
+        assert math.isclose(ref_dev, ref11 / n_dev, rel_tol=0.01)
+        want = (ref11 + 6 * _u(cfg) * n_attn) / n_dev \
+            + cfg.n_periods * last / n_dev
+        assert rec["cost"]["launches"] == {"mha_forward": 2 * n_attn,
+                                           "mha_backward": n_attn}
+    assert math.isclose(rec["cost"]["flops_per_device"], want, rel_tol=0.01)
+    link = rec["collectives"]["link_bytes"]
+    with capsys.disabled():
+        print(f"\n{arch} {mesh} collective link bytes per device, port vs "
+              f"reference: " + ", ".join(
+                  f"{k} {link.get(k, 0):.0f} / {ref['link'].get(k, 0):.0f}"
+                  for k in sorted(set(link) | set(ref["link"])))
+              + f"; total ratio {sum(link.values()) / sum(ref['link'].values()):.3f}")
+    assert rec["collectives"]["counts"] and sum(link.values()) > 0
+
+
+@pytest.mark.parametrize("arch", ["gpt-paper", "mamba2-130m", "qwen1.5-110b"])
+def test_representative_rank_equals_every_rank(arch):
+    """On (2, 2) the trace of rank 0 alone, its values standing in for
+    the other ranks', counts what a trace of all four ranks counts for
+    rank 0."""
+    cfg = reduced(get_arch(arch))
+    got = []
+    for rep in (True, False):
+        tr = D._lower_cell_group(cfg, _shape("train"), D.parse_mesh("2x2"),
+                                 AdamWConfig(), representative=rep)
+        s = tr.summary
+        got.append((s.flops, s.hbm_bytes, dict(s.launches),
+                    dict(s.coll_counts), dict(s.coll_link_bytes),
+                    tr.peak_bytes, tr.argument_bytes, tr.output_bytes))
+    assert got[0] == got[1]
+    assert got[0][0] > 0 and got[0][2]
+
+
 def test_model_axis_cell_records_state_bytes_only(reference_meshes):
-    rec = _port_record("gpt-paper", "train", "2x2")
+    rec = _port_record("gpt-paper", "prefill", "2x2")
     assert rec["cost"] is None and rec["not_ported"] == "ROADMAP A23"
-    assert rec["memory"]["argument_bytes"] == reference_meshes["2x2-train"][
-        "args"]
+    assert rec["memory"]["argument_bytes"] == reference_meshes[
+        "2x2-prefill"]["args"]
     with pytest.raises(NotImplementedError, match="A23"):
-        D._lower_cell(reduced(get_arch("gpt-paper")), _shape("train"),
+        D._lower_cell(reduced(get_arch("gpt-paper")), _shape("prefill"),
                       D.parse_mesh("2x2"), AdamWConfig())
 
 
@@ -356,3 +468,24 @@ def test_cli_writes_records(tmp_path, capsys, monkeypatch):
     with pytest.raises(SystemExit):
         D.main(["--arch", "no-such-arch", "--shape", "decode_32k",
                 "--out", str(tmp_path)])
+
+
+def test_cli_prices_a_zero3_train_cell_on_the_production_mesh(tmp_path,
+                                                              capsys):
+    """qwen1.5-110b's train_4k on the 16x16 production mesh (ZeRO-3
+    weights, a model axis of 16): the CLI traces rank 0 of a shard group
+    on meta and records a cost, its collectives the group's own (about 12
+    s on the CPU)."""
+    D.main(["--arch", "qwen1.5-110b", "--shape", "train_4k", "--mesh",
+            "single", "--out", str(tmp_path)])
+    assert "ALL DRY-RUN CELLS PASSED" in capsys.readouterr().out
+    rec = json.loads((tmp_path / "qwen1.5-110b__train_4k__16x16.json")
+                     .read_text())
+    assert "not_ported" not in rec and rec["n_chips"] == 256
+    n_attn = get_arch("qwen1.5-110b").n_layers
+    assert rec["cost"]["launches"] == {"mha_forward": 2 * n_attn,
+                                       "mha_backward": n_attn}
+    assert rec["cost"]["flops_per_device"] > 0
+    assert set(rec["collectives"]["counts"]) == {"all-gather", "all-reduce",
+                                                 "reduce-scatter"}
+    assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]

@@ -53,13 +53,26 @@ LOSS_CASES = {
     "qwen-attn-tp-off-2x2": ("qwen2.5-32b", (2, 2), {"attn_tp": False}),
     "qwen-pad-heads-1x8": ("qwen2.5-32b", (1, 8), {"pad_heads": True}),
     "gemma2-pure-dp-2x4": ("gemma2-2b", (2, 4), {"pure_dp": True}),
+    # Mamba's tensor parallelism: 8 heads on a model axis of 4 (each
+    # shard K4 on 2 heads), and 4 heads of P 32 on 8, which do not divide
+    # it (every model shard runs the whole mixer)
+    "mamba-tp-2x4": ("mamba2-130m", (2, 4), {}),
+    "mamba-heads-undivided-1x8": ("mamba2-130m", (1, 8), {"ssm_headdim": 32}),
+    # ZeRO-3 weights (fsdp_params), gathered a period at a time
+    "qwen110-fsdp-2x4": ("qwen1.5-110b", (2, 4), {}),
+    "llama4-fsdp-2x4": ("llama4-scout-17b-a16e", (2, 4), {}),
+    # Mamba TP, the MoE layer and ZeRO-3 together
+    "jamba-2x4": ("jamba-1.5-large-398b", (2, 4), {}),
 }
 MOE_CASES = {
     "llama4-2x4": ("llama4-scout-17b-a16e", (2, 4), {"capacity_factor": 8.0}),
     "granite-1x8": ("granite-moe-3b-a800m", (1, 8), {}),
 }
 SHAPE_CASES = {"qwen-2x4": ("qwen2.5-32b", (2, 4)),
-               "granite-1x8": ("granite-moe-3b-a800m", (1, 8))}
+               "granite-1x8": ("granite-moe-3b-a800m", (1, 8)),
+               "qwen110-fsdp-2x4": ("qwen1.5-110b", (2, 4)),
+               "llama4-fsdp-2x4": ("llama4-scout-17b-a16e", (2, 4)),
+               "jamba-fsdp-2x4": ("jamba-1.5-large-398b", (2, 4))}
 
 
 def _batch_np(seed=0, vocab=512, b=B, s=S):
@@ -277,6 +290,123 @@ def test_a_planted_fault_fails_the_gradient_check(ref, monkeypatch):
             or _grads_against(grads, arrays, "qwen-2x2") > 1)
 
 
+class _NoGrad(torch.autograd.Function):
+    """The identity whose backward gives zeros: a shard's K4 whose dB and
+    dC never reach the sum."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+def test_mamba_fault_without_one_shards_db_dc_fails(ref, monkeypatch):
+    """Every shard's heads read the same B and C, so each shard's K4
+    backward gives a partial dB and dC. Without the last model shard's
+    partial the loss is unchanged, and the gradient of in_proj's B and C
+    columns fails while the last layer's other columns pass."""
+    from repro_torch.models import mamba as TMB
+    res, arrays = ref
+    name = "mamba-tp-2x4"
+    arch, shape, changes = LOSS_CASES[name]
+    cfg = _cfg(arch, changes)
+    params = params_from_jax(_tree(arrays, name), device="cpu")
+    real, calls = TMB.ops.ssd, []
+
+    def ssd(x, dt, A, B, C, **kw):
+        calls.append(1)
+        if len(calls) % shape[1] == 0:           # the last model shard's
+            B, C = _NoGrad.apply(B), _NoGrad.apply(C)
+        return real(x, dt, A, B, C, **kw)
+    monkeypatch.setattr(TMB.ops, "ssd", ssd)
+    loss, grads = _port_value_and_grad(cfg, params, shape)
+    assert _close(float(loss), res[name], GRAD_TOL) <= 1
+    di, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    got = TTS.join_params(grads, "cpu")["stack"]["l0"]["mixer"]["in_proj"]
+    want = _tree(arrays, name + "/grad")["stack"]["l0"]["mixer"]["in_proj"]
+    bc = slice(2 * di, 2 * di + 2 * gn)
+    assert _close(got[..., bc].numpy(), want[..., bc], GRAD_TOL) > 1
+    # the last layer's other columns, which no later layer's error
+    # reaches, still agree
+    others = np.r_[0:2 * di, 2 * di + 2 * gn:want.shape[-1]]
+    assert _close(got[-1][..., others].numpy(), want[-1][..., others],
+                  GRAD_TOL) <= 1
+
+
+def test_fsdp_gathers_one_period_at_a_time(monkeypatch):
+    """ZeRO-3 weights: each period's are gathered inside its checkpoint
+    and dead before the next period's are gathered, in the forward and in
+    the backward's recompute; no gather makes a whole stack leaf; each
+    gradient leaf comes back in its own chunk's layout."""
+    from repro_torch.models import transformer as TT
+    cfg = dataclasses.replace(_cfg("qwen1.5-110b"), n_layers=3)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    mesh = _mesh((2, 4))
+    stack_shapes = {tuple(x.shape) for _, x in flatten(params["stack"])}
+    real_pin, real_gather = TT._pin_fsdp, spmd._all_gather_raw
+    pins, live_at_pin, gathered = [], [], []
+
+    def pin(pparams, cfg_):
+        live_at_pin.append(sum(r() is not None for r in pins))
+        out = real_pin(pparams, cfg_)
+        pins.extend(__import__("weakref").ref(x) for _, s in flatten(out)
+                    for x in s.locals)
+        return out
+
+    def gather(xs, group, axes, dim):
+        out = real_gather(xs, group, axes, dim)
+        gathered.append(tuple(out[0].shape))
+        return out
+    monkeypatch.setattr(TT, "_pin_fsdp", pin)
+    monkeypatch.setattr(spmd, "_all_gather_raw", gather)
+    with TS.set_mesh(mesh):
+        sp = TTS.shard_params(params, cfg, mesh)
+        _, grads = spmd.value_and_grad(
+            lambda p: TM.loss_fn(p, _batch(), cfg)[0], sp)
+    # three periods forward, three recomputes
+    assert len(live_at_pin) == 6 and live_at_pin == [0] * 6
+    assert gathered and not stack_shapes & set(gathered)
+    for (_, s), (_, gs) in zip(flatten(sp), flatten(grads)):
+        assert gs.spec == s.spec
+        assert [x.shape for x in gs.locals] == [x.shape for x in s.locals]
+
+
+@pytest.mark.parametrize("name", ["mamba-tp-2x4", "gemma2-pure-dp-2x4"])
+def test_the_recompute_runs_in_the_group_on_another_thread(name):
+    """A CUDA backward runs in autograd's device thread, which has no
+    ambient mesh, ``pure_dp`` flag or running group: the period
+    checkpoint's recompute re-enters them. Here a backward on a thread of
+    its own equals the backward on the forward's thread to the bit."""
+    import threading
+    arch, shape, changes = LOSS_CASES[name]
+    cfg = _cfg(arch, changes)
+    params = TM.init_params(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    mesh = _mesh(shape)
+
+    def forward():
+        with TS.set_mesh(mesh), TS.pure_dp(cfg.pure_dp):
+            sp = TTS.shard_params(params, cfg, mesh)
+            leaves = [x.requires_grad_() for _, s in flatten(sp)
+                      for x in s.locals]
+            return TM.loss_fn(sp, _batch_for(cfg), cfg)[0], leaves
+
+    loss, leaves = forward()
+    same = torch.autograd.grad(loss, leaves, materialize_grads=True)
+    loss, leaves = forward()
+    out = {}
+    worker = threading.Thread(target=lambda: out.setdefault(
+        "g", torch.autograd.grad(loss, leaves, materialize_grads=True)))
+    worker.start()
+    worker.join()
+    assert len(out["g"]) == len(same)
+    assert all(torch.equal(a, b) for a, b in zip(out["g"], same))
+
+
 def test_a_step_repeats_bit_for_bit():
     cfg = _cfg("qwen2.5-32b")
     params = TM.init_params(torch.Generator().manual_seed(0), cfg,
@@ -421,25 +551,10 @@ def _batch_for(cfg):
     return b
 
 
-@pytest.mark.parametrize("what", ["mamba-tp", "fsdp", "prefill", "frames",
-                                  "stage-mesh"])
+@pytest.mark.parametrize("what", ["prefill", "frames", "stage-mesh"])
 def test_what_is_not_ported_raises_a23(what):
     mesh = _mesh((1, 2))
-    if what == "mamba-tp":
-        cfg = _cfg("mamba2-130m")
-        params = TM.init_params(torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
-        with TS.set_mesh(mesh), pytest.raises(NotImplementedError,
-                                              match="A23"):
-            TM.loss_fn(params, _batch_for(cfg), cfg)
-    elif what == "fsdp":
-        cfg = _cfg("qwen1.5-110b")
-        params = TM.init_params(torch.Generator().manual_seed(0), cfg,
-                                device="cpu")
-        with TS.set_mesh(mesh), pytest.raises(NotImplementedError,
-                                              match="A23"):
-            TM.loss_fn(params, _batch_for(cfg), cfg)
-    elif what == "prefill":
+    if what == "prefill":
         cfg = _cfg("gpt-paper")
         params = TM.init_params(torch.Generator().manual_seed(0), cfg,
                                 device="cpu")
