@@ -273,6 +273,26 @@ Phases, each printing its own lines; any failure exits non-zero:
              bytes by formula, and each sharded step's time beside the
              unsharded one (no claim goes with the times: on one card the
              shards run one after another and no link is crossed);
+             hubert-xlarge (the frames input) at full width, 2 layers, one
+             step of 4 x 4096 frames on (1, 4), every leaf within GRAD_TOL
+             and GRAD_REL_TOL; then prefill and decode with sharded KV and
+             Mamba caches at full width (SPMD_SERVE_CASES): gpt-paper at
+             32 layers on (2, 2) and, attn_tp=False, on (1, 4), gemma2-2b
+             on the serve requests and on 2 prompts of 8192 (the first
+             shard's cache slice outside the 4096 window), granite-moe on
+             the kernel run's routes, mamba2-130m, llava-next's patches
+             and text, each against the same params' serve with no mesh
+             fed the same tokens: every step's last logits and every cache
+             leaf within max(FWD_REL_TOL, SPMD_NOISE_FACTOR x that serve's
+             distance from itself on the plain versions), K1 and K4 4 x
+             its launches, two runs equal to the bit, and a planted fault
+             failing by more than SPMD_FAULT_RATIO x that bound
+             (SPMD_FAULTS: on gpt-paper a merge of K1's partials without
+             the last model shard's, on mamba2-130m the conv cache's chunk
+             taken from the next model shard's channels); prints the
+             collectives, the peak and both serves' times, and for those
+             two cases the sharded and the plain serves' drift from the
+             serve with no mesh after each period;
 17. dryrun — the dry run (``repro_torch.launch.dryrun``) against the card:
              each case's step traced on the ``meta`` device
              (``_lower_cell`` on a (1, 1) mesh: the predicted peak, FLOPs
@@ -296,7 +316,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              kernels allocated more inside themselves than the trace
              models. On meshes that repeat the card (DRYRUN_MESH_CASES:
              (e) gpt-paper, 8 layers, on (2, 2); (f) mamba2-130m, 8
-             layers, on (1, 4); B 8 x T 2048) the trace is rank 0 of a
+             layers, on (1, 4); B 8 x T 2048; (g, h) gpt-paper's prefill
+             and decode, 8 layers, on (2, 2)) the trace is rank 0 of a
              shard group on meta, the card runs every shard in turn: the
              trace's FLOPs and launches times the ranks must equal the
              card's, its collectives and link bytes the card's (the
@@ -478,12 +499,59 @@ SPMD_MESHES = {"gpt-paper": (2, 2), "gpt-paper attn_tp=False": (1, 4),
 # beside them)
 JAMBA_MIXER_BT = (1, 2048)
 QWEN_SPMD_ROWS = 2
+# the spmd phase's serve cases, each at full width on a mesh of the card
+# against the same params' prefill and decode with no mesh: (tag, arch,
+# layers, (data, model), config changes, rows, prompt, decode steps). A
+# prompt of MAX_PROMPT takes the serve phase's requests (the longest
+# rows, padded as its batches are); 8192 draws 2 full-length prompts, so
+# that in decode (cache 8200) the first of gemma2's 4 model shards holds
+# 2050 positions wholly outside the 4096-token window of its local
+# layers; llava-next takes the mixed phase's batch (2880 patches and 512
+# text tokens). Depth cut for the run's time, which the sharded decode
+# steps take most of (each shard's host work in turn: 5.8 s for gpt-paper's
+# 16 steps at 32 layers): gpt-paper keeps its 32 layers and 16 steps on
+# (2, 2), gemma2-2b (the 2048 prompts) its 26 and mamba2-130m its 24 and
+# 16 steps, the rest 4 layers; 8 decode steps where the serve phase takes
+# 16
+SPMD_SERVE_CASES = (
+    ("gpt-paper", "gpt-paper", 32, (2, 2), {}, 8, MAX_PROMPT, DECODE_STEPS),
+    ("gpt-paper attn_tp=False", "gpt-paper", 4, (1, 4), {"attn_tp": False},
+     8, MAX_PROMPT, 8),
+    ("gemma2-2b", GEMMA2_ARCH, 26, (1, 4), {}, 8, MAX_PROMPT, 8),
+    ("gemma2-2b 8k", GEMMA2_ARCH, 4, (1, 4), {}, 2, 8192, 8),
+    (MOE_ARCH, MOE_ARCH, 4, (1, 4), {}, 8, MAX_PROMPT, 8),
+    ("mamba2-130m", "mamba2-130m", 24, (1, 4), {}, 8, MAX_PROMPT,
+     DECODE_STEPS),
+    ("llava-next-34b", "llava-next-34b", 4, (1, 4), {}, LLAVA_ROWS, None,
+     LLAVA_DECODE_STEPS),
+)
+# the cases whose first 2 decode steps run again with a fault planted in
+# the sharded program, each of which must move those steps' logits by more
+# than SPMD_FAULT_RATIO x the case's bound: gpt-paper's merge of K1's
+# partials without the last model shard's (at positions 2048-2049 of a
+# 2064-position cache every model shard's slice holds live keys);
+# mamba2-130m's conv cache chunk (prefill's and each decode step's) taken
+# from the next model shard's channels. Both cases also print their drift
+# after each period of the prefill
+SPMD_FAULTS = {"gpt-paper": "merge", "mamba2-130m": "conv-chunk"}
+SPMD_FAULT_RATIO = 2.0
+# the frames input in a shard group: hubert-xlarge at full width with
+# depth cut 48 -> 2 layers (the cut of the gpt-paper training case, whose
+# per-leaf check this is: bf16 rounding grows with depth, as mamba2-130m's
+# gradients drifted 0.26 from fp32 over 24 layers), one training step of
+# the frames phase's batch shape on (1, 4) against the step with no mesh
+HUBERT_SPMD_MESH, HUBERT_SPMD_LAYERS = (1, 4), 2
 # Mamba's sharded gradients are held to an fp32 step with no mesh (the
 # plain SSD, which takes fp32): each leaf's ||diff|| / ||fp32|| at most
 # SPMD_NOISE_FACTOR times the bf16 step's with no mesh (its own bf16
 # noise), or GRAD_REL_TOL where that is larger. Over mamba2-130m's 24
 # layers bf16 rounding grows past GRAD_REL_TOL, so no fixed tolerance
-# between the two bf16 steps holds at full depth.
+# between the two bf16 steps holds at full depth. The serve cases hold
+# the sharded serve to the serve with no mesh within SPMD_NOISE_FACTOR
+# times that serve's own spread (its distance from the same serve on the
+# plain versions), or FWD_REL_TOL where that is larger: over gpt-paper's
+# 32 layers K1 and the plain attention part by 1.29e-2, more than
+# FWD_REL_TOL, so no program that rounds otherwise stays within it.
 SPMD_NOISE_FACTOR = 2.0
 # id -> (name, source, the TPU kernel it replaces, its timed record, its
 # other timed records by their key in the kernels line, the paths whose
@@ -4088,6 +4156,9 @@ def phase_spmd(torch):
     counts = _add_counts(counts, _spmd_mamba(torch))
     counts = _add_counts(counts, _spmd_jamba_mixer(torch))
     counts = _add_counts(counts, _spmd_fsdp(torch))
+    counts = _add_counts(counts, _spmd_hubert(torch))
+    for case in SPMD_SERVE_CASES:
+        counts = _add_counts(counts, _spmd_serve_case(torch, *case))
     print(f"[spmd] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     return counts
 
@@ -4377,6 +4448,345 @@ def _spmd_fsdp(torch):
     return counts
 
 
+def _serve_batch(torch, cfg, rows, prompt):
+    """A prompt batch of ``rows`` rows: the serve phase's requests (the
+    longest, each padded to MAX_PROMPT with token 0 at position 0, as
+    ``repro_torch.serve.batch_arrays`` pads them) where ``prompt`` is
+    MAX_PROMPT, else ``rows`` seeded prompts of ``prompt`` tokens."""
+    import numpy as np
+    from repro_torch import serve as SV
+    if prompt == MAX_PROMPT:
+        reqs = SV.make_requests(cfg, REQUESTS, MAX_PROMPT)
+        longest = sorted(reqs, key=len, reverse=True)[:rows]
+        tok = np.zeros((rows, prompt), np.int32)
+        pos = np.zeros((rows, prompt), np.int32)
+        for r, t in enumerate(longest):
+            tok[r, :len(t)] = t[:prompt]
+            pos[r, :len(t)] = np.arange(min(len(t), prompt))
+        return {"tokens": torch.from_numpy(tok).cuda(),
+                "positions": torch.from_numpy(pos).cuda()}
+    g = torch.Generator(device="cuda").manual_seed(2024)
+    return {"tokens": torch.randint(0, cfg.vocab, (rows, prompt),
+                                    generator=g, device="cuda",
+                                    dtype=torch.int32),
+            "positions": torch.arange(prompt, dtype=torch.int32,
+                                      device="cuda")[None]
+            .expand(rows, prompt).contiguous()}
+
+
+def _serve_run(torch, params, cfg, batch, steps, mesh=None, feed=None,
+               probe=False, n_decode=None):
+    """``MD.prefill`` (a cache ``steps`` positions longer than the prompt)
+    and ``steps`` decode steps under ``mesh`` (None: no mesh), greedy or
+    fed the tokens ``feed`` (B, steps + 1): the last logits of each step
+    (joined whole), the tokens fed, the cache, the launches, the
+    collectives and the prefill's and the decode steps' seconds.
+    ``n_decode`` runs only that many of the steps (the cache as long).
+    With ``probe``, also the prefill's hidden state of row 0 after each
+    period (``"periods"``, joined)."""
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+
+    def whole(x):
+        return spmd.join(x) if isinstance(x, spmd.Sharded) else x
+    n = batch["positions"].shape[1]
+    b = batch["positions"].shape[0]
+    periods, real_period = [], T._period_fwd
+
+    def period(*a, **k):
+        h, aux = real_period(*a, **k)
+        periods.append(whole(h)[0].clone())
+        return h, aux
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    spmd.reset_collective_counts()
+    with set_mesh(mesh), torch.inference_mode(), (
+            mock.patch.object(T, "_period_fwd", period) if probe
+            else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        logits, cache = MD.prefill(params, batch, cfg, cache_len=n + steps)
+        prefill_periods = list(periods)
+        logits = [whole(logits)]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = [_greedy(torch, logits[0]) if feed is None else feed[:, :1]]
+        for i in range(steps if n_decode is None else n_decode):
+            lg, cache = MD.decode(params, {
+                "tokens": toks[-1], "cache": cache, "cache_pos": n + i,
+                "positions": torch.full((b, 1), n + i, dtype=torch.int32,
+                                        device="cuda")}, cfg)
+            logits.append(whole(lg))
+            toks.append(_greedy(torch, logits[-1]) if feed is None
+                        else feed[:, i + 1:i + 2])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return {"logits": logits, "tokens": torch.cat(toks, dim=1),
+            "cache": cache, "counts": ops.launch_counts(),
+            "coll": spmd.collective_counts(), "prefill_s": t1 - t0,
+            "decode_s": t2 - t1, "periods": prefill_periods}
+
+
+def _logit_rels(torch, a, b):
+    """Per step, the worst row's ||a - b|| / ||b|| of the last logits."""
+    return [float((torch.linalg.vector_norm(x - y, dim=-1)
+                   / torch.linalg.vector_norm(y, dim=-1)).max())
+            for x, y in zip(a["logits"], b["logits"])]
+
+
+def _cache_rels(torch, got, free):
+    """Each cache leaf (joined whole where it is ``Sharded``) against the
+    mesh-free run's: ``{"<position>/<name>": ||diff|| / ||free||}``, one
+    period of a leaf at a time (a whole leaf of gpt-paper's is 4.3 GB)."""
+    from repro_torch.dist import spmd
+
+    def period(v, j):
+        if isinstance(v, spmd.Sharded):
+            return spmd.join(v.with_locals([x[j] for x in v.locals],
+                                           spec=v.spec[1:]))
+        return v[j]
+    out = {}
+    for i, (ls, lf) in enumerate(zip(got, free)):
+        for k, v in ls.items():
+            num = den = 0.0
+            for j in range(v.shape[0]):
+                part = period(v, j).float()
+                ref = lf[k][j].float()
+                num += float(torch.sum((part - ref) ** 2))
+                den += float(torch.sum(ref * ref))
+                del part, ref
+            out[f"{i}/{k}"] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def _same_serves(torch, a, b):
+    """Two sharded serves equal to the bit: every step's logits and every
+    rank's local of every cache leaf."""
+    return (all(torch.equal(x, y) for x, y in zip(a["logits"], b["logits"]))
+            and all(torch.equal(x, y)
+                    for la, lb in zip(a["cache"], b["cache"])
+                    for k in la for x, y in zip(la[k].locals,
+                                                lb[k].locals)))
+
+
+def _planted_fault(kind):
+    """A patch that plants fault ``kind`` of SPMD_FAULTS in the sharded
+    serve: ``merge``, K1's partials merged without the last model shard's;
+    ``conv-chunk``, each rank's chunk of Mamba's conv cache cut at the next
+    rank's channels."""
+    from repro_torch.dist import spmd
+    if kind == "merge":
+        real = spmd.merge_partials
+        return mock.patch.object(spmd, "merge_partials",
+                                 lambda os_, ls_: real(os_[:-1], ls_[:-1]))
+    real = spmd.own_chunk
+    return mock.patch.object(spmd, "own_chunk", lambda s, r, x: real(
+        s, (r + 1) % s.group.n, x))
+
+
+def _plain_versions(cfg):
+    """The plain versions in place of the kernels a serve of ``cfg``
+    launches: K1's, and for Mamba K4's."""
+    return _plain_attention() + (_plain_ssd() if cfg.has_mamba else ())
+
+
+def _spmd_serve_case(torch, tag, arch, layers, shape, changes, rows, prompt,
+                     steps):
+    """One serve case (see SPMD_SERVE_CASES): returns the sharded run's
+    launch counts. The sharded serve is held to the serve with no mesh by
+    the spread of that serve itself: its last logits at every step and
+    each cache leaf within max(FWD_REL_TOL, SPMD_NOISE_FACTOR x the
+    distance of the same serve on the plain versions from it), each fed
+    the same tokens (and for MoE the same routes)."""
+    import dataclasses
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import spmd
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    t_case = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = get_arch(arch)
+    cfg = dataclasses.replace(base, n_layers=layers, **changes)
+    if layers < base.n_layers:
+        print(f"[spmd] reduced: serve {tag} at full width, depth "
+              f"{base.n_layers} -> {layers} layers", flush=True)
+    if cfg.input_mode == "mixed":
+        cfg, params, batch = _llava_setup(torch, layers, seed=0)
+    else:
+        params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                                cfg, device="cuda")
+        batch = _serve_batch(torch, cfg, rows, prompt)
+    n = shape[0] * shape[1]
+    mesh = _spmd_mesh(shape)
+    moe, probe = cfg.has_moe, tag in SPMD_FAULTS
+    replay = contextlib.nullcontext
+    if moe:
+        sp = shard_params(params, cfg, mesh)
+        # the sharded run first, its routes replayed into the runs with no
+        # mesh (each of the n shards routes its data shard's tokens)
+        routes, record = _route_recorder()
+        torch.cuda.reset_peak_memory_stats()
+        with record:
+            run = _serve_run(torch, sp, cfg, batch, steps, mesh)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def replay():
+            return _route_replayer(torch, routes[::n])[1]
+        flips, replaying = _route_replayer(torch, routes[::n])
+        with replaying:
+            free = _serve_run(torch, params, cfg, batch, steps,
+                              feed=run["tokens"])
+    else:
+        free = _serve_run(torch, params, cfg, batch, steps, probe=probe)
+    # the spread of the serve with no mesh: the same on the plain versions
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_versions(cfg) + (replay(),):
+            stack.enter_context(patch)
+        plain = _serve_run(torch, params, cfg, batch, steps,
+                           feed=free["tokens"], probe=probe)
+    plain_rels = _logit_rels(torch, plain, free)
+    plain_drift = [_rel(torch, a, b) for a, b in zip(plain["periods"],
+                                                       free["periods"])]
+    plain_cache = _cache_rels(torch, plain["cache"], free["cache"])
+    del plain
+    if not moe:
+        # split after the plain run, whose attention scores (llava's 9.6
+        # GB) would not fit beside a second copy of the weights
+        sp = shard_params(params, cfg, mesh)
+        torch.cuda.reset_peak_memory_stats()
+        run = _serve_run(torch, sp, cfg, batch, steps, mesh,
+                         feed=free["tokens"], probe=probe)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    rels = _logit_rels(torch, run, free)
+    cache_rels = _cache_rels(torch, run["cache"], free["cache"])
+    del free["cache"]
+    bound = max(FWD_REL_TOL, SPMD_NOISE_FACTOR * max(plain_rels))
+    cache_ok = all(v <= max(FWD_REL_TOL, SPMD_NOISE_FACTOR * plain_cache[k])
+                   for k, v in cache_rels.items())
+    if probe:
+        drift = [_rel(torch, a, b) for a, b in zip(run["periods"],
+                                                     free["periods"])]
+        print(f"[spmd] serve {tag}: prefill row 0's hidden state after each "
+              f"period against no mesh, ||diff|| / ||no mesh||, sharded "
+              f"{[float(f'{x:.3e}') for x in drift]}, the plain versions "
+              f"{[float(f'{x:.3e}') for x in plain_drift]}", flush=True)
+    fault_rel = None
+    if tag in SPMD_FAULTS:
+        with _planted_fault(SPMD_FAULTS[tag]):
+            fault = _serve_run(torch, sp, cfg, batch, steps, mesh,
+                               feed=run["tokens"], n_decode=2)
+        fault_rel = max(_logit_rels(torch, fault, free)[1:])
+        del fault
+    again = _serve_run(torch, sp, cfg, batch, steps, mesh,
+                       feed=run["tokens"])
+    same = _same_serves(torch, run, again)
+    del again
+    want = {k: n * v for k, v in free["counts"].items()}
+    kernels = {k: run["counts"][k] for k in ("mha_forward", "ssd_chunked")}
+    exp_k = {k: want[k] for k in kernels}
+    b, t = batch["positions"].shape
+
+    def fmt(xs):
+        return [float(f"{x:.3e}") for x in xs]
+    print(f"[spmd] serve {tag}: {cfg.n_layers} layers d_model {cfg.d_model} "
+          f"on a {shape} data x model mesh of cuda:0, prefill {b} x {t} "
+          f"into a {t + steps}-position cache, then {steps} decode steps "
+          f"(fed the {'sharded' if moe else 'mesh-free'} run's greedy "
+          f"tokens{', on its routes' if moe else ''}): last logits' worst "
+          f"row ||diff|| / ||no mesh|| per step {fmt(rels)}; the plain "
+          f"versions' with no mesh {fmt(plain_rels)}; bound max(FWD_REL_TOL "
+          f"{FWD_REL_TOL}, {SPMD_NOISE_FACTOR} x {max(plain_rels):.3e}) = "
+          f"{bound:.3e}; cache leaves sharded "
+          f"{({k: float(f'{v:.3e}') for k, v in cache_rels.items()})}, "
+          f"plain {({k: float(f'{v:.3e}') for k, v in plain_cache.items()})};"
+          f" launches {kernels} (expected {n} x no mesh's: {exp_k}); "
+          f"collectives {run['coll']}; two runs equal to the bit: "
+          f"{'yes' if same else 'NO'}; peak memory {peak:.2f} GiB; prefill "
+          f"{run['prefill_s'] * 1e3:.1f} ms and {steps} decode steps "
+          f"{run['decode_s'] * 1e3:.1f} ms sharded, "
+          f"{free['prefill_s'] * 1e3:.1f} ms and "
+          f"{free['decode_s'] * 1e3:.1f} ms with no mesh; "
+          f"{time.perf_counter() - t_case:.1f}s", flush=True)
+    if moe:
+        print(f"[spmd] serve {tag}: the mesh-free run's own routes differ "
+              f"for {flips['flipped']} of {flips['tokens']} token routings",
+              flush=True)
+    check(max(rels) <= bound, f"spmd serve {tag}: last logits differ from "
+          f"the mesh-free run ({max(rels):.3e} against {bound:.3e})")
+    check(cache_ok, f"spmd serve {tag}: a cache leaf differs from the "
+          f"mesh-free run")
+    check(kernels == exp_k, f"spmd serve {tag}: launches {kernels}, "
+          f"expected {exp_k}")
+    check(same, f"spmd serve {tag}: two sharded runs differ")
+    if fault_rel is not None:
+        what = {"merge": "the merge without the last model shard's partial"
+                         f", decode positions {t}-{t + 1}, every slice live",
+                "conv-chunk": "the conv cache's chunk taken from the next "
+                              f"model shard's channels, decode positions "
+                              f"{t}-{t + 1}"}[SPMD_FAULTS[tag]]
+        print(f"[spmd] serve {tag}: planted fault ({what}): worst decode "
+              f"row ||diff|| / ||no mesh|| {fault_rel:.3e}, "
+              f"{fault_rel / bound:.1f} x the bound", flush=True)
+        check(fault_rel > SPMD_FAULT_RATIO * bound, f"spmd serve {tag}: "
+              f"the logits check does not see the planted fault "
+              f"({SPMD_FAULTS[tag]})")
+    counts = run["counts"]
+    del sp, params, run, free
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _spmd_hubert(torch):
+    """hubert-xlarge at full width and HUBERT_SPMD_LAYERS: one training
+    step of a frames batch (HUBERT_BATCH x HUBERT_SEQ) on HUBERT_SPMD_MESH
+    against the step with no mesh, per gradient leaf, as the gpt-paper
+    case."""
+    import dataclasses
+    import types
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = get_arch("hubert-xlarge")
+    cfg = dataclasses.replace(base, n_layers=HUBERT_SPMD_LAYERS)
+    print(f"[spmd] reduced: hubert-xlarge at full width, depth "
+          f"{base.n_layers} -> {cfg.n_layers} layers", flush=True)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, device="cuda")
+    batch = _frame_batch(torch, cfg, HUBERT_BATCH, HUBERT_SEQ, seed=5)
+    ref = _spmd_step(torch, cfg, params, batch)
+    shape = HUBERT_SPMD_MESH
+    mesh = _spmd_mesh(shape)
+    sp = shard_params(params, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    run = _spmd_step(torch, cfg, sp, batch, mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    big = types.SimpleNamespace(mbs=HUBERT_BATCH, seq=HUBERT_SEQ)
+    worst_rel, ok = _spmd_line(torch, "hubert-xlarge (frames)", cfg, shape,
+                               big, run, ref, _shard_bytes(sp), peak)
+    n = shape[0] * shape[1]
+    want = {k: n * v for k, v in ref["counts"].items()}
+    print(f"[spmd] hubert-xlarge: launches {run['counts']} (expected "
+          f"{want}); {time.perf_counter() - t0:.1f}s", flush=True)
+    check(run["counts"] == want, f"hubert spmd launches {run['counts']}, "
+          f"expected {want}")
+    check(ok and worst_rel <= GRAD_REL_TOL, "hubert-xlarge on a (1, 4) "
+          f"mesh: a gradient leaf disagrees ({worst_rel:.3e})")
+    check(abs(run["loss"] - ref["loss"]) <= GRAD_TOL_BF16 * abs(ref["loss"]),
+          "hubert-xlarge on a (1, 4) mesh: the loss disagrees")
+    counts = run["counts"]
+    del params, sp, run, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ----------------------------------------------------------------------
 # phase 17: profiles (not run by default)
 # ----------------------------------------------------------------------
@@ -4619,12 +5029,16 @@ DRYRUN_CASES = (
 
 
 # the dryrun phase's cases on a mesh that repeats the card: (tag, arch,
-# layers, seq, batch, (data, model)); mamba2-130m cut 24 -> 8 layers for
-# the run's time (the card's counting run, every shard in turn, took 33 s
-# at 24), case d holding its 24 on one device
+# layers, kind, seq, batch, (data, model)); mamba2-130m cut 24 -> 8 layers
+# for the run's time (the card's counting run, every shard in turn, took
+# 33 s at 24), case d holding its 24 on one device; gpt-paper's prefill and
+# decode at 8 layers (case c holds its 32 on one device), the decode step
+# against a 2064-position cache split by sequence over the model axis
 DRYRUN_MESH_CASES = (
-    ("e-gpt-2x2", "gpt-paper", 8, 2048, 8, (2, 2)),
-    ("f-mamba-1x4", "mamba2-130m", 8, 2048, 8, (1, 4)),
+    ("e-gpt-2x2", "gpt-paper", 8, "train", 2048, 8, (2, 2)),
+    ("f-mamba-1x4", "mamba2-130m", 8, "train", 2048, 8, (1, 4)),
+    ("g-gpt-prefill-2x2", "gpt-paper", 8, "prefill", 2048, 8, (2, 2)),
+    ("h-gpt-decode-2x2", "gpt-paper", 8, "decode", 2064, 8, (2, 2)),
 )
 
 
@@ -4690,9 +5104,9 @@ def phase_dryrun(torch):
     check(peaks["a-dots"] > peaks["a-nothing"],
           f"dryrun: dots peaked at {peaks['a-dots']}, not above nothing's "
           f"{peaks['a-nothing']}")
-    for tag, arch, layers, seq, batch, mesh_shape in DRYRUN_MESH_CASES:
+    for tag, arch, layers, kind, seq, batch, mesh_shape in DRYRUN_MESH_CASES:
         cfg = dataclasses.replace(get_arch(arch), n_layers=layers)
-        shape = ShapeSpec(f"train_{seq}", "train", seq, batch)
+        shape = ShapeSpec(f"{kind}_{seq}", kind, seq, batch)
         n = mesh_shape[0] * mesh_shape[1]
         t0 = time.perf_counter()
         pred = D._lower_cell(cfg, shape, D.parse_mesh("%dx%d" % mesh_shape),
@@ -4707,7 +5121,7 @@ def phase_dryrun(torch):
         flops = n * s.flops
         launches = {k: n * v for k, v in s.launches.items()}
         link = {k: float(v) for k, v in s.coll_link_bytes.items()}
-        print(f"[dryrun] {tag}: {arch} {layers} layers train B {batch} x "
+        print(f"[dryrun] {tag}: {arch} {layers} layers {kind} B {batch} x "
               f"{seq} on a {mesh_shape} data x model mesh (the trace: "
               f"rank 0 of a shard group on meta; the card: every shard in "
               f"turn on cuda:0): FLOPs predicted {n} x {s.flops:.6e} = "

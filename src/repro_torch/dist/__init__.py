@@ -16,11 +16,12 @@ is devices, threads and processes. Its modules:
   ambient mesh, and ``shard``, the layout change inside a shard group.
 - :mod:`repro_torch.dist.spmd` — the shard group: sharding inside a stage
   over a (data, model) mesh from one controller in lockstep
-  (``Sharded`` values, ordered collectives, ``value_and_grad``); the
-  training step of token inputs runs there, Mamba's tensor parallelism
-  and ZeRO-3 weights included, on devices or, for a dry run, on ``meta``.
-  Prefill and decode with sharded caches, and the T5, frames and mixed
-  inputs there, still raise (ROADMAP A23).
+  (``Sharded`` values, ordered collectives, ``value_and_grad``, the
+  attention merge of a KV cache split by sequence); the training step,
+  prefill and decode with sharded KV and Mamba caches, and the token,
+  frames and mixed inputs run there, Mamba's tensor parallelism and
+  ZeRO-3 weights included, on devices or, for a dry run, on ``meta``.
+  T5 there still raises (ROADMAP A23).
 - :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
   elastic re-planning over the surviving replica set.
 - :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,

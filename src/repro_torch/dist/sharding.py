@@ -36,9 +36,9 @@ the reference) runs in a shard group (``repro_torch.dist.spmd``): there a
 value is a ``spmd.Sharded`` and :func:`shard` is the layout change its
 spec names (gathers, reduce-scatters, slices). Outside a running group
 :func:`shard` returns its input wherever the resolved spec is empty, and
-raises ``NotImplementedError`` naming ROADMAP A23 where it is not: the
-paths that have no group yet (serving with sharded caches, the T5,
-frames and mixed inputs under a model axis).
+raises ``NotImplementedError`` naming ROADMAP A23 where it is not: a
+tensor outside any group under such a mesh (an abstract mesh, or the
+in-stage axes of a mesh backend's stage).
 
 :class:`ZeroShards` is one optimizer-state leaf placed by ZeRO-1: its
 chunks along one dim, chunk ``s`` on the stage mesh's device ``s``.

@@ -20,7 +20,12 @@ ascending order; the collectives combine the locals:
   member given its copy;
 - :func:`all_gather` along a dim, the chunks in the order of their index;
 - :func:`reduce_scatter` along a dim, summed in ascending rank, chunk
-  ``i`` to the member whose chunk index is ``i``.
+  ``i`` to the member whose chunk index is ``i``;
+- :func:`merge_attention`, the attention partials of each member's slice
+  of the keys, ``(o_r, lse_r)``, merged into the attention over all of
+  them (:func:`merge_partials`, in ascending rank, in fp32): the decode
+  step's combine over a KV cache split along its sequence. It takes no
+  gradient (serving only).
 
 Each is an autograd function whose backward is its transpose (all-reduce,
 reduce-scatter, all-gather), so one graph holds every shard's program and
@@ -65,8 +70,9 @@ from repro_torch.dist.sharding import (IN_STAGE_SHARDING, Mesh, P,
 from repro_torch.launch import op_cost
 from repro_torch.launch.op_cost import rank_scope
 
-_COUNTS = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 0}
-_LINK_BYTES = {"all_reduce": 0.0, "all_gather": 0.0, "reduce_scatter": 0.0}
+_KINDS = ("all_reduce", "all_gather", "reduce_scatter", "attention_merge")
+_COUNTS = dict.fromkeys(_KINDS, 0)
+_LINK_BYTES = dict.fromkeys(_KINDS, 0.0)
 _lock = threading.Lock()
 _tls = threading.local()
 
@@ -349,6 +355,30 @@ def split(x: torch.Tensor, spec, group: ShardGroup) -> Sharded:
     return Sharded(group, group.per_rank(part), spec)
 
 
+def zeros(shape, spec, dtype, group: ShardGroup) -> Sharded:
+    """A zero tensor of ``shape`` laid out by ``spec``: each rank its
+    chunk, made on its device (on ``meta``, by shape only)."""
+    spec = norm_spec(spec, len(shape))
+
+    def part(r):
+        loc = [n for _, _, n in _chunk_slices(group, r, spec, shape)]
+        return torch.zeros(loc, dtype=dtype, device=group.devices[r])
+    return Sharded(group, group.per_rank(part), spec)
+
+
+def own_chunk(s: Sharded, r: int, x: torch.Tensor) -> torch.Tensor:
+    """Rank ``r``'s chunk, by ``s``'s layout, of ``x``: a view of ``x``
+    narrowed along each dim that ``s`` splits and ``x`` holds whole (a
+    dim already at the local size, such as the rows, is kept)."""
+    for d, axes in enumerate(s.spec):
+        if not axes or x.shape[d] == s.locals[r].shape[d]:
+            continue
+        i, n = s.group.chunk(r, axes)
+        size = x.shape[d] // n
+        x = x.narrow(d, i * size, size)
+    return x
+
+
 def join(s: Sharded, device=None) -> torch.Tensor:
     """The whole tensor of ``s`` on ``device`` (rank 0's by default):
     partial sums reduced, chunks put in place."""
@@ -542,6 +572,68 @@ def reduce_scatter(xs: list, group: ShardGroup, axes: tuple,
         return list(xs)
     return _apply(_reduce_scatter_raw, _all_gather_raw, xs, group,
                   tuple(axes), dim)
+
+
+def merge_partials(os: list, lses: list) -> tuple:
+    """``(o, lse)`` of the attention over every part's keys from the
+    parts' partials in list order: ``lse = log Σ_r exp(lse_r)`` and ``o =
+    Σ_r exp(lse_r - lse) o_r``, in fp32; o (B, T, H, D), lse (B, H, T).
+    A part with no visible key (o_r zero, lse_r the -1e30 sentinel) adds
+    nothing, and where no part sees a key o is zero and lse stays near
+    -1e30, with no NaN: every exponent is of a difference to the largest
+    lse_r."""
+    ls = [x.float() for x in lses]
+    m = ls[0]
+    for x in ls[1:]:
+        m = torch.maximum(m, x)
+    s = torch.zeros_like(m)
+    for x in ls:
+        s = s + torch.exp(x - m)
+    lse = m + torch.log(s)
+    o = None
+    for x, l in zip(os, ls):
+        w = torch.exp(l - lse).permute(0, 2, 1)[..., None]   # (B, T, H, 1)
+        o = x.float() * w if o is None else o + x.float() * w
+    return o, lse
+
+
+def merge_attention(os: list, lses: list, group: ShardGroup,
+                    axes: tuple, dtype=None) -> tuple[list, list]:
+    """Each group of ranks along ``axes`` merges its members' attention
+    partials (each over its slice of the keys) with
+    :func:`merge_partials`, in ascending rank, and every member gets the
+    merged ``(o, lse)``, o rounded once to ``dtype`` (default the
+    partials'). Counted and charged as one collective,
+    ``attention_merge``, whose link bytes are an all-reduce's of the
+    partials o and lse (a ring with the merge as its sum); on ``meta`` the
+    outputs are made by shape alone."""
+    dtype = dtype or os[group.traced[0]].dtype
+    if _trivial(group, axes):
+        return [x.to(dtype) for x in os], list(lses)
+    out_o, out_l = {}, {}
+    traced = set(group.traced)
+    for members in group.groups(axes):
+        want = [m for m in members if m in traced]
+        if not want:
+            continue
+        for m in want if group.meta else ():
+            with rank_scope(m):
+                out_o[m] = torch.empty_like(os[m], dtype=dtype)
+                out_l[m] = torch.empty_like(lses[m])
+        if group.meta:
+            continue
+        dev = group.devices[members[0]]
+        order = _ordered(group, members, axes)
+        o, lse = merge_partials([os[m].to(dev) for m in order],
+                                [lses[m].to(dev) for m in order])
+        for m in want:
+            out_o[m] = o.to(group.devices[m], dtype, copy=True)
+            out_l[m] = lse.to(group.devices[m], copy=True)
+    full_o, full_l = group.fill(out_o), group.fill(out_l)
+    r0 = group.traced[0]
+    _count("attention_merge", _nbytes(os[r0]) + _nbytes(lses[r0]),
+           _size(group, axes))
+    return full_o, full_l
 
 
 # ----------------------------------------------------------------------

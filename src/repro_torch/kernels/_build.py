@@ -36,7 +36,7 @@ _L = ctypes.c_longlong
 KERNELS = {
     "flash_fwd": ("flash_fwd.cu", {
         "mha_fwd_bf16": [_P] * 10 + [_I] * 8 + [ctypes.c_float] * 2
-                        + [_I] * 2 + [_L, _P],
+                        + [_I] * 2 + [_L, _I, _P],
         "mha_fwd_prefill_smem": [_I],
         "mha_fwd_decode_smem": [_I, _I],
     }),

@@ -434,7 +434,8 @@ def _decode_call(form, lib, case, gen, split_scale=1.0):
         n_split = max(1, round(n_split * split_scale))
         need = fa.decode_workspace_numel(n_split, b, 1, h, kv, d, gh)
         ws = torch.zeros(max(need, 1), dtype=torch.float32, device=dev)
-        args = common + (ptr(ws) if need else None,) + shape + (n_split, gh, need)
+        args = (common + (ptr(ws) if need else None,) + shape
+                + (n_split, gh, need, 0))
     fn = lib.mha_fwd_bf16
 
     def launch():   # this tree's form: the workspace zeroed, as the wrapper does

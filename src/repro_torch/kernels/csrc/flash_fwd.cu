@@ -136,6 +136,7 @@ struct DecParams : Params {
   int n_split, gh, words;
   float* ws;
   int* sem;
+  int o_f32;         // o written in fp32, unrounded (a partial to merge)
 };
 
 // ---------------------------------------------------------------------
@@ -212,9 +213,13 @@ __device__ __forceinline__ void merge_row(const DecParams& p, size_t row, int la
   const float inv = 1.f / lsum;
 #pragma unroll
   for (int x = 0; x < kCols; ++x)
-    if (lane + 32 * x < kD)
-      reinterpret_cast<__nv_bfloat16*>(p.o)[row * kD + lane + 32 * x] =
-          __float2bfloat16_rn(acc[x] * inv);
+    if (lane + 32 * x < kD) {
+      if (p.o_f32)
+        reinterpret_cast<float*>(p.o)[row * kD + lane + 32 * x] = acc[x] * inv;
+      else
+        reinterpret_cast<__nv_bfloat16*>(p.o)[row * kD + lane + 32 * x] =
+            __float2bfloat16_rn(acc[x] * inv);
+    }
   if (lane == 0) {
     const int h = row % p.H, t = (row / p.H) % p.T;
     const size_t bb = row / ((size_t)p.H * p.T);
@@ -666,7 +671,10 @@ mha_fwd_decode_kernel(const DecParams p) {
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
           const int col = (gu % kC) * 16 + n * 8 + c * 2;
-          if (p.n_split == 1) {
+          if (p.n_split == 1 && p.o_f32) {
+            *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.o) + o_row(r) * kD + col) =
+                make_float2(acc[u][n][2 * i] * inv, acc[u][n][2 * i + 1] * inv);
+          } else if (p.n_split == 1) {
             *reinterpret_cast<uint32_t*>(p.o + o_row(r) * kD + col) =
                 pack_bf16(acc[u][n][2 * i] * inv, acc[u][n][2 * i + 1] * inv);
           } else {
@@ -1256,9 +1264,11 @@ int launch_prefill(const void* q, const void* k, const void* v, void* o,
 // most 64 rows, 32 at D 256), and with n_split > 1 a workspace `ws` of
 // ws_numel >= n_split · B · T · H · (D + 2) fp32 elements and then B · KV ·
 // ceil(H / KV / gh) zeroed int32 counters, which the kernel leaves at zero;
-// the prefill form reads none of the three. Launches on `stream` the
-// decode form for T <= 16, else the prefill form, and returns a CUDA error
-// code (0: launched).
+// the prefill form reads none of the three. With o_f32 (the decode form
+// only) o is an fp32 (B,T,H,D) tensor written unrounded: one slice's partial
+// for a merge over a KV cache split by sequence (spmd.merge_attention), which
+// then rounds once. Launches on `stream` the decode form for T <= 16, else
+// the prefill form, and returns a CUDA error code (0: launched).
 extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
                             const void* qpos, const void* kpos,
                             const void* qseg, const void* kseg,
@@ -1266,8 +1276,9 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
                             int B, int T, int S, int H, int KV, int D,
                             int causal, int window, float softcap,
                             float sm_scale, int n_split, int gh,
-                            long long ws_numel, void* stream) {
-  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0)
+                            long long ws_numel, int o_f32, void* stream) {
+  if (KV <= 0 || H % KV != 0 || B <= 0 || T <= 0 || S <= 0 ||
+      (o_f32 && T > 16))
     return (int)cudaErrorInvalidValue;
   const long long partials = (long long)n_split * B * T * H * (D + 2);
   if (T <= 16 && n_split > 1 &&
@@ -1290,6 +1301,7 @@ extern "C" int mha_fwd_bf16(const void* q, const void* k, const void* v,
   p.words = ((S + kBK - 1) / kBK + 31) / 32;
   p.ws = static_cast<float*>(ws);
   p.sem = ws == nullptr ? nullptr : reinterpret_cast<int*>(p.ws + partials);
+  p.o_f32 = o_f32;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 16: return launch<16>(q, k, v, o, p, st);

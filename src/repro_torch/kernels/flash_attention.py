@@ -468,7 +468,7 @@ def _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
     ``heads_per_block`` (from :func:`decode_plan`) and, with more than one
     split, ``ws``: fp32, contiguous, of exactly
     :func:`decode_workspace_numel` elements, its counters zero; raises on
-    any other."""
+    any other. An fp32 ``o`` (the decode form only) is written unrounded."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -480,20 +480,25 @@ def _launch_forward(q, k, v, q_positions, kv_positions, q_segment_ids,
             f"the decode form's workspace must be contiguous fp32 of {need} "
             f"elements on {q.device}, got "
             + ("none" if ws is None else f"{ws.dtype} {ws.numel()}"))
+    o_f32 = o.dtype == torch.float32
+    if o_f32 and t > DECODE_MAX_T:
+        raise ValueError("an fp32 o is the decode form's only (T <= "
+                         f"{DECODE_MAX_T}), got T {t}")
     _build.launch(_build.library("flash_fwd").mha_fwd_bf16,
             _ptr(q), _ptr(k), _ptr(v), _ptr(q_positions), _ptr(kv_positions),
             _ptr(q_segment_ids), _ptr(kv_segment_ids), _ptr(o), _ptr(lse),
             _ptr(ws) if need else None, b, t, s, h, kvh, d, int(causal),
             int(window), float(softcap or 0.0), float(sm_scale), n_split,
-            heads_per_block, need, device=q.device)
+            heads_per_block, need, int(o_f32), device=q.device)
 
 
 def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
                       q_segment_ids, kv_segment_ids, *,
-                      causal, window, softcap):
+                      causal, window, softcap, o_f32=False):
     """K1 on CUDA tensors; on ``meta`` tensors the same allocations and
     no launch. Either way one launch is charged to the open
-    ``op_cost`` counters."""
+    ``op_cost`` counters. With ``o_f32`` (the decode form only) o is fp32,
+    unrounded."""
     from repro_torch.kernels import _build
     b, t, h, d = q.shape
     s, kvh = k.shape[1], k.shape[2]
@@ -501,7 +506,7 @@ def _mha_forward_cuda(q, k, v, q_positions, kv_positions,
     kd = q.shape[-1]
     _check_cuda_args(q, k, v, _int_args(q, k, q_positions, kv_positions,
                                         q_segment_ids, kv_segment_ids))
-    o = torch.empty_like(q)
+    o = torch.empty_like(q, dtype=torch.float32 if o_f32 else q.dtype)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     gh, n_split, ws = 0, 1, None
     if t <= DECODE_MAX_T:
@@ -668,6 +673,23 @@ def mha_forward(q, k, v, q_positions, kv_positions,
         return mha_forward_plain(
             q, k, v, q_positions, kv_positions, q_segment_ids, kv_segment_ids,
             causal=causal, window=window, softcap=softcap)
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+def mha_partial(q, k, v, q_positions, kv_positions, *, causal, window=0,
+                softcap=None):
+    """:func:`mha_forward` with o in fp32, unrounded: one slice's partial
+    for a merge over a KV cache split by sequence. CUDA and ``meta``
+    tensors take K1's decode form (T ≤ ``DECODE_MAX_T``); CPU tensors the
+    plain version in fp32 (its scores and sums are fp32 either way)."""
+    _check_softcap(softcap)
+    if q.device.type in ("cuda", "meta"):
+        return _mha_forward_cuda(q, k, v, q_positions, kv_positions, None,
+                                 None, causal=causal, window=window,
+                                 softcap=softcap, o_f32=True)
+    if q.device.type == "cpu":
+        return mha_forward_plain(q.float(), k, v, q_positions, kv_positions,
+                                 causal=causal, window=window, softcap=softcap)
     raise ValueError(f"no attention path for device {q.device}")
 
 

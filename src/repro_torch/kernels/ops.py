@@ -55,6 +55,22 @@ def attention(q, k, v, *, causal=True, window=0, softcap=None,
         q_positions=q_positions, kv_positions=kv_positions)
 
 
+def attention_partial(q, k, v, *, causal=True, window=0, softcap=None,
+                      q_positions, kv_positions):
+    """K1's ``(o, lse)`` without a gradient: the attention of q over the
+    keys given (one shard's slice of a KV cache), o in fp32 unrounded (on
+    the card K1's decode form: T ≤ 16), and the
+    log-sum-exp of each row's scores, lse (B, H, T) fp32; the -1e30
+    sentinel and o zero on a row that sees no key.
+    ``spmd.merge_attention`` merges the partials of the slices and rounds
+    once."""
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+    return _fa.mha_partial(q.contiguous(), k.contiguous(), v.contiguous(),
+                           i32(q_positions), i32(kv_positions), causal=causal,
+                           window=int(window), softcap=softcap)
+
+
 def ssd(x, dt, A, B, C, *, initial_state=None, return_state=False):
     """Mamba2 SSD over a full sequence. Returns y or ``(y, final_state)``.
 

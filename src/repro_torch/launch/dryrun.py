@@ -25,18 +25,19 @@ Where the mesh gives the model axis to no tensor of the step (``(1,
 is traced at one device's share, with no ambient mesh: the batch split
 over ``dp``, the ZeRO-1 chunks of the optimizer leaves at their spec-tree
 shapes (the device's own chunk updated, the rest of the leaf gathered by
-the all-gather counted above). Elsewhere a train step of token inputs
-runs in a shard group over the mesh's axes on ``meta`` devices
-(``dist/spmd.py``; ``launch.mesh.meta_mesh``), every rank's program at
-its own shares, one representative rank traced where every rank's
-inputs have rank 0's shapes (:func:`_lower_cell_group`): the counter
-counts rank 0's share (``op_cost.OpCounter(rank=0)``) and the group's own
-collectives, each charged by formula. Prefill and decode there (sharded
-caches), frames, mixed inputs and T5 record their argument bytes and
+the all-gather counted above). Elsewhere the step, of any kind and any
+input mode, runs in a shard group over the mesh's axes on ``meta``
+devices (``dist/spmd.py``; ``launch.mesh.meta_mesh``), every rank's
+program at its own shares, one representative rank traced where every
+rank's inputs have rank 0's shapes (:func:`_lower_cell_group`): the
+counter counts rank 0's share (``op_cost.OpCounter(rank=0)``) and the
+group's own collectives, each charged by formula. A prefill or decode
+cell's KV and Mamba caches are split there by
+``train_state.cache_spec_tree``. T5 there records its argument bytes and
 ``"cost": null`` with ``"not_ported"`` naming ROADMAP A23.
-:func:`measure_cell` runs a train cell on a mesh that repeats one card,
-every shard in turn: the sums over ranks of its FLOPs and launches, and
-its collectives, are what the trace predicts.
+:func:`measure_cell` runs a cell on a mesh that repeats one card, every
+shard in turn: the sums over ranks of its FLOPs and launches, and its
+collectives, are what the trace predicts.
 
 The reference's ``bf16_upcast_correction`` and ``temp_tpu_est_bytes`` are
 artefacts of XLA's CPU backend (f32 copies of bf16 weights that no TPU
@@ -286,6 +287,21 @@ def make_group_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
+def make_group_serve_step(cfg: ArchConfig, kind: str,
+                          group: "spmd.ShardGroup"):
+    """``step(params, batch) -> (logits, cache)``: ``MD.prefill`` or
+    ``MD.decode`` in a shard group, the params and the batch (a decode
+    batch's cache included) as trees of ``spmd.Sharded``
+    (``model.shard_step_inputs``), the results as the group's."""
+    serve = MD.prefill if kind == "prefill" else MD.decode
+
+    def step(params, batch):
+        with spmd.running(group), set_mesh(group.mesh), \
+                pure_dp(cfg.pure_dp), torch.no_grad():
+            return serve(params, batch, cfg)
+    return step
+
+
 def make_prefill_step(cfg: ArchConfig):
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -359,12 +375,9 @@ def needs_group(cfg: ArchConfig, mesh) -> bool:
 
 def not_ported(cfg: ArchConfig, shape: ShapeSpec, mesh) -> str:
     """The ROADMAP item a cell's trace waits for, or ``""``: A23 where the
-    step would shard inside a stage (:func:`needs_group`) and is not a
-    train step of token inputs: prefill and decode with sharded caches,
-    the frames and mixed inputs and T5 in a shard group."""
-    if needs_group(cfg, mesh) and (shape.kind != "train"
-                                   or cfg.input_mode != "tokens"
-                                   or cfg.family == "encdec"):
+    step would shard inside a stage (:func:`needs_group`) and the arch is
+    T5, the encoder-decoder, which no shard group runs yet."""
+    if needs_group(cfg, mesh) and cfg.family == "encdec":
         return "ROADMAP A23"
     return ""
 
@@ -457,14 +470,19 @@ def _storages(tree) -> set:
 
 def group_arguments(cfg: ArchConfig, shape: ShapeSpec, mesh,
                     opt_cfg: AdamWConfig, group: "spmd.ShardGroup") -> tuple:
-    """A train cell's ``(state, batch)`` as trees of ``spmd.Sharded`` over
+    """A cell's ``(state, batch)`` (train) or ``(params, batch)`` (prefill
+    and decode, the cache in the batch) as trees of ``spmd.Sharded`` over
     ``group``'s ``meta`` devices, each rank's local at its spec tree's
-    share (the step count an int)."""
+    share (the step count and ``cache_pos`` ints)."""
     with pure_dp(cfg.pure_dp):
         batch, blogical = batch_specs(cfg, shape)
         bspecs = spec_tree(batch, blogical, mesh)
-        st = TS.state_shapes(cfg, opt_cfg)
-        sspecs = TS.state_spec_tree(cfg, st, mesh)
+        if shape.kind == "train":
+            st = TS.state_shapes(cfg, opt_cfg)
+            sspecs = TS.state_spec_tree(cfg, st, mesh)
+        else:
+            st = MD.init_params(torch.Generator(), cfg, device="meta")
+            sspecs = TS.params_spec_tree(cfg, st, mesh)
 
     def make(x, spec):
         if not isinstance(x, torch.Tensor):
@@ -491,8 +509,8 @@ def uniform_shares(tree) -> bool:
 def _lower_cell_group(cfg: ArchConfig, shape: ShapeSpec, mesh,
                       opt_cfg: AdamWConfig, *,
                       representative: bool = None) -> Traced:
-    """A train cell traced in a shard group over ``mesh``'s axes on
-    ``meta`` (see the module docstring): one representative rank where
+    """A cell traced in a shard group over ``mesh``'s axes on ``meta``
+    (see the module docstring): one representative rank where
     :func:`uniform_shares` holds (``representative`` forces the choice),
     else every rank; the counts are rank 0's."""
     t0 = time.perf_counter()
@@ -508,7 +526,9 @@ def _lower_cell_group(cfg: ArchConfig, shape: ShapeSpec, mesh,
             "sb", group_arguments(cfg, shape, mesh, opt_cfg, probe))))
     group = spmd.ShardGroup(mm, representative=representative)
     state, batch = group_arguments(cfg, shape, mesh, opt_cfg, group)
-    fn = make_group_train_step(cfg, opt_cfg, group)
+    fn = (make_group_train_step(cfg, opt_cfg, group)
+          if shape.kind == "train"
+          else make_group_serve_step(cfg, shape.kind, group))
     counter = op_cost.OpCounter(rank=0)
     for r in group.traced:
         counter.register(spmd.local((state, batch), r), rank=r)
@@ -588,11 +608,12 @@ def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
     counts in the first run, the collectives the shard group's
     (``spmd.collective_counts`` and ``collective_link_bytes``).
 
-    With ``mesh_shape`` (a train cell) the step runs in a shard group over
-    a (data, model) mesh of that shape that repeats ``device``
-    (:func:`make_group_train_step`): every shard in turn, so the counts
-    are sums over the ranks, and the peak is the card's, which holds
-    every shard (no one device's)."""
+    With ``mesh_shape`` the step runs in a shard group over a (data,
+    model) mesh of that shape that repeats ``device``
+    (:func:`make_group_train_step`, :func:`make_group_serve_step`, the
+    arguments split before): every shard in turn, so the counts are sums
+    over the ranks, and the peak is the card's, which holds every shard
+    (no one device's)."""
     from repro_torch.kernels import ops
     opt_cfg = opt_cfg or AdamWConfig()
     device = torch.device(device)
@@ -613,10 +634,14 @@ def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
         mesh = make_mesh(tuple(mesh_shape), ("data", "model"),
                          devices=[device] * n)
         group = spmd.ShardGroup(mesh)
-        with pure_dp(cfg.pure_dp):
-            first = TS.shard_state(first, cfg, mesh)
-            batch = MD.split_batch(batch, group)
-        fn = make_group_train_step(cfg, opt_cfg, group)
+        with pure_dp(cfg.pure_dp), set_mesh(mesh):
+            if shape.kind == "train":
+                first = TS.shard_state(first, cfg, mesh)
+                batch = MD.split_batch(batch, group)
+                fn = make_group_train_step(cfg, opt_cfg, group)
+            else:
+                first, batch = MD.shard_step_inputs(first, batch, cfg, group)
+                fn = make_group_serve_step(cfg, shape.kind, group)
     ops.reset_launch_counts()
     spmd.reset_collective_counts()
     counter = op_cost.OpCounter(watch=device)
@@ -639,7 +664,8 @@ def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
     torch.cuda.synchronize(device)
     peak = torch.cuda.max_memory_allocated(device) - base
     head = out[1]["loss"] if shape.kind == "train" else out[0]
-    finite = bool(torch.isfinite(head).all())
+    finite = all(bool(torch.isfinite(x).all()) for x in (
+        head.locals if isinstance(head, Sharded) else [head]))
     del out, first, batch
     return {"flops": counter.summary.flops,
             "launches": dict(counter.summary.launches), "counted": counted,

@@ -6,8 +6,8 @@ optimized HLO of a compiled step; the port has no HLO, so
 one eager run, on any device (``meta`` included, where nothing is
 computed) and in any thread that autograd runs the backward in:
 
-- ``flops``: products only, ``2·|out|·K``, for ``mm``, ``addmm``, ``bmm``,
-  ``baddbmm`` and ``convolution``, as the reference's ``_dot_flops`` and
+- ``flops``: products only, ``2·|out|·K``, for ``mm`` (an fp32 output
+  included), ``addmm``, ``bmm``, ``baddbmm`` and ``convolution``, as the reference's ``_dot_flops`` and
   ``_conv_flops`` count ``dot`` and ``convolution`` (elementwise work is
   not the compute roofline's currency);
 - ``hbm_bytes``: operands plus results of every op that is not a view or
@@ -65,8 +65,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 aten = torch.ops.aten
 
-PRODUCTS = {aten.mm.default, aten.addmm.default, aten.bmm.default,
-            aten.baddbmm.default, aten.convolution.default}
+PRODUCTS = {aten.mm.default, aten.mm.dtype, aten.addmm.default,
+            aten.bmm.default, aten.baddbmm.default, aten.convolution.default}
 # ops that overwrite their first argument without reading it
 OVERWRITES = {aten.copy_.default, aten.fill_.Scalar, aten.fill_.Tensor,
               aten.zero_.default}
@@ -210,10 +210,14 @@ def link_bytes(kind: str, out_bytes: float, g: int) -> float:
       all-gather:        out·(g-1)/g     all-reduce:  2·out·(g-1)/g
       reduce-scatter:    out·(g-1)      all-to-all:  out·(g-1)/g
       collective-permute: out
+
+    ``attention-merge`` (``spmd.merge_attention``: attention partials
+    merged over a split of the keys) is charged as an all-reduce of its
+    output, a ring whose sum is the merge.
     """
     if kind == "all-gather":
         return out_bytes * (g - 1) / g
-    if kind == "all-reduce":
+    if kind in ("all-reduce", "attention-merge"):
         return 2 * out_bytes * (g - 1) / g
     if kind == "reduce-scatter":
         return out_bytes * (g - 1)
@@ -382,11 +386,11 @@ class OpCounter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if self.watch is not None:
             torch.cuda.reset_peak_memory_stats(self.watch)
-            before = torch.cuda.memory_allocated(self.watch)
+            before = _allocated(self.watch)["current"]
         out = func(*args, **(kwargs or {}))
         if self.watch is not None:
-            inside = torch.cuda.max_memory_allocated(self.watch) - max(
-                before, torch.cuda.memory_allocated(self.watch))
+            after = _allocated(self.watch)
+            inside = after["peak"] - max(before, after["current"])
             if inside > self.hidden.get(str(func), 0):
                 self.hidden[str(func)] = inside
         flops = product_flops(func, args, out)
@@ -410,6 +414,15 @@ class OpCounter(TorchDispatchMode):
         transient = TRANSIENT.get(func)
         self._peak(transient(args, out) if transient else 0, rank)
         return out
+
+
+def _allocated(device) -> dict:
+    """The caching allocator's ``current`` and ``peak`` allocated bytes on
+    ``device``, read from its nested stats: ``memory_allocated`` and
+    ``max_memory_allocated`` each flatten and sort every statistic, which
+    around each op of a step cost more than the op."""
+    return torch.cuda.memory_stats_as_nested_dict(device)[
+        "allocated_bytes"]["all"]
 
 
 def analyze(fn, *args, **kwargs) -> tuple:

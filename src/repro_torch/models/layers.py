@@ -7,16 +7,22 @@ and ``heads_even``. Given tensors, a layer runs on one device and takes
 the reference's unsharded path. Given ``spmd.Sharded`` values (inside a
 shard group over a (data, model) mesh) it runs each shard's program, as
 GSPMD partitions the reference's: attention head-parallel where the heads
-divide the model axis (``pad_heads`` pads them there in training), else
-sequence-parallel with the weights gathered where they are used; the MLP
-column- then row-parallel; the MoE layer as ``_moe_fwd_shardmap``
-(dispatch local to each data shard, capacity from its own tokens,
-experts split over the model axis or, where they do not divide it, their
+divide the model axis (``pad_heads`` pads them there), else
+sequence-parallel with the weights gathered where they are used; in
+prefill and decode on a KV cache split by rows and by sequence
+(:func:`_attention_serve_spmd`: decode merges each shard's K1 partial
+over its slice of the cache, ``spmd.merge_attention``); the MLP column-
+then row-parallel; the MoE layer as ``_moe_fwd_shardmap`` (dispatch
+local to each data shard, capacity from its own tokens, the rows
+replicated over the data axes where they do not divide them, experts
+split over the model axis or, where they do not divide it, their
 ``d_ff``, the partial outputs summed over it). :func:`moe_fwd` given
 tensors under an ambient mesh with devices and a model axis splits them,
-runs that program and joins its output; under an abstract mesh, which
-holds no device, it raises (ROADMAP A23: a dry run traces the MoE layer
-in a shard group on ``meta`` devices, ``launch.mesh.meta_mesh``).
+runs that program and joins its output; given tensors under an abstract
+mesh, which holds no device (outside any shard group, as a stage of the
+mesh backend would hold them: ROADMAP A23 item 3), it raises. A dry run
+traces the MoE layer in a shard group on ``meta`` devices
+(``launch.mesh.meta_mesh``).
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.
@@ -127,17 +133,22 @@ def attention_logical(cfg: ArchConfig):
     return p
 
 
-def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: int):
-    """``cache[:, start:start+t] = new`` in place. A start past ``s - t`` is
-    clamped so the write fits, as ``jax.lax.dynamic_update_slice`` clamps
-    it. Starts are cache positions, never negative."""
-    s, t = cache.shape[1], new.shape[1]
+def _write_start(s: int, t: int, start) -> int:
+    """Where ``t`` new positions go in a cache of ``s``: a start past ``s
+    - t`` is clamped so the write fits, as ``jax.lax.dynamic_update_slice``
+    clamps it. Starts are cache positions, never negative."""
     if t > s:
         raise ValueError(f"{t} new positions do not fit a cache of {s}")
     if int(start) < 0:
         raise ValueError(f"negative cache position {start}")
-    start = min(int(start), s - t)
-    cache[:, start:start + t] = new.to(cache.dtype)
+    return min(int(start), s - t)
+
+
+def _write_cache(cache: torch.Tensor, new: torch.Tensor, start: int):
+    """``cache[:, start:start+t] = new`` in place, the start as
+    :func:`_write_start` clamps it."""
+    start = _write_start(cache.shape[1], new.shape[1], start)
+    cache[:, start:start + new.shape[1]] = new.to(cache.dtype)
     return cache
 
 
@@ -155,13 +166,17 @@ def attention_fwd(
 ):
     """Returns ``(y, new_cache)``. In prefill and decode the cache tensors
     are written in place (the reference returns new arrays); ``new_cache``
-    holds the same tensors. Given a :class:`Sharded` ``x`` (training only),
-    :func:`_attention_spmd`."""
+    holds the same tensors. Given a :class:`Sharded` ``x``,
+    :func:`_attention_spmd` in training, else :func:`_attention_serve_spmd`
+    on a cache of ``spmd.Sharded`` leaves."""
     if isinstance(x, Sharded):
-        if mode != "train":
-            raise spmd.not_ported(f"{mode} with sharded caches")
-        return _attention_spmd(p, x, cfg, local=local, positions=positions,
-                               segment_ids=segment_ids), None
+        if mode == "train":
+            return _attention_spmd(p, x, cfg, local=local,
+                                   positions=positions,
+                                   segment_ids=segment_ids), None
+        return _attention_serve_spmd(p, x, cfg, local=local,
+                                     positions=positions, cache=cache,
+                                     cache_pos=cache_pos, mode=mode), cache
     window = cfg.window if local else 0
     b, t, d = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -227,8 +242,6 @@ def mlp_logical(cfg: ArchConfig):
 
 
 def mlp_fwd(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    if isinstance(x, Sharded):
-        return _mlp_spmd(p, x, cfg)
     act = act_fn(cfg.act)
     h = x @ p["w_in"]
     if cfg.mlp_gated:
@@ -357,18 +370,19 @@ def _moe_local(x, router, w_in, w_gate, w_out, cfg: ArchConfig, e0: int,
 
 def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig):
     """Returns ``(y, aux)``, aux the Switch load-balance term
-    E x sum(frac_tokens x frac_probs). Given a :class:`Sharded` ``x``,
-    :func:`_moe_spmd`; given tensors under an ambient mesh with a model
-    axis, the same through a shard group of that mesh (the reference's
-    ``_moe_fwd_shardmap``), which needs the mesh's devices."""
-    if isinstance(x, Sharded):
-        return _moe_spmd(p, x, cfg)
+    E x sum(frac_tokens x frac_probs). Given tensors under an ambient
+    mesh with a model axis, :func:`_moe_spmd` through a shard group of
+    that mesh (the reference's ``_moe_fwd_shardmap``), which needs the
+    mesh's devices; a block inside a shard group calls
+    :func:`_moe_spmd` itself."""
     mesh = ambient_mesh()
     if mesh is not None and axis_map(mesh).get("tp"):
         if mesh.devices is None:
             raise NotImplementedError(
                 f"{IN_STAGE_SHARDING}: the expert-parallel MoE "
-                f"(_moe_fwd_shardmap) on the abstract {mesh}")
+                f"(_moe_fwd_shardmap) on tensors under the abstract "
+                f"{mesh}, outside a shard group (a shard group needs "
+                f"devices, meta ones for a trace)")
         return _moe_fwd_group(p, x, cfg, mesh)
     b, t, d = x.shape
     n = b * t
@@ -392,14 +406,40 @@ def _col(x: Sharded, w: Sharded, bias: Optional[Sharded] = None) -> Sharded:
     return Sharded(x.group, out, (x.spec[0], x.spec[1], w.spec[1]))
 
 
-def _row(x: Sharded, w: Sharded) -> Sharded:
+def _row(x: Sharded, w: Sharded, *, f32: bool = False) -> Sharded:
     """Row-parallel product: x (B, T, F) split on F as w (F, D)'s rows:
-    (B, T, D), partial over those axes."""
+    (B, T, D), partial over those axes, in the activations' dtype. With
+    ``f32`` (the serving paths) each partial is fp32, unrounded
+    (:func:`_mm_f32`), so that its sum over the shards (in fp32) rounds
+    once, as one product's accumulator does, and the sharded serve follows
+    the serve with no mesh but for the order of fp32 sums;
+    :func:`_to_residual` rounds it."""
     if x.spec[2] != w.spec[0]:
         x = spmd.redistribute(x, (x.spec[0], x.spec[1], w.spec[0]))
-    out = x.group.map(lambda x, w: x @ w, x, w)
+    mm = _mm_f32 if f32 else torch.matmul
+    out = x.group.map(mm, x, w)
     return Sharded(x.group, out, (x.spec[0], x.spec[1], ()),
                    partial=w.spec[0])
+
+
+def _mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` (x (..., F), w (F, D)) with an fp32 output: on the card
+    (and ``meta``) the product's fp32 accumulator unrounded
+    (``torch.mm(..., out_dtype=torch.float32)``), on the CPU the same
+    products in fp32."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == torch.float32 or x.device.type == "cpu":
+        y = x2.float() @ w.float()
+    else:
+        y = torch.mm(x2, w, out_dtype=torch.float32)
+    return y.view(*x.shape[:-1], w.shape[-1])
+
+
+def _to_residual(y: Sharded, dtype: torch.dtype) -> Sharded:
+    """``y`` summed where it is partial, laid out as the residual (rows
+    over dp, the sequence over sp) and rounded to ``dtype``."""
+    y = shard(y, "dp", "sp", None)
+    return y if y.dtype == dtype else y.map(lambda v: v.to(dtype))
 
 
 def _heads(x: Sharded, n: int, dh: int) -> Sharded:
@@ -462,26 +502,33 @@ def _attention_spmd(p, x: Sharded, cfg: ArchConfig, *, local: bool,
     residual's layout (rows over dp, sequence over sp); ``positions`` and
     ``segment_ids`` (B, T) rows over dp. Returns y in the residual's
     layout."""
-    if heads_even(cfg):
-        y = _attention_heads(p, x, cfg, local, positions, segment_ids)
-    else:
-        y = _attention_seq(p, x, cfg, local, positions, segment_ids)
-    return shard(y, "dp", "sp", None)
+    attend = _attention_heads if heads_even(cfg) else _attention_seq
+    y, _, _ = attend(p, x, cfg, local, positions, segment_ids)
+    return _to_residual(y, x.dtype)
 
 
-def _attention_heads(p, x, cfg, local, positions, segment_ids) -> Sharded:
+def _attention_heads(p, x, cfg, local, positions, segment_ids,
+                     kv_positions=None, causal=None, f32=False):
     """Head-parallel (Megatron) attention: the sequence gathered, wq, wk
     and wv column-parallel, each shard its q heads; KV heads fewer than
     the model axis gathered whole, each shard taking those its q heads
     read; ``pad_heads`` pads the heads to the axis as the reference's
-    ``_pad_heads``; wo row-parallel, its output partial."""
+    ``_pad_heads``; wo row-parallel, its output partial. Returns ``(y, k,
+    v)``, k and v (B, T, KV, D) after RoPE, in the layout they were
+    computed in (what a prefill writes into its cache). ``kv_positions``
+    (default ``positions``) are the keys' positions for the mask and
+    ``causal`` (default ``cfg.causal``) its kind; ``f32`` as
+    :func:`_row` takes it."""
     g = x.group
+    kv_positions = positions if kv_positions is None else kv_positions
+    causal = cfg.causal if causal is None else causal
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     xg = shard(x, "dp", None, None)
     q = _heads(_col(xg, p["wq"], p.get("bq")), h, dh)
     k = _heads(_col(xg, p["wk"], p.get("bk")), kv, dh)
     v = _heads(_col(xg, p["wv"], p.get("bv")), kv, dh)
     q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
+    k_out, v_out = k, v
     tp = axis_size("tp")
     n_heads = h
     if cfg.pad_heads and h % tp:
@@ -505,12 +552,12 @@ def _attention_heads(p, x, cfg, local, positions, segment_ids) -> Sharded:
         if not aligned:
             q0 = g.chunk(r, q.spec[2])[0] * hl
             kr, vr = (_kv_for(z, n_heads, q0, hl) for z in (kr, vr))
-        pos = positions.locals[r]
         sr = None if seg is None else seg.locals[r]
         return ops.attention(
-            qr, kr, vr, causal=cfg.causal, window=window,
-            softcap=cfg.attn_softcap, q_positions=pos, kv_positions=pos,
-            q_segment_ids=sr, kv_segment_ids=sr)
+            qr, kr, vr, causal=causal, window=window,
+            softcap=cfg.attn_softcap, q_positions=positions.locals[r],
+            kv_positions=kv_positions.locals[r], q_segment_ids=sr,
+            kv_segment_ids=sr)
 
     out = Sharded(g, g.per_rank(attend), q.spec)
     if n_heads != h:                                 # drop the pad heads
@@ -519,16 +566,21 @@ def _attention_heads(p, x, cfg, local, positions, segment_ids) -> Sharded:
     flat = Sharded(g, g.map(lambda o: o.reshape(o.shape[0], o.shape[1], -1),
                             out),
                    (out.spec[0], out.spec[1], out.spec[2]))
-    return _row(flat, p["wo"])
+    return _row(flat, p["wo"], f32=f32), k_out, v_out
 
 
-def _attention_seq(p, x, cfg, local, positions, segment_ids) -> Sharded:
+def _attention_seq(p, x, cfg, local, positions, segment_ids,
+                   kv_positions=None, causal=None, f32=False):
     """Sequence-parallel attention (heads that do not divide the model
     axis, or ``attn_tp=False``): every weight gathered whole where it is
     used; each shard's q the rows of its sequence chunk at their own
     positions, k and v gathered along the sequence, causal by position;
-    the output in the residual's layout, no sum."""
+    the output in the residual's layout, no sum. Returns ``(y, k, v)``
+    and takes ``kv_positions``, ``causal`` and ``f32`` as
+    :func:`_attention_heads` does."""
     g = x.group
+    kv_positions = positions if kv_positions is None else kv_positions
+    causal = cfg.causal if causal is None else causal
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     w = {name: spmd.gather_whole(t) for name, t in p.items()}
     q_pos = shard(positions, "dp", "sp")
@@ -543,9 +595,9 @@ def _attention_seq(p, x, cfg, local, positions, segment_ids) -> Sharded:
 
     def attend(r):
         return ops.attention(
-            q.locals[r], k.locals[r], v.locals[r], causal=cfg.causal,
+            q.locals[r], k.locals[r], v.locals[r], causal=causal,
             window=window, softcap=cfg.attn_softcap,
-            q_positions=q_pos.locals[r], kv_positions=positions.locals[r],
+            q_positions=q_pos.locals[r], kv_positions=kv_positions.locals[r],
             q_segment_ids=None if q_seg is None else q_seg.locals[r],
             kv_segment_ids=(None if segment_ids is None
                             else segment_ids.locals[r]))
@@ -553,13 +605,107 @@ def _attention_seq(p, x, cfg, local, positions, segment_ids) -> Sharded:
     out = g.per_rank(lambda r: attend(r).reshape(
         q.locals[r].shape[0], q.locals[r].shape[1], -1))
     flat = Sharded(g, out, (x.spec[0], x.spec[1], ()))
-    return _row(flat, w["wo"])
+    return _row(flat, w["wo"], f32=f32), k, v
 
 
-def _mlp_spmd(p, x: Sharded, cfg: ArchConfig) -> Sharded:
+def _write_cache_spmd(cache: Sharded, new: Sharded, start: int) -> None:
+    """:func:`_write_cache` on a cache (B, S, KV, D) split by rows and by
+    sequence: ``new`` (B, t, KV, D) gathered to the cache's rows with the
+    rest whole, the start clamped over the whole S, and each rank writing
+    the positions its slice holds (in decode, the one shard whose slice
+    holds the new position)."""
+    g, t = cache.group, new.shape[1]
+    start = _write_start(cache.shape[1], t, start)
+    new = spmd.redistribute(new, (cache.spec[0], (), (), ()))
+
+    def write(r):
+        c = cache.locals[r]
+        n = c.shape[1]
+        s0 = g.chunk(r, cache.spec[1])[0] * n
+        lo, hi = max(start, s0), min(start + t, s0 + n)
+        if lo < hi:
+            c[:, lo - s0:hi - s0] = new.locals[r][:, lo - start:hi - start] \
+                .to(c.dtype)
+    g.per_rank(write)
+
+
+def _cache_positions(cache: Sharded, r: int) -> torch.Tensor:
+    """(B_r, S_r) int32: the cache positions of rank ``r``'s slice."""
+    c = cache.locals[r]
+    n = c.shape[1]
+    s0 = cache.group.chunk(r, cache.spec[1])[0] * n
+    return torch.arange(s0, s0 + n, dtype=torch.int32,
+                        device=c.device)[None].expand(c.shape[0], n)
+
+
+def _attention_serve_spmd(p, x: Sharded, cfg: ArchConfig, *, local: bool,
+                          positions: Sharded, cache: dict, cache_pos,
+                          mode: str) -> Sharded:
+    """Prefill and decode inside a shard group, on a KV cache of
+    :class:`Sharded` leaves laid out by ``train_state.cache_spec_tree``
+    (rows over dp, the sequence over the model axis where it divides).
+
+    Prefill runs the training layout's attention (:func:`_attention_heads`
+    or :func:`_attention_seq`, K1's prefill form on every shard) over the
+    prompt's keys, causal, at their cache positions ``arange(T)`` (the
+    mesh-free prefill attends over the whole cache, whose positions past
+    the prompt no prompt position sees), then writes k and v, gathered
+    whole, into each rank's slice of the cache: the returned cache has the
+    spec tree's layout, which decode takes as it is.
+
+    Decode computes q, k and v column-parallel and gathers them whole (B
+    x T x H x D, small), writes the new positions into the shard whose
+    slice holds them, runs K1's decode form on each shard's slice for
+    every q head (``kv_positions`` its slice of ``arange(S)``, o in fp32
+    unrounded), merges the partials over the model axis
+    (``spmd.merge_attention``, rounding once), and keeps each shard's
+    rows of the flattened heads for wo's row product."""
+    g = x.group
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    window = cfg.window if local else 0
+    if mode == "prefill":
+        t = x.shape[1]
+        kv_pos = positions.map(lambda pos: torch.arange(
+            t, dtype=torch.int32, device=pos.device)[None].expand(
+                pos.shape[0], t))
+        attend = _attention_heads if heads_even(cfg) else _attention_seq
+        y, k, v = attend(p, x, cfg, local, positions, None,
+                         kv_positions=kv_pos, causal=True, f32=True)
+        _write_cache_spmd(cache["k"], k, 0)
+        _write_cache_spmd(cache["v"], v, 0)
+        return _to_residual(y, x.dtype)
+    if mode != "decode":
+        raise ValueError(f"unknown mode {mode!r}")
+    xg = shard(x, "dp", None, None)
+    q = _heads(_col(xg, p["wq"], p.get("bq")), h, dh)
+    k = _heads(_col(xg, p["wk"], p.get("bk")), kv, dh)
+    v = _heads(_col(xg, p["wv"], p.get("bv")), kv, dh)
+    q, k = _rope(q, positions, cfg), _rope(k, positions, cfg)
+    rows = (xg.spec[0], (), (), ())
+    q, k, v = (spmd.redistribute(z, rows) for z in (q, k, v))
+    ck, cv = cache["k"], cache["v"]
+    _write_cache_spmd(ck, k, cache_pos)
+    _write_cache_spmd(cv, v, cache_pos)
+
+    def attend(r):
+        return ops.attention_partial(
+            q.locals[r], ck.locals[r], cv.locals[r], causal=True,
+            window=window, softcap=cfg.attn_softcap,
+            q_positions=positions.locals[r],
+            kv_positions=_cache_positions(ck, r))
+
+    parts = g.per_rank(attend)
+    o, _ = spmd.merge_attention([a for a, _ in parts], [b for _, b in parts],
+                                g, ck.spec[1], dtype=q.dtype)
+    flat = Sharded(g, [z.reshape(z.shape[0], z.shape[1], -1) for z in o],
+                   (rows[0], (), ()))
+    return _to_residual(_row(flat, p["wo"], f32=True), x.dtype)
+
+
+def _mlp_spmd(p, x: Sharded, cfg: ArchConfig, *, f32=False) -> Sharded:
     """The sequence gathered, w_in and w_gate column-parallel, w_out
-    row-parallel; the output reduce-scattered onto the residual's
-    layout."""
+    row-parallel (``f32`` as :func:`_row` takes it); the output
+    reduce-scattered onto the residual's layout."""
     act = act_fn(cfg.act)
     xg = shard(x, "dp", None, None)
     h = _col(xg, p["w_in"])
@@ -567,17 +713,18 @@ def _mlp_spmd(p, x: Sharded, cfg: ArchConfig) -> Sharded:
         h = h.map(lambda h, gt: act(gt) * h, _col(xg, p["w_gate"]))
     else:
         h = h.map(act)
-    return shard(_row(h, p["w_out"]), "dp", "sp", None)
+    return _to_residual(_row(h, p["w_out"], f32=f32), x.dtype)
 
 
-def _moe_spmd(p, x: Sharded, cfg: ArchConfig):
+def _moe_spmd(p, x: Sharded, cfg: ArchConfig, *, f32=False):
     """The reference's ``_moe_fwd_shardmap`` on a shard group: each
     shard's :func:`_moe_local` over its data shard's tokens (the sequence
     gathered) and its slice of the experts (EP, where E divides the model
     axis) or of their d_ff (expert-internal TP); the fp32 partial outputs
     reduce-scattered onto the residual's layout and cast; aux averaged
     over the model axis, then over the data axes that split the rows; the
-    shared expert, the dense MLP's program, added after."""
+    shared expert, the dense MLP's program (``f32`` its row product's
+    partials), added after."""
     g = x.group
     xg = shard(x, "dp", None, None)
     w_in = p["w_in"]
@@ -602,7 +749,7 @@ def _moe_spmd(p, x: Sharded, cfg: ArchConfig):
     aux = spmd.reduce_over(aux, tuple(axis_map().get("tp", ())), mean=True)
     aux = spmd.reduce_over(aux, xg.spec[0], mean=True)
     if cfg.n_shared_experts:
-        y = y.map(torch.add, _mlp_spmd(p["shared"], x, cfg))
+        y = y.map(torch.add, _mlp_spmd(p["shared"], x, cfg, f32=f32))
     return y, aux
 
 

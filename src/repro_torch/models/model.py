@@ -33,8 +33,11 @@ still in chunks of at most LOSS_TOKENS tokens, the per-shard log-sum-exps
 combined by a log-sum-exp over the shards and the label's logit summed
 from the shard that holds it; the sums are then summed over the data axes
 that split the rows. Under ``pure_dp`` every axis is a data axis. The
-token inputs only: frames and mixed inputs in a shard group raise
-(ROADMAP A23).
+frames and mixed inputs take their adapters column-parallel
+(:func:`_embed_spmd`). :func:`prefill` and :func:`decode` run a shard
+group the same way, with the serving cache split by
+``train_state.cache_spec_tree`` and the last logits a ``spmd.Sharded``
+over the vocabulary.
 """
 from __future__ import annotations
 
@@ -121,7 +124,7 @@ def embed_inputs(params, batch, cfg: ArchConfig, *, mode="train"):
     cached patches); or the token embeddings. Split params: the token
     embeddings of :func:`_embed_spmd`."""
     if isinstance(params["embed"], Sharded):
-        return _embed_spmd(params["embed"], batch, cfg)
+        return _embed_spmd(params, batch, cfg, mode)
     dt = L._dtype(cfg)
     if cfg.input_mode == "frames":
         h = batch["frames"].to(dt) @ params["frame_adapter"]
@@ -175,15 +178,48 @@ def _xent_chunk(head_w, h_c, labels_c, w_c, cfg: ArchConfig):
     return torch.sum((lse - ll) * w), torch.sum(w)
 
 
-def _embed_spmd(emb: Sharded, batch, cfg: ArchConfig) -> Sharded:
-    """Each shard's lookup in its slice of the table: a vocabulary slice
-    gives the rows of the tokens it holds and zeros for the rest, summed
-    by a reduce-scatter onto the residual's layout; a d_model slice is
-    gathered."""
-    if cfg.input_mode != "tokens":
-        raise spmd.not_ported(f"the {cfg.input_mode} inputs in a shard "
-                              "group")
-    g, tok = emb.group, batch["tokens"]
+def _embed_spmd(params, batch, cfg: ArchConfig, mode: str) -> Sharded:
+    """:func:`embed_inputs` in a shard group, the result in the residual's
+    layout. Tokens: each shard's lookup in its slice of the table, a
+    vocabulary slice giving the rows of the tokens it holds and zeros for
+    the rest (the partial rows summed over the slices), a d_model slice
+    gathered. Frames: the frame adapter column-parallel, ``mask_emb``'s
+    matching columns selected on the masked frames. Mixed: the patch
+    adapter column-parallel, the patches gathered whole ahead of the token
+    embeddings (not in decode)."""
+    emb = params["embed"]
+    g, dt = emb.group, L._dtype(cfg)
+    if cfg.input_mode == "frames":
+        frames = batch["frames"].map(lambda f: f.to(dt))
+        h = L._col(frames, params["frame_adapter"])
+        mask, mask_emb = batch["mask"], params["mask_emb"]
+
+        def sel(r):
+            x = h.locals[r]
+            i, _ = g.chunk(r, h.spec[2])
+            me = mask_emb.locals[r].narrow(0, i * x.shape[2], x.shape[2])
+            return torch.where(mask.locals[r][..., None], me.to(x.dtype), x)
+        h = Sharded(g, g.per_rank(sel), h.spec)
+    else:
+        h = _lookup_spmd(emb, batch["tokens"])
+        if cfg.input_mode == "mixed" and mode != "decode":
+            patches = batch["patches"].map(lambda x: x.to(dt))
+            hp = L._col(patches, params["patch_adapter"])
+            rows = (h.spec[0], (), ())
+            hp, h = spmd.redistribute(hp, rows), spmd.redistribute(h, rows)
+            h = Sharded(g, g.map(lambda a, b: torch.cat([a, b], dim=1),
+                                 hp, h), rows)
+    if cfg.scale_embed:
+        h = h.map(lambda x: x * torch.tensor(cfg.d_model ** 0.5,
+                                             dtype=x.dtype))
+    return shard(h, "dp", "sp", None)
+
+
+def _lookup_spmd(emb: Sharded, tok: Sharded) -> Sharded:
+    """Each shard's token embeddings from its slice of the table: (B, T,
+    D) rows as the tokens, D as the table's columns, partial over the
+    axes that split the vocabulary."""
+    g = emb.group
     vax, n_v = emb.spec[0], emb.locals[0].shape[0]
 
     def look(r):
@@ -195,12 +231,8 @@ def _embed_spmd(emb: Sharded, batch, cfg: ArchConfig) -> Sharded:
         return torch.where(mine[..., None], e[i.clamp(0, n_v - 1)],
                            e.new_zeros(()))
 
-    h = Sharded(g, g.per_rank(look),
-                (tok.spec[0], (), emb.spec[1]), partial=vax)
-    if cfg.scale_embed:
-        h = h.map(lambda x: x * torch.tensor(cfg.d_model ** 0.5,
-                                             dtype=x.dtype))
-    return shard(h, "dp", "sp", None)
+    return Sharded(g, g.per_rank(look), (tok.spec[0], (), emb.spec[1]),
+                   partial=vax)
 
 
 def _xent_chunk_spmd(head_w: Sharded, h_c: Sharded, labels_c: Sharded,
@@ -307,21 +339,28 @@ def lm_loss(params, h, labels, weights, cfg: ArchConfig):
 
 
 def split_batch(batch, group: "spmd.ShardGroup"):
-    """Each (B, ...) entry of a batch split by rows over dp (an entry
-    that comes split as it is)."""
-    return {k: v if isinstance(v, Sharded) else spmd.split(
-        v, spec_for(tuple(v.shape), ("dp",), group.mesh), group)
-        for k, v in batch.items()}
+    """Each (B, ...) tensor of a batch split by rows over dp (an entry
+    that comes split as it is, and one that is no tensor, as it is)."""
+    return {k: spmd.split(v, spec_for(tuple(v.shape), ("dp",), group.mesh),
+                          group) if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items()}
 
 
 def shard_step_inputs(params, batch, cfg: ArchConfig, group):
     """``(params, batch)`` for a shard group: the params split by
     ``train_state.params_spec_tree`` unless they come split, the batch
-    by rows."""
+    by rows, a decode batch's cache by ``train_state.cache_spec_tree``."""
     from repro_torch.train import train_state as TS
+    if cfg.family == "encdec":
+        raise spmd.not_ported(f"{cfg.name} (the encoder-decoder) in a shard "
+                              "group", group.mesh)
     if not spmd.tree_is_sharded(params):
         params = TS.shard_params(params, cfg, group.mesh)
-    return params, split_batch(batch, group)
+    sb = split_batch({k: v for k, v in batch.items() if k != "cache"},
+                     group)
+    if "cache" in batch:
+        sb["cache"] = TS.shard_cache(batch["cache"], cfg, group)
+    return params, sb
 
 
 def pin_fsdp_top(params, cfg: ArchConfig):
@@ -372,12 +411,50 @@ def loss_fn(params, batch, cfg: ArchConfig, *, remat=True):
 
 
 def _last_logits(params, h, cfg: ArchConfig):
+    """fp32 logits of every row's last position. In a shard group each
+    shard's over its slice of the vocabulary (the head's rows, after the
+    last position is taken from the shard that holds it), the softcap
+    applied per shard: a ``Sharded`` (B, Vp), rows over dp and the
+    vocabulary over tp, which ``spmd.join`` makes the mesh-free tensor."""
+    if isinstance(h, Sharded):
+        return _last_logits_spmd(_head_weight(params), h, cfg)
     # logits in the params' dtype (bf16 rounds here), then fp32
     logits = h[:, -1, :] @ _head_weight(params).T
     if cfg.final_softcap:
         logits = cfg.final_softcap * torch.tanh(
             logits.float() / cfg.final_softcap)
     return logits.float()
+
+
+def _last_position(h: Sharded) -> Sharded:
+    """``h[:, -1]`` (B, D) on every rank: where the sequence is split,
+    the last chunk's owner gives it and the others zeros, summed over the
+    axes that split it (a broadcast from the owner)."""
+    g, axes = h.group, h.spec[1]
+    if not axes:
+        return Sharded(g, g.map(lambda x: x[:, -1], h), (h.spec[0],
+                                                        h.spec[2]))
+
+    def mine(r):
+        x = h.locals[r][:, -1]
+        i, n = g.chunk(r, axes)
+        return x if i == n - 1 else torch.zeros_like(x)
+    return Sharded(g, spmd.all_reduce(g.per_rank(mine), g, axes),
+                   (h.spec[0], h.spec[2]))
+
+
+def _last_logits_spmd(head_w: Sharded, h: Sharded, cfg: ArchConfig):
+    g = h.group
+    last = spmd.redistribute(_last_position(h), (h.spec[0], ()))
+    head_w = spmd.redistribute(head_w, (head_w.spec[0], ()))
+
+    def part(r):
+        logits = last.locals[r] @ head_w.locals[r].T
+        if cfg.final_softcap:
+            logits = cfg.final_softcap * torch.tanh(
+                logits.float() / cfg.final_softcap)
+        return logits.float()
+    return Sharded(g, g.per_rank(part), (last.spec[0], head_w.spec[0]))
 
 
 # ----------------------------------------------------------------------
@@ -388,12 +465,25 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len=None):
 
     ``cache_len`` (>= seq len) sizes the KV cache so subsequent decode steps
     have headroom; defaults to the prompt length. Like the reference, the
-    logits come from the last column ``h[:, -1]`` of every row."""
-    b = batch["positions"].shape[0]
-    s = cache_len or batch["positions"].shape[1]
+    logits come from the last column ``h[:, -1]`` of every row. Under a
+    mesh that shards inside the stage, each shard's program in a shard
+    group (:func:`shard_step_inputs`): the logits a ``spmd.Sharded`` over
+    the vocabulary, the cache a tree of them laid out by
+    ``train_state.cache_spec_tree``."""
+    if spmd.in_stage_mesh():
+        with spmd.running(step_group()) as g:
+            params, sb = shard_step_inputs(params, batch, cfg, g)
+            return _prefill(pin_fsdp_top(params, cfg), sb, cfg, cache_len)
+    return _prefill(params, batch, cfg, cache_len)
+
+
+def _prefill(params, batch, cfg: ArchConfig, cache_len):
+    pos = batch["positions"]
+    b, s = pos.shape[0], cache_len or pos.shape[1]
     if cfg.decode:
+        # in a shard group the cache is made on the ranks' devices
         cache = T.init_cache(cfg, b, s, dtype=L._dtype(cfg),
-                             device=batch["positions"].device)
+                             device=getattr(pos, "device", "meta"))
         h, new_cache, _ = forward(params, batch, cfg, mode="prefill",
                                   cache=cache, cache_pos=0, remat=False)
     else:  # encoder-only: prefill == full encode forward (no cache)
@@ -405,7 +495,17 @@ def prefill(params, batch, cfg: ArchConfig, *, cache_len=None):
 def decode(params, batch, cfg: ArchConfig):
     """One decode step. batch: {tokens (B,1), positions (B,1), cache,
     cache_pos (int)}. Returns (logits (B, Vp) fp32, cache), the cache
-    written in place."""
+    written in place. Under a mesh that shards inside the stage, in a
+    shard group as :func:`prefill`: the cache split by its spec tree
+    unless it comes split."""
+    if spmd.in_stage_mesh():
+        with spmd.running(step_group()) as g:
+            params, sb = shard_step_inputs(params, batch, cfg, g)
+            return _decode(pin_fsdp_top(params, cfg), sb, cfg)
+    return _decode(params, batch, cfg)
+
+
+def _decode(params, batch, cfg: ArchConfig):
     h, new_cache, _ = forward(
         params, batch, cfg, mode="decode",
         cache=batch["cache"], cache_pos=batch["cache_pos"], remat=False,

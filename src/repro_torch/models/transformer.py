@@ -27,9 +27,12 @@ model axis between blocks (a dim the axis does not divide stays whole),
 gathered along the sequence before the column products and
 reduce-scattered after the row products; a Mamba mixer runs
 ``mamba.mamba_fwd_spmd``; ZeRO-3 weights (``fsdp_params``) are gathered a
-period at a time inside the period's checkpoint (:func:`_pin_fsdp`).
-Still raising there (ROADMAP A23): prefill and decode with sharded
-caches, and ZeRO-3 weights as tensors outside a shard group.
+period at a time (:func:`_pin_fsdp`), inside the period's checkpoint in
+training and freed after the period in serving, where the period loop
+runs without a checkpoint. Prefill and decode there write a cache of
+``spmd.Sharded`` leaves laid out by ``train_state.cache_spec_tree``
+(:func:`init_cache` makes it inside a running group). ZeRO-3 weights as
+tensors outside a shard group still raise (ROADMAP A23).
 """
 from __future__ import annotations
 
@@ -92,7 +95,8 @@ def block_fwd(p, h, cfg: ArchConfig, spec: LayerSpec, *,
     term, None for a dense layer (the reference's 0, with no launch)."""
     if isinstance(h, Sharded):
         return _block_fwd_spmd(p, h, cfg, spec, positions=positions,
-                               segment_ids=segment_ids, mode=mode)
+                               segment_ids=segment_ids, cache=cache,
+                               cache_pos=cache_pos, mode=mode)
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":    # positions, segment ids, cache_pos unused
         y, new_cache = M.mamba_fwd(p["mixer"], x, cfg, cache=cache, mode=mode)
@@ -122,29 +126,31 @@ def rms_norm(h, w, eps: float):
 
 
 def _block_fwd_spmd(p, h: Sharded, cfg: ArchConfig, spec: LayerSpec, *,
-                    positions, segment_ids, mode):
+                    positions, segment_ids, cache, cache_pos, mode):
     """One block inside a shard group, ``h`` in the residual's layout:
     each norm on the shard's own rows, the mixer and the MLP or MoE as
-    ``layers`` runs them there."""
-    if mode != "train":
-        raise spmd.not_ported(f"{mode} with sharded caches")
+    ``layers`` runs them there; in prefill and decode the mixer writes
+    its ``spmd.Sharded`` cache leaves in place, and the MLP's row
+    product sums fp32 partials (``layers._row``'s ``f32``)."""
     x = rms_norm(h, p["ln1"], cfg.norm_eps)
+    serve = mode != "train"
     if spec.mixer == "mamba":
-        y = M.mamba_fwd_spmd(p["mixer"], x, cfg)
+        y = M.mamba_fwd_spmd(p["mixer"], x, cfg, cache=cache, mode=mode)
     else:
         y, _ = L.attention_fwd(p["mixer"], x, cfg,
                                local=(spec.mixer == "attn_local"),
-                               positions=positions, segment_ids=segment_ids)
+                               positions=positions, segment_ids=segment_ids,
+                               cache=cache, cache_pos=cache_pos, mode=mode)
     h = h.map(torch.add, y)
     aux = None
     if "ffn" in p:
         x = rms_norm(h, p["ln2"], cfg.norm_eps)
         if spec.moe:
-            y, aux = L.moe_fwd(p["ffn"], x, cfg)
+            y, aux = L._moe_spmd(p["ffn"], x, cfg, f32=serve)
         else:
-            y = L.mlp_fwd(p["ffn"], x, cfg)
+            y = L._mlp_spmd(p["ffn"], x, cfg, f32=serve)
         h = h.map(torch.add, y)
-    return shard(h, "dp", "sp", None), None, aux
+    return shard(h, "dp", "sp", None), cache, aux
 
 
 # ----------------------------------------------------------------------
@@ -155,23 +161,41 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, dtype=torch.bfloat16,
     """Per-period-position cache, stacked over periods: a tuple of dicts,
     for attention of (n_periods, batch, seq, KV, Dh) k and v, for Mamba of
     the conv state (n_periods, batch, K - 1, conv_ch) in ``dtype`` and the
-    ssm state (n_periods, batch, H, P, N) fp32, whatever ``seq``."""
+    ssm state (n_periods, batch, H, P, N) fp32, whatever ``seq``. Inside a
+    running shard group of the ambient mesh, each leaf a zero
+    ``spmd.Sharded`` laid out by ``train_state.cache_spec_tree`` (each
+    rank's chunk on its device, ``meta`` included; ``device`` unused)."""
+    group = spmd.current_group()
+    layout = _cache_layout(cfg, batch, seq, dtype)
+    if group is not None and group.mesh is ambient_mesh():
+        from repro_torch.train.train_state import cache_spec_tree
+        specs = cache_spec_tree(cfg, tuple(
+            {k: shape for k, (shape, _) in lc.items()} for lc in layout),
+            group.mesh)
+        return tuple({k: spmd.zeros(shape, sp[k], dt, group)
+                      for k, (shape, dt) in lc.items()}
+                     for lc, sp in zip(layout, specs))
     device = resolve_device(device)
-    caches = []
+    return tuple({k: torch.zeros(shape, dtype=dt, device=device)
+                  for k, (shape, dt) in lc.items()} for lc in layout)
+
+
+def _cache_layout(cfg: ArchConfig, batch: int, seq: int, dtype):
+    """The cache's ``(shape, dtype)`` per leaf, as :func:`init_cache`
+    makes it."""
+    out = []
     np_ = cfg.n_periods
     for spec in cfg.layer_pattern:
         if spec.mixer == "mamba":
             _, _, n, hh, conv_ch = M._dims(cfg)
-            caches.append({
-                "conv": torch.zeros((np_, batch, cfg.ssm_conv - 1, conv_ch),
-                                    dtype=dtype, device=device),
-                "ssm": torch.zeros((np_, batch, hh, cfg.ssm_headdim, n),
-                                   dtype=torch.float32, device=device)})
+            out.append({
+                "conv": ((np_, batch, cfg.ssm_conv - 1, conv_ch), dtype),
+                "ssm": ((np_, batch, hh, cfg.ssm_headdim, n),
+                        torch.float32)})
             continue
         shape = (np_, batch, seq, cfg.n_kv_heads, cfg.d_head)
-        caches.append({"k": torch.zeros(shape, dtype=dtype, device=device),
-                       "v": torch.zeros(shape, dtype=dtype, device=device)})
-    return tuple(caches)
+        out.append({"k": (shape, dtype), "v": (shape, dtype)})
+    return tuple(out)
 
 
 def cache_logical(cfg: ArchConfig):
@@ -220,10 +244,11 @@ def stack_logical(cfg: ArchConfig):
 def _pin_fsdp(pparams, cfg: ArchConfig):
     """One period's ZeRO-3 weights (``fsdp_params``) in a shard group,
     gathered over the zero axes to the plain-TP layout (the reference's
-    pin, ``transformer.py:141-172``): called inside the period's
-    checkpoint, so each period's weights are gathered where the period
-    runs, freed after it, and gathered again by its recompute; the whole
-    stack is never gathered. A leaf whose stack is split along the periods
+    pin, ``transformer.py:141-172``, which runs in every mode): called
+    inside the period's checkpoint in training (in serving the period
+    runs without one), so each period's weights are gathered where the
+    period runs, freed after it, and gathered again by its recompute; the
+    whole stack is never gathered. A leaf whose stack is split along the periods
     (a bias whose only free dim is theirs) arrives as
     ``spmd.PeriodSlice`` and is taken from its owner first. The
     gathers' transposes reduce-scatter the gradients into each rank's
@@ -257,6 +282,15 @@ def _periods(params, n_periods):
     unbound = tree_map(spmd.periods if spmd.tree_is_sharded(params)
                        else (lambda x: x.unbind(0)), params)
     return [tree_map(lambda xs, i=i: xs[i], unbound) for i in range(n_periods)]
+
+
+def _period_slice(c, i: int):
+    """Period ``i`` of a stacked cache leaf: a view, or for a
+    ``spmd.Sharded`` leaf (whose periods dim no axis splits) each rank's
+    view."""
+    if isinstance(c, Sharded):
+        return Sharded(c.group, [x[i] for x in c.locals], c.spec[1:])
+    return c[i]
 
 
 # the products "dots" saves: those with no batch dims
@@ -317,7 +351,8 @@ def stack_fwd(params, h, cfg: ArchConfig, *,
     auxs = []
     for i, pparams in enumerate(_periods(params, cfg.n_periods)):
         caches = (None if cache is None else
-                  [{name: c[i] for name, c in lc.items()} for lc in cache])
+                  [{name: _period_slice(c, i) for name, c in lc.items()}
+                   for lc in cache])
         if ckpt is not None:
             with spmd.whole_recompute(h):
                 h, aux = checkpoint(_period_fwd, pparams, h, cfg, positions,

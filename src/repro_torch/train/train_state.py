@@ -22,6 +22,7 @@ from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (P, Mesh, map_logical, spec_for,
                                        spec_for_zero, zero1_logical)
 from repro_torch.models import model as MD
+from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
 
 
@@ -49,6 +50,28 @@ def _param_spec(cfg: ArchConfig, shape, logical, mesh):
 def params_spec_tree(cfg: ArchConfig, params_shapes, mesh):
     return map_logical(lambda lg, sh: _param_spec(cfg, sh.shape, lg, mesh),
                        MD.params_logical(cfg), params_shapes)
+
+
+def cache_spec_tree(cfg: ArchConfig, cache_shapes, mesh):
+    """PartitionSpec tree of a serving cache (``transformer.init_cache``'s
+    tuple of dicts of tensors, ``Sharded`` values or shape tuples) from
+    ``transformer.cache_logical``, as the reference
+    places it (``src/repro/models/transformer.py:99-115``): the KV cache's
+    rows over dp and its sequence over the model axis, Mamba's conv
+    channels and ssm heads over tp; a dim the axes do not divide stays
+    whole."""
+    return map_logical(lambda lg, sh: spec_for(tuple(getattr(sh, "shape",
+                                                             sh)), lg, mesh),
+                       T.cache_logical(cfg), cache_shapes)
+
+
+def shard_cache(cache, cfg: ArchConfig, group: "spmd.ShardGroup"):
+    """A whole cache split by :func:`cache_spec_tree` over ``group``'s
+    ranks (a cache that comes split as it is)."""
+    specs = cache_spec_tree(cfg, cache, group.mesh)
+    return tuple({k: v if isinstance(v, spmd.Sharded)
+                  else spmd.split(v, sp[k], group) for k, v in lc.items()}
+                 for lc, sp in zip(cache, specs))
 
 
 def shard_params(params, cfg: ArchConfig, mesh: Mesh):

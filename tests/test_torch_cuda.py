@@ -1604,3 +1604,70 @@ def test_mamba_tp_step_on_a_mesh_of_the_card_matches_the_meshfree_step(
     assert torch.equal(l1, l2)
     assert all(torch.equal(a, b) for (_, a), (_, b) in
                zip(flatten(g1), flatten(g2)))
+
+
+@pytest.mark.parametrize("arch", ["gpt-paper", "mamba2-130m"])
+def test_sharded_serve_on_a_mesh_of_the_card_matches_the_meshfree_serve(
+        cuda, arch):
+    """The reduced model's prefill (2 x 128 into a 132-position cache) and
+    4 decode steps on a (1, 4) mesh of ``cuda:0`` against the same serve
+    with no mesh, fed the same tokens: K1 (gpt-paper: each shard's heads
+    in prefill, each shard's slice of the cache in decode) or K4 (Mamba's
+    prefill on each shard's 2 heads) launched 4 times as often; each
+    step's last logits and each cache leaf, joined, within TOL by norm;
+    gpt-paper's decode fails that check with the merge of K1's partials
+    planted to leave out the last model shard's."""
+    from unittest import mock
+    from repro_torch.dist import spmd
+    from repro_torch.dist.sharding import set_mesh
+    from repro_torch.launch.mesh import make_mesh
+    cfg = SV.make_config(arch, "reduced", 2)
+    params = MD.init_params(torch.Generator(device=cuda).manual_seed(0), cfg,
+                            device=cuda)
+    r = np.random.default_rng(0)
+    b, t, steps = 2, 128, 4
+    batch = _to({"tokens": torch.from_numpy(
+        r.integers(0, cfg.vocab, (b, t)).astype(np.int32)),
+        "positions": torch.arange(t, dtype=torch.int32)[None].expand(
+            b, t).contiguous()}, cuda)
+    feed = torch.from_numpy(r.integers(0, cfg.vocab, (b, steps)).astype(
+        np.int32)).to(cuda)
+
+    def serve(mesh):
+        ops.reset_launch_counts()
+        with set_mesh(mesh), torch.inference_mode():
+            logits, cache = MD.prefill(params, batch, cfg, cache_len=t + steps)
+            out = [logits]
+            for i in range(steps):
+                logits, cache = MD.decode(params, {
+                    "tokens": feed[:, i:i + 1], "cache": cache,
+                    "cache_pos": t + i, "positions": torch.full(
+                        (b, 1), t + i, dtype=torch.int32, device=cuda)}, cfg)
+                out.append(logits)
+        if mesh is not None:
+            out = [spmd.join(x) for x in out]
+            cache = tuple({k: spmd.join(v) for k, v in lc.items()}
+                          for lc in cache)
+        return out, cache, dict(ops.launch_counts())
+
+    def rel(a, b):
+        return float((torch.linalg.vector_norm(a - b, dim=-1)
+                      / torch.linalg.vector_norm(b, dim=-1)).max())
+
+    free, free_cache, free_counts = serve(None)
+    mesh = make_mesh((1, 4), ("data", "model"), devices=["cuda:0"] * 4)
+    got, cache, counts = serve(mesh)
+    kernel = "ssd_chunked" if cfg.has_mamba else "mha_forward"
+    assert free_counts[kernel] > 0
+    assert counts[kernel] == 4 * free_counts[kernel]
+    assert max(rel(a, b) for a, b in zip(got, free)) <= TOL
+    for lc, lf in zip(cache, free_cache):
+        for k in lc:
+            assert _whole_rel(lc[k], lf[k]) <= TOL, k
+    if cfg.has_mamba:
+        return
+    real = spmd.merge_partials
+    with mock.patch.object(spmd, "merge_partials",
+                           lambda os_, ls_: real(os_[:-1], ls_[:-1])):
+        bad, _, _ = serve(mesh)
+    assert max(rel(a, b) for a, b in zip(bad[1:], free[1:])) > TOL

@@ -29,9 +29,12 @@ CPU, for reduced configs at seq 128 and batch 8 (U = B·H·T·S·D):
   and (1, 4), traced in a shard group on ``meta`` (argument bytes equal
   to the byte, FLOPs per device the reference's related as on (1, 1) at
   the shard's share, within 1%, each term where the two programs do
-  different work named; link bytes printed beside the reference's); and
-  gpt-paper's prefill on (2, 2), which the port records as not ported
-  (ROADMAP A23) with the reference's argument bytes;
+  different work named; link bytes printed beside the reference's);
+  gpt-paper's prefill and decode, mamba2-130m's decode and llava-next's
+  prefill on (2, 2) and (1, 4), traced in a shard group with sharded
+  caches, held the same way; and t5-paper's prefill on (2, 2), which the
+  port records as not ported (ROADMAP A23) with the reference's argument
+  bytes;
 - a representative rank's trace against a trace of every rank on (2, 2);
 - the CLI once, into a temporary directory.
 """
@@ -272,10 +275,13 @@ from repro.train.optimizer import AdamWConfig
 out = {}
 for arch, mesh_shape, kinds in (
         ("gpt-paper", (4, 1), ("train", "prefill", "decode")),
-        ("gpt-paper", (2, 2), ("train", "prefill")),
-        ("gpt-paper", (1, 4), ("train",)),
-        ("mamba2-130m", (2, 2), ("train",)),
-        ("mamba2-130m", (1, 4), ("train",))):
+        ("gpt-paper", (2, 2), ("train", "prefill", "decode")),
+        ("gpt-paper", (1, 4), ("train", "prefill", "decode")),
+        ("mamba2-130m", (2, 2), ("train", "decode")),
+        ("mamba2-130m", (1, 4), ("train", "decode")),
+        ("llava-next-34b", (2, 2), ("prefill",)),
+        ("llava-next-34b", (1, 4), ("prefill",)),
+        ("t5-paper", (2, 2), ("prefill",))):
     cfg = reduced(get_arch(arch))
     mesh = make_mesh(mesh_shape, ("data", "model"))
     for kind in kinds:
@@ -420,33 +426,112 @@ def test_representative_rank_equals_every_rank(arch):
     assert got[0][0] > 0 and got[0][2]
 
 
+SERVE_MESH_CASES = [("gpt-paper", "prefill", "2x2"),
+                    ("gpt-paper", "decode", "2x2"),
+                    ("gpt-paper", "prefill", "1x4"),
+                    ("gpt-paper", "decode", "1x4"),
+                    ("mamba2-130m", "decode", "2x2"),
+                    ("mamba2-130m", "decode", "1x4"),
+                    ("llava-next-34b", "prefill", "2x2"),
+                    ("llava-next-34b", "prefill", "1x4")]
+
+
+@pytest.mark.parametrize("arch,kind,mesh", SERVE_MESH_CASES,
+                         ids=[f"{a}-{k}-{m}" for a, k, m in SERVE_MESH_CASES])
+def test_serve_cell_on_a_model_axis_matches_reference(reference_meshes,
+                                                      arch, kind, mesh,
+                                                      capsys):
+    """A prefill or decode cell on a mesh with a model axis, traced in a
+    shard group on ``meta`` (the KV and Mamba caches split by
+    ``train_state.cache_spec_tree``), against the reference's compiled
+    GSPMD program on the same mesh: argument bytes equal to the byte;
+    FLOPs per device the (1, 1) relation (equal) at the shard's share,
+    1/4 on these meshes, within 1%, with one term where the programs do
+    different work: in Mamba's decode each model shard convolves every B
+    and C channel of the window (2·B·K·2GN products a layer over its
+    rows), which the reference's partitioned program splits over the
+    model axis. Decode's K1 runs on every shard over its slice of the
+    cache for every q head, at 1/4 of the keys: a quarter of the (1, 1)
+    charge, as the reference's."""
+    cfg = reduced(get_arch(arch))
+    key = (f"{mesh}-{kind}" if arch == "gpt-paper"
+           else f"{arch}-{mesh}-{kind}")
+    ref = reference_meshes[key]
+    d, m = (int(x) for x in mesh.split("x"))
+    n_dev = d * m
+    rec = _port_record(arch, kind, mesh)
+    one = _port_record(arch, kind, "1x1")
+    _, ref11 = _reference(arch, kind)
+    assert rec["n_chips"] == n_dev and "not_ported" not in rec
+    assert rec["memory"]["argument_bytes"] == ref["args"]
+    assert one["cost"]["flops_per_device"] == ref11
+    assert math.isclose(ref["flops"], ref11 / n_dev, rel_tol=0.01)
+    extra = 0
+    if cfg.has_mamba:
+        bc = 2 * cfg.ssm_groups * cfg.ssm_state
+        extra = cfg.n_layers * 2 * (BATCH // d) * cfg.ssm_conv * bc \
+            * (1 - 1 / m)
+    want = ref["flops"] + extra
+    assert math.isclose(rec["cost"]["flops_per_device"], want,
+                        rel_tol=0.01)
+    assert math.isclose(rec["cost"]["flops_per_device"],
+                        one["cost"]["flops_per_device"] / n_dev + extra,
+                        rel_tol=1e-9)
+    assert rec["cost"]["launches"] == one["cost"]["launches"]
+    link = rec["collectives"]["link_bytes"]
+    with capsys.disabled():
+        print(f"\n{arch} {kind} {mesh} collective link bytes per device, "
+              f"port vs reference: " + ", ".join(
+                  f"{k} {link.get(k, 0):.0f} / {ref['link'].get(k, 0):.0f}"
+                  for k in sorted(set(link) | set(ref["link"]))))
+    assert rec["collectives"]["counts"] and sum(link.values()) > 0
+    if kind == "decode" and cfg.has_attn:
+        assert rec["collectives"]["counts"]["attention-merge"] == \
+            cfg.n_layers
+
+
 def test_model_axis_cell_records_state_bytes_only(reference_meshes):
-    rec = _port_record("gpt-paper", "prefill", "2x2")
+    """T5 (the encoder-decoder) on a mesh with a model axis is the one
+    kind of cell still recorded without a cost (ROADMAP A23), with the
+    reference's argument bytes."""
+    cfg = reduced(get_arch("t5-paper"))
+    rec = D.run_cell("t5-paper", "prefill_t", False, save=False,
+                     verbose=False, mesh=D.parse_mesh("2x2"), cfg=cfg,
+                     shape=_shape("prefill"))
     assert rec["cost"] is None and rec["not_ported"] == "ROADMAP A23"
     assert rec["memory"]["argument_bytes"] == reference_meshes[
-        "2x2-prefill"]["args"]
+        "t5-paper-2x2-prefill"]["args"]
     with pytest.raises(NotImplementedError, match="A23"):
-        D._lower_cell(reduced(get_arch("gpt-paper")), _shape("prefill"),
-                      D.parse_mesh("2x2"), AdamWConfig())
+        D._lower_cell(cfg, _shape("prefill"), D.parse_mesh("2x2"),
+                      AdamWConfig())
 
 
 # ----------------------------------------------------------------------
 # the CLI
 # ----------------------------------------------------------------------
 def test_cli_writes_records(tmp_path, capsys, monkeypatch):
-    """The CLI on the production mesh (A23: state bytes only) and on a 1x1
-    mesh (the trace), at full size for mamba2-130m's decode_32k: every
-    record keeps the reference's keys."""
+    """The CLI on the production mesh (a shard group traced on meta; T5
+    still state bytes only, A23) and on a 1x1 mesh (the trace), at full
+    size for mamba2-130m's decode_32k: every record keeps the reference's
+    keys."""
     D.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--mesh",
+            "single", "--out", str(tmp_path)])
+    D.main(["--arch", "t5-paper", "--shape", "decode_32k", "--mesh",
             "single", "--out", str(tmp_path)])
     D.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--mesh",
             "1x1", "--out", str(tmp_path)])
     out = capsys.readouterr().out
+    assert out.count("cells recorded without a cost") == 1
     assert "1 cells recorded without a cost" in out
-    assert out.count("ALL DRY-RUN CELLS PASSED") == 2
+    assert out.count("ALL DRY-RUN CELLS PASSED") == 3
+    t5 = json.loads((tmp_path / "t5-paper__decode_32k__16x16.json")
+                    .read_text())
+    assert t5["not_ported"] == "ROADMAP A23" and t5["cost"] is None
     prod = json.loads((tmp_path / "mamba2-130m__decode_32k__16x16.json")
                       .read_text())
-    assert prod["not_ported"] == "ROADMAP A23" and prod["cost"] is None
+    assert "not_ported" not in prod and prod["n_chips"] == 256
+    assert prod["cost"]["flops_per_device"] > 0
+    assert prod["memory"]["peak_bytes"] >= prod["memory"]["argument_bytes"]
     one = json.loads((tmp_path / "mamba2-130m__decode_32k__1x1.json")
                      .read_text())
     for key in ("arch", "shape", "mesh", "runnable", "skip_reason",
