@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Run the PyTorch port on one NVIDIA GPU and check it end to end.
 
-    python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5, mamba,
-                            # mamba-train, fault, cluster, moe, frames, mixed,
-                            # gemma2, mesh, spmd, dryrun
+    python3 chip_smoke.py   # device, kernel, serve, train, pipeline, t5,
+                            # packing, mamba, mamba-train, fault, cluster, moe,
+                            # frames, mixed, gemma2, mesh, spmd, dryrun
+    python3 chip_smoke.py --phases packing  # the packing baseline's rows
     python3 chip_smoke.py --phases spmd  # sharding inside a stage
     python3 chip_smoke.py --phases kernel,mamba-train  # Mamba2 training
     python3 chip_smoke.py --phases mesh  # the stage mesh and ZeRO-1
@@ -37,7 +38,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              encoder's non-causal self-attention, B 16, T = S 512, 128
              heads; ``t5-cross``: 128 decoder tokens to 512 encoder tokens,
              packed rows whose decoder segments see only their encoder
-             segments, both sides padded), at the moe phase's training
+             segments, both sides padded), at the packing phase's
+             (``packed-2048``: B 8, T 2048, 32 heads x 128, causal, the
+             segment ids and positions of the first 8 rows
+             ``pack_first_fit`` makes of the train stream's batch 1, 1 to
+             8 samples a row; SDPA's time with the block-diagonal causal
+             mask), at the moe phase's training
              shape (``granite-train``: B 8, T 2048, 24 q and 8 kv heads x
              64, rows as train-segmented's) and the frames phase's
              (``hubert-4k``: B 4, T = S 4096, 16 heads x 80, non-causal,
@@ -129,6 +135,30 @@ Phases, each printing its own lines; any failure exits non-zero:
              gradient leaf (which must fail a backward planted to return a
              zero dq), the encoder's gradients must be nonzero, and two
              2-iteration runs must be equal to the bit;
+6a. packing — the paper's MLM+DS packing baseline (section 2.2) as
+             ``benchmarks/bench_e2e.py``'s packing mode runs it, on the
+             port's ``core/packing.py``: each global batch packed
+             first-fit-decreasing into rows (``pack_first_fit`` at 2048
+             tokens; for T5 ``pack_encdec_first_fit`` at (512, 128)), 8
+             rows a micro-batch, the last padded with fully masked rows;
+             each micro-batch's grad step (``build_grad_step``, T5
+             ``build_encdec_grad_step``), the gradients summed in
+             micro-batch order and divided by the weight sum, then AdamW:
+             gpt-paper at full width, 8 layers, 4 iterations of the train
+             phase's stream, and t5-paper at full width, 4 + 4 layers, 2
+             iterations of the t5 phase's stream; exact launch counts
+             (K1 twice and the backward once per attention and
+             micro-batch), finite losses and grad norms; at 2 layers (T5:
+             2 + 2) one packed micro-batch's gradient leaves with the
+             kernels against the plain versions (GRAD_TOL; GRAD_REL_TOL
+             for gpt-paper's leaves, and for T5's on how much farther
+             from an f32 step they lie than the plain version's, as the
+             t5 phase holds them; a zero dq must fail it) and two
+             2-iteration runs equal to the bit; prints per iteration the packing efficiency beside
+             the dynamic plan's padding efficiency on the same global
+             batch and real tokens/s, and the share of live (query tile,
+             key tile) pairs in the packed rows against a causal row of
+             one sample;
 7. mamba   — ``repro_torch.serve`` of mamba2-130m at full width and depth
              (24 layers), random seeded weights, the serve phase's requests:
              K4 must launch 24 x prefill batches times and K1 never, and
@@ -235,9 +265,12 @@ Phases, each printing its own lines; any failure exits non-zero:
              injection order reversed giving the same loss to the bit, and
              ``optimizer_step`` on the placed state equal to
              ``adamw_update`` on the whole state to the bit (two steps);
-             two 2-iteration runs at 4 layers equal to the bit; prints
-             real tokens/s, the mean step, peak memory and ZeRO-1's bytes
-             on each stage;
+             two 2-iteration runs at 4 layers equal to the bit, and a third
+             on a ``("stage", "model")`` (4, 2) mesh of the card (each
+             stage on the first device of its row, the model axis holding
+             replicas, as the reference runs such a mesh) equal to them to
+             the bit; prints real tokens/s, the mean step, peak memory and
+             ZeRO-1's bytes on each stage;
 16. spmd   — sharding inside a stage (``repro_torch.dist.spmd``): the
              training step (``build_grad_step``) under a (data, model)
              mesh that repeats the card (``make_mesh(shape, ("data",
@@ -275,13 +308,18 @@ Phases, each printing its own lines; any failure exits non-zero:
              shards run one after another and no link is crossed);
              hubert-xlarge (the frames input) at full width, 2 layers, one
              step of 4 x 4096 frames on (1, 4), every leaf within GRAD_TOL
-             and GRAD_REL_TOL; then prefill and decode with sharded KV and
+             and GRAD_REL_TOL; t5-paper at full width (128 heads x 128, a
+             relu MLP of 65536, an untied head of 32128), 2 layers, on (2,
+             2), the decoder-only stack at T5's widths as the reference
+             runs T5 on a model axis, held as gpt-paper's (2, 2) case;
+             then prefill and decode with sharded KV and
              Mamba caches at full width (SPMD_SERVE_CASES): gpt-paper at
              32 layers on (2, 2) and, attn_tp=False, on (1, 4), gemma2-2b
              on the serve requests and on 2 prompts of 8192 (the first
              shard's cache slice outside the 4096 window), granite-moe on
              the kernel run's routes, mamba2-130m, llava-next's patches
-             and text, each against the same params' serve with no mesh
+             and text, t5-paper at 2 layers on (1, 4), each against the
+             same params' serve with no mesh
              fed the same tokens: every step's last logits and every cache
              leaf within max(FWD_REL_TOL, SPMD_NOISE_FACTOR x that serve's
              distance from itself on the plain versions), K1 and K4 4 x
@@ -317,7 +355,8 @@ Phases, each printing its own lines; any failure exits non-zero:
              models. On meshes that repeat the card (DRYRUN_MESH_CASES:
              (e) gpt-paper, 8 layers, on (2, 2); (f) mamba2-130m, 8
              layers, on (1, 4); B 8 x T 2048; (g, h) gpt-paper's prefill
-             and decode, 8 layers, on (2, 2)) the trace is rank 0 of a
+             and decode, 8 layers, on (2, 2); (i) t5-paper, 2 layers, a
+             train step on (2, 2)) the trace is rank 0 of a
              shard group on meta, the card runs every shard in turn: the
              trace's FLOPs and launches times the ranks must equal the
              card's, its collectives and link bytes the card's (the
@@ -429,6 +468,17 @@ T5_STREAM = dict(n_tasks=32, global_tokens=16384, max_len=512, vocab=32128,
                  tail_fraction=0.1, tail_alpha=1.2, encdec_fraction=1.0,
                  seed=0)
 T5_PALETTE = dict(min_seq=64, max_seq=512, seq_align=64, max_mbs=16)
+# the packing phase: bench_e2e's packing mode (rows of PACK_LEN tokens, or
+# of PACK_T5_LEN (enc, dec) tokens, PACK_ROWS rows a micro-batch) on the
+# train phase's model, depth and stream for PACK_ITERS iterations, and on
+# the t5 phase's model, depth and stream for PACK_T5_ITERS (the 8 x 2048
+# micro-batch is the train phase's largest, so its memory is the train
+# phase's; T5's 38 GB of state as the t5 phase's, on one device); the live
+# (query tile, key tile) share is read at K1's prefill tiles (128 x 128)
+# and the backward's (64 x 128)
+PACK_LEN, PACK_ROWS, PACK_T5_LEN = 2048, 8, (512, T5_DEC_LEN)
+PACK_ITERS, PACK_T5_ITERS = TRAIN_ITERS, 2
+PACK_TILES = {"K1": (128, 128), "backward": (64, 128)}
 # the fault phase: gpt-paper at full width, depth cut to 2 layers (0.816 B
 # parameters; a checkpoint of the bf16 params and fp32 master, m and v is
 # 14 bytes a parameter, 11.4 GB, against 28.3 GB at 8 layers) over 2
@@ -484,11 +534,20 @@ GEMMA2_HEADS, GEMMA2_KV_HEADS, GEMMA2_WINDOW, GEMMA2_SOFTCAP = 8, 4, 4096, 50.0
 # the spmd phase: gpt-paper at full width with depth cut to 2 layers (the
 # fault phase's cut), on a (2, 2) data x model mesh of the one card and,
 # with attn_tp=False, a (1, 4) one; granite-moe at full width, 2 layers, on
-# a (1, 4) mesh against (1, 1)
+# a (1, 4) mesh against (1, 1); t5-paper at full width, 2 layers, on (2,
+# 2): on a model axis the reference runs T5 as the decoder-only stack at
+# its widths (its init_params and params_logical do not read the family)
 SPMD_LAYERS = 2
+# T5's case takes 2 rows of the micro-batch: its gradients are held, as
+# Mamba's, by their distance from an fp32 step with no mesh on the plain
+# attention (SPMD_NOISE_FACTOR), since its bf16 step with no mesh already
+# lies 2-3% from fp32 on some leaves (PERF.md, section 6), and the fp32
+# plain attention's scores over 128 heads are 4.3 GB a row at T 2048
+T5_SPMD_ROWS = 2
 SPMD_MESHES = {"gpt-paper": (2, 2), "gpt-paper attn_tp=False": (1, 4),
                MOE_ARCH: (1, 4), "mamba2-130m": (1, 4),
-               "jamba-1.5-large-398b mixer": (1, 4), "qwen1.5-110b": (2, 2)}
+               "jamba-1.5-large-398b mixer": (1, 4), "qwen1.5-110b": (2, 2),
+               "t5-paper": (2, 2)}
 # Mamba's tensor parallelism: mamba2-130m at full width and depth (6 of
 # its 24 heads a shard); jamba's mixer alone at full width (32 of 128
 # heads of P 128, N 128 a shard; a whole jamba period, about 88 GB in
@@ -511,8 +570,8 @@ QWEN_SPMD_ROWS = 2
 # steps take most of (each shard's host work in turn: 5.8 s for gpt-paper's
 # 16 steps at 32 layers): gpt-paper keeps its 32 layers and 16 steps on
 # (2, 2), gemma2-2b (the 2048 prompts) its 26 and mamba2-130m its 24 and
-# 16 steps, the rest 4 layers; 8 decode steps where the serve phase takes
-# 16
+# 16 steps, t5-paper the spmd phase's 2 layers, the rest 4 layers; 8
+# decode steps where the serve phase takes 16
 SPMD_SERVE_CASES = (
     ("gpt-paper", "gpt-paper", 32, (2, 2), {}, 8, MAX_PROMPT, DECODE_STEPS),
     ("gpt-paper attn_tp=False", "gpt-paper", 4, (1, 4), {"attn_tp": False},
@@ -524,6 +583,7 @@ SPMD_SERVE_CASES = (
      DECODE_STEPS),
     ("llava-next-34b", "llava-next-34b", 4, (1, 4), {}, LLAVA_ROWS, None,
      LLAVA_DECODE_STEPS),
+    ("t5-paper", "t5-paper", SPMD_LAYERS, (1, 4), {}, 8, MAX_PROMPT, 8),
 )
 # the cases whose first 2 decode steps run again with a fault planted in
 # the sharded program, each of which must move those steps' logits by more
@@ -568,7 +628,8 @@ KERNELS = {
             "gemma2_serve_decode": "gemma2-serve-decode",
             "granite_decode": "granite-decode", "llava_decode": "llava-decode",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"},
+            "d256_keys_40960": "d256-keys-40960",
+            "packed_2048": "packed-2048"},
            ("train", "serve", "mesh")),
     # K2 and K3 are one fused kernel: both rows carry its launches and times
     "K2": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
@@ -579,7 +640,8 @@ KERNELS = {
             "d256_causal": "d256-causal",
             "gemma2_local_8k": "gemma2-local-8k",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"},
+            "d256_keys_40960": "d256-keys-40960",
+            "packed_2048": "packed-2048"},
            ("train", "serve", "mesh")),
     "K3": ("mha_backward", "src/repro_torch/kernels/csrc/flash_bwd.cu",
            "src/repro/kernels/flash_attention.py:438", "train-segmented",
@@ -589,7 +651,8 @@ KERNELS = {
             "d256_causal": "d256-causal",
             "gemma2_local_8k": "gemma2-local-8k",
             "padding_tile_d256": "padding-tile-d256",
-            "d256_keys_40960": "d256-keys-40960"},
+            "d256_keys_40960": "d256-keys-40960",
+            "packed_2048": "packed-2048"},
            ("train", "serve", "mesh")),
     "K4": ("ssd_chunked", "src/repro_torch/kernels/csrc/ssd_fwd.cu",
            "src/repro/kernels/ssd.py:114", "ssd-serve", {"t_192": "ssd-192"},
@@ -1085,6 +1148,21 @@ def _cross_rows(enc_lengths, t_enc, t_dec):
     return dec, enc
 
 
+def _packed_kernel_rows():
+    """Segment ids and positions of the first 8 rows ``pack_first_fit``
+    packs the train stream's batch 1 into at PACK_LEN tokens (1, 1, 2, 2,
+    3, 3, 4 and 8 samples), as the packing phase gives them to K1."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.core.packing import pack_first_fit
+    from repro_torch.data.dataset import materialize_packed_rows
+    from repro_torch.data.streams import MultiTaskStream, StreamConfig
+    gb = MultiTaskStream(StreamConfig(vocab=get_arch("gpt-paper").vocab,
+                                      **TRAIN_STREAM)).batch(1)
+    rows = pack_first_fit(gb.lengths, PACK_LEN)[:PACK_ROWS]
+    b = materialize_packed_rows(rows, gb.tokens, PACK_LEN)
+    return b["segment_ids"].tolist(), b["positions"].tolist()
+
+
 def phase_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1111,6 +1189,9 @@ def phase_kernel(torch):
     # 64), rows of one sample each as in train-segmented; the frames
     # phase's (hubert: 16 heads x 80, non-causal, one segment)
     gr_seg, gr_pos = _train_rows(TRAIN_ROWS * 2, 2048)
+    # the packing phase's rows: several samples a row, positions restarting
+    # at each, the row's tail padding
+    pk_seg, pk_pos = _packed_kernel_rows()
     hb_seg = [[0] * HUBERT_SEQ] * HUBERT_BATCH
     # the gemma2 phase's attention at head dim 256 (8 q and 4 kv heads,
     # softcap 50): its training rows, a local layer past its 4096-token
@@ -1157,6 +1238,9 @@ def phase_kernel(torch):
         ("t5-cross", dict(b=16, t=T5_DEC_LEN, s=512, h=128, kv=128,
                           q_seg=x_dec_seg, kv_seg=x_enc_seg),
          dict(causal=False), True, "t5-cross"),
+        ("packed-2048", dict(b=PACK_ROWS, t=PACK_LEN, s=PACK_LEN, h=32, kv=32,
+                             q_pos=pk_pos, kv_pos=pk_pos, q_seg=pk_seg,
+                             kv_seg=pk_seg), {}, True, "packed-2048"),
         ("granite-train", dict(b=8, t=2048, s=2048, h=24, kv=8, d=64,
                                q_pos=gr_pos, kv_pos=gr_pos, q_seg=gr_seg,
                                kv_seg=gr_seg), {}, True, "granite-train"),
@@ -2112,21 +2196,28 @@ def phase_pipeline(torch):
 # ----------------------------------------------------------------------
 # phase 14: the mesh backend, gpt-paper at full width over a stage mesh
 # ----------------------------------------------------------------------
-def _stage_mesh():
-    from repro_torch.launch.mesh import make_stage_mesh
-    return make_stage_mesh(PIPE_STAGES, devices=["cuda:0"] * PIPE_STAGES)
+def _stage_mesh(model=1):
+    """A stage mesh that repeats the card: ``(PIPE_STAGES,)``, or with
+    ``model`` > 1 a ``("stage", "model")`` mesh whose model axis holds
+    replicas of each stage."""
+    from repro_torch.launch.mesh import make_mesh, make_stage_mesh
+    if model == 1:
+        return make_stage_mesh(PIPE_STAGES, devices=["cuda:0"] * PIPE_STAGES)
+    return make_mesh((PIPE_STAGES, model), ("stage", "model"),
+                     devices=["cuda:0"] * (PIPE_STAGES * model))
 
 
-def _mesh_train(torch, n_layers, iters, seed, log_every=1):
+def _mesh_train(torch, n_layers, iters, seed, log_every=1, model=1):
     """The plan-ahead runner on the mesh backend: the pipeline phase's
-    configuration on a stage mesh that repeats the card. Returns (cfg,
-    stream, cost, pcfg, params, history, stats, optimizer state)."""
+    configuration on a stage mesh that repeats the card (``_stage_mesh``).
+    Returns (cfg, stream, cost, pcfg, params, history, stats, optimizer
+    state)."""
     from repro_torch.train.runner import PlanAheadRunner, RunnerConfig
     cfg, stream, cost, pcfg = _train_setup(torch, n_layers, PIPE_STAGES)
     rcfg = RunnerConfig(n_iters=iters, backend="mesh", seed=seed,
                         log_every=log_every, device="cuda")
     runner = PlanAheadRunner(cfg, cost, pcfg, rcfg, stream,
-                             mesh=_stage_mesh())
+                             mesh=_stage_mesh(model))
     params, history, stats = runner.run()
     check(stats.faults == 0, f"mesh training retried after {stats.faults} "
           f"faults: {stats.recoveries}")
@@ -2277,7 +2368,11 @@ def phase_mesh(torch):
     del params, p_mesh, grads, opt, placed, mesh, seq
     torch.cuda.empty_cache()
 
-    # two 2-iteration runs from one seed, one layer per stage
+    # two 2-iteration runs from one seed, one layer per stage, then a third
+    # on a ("stage", "model") mesh (PIPE_STAGES, 2): each stage on the first
+    # device of its row, the model axis holding replicas, as the reference
+    # runs such a mesh (at one layer per stage: the stages take whole
+    # periods)
     runs = [_mesh_train(torch, PIPE_STAGES, 2, seed=1, log_every=0)[4:6]
             for _ in range(2)]
     same = _same_runs(torch, *runs)
@@ -2287,7 +2382,23 @@ def phase_mesh(torch):
           f"parameters equal to the bit: {'yes' if same else 'NO'}",
           flush=True)
     check(same, "two mesh runs from one seed differ")
-    del runs
+    out = _mesh_train(torch, PIPE_STAGES, 2, seed=1, log_every=0, model=2)
+    two = out[4:6]
+    per_stage, whole = _zero_bytes(out[7])
+    del out
+    same2 = _same_runs(torch, runs[0], two)
+    print(f"[mesh] {PIPE_STAGES} layers on a (\"stage\", \"model\") "
+          f"({PIPE_STAGES}, 2) mesh of cuda:0: losses "
+          f"{[h['loss'] for h in two[1]]}; losses, grad norms and parameters "
+          f"equal to the ({PIPE_STAGES},) mesh's to the bit: "
+          f"{'yes' if same2 else 'NO'}; ZeRO-1 chunks a leaf "
+          f"{len(per_stage)} (the stage axis), left whole "
+          f"{whole / 2**30:.3f} GiB", flush=True)
+    check(same2, "the (stage, model) mesh's run differs from the stage "
+          "mesh's")
+    check(len(per_stage) == PIPE_STAGES, "ZeRO-1 on the (stage, model) mesh "
+          f"split over {len(per_stage)} parts, not the {PIPE_STAGES} stages")
+    del runs, two
     torch.cuda.empty_cache()
     return counts
 
@@ -2463,6 +2574,341 @@ def phase_t5(torch):
     del runs
     torch.cuda.empty_cache()
     return counts
+
+
+# ----------------------------------------------------------------------
+# phase 6a: the packing baseline, gpt-paper and t5-paper at full width
+# ----------------------------------------------------------------------
+def _pad_rows(b, pad):
+    """``pad`` fully masked rows appended, so that every micro-batch has
+    PACK_ROWS rows (segment ids -1, everything else 0), as bench_e2e's
+    ``_pad_rows``."""
+    import numpy as np
+    return {k: np.concatenate(
+        [v, np.repeat(v[-1:] * 0 + (-1 if k.endswith("segment_ids") else 0),
+                      pad, axis=0)])
+        for k, v in b.items()}
+
+
+def _packed_batches(gb, encdec):
+    """bench_e2e's packing mode on the port's functions: ``(micro-batches,
+    rows, packing efficiency)``, the micro-batches numpy dicts of
+    PACK_ROWS packed rows each, the last padded; the efficiency the
+    share of the rows' positions that hold a token (``packing_efficiency``
+    for decoder-only rows, both sides together for T5's)."""
+    import numpy as np
+    from repro_torch.core.packing import (pack_encdec_first_fit,
+                                          pack_first_fit, packing_efficiency)
+    from repro_torch.data.dataset import (materialize_packed_encdec_rows,
+                                          materialize_packed_rows)
+    if encdec:
+        rows = pack_encdec_first_fit(gb.lengths, *PACK_T5_LEN)
+
+        def make(chunk):
+            return materialize_packed_encdec_rows(chunk, gb.tokens,
+                                                  gb.lengths, *PACK_T5_LEN)
+    else:
+        rows = pack_first_fit(gb.lengths, PACK_LEN)
+
+        def make(chunk):
+            return materialize_packed_rows(chunk, gb.tokens, PACK_LEN)
+    batches = []
+    for i in range(0, len(rows), PACK_ROWS):
+        chunk = rows[i:i + PACK_ROWS]
+        b = make(chunk)
+        if len(chunk) < PACK_ROWS:
+            b = _pad_rows(b, PACK_ROWS - len(chunk))
+        batches.append(b)
+    if encdec:
+        used = sum(int((b[k] >= 0).sum()) for b in batches
+                   for k in ("enc_segment_ids", "dec_segment_ids"))
+        eff = used / (len(rows) * sum(PACK_T5_LEN))
+    else:
+        eff = packing_efficiency(rows)
+    return batches, rows, eff
+
+
+def _packed_iteration(torch, step, params, opt, opt_cfg, batches):
+    """One iteration as bench_e2e's ``run_baseline``: each micro-batch's
+    grad step, the gradients summed in micro-batch order and divided by
+    the weight sum, then AdamW. Returns ``(mean loss, grad norm)``."""
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.runner import scale_
+    from repro_torch.tree import add_into
+    grads, loss_sum, w_sum = None, 0.0, 0.0
+    for b in batches:
+        ls, ws, g = step(params, {k: torch.as_tensor(v).cuda()
+                                  for k, v in b.items()})
+        loss_sum += float(ls)
+        w_sum += float(ws)
+        grads = g if grads is None else add_into(grads, g)
+        del g
+    scale_(grads, 1.0 / max(w_sum, 1.0))
+    _, _, metrics = adamw_update(params, grads, opt, opt_cfg)
+    return loss_sum / max(w_sum, 1.0), float(metrics["grad_norm"])
+
+
+def _packing_setup(torch, arch, n_layers):
+    """``(cfg, stream, cost, pcfg, encdec, step builder)``: the train
+    phase's setup for gpt-paper, the t5 phase's for t5-paper."""
+    from repro_torch.train.pipeline_adapter import (build_encdec_grad_step,
+                                                    build_grad_step)
+    encdec = arch == "t5-paper"
+    setup = (_t5_setup(torch, n_layers) if encdec
+             else _train_setup(torch, n_layers))
+    return (*setup, encdec,
+            build_encdec_grad_step if encdec else build_grad_step)
+
+
+def _packed_params(torch, cfg, encdec, seed):
+    from repro_torch.models import model as MD
+    from repro_torch.models import transformer as T
+    init = T.init_encdec if encdec else MD.init_params
+    return init(torch.Generator(device="cuda").manual_seed(seed), cfg,
+                device="cuda")
+
+
+def _packed_run(torch, arch, n_layers, iters, seed, log=True):
+    """bench_e2e's packing mode on ``arch`` at full width and ``n_layers``
+    for ``iters`` iterations from weights of ``seed``: ``(cfg, params,
+    history)``, each history entry the iteration's loss, grad norm,
+    seconds (ending in a device synchronise), real and padded tokens,
+    micro-batch count and packing efficiency, with the dynamic plan's
+    padding efficiency on the same global batch."""
+    from repro_torch.core.planner import plan_iteration
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    cfg, stream, cost, pcfg, encdec, build = _packing_setup(torch, arch,
+                                                            n_layers)
+    params = _packed_params(torch, cfg, encdec, seed)
+    opt_cfg = AdamWConfig(lr=3e-4)
+    opt = init_opt_state(params, opt_cfg)
+    step = build(cfg)
+    hist = []
+    for it in range(iters):
+        gb = stream.batch(it)
+        batches, rows, eff = _packed_batches(gb, encdec)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, gn = _packed_iteration(torch, step, params, opt, opt_cfg,
+                                     batches)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        lens = gb.lengths if encdec else gb.lengths[:, 0]
+        dyn = plan_iteration(lens, cost, pcfg).padding_efficiency
+        padded = len(batches) * PACK_ROWS * (sum(PACK_T5_LEN) if encdec
+                                             else PACK_LEN)
+        h = {"iter": it, "loss": loss, "grad_norm": gn, "time_s": dt,
+             "tokens": gb.total_tokens, "padded_tokens": padded,
+             "n_micro": len(batches), "packing_efficiency": eff,
+             "dynamic_padding_efficiency": dyn,
+             "samples_per_row": [len(getattr(r, "sample_indices", r))
+                                 for r in rows]}
+        hist.append(h)
+        if log:
+            print(f"[packing] {arch} iter {it}: {dt * 1e3:.1f} ms, loss "
+                  f"{loss:.4f}, grad norm {gn:.4f}, {len(rows)} rows "
+                  f"(samples a row {h['samples_per_row']}) in "
+                  f"{len(batches)} micro-batches of {PACK_ROWS}; packing "
+                  f"efficiency {eff:.4f} against the dynamic plan's padding "
+                  f"efficiency {dyn:.4f} on the same global batch; "
+                  f"{gb.total_tokens} real / {padded} padded tokens, "
+                  f"{gb.total_tokens / dt:.1f} real tokens/s", flush=True)
+    return cfg, params, hist
+
+
+def _live_tile_share(gb):
+    """The share of live (query tile, key tile) pairs, by
+    ``live_block_mask`` at K1's and the backward's tiles, over a global
+    batch's packed rows (the padded rows of the last micro-batch
+    included), and over a causal row of one sample of PACK_LEN; with the
+    share of live (query, key) pairs in the packed rows."""
+    import numpy as np
+    from repro_torch.kernels.flash_attention import live_block_mask
+    batches, _, _ = _packed_batches(gb, False)
+    seg = np.concatenate([b["segment_ids"] for b in batches])
+    pos = np.concatenate([b["positions"] for b in batches])
+    one = np.arange(PACK_LEN, dtype=np.int32)[None]
+    out = {}
+    for name, (bq, bk) in PACK_TILES.items():
+        packed = live_block_mask(pos, pos, seg, seg, block_q=bq, block_kv=bk)
+        causal = live_block_mask(one, one, block_q=bq, block_kv=bk)
+        out[name] = (float(packed.mean()), float(causal.mean()))
+    pairs = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, None, :] >= 0)
+             & (pos[:, :, None] >= pos[:, None, :]))
+    return out, float(pairs.mean()), (PACK_LEN + 1) / (2 * PACK_LEN)
+
+
+def _packed_step_against_plain(torch, arch, n_layers):
+    """At ``n_layers`` (T5: as many encoder and decoder layers), the first
+    packed micro-batch of the stream's batch 1: the grad step with the
+    kernels, with the plain versions patched in, with a backward planted
+    to return a zero dq, and in f32 (plain versions, params cast). Returns
+    the loss, the mean-loss gradient leaves by path, the rows' samples."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.tree import flatten, tree_map
+    cfg, stream, _, _, encdec, build = _packing_setup(torch, arch, n_layers)
+    batches, rows, _ = _packed_batches(stream.batch(1), encdec)
+    batch = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    params = _packed_params(torch, cfg, encdec, seed=1)
+    real_backward = fa.mha_backward
+
+    def zero_dq(*a, **o):
+        dq, dk, dv = real_backward(*a, **o)
+        return torch.zeros_like(dq), dk, dv
+
+    out = {}
+    for name in ("kernels", "plain", "dq = 0", "f32"):
+        patches = (_plain_attention() if name in ("plain", "f32") else
+                   (mock.patch.object(fa, "mha_backward", zero_dq),)
+                   if name == "dq = 0" else ())
+        cfg_r, params_r = cfg, params
+        if name == "f32":
+            cfg_r = dataclasses.replace(cfg, dtype="float32")
+            params_r = tree_map(lambda x: x.float(), params)
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            ls, ws, g = build(cfg_r)(params_r, batch)
+        w = float(ws)
+        out[name] = (float(ls) / w, {k: x.float() / w for k, x in flatten(g)})
+        del g, params_r
+    torch.cuda.empty_cache()
+    return out, [len(getattr(r, "sample_indices", r))
+                 for r in rows[:PACK_ROWS]]
+
+
+def phase_packing(torch):
+    """The packing baseline on the card (see the module docstring):
+    gpt-paper and t5-paper at full width; returns the launch counts of
+    the two runs from counts of 0, summed."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    total = {}
+    for arch, layers, iters in (("gpt-paper", TRAIN_LAYERS, PACK_ITERS),
+                                ("t5-paper", T5_LAYERS, PACK_T5_ITERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        cfg, params, hist = _packed_run(torch, arch, layers, iters, seed=0)
+        counts = ops.launch_counts()
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(x.numel() for x in leaves(params))
+        del params
+        n_micro = sum(h["n_micro"] for h in hist)
+        # K1 in the forward and again in the period checkpoint's recompute,
+        # one backward, per attention and micro-batch: one attention a
+        # layer, T5's decoder layers two (self and cross)
+        attn = 3 * cfg.n_layers if arch == "t5-paper" else cfg.n_layers
+        expected = {"mha_forward": 2 * attn * n_micro,
+                    "mha_backward": attn * n_micro, "ssd_chunked": 0,
+                    "ssd_backward": 0}
+        steady = hist[1:]
+        tok_s = (sum(h["tokens"] for h in steady)
+                 / sum(h["time_s"] for h in steady))
+        depth = (f"{cfg.n_layers} + {cfg.n_layers}" if arch == "t5-paper"
+                 else f"{cfg.n_layers}")
+        print(f"[packing] {arch} {depth} layers d_model {cfg.d_model} "
+              f"({n_params / 1e9:.2f} B params), {len(hist)} iterations, "
+              f"{n_micro} micro-batches of {PACK_ROWS} packed rows in "
+              f"{took:.1f}s incl. init; iterations after the first: "
+              f"{tok_s:.1f} real tokens/s, mean step "
+              f"{1e3 * sum(h['time_s'] for h in steady) / len(steady):.1f} "
+              f"ms; packing efficiency "
+              f"{[round(h['packing_efficiency'], 4) for h in hist]}, the "
+              f"dynamic plans' padding efficiency "
+              f"{[round(h['dynamic_padding_efficiency'], 4) for h in hist]}"
+              f"; peak memory {peak:.1f} GiB; launches {counts} (expected "
+              f"{expected})", flush=True)
+        check(counts == expected, f"packing {arch} launches {counts}, "
+              f"expected {expected}")
+        check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+                  for h in hist), f"packing {arch}: a non-finite loss or "
+              "grad norm")
+        total = _add_counts(total, counts)
+
+    # the live tile pairs of the packed rows, the train stream's batches
+    cfg, stream, _, _ = _train_setup(torch, 2)
+    for it in range(PACK_ITERS):
+        tiles, pairs, causal_pairs = _live_tile_share(stream.batch(it))
+        print(f"[packing] gpt-paper iter {it}: live (query tile, key tile) "
+              f"pairs in the packed rows " + ", ".join(
+                  f"{name} tiles {PACK_TILES[name]} {p:.4f}"
+                  f" (a causal row of one sample {c:.4f})"
+                  for name, (p, c) in tiles.items())
+              + f"; live (query, key) pairs {pairs:.4f} (one sample "
+              f"{causal_pairs:.4f})", flush=True)
+
+    # 2 layers (T5: 2 + 2): the kernels against the plain versions on one
+    # packed micro-batch, and two 2-iteration runs equal to the bit
+    for arch in ("gpt-paper", "t5-paper"):
+        out, samples = _packed_step_against_plain(torch, arch, 2)
+        (lk, gk), (lp, gp), (_, gf), (l32, g32) = (
+            out[n] for n in ("kernels", "plain", "dq = 0", "f32"))
+        k_abs, k_rel, k_ok = _leaf_errs(torch, gk, gp)
+        f_abs, f_rel, f_ok = _leaf_errs(torch, gf, gp)
+
+        def from_f32(gs):
+            return {k: float(torch.linalg.vector_norm(gs[k] - b)
+                             / torch.linalg.vector_norm(b))
+                    for k, b in g32.items()}
+        k32, p32, f32 = from_f32(gk), from_f32(gp), from_f32(gf)
+        k_exc = max(k32[k] - p32[k] for k in g32)
+        f_exc = max(f32[k] - p32[k] for k in g32)
+        # T5's bf16 gradients of either attention lie about 3% from the
+        # f32 ones on some leaves, as far from each other (the t5 phase),
+        # so there each leaf is held, as there, by how much farther the
+        # kernels' lie from the f32 one than the plain version's
+        held, f_held = (k_rel, f_rel) if arch == "gpt-paper" \
+            else (k_exc, f_exc)
+        print(f"[packing] {arch} 2 layers, the first packed micro-batch of "
+              f"batch 1 ({PACK_ROWS} rows, samples a row {samples}): loss "
+              f"kernels {lk:.6f}, plain {lp:.6f}, f32 {l32:.6f}; "
+              f"{len(gk)} gradient leaves, max |diff| {k_abs:.3e} "
+              f"(GRAD_TOL {GRAD_TOL_BF16}), worst ||diff|| / ||plain|| "
+              f"{k_rel:.3e} (GRAD_REL_TOL {GRAD_REL_TOL}); worst ||out - "
+              f"f32|| / ||f32|| kernels {max(k32.values()):.3e}, plain "
+              f"{max(p32.values()):.3e}, the kernels' beyond the plain "
+              f"version's {k_exc:.3e}; planted fault (dq = 0): max |diff| "
+              f"{f_abs:.3e}, worst ||diff|| / ||plain|| {f_rel:.3e}, beyond "
+              f"the plain version's distance from f32 {f_exc:.3e}, "
+              f"elementwise GRAD_TOL {'passes' if f_ok else 'fails'} it; "
+              f"held to GRAD_REL_TOL: {held:.3e}, the fault {f_held:.3e}",
+              flush=True)
+        check(k_ok, f"packing {arch}: gradient leaves of the kernels and the "
+              "plain versions disagree elementwise")
+        check(held <= GRAD_REL_TOL, f"packing {arch}: a gradient leaf's "
+              f"reading {held:.3e} exceeds GRAD_REL_TOL")
+        check(f_held > GRAD_REL_TOL, f"packing {arch}: the leaf check does "
+              "not see a backward whose dq is zero")
+        check(abs(lk - lp) <= GRAD_TOL_BF16 * max(1.0, abs(lp)),
+              f"packing {arch}: losses of the kernels and the plain versions "
+              f"disagree ({lk} vs {lp})")
+        del out, gk, gp, gf, g32
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs = []
+        for _ in range(2):
+            _, p, h = _packed_run(torch, arch, 2, 2, seed=1, log=False)
+            runs.append((p, h))
+        same = _same_runs(torch, *runs)
+        print(f"[packing] {arch} 2 layers, two 2-iteration runs from one "
+              f"seed: losses {[h['loss'] for h in runs[0][1]]} and "
+              f"{[h['loss'] for h in runs[1][1]]}; losses, grad norms and "
+              f"parameters equal to the bit: {'yes' if same else 'NO'}",
+              flush=True)
+        check(same, f"packing {arch}: two runs from one seed differ")
+        del runs
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[packing] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total
 
 
 # ----------------------------------------------------------------------
@@ -4157,6 +4603,7 @@ def phase_spmd(torch):
     counts = _add_counts(counts, _spmd_jamba_mixer(torch))
     counts = _add_counts(counts, _spmd_fsdp(torch))
     counts = _add_counts(counts, _spmd_hubert(torch))
+    counts = _add_counts(counts, _spmd_t5(torch))
     for case in SPMD_SERVE_CASES:
         counts = _add_counts(counts, _spmd_serve_case(torch, *case))
     print(f"[spmd] phase {time.perf_counter() - t_phase:.1f}s", flush=True)
@@ -4787,6 +5234,81 @@ def _spmd_hubert(torch):
     return counts
 
 
+def _spmd_t5(torch):
+    """t5-paper at full width and SPMD_LAYERS on its SPMD_MESHES mesh: the
+    decoder-only stack at T5's widths (128 heads x 128, a relu MLP of
+    65536, an untied head of 32128), as the reference runs T5 on a model
+    axis; one step of T5_SPMD_ROWS rows of the train phase's micro-batch
+    against the step with no mesh, its gradients by their distance from an
+    fp32 step (see T5_SPMD_ROWS), a reduce without its last shard's addend
+    planted as in gpt-paper's case."""
+    import dataclasses
+    import types
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import spmd
+    from repro_torch.models import model as MD
+    from repro_torch.train.train_state import shard_params
+    from repro_torch.tree import tree_map
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, big, batch = _spmd_batch(torch, "t5-paper")
+    batch = {k: v[:T5_SPMD_ROWS] for k, v in batch.items()}
+    big = types.SimpleNamespace(mbs=T5_SPMD_ROWS, seq=big.seq)
+    print(f"[spmd] reduced: t5-paper at full width, the decoder-only stack "
+          f"cut {get_arch('t5-paper').n_layers} -> {cfg.n_layers} layers, "
+          f"{T5_SPMD_ROWS} rows", flush=True)
+    params = MD.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg, device="cuda")
+    ref = _spmd_step(torch, cfg, params, batch)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with contextlib.ExitStack() as stack:
+        for patch in _plain_attention():
+            stack.enter_context(patch)
+        truth = _spmd_step(torch, cfg32, tree_map(lambda x: x.float(),
+                                                  params), batch)["grads"]
+    shape = SPMD_MESHES["t5-paper"]
+    mesh = _spmd_mesh(shape)
+    sp = shard_params(params, cfg, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    run = _spmd_step(torch, cfg, sp, batch, mesh)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    worst_rel, ok = _spmd_line(torch, "t5-paper", cfg, shape, big, run, ref,
+                               _shard_bytes(sp), peak)
+    ratio, worst, noise_ok = _noise_check(torch, run["grads"], ref["grads"],
+                                          truth)
+    real_sum = spmd._sum
+    with mock.patch.object(spmd, "_sum", lambda xs, dev: real_sum(
+            xs[:-1] if len(xs) > 1 else xs, dev)):
+        fault = _spmd_step(torch, cfg, sp, batch, mesh)
+    f_ratio, f_worst, f_ok = _noise_check(torch, fault["grads"],
+                                          ref["grads"], truth)
+    free_err = max(_rel(torch, ref["grads"][k], t) for k, t in truth.items())
+    expected = _spmd_expected(cfg, shape[0] * shape[1])
+    print(f"[spmd] t5-paper against an fp32 step with no mesh (the plain "
+          f"attention): worst leaf ||diff|| / ||fp32|| {worst:.3e} sharded, "
+          f"{free_err:.3e} with no mesh in bf16, worst ratio of the two "
+          f"{ratio:.3f} (SPMD_NOISE_FACTOR {SPMD_NOISE_FACTOR}, floor "
+          f"GRAD_REL_TOL {GRAD_REL_TOL}); planted fault (each reduce without "
+          f"its last shard's partial): worst leaf {f_worst:.3e}, ratio "
+          f"{f_ratio:.3f}; launches {run['counts']} (expected {expected}); "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check(run["counts"] == expected, f"t5 spmd launches {run['counts']}, "
+          f"expected {expected}")
+    check(ok and noise_ok, "t5-paper on a (2, 2) mesh: a gradient leaf is "
+          f"further from fp32 than the bf16 noise allows (ratio "
+          f"{ratio:.3f})")
+    check(abs(run["loss"] - ref["loss"]) <= GRAD_TOL_BF16 * abs(ref["loss"]),
+          "t5-paper on a (2, 2) mesh: the loss disagrees")
+    check(not f_ok, "the t5 noise check does not see a reduce that leaves "
+          "out one shard's partial")
+    counts = run["counts"]
+    del params, sp, run, ref, truth, fault
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 # ----------------------------------------------------------------------
 # phase 17: profiles (not run by default)
 # ----------------------------------------------------------------------
@@ -5033,12 +5555,15 @@ DRYRUN_CASES = (
 # for the run's time (the card's counting run, every shard in turn, took
 # 33 s at 24), case d holding its 24 on one device; gpt-paper's prefill and
 # decode at 8 layers (case c holds its 32 on one device), the decode step
-# against a 2064-position cache split by sequence over the model axis
+# against a 2064-position cache split by sequence over the model axis;
+# t5-paper at the spmd phase's 2 layers, the decoder-only stack at T5's
+# widths that a model axis runs
 DRYRUN_MESH_CASES = (
     ("e-gpt-2x2", "gpt-paper", 8, "train", 2048, 8, (2, 2)),
     ("f-mamba-1x4", "mamba2-130m", 8, "train", 2048, 8, (1, 4)),
     ("g-gpt-prefill-2x2", "gpt-paper", 8, "prefill", 2048, 8, (2, 2)),
     ("h-gpt-decode-2x2", "gpt-paper", 8, "decode", 2064, 8, (2, 2)),
+    ("i-t5-2x2", "t5-paper", SPMD_LAYERS, "train", 2048, 8, (2, 2)),
 )
 
 
@@ -5157,12 +5682,12 @@ def phase_dryrun(torch):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="device,kernel,serve,train,pipeline,t5,mamba,"
-                    "mamba-train,fault,cluster,moe,frames,mixed,gemma2,mesh,"
-                    "spmd,dryrun",
+                    default="device,kernel,serve,train,pipeline,t5,packing,"
+                    "mamba,mamba-train,fault,cluster,moe,frames,mixed,gemma2,"
+                    "mesh,spmd,dryrun",
                     help="comma-separated: kernel, serve, train, pipeline, "
-                    "t5, mamba, mamba-train, fault, cluster, moe, frames, "
-                    "mixed, gemma2, mesh, spmd, dryrun, profile, "
+                    "t5, packing, mamba, mamba-train, fault, cluster, moe, "
+                    "frames, mixed, gemma2, mesh, spmd, dryrun, profile, "
                     "profile-models, profile-gemma2 (the device phase always "
                     "runs)")
     args = ap.parse_args()
@@ -5207,6 +5732,8 @@ def main():
         paths["pipeline"] = timed("pipeline", phase_pipeline, torch)
     if "t5" in phases:
         paths["t5"] = timed("t5", phase_t5, torch)
+    if "packing" in phases:
+        paths["packing"] = timed("packing", phase_packing, torch)
     if "mamba" in phases:
         paths["mamba"] = timed("mamba", phase_mamba, torch, REQUESTS,
                                MAX_PROMPT, DECODE_STEPS)

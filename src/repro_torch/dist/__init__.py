@@ -21,7 +21,7 @@ is devices, threads and processes. Its modules:
   prefill and decode with sharded KV and Mamba caches, and the token,
   frames and mixed inputs run there, Mamba's tensor parallelism and
   ZeRO-3 weights included, on devices or, for a dry run, on ``meta``.
-  T5 there still raises (ROADMAP A23).
+  T5 there is the decoder-only stack at its widths, as in the reference.
 - :mod:`repro_torch.dist.fault` — heartbeat/straggler monitoring and
   elastic re-planning over the surviving replica set.
 - :mod:`repro_torch.dist.chaos` — deterministic fault injection (seeded,

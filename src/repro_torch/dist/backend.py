@@ -245,7 +245,10 @@ class MeshBackend(ExecutionBackend):
     (``NotImplementedError``). The mesh defaults to
     ``make_stage_mesh(n_stages)`` on the card, or ``n_stages`` times
     ``device`` when that is not a CUDA device; a mesh given names its
-    devices, which may repeat one card.
+    devices, which may repeat one card. Its first axis is the stage axis;
+    any further axes hold replicas of each stage, as in the reference, and
+    stage ``s`` runs on the first device of its row
+    (``pipeline.stage_devices``).
 
     Each stage runs the threaded pipeline's stage steps (``_stage_apply``:
     stage 0 embeds, the last norms and takes the loss; a backward
@@ -429,7 +432,10 @@ class MeshBackend(ExecutionBackend):
         """ZeRO-1: split every optimizer-state leaf over the stages along
         the dim ``zero1_logical`` picks (the largest the stage count
         divides), chunk ``s`` on stage ``s``'s device; a leaf no dim
-        divides, and the ``step`` count, stay whole. The dicts are updated
+        divides, and the ``step`` count, stay whole. On a ``("stage",
+        "model")`` mesh ``zero`` resolves to the stage axis alone (never to
+        a model axis), so a stage's replicas share its chunk, as in the
+        reference. The dicts are updated
         in place (each whole leaf is freed once its chunks exist) and
         returned; a leaf placed already is left as it is."""
         mesh, S = self.mesh, self.n_stages

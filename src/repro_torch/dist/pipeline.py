@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.core.executor import PipelineExecutor, StageCallbacks
 from repro_torch.core.instructions import ExecutionPlan, Op
-from repro_torch.dist.sharding import IN_STAGE_SHARDING, Mesh
+from repro_torch.dist.sharding import Mesh
 from repro_torch.tree import add_into, leaves, tree_map
 
 
@@ -60,7 +60,11 @@ def injection_order(plan: ExecutionPlan) -> list[int]:
 
 
 def stage_devices(mesh: Mesh, n_stages: int) -> list[torch.device]:
-    """Stage ``s``'s device, from the mesh's first (stage) axis."""
+    """Stage ``s``'s device: the first of row ``s`` of the mesh's first
+    (stage) axis. Further axes hold replicas, as in the reference, whose
+    ``shard_map`` places the stack ``P(stage)`` and runs each stage with
+    no ambient mesh: every device of a row computes the same values, so
+    one of them stands for the row."""
     axis = mesh.axis_names[0]
     if mesh.devices is None:
         raise ValueError(f"{mesh} is abstract: a pipeline needs devices")
@@ -68,11 +72,8 @@ def stage_devices(mesh: Mesh, n_stages: int) -> list[torch.device]:
         raise ValueError(
             f"stage axis {axis!r} has size {mesh.shape[axis]}, expected "
             f"n_stages={n_stages}")
-    if mesh.devices.ndim != 1:
-        raise NotImplementedError(
-            f"{IN_STAGE_SHARDING}: a stage mesh has one axis; {mesh} would "
-            "shard inside the stages")
-    return list(mesh.devices)
+    rest = (0,) * (mesh.devices.ndim - 1)
+    return [mesh.devices[(s,) + rest] for s in range(n_stages)]
 
 
 def _sequential(stage_fn, stage_params, xs, n_stages):

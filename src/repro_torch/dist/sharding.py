@@ -36,12 +36,15 @@ the reference) runs in a shard group (``repro_torch.dist.spmd``): there a
 value is a ``spmd.Sharded`` and :func:`shard` is the layout change its
 spec names (gathers, reduce-scatters, slices). Outside a running group
 :func:`shard` returns its input wherever the resolved spec is empty, and
-raises ``NotImplementedError`` naming ROADMAP A23 where it is not: a
-tensor outside any group under such a mesh (an abstract mesh, or the
-in-stage axes of a mesh backend's stage).
+raises ``NotImplementedError`` (:data:`IN_STAGE_SHARDING`) where it is
+not: the reference's GSPMD splits a bare tensor under such a mesh, while
+the port splits only the ``Sharded`` values of a group, which
+``models/model.py``'s entry points open whenever the ambient mesh shards
+inside the stage.
 
 :class:`ZeroShards` is one optimizer-state leaf placed by ZeRO-1: its
-chunks along one dim, chunk ``s`` on the stage mesh's device ``s``.
+chunks along one dim, chunk ``s`` on stage ``s``'s device (the first of
+its row where the stage mesh has further axes).
 """
 from __future__ import annotations
 
@@ -60,9 +63,10 @@ _BATCH_AXES = ("pod", "data", "dp", "batch", "replica")
 _MODEL_AXES = ("model", "tp", "mdl", "tensor")
 _STAGE_AXES = ("stage", "pipe", "stages")
 
-IN_STAGE_SHARDING = ("this part of sharding inside a pipeline stage (the "
-                     "data/model axes: dp, tp, sp, ep) is not ported "
-                     "(ROADMAP A23)")
+IN_STAGE_SHARDING = ("sharding inside a pipeline stage (the data/model "
+                     "axes: dp, tp, sp, ep) runs only in a shard group "
+                     "(repro_torch.dist.spmd), which the model's entry "
+                     "points open; a tensor outside one is not split")
 
 _tls = threading.local()
 
@@ -238,7 +242,8 @@ def shard(x, *logical: LogicalDim, mesh: Optional[Mesh] = None):
     ``spmd.Sharded`` value (inside a shard group) comes back in the layout
     the spec names. For a tensor: without a mesh, or where the mesh gives
     it no axis (a stage-only mesh, dims that fail divisibility), the
-    identity; a placement that would split it raises (ROADMAP A23)."""
+    identity; a placement that would split it raises
+    (:data:`IN_STAGE_SHARDING`: only a shard group splits)."""
     from repro_torch.dist import spmd
     if isinstance(x, spmd.Sharded):
         mesh = mesh if mesh is not None else x.group.mesh

@@ -64,9 +64,8 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import set_checkpoint_early_stop
 
-from repro_torch.dist.sharding import (IN_STAGE_SHARDING, Mesh, P,
-                                       ambient_mesh, axis_map, is_pure_dp,
-                                       pure_dp, set_mesh)
+from repro_torch.dist.sharding import (Mesh, P, ambient_mesh, axis_map,
+                                       is_pure_dp, pure_dp, set_mesh)
 from repro_torch.launch import op_cost
 from repro_torch.launch.op_cost import rank_scope
 
@@ -814,7 +813,3 @@ def value_and_grad(fn: Callable, sparams, *args, **kwargs):
                 else out.detach())
     return detached, grads
 
-
-def not_ported(what: str, mesh: Optional[Mesh] = None) -> NotImplementedError:
-    mesh = mesh if mesh is not None else ambient_mesh()
-    return NotImplementedError(f"{IN_STAGE_SHARDING}: {what} on {mesh}")

@@ -33,8 +33,9 @@ rank's inputs have rank 0's shapes (:func:`_lower_cell_group`): the
 counter counts rank 0's share (``op_cost.OpCounter(rank=0)``) and the
 group's own collectives, each charged by formula. A prefill or decode
 cell's KV and Mamba caches are split there by
-``train_state.cache_spec_tree``. T5 there records its argument bytes and
-``"cost": null`` with ``"not_ported"`` naming ROADMAP A23.
+``train_state.cache_spec_tree``. T5 there is the decoder-only stack at
+its widths, as the reference lowers it (``init_params`` and
+``params_logical`` do not read ``family``).
 :func:`measure_cell` runs a cell on a mesh that repeats one card, every
 shard in turn: the sums over ranks of its FLOPs and launches, and its
 collectives, are what the trace predicts.
@@ -373,15 +374,6 @@ def needs_group(cfg: ArchConfig, mesh) -> bool:
             cfg.fsdp_params and axis_size("zero", mesh) > 1)
 
 
-def not_ported(cfg: ArchConfig, shape: ShapeSpec, mesh) -> str:
-    """The ROADMAP item a cell's trace waits for, or ``""``: A23 where the
-    step would shard inside a stage (:func:`needs_group`) and the arch is
-    T5, the encoder-decoder, which no shard group runs yet."""
-    if needs_group(cfg, mesh) and cfg.family == "encdec":
-        return "ROADMAP A23"
-    return ""
-
-
 def cell_arguments(cfg: ArchConfig, shape: ShapeSpec, mesh,
                    opt_cfg: AdamWConfig) -> tuple:
     """One device's step arguments as ``meta`` tensors: ``(state, batch)``
@@ -549,11 +541,7 @@ def _lower_cell_group(cfg: ArchConfig, shape: ShapeSpec, mesh,
 def _lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
                 opt_cfg: AdamWConfig) -> Traced:
     """Trace one cell's step on ``meta`` at one device's share of ``mesh``
-    (see the module docstring); raises ``NotImplementedError`` naming the
-    ROADMAP item where :func:`not_ported` names one."""
-    why = not_ported(cfg, shape, mesh)
-    if why:
-        raise NotImplementedError(f"{cfg.name} {shape.name} on {mesh}: {why}")
+    (see the module docstring)."""
     if needs_group(cfg, mesh):
         return _lower_cell_group(cfg, shape, mesh, opt_cfg)
     t0 = time.perf_counter()
@@ -583,15 +571,6 @@ def _lower_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
     return Traced(summary, read_bytes, all_bytes - read_bytes,
                   tree_bytes(out), alias, summary.peak_live_bytes + ints,
                   time.perf_counter() - t0)
-
-
-def argument_bytes(cfg: ArchConfig, shape: ShapeSpec, mesh,
-                   opt_cfg: AdamWConfig) -> tuple[int, int]:
-    """Per-device bytes of a cell's step arguments on any mesh: ``(read,
-    unread)``, those the step reads and those it holds unread."""
-    args = cell_arguments(cfg, shape, mesh, opt_cfg)
-    read = tree_bytes(args, read_paths(cfg, shape, opt_cfg))
-    return read, tree_bytes(args) - read
 
 
 def measure_cell(cfg: ArchConfig, shape: ShapeSpec, *, device="cuda",
@@ -728,49 +707,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, save: bool = True,
     rec["n_chips"] = n_chips
     rec["model"] = {"n_params": cfg.n_params(),
                     "n_params_active": cfg.n_params_active()}
-    missing = not_ported(cfg, shape, mesh)
-    if missing:
-        read, unread = argument_bytes(cfg, shape, mesh, opt_cfg)
-        rec.update({"memory": {"argument_bytes": read,
-                               "unread_argument_bytes": unread},
-                    "cost": None, "not_ported": missing})
-    else:
-        tr = _lower_cell(cfg, shape, mesh, opt_cfg)
-        rec.update({
-            "lower_s": round(tr.lower_s, 1),
-            "compile_s": 0.0,
-            "memory": {
-                "argument_bytes": tr.argument_bytes,
-                "unread_argument_bytes": tr.unread_argument_bytes,
-                "output_bytes": tr.output_bytes,
-                "temp_bytes": tr.temp_bytes,
-                "peak_bytes": tr.peak_bytes,
-                "alias_bytes": tr.alias_bytes,
-                "device_bytes_est": tr.peak_bytes,
-            },
-            "cost": _cost(tr),
-            "collectives": _collectives(tr),
-            "collectives_trip_aware": _collectives(tr),
-        })
+    tr = _lower_cell(cfg, shape, mesh, opt_cfg)
+    rec.update({
+        "lower_s": round(tr.lower_s, 1),
+        "compile_s": 0.0,
+        "memory": {
+            "argument_bytes": tr.argument_bytes,
+            "unread_argument_bytes": tr.unread_argument_bytes,
+            "output_bytes": tr.output_bytes,
+            "temp_bytes": tr.temp_bytes,
+            "peak_bytes": tr.peak_bytes,
+            "alias_bytes": tr.alias_bytes,
+            "device_bytes_est": tr.peak_bytes,
+        },
+        "cost": _cost(tr),
+        "collectives": _collectives(tr),
+        "collectives_trip_aware": _collectives(tr),
+    })
     if save:
         out_dir = Path(out_dir) if out_dir is not None else OUT_DIR
         out_dir.mkdir(parents=True, exist_ok=True)
         tag = f"{arch}__{shape_name}__{rec['mesh']}.json"
         (out_dir / tag).write_text(json.dumps(rec, indent=1))
     if verbose:
-        gb = rec["memory"]["argument_bytes"] / 1e9
-        if missing:
-            print(f"[NOT PORTED] {arch:26s} {shape_name:12s} {rec['mesh']:8s} "
-                  f"args/dev={gb:7.2f}GB  ({missing})", flush=True)
-        else:
-            c = rec["cost"]
-            print(f"[OK] {arch:26s} {shape_name:12s} {rec['mesh']:8s} "
-                  f"mem/dev≈{rec['memory']['peak_bytes'] / 1e9:6.2f}GB  "
-                  f"flops/dev={c['flops_per_device']:.3e}  "
-                  f"hbm={c['bytes_per_device']:.3e}B "
-                  f"coll={rec['collectives']['total_link_bytes']:.3e}B  "
-                  f"launches={c['launches']}  (trace {tr.lower_s:.0f}s)",
-                  flush=True)
+        c = rec["cost"]
+        print(f"[OK] {arch:26s} {shape_name:12s} {rec['mesh']:8s} "
+              f"mem/dev≈{rec['memory']['peak_bytes'] / 1e9:6.2f}GB  "
+              f"flops/dev={c['flops_per_device']:.3e}  "
+              f"hbm={c['bytes_per_device']:.3e}B "
+              f"coll={rec['collectives']['total_link_bytes']:.3e}B  "
+              f"launches={c['launches']}  (trace {tr.lower_s:.0f}s)",
+              flush=True)
     return rec
 
 
@@ -814,7 +781,7 @@ def main(argv=None):
     shapes = list(SHAPES) if (args.all or not args.shape) else [args.shape]
     out_dir = Path(args.out)
 
-    failures, missing = [], []
+    failures = []
     for arch in archs:
         for shape in shapes:
             for mp, mesh in meshes:
@@ -827,20 +794,12 @@ def main(argv=None):
                         reanalyze_cell(arch, shape, mp, mesh=mesh,
                                        out_dir=out_dir)
                         continue
-                    rec = run_cell(arch, shape, mp, mesh=mesh,
-                                   out_dir=out_dir)
-                    if rec.get("not_ported"):
-                        missing.append((arch, shape, rec["mesh"],
-                                        rec["not_ported"]))
+                    run_cell(arch, shape, mp, mesh=mesh, out_dir=out_dir)
                 except Exception as e:
                     failures.append((arch, shape, mesh_tag(mesh), repr(e)))
                     print(f"[FAIL] {arch} {shape} {mesh_tag(mesh)}: {e}",
                           flush=True)
                     traceback.print_exc()
-    if missing:
-        print(f"\n{len(missing)} cells recorded without a cost (not ported)")
-        for m in missing:
-            print("  ", m)
     if failures:
         print(f"\n{len(failures)} FAILURES")
         for f in failures:

@@ -19,10 +19,9 @@ split over the model axis or, where they do not divide it, their
 ``d_ff``, the partial outputs summed over it). :func:`moe_fwd` given
 tensors under an ambient mesh with devices and a model axis splits them,
 runs that program and joins its output; given tensors under an abstract
-mesh, which holds no device (outside any shard group, as a stage of the
-mesh backend would hold them: ROADMAP A23 item 3), it raises. A dry run
+mesh, which holds no device and so no group, it raises: a dry run
 traces the MoE layer in a shard group on ``meta`` devices
-(``launch.mesh.meta_mesh``).
+(``launch.mesh.meta_mesh``) instead.
 
 dtype policy as in the reference: params bf16 (cfg.dtype); norms, RoPE and
 softmax in fp32.

@@ -351,9 +351,6 @@ def shard_step_inputs(params, batch, cfg: ArchConfig, group):
     ``train_state.params_spec_tree`` unless they come split, the batch
     by rows, a decode batch's cache by ``train_state.cache_spec_tree``."""
     from repro_torch.train import train_state as TS
-    if cfg.family == "encdec":
-        raise spmd.not_ported(f"{cfg.name} (the encoder-decoder) in a shard "
-                              "group", group.mesh)
     if not spmd.tree_is_sharded(params):
         params = TS.shard_params(params, cfg, group.mesh)
     sb = split_batch({k: v for k, v in batch.items() if k != "cache"},

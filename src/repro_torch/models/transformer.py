@@ -20,7 +20,8 @@ adds a period-major stack of cross-attention blocks, one after each
 decoder period. ``block_logical``, ``cache_logical`` and ``stack_logical``
 are the reference's logical sharding trees; each block's output passes
 ``shard(h, "dp", "sp", None)``. On tensors that is the identity unless an
-ambient mesh would split it, where it raises (ROADMAP A23). Inside a
+ambient mesh would split it, where it raises (only a shard group
+splits; the model's entry points open one). Inside a
 shard group (``dist/spmd.py``) the stack runs on ``spmd.Sharded`` values:
 the residual split by rows over the data axes and by sequence over the
 model axis between blocks (a dim the axis does not divide stays whole),
@@ -32,7 +33,7 @@ training and freed after the period in serving, where the period loop
 runs without a checkpoint. Prefill and decode there write a cache of
 ``spmd.Sharded`` leaves laid out by ``train_state.cache_spec_tree``
 (:func:`init_cache` makes it inside a running group). ZeRO-3 weights as
-tensors outside a shard group still raise (ROADMAP A23).
+tensors outside a shard group raise, as ``shard`` does.
 """
 from __future__ import annotations
 
@@ -253,8 +254,9 @@ def _pin_fsdp(pparams, cfg: ArchConfig):
     ``spmd.PeriodSlice`` and is taken from its owner first. The
     gathers' transposes reduce-scatter the gradients into each rank's
     own chunk. Tensors under an ambient mesh whose zero axes would split
-    them still raise (ROADMAP A23: in-stage axes inside ``MeshBackend``
-    stages)."""
+    them raise (:data:`~repro_torch.dist.sharding.IN_STAGE_SHARDING`: only
+    a shard group splits; a ``MeshBackend`` stage holds its whole
+    weights, as the reference's replicas over the further axes do)."""
     mesh = ambient_mesh()
     if mesh is None or not cfg.fsdp_params:
         return pparams

@@ -32,9 +32,9 @@ CPU, for reduced configs at seq 128 and batch 8 (U = B·H·T·S·D):
   different work named; link bytes printed beside the reference's);
   gpt-paper's prefill and decode, mamba2-130m's decode and llava-next's
   prefill on (2, 2) and (1, 4), traced in a shard group with sharded
-  caches, held the same way; and t5-paper's prefill on (2, 2), which the
-  port records as not ported (ROADMAP A23) with the reference's argument
-  bytes;
+  caches, held the same way; t5-paper's train, prefill and decode on (2,
+  2) and (1, 4), the decoder-only stack at T5's widths as the reference
+  lowers it there, held the same way;
 - a representative rank's trace against a trace of every rank on (2, 2);
 - the CLI once, into a temporary directory.
 """
@@ -281,7 +281,8 @@ for arch, mesh_shape, kinds in (
         ("mamba2-130m", (1, 4), ("train", "decode")),
         ("llava-next-34b", (2, 2), ("prefill",)),
         ("llava-next-34b", (1, 4), ("prefill",)),
-        ("t5-paper", (2, 2), ("prefill",))):
+        ("t5-paper", (2, 2), ("train", "prefill", "decode")),
+        ("t5-paper", (1, 4), ("train", "prefill", "decode"))):
     cfg = reduced(get_arch(arch))
     mesh = make_mesh(mesh_shape, ("data", "model"))
     for kind in kinds:
@@ -343,7 +344,9 @@ def _mamba_train_terms(cfg):
 @pytest.mark.parametrize("arch,mesh", [("gpt-paper", "2x2"),
                                        ("gpt-paper", "1x4"),
                                        ("mamba2-130m", "2x2"),
-                                       ("mamba2-130m", "1x4")])
+                                       ("mamba2-130m", "1x4"),
+                                       ("t5-paper", "2x2"),
+                                       ("t5-paper", "1x4")])
 def test_train_cell_on_a_model_axis_matches_reference(reference_meshes,
                                                       arch, mesh, capsys):
     """A train cell on a mesh with a model axis, traced in a shard group
@@ -433,7 +436,11 @@ SERVE_MESH_CASES = [("gpt-paper", "prefill", "2x2"),
                     ("mamba2-130m", "decode", "2x2"),
                     ("mamba2-130m", "decode", "1x4"),
                     ("llava-next-34b", "prefill", "2x2"),
-                    ("llava-next-34b", "prefill", "1x4")]
+                    ("llava-next-34b", "prefill", "1x4"),
+                    ("t5-paper", "prefill", "2x2"),
+                    ("t5-paper", "decode", "2x2"),
+                    ("t5-paper", "prefill", "1x4"),
+                    ("t5-paper", "decode", "1x4")]
 
 
 @pytest.mark.parametrize("arch,kind,mesh", SERVE_MESH_CASES,
@@ -491,29 +498,33 @@ def test_serve_cell_on_a_model_axis_matches_reference(reference_meshes,
 
 
 def test_model_axis_cell_records_state_bytes_only(reference_meshes):
-    """T5 (the encoder-decoder) on a mesh with a model axis is the one
-    kind of cell still recorded without a cost (ROADMAP A23), with the
-    reference's argument bytes."""
+    """T5 on a mesh with a model axis, once recorded without a cost, is
+    now priced: its (2, 2) prefill cell records a cost, the reference's
+    argument bytes and FLOPs at the shard's share of its compiled cell,
+    and a trace equal to :func:`repro_torch.launch.dryrun._lower_cell`'s."""
     cfg = reduced(get_arch("t5-paper"))
+    ref = reference_meshes["t5-paper-2x2-prefill"]
     rec = D.run_cell("t5-paper", "prefill_t", False, save=False,
                      verbose=False, mesh=D.parse_mesh("2x2"), cfg=cfg,
                      shape=_shape("prefill"))
-    assert rec["cost"] is None and rec["not_ported"] == "ROADMAP A23"
-    assert rec["memory"]["argument_bytes"] == reference_meshes[
-        "t5-paper-2x2-prefill"]["args"]
-    with pytest.raises(NotImplementedError, match="A23"):
-        D._lower_cell(cfg, _shape("prefill"), D.parse_mesh("2x2"),
-                      AdamWConfig())
+    assert rec["cost"] is not None and "not_ported" not in rec
+    assert rec["memory"]["argument_bytes"] == ref["args"]
+    assert math.isclose(rec["cost"]["flops_per_device"], ref["flops"],
+                        rel_tol=0.01)
+    tr = D._lower_cell(cfg, _shape("prefill"), D.parse_mesh("2x2"),
+                       AdamWConfig())
+    assert tr.summary.flops == rec["cost"]["flops_per_device"]
+    assert tr.peak_bytes == rec["memory"]["peak_bytes"]
 
 
 # ----------------------------------------------------------------------
 # the CLI
 # ----------------------------------------------------------------------
 def test_cli_writes_records(tmp_path, capsys, monkeypatch):
-    """The CLI on the production mesh (a shard group traced on meta; T5
-    still state bytes only, A23) and on a 1x1 mesh (the trace), at full
-    size for mamba2-130m's decode_32k: every record keeps the reference's
-    keys."""
+    """The CLI on the production mesh (a shard group traced on meta, T5's
+    decoder-only stack too) and on a 1x1 mesh (the trace), at full size
+    for mamba2-130m's decode_32k: every record keeps the reference's keys,
+    and none is without a cost."""
     D.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--mesh",
             "single", "--out", str(tmp_path)])
     D.main(["--arch", "t5-paper", "--shape", "decode_32k", "--mesh",
@@ -521,12 +532,14 @@ def test_cli_writes_records(tmp_path, capsys, monkeypatch):
     D.main(["--arch", "mamba2-130m", "--shape", "decode_32k", "--mesh",
             "1x1", "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert out.count("cells recorded without a cost") == 1
-    assert "1 cells recorded without a cost" in out
+    assert "without a cost" not in out and "NOT PORTED" not in out
     assert out.count("ALL DRY-RUN CELLS PASSED") == 3
     t5 = json.loads((tmp_path / "t5-paper__decode_32k__16x16.json")
                     .read_text())
-    assert t5["not_ported"] == "ROADMAP A23" and t5["cost"] is None
+    assert "not_ported" not in t5 and t5["n_chips"] == 256
+    assert t5["cost"]["flops_per_device"] > 0
+    assert t5["cost"]["launches"] == {
+        "mha_forward": get_arch("t5-paper").n_layers}
     prod = json.loads((tmp_path / "mamba2-130m__decode_32k__16x16.json")
                       .read_text())
     assert "not_ported" not in prod and prod["n_chips"] == 256

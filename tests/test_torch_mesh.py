@@ -21,6 +21,7 @@ reference's within 1e-5. Last, a state-losing crash under
 state, and its checkpoint loads in the reference's ``checkpoint.load``.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -463,3 +464,147 @@ def test_state_losing_crash_under_the_mesh_replays_and_loads_in_the_reference(
         if torch.is_tensor(x):       # bf16 and fp32 both exact in fp32
             x, ref = x.float().numpy(), ref.astype(np.float32)
         np.testing.assert_array_equal(ref, x, err_msg=str(path))
+
+
+# ---------------------------------------------------------------------------
+# a stage mesh with a further axis
+# ---------------------------------------------------------------------------
+_STAGE_MODEL_CODE = r"""
+import dataclasses, json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+import repro
+from jax.sharding import Mesh
+from repro.configs.base import get_arch, reduced
+from repro.core.cost_model import AnalyticCostModel
+from repro.core.planner import PlannerConfig, plan_iteration
+from repro.core.shapes import ShapePalette
+from repro.data.dataset import materialize_micro_batch
+from repro.data.streams import MultiTaskStream, StreamConfig
+from repro.dist.backend import make_backend
+from repro.launch.mesh import make_stage_mesh
+from repro.models import model as MD
+from repro.train.optimizer import AdamWConfig, init_opt_state
+
+cfg = dataclasses.replace(reduced(get_arch("gpt-paper")), n_layers=2,
+                          dtype="float32")
+gb = MultiTaskStream(StreamConfig(n_tasks=8, global_tokens=384, max_len=64,
+                                  vocab=512, seed=0)).batch(0)
+pal = ShapePalette.build(min_seq=32, max_seq=64, seq_align=32, max_mbs=4)
+plan = plan_iteration(gb.lengths[:, 0], AnalyticCostModel(cfg, n_stages=2),
+                      PlannerConfig(n_stages=2, d_model=cfg.d_model,
+                                    palette=pal)).replica_plans[0]
+batches = {m.mb_id: materialize_micro_batch(m, gb.tokens, lengths=gb.lengths)
+           for m in plan.micro_batches}
+params = MD.init_params(jax.random.PRNGKey(0), cfg)
+two = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2), ("stage", "model"))
+runs = {}
+for name, mesh in (("2x2", two), ("2", make_stage_mesh(2))):
+    runs[name] = make_backend("mesh", cfg, 2, mesh=mesh).execute_plan(
+        plan, params=params, batches=batches)
+a, b = runs["2x2"], runs["2"]
+same = bool(a.loss_sum == b.loss_sum and a.weight_sum == b.weight_sum
+            and all(np.array_equal(np.asarray(x), np.asarray(y)) for x, y in
+                    zip(jax.tree.leaves(a.grads), jax.tree.leaves(b.grads))))
+# no gradient is split over the model axis: the stack's over the stages,
+# the rest whole
+replicated = all("model" not in jax.tree.leaves(tuple(x.sharding.spec))
+                 for x in jax.tree.leaves(a.grads))
+placed = make_backend("mesh", cfg, 2, mesh=two).place_opt_state(
+    init_opt_state(params, AdamWConfig(lr=1e-2)))
+dims = [next((i for i, e in enumerate(x.sharding.spec) if e is not None), -1)
+        for x in jax.tree.leaves(placed["m"])]
+flat = {}
+def walk(tree, prefix):
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            walk(tree[k], prefix + "/" + k)
+        else:
+            flat[prefix + "/" + k] = np.asarray(tree[k])
+walk(params, "params")
+walk(a.grads, "grad")
+np.savez(sys.argv[1] if len(sys.argv) > 1 else OUT, **flat)
+print("RESULT", json.dumps({"same": same, "replicated": replicated,
+                            "loss_sum": a.loss_sum, "weight_sum": a.weight_sum,
+                            "zero_dims": dims}))
+"""
+
+
+def test_a_stage_model_mesh_equals_the_stage_mesh_and_the_reference(
+        tmp_path):
+    """The reference's ``MeshBackend`` takes a mesh whose first axis is the
+    stage axis and holds a replica of each stage on every further axis. On
+    a ``("stage", "model")`` (2, 2) mesh of ``["cpu"] * 4`` the port equals
+    its (2,) mesh to the bit, loss, weight and every gradient leaf, and its
+    ZeRO-1 state splits over the stage axis alone, along the dims the
+    reference's placement picks, the update equal on both meshes to the
+    bit. The reference on the same meshes (4 host devices): its (2, 2) run
+    equals its (2,) run to the bit, no gradient split over the model axis,
+    and the port's run equals it in f32 within GRAD_TOL."""
+    from tests.conftest import run_subprocess_devices
+    from repro_torch.launch.mesh import make_mesh
+    out = run_subprocess_devices(
+        f"OUT = {str(tmp_path / 'ref.npz')!r}\n" + _STAGE_MODEL_CODE,
+        n_devices=4, timeout=600)
+    res = json.loads(next(x for x in out.splitlines()
+                          if x.startswith("RESULT "))[len("RESULT "):])
+    assert res["same"] and res["replicated"]
+    arrays = dict(np.load(tmp_path / "ref.npz"))
+
+    def tree(prefix):
+        t: dict = {}
+        for k, v in arrays.items():
+            parts = k.split("/")
+            if parts[0] != prefix:
+                continue
+            node = t
+            for p in parts[1:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = v
+        return t
+
+    cfg = dataclasses.replace(CFG, dtype="float32")
+    gb = MultiTaskStream(StreamConfig(n_tasks=8, global_tokens=384,
+                                      max_len=64, vocab=512, seed=0)).batch(0)
+    pal = ShapePalette.build(min_seq=32, max_seq=64, seq_align=32, max_mbs=4)
+    plan = plan_iteration(
+        gb.lengths[:, 0], AnalyticCostModel(cfg, n_stages=2),
+        PlannerConfig(n_stages=2, d_model=cfg.d_model, palette=pal)
+    ).replica_plans[0]
+    batches = {m.mb_id: materialize_micro_batch(m, gb.tokens,
+                                                lengths=gb.lengths)
+               for m in plan.micro_batches}
+    params = params_from_jax(tree("params"), device="cpu")
+    two = make_mesh((2, 2), ("stage", "model"),
+                    devices=[f"cpu:{i}" for i in range(4)])
+    backends = {"2x2": make_backend("mesh", cfg, 2, mesh=two),
+                "2": make_backend("mesh", cfg, 2, mesh=_mesh(2))}
+    assert [str(d) for d in backends["2x2"].devices] == ["cpu:0", "cpu:2"]
+    runs = {k: b.execute_plan(plan, params=params, batches=batches)
+            for k, b in backends.items()}
+    a, b = runs["2x2"], runs["2"]
+    assert a.loss_sum == b.loss_sum and a.weight_sum == b.weight_sum
+    assert _equal(a.grads, b.grads)
+    assert a.weight_sum == res["weight_sum"]
+    np.testing.assert_allclose(a.loss_sum, res["loss_sum"], rtol=GRAD_TOL,
+                               atol=GRAD_TOL)
+    ref = dict(flatten(tree("grad")))
+    got = dict(flatten(a.grads))
+    assert sorted(got) == sorted(ref)
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), ref[k], rtol=GRAD_TOL,
+                                   atol=GRAD_TOL, err_msg=str(k))
+
+    # ZeRO-1 on both meshes: the same chunks, the same update
+    ocfg = AdamWConfig(lr=1e-2)
+    out_params = {}
+    for name, backend in backends.items():
+        placed = backend.place_opt_state(init_opt_state(params, ocfg))
+        m = leaves(placed["m"])
+        assert [x.dim if isinstance(x, ZeroShards) else -1 for x in m] \
+            == res["zero_dims"]
+        assert all(len(x.chunks) == 2 for x in m if isinstance(x, ZeroShards))
+        p = tree_map(torch.clone, params)
+        out_params[name] = backend.optimizer_step(p, a.grads, placed,
+                                                  ocfg)[0]
+    assert _equal(out_params["2x2"], out_params["2"])

@@ -38,7 +38,8 @@ COPIED = sorted(str(p.relative_to(REPO / "src" / "repro"))
     "core/executor.py", "analysis/__init__.py", "analysis/hb_graph.py",
     "analysis/lint.py", "analysis/memory.py", "analysis/report.py",
     "data/dataset.py", "data/streams.py", "train/step_cache.py",
-    "dist/chaos.py", "dist/fault.py", "analysis/__main__.py"]
+    "dist/chaos.py", "dist/fault.py", "analysis/__main__.py",
+    "core/packing.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)

@@ -13,7 +13,8 @@ size, the port's shapes from the ``meta`` device against
 stage: on a (2, 2) data x model mesh ``shard`` inside a shard group
 changes the layout and ``moe_fwd`` computes, while ``shard`` on a tensor
 outside a group, ``moe_fwd`` on an abstract mesh and ``_pin_fsdp`` raise,
-naming ROADMAP A23; a stage-only mesh leaves the forward as it is. The
+naming the shard group, the one place the port splits inside a stage; a
+stage-only mesh leaves the forward as it is. The
 shard group's parity with the reference is ``tests/test_torch_spmd.py``.
 """
 import functools
@@ -192,20 +193,22 @@ def test_spec_trees_match_reference_for_every_arch(multi_pod):
                                   "moe-on-an-abstract-mesh",
                                   "pin-fsdp"])
 def test_sharding_inside_a_stage_raises_a23(part):
-    """What sharding inside a stage computes and what still raises
-    (ROADMAP A23): ``shard`` on a tensor outside a shard group and
-    ``_pin_fsdp`` raise; ``shard`` inside a group changes the layout, and
-    ``moe_fwd`` under a model axis with devices computes."""
+    """What sharding inside a stage computes and what raises: ``shard``
+    on a tensor outside a shard group, ``moe_fwd`` on an abstract mesh and
+    ``_pin_fsdp`` raise, naming the shard group (the port splits inside a
+    stage only there; the model's entry points open one); ``shard`` inside
+    a group changes the layout, and ``moe_fwd`` under a model axis with
+    devices computes."""
     dm = TS.Mesh(None, ("data", "model"), axis_sizes=(2, 2))
     x = torch.zeros(4, 8, 16)
     if part == "shard-outside-a-group":
         assert TS.shard(x, "dp", "sp", None) is x               # no mesh
         with TS.set_mesh(dm):
-            with pytest.raises(NotImplementedError, match="A23"):
+            with pytest.raises(NotImplementedError, match="shard group"):
                 TS.shard(x, "dp", "sp", None)
             # a dim that no axis divides is replicated: nothing to split
             assert TS.shard(torch.zeros(3, 5), "dp", "sp") is not None
-        with pytest.raises(NotImplementedError, match="A23"):
+        with pytest.raises(NotImplementedError, match="shard group"):
             TS.shard(x, "dp", None, None, mesh=dm)
     elif part == "shard-inside-a-group":
         from repro_torch.dist import spmd
@@ -241,7 +244,7 @@ def test_sharding_inside_a_stage_raises_a23(part):
         p = TL.init_moe(gen, moe, "cpu")
         h = torch.randn(2, 8, moe.d_model, generator=gen).to(torch.bfloat16)
         with TS.set_mesh(dm), pytest.raises(NotImplementedError,
-                                            match="A23"):
+                                            match="shard group"):
             TL.moe_fwd(p, h, moe)
     else:
         fsdp = reduced(get_arch("qwen1.5-110b"))
@@ -249,7 +252,7 @@ def test_sharding_inside_a_stage_raises_a23(part):
         w = {"w": torch.zeros(2)}
         assert TT._pin_fsdp(w, fsdp) is w                     # no mesh
         with TS.set_mesh(dm), pytest.raises(NotImplementedError,
-                                            match="A23"):
+                                            match="shard group"):
             TT._pin_fsdp(w, fsdp)
 
 

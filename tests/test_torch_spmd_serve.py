@@ -72,6 +72,9 @@ CASES = {
     "llava-2x4": ("llava-next-34b", (2, 4), {}, 4, 32),
     # Mamba, attention, MoE and ZeRO-3 weights together
     "jamba-2x4": ("jamba-1.5-large-398b", (2, 4), {}, 4, 32),
+    # T5 on a model axis: the decoder-only stack at its widths, as the
+    # reference serves it there
+    "t5-2x2": ("t5-paper", (2, 2), {}, 4, 32),
 }
 # the frames input (encoder-only: its prefill, its loss and gradients)
 HUBERT = ("hubert-xlarge", (2, 4), {}, 4, 32)
