@@ -5336,11 +5336,18 @@ def _profile_window(torch, name, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # the program's spans (repro_torch.tracing) are mirrored onto the
+    # device's timeline as user annotations that cover the kernels: they
+    # are no device work
     rows = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("repro_torch.")]
     busy = sum(r[0] for r in rows)
     check(busy > 0, f"profile {name}: no device time recorded")
+    check(busy <= wall_ms, f"profile {name}: device busy {busy:.1f} ms over "
+          f"the window's {wall_ms:.1f} ms")
     ours = []
     for kid, sym in KERNEL_SYMBOLS.items():
         ms = sum(r[0] for r in rows if sym in r[2])

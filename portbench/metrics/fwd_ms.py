@@ -1,0 +1,17 @@
+"""Milliseconds an iteration of the traced cycle spent in the forward
+pass: the program's ``forward`` spans (``repro_torch.tracing``, around the
+loss in ``train/pipeline_adapter._value_and_grad``), each the extent of its
+work on the device's clock (CUDA events on the step's stream), summed over
+the cycle and divided by its iterations. Nothing where the program has no
+such span."""
+
+
+def read(run):
+    try:
+        from repro_torch import tracing
+    except ImportError:
+        return None
+    t = tracing.totals().get("forward")
+    if t is None or t.device_s <= 0 or not run.cycle:
+        return None
+    return 1e3 * t.device_s / run.cycle

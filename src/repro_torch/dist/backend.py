@@ -43,6 +43,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.executor import (PipelineExecutor, StageCallbacks,
                                       reject_bad_plan)
@@ -219,12 +220,18 @@ class ThreadsBackend(ExecutionBackend):
                 # micro-batch, so stage-0 faults and stragglers fire as on
                 # the pipeline
                 hook(0, Instr(Op.FORWARD, mb_id))
-            b = {k: torch.as_tensor(v).to(self.device)
-                 for k, v in batches[mb_id].items()}
+            with tracing.span("h2d"):
+                # a pageable copy: the host waits for it
+                tracing.count("sync", len(batches[mb_id]))
+                b = {k: torch.as_tensor(v).to(self.device)
+                     for k, v in batches[mb_id].items()}
             t0 = time.perf_counter()
             ls, ws, g = self._grad_fn(self._batch_shape(b))(params, b)
-            loss_sum += float(ls)    # float() syncs: t0..here is real compute
-            w_sum += float(ws)
+            with tracing.span("sync"):
+                # float() syncs: t0..here is real compute
+                tracing.count("sync", 2)
+                loss_sum += float(ls)
+                w_sum += float(ws)
             if collect_timings:
                 timings.append(("total", mb_id, time.perf_counter() - t0))
             grads = g if grads is None else add_into(grads, g)

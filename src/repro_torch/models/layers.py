@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import spmd
 from repro_torch.dist.sharding import (IN_STAGE_SHARDING, ambient_mesh,
@@ -80,6 +81,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     half = d // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    # theta copied to the device from pageable memory: the host waits for
+    # the stream to drain
+    tracing.count("sync")
     freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
                                    device=x.device), exps)
     ang = positions.float()[:, :, None, None] * freqs     # (B,T,1,half)

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.tree import leaves, tree_map
 
 # elements of one leaf updated at a time: bounds the fp32 temporaries
@@ -100,12 +101,13 @@ def adamw_update(params, grads, state, cfg: AdamWConfig):
     place (see the module docstring), so an exception escaping from inside
     leaves the state torn between two steps (the runner checkpoints no
     such state)."""
-    gnorm, scale, step, b1c, b2c = step_scalars(grads, state, cfg)
-    for p, g, m, v, ma in zip(leaves(params), leaves(grads),
-                              leaves(state["m"]), leaves(state["v"]),
-                              leaves(state["master"])):
-        _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg)
-    state["step"] = step
+    p_l = leaves(params)
+    with tracing.span("optimizer", device=p_l[0].device):
+        gnorm, scale, step, b1c, b2c = step_scalars(grads, state, cfg)
+        for p, g, m, v, ma in zip(p_l, leaves(grads), leaves(state["m"]),
+                                  leaves(state["v"]), leaves(state["master"])):
+            _update_leaf(p, g, m, v, ma, scale, b1c, b2c, cfg)
+        state["step"] = step
     return params, state, {"grad_norm": gnorm}
 
 

@@ -42,6 +42,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.executor import StageCallbacks
 from repro_torch.core.instructions import ExecutionPlan
@@ -64,12 +65,15 @@ def _value_and_grad(loss_fn, params):
     w_sum)``, the gradient taken from detached leaves so that ``params``
     are not modified; ``grads`` has their structure and dtypes."""
     paths, xs = zip(*flatten(params))
+    device = xs[0].device
     with torch.enable_grad():
         xs = [x.detach().requires_grad_() for x in xs]
-        loss_sum, w_sum = loss_fn(unflatten(zip(paths, xs)))
+        with tracing.span("forward", device=device):
+            loss_sum, w_sum = loss_fn(unflatten(zip(paths, xs)))
         # zeros for a leaf the loss does not read (hubert's embedding), as
         # jax.grad gives
-        grads = torch.autograd.grad(loss_sum, xs, materialize_grads=True)
+        with tracing.span("backward", device=device):
+            grads = torch.autograd.grad(loss_sum, xs, materialize_grads=True)
     return loss_sum.detach(), w_sum, unflatten(zip(paths, grads))
 
 

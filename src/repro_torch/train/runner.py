@@ -54,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cost_model import CostModel, OnlineCalibrator
 from repro_torch.core.executor import PipelineError
@@ -169,26 +170,6 @@ class RunnerStats:
             return 0.0
         hidden = self.overlap_planning_s - self.overlap_wait_s
         return max(0.0, min(1.0, hidden / self.overlap_planning_s))
-
-    def to_dict(self) -> dict:
-        return {
-            "mode": self.mode,
-            "iters": self.iters,
-            "planning_s": round(self.planning_s, 4),
-            "plan_wait_s": round(self.plan_wait_s, 4),
-            "exec_s": round(self.exec_s, 4),
-            "real_tokens": self.real_tokens,
-            "padded_tokens": self.padded_tokens,
-            "overlap_fraction": round(self.overlap_fraction, 4),
-            "cache": dict(self.cache),
-            "faults": self.faults,
-            "n_recoveries": len(self.recoveries),
-            "recovery_s": round(self.recovery_s, 4),
-            "recoveries": list(self.recoveries),
-            "calibration": dict(self.calibration),
-            "cluster": dict(self.cluster),
-            "checkpoints": list(self.checkpoints),
-        }
 
 
 def scale_(tree, scale: float):
@@ -313,49 +294,47 @@ class PlanAheadRunner:
         rcfg = self.rcfg
         if rcfg.synchronous:
             gb = self.stream.batch(it)
-            t0 = time.perf_counter()
-            if self.chaos is not None:
-                ev = self.chaos.take_planner_fault(it)
-                if ev is not None and stats is not None:
-                    # inline planning: a dead planner is just run again
-                    stats.faults += 1
-                    stats.recoveries.append(
-                        {"iter": it, "kind": "planner_replanned",
-                         "fault": ev.describe()})
-            it_plan = plan_iteration(self._plan_lengths(gb), self.cost,
-                                     self._pcfg_now())
-            self.store.push(it, it_plan.replica_plans[0])
-            plan = self.store.fetch(it, timeout=rcfg.plan_timeout)
-            wait = time.perf_counter() - t0
-        else:
-            gb = self._pending.pop(it)
-            t0 = time.perf_counter()
-            it_plan = None
-            for attempt in range(rcfg.max_retries + 1):
-                fut = self._futures.pop(it)
-                try:
-                    it_plan = fut.result(timeout=rcfg.plan_timeout)
-                    break
-                except (TimeoutError, cf.TimeoutError, cf.CancelledError,
-                        cf.BrokenExecutor, InjectedFault) as e:
-                    if attempt >= rcfg.max_retries:
-                        raise PipelineError(
-                            f"plan for iteration {it} failed after "
-                            f"{attempt + 1} attempts: {e!r}") from e
-                    if stats is not None:
+            with tracing.timed("plan_wait") as waited:
+                if self.chaos is not None:
+                    ev = self.chaos.take_planner_fault(it)
+                    if ev is not None and stats is not None:
+                        # inline planning: a dead planner is just run again
                         stats.faults += 1
                         stats.recoveries.append(
-                            {"iter": it, "kind": "planner_resubmit",
-                             "fault": repr(e)})
-                    if isinstance(e, cf.BrokenExecutor):
-                        self._reset_pool()
-                    time.sleep(rcfg.retry_backoff_s * (attempt + 1))
-                    self._submit(it)
-                    self._pending.pop(it, None)  # gb already in hand
-            plan = self.store.fetch(it, timeout=rcfg.plan_timeout)
-            wait = time.perf_counter() - t0
+                            {"iter": it, "kind": "planner_replanned",
+                             "fault": ev.describe()})
+                it_plan = plan_iteration(self._plan_lengths(gb), self.cost,
+                                         self._pcfg_now())
+                self.store.push(it, it_plan.replica_plans[0])
+                plan = self.store.fetch(it, timeout=rcfg.plan_timeout)
+        else:
+            gb = self._pending.pop(it)
+            with tracing.timed("plan_wait") as waited:
+                it_plan = None
+                for attempt in range(rcfg.max_retries + 1):
+                    fut = self._futures.pop(it)
+                    try:
+                        it_plan = fut.result(timeout=rcfg.plan_timeout)
+                        break
+                    except (TimeoutError, cf.TimeoutError, cf.CancelledError,
+                            cf.BrokenExecutor, InjectedFault) as e:
+                        if attempt >= rcfg.max_retries:
+                            raise PipelineError(
+                                f"plan for iteration {it} failed after "
+                                f"{attempt + 1} attempts: {e!r}") from e
+                        if stats is not None:
+                            stats.faults += 1
+                            stats.recoveries.append(
+                                {"iter": it, "kind": "planner_resubmit",
+                                 "fault": repr(e)})
+                        if isinstance(e, cf.BrokenExecutor):
+                            self._reset_pool()
+                        time.sleep(rcfg.retry_backoff_s * (attempt + 1))
+                        self._submit(it)
+                        self._pending.pop(it, None)  # gb already in hand
+                plan = self.store.fetch(it, timeout=rcfg.plan_timeout)
         self.store.evict_below(it)  # executed plans are dead; keep RSS flat
-        return gb, plan, it_plan, wait, it_plan.planning_seconds
+        return gb, plan, it_plan, waited.seconds, it_plan.planning_seconds
 
     # ------------------------- execution side --------------------------
     @property
@@ -367,9 +346,10 @@ class PlanAheadRunner:
         """One replica's plan -> (grads, loss_sum, weight_sum)."""
         if not plan.micro_batches:
             return None, 0.0, 0.0   # idle replica (fewer micro-batches than dp)
-        batches = {m.mb_id: materialize_micro_batch(
-                       m, gb.tokens, lengths=gb.lengths)
-                   for m in plan.micro_batches}
+        with tracing.span("materialise"):
+            batches = {m.mb_id: materialize_micro_batch(
+                           m, gb.tokens, lengths=gb.lengths)
+                       for m in plan.micro_batches}
         hook = (self.chaos.executor_hook(it, replica=rep)
                 if self.chaos is not None else None)
         res = self.backend.execute_plan(
@@ -557,75 +537,82 @@ class PlanAheadRunner:
         updating = False
         try:
             while it < end:
-                t0 = time.perf_counter()
-                try:
-                    if self.elastic is not None \
-                            and self.monitor.alive() != self._alive:
+                tracing.iteration(it)
+                with tracing.timed("iteration") as whole:
+                    try:
+                        if self.elastic is not None \
+                                and self.monitor.alive() != self._alive:
+                            t_rec = time.perf_counter()
+                            self._topology_sweep(it, stats)
+                            stats.recovery_s += time.perf_counter() - t_rec
+                        ahead = it + rcfg.lookahead
+                        if not rcfg.synchronous and ahead < end \
+                                and ahead not in self._futures:
+                            self._submit(ahead)
+                        gb, plan, it_plan, wait_s, planning_s = \
+                            self._obtain(it, stats)
+                        if self._encdec and any(
+                                not isinstance(m.seq, (tuple, list))
+                                for m in plan.micro_batches):
+                            raise ValueError(
+                                "enc-dec model got a decoder-only "
+                                "micro-batch: the stream must carry (enc, "
+                                "dec) lengths with dec > 0 for every sample "
+                                "(use encdec_fraction=1.0)")
+                        # every surviving replica's plan executes here (one
+                        # process stands in for the DP group) and the grads
+                        # merge, so the full-batch gradient does not depend
+                        # on the split
+                        grads, loss_sum, w_sum = None, 0.0, 0.0
+                        replica_s: dict[int, float] = {}
+                        for pos, rplan in enumerate(it_plan.replica_plans):
+                            rep = (self._alive[pos] if pos < len(self._alive)
+                                   else pos)
+                            # replica 0 executes the store-roundtripped plan;
+                            # others roundtrip locally for identical semantics
+                            xplan = plan if pos == 0 else \
+                                ExecutionPlan.from_json(rplan.to_json())
+                            rt0 = time.perf_counter()
+                            g, ls, ws = self._execute_replica(
+                                it, rep, xplan, gb, params)
+                            if self.monitor is not None \
+                                    and self.device.type == "cuda":
+                                # the pipeline's join only makes this stream
+                                # wait on the stages: end the replica's time
+                                # when its work has run, not when queued
+                                with tracing.span("sync"):
+                                    tracing.count("sync")
+                                    torch.cuda.synchronize(self.device)
+                            replica_s[rep] = time.perf_counter() - rt0
+                            loss_sum += ls
+                            w_sum += ws
+                            if g is not None:
+                                grads = (g if grads is None
+                                         else add_into(grads, g))
+                    except (PipelineError, InjectedFault) as e:
+                        stats.faults += 1
+                        attempts += 1
+                        if attempts > rcfg.max_retries:
+                            # retry budget spent: the handler below writes the
+                            # emergency checkpoint
+                            raise
                         t_rec = time.perf_counter()
-                        self._topology_sweep(it, stats)
+                        params, opt, it = self._recover(it, e, params, opt,
+                                                        stats)
                         stats.recovery_s += time.perf_counter() - t_rec
-                    if not rcfg.synchronous and it + rcfg.lookahead < end \
-                            and (it + rcfg.lookahead) not in self._futures:
-                        self._submit(it + rcfg.lookahead)
-                    gb, plan, it_plan, wait_s, planning_s = \
-                        self._obtain(it, stats)
-                    if self._encdec and any(
-                            not isinstance(m.seq, (tuple, list))
-                            for m in plan.micro_batches):
-                        raise ValueError(
-                            "enc-dec model got a decoder-only micro-batch: "
-                            "the stream must carry (enc, dec) lengths with "
-                            "dec > 0 for every sample (use "
-                            "encdec_fraction=1.0)")
-                    # every surviving replica's plan executes here (one
-                    # process stands in for the DP group) and the grads
-                    # merge, so the full-batch gradient does not depend on
-                    # the split
-                    grads, loss_sum, w_sum = None, 0.0, 0.0
-                    replica_s: dict[int, float] = {}
-                    for pos, rplan in enumerate(it_plan.replica_plans):
-                        rep = (self._alive[pos] if pos < len(self._alive)
-                               else pos)
-                        # replica 0 executes the store-roundtripped plan;
-                        # others roundtrip locally for identical semantics
-                        xplan = plan if pos == 0 else \
-                            ExecutionPlan.from_json(rplan.to_json())
-                        rt0 = time.perf_counter()
-                        g, ls, ws = self._execute_replica(
-                            it, rep, xplan, gb, params)
-                        if self.monitor is not None \
-                                and self.device.type == "cuda":
-                            # the pipeline's join only makes this stream
-                            # wait on the stages: end the replica's time
-                            # when its work has run, not when it was queued
-                            torch.cuda.synchronize(self.device)
-                        replica_s[rep] = time.perf_counter() - rt0
-                        loss_sum += ls
-                        w_sum += ws
-                        if g is not None:
-                            grads = g if grads is None else add_into(grads, g)
-                except (PipelineError, InjectedFault) as e:
-                    stats.faults += 1
-                    attempts += 1
-                    if attempts > rcfg.max_retries:
-                        # retry budget spent: the handler below writes the
-                        # emergency checkpoint
-                        raise
-                    t_rec = time.perf_counter()
-                    params, opt, it = self._recover(it, e, params, opt,
-                                                    stats)
-                    stats.recovery_s += time.perf_counter() - t_rec
-                    continue
-                attempts = 0
+                        continue
+                    attempts = 0
 
-                scale_(grads, 1.0 / max(w_sum, 1.0))
-                updating = True
-                params, opt, om = self.backend.optimizer_step(
-                    params, grads, opt, self.opt_cfg)
-                updating = False
-                grad_norm = float(om["grad_norm"])   # syncs the device
-                del grads
-                dt = time.perf_counter() - t0
+                    scale_(grads, 1.0 / max(w_sum, 1.0))
+                    updating = True
+                    params, opt, om = self.backend.optimizer_step(
+                        params, grads, opt, self.opt_cfg)
+                    updating = False
+                    with tracing.span("sync"):
+                        tracing.count("sync")
+                        grad_norm = float(om["grad_norm"])
+                    del grads
+                dt = whole.seconds
                 if self.monitor is not None:
                     for rep in self._alive:
                         if self.chaos is not None \
